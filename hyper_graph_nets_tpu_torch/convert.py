@@ -1,0 +1,106 @@
+"""Convert the JAX package's model state into the port's :class:`ModelState`.
+
+This is the only module that knows the JAX layout:
+
+- dense weights are ``[in, out]`` (the port holds ``[out, in]``);
+- the processor's block parameters are stacked on a leading
+  ``[message_passing_steps, ...]`` axis (``nn/meshgraphnet.py:48-52``);
+- a normalizer state has the fields ``acc_count``, ``num_accumulations``,
+  ``acc_sum``, ``acc_sum_squared`` (and optionally the static
+  ``max_accumulations`` / ``std_epsilon``).
+
+Inputs are nested dicts (lists for MLP layers) of numpy arrays, so neither
+side needs the other's framework.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from hyper_graph_nets_tpu_torch.core.normalizer import NormalizerState
+from hyper_graph_nets_tpu_torch.models.base import ModelState
+from hyper_graph_nets_tpu_torch.nn.blocks import GraphNetBlock
+from hyper_graph_nets_tpu_torch.nn.meshgraphnet import MeshGraphNet
+from hyper_graph_nets_tpu_torch.nn.mlp import MLP
+
+_FLAT_BLOCK_KEYS = {"edge_models", "node_model_cross"}
+_ENCODER_KEYS = {"node_model", "edge_models"}
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _mlp(p: Dict[str, Any]) -> MLP:
+    weights = [_tensor(np.asarray(layer["w"]).T) for layer in p["layers"]]
+    biases = [_tensor(layer["b"]) for layer in p["layers"]]
+    ln = p.get("ln")
+    if ln is None:
+        return MLP(weights, biases)
+    return MLP(weights, biases, _tensor(ln["scale"]), _tensor(ln["bias"]))
+
+
+def _index(tree, i: int):
+    """Block ``i`` of a stacked parameter tree."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_index(v, i) for v in tree]
+    return np.asarray(tree)[i]
+
+
+def _num_steps(tree) -> int:
+    if isinstance(tree, dict):
+        return _num_steps(next(iter(tree.values())))
+    if isinstance(tree, (list, tuple)):
+        return _num_steps(tree[0])
+    return np.asarray(tree).shape[0]
+
+
+def _normalizer(d: Dict[str, Any]) -> NormalizerState:
+    static = {
+        k: float(d[k]) for k in ("max_accumulations", "std_epsilon") if k in d
+    }
+    return NormalizerState(
+        acc_count=_tensor(d["acc_count"]),
+        num_accumulations=_tensor(d["num_accumulations"]),
+        acc_sum=_tensor(d["acc_sum"]),
+        acc_sum_squared=_tensor(d["acc_sum_squared"]),
+        **static,
+    )
+
+
+def state_from_jax_numpy(
+    params: Dict[str, Any], normalizers: Dict[str, Dict[str, Any]]
+) -> ModelState:
+    """The port's state (float32, on the CPU) from JAX params and normalizer
+    states given as nested dicts of numpy arrays.  Raises for parameter
+    trees of architectures the port does not run yet."""
+    enc, proc = params["encoder"], params["processor"]
+    extra = (set(enc) - _ENCODER_KEYS) | (set(proc) - _FLAT_BLOCK_KEYS)
+    if extra:
+        raise NotImplementedError(
+            f"parameters {sorted(extra)} belong to hierarchical blocks "
+            "(ROADMAP slice 5)"
+        )
+    blocks = []
+    for i in range(_num_steps(proc)):
+        block = _index(proc, i)
+        blocks.append(
+            GraphNetBlock(
+                {name: _mlp(p) for name, p in block["edge_models"].items()},
+                _mlp(block["node_model_cross"]),
+            )
+        )
+    net = MeshGraphNet(
+        node_encoder=_mlp(enc["node_model"]),
+        edge_encoders={name: _mlp(p) for name, p in enc["edge_models"].items()},
+        blocks=blocks,
+        decoder=_mlp(params["decoder"]),
+    )
+    return ModelState(
+        params=net,
+        normalizers={name: _normalizer(d) for name, d in normalizers.items()},
+    )

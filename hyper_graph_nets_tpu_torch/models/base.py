@@ -1,0 +1,193 @@
+"""System-model base: state containers and the shared model protocol.
+
+Counterpart of ``hyper_graph_nets_tpu/models/base.py``.  A model is a
+static-config object whose methods are functions of an explicit
+:class:`ModelState` (network + normalizer states).  Topology is extracted
+once per trajectory on the host and moved to the model's device.
+"""
+from __future__ import annotations
+
+import copy
+import dataclasses
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from hyper_graph_nets_tpu_torch.core import normalizer as norm
+from hyper_graph_nets_tpu_torch.core.graph import Graph, NodeType
+from hyper_graph_nets_tpu_torch.core.mesh import cells_to_edges
+from hyper_graph_nets_tpu_torch.nn.blocks import GNNConfig
+from hyper_graph_nets_tpu_torch.nn.meshgraphnet import (
+    MeshGraphNet,
+    network_apply,
+    network_init,
+)
+from hyper_graph_nets_tpu_torch.ops.fused_block import SegmentPlan, plan_segments
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelState:
+    """Network parameters plus normalizer states."""
+
+    params: MeshGraphNet
+    normalizers: Dict[str, norm.NormalizerState]
+
+    def replace(self, **changes) -> "ModelState":
+        return dataclasses.replace(self, **changes)
+
+    def to(self, device) -> "ModelState":
+        """A copy on ``device``; this state is left where it is."""
+        return ModelState(
+            params=copy.deepcopy(self.params).to(device),
+            normalizers={k: v.to(device) for k, v in self.normalizers.items()},
+        )
+
+
+class Topology(NamedTuple):
+    """Per-trajectory mesh topology on the model's device.
+
+    ``mask`` is None when every edge is valid; ``plan`` is the fused
+    kernel's receiver segment plan (``agg_vjp: fused`` only).
+    """
+
+    senders: torch.Tensor  # [E] int32, sorted by receiver
+    receivers: torch.Tensor  # [E] int32
+    num_nodes: int
+    mask: Optional[torch.Tensor] = None  # [E] float32
+    plan: Optional[SegmentPlan] = None
+
+
+def norm_feature(rel: torch.Tensor) -> torch.Tensor:
+    """``[rel, ||rel||]`` feature block used by every edge featurizer."""
+    return torch.cat([rel, torch.sqrt((rel * rel).sum(dim=-1, keepdim=True))], dim=-1)
+
+
+class SystemModel:
+    """Static configuration shared by all datasets."""
+
+    model_type = "flag"
+
+    def __init__(self, params: dict):
+        self.params = params
+        model = params["model"]
+        rmp_cfg = model.get("rmp", {})
+        bal_cfg = model.get("graph_balancer", {})
+        self.field = model["field"]
+        self.output_size = model["size"]
+        self.message_passing_steps = model["message_passing_steps"]
+        self.aggregation = model.get("aggregation", "pna")
+        self.latent_size = model.get("latent_size", 128)
+        self.num_layers = model.get("num_layers", 2)
+        self.compute_dtype = model.get("compute_dtype")
+        self.use_rmp = (
+            rmp_cfg.get("clustering", "none") != "none"
+            and rmp_cfg.get("connector", "none") != "none"
+        )
+        self.architecture = rmp_cfg.get("connector", "none") if self.use_rmp else "none"
+        if not self.use_rmp and rmp_cfg.get("connector") == "repeated":
+            self.architecture = "repeated"
+        self.use_balancer = bal_cfg.get("algorithm", "none") != "none"
+
+    # -- schema hooks (subclasses override) --------------------------------
+    def edge_in_dims(self) -> Tuple[Tuple[str, int], ...]:
+        raise NotImplementedError
+
+    def node_in_dim(self) -> int:
+        raise NotImplementedError
+
+    def normalizer_schema(self) -> Dict[str, int]:
+        raise NotImplementedError
+
+    # -- construction ------------------------------------------------------
+    @functools.cached_property
+    def gnn_config(self) -> GNNConfig:
+        return GNNConfig(
+            output_size=self.output_size,
+            node_in_dim=self.node_in_dim(),
+            edge_in_dims=self.edge_in_dims(),
+            latent_size=self.latent_size,
+            num_layers=self.num_layers,
+            message_passing_steps=self.message_passing_steps,
+            aggregation=self.aggregation,
+            architecture=self.architecture,
+            compute_dtype=self.compute_dtype,
+            agg_vjp=self.params["model"].get("agg_vjp", "xla"),
+        )
+
+    def init_state(self, generator: Optional[torch.Generator] = None) -> ModelState:
+        """Random network and empty normalizers, on the CPU."""
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        params = network_init(generator, self.gnn_config)
+        normalizers = {
+            name: norm.init(size) for name, size in self.normalizer_schema().items()
+        }
+        return ModelState(params=params, normalizers=normalizers)
+
+    def build_topology(
+        self,
+        cells: np.ndarray,
+        num_nodes: Optional[int] = None,
+        deform: bool = False,
+        device="cpu",
+    ) -> Topology:
+        """Host: cells -> receiver-sorted topology on ``device``."""
+        edges = cells_to_edges(np.asarray(cells), deform=deform)
+        if num_nodes is None:
+            num_nodes = int(np.asarray(cells).max()) + 1
+        plan = None
+        if self.gnn_config.agg_vjp == "fused":
+            plan = plan_segments(edges.receivers, num_nodes).to(device)
+        return Topology(
+            senders=torch.from_numpy(edges.senders).to(device),
+            receivers=torch.from_numpy(edges.receivers).to(device),
+            num_nodes=num_nodes,
+            plan=plan,
+        )
+
+    def topology_from_trajectory(
+        self, trajectory: Dict[str, np.ndarray], device="cpu"
+    ) -> Topology:
+        return self.build_topology(
+            trajectory["cells"][0],
+            num_nodes=int(trajectory["node_type"].shape[1]),
+            device=device,
+        )
+
+    def topology_content_key(self, trajectory: Dict[str, np.ndarray]) -> tuple:
+        """Extra cache-key content beyond the mesh connectivity (none here)."""
+        return ()
+
+    def forward(self, state: ModelState, graph: Graph) -> torch.Tensor:
+        return network_apply(state.params, graph, self.gnn_config)
+
+    def inference_state(self, state: ModelState) -> ModelState:
+        """State for inference; int8 serving is a later slice of the port."""
+        if self.params["model"].get("inference_quant") == "int8":
+            raise NotImplementedError(
+                "inference_quant 'int8' comes with the int8 serving slice "
+                "(ROADMAP slice 6)"
+            )
+        return state
+
+    # -- shared helpers ----------------------------------------------------
+    def _normalize(
+        self,
+        state: ModelState,
+        name: str,
+        data: torch.Tensor,
+        accumulate: bool,
+        mask: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, ModelState]:
+        out, ns = norm.normalize(
+            state.normalizers[name], data, accumulate_stats=accumulate, mask=mask
+        )
+        normalizers = dict(state.normalizers)
+        normalizers[name] = ns
+        return out, state.replace(normalizers=normalizers)
+
+    def loss_mask(self, node_type: torch.Tensor) -> torch.Tensor:
+        """Rows contributing to the loss (flag: NORMAL nodes)."""
+        return node_type[..., 0] == NodeType.NORMAL

@@ -1,0 +1,177 @@
+"""FlagModel: cloth simulation with 2nd-order integration.
+
+Counterpart of ``hyper_graph_nets_tpu/models/flag.py``:
+
+- node features: velocity (``world_pos - prev|world_pos``) ++ one-hot(type != NORMAL);
+- mesh-edge features: ``[rel_world, |rel_world|, rel_mesh, |rel_mesh|]``;
+- ``node_dynamic``: (max - min) of incident ``|rel_world|`` per receiver; its
+  normalizer always accumulates (the reference's quirk, kept);
+- output: acceleration, integrated as ``pos = 2*cur + acc - prev``;
+- rollout: a Python loop in which boundary (non-NORMAL) nodes hold their
+  positions.
+
+Frames may carry a leading batch dimension; the featurizers index the node
+axis (-2) and so run batched or not.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from hyper_graph_nets_tpu_torch.core import normalizer as norm
+from hyper_graph_nets_tpu_torch.core import segment_ops
+from hyper_graph_nets_tpu_torch.core.graph import EdgeSet, Graph, NodeType
+from hyper_graph_nets_tpu_torch.models.base import (
+    ModelState,
+    SystemModel,
+    Topology,
+    norm_feature,
+)
+
+
+class FlagModel(SystemModel):
+    model_type = "flag"
+    world_dim = 3
+    mesh_dim = 2
+
+    def node_in_dim(self) -> int:
+        return self.world_dim + 2  # velocity ++ one-hot(2)
+
+    def edge_in_dims(self) -> Tuple[Tuple[str, int], ...]:
+        return (("mesh_edges", self.world_dim + 1 + self.mesh_dim + 1),)
+
+    def normalizer_schema(self) -> Dict[str, int]:
+        return {
+            "output": self.output_size,
+            "node": self.world_dim + 2,
+            "node_dynamic": 1,
+            "mesh_edge": self.world_dim + 1 + self.mesh_dim + 1,
+        }
+
+    # ------------------------------------------------------------------
+    def frame_features(
+        self,
+        senders: torch.Tensor,
+        receivers: torch.Tensor,
+        frame: Dict[str, torch.Tensor],
+        edge_mask: Optional[torch.Tensor] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Raw (unnormalized) features of one frame or a batch of frames."""
+        world_pos = frame["world_pos"]
+        mesh_pos = frame["mesh_pos"]
+        num_nodes = world_pos.shape[-2]
+        snd, rcv = senders.long(), receivers.long()
+
+        velocity = world_pos - frame["prev|world_pos"]
+        type_flag = (frame["node_type"][..., 0] != NodeType.NORMAL).long()
+        one_hot = torch.nn.functional.one_hot(type_flag, 2).to(world_pos.dtype)
+        node_features = torch.cat([velocity, one_hot], dim=-1)
+
+        rel_world = world_pos[..., snd, :] - world_pos[..., rcv, :]
+        rel_mesh = mesh_pos[..., snd, :] - mesh_pos[..., rcv, :]
+        edge_features = torch.cat([norm_feature(rel_world), norm_feature(rel_mesh)], dim=-1)
+
+        speed = torch.sqrt((rel_world * rel_world).sum(dim=-1, keepdim=True))
+        dyn_max = segment_ops.segment_max(speed, receivers, num_nodes, mask=edge_mask)
+        dyn_min = segment_ops.segment_min(speed, receivers, num_nodes, mask=edge_mask)
+        return {
+            "node_features": node_features,
+            "mesh_edge_features": edge_features,
+            "node_dynamic": dyn_max - dyn_min,
+        }
+
+    def make_graph(
+        self,
+        state: ModelState,
+        topo: Topology,
+        frames: Dict[str, torch.Tensor],
+        is_training: bool,
+    ) -> Tuple[Graph, Dict[str, torch.Tensor], ModelState]:
+        """Build the input graph; returns (graph, raw aux, new state)."""
+        raw = self.frame_features(topo.senders, topo.receivers, frames, topo.mask)
+        # padded nodes carry node_type < 0 and stay out of the statistics
+        node_valid = (frames["node_type"][..., 0] >= 0).to(torch.float32)
+        node_feats, state = self._normalize(
+            state, "node", raw["node_features"], accumulate=is_training, mask=node_valid
+        )
+        edge_mask = None
+        if topo.mask is not None:
+            edge_mask = topo.mask.expand(raw["mesh_edge_features"].shape[:-1])
+        edge_feats, state = self._normalize(
+            state, "mesh_edge", raw["mesh_edge_features"],
+            accumulate=is_training, mask=edge_mask,
+        )
+        # the node_dynamic normalizer always accumulates, as in the reference
+        node_dyn, state = self._normalize(
+            state, "node_dynamic", raw["node_dynamic"], accumulate=True, mask=node_valid
+        )
+        graph = Graph(
+            node_features=node_feats,
+            edge_sets={
+                "mesh_edges": EdgeSet(
+                    features=edge_feats,
+                    senders=topo.senders,
+                    receivers=topo.receivers,
+                    mask=topo.mask,
+                    plan=topo.plan,
+                )
+            },
+        )
+        aux = {"node_dynamic": node_dyn, "mesh_edge_features_raw": raw["mesh_edge_features"]}
+        return graph, aux, state
+
+    def get_target(
+        self, state: ModelState, frames: Dict[str, torch.Tensor], is_training: bool = True
+    ) -> Tuple[torch.Tensor, ModelState]:
+        """Normalized target acceleration."""
+        acceleration = (
+            frames["target|world_pos"] - 2 * frames["world_pos"] + frames["prev|world_pos"]
+        )
+        return self._normalize(state, "output", acceleration, accumulate=is_training)
+
+    def update(
+        self, state: ModelState, frames: Dict[str, torch.Tensor], net_out: torch.Tensor
+    ) -> torch.Tensor:
+        """Integrate: pos = 2*cur + acc - prev."""
+        acceleration = norm.inverse(state.normalizers["output"], net_out)
+        return 2 * frames["world_pos"] + acceleration - frames["prev|world_pos"]
+
+    # ------------------------------------------------------------------
+    def rollout(
+        self,
+        state: ModelState,
+        topo: Topology,
+        trajectory: Dict[str, np.ndarray],
+        num_steps: Optional[int] = None,
+    ) -> Tuple[Dict[str, object], torch.Tensor]:
+        """Recursive rollout from the first frame; returns (traj_ops, per-step MSE)."""
+        T = trajectory["cells"].shape[0]
+        num_steps = T if num_steps is None else min(num_steps, T)
+        device = topo.senders.device
+        init = {
+            k: torch.as_tensor(v[0], device=device)
+            for k, v in trajectory.items()
+            if k != "cells"
+        }
+        static_frame = {"mesh_pos": init["mesh_pos"], "node_type": init["node_type"]}
+        normal = (init["node_type"][:, 0] == NodeType.NORMAL)[:, None]
+        prev_pos, cur_pos = init["prev|world_pos"], init["world_pos"]
+        preds = []
+        for _ in range(num_steps):
+            frame = {**static_frame, "world_pos": cur_pos, "prev|world_pos": prev_pos}
+            graph, _, _ = self.make_graph(state, topo, frame, False)
+            prediction = self.update(state, frame, self.forward(state, graph))
+            preds.append(cur_pos)
+            prev_pos, cur_pos = cur_pos, torch.where(normal, prediction, cur_pos)
+        pred = torch.stack(preds)
+        gt = torch.as_tensor(trajectory["world_pos"][:num_steps], device=device)
+        mse = (gt - pred).square().mean(dim=(-2, -1))
+        traj_ops = {
+            "faces": trajectory["cells"],
+            "mesh_pos": trajectory["mesh_pos"],
+            "gt_pos": trajectory["world_pos"],
+            "pred_pos": pred,
+        }
+        return traj_ops, mse

@@ -1,0 +1,99 @@
+"""Build the port's CUDA sources into shared libraries, at first use.
+
+Each ``csrc/*.cu`` file has a plain C interface and is compiled on its own by
+``nvcc`` for ``sm_90a`` into ``_build/<stem>-<hash>.so``, where the hash
+covers the source bytes and the flags, then loaded with ``ctypes``.  Nothing
+is built at import time; a missing ``nvcc`` or a failed build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from typing import Dict, Sequence
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [
+        os.path.join(cuda_home, "bin", "nvcc") if cuda_home else None,
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ]
+    for cand in candidates:
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the port's CUDA "
+        "kernels are built from hyper_graph_nets_tpu_torch/csrc at first use"
+    )
+
+
+def source_path(name: str) -> str:
+    return os.path.join(CSRC_DIR, name)
+
+
+def library_path(source: str) -> str:
+    with open(source, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    stem = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
+
+
+def build(sources: Sequence[str]) -> Dict[str, str]:
+    """Compile every source whose library is missing, one ``nvcc`` per
+    source, all started together.  Returns ``{source: library path}``; the
+    compiler's report (registers, shared memory, spills) is kept beside each
+    library as ``<lib>.log``."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    paths = {src: library_path(src) for src in sources}
+    pending = {}
+    for src, lib in paths.items():
+        if os.path.isfile(lib):
+            continue
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        pending[src] = (proc, tmp, lib, cmd)
+    failures = []
+    for src, (proc, tmp, lib, cmd) in pending.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{' '.join(cmd)}\n{out}")
+            continue
+        with open(lib + ".log", "w") as f:
+            f.write(out)
+        os.replace(tmp, lib)
+    if failures:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    return paths
+
+
+def build_log(source: str) -> str:
+    """The compiler's report for ``source`` (after :func:`build`)."""
+    with open(library_path(source) + ".log") as f:
+        return f.read()
+
+
+def load(source: str) -> ctypes.CDLL:
+    """Build ``source`` if needed and load it (once per process)."""
+    lib = build([source])[source]
+    if lib not in _loaded:
+        _loaded[lib] = ctypes.CDLL(lib)
+    return _loaded[lib]

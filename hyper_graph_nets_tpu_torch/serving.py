@@ -1,0 +1,124 @@
+"""Serving API: inference for a system model on the card.
+
+Counterpart of ``hyper_graph_nets_tpu/serving.py``.  :class:`Predictor` owns
+the model and its state on one device; :meth:`Predictor.one_step` predicts
+the next state of every frame of a trajectory in one batch, and
+:meth:`Predictor.rollout` rolls out from the first frame.  With
+``model.agg_vjp: fused`` every message-passing block runs the fused
+edge-block kernel (``ops/fused_block.py``).
+
+Example::
+
+    from hyper_graph_nets_tpu_torch.serving import Predictor
+    p = Predictor.from_config("flag_full_scale")   # on the card
+    preds = p.one_step(trajectory)                 # [B, N, 3] next positions
+    result = p.rollout(trajectory, num_steps=50)   # pred_pos, gt_pos, mse, ...
+"""
+from __future__ import annotations
+
+import copy
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from hyper_graph_nets_tpu_torch.core.mesh import mesh_fingerprint
+from hyper_graph_nets_tpu_torch.models.base import ModelState, Topology
+from hyper_graph_nets_tpu_torch.models.get_model import get_model
+from hyper_graph_nets_tpu_torch.runtime import resolve_device
+from hyper_graph_nets_tpu_torch.training.expansion import build_expansion
+from hyper_graph_nets_tpu_torch.training.trainer import batched_forward
+from hyper_graph_nets_tpu_torch.utils.config import read_yaml
+
+
+class Predictor:
+    """Inference wrapper around a system model and its state.
+
+    ``device`` defaults to the card and raises when there is none; pass
+    ``device="cpu"`` to run the plain PyTorch path on the CPU.  ``state``
+    defaults to a random init from seed 0.
+    """
+
+    def __init__(
+        self,
+        config: dict,
+        state: Optional[ModelState] = None,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        # own the config: nothing below may mutate the caller's dict
+        config = copy.deepcopy(config)
+        self.config = config
+        self.params = config.get("params", config)
+        self.model = get_model(config)
+        # raises for RMP / balancer configs (later slices of the port)
+        self.expansion = build_expansion(self.model, config)
+        if state is None:
+            state = self.model.init_state()
+        self.state = self.model.inference_state(state).to(self.device)
+        self._topo_cache: Dict[Tuple, Topology] = {}
+
+    @classmethod
+    def from_config(
+        cls,
+        config_or_name,
+        checkpoint: Optional[str] = None,
+        device=None,
+    ) -> "Predictor":
+        """Build from a config name under ``configs/`` or a config dict."""
+        if checkpoint is not None:
+            raise NotImplementedError(
+                "checkpoint loading comes with the checkpoint slice (ROADMAP "
+                "slice 3); pass a converted state to Predictor(config, state=...)"
+            )
+        config = (
+            read_yaml(config_or_name)
+            if isinstance(config_or_name, str)
+            else config_or_name
+        )
+        return cls(config, device=device)
+
+    def _topology(self, trajectory: Dict[str, np.ndarray]) -> Topology:
+        key = mesh_fingerprint(
+            trajectory["cells"][0], trajectory["node_type"].shape[1]
+        ) + self.model.topology_content_key(trajectory)
+        if key not in self._topo_cache:
+            self._topo_cache[key] = self.model.topology_from_trajectory(
+                trajectory, device=self.device
+            )
+        return self._topo_cache[key]
+
+    def _frames(self, trajectory: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        return {
+            k: torch.as_tensor(v, device=self.device)
+            for k, v in trajectory.items()
+            if k != "cells"
+        }
+
+    @torch.inference_mode()
+    def rollout(
+        self,
+        trajectory: Dict[str, np.ndarray],
+        num_steps: Optional[int] = None,
+    ) -> Dict[str, Any]:
+        """Recursive rollout from the trajectory's first frame: the model's
+        rollout ops (``pred_pos``, ``gt_pos``, ``faces``, ``mesh_pos``) plus
+        per-step ``mse``, as numpy arrays."""
+        topo = self._topology(trajectory)
+        ops, mse = self.model.rollout(self.state, topo, trajectory, num_steps=num_steps)
+        out = {
+            k: v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+            for k, v in ops.items()
+        }
+        out["mse"] = mse.cpu().numpy()
+        return out
+
+    @torch.inference_mode()
+    def one_step(self, trajectory: Dict[str, np.ndarray]) -> np.ndarray:
+        """Next-state prediction of the model's field for every frame, as
+        one batch: ``[B, N, D]`` (positions for flag)."""
+        topo = self._topology(trajectory)
+        frames = self._frames(trajectory)
+        graph, _, _ = self.model.make_graph(self.state, topo, frames, False)
+        out = batched_forward(self.model, self.state.params, graph)
+        return self.model.update(self.state, frames, out).cpu().numpy()

@@ -1,0 +1,231 @@
+"""The port's contract: what it imports, where it runs, what it refuses,
+and its host-side pieces against the JAX package's.
+
+- The port imports neither ``jax`` nor ``hyper_graph_nets_tpu`` (checked in
+  a fresh interpreter and by a scan of the sources).
+- Entry points default to the card and raise without one; CPU runs never
+  launch the kernel.
+- Configurations of later slices raise ``NotImplementedError``.
+- Mesh edges, synthetic data, config parsing, the normalizer and the
+  segment ops agree with the JAX package (float32: rtol = 1e-6, atol = 1e-6).
+"""
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from hyper_graph_nets_tpu.core import normalizer as jax_norm
+from hyper_graph_nets_tpu.core import segment_ops as jax_segment_ops
+from hyper_graph_nets_tpu.core.mesh import cells_to_edges as jax_cells_to_edges
+from hyper_graph_nets_tpu.core.mesh import mesh_fingerprint as jax_mesh_fingerprint
+from hyper_graph_nets_tpu.data.preprocessing import add_targets as jax_add_targets
+from hyper_graph_nets_tpu.data.synthetic import flag_trajectory as jax_flag_trajectory
+from hyper_graph_nets_tpu.utils.config import read_yaml as jax_read_yaml
+from hyper_graph_nets_tpu_torch.core import normalizer as norm
+from hyper_graph_nets_tpu_torch.core import segment_ops
+from hyper_graph_nets_tpu_torch.core.mesh import cells_to_edges, mesh_fingerprint
+from hyper_graph_nets_tpu_torch.data.preprocessing import add_targets
+from hyper_graph_nets_tpu_torch.data.synthetic import flag_trajectory
+from hyper_graph_nets_tpu_torch.nn.mlp import MLP
+from hyper_graph_nets_tpu_torch.ops.fused_block import fused_edge_block
+from hyper_graph_nets_tpu_torch.serving import Predictor
+from hyper_graph_nets_tpu_torch.utils.config import read_yaml
+from torch_port_cases import flag_config
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "hyper_graph_nets_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "hyper_graph_nets_tpu")
+
+
+# -- (d) imports ------------------------------------------------------------
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    code = (
+        "import sys\n"
+        "import hyper_graph_nets_tpu_torch, hyper_graph_nets_tpu_torch.serving\n"
+        "import hyper_graph_nets_tpu_torch.convert, chip_smoke\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def _imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_sources_name_no_jax_import():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PORT):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 10
+    for path in files:
+        bad = set(_imported_roots(path)) & set(FORBIDDEN)
+        assert not bad, f"{path} imports {bad}"
+
+
+# -- (e) device and launches ------------------------------------------------
+
+
+def test_predictor_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card; the check is for machines without one")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Predictor(flag_config("bfloat16"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Predictor.from_config(flag_config("bfloat16"))
+
+
+def test_cpu_predictor_never_launches_the_kernel():
+    before = fused_edge_block.launches
+    traj = add_targets(flag_trajectory(num_steps=4, nx=6, ny=6), "world_pos", True)
+    p = Predictor(flag_config("bfloat16"), device="cpu")
+    out = p.one_step(traj)
+    r = p.rollout(traj, num_steps=2)
+    assert out.shape == (2, 36, 3) and np.isfinite(out).all()
+    assert r["pred_pos"].shape == (2, 36, 3) and np.isfinite(r["mse"]).all()
+    assert fused_edge_block.launches == before
+
+
+def test_full_scale_config_loads_with_rmp_off():
+    config = read_yaml("flag_full_scale")
+    config["params"]["model"]["rmp"].update(clustering="none", connector="none")
+    cfg = Predictor(config, device="cpu").model.gnn_config
+    assert (cfg.latent_size, cfg.message_passing_steps, cfg.agg_vjp) == (128, 15, "fused")
+    assert cfg.cd == torch.bfloat16 and cfg.architecture == "none"
+
+
+# -- (f) later slices raise -------------------------------------------------
+
+
+def _with(**model):
+    config = flag_config("bfloat16")
+    config["params"]["model"].update(model)
+    return config
+
+
+@pytest.mark.parametrize(
+    "config",
+    [
+        _with(rmp={"clustering": "spectral", "connector": "hyper"}),
+        _with(graph_balancer={"algorithm": "ricci"}),
+        _with(agg_vjp="sorted"),
+        _with(inference_quant="int8"),
+    ],
+    ids=["rmp", "balancer", "agg_vjp_sorted", "int8"],
+)
+def test_later_slices_raise(config):
+    with pytest.raises(NotImplementedError):
+        Predictor(config, device="cpu")
+
+
+def test_checkpoint_and_other_datasets_raise():
+    with pytest.raises(NotImplementedError):
+        Predictor.from_config(flag_config("bfloat16"), checkpoint="somewhere", device="cpu")
+    for dataset in ("cylinder_flow", "deforming_plate"):
+        config = flag_config("bfloat16")
+        config["params"]["task"]["dataset"] = dataset
+        with pytest.raises(NotImplementedError):
+            Predictor(config, device="cpu")
+
+
+# -- host-side pieces against the JAX package ---------------------------------
+
+
+@pytest.mark.parametrize("shape", [(4, 5), (10, 10)])
+def test_mesh_edges_and_fingerprint_match_jax(shape):
+    traj = flag_trajectory(num_steps=3, nx=shape[0], ny=shape[1])
+    cells = traj["cells"][0]
+    ours, theirs = cells_to_edges(cells), jax_cells_to_edges(cells)
+    for a, b in zip(ours, theirs):
+        np.testing.assert_array_equal(a, b)
+    assert np.all(np.diff(ours.receivers) >= 0)
+    assert mesh_fingerprint(cells, 7) == jax_mesh_fingerprint(cells, 7)
+
+
+def test_synthetic_flag_and_targets_match_jax():
+    ours = add_targets(flag_trajectory(num_steps=6, nx=5, ny=4, seed=3), "world_pos", True)
+    theirs = jax_add_targets(jax_flag_trajectory(num_steps=6, nx=5, ny=4, seed=3), "world_pos", True)
+    assert set(ours) == set(theirs)
+    for k in ours:
+        np.testing.assert_array_equal(ours[k], theirs[k])
+
+
+@pytest.mark.parametrize("name", ["flag_full_scale", "flag_fused_demo", "minimal", "plateCluster"])
+def test_read_yaml_matches_jax(name):
+    assert read_yaml(name) == jax_read_yaml(name)
+
+
+def test_normalizer_matches_jax_and_returns_new_state():
+    rng = np.random.default_rng(5)
+    data = rng.normal(size=(3, 20, 4)).astype(np.float32) * 3 + 1
+    mask = (rng.random((3, 20)) > 0.3).astype(np.float32)
+    js = jax_norm.accumulate(jax_norm.init(4), jnp.asarray(data), jnp.asarray(mask))
+    jout, js = jax_norm.normalize(js, jnp.asarray(data), accumulate_stats=True)
+    s0 = norm.init(4)
+    s1 = norm.accumulate(s0, torch.tensor(data), torch.tensor(mask))
+    out, s2 = norm.normalize(s1, torch.tensor(data), accumulate_stats=True)
+    assert float(s0.acc_count) == 0.0 and float(s1.num_accumulations) == 1.0
+    for f in ("acc_count", "num_accumulations", "acc_sum", "acc_sum_squared"):
+        np.testing.assert_allclose(getattr(s2, f).numpy(), np.asarray(getattr(js, f)), rtol=1e-6)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=1e-5, atol=1e-6)
+    back = norm.inverse(s2, out)
+    np.testing.assert_allclose(back.numpy(), data, rtol=1e-5, atol=1e-5)
+    capped = norm.accumulate(
+        norm.init(4, max_accumulations=1), torch.tensor(data)
+    )
+    assert float(norm.accumulate(capped, torch.tensor(data)).acc_count) == 60.0
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_segment_pna_matches_jax(batched):
+    rng = np.random.default_rng(6)
+    N, E, F = 9, 30, 5
+    ids = np.sort(rng.integers(0, N - 2, size=E)).astype(np.int32)  # last 2 empty
+    data = rng.normal(size=((2, E, F) if batched else (E, F))).astype(np.float32)
+    data[..., 3, :] = data[..., 4, :]  # ties
+    mask = (rng.random(E) > 0.2).astype(np.float32)
+
+    def jax_aggregate(op):  # the JAX package vmaps its segment ops over a batch
+        one = lambda d: np.asarray(
+            jax_segment_ops.aggregate(jnp.asarray(d), jnp.asarray(ids), N, op, jnp.asarray(mask))
+        )
+        return np.stack([one(d) for d in data]) if batched else one(data)
+
+    got = segment_ops.aggregate(torch.tensor(data), torch.tensor(ids), N, "pna", torch.tensor(mask))
+    np.testing.assert_allclose(got.numpy(), jax_aggregate("pna"), rtol=1e-6, atol=1e-6)
+    assert torch.all(got[..., N - 2 :, :] == 0)
+    for op in ("sum", "mean", "max", "min"):
+        g = segment_ops.aggregate(torch.tensor(data), torch.tensor(ids), N, op, torch.tensor(mask))
+        np.testing.assert_allclose(g.numpy(), jax_aggregate(op), rtol=1e-6, atol=1e-6)
+
+
+def test_mlp_init_distribution_and_generator():
+    g1, g2 = torch.Generator().manual_seed(7), torch.Generator().manual_seed(7)
+    a = MLP.init(g1, 40, (16, 16, 3), layer_norm=False)
+    b = MLP.init(g2, 40, (16, 16, 3), layer_norm=False)
+    for wa, wb in zip(a.weights, b.weights):
+        assert torch.equal(wa, wb)
+    assert a.weights[0].shape == (16, 40)
+    assert a.weights[0].abs().max() <= 1 / np.sqrt(40)
+    assert a.biases[1].abs().max() <= 1 / np.sqrt(16)
+    assert not a.layer_norm and MLP.init(g1, 4, (8,)).layer_norm

@@ -1,0 +1,140 @@
+"""K1, the fused edge block: the port against the JAX package's Pallas kernel.
+
+On the CPU the port's ``fused_edge_block`` runs its plain PyTorch version;
+the JAX side runs ``_fwd_kernel`` in interpret mode, as
+tests/test_fused_block.py does.  The inputs hold an isolated receiver and a
+masked tail of padding edges, or receivers with more edges than one chunk.
+
+Tolerances:
+- float32: rtol = atol = 1e-5 (only the summation order differs).
+- bf16: e2 within rtol = 2**-7 and atol = 2**-5.  The port rounds at every
+  point the kernel's code names, while XLA on the CPU may keep an
+  elementwise chain in float32 between them (excess precision), so single
+  elements differ by one rounding: one bf16 unit in the last place is
+  2**-7 of the value, and 2**-5 for a LayerNorm output in [4, 8), which
+  e2 = e + LN(z3) can cancel down to a small value.  The aggregate sums up
+  to 7 such elements: rtol = atol = 2**-5.  With receivers of 150 edges
+  the sum's atol grows to 150 * 2**-5.
+The masked edges' own e2 is not compared: the JAX kernel gathers zero rows
+for them through its padding sentinel, while the port gathers the rows the
+edge names; neither reaches an aggregate.
+
+The CUDA kernel itself is held against the plain version on the card in
+tests/test_torch_port_cuda.py.
+"""
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from hyper_graph_nets_tpu.ops.pallas.fused_block import (
+    build_band_plan,
+    fused_edge_block as jax_fused_edge_block,
+)
+from hyper_graph_nets_tpu_torch.ops.fused_block import (
+    fused_edge_block,
+    plan_segments,
+)
+from torch_port_cases import BF16_ULP, long_segment_case, masked_edge_case
+
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+TOLS = {
+    "float32": dict(e2=(1e-5, 1e-5), agg=(1e-5, 1e-5)),
+    "bfloat16": dict(e2=(BF16_ULP, 4 * BF16_ULP), agg=(4 * BF16_ULP, 4 * BF16_ULP)),
+}
+
+
+def _port_inputs(arrays, weights, snd, rcv, mask, tdt, device="cpu"):
+    """Torch inputs holding exactly the JAX side's (rounded) values."""
+    t = {k: torch.tensor(v).to(tdt).to(device) for k, v in arrays.items()}
+    w = {
+        k: torch.tensor(v.T.copy() if v.ndim == 2 else v).to(device)
+        for k, v in weights.items()
+    }
+    idx = lambda a: torch.tensor(a).to(device)
+    return t, w, idx(snd), idx(rcv), idx(mask)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_k1_plain_matches_jax_kernel(dtype):
+    arrays, weights, snd, rcv, mask, N, num_valid = masked_edge_case()
+    jdt, tdt = DTYPES[dtype]
+    plan = build_band_plan(snd, rcv, N, num_valid=num_valid, chunk=128)
+    je2, jagg = jax_fused_edge_block(
+        *(jnp.asarray(arrays[k]).astype(jdt) for k in ("e", "sp", "rp")),
+        {k: jnp.asarray(v) for k, v in weights.items()},
+        plan, N, interpret=True,
+    )
+    je2 = np.asarray(je2.astype(jnp.float32))
+    jagg = np.asarray(jagg)
+
+    before = fused_edge_block.launches
+    t, w, ts, tr, tm = _port_inputs(arrays, weights, snd, rcv, mask, tdt)
+    e2, agg = fused_edge_block(t["e"], t["sp"], t["rp"], w, ts, tr, tm, N)
+    assert fused_edge_block.launches == before  # the CPU runs the plain version
+    assert e2.dtype == tdt and agg.dtype == torch.float32
+    assert agg.shape == (2, N, 4 * 32)
+
+    (er, ea), (gr, ga) = TOLS[dtype]["e2"], TOLS[dtype]["agg"]
+    np.testing.assert_allclose(
+        e2.float().numpy()[:, :num_valid], je2[:, :num_valid], rtol=er, atol=ea
+    )
+    np.testing.assert_allclose(agg.numpy(), jagg, rtol=gr, atol=ga)
+    # the isolated receiver and the receiver of the masked tail
+    assert np.all(agg.numpy()[:, 10] == 0.0)
+    np.testing.assert_allclose(agg.numpy()[:, N - 1], jagg[:, N - 1], rtol=gr, atol=ga)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_k1_plain_matches_jax_kernel_long_segments(dtype):
+    """Receivers with more edges than a JAX chunk (and than a CUDA tile)."""
+    arrays, weights, snd, rcv, _, N = long_segment_case()
+    jdt, tdt = DTYPES[dtype]
+    plan = build_band_plan(snd, rcv, N, chunk=128)
+    je2, jagg = jax_fused_edge_block(
+        *(jnp.asarray(arrays[k]).astype(jdt) for k in ("e", "sp", "rp")),
+        {k: jnp.asarray(v) for k, v in weights.items()},
+        plan, N, interpret=True,
+    )
+    t, w, ts, tr, _ = _port_inputs(arrays, weights, snd, rcv, np.ones(len(snd), np.float32), tdt)
+    e2, agg = fused_edge_block(t["e"], t["sp"], t["rp"], w, ts, tr, None, N)
+    (er, ea), (gr, ga) = TOLS[dtype]["e2"], TOLS[dtype]["agg"]
+    np.testing.assert_allclose(
+        e2.float().numpy(), np.asarray(je2.astype(jnp.float32)), rtol=er, atol=ea
+    )
+    # in bf16 each of a long segment's 150 summands may differ by one
+    # rounding of e2, so the sum's atol grows with the count; mean, max and
+    # min keep theirs
+    L = e2.shape[-1]
+    agg, jagg = agg.numpy(), np.asarray(jagg)
+    sum_atol = ga if dtype == "float32" else ga * 150
+    np.testing.assert_allclose(agg[..., L:], jagg[..., L:], rtol=gr, atol=ga)
+    np.testing.assert_allclose(agg[..., :L], jagg[..., :L], rtol=gr, atol=sum_atol)
+    assert np.all(agg[:, 9] == 0.0)
+
+
+def test_k1_unbatched_equals_batched_rows():
+    arrays, weights, snd, rcv, mask, N, _ = masked_edge_case(seed=1)
+    t, w, ts, tr, tm = _port_inputs(arrays, weights, snd, rcv, mask, torch.float32)
+    e2, agg = fused_edge_block(t["e"], t["sp"], t["rp"], w, ts, tr, tm, N)
+    e2_1, agg_1 = fused_edge_block(t["e"][1], t["sp"][1], t["rp"][1], w, ts, tr, tm, N)
+    assert torch.equal(e2[1], e2_1) and torch.equal(agg[1], agg_1)
+
+
+def test_plan_segments_rows_and_groups():
+    rcv = np.array([0, 0, 2, 2, 2, 3] + [5] * 70, np.int32)
+    plan = plan_segments(rcv, 7, tile=4)
+    assert plan.row_ptr.tolist() == [0, 2, 2, 5, 6, 6, 76, 76]
+    groups = plan.groups.tolist()
+    assert groups[0] == 0 and groups[-1] == 7
+    rp = plan.row_ptr.numpy()
+    assert groups == sorted(set(groups))
+    for a, b in zip(groups[:-1], groups[1:]):
+        # whole segments, at most a tile of edges unless one receiver has more
+        receivers_with_edges = int(np.count_nonzero(np.diff(rp[a : b + 1])))
+        assert rp[b] - rp[a] <= 4 or receivers_with_edges == 1
+    with pytest.raises(ValueError, match="non-decreasing"):
+        plan_segments(np.array([1, 0], np.int32), 2)
+    with pytest.raises(ValueError, match=r"\[0, 2\)"):
+        plan_segments(np.array([0, 2], np.int32), 2)

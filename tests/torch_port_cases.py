@@ -1,0 +1,91 @@
+"""Shared inputs for the port's parity tests (tests/test_torch_port_*.py).
+
+Every input is drawn with numpy from a seed and handed to both the JAX
+package and the port, so neither framework's RNG matters.
+"""
+import numpy as np
+
+from hyper_graph_nets_tpu_torch.core.mesh import cells_to_edges
+from hyper_graph_nets_tpu_torch.data.synthetic import _grid_triangulation
+
+# bf16 keeps 8 significant bits: one unit in the last place is 2**-7 of the
+# value's leading power of two.
+BF16_ULP = 2.0**-7
+
+
+def grid_edges(nx: int, ny: int):
+    """Receiver-sorted (senders, receivers, num_nodes) of an nx x ny grid."""
+    edges = cells_to_edges(_grid_triangulation(nx, ny))
+    return edges.senders, edges.receivers, nx * ny
+
+
+def masked_edge_case(seed: int = 0, B: int = 2, L: int = 32):
+    """K1 inputs on an 8x8 grid with an isolated receiver and a masked tail.
+
+    Receiver 10 loses all its incoming edges (its aggregate must be 0), and
+    7 masked edges are appended with receiver N-1, so receivers stay sorted
+    and the masked edges add nothing to any aggregate.
+    """
+    rng = np.random.default_rng(seed)
+    snd, rcv, N = grid_edges(8, 8)
+    keep = rcv != 10
+    snd, rcv = snd[keep], rcv[keep]
+    num_valid, pad = len(snd), 7
+    snd = np.concatenate([snd, np.zeros(pad, np.int32)])
+    rcv = np.concatenate([rcv, np.full(pad, N - 1, np.int32)])
+    mask = np.r_[np.ones(num_valid), np.zeros(pad)].astype(np.float32)
+    arrays, weights = _k1_arrays(rng, B, len(snd), N, L)
+    return arrays, weights, snd, rcv, mask, N, num_valid
+
+
+def long_segment_case(seed: int = 0, B: int = 2, L: int = 32):
+    """K1 inputs whose receivers own more edges than one kernel tile.
+
+    Receiver 3 has 150 edges and receiver 7 exactly 64, so their aggregates
+    are carried across tiles; receiver 9 has none; about a tenth of the
+    edges, some inside the long segments, are masked.
+    """
+    rng = np.random.default_rng(seed)
+    N = 40
+    counts = np.full(N, 2)
+    counts[3], counts[7], counts[9] = 150, 64, 0
+    rcv = np.repeat(np.arange(N), counts).astype(np.int32)
+    snd = rng.integers(0, N, size=len(rcv)).astype(np.int32)
+    mask = (rng.random(len(rcv)) > 0.1).astype(np.float32)
+    arrays, weights = _k1_arrays(rng, B, len(rcv), N, L)
+    return arrays, weights, snd, rcv, mask, N
+
+
+def _k1_arrays(rng, B, E, N, L):
+    arrays = {
+        "e": rng.normal(size=(B, E, L)).astype(np.float32),
+        "sp": rng.normal(size=(B, N, L)).astype(np.float32),
+        "rp": rng.normal(size=(B, N, L)).astype(np.float32),
+    }
+    # JAX layout [in, out]
+    weights = {k: (0.3 * rng.normal(size=(L, L))).astype(np.float32) for k in ("we", "w2", "w3")}
+    weights.update({k: (0.1 * rng.normal(size=L)).astype(np.float32) for k in ("b1", "b2", "b3")})
+    weights["lns"] = (1.0 + 0.1 * rng.normal(size=L)).astype(np.float32)
+    weights["lnb"] = (0.1 * rng.normal(size=L)).astype(np.float32)
+    return arrays, weights
+
+
+def flag_config(compute_dtype, agg_vjp="fused", mp_steps=2, latent=32):
+    """Flag MeshGraphNets config dict shared by the JAX and port predictors."""
+    return {
+        "params": {
+            "task": {"dataset": "flag_simple"},
+            "model": {
+                "field": "world_pos",
+                "history": True,
+                "size": 3,
+                "aggregation": "pna",
+                "agg_vjp": agg_vjp,
+                "message_passing_steps": mp_steps,
+                "latent_size": latent,
+                "compute_dtype": compute_dtype,
+                "rmp": {"clustering": "none", "connector": "none"},
+                "graph_balancer": {"algorithm": "none"},
+            },
+        }
+    }
