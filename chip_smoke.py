@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port on one NVIDIA GPU: build and check its kernels, then
-serve flag MeshGraphNets (MGN-15MP) through ``Predictor``.
+"""Run the PyTorch port on one NVIDIA GPU: build and check its kernels, serve
+flag MeshGraphNets (MGN-15MP) through ``Predictor``, and train it through
+``Trainer``.
 
     python3 chip_smoke.py [--seed 0] [--out FILE.json] [--profile DIR]
 
@@ -14,16 +15,27 @@ Phases (any failure exits non-zero; nothing is caught and dropped):
    (the kernel's device time from torch.profiler, the wrapper call and the
    plain version with CUDA events) beside its bound (the least time the
    card could take: bytes moved over the memory rate or operations over the
-   peak rate, whichever is larger);
-4. slice: ``Predictor.from_config`` on configs/flag_full_scale.yaml with RMP
-   off (latent 128, 15 blocks, bf16, ``agg_vjp: fused``), seeded random
+   peak rate, whichever is larger).  K1 with and without its streams; K2
+   (remat backward) and K3 (stream backward) at B = 21 in bf16 and float32,
+   with a masked tail and an isolated receiver, with exactly tied edges,
+   and the routed max/min mass against the exact tie count of K1's output;
+   the float32 weight-gradient products of one block;
+4. serving: ``Predictor.from_config`` on configs/flag_full_scale.yaml with
+   RMP off (latent 128, 15 blocks, bf16, ``agg_vjp: fused``), seeded random
    weights, normalizers accumulated over a 40x40 synthetic flag trajectory
    (1,600 nodes, 9,282 edges); ``one_step`` on 21 frames and a 50-step
    ``rollout``, with every kernel's launch count read around that run; the
    card's ``one_step`` held against the same state on the CPU;
-5. timings: one_step ms, rollout ms/step and edges/s, each with the card
-   (with --profile also the device's busy share and kernel time by name);
-6. the kernels' JSON line, then the device JSON line last.
+5. training: ``Trainer.train_step`` on the same configuration, B = 21, Adam
+   at lr 1e-4, noise 0.003, gamma 0.9, with ``fused_bwd: remat`` and then
+   ``stream``; the launch counts read around one step of each (15 K1 and
+   15 K2, or 15 K1 and 15 K3); the card's loss and gradients held against
+   the same state and noise on the CPU (B = 2, bf16 and float32); the loss
+   after 30 steps on one batch below the first step's; train-step ms
+   (median of 10 after 3 warm-up steps) and edges/s;
+6. timings, each with the card (with --profile also the device's busy share
+   and kernel time by name), the kernels' JSON line, then the device JSON
+   line last.
 
 Exits non-zero without a result when there is no CUDA device, or when the
 port's package is not beside this file.
@@ -54,19 +66,45 @@ PEAKS = (
 # an element differs only where a float32 sum in another order rounds the
 # other way: one bf16 unit in the last place (2**-7 relative; 2**-5 absolute
 # for a LayerNorm output in [4, 8) that e2 = e + LN(z3) cancels), and the
-# aggregate sums a handful of such elements.
+# aggregate sums a handful of such elements.  K1's LayerNorm statistics are
+# float32 sums of z3, whose elements may differ by one such unit.
 TOL = {
-    "float32": {"e2": (1e-5, 1e-5), "agg": (1e-5, 1e-5)},
-    "bfloat16": {"e2": (2.0**-7, 2.0**-5), "agg": (2.0**-5, 2.0**-5)},
+    "float32": {"e2": (1e-5, 1e-5), "agg": (1e-5, 1e-5), "stats": (1e-5, 1e-5)},
+    "bfloat16": {"e2": (2.0**-7, 2.0**-5), "agg": (2.0**-5, 2.0**-5), "stats": (2.0**-6, 2.0**-6)},
 }
+
+# K2/K3 against their plain versions, both on K1's forward values (relu
+# masks and tie compare), per output: |err| <= rtol*|want| + atol*max|want|.
+# float32: summation order.  bf16: a product summed in another order rounds
+# the other way by one unit in the last place (2**-7 of the element), and
+# the LayerNorm and MLP backward pass such differences on, scaled by the
+# weights; the column sums (dpar) by relative L2 norm per row.
+BWD_TOL = {"float32": (1e-4, 1e-4, 1e-4), "bfloat16": (2.0**-6, 2.0**-6, 2.0**-5)}
 
 # one_step on the card against the CPU (both bf16, 15 blocks): network
 # outputs within 5% of the largest |output|, accelerations within 1% of the
 # largest |acceleration|.
 SERVE_TOL = {"net_out": 0.05, "acceleration": 0.01}
 
+# A train step's loss and gradients on the card against the CPU, same state
+# and noise, B = 2, 15 blocks.  float32: summation order (a relu whose input
+# lies within one rounding of 0 may flip, a handful of elements in
+# millions): loss rtol 1e-4, each gradient within relative L2 1e-3.  bf16:
+# single elements round the other way and such differences pass through 15
+# blocks and their backward: loss within 2**-5, each gradient within
+# relative L2 2**-4.  (Measured on an H100: float32 1.7e-4 and bf16 1.3e-2
+# for the worst gradient.)
+TRAIN_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (2.0**-5, 2.0**-4)}
+
 ONE_STEP_FRAMES = 21  # the batch bench.py trains on
 ROLLOUT_STEPS = 50
+TRAIN_FRAMES = 21
+CPU_FRAMES = 2  # card against CPU
+LOSS_STEPS = 30
+WARMUP_STEPS = 3
+TIMED_STEPS = 10
+L_MAIN = 128
+BWD_KERNELS = ("fused_block_bwd_kernel", "sender_sum_kernel", "dpar_reduce_kernel")
 
 
 def log(msg: str) -> None:
@@ -105,33 +143,38 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 def device_kernels(prof):
-    """(name, microseconds) of every kernel a torch.profiler run recorded."""
+    """(name, microseconds) of every kernel a torch.profiler run recorded;
+    user annotations (an optimizer step's range on the device's timeline)
+    are not kernels."""
     import torch
 
     return [
         (ev.name, ev.time_range.elapsed_us())
         for ev in prof.events()
         if ev.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(ev, "is_user_annotation", False)
     ]
 
 
-def kernel_device_ms(fn, iters: int, name: str) -> float:
-    """Device time per launch of the kernel whose name contains ``name``,
-    traced over ``iters`` calls of ``fn`` after a warm-up: the kernel's own
-    time, without the host's launch cost (which bounds a small launch timed
-    back to back with CUDA events)."""
+def kernel_device_ms(fn, iters: int, names) -> float:
+    """Device time per call of ``fn`` spent in the kernels whose names
+    contain one of ``names`` (each launched once per call), traced over
+    ``iters`` calls after a warm-up: the kernels' own time, without the
+    host's launch cost (which bounds a small launch timed back to back with
+    CUDA events)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    names = (names,) if isinstance(names, str) else tuple(names)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    times = [us for kname, us in device_kernels(prof) if name in kname]
-    if len(times) != iters:
-        raise RuntimeError(f"traced {len(times)} launches of {name}, expected {iters}")
+    times = [us for kname, us in device_kernels(prof) if any(n in kname for n in names)]
+    if len(times) != iters * len(names):
+        raise RuntimeError(f"traced {len(times)} launches of {names}, expected {iters} each")
     return sum(times) / iters / 1e3
 
 
@@ -157,10 +200,16 @@ def k1_inputs(dtype, B, snd, rcv, N, L, gen, device, mask=None):
     )
 
 
-def k1_bound_ms(dtype_name, B, E, N, L, peaks) -> tuple:
+def _bound(bytes_moved, flops, dtype_name, peaks) -> tuple:
+    _, bw, bf16_peak, f32_peak = peaks
+    t_bytes = bytes_moved / bw * 1e3
+    t_ops = flops / (bf16_peak if dtype_name == "bfloat16" else f32_peak) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_bound_ms(dtype_name, B, E, N, L, peaks, streams=False) -> tuple:
     """Least time for one K1 call: each input read once and each output
     written once, or the three L x L products at the peak rate."""
-    _, bw, bf16_peak, f32_peak = peaks
     s = 2 if dtype_name == "bfloat16" else 4
     bytes_moved = (
         B * E * L * s * 2  # e in, e2 out
@@ -168,11 +217,29 @@ def k1_bound_ms(dtype_name, B, E, N, L, peaks) -> tuple:
         + B * N * 4 * L * 4  # agg out (float32)
         + E * 4 * 2 + (N + 1) * 4  # senders, receivers, row_ptr
         + 3 * L * L * s + 5 * L * 4  # weights, biases, LayerNorm
+        + (B * E * L * s * 2 + B * E * 4 * 2 if streams else 0)  # a1, a2, mu, isg out
     )
-    flops = 3 * 2 * B * E * L * L
-    t_bytes = bytes_moved / bw * 1e3
-    t_ops = flops / (bf16_peak if dtype_name == "bfloat16" else f32_peak) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _bound(bytes_moved, 3 * 2 * B * E * L * L, dtype_name, peaks)
+
+
+def bwd_bound_ms(dtype_name, B, E, N, L, peaks, stream) -> tuple:
+    """Least time for one K2 (``stream`` False) or K3 call: e, de2 and drhs
+    in, with SP and RP (K2) or a1, a2, mu, isg (K3); de, dh, dz2, dz3 (and,
+    K2, a1, a2) out, with dsp, drp and the column sums; six (K2) or four (K3)
+    L x L products."""
+    s = 2 if dtype_name == "bfloat16" else 4
+    edge = B * E * L * s
+    bytes_moved = (
+        2 * edge  # e, de2 in
+        + (2 * edge + 2 * B * E * 4 if stream else 2 * B * N * L * s)  # streams or SP, RP
+        + B * N * 5 * L * 4  # drhs in
+        + (4 if stream else 6) * edge  # edge streams out
+        + 2 * B * N * L * 4 + 5 * L * 4  # dsp, drp, dpar out
+        + E * 4 * 3 + (N + 1) * 4 * 2  # senders, receivers, sender order, row_ptr, snd_ptr
+        + 3 * L * L * s + 5 * L * 4  # weights, biases, LayerNorm
+    )
+    flops = (4 if stream else 6) * 2 * B * E * L * L
+    return _bound(bytes_moved, flops, dtype_name, peaks)
 
 
 def check_close(name, got, want, rtol, atol):
@@ -185,29 +252,38 @@ def check_close(name, got, want, rtol, atol):
             f"{name}: {int(bad.sum())} of {bad.numel()} elements outside "
             f"rtol={rtol} atol={atol}; max abs err {float(err.max())}"
         )
+    if not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{name}: not finite")
     return float(err.max())
 
 
+def rel_l2(got, want) -> float:
+    d = float((got.float() - want.float()).norm())
+    return d / max(float(want.float().norm()), 1e-30)
+
+
 def phase_kernels(card, peaks, topo_np, seed):
-    """K1 against its plain version at the main path's shapes."""
+    """K1 (with and without its streams) against its plain version at the
+    main path's shapes."""
     import numpy as np
     import torch
 
     from hyper_graph_nets_tpu_torch.ops.fused_block import (
         fused_edge_block,
+        fused_edge_block_fwd,
         fused_edge_block_reference,
         plan_segments,
     )
 
     snd, rcv, N = topo_np
-    L, E = 128, len(snd)
+    L, E = L_MAIN, len(snd)
     gen = torch.Generator().manual_seed(seed)
     results = {}
     cases = [("bfloat16", ONE_STEP_FRAMES), ("float32", ONE_STEP_FRAMES), ("bfloat16", 1)]
     for dtype_name, B in cases:
         dtype = getattr(torch, dtype_name)
         x = k1_inputs(dtype, B, snd, rcv, N, L, gen, "cuda")
-        plan = plan_segments(rcv, N).to("cuda")
+        plan = plan_segments(rcv, N, senders=snd).to("cuda")
         run = lambda: fused_edge_block(**x, plan=plan)
         e2, agg = run()
         torch.cuda.synchronize()
@@ -216,9 +292,7 @@ def phase_kernels(card, peaks, topo_np, seed):
         err = check_close(f"K1 {dtype_name} B={B} e2", e2, re2, rt, at)
         rt, at = TOL[dtype_name]["agg"]
         err = max(err, check_close(f"K1 {dtype_name} B={B} agg", agg, ragg, rt, at))
-        if not (torch.isfinite(e2.float()).all() and torch.isfinite(agg).all()):
-            raise AssertionError("K1 output not finite")
-        ms = kernel_device_ms(run, iters=20, name="fused_block_fwd_kernel")
+        ms = kernel_device_ms(run, iters=20, names="fused_block_fwd_kernel")
         call_ms = cuda_time_ms(run, iters=50)
         plain_ms = cuda_time_ms(lambda: fused_edge_block_reference(**x), iters=10)
         bound, bound_by = k1_bound_ms(dtype_name, B, E, N, L, peaks)
@@ -232,12 +306,35 @@ def phase_kernels(card, peaks, topo_np, seed):
             f"({bound_by}), plain {plain_ms:.3f} ms, max abs err {err:.3g} [{card}]"
         )
 
+    # with the streams K3 reads (save_streams), at the main path's shapes
+    for dtype_name in ("bfloat16", "float32"):
+        dtype, B = getattr(torch, dtype_name), ONE_STEP_FRAMES
+        x = k1_inputs(dtype, B, snd, rcv, N, L, gen, "cuda")
+        plan = plan_segments(rcv, N, senders=snd).to("cuda")
+        args = (x["e"], x["sp"], x["rp"], x["weights"], x["senders"], x["receivers"], None, N)
+        run = lambda: fused_edge_block_fwd(*args, plan=plan, save_streams=True)
+        got = run()
+        torch.cuda.synchronize()
+        want = fused_edge_block_reference(*args, save_streams=True)
+        err = 0.0
+        for name, g, w, tol in zip(
+            ("e2", "agg", "a1", "a2", "mu", "isg"), got, want,
+            ("e2", "agg", "e2", "e2", "stats", "stats"),
+        ):
+            err = max(err, check_close(f"K1 streams {dtype_name} {name}", g, w, *TOL[dtype_name][tol]))
+        ms = kernel_device_ms(run, iters=20, names="fused_block_fwd_kernel")
+        plain_ms = cuda_time_ms(lambda: fused_edge_block_reference(*args, save_streams=True), iters=10)
+        bound, bound_by = k1_bound_ms(dtype_name, B, E, N, L, peaks, streams=True)
+        results[(dtype_name + " streams", B)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+        )
+        log(
+            f"K1+streams {dtype_name} B={B}: kernel {ms * 1e3:.1f} us, bound {bound * 1e3:.2f} us "
+            f"({bound_by}), plain {plain_ms:.3f} ms, max abs err {err:.3g} [{card}]"
+        )
+
     # masked tail and an isolated receiver, bf16, at the main path's width
-    keep = rcv != 10
-    pad = 5
-    snd_m = np.concatenate([snd[keep], np.zeros(pad, np.int32)])
-    rcv_m = np.concatenate([rcv[keep], np.full(pad, N - 1, np.int32)])
-    mask = np.r_[np.ones(int(keep.sum())), np.zeros(pad)].astype(np.float32)
+    snd_m, rcv_m, mask = masked_topology(snd, rcv, N)
     x = k1_inputs(torch.bfloat16, 3, snd_m, rcv_m, N, L, gen, "cuda", mask=mask)
     e2, agg = fused_edge_block(**x)
     re2, ragg = fused_edge_block_reference(**x)
@@ -249,6 +346,201 @@ def phase_kernels(card, peaks, topo_np, seed):
     return results
 
 
+def masked_topology(snd, rcv, N, pad=5):
+    """Receiver 10 loses its edges; ``pad`` masked edges are appended."""
+    import numpy as np
+
+    keep = rcv != 10
+    snd_m = np.concatenate([snd[keep], np.zeros(pad, np.int32)])
+    rcv_m = np.concatenate([rcv[keep], np.full(pad, N - 1, np.int32)])
+    mask = np.r_[np.ones(int(keep.sum())), np.zeros(pad)].astype(np.float32)
+    return snd_m, rcv_m, mask
+
+
+def tie_topology(snd, rcv, N):
+    """Every third receiver's first edge twice (the copy next to it), and
+    the positions of the copies: their rows must also be copied in ``e``."""
+    import numpy as np
+
+    dup = np.asarray([np.flatnonzero(rcv == n)[0] for n in range(0, N, 3) if np.any(rcv == n)])
+    order = np.sort(np.concatenate([np.arange(len(snd)), dup]))
+    copies = np.flatnonzero(np.diff(order) == 0) + 1
+    return snd[order], rcv[order], order, copies
+
+
+def phase_backward(card, peaks, topo_np, seed):
+    """K2 and K3 against their plain versions, the routed max/min mass, and
+    the weight-gradient products of one block."""
+    import numpy as np
+    import torch
+
+    from hyper_graph_nets_tpu_torch.ops.fused_block import (
+        agg_cotangent_rhs,
+        fused_edge_block_bwd,
+        fused_edge_block_bwd_reference,
+        fused_edge_block_bwd_stream,
+        fused_edge_block_bwd_stream_reference,
+        fused_edge_block_fwd,
+        plan_segments,
+    )
+
+    snd, rcv, N = topo_np
+    L = L_MAIN
+    gen = torch.Generator().manual_seed(seed + 1)
+
+    def setup(dtype_name, B, snd, rcv, mask=None, rows=None, route_only=False):
+        dtype = getattr(torch, dtype_name)
+        x = k1_inputs(dtype, B, snd, rcv, N, L, gen, "cuda", mask)
+        if rows is not None:  # copied edges get their original's features
+            x["e"] = x["e"][:, torch.as_tensor(rows).cuda()].contiguous()
+        E = len(snd)
+        plan = plan_segments(rcv, N, senders=snd).to("cuda")
+        topo = (x["senders"], x["receivers"], x["mask"], N)
+        fwd = fused_edge_block_fwd(x["e"], x["sp"], x["rp"], x["weights"], *topo, plan=plan, save_streams=True)
+        if route_only:  # only g_max = g_min = 1
+            de2 = torch.zeros(B, E, L, dtype=dtype, device="cuda")
+            dagg = torch.zeros(B, N, 4 * L, device="cuda")
+            dagg[..., 2 * L :] = 1.0
+        else:
+            de2 = torch.randn(B, E, L, generator=gen).to(dtype).cuda()
+            if mask is not None:
+                de2 = de2 * x["mask"][:, None].to(dtype)  # masked rows' cotangent is dead
+            dagg = torch.randn(B, N, 4 * L, generator=gen).cuda()
+        drhs = agg_cotangent_rhs(fwd[1], dagg, x["receivers"], x["mask"], N)
+        return x, topo, plan, fwd, de2, drhs
+
+    def kernels(x, topo, plan, fwd, de2, drhs):
+        e2, agg, a1, a2, mu, isg = fwd
+        k2 = lambda: fused_edge_block_bwd(x["e"], x["sp"], x["rp"], x["weights"], de2, drhs, *topo, plan=plan)
+        k3 = lambda: fused_edge_block_bwd_stream(
+            x["e"], a1, a2, mu, isg, x["weights"], de2, drhs, *topo, plan=plan
+        )
+        return k2, k3
+
+    def compare(tag, dtype_name, got, want):
+        """de, dh, dz2, dz3, dsp, drp elementwise; dpar rows by relative L2."""
+        rtol, atol, l2 = BWD_TOL[dtype_name]
+        err = 0.0
+        for name, g, w in zip(("de", "dh", "dz2", "dz3", "dsp", "drp"), got[:6], want[:6]):
+            e = check_close(f"{tag} {name}", g, w, rtol, atol * float(w.float().abs().max()))
+            if name in ("de", "dh", "dz2", "dz3"):
+                err = max(err, e)
+        for k in range(5):
+            r = rel_l2(got[6][k], want[6][k])
+            if not r <= l2:
+                raise AssertionError(f"{tag} dpar row {k}: relative L2 {r:.3g} > {l2}")
+        return err
+
+    def check_both(tag, dtype_name, x, topo, plan, fwd, de2, drhs):
+        e2, agg, a1, a2, mu, isg = fwd
+        k2, k3 = kernels(x, topo, plan, fwd, de2, drhs)
+        out2, out3 = k2(), k3()
+        torch.cuda.synchronize()
+        # K2 recomputes K1's forward bit for bit
+        if not (torch.equal(out2[4], a1) and torch.equal(out2[5], a2)):
+            raise AssertionError(f"{tag}: K2's recomputed a1/a2 differ from K1's")
+        w = x["weights"]
+        ref2 = fused_edge_block_bwd_reference(
+            x["e"], x["sp"], x["rp"], w, de2, drhs, *topo, forward=(e2, a1, a2)
+        )
+        ref3 = fused_edge_block_bwd_stream_reference(x["e"], a1, a2, mu, isg, w, de2, drhs, *topo, e2=e2)
+        err2 = compare(f"K2 {tag}", dtype_name, out2[:4] + out2[6:], ref2[:4] + ref2[6:])
+        err3 = compare(f"K3 {tag}", dtype_name, out3, ref3)
+        return err2, err3, k2, k3, out2, out3
+
+    results = {}
+    for dtype_name in ("bfloat16", "float32"):
+        B = TRAIN_FRAMES
+        E = len(snd)
+        x, topo, plan, fwd, de2, drhs = setup(dtype_name, B, snd, rcv)
+        err2, err3, k2, k3, out2, _ = check_both(f"{dtype_name} B={B}", dtype_name, x, topo, plan, fwd, de2, drhs)
+        e2, agg, a1, a2, mu, isg = fwd
+        w = x["weights"]
+        plain2 = lambda: fused_edge_block_bwd_reference(x["e"], x["sp"], x["rp"], w, de2, drhs, *topo)
+        plain3 = lambda: fused_edge_block_bwd_stream_reference(x["e"], a1, a2, mu, isg, w, de2, drhs, *topo)
+        for name, fn, plain, err, stream in (("K2", k2, plain2, err2, False), ("K3", k3, plain3, err3, True)):
+            ms = kernel_device_ms(fn, iters=10, names=BWD_KERNELS)
+            main_ms = kernel_device_ms(fn, iters=10, names=BWD_KERNELS[:1])
+            call_ms = cuda_time_ms(fn, iters=20)
+            plain_ms = cuda_time_ms(plain, iters=5)
+            bound, bound_by = bwd_bound_ms(dtype_name, B, E, N, L, peaks, stream)
+            results[(name, dtype_name)] = dict(
+                max_abs_err=err, ms=ms, main_kernel_ms=main_ms, call_ms=call_ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+            )
+            log(
+                f"{name} {dtype_name} B={B} E={E} N={N} L={L}: kernels {ms * 1e3:.1f} us "
+                f"(main kernel {main_ms * 1e3:.1f} us, wrapper call {call_ms * 1e3:.1f} us), "
+                f"bound {bound * 1e3:.2f} us ({bound_by}), plain {plain_ms:.3f} ms, "
+                f"max abs err {err:.3g} [{card}]"
+            )
+        # the weight gradients of one block (FusedEdgeBlock.backward)
+        de, dh, dz2, dz3 = out2[:4]
+        flat = lambda t: t.reshape(-1, L).float()
+        wgrad = lambda: (flat(dh).T @ flat(x["e"]), flat(dz2).T @ flat(a1), flat(dz3).T @ flat(a2))
+        wg_ms = cuda_time_ms(wgrad, iters=10)
+        wg_bound, wg_by = _bound(
+            3 * (2 * B * E * L * (2 if dtype_name == "bfloat16" else 4) + L * L * 4),
+            3 * 2 * B * E * L * L, "float32", peaks,
+        )
+        results[("wgrad", dtype_name)] = dict(ms=wg_ms, bound_ms=wg_bound, bound_by=wg_by)
+        log(
+            f"weight-gradient products (3 float32 L x L over B*E={B * E} rows) {dtype_name}: "
+            f"{wg_ms:.3f} ms per block, bound {wg_bound:.3f} ms ({wg_by}) [{card}]"
+        )
+
+    # masked tail + isolated receiver, and exactly tied edges; bf16, B = 3
+    snd_m, rcv_m, mask = masked_topology(snd, rcv, N)
+    x, topo, plan, fwd, de2, drhs = setup("bfloat16", 3, snd_m, rcv_m, mask=mask)
+    *_, out2, out3 = check_both("masked", "bfloat16", x, topo, plan, fwd, de2, drhs)
+    for name, drp in (("K2", out2[7]), ("K3", out3[5])):
+        if not bool((drp[:, 10] == 0).all()):
+            raise AssertionError(f"{name}: isolated receiver's drp is not 0")
+    log("K2/K3 masked tail + isolated receiver: ok")
+    snd_t, rcv_t, rows, copies = tie_topology(snd, rcv, N)
+    copies = torch.as_tensor(copies).cuda()
+    x, topo, plan, fwd, de2, drhs = setup("bfloat16", 3, snd_t, rcv_t, rows=rows)
+    check_both("ties", "bfloat16", x, topo, plan, fwd, de2, drhs)
+    log("K2/K3 tied edges: ok")
+
+    # routed mass: with only g_max = g_min = 1 the column sums of do (dpar
+    # row 4) count the edges equal to their receiver's extremum in K1's own
+    # output, exactly; every receiver with valid edges routes at least once
+    masses = {}
+    for tag, args in (
+        ("main", (snd, rcv)), ("masked", (snd_m, rcv_m)), ("ties", (snd_t, rcv_t)),
+    ):
+        B = TRAIN_FRAMES if tag == "main" else 3
+        kw = dict(mask=mask) if tag == "masked" else dict(rows=rows) if tag == "ties" else {}
+        x, topo, plan, fwd, de2, drhs = setup("bfloat16", B, *args, route_only=True, **kw)
+        e2, agg = fwd[:2]
+        r = x["receivers"].long()
+        valid = torch.ones_like(r, dtype=torch.bool) if x["mask"] is None else x["mask"] > 0
+        want = sum(
+            ((e2.float() == agg[:, r, k * L : (k + 1) * L]) & valid[None, :, None]).float().sum(dim=(0, 1))
+            for k in (2, 3)
+        )
+        receivers = B * int(torch.unique(r[valid]).numel())
+        k2, k3 = kernels(x, topo, plan, fwd, de2, drhs)
+        for name, fn in (("K2", k2), ("K3", k3)):
+            out = fn()
+            mass = out[-1][4]
+            if tag == "ties" and not torch.equal(out[0][:, copies], out[0][:, copies - 1]):
+                raise AssertionError(f"{name}: the two copies of a tied edge got different cotangents")
+            if not torch.equal(mass, want):
+                raise AssertionError(
+                    f"{name} routed mass ({tag}) differs from the tie count of K1's output in "
+                    f"{int((mass != want).sum())} columns"
+                )
+        if not bool((want >= 2 * receivers).all()):
+            raise AssertionError(f"routed mass ({tag}): a receiver routed nothing")
+        masses[tag] = (float(want.min()), 2 * receivers)
+        log(f"routed max+min mass ({tag}): min over columns {float(want.min()):.0f} >= {2 * receivers} "
+            f"(2 x receivers with valid edges), equal to K1's tie count for K2 and K3")
+    results["routed_mass"] = masses
+    return results
+
+
 def phase_slice(card, seed, rollout_steps, profile_dir=None):
     """Serve MGN-15MP through the port's Predictor; returns timings and counts."""
     import numpy as np
@@ -256,20 +548,14 @@ def phase_slice(card, seed, rollout_steps, profile_dir=None):
 
     from hyper_graph_nets_tpu_torch.data.preprocessing import add_targets
     from hyper_graph_nets_tpu_torch.data.synthetic import flag_trajectory
-    from hyper_graph_nets_tpu_torch.ops.fused_block import fused_edge_block
     from hyper_graph_nets_tpu_torch.serving import Predictor
     from hyper_graph_nets_tpu_torch.training.trainer import batched_forward
-    from hyper_graph_nets_tpu_torch.utils.config import read_yaml
 
-    config = read_yaml("flag_full_scale")
-    config["params"]["model"]["rmp"].update(clustering="none", connector="none")
+    config = main_config()
     predictor = Predictor.from_config(config)
     model = predictor.model
     cfg = model.gnn_config
-    if (cfg.latent_size, cfg.message_passing_steps, cfg.agg_vjp, cfg.compute_dtype) != (
-        128, 15, "fused", "bfloat16"
-    ):
-        raise AssertionError(f"flag_full_scale is not MGN-15MP: {cfg}")
+    check_mgn15(cfg)
     blocks = cfg.message_passing_steps
     # seeded weights, normalizers accumulated over the trajectory
     state = model.init_state(torch.Generator().manual_seed(seed))
@@ -286,18 +572,19 @@ def phase_slice(card, seed, rollout_steps, profile_dir=None):
     E, N = int(topo.senders.shape[0]), topo.num_nodes
     B = ONE_STEP_FRAMES
     batch = {k: v[:B] for k, v in traj.items()}
-    log(f"slice: flag MGN-15MP latent 128 bf16, N={N} E={E}, one_step B={B}, rollout {rollout_steps}")
+    log(f"serving: flag MGN-15MP latent 128 bf16, N={N} E={E}, one_step B={B}, rollout {rollout_steps}")
 
     # the main path: every count set to 0 just before, read just after
-    fused_edge_block.launches = 0
+    reset_counts()
     pred = predictor.one_step(batch)
-    launches_one_step = fused_edge_block.launches
+    launches_one_step = read_counts()
     result = predictor.rollout(traj, num_steps=rollout_steps)
-    launches = fused_edge_block.launches
-    if launches_one_step != blocks or launches != blocks * (1 + rollout_steps):
+    launches = read_counts()
+    want = {"K1": blocks * (1 + rollout_steps), "K2": 0, "K3": 0}
+    if launches_one_step["K1"] != blocks or launches != want:
         raise AssertionError(
-            f"K1 launches: {launches_one_step} in one_step (want {blocks}), "
-            f"{launches} in all (want {blocks * (1 + rollout_steps)})"
+            f"serving launches: {launches_one_step} in one_step (want K1 {blocks}), "
+            f"{launches} in all (want {want})"
         )
     if pred.shape != (B, N, 3) or not np.isfinite(pred).all():
         raise AssertionError(f"one_step output {pred.shape} not finite/shaped")
@@ -305,7 +592,7 @@ def phase_slice(card, seed, rollout_steps, profile_dir=None):
         np.isfinite(result["pred_pos"]).all() and np.isfinite(result["mse"]).all()
     ):
         raise AssertionError("rollout output not finite/shaped")
-    log(f"K1 launches on the main path: {launches_one_step} per one_step, {launches} in all")
+    log(f"serving launches: {launches_one_step['K1']} K1 per one_step, {launches} in all")
 
     # the card against the CPU, same state, bf16 on both
     cpu = Predictor(config, state=predictor.state, device="cpu")
@@ -364,7 +651,150 @@ def phase_slice(card, seed, rollout_steps, profile_dir=None):
                 lambda: predictor.rollout(traj, num_steps=5), card, profile_dir, "rollout"
             ),
         }
-    return {"fused_edge_block": launches}, timings
+    return launches, timings
+
+
+def main_config(**model):
+    """configs/flag_full_scale.yaml with RMP off (as bench.py:109 does)."""
+    from hyper_graph_nets_tpu_torch.utils.config import read_yaml
+
+    config = read_yaml("flag_full_scale")
+    config["params"]["model"]["rmp"].update(clustering="none", connector="none")
+    config["params"]["model"].update(model)
+    return config
+
+
+def check_mgn15(cfg):
+    if (cfg.latent_size, cfg.message_passing_steps, cfg.agg_vjp, cfg.compute_dtype) != (
+        128, 15, "fused", "bfloat16"
+    ):
+        raise AssertionError(f"flag_full_scale is not MGN-15MP: {cfg}")
+
+
+def reset_counts():
+    from hyper_graph_nets_tpu_torch.ops import fused_block as fb
+
+    fb.fused_edge_block.launches = 0
+    fb.fused_edge_block_bwd.launches = 0
+    fb.fused_edge_block_bwd_stream.launches = 0
+
+
+def read_counts():
+    from hyper_graph_nets_tpu_torch.ops import fused_block as fb
+
+    return {
+        "K1": fb.fused_edge_block.launches,
+        "K2": fb.fused_edge_block_bwd.launches,
+        "K3": fb.fused_edge_block_bwd_stream.launches,
+    }
+
+
+def phase_train(card, seed, profile_dir=None):
+    """Train MGN-15MP through the port's Trainer with each backward."""
+    import numpy as np
+    import torch
+
+    from hyper_graph_nets_tpu_torch.data.preprocessing import add_targets
+    from hyper_graph_nets_tpu_torch.data.synthetic import flag_trajectory
+    from hyper_graph_nets_tpu_torch.models.get_model import get_model
+    from hyper_graph_nets_tpu_torch.training.trainer import Trainer
+
+    traj = add_targets(
+        flag_trajectory(num_steps=TRAIN_FRAMES + 2, nx=40, ny=40, seed=seed), "world_pos", history=True
+    )
+    launches = {"K1": 0, "K2": 0, "K3": 0}
+    timings, cpu_grads = {}, {}
+    for mode in ("remat", "stream"):
+        config = main_config(fused_bwd=mode)
+        model = get_model(config)
+        cfg = model.gnn_config
+        check_mgn15(cfg)
+        if cfg.fused_bwd != mode or model.noise_scale != 0.003 or model.noise_gamma != 0.9:
+            raise AssertionError(f"train config: {cfg}, noise {model.noise_scale}/{model.noise_gamma}")
+        blocks = cfg.message_passing_steps
+        trainer = Trainer(model, config)
+        tstate = trainer.init_train_state(torch.Generator().manual_seed(seed))
+        topo = model.topology_from_trajectory(traj, device=trainer.device)
+        frames = trainer.frames(traj)
+        B = frames["world_pos"].shape[0]
+        E, N = int(topo.senders.shape[0]), topo.num_nodes
+        gen = torch.Generator(device=trainer.device).manual_seed(seed)
+        torch.cuda.reset_peak_memory_stats()
+        log(f"training ({mode}): flag MGN-15MP latent 128 bf16, B={B} N={N} E={E}, lr {trainer.lr}")
+
+        # the main path: every count set to 0 just before, read just after
+        reset_counts()
+        tstate, loss = trainer.train_step(tstate, topo, frames, generator=gen)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = {"K1": blocks, "K2": blocks if mode == "remat" else 0, "K3": blocks if mode == "stream" else 0}
+        if counts != want:
+            raise AssertionError(f"train step ({mode}) launches {counts}, want {want}")
+        for k in launches:
+            launches[k] += counts[k]
+        log(f"train step ({mode}) launches: {counts}")
+
+        # loss curve on one fixed batch, and the step's time
+        losses, step_s = [float(loss)], []
+        n = LOSS_STEPS if mode == "remat" else 1 + WARMUP_STEPS + TIMED_STEPS
+        for _ in range(n - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tstate, loss = trainer.train_step(tstate, topo, frames, generator=gen)
+            losses.append(float(loss))  # waits for the step
+            step_s.append(time.perf_counter() - t0)
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"train ({mode}) losses not finite: {losses}")
+        if mode == "remat" and not losses[-1] < losses[0]:
+            raise AssertionError(f"loss did not fall over {n} steps: {losses[0]} -> {losses[-1]}")
+        ms = 1e3 * float(np.median(step_s[WARMUP_STEPS : WARMUP_STEPS + TIMED_STEPS]))
+        timings[mode] = dict(
+            step_ms=ms, edges_per_s=B * E / (ms / 1e3), first_loss=losses[0], last_loss=losses[-1],
+            steps=n, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        )
+        log(
+            f"train step ({mode}) B={B}: {ms:.2f} ms (median of {TIMED_STEPS} after {WARMUP_STEPS} "
+            f"warm-up), {B * E / (ms / 1e3):.4g} edges/s; loss {losses[0]:.5f} -> {losses[-1]:.5f} "
+            f"over {n} steps [{card}]"
+        )
+        if profile_dir:
+            timings[mode]["profile"] = device_profile(
+                lambda: trainer.train_step(tstate, topo, frames, generator=gen),
+                card, profile_dir, f"train_{mode}",
+            )
+
+        # the card against the CPU: same state and noise, B = CPU_FRAMES
+        for dtype_name in ("bfloat16", "float32"):
+            cmp_config = main_config(fused_bwd=mode, compute_dtype=None if dtype_name == "float32" else dtype_name)
+            cmp_model = get_model(cmp_config)
+            state = cmp_model.init_state(torch.Generator().manual_seed(seed + 1))
+            small = {k: v[:CPU_FRAMES] for k, v in traj.items()}
+            normal = torch.randn(small["world_pos"].shape, generator=torch.Generator().manual_seed(seed + 2),
+                                 dtype=torch.float64)
+            grads, losses_cmp = {}, {}
+            for where in ("cuda", "cpu"):
+                if where == "cpu" and dtype_name in cpu_grads:
+                    losses_cmp["cpu"], grads["cpu"] = cpu_grads[dtype_name]
+                    continue
+                tr = Trainer(cmp_model, cmp_config, device=where)
+                ts = tr.init_train_state(state=state)
+                t = cmp_model.topology_from_trajectory(small, device=where)
+                loss, _ = tr.loss_and_grads(ts, t, tr.frames(small), normal=normal.to(where))
+                losses_cmp[where] = float(loss)
+                grads[where] = {n: p.grad.cpu() for n, p in ts.model.params.named_parameters()}
+            cpu_grads[dtype_name] = (losses_cmp["cpu"], grads["cpu"])
+            loss_tol, grad_tol = TRAIN_TOL[dtype_name]
+            loss_err = abs(losses_cmp["cuda"] - losses_cmp["cpu"]) / abs(losses_cmp["cpu"])
+            worst = max((rel_l2(grads["cuda"][n], g), n) for n, g in grads["cpu"].items())
+            log(
+                f"train step ({mode}) {dtype_name} card vs CPU, B={CPU_FRAMES}: loss {losses_cmp['cuda']:.6f} "
+                f"vs {losses_cmp['cpu']:.6f} (rel {loss_err:.3g}); worst gradient relative L2 "
+                f"{worst[0]:.3g} ({worst[1]})"
+            )
+            if loss_err > loss_tol or worst[0] > grad_tol:
+                raise AssertionError(f"train step ({mode}) {dtype_name} card vs CPU outside {TRAIN_TOL[dtype_name]}")
+            timings[mode][f"vs_cpu_{dtype_name}"] = dict(loss_rel=loss_err, worst_grad_rel_l2=worst[0])
+    return launches, timings
 
 
 def device_profile(fn, card, out_dir, name, top=8):
@@ -412,8 +842,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", help="also write the results as JSON to this file")
     ap.add_argument(
         "--profile", metavar="DIR",
-        help="also trace one one_step and a 5-step rollout with torch.profiler "
-        "(device busy share, kernel time by name; Chrome traces into DIR)",
+        help="also trace one one_step, a 5-step rollout and one train step of each "
+        "backward with torch.profiler (device busy share, kernel time by name; "
+        "Chrome traces into DIR)",
     )
     args = ap.parse_args(argv)
 
@@ -449,31 +880,40 @@ def main(argv=None) -> int:
     log(f"build: {len(sources)} source(s) in {time.perf_counter() - t0:.1f} s")
     for src in sources:
         for line in build.build_log(src).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  {os.path.basename(src)}: {line.strip()}")
 
     # 3. kernels against their plain versions
     edges = cells_to_edges(_grid_triangulation(40, 40))
-    k1 = phase_kernels(card, peaks, (edges.senders, edges.receivers, 1600), args.seed)
+    topo_np = (edges.senders, edges.receivers, 1600)
+    k1 = phase_kernels(card, peaks, topo_np, args.seed)
+    bwd = phase_backward(card, peaks, topo_np, args.seed)
 
-    # 4-5. the slice, its counts and timings
-    launches, timings = phase_slice(card, args.seed, ROLLOUT_STEPS, args.profile)
+    # 4-5. the main paths, their counts and timings
+    serve_launches, serve_timings = phase_slice(card, args.seed, ROLLOUT_STEPS, args.profile)
+    train_launches, train_timings = phase_train(card, args.seed, args.profile)
+    launches = {k: serve_launches[k] + train_launches[k] for k in serve_launches}
 
     main_k1 = k1[("bfloat16", ONE_STEP_FRAMES)]
+    entry = lambda name, src, line, n, r: {
+        "name": name,
+        "route": "cuda",
+        "source": f"hyper_graph_nets_tpu_torch/csrc/{src}",
+        "replaces": f"hyper_graph_nets_tpu/ops/pallas/fused_block.py:{line}",
+        "launches": n,
+        "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
+        "library_ms": None,
+    }
     kernels = [
-        {
-            "name": "fused_edge_block_fwd (K1)",
-            "route": "cuda",
-            "source": "hyper_graph_nets_tpu_torch/csrc/fused_block_fwd.cu",
-            "replaces": "hyper_graph_nets_tpu/ops/pallas/fused_block.py:393",
-            "launches": launches["fused_edge_block"],
-            "max_abs_err": main_k1["max_abs_err"],
-            "ms": main_k1["ms"],
-            "plain_ms": main_k1["plain_ms"],
-            "bound_ms": main_k1["bound_ms"],
-            "bound_by": main_k1["bound_by"],
-            "library_ms": None,
-        }
+        entry("fused_edge_block_fwd (K1)", "fused_block_fwd.cu", 393, launches["K1"], main_k1),
+        entry("fused_edge_block_bwd remat (K2)", "fused_block_bwd.cu", 1008, launches["K2"],
+              bwd[("K2", "bfloat16")]),
+        entry("fused_edge_block_bwd stream (K3)", "fused_block_bwd.cu", 1284, launches["K3"],
+              bwd[("K3", "bfloat16")]),
     ]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -483,7 +923,13 @@ def main(argv=None) -> int:
                     "card": card,
                     "kind": kind,
                     "k1": {f"{d} B={b}": v for (d, b), v in k1.items()},
-                    "timings": timings,
+                    "backward": {
+                        (k if isinstance(k, str) else " ".join(k)): v for k, v in bwd.items()
+                    },
+                    "serving": serve_timings,
+                    "serving_launches": serve_launches,
+                    "training": train_timings,
+                    "training_launches": train_launches,
                     "kernels": kernels,
                 },
                 f, indent=1,

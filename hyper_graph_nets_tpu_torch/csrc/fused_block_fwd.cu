@@ -13,15 +13,17 @@
 // with the rounding points of the TPU kernel: every product accumulates in
 // float32 and is rounded to the compute type, bias adds run in the compute
 // type, and the aggregate sums the rounded e2 in float32.  Masked edges get
-// e2 and add nothing to any aggregate.
+// e2 and add nothing to any aggregate.  Optionally (save_streams, for the
+// stream backward K3) it also writes a1 = relu(h), a2 = relu(z2) in the
+// compute type and the LayerNorm mean and inverse sigma of each edge.
 //
 // What bounds it.  At the flag main-path shapes (E = 9,282 edges, N = 1,600
 // nodes, L = 128, bf16) one frame reads e, SP, RP and writes e2 and agg:
-// about 8.9 MB, 2.7 us at 3.35 TB/s; its three L x L products are 0.91
-// GFLOP, 0.9 us at 989 TFLOP/s.  So the kernel is bound by memory traffic.
-// The design keeps every intermediate (gathered rows, h, a1, a2, z3) in
-// shared memory, so device memory sees each input once and each output
-// once.
+// about 8.9 MB, 2.7 us at 3.35 TB/s (with the streams, 4.8 MB more); its
+// three L x L products are 0.91 GFLOP, 0.9 us at 989 TFLOP/s.  So the
+// kernel is bound by memory traffic.  The design keeps every intermediate
+// (gathered rows, h, a1, a2, z3) in shared memory, so device memory sees
+// each input once and each output once.
 //
 // Design (simple and right first).
 // - The host splits the receivers into groups of whole segments holding at
@@ -36,41 +38,19 @@
 //   mma.sync m16n8k16 (bf16 in, float32 accumulate).  float32: the
 //   products are float32 FMA in the same tile loop, weights read through
 //   the read-only cache.
+// - The chain h -> a1 -> a2 -> z3 -> LayerNorm -> e2 is the shared code of
+//   fused_block_common.cuh, which the backward kernels recompute with.
 // - A segment that crosses a tile boundary carries its partial aggregate in
 //   shared memory (two slots, alternating by tile parity).
 // - A tile's rows are gathered by index with up to 12 16-byte loads in
 //   flight per thread; e2 and agg leave as vector stores.
 // Later work: wgmma, TMA, warp specialisation, more than one CTA per SM.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fused_block_common.cuh"
 
 namespace {
 
-constexpr int TILE = 64;      // edges per tile
-constexpr int THREADS = 256;  // 8 warps
-constexpr int WARPS = THREADS / 32;
-constexpr float BIG = 1e30f;
-
-using bf16 = __nv_bfloat16;
-
-template <typename T>
-struct Num;
-
-template <>
-struct Num<float> {
-  static constexpr int PAD = 4;  // keeps rows 16-byte aligned
-  static __device__ __forceinline__ float to_f(float x) { return x; }
-  static __device__ __forceinline__ float from_f(float x) { return x; }
-};
-
-template <>
-struct Num<bf16> {
-  static constexpr int PAD = 8;
-  static __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-  static __device__ __forceinline__ bf16 from_f(float x) { return __float2bfloat16_rn(x); }
-};
+using namespace hgn;
 
 struct Args {
   const void* e;    // [B][E][L] compute type
@@ -91,10 +71,12 @@ struct Args {
   const int* groups;     // [G + 1] node boundaries of the work groups
   void* e2;              // [B][E][L] compute type
   float* agg;            // [B][N][4L]
+  void* a1;              // [B][E][L] compute type, or null: no streams
+  void* a2;              // [B][E][L] compute type (with a1)
+  float* mu;             // [B][E] (with a1)
+  float* isg;            // [B][E] (with a1)
   int B, E, N, G;
 };
-
-__host__ __device__ constexpr size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
 
 template <typename T, int L>
 struct Layout {
@@ -108,158 +90,6 @@ struct Layout {
   static constexpr size_t idx_bytes = align16(size_t(3) * TILE * sizeof(int));
   static constexpr size_t total = w_bytes + 3 * tile_bytes + prm_bytes + carry_bytes + idx_bytes;
 };
-
-// Copy L consecutive rows of L elements (16-byte vectors) into a shared
-// tile of row stride LD (the staged weights).
-template <typename T, int L, int LD>
-__device__ __forceinline__ void load_rows(T* dst, const T* src) {
-  constexpr int CH = int(L * sizeof(T) / 16);
-  for (int i = threadIdx.x; i < L * CH; i += THREADS) {
-    const int r = i / CH, c = i - r * CH;
-    reinterpret_cast<int4*>(dst + (size_t)r * LD)[c] =
-        __ldg(reinterpret_cast<const int4*>(src + (size_t)r * L) + c);
-  }
-}
-
-// Gather one tile: edge rows [ts, ts + rows) of e, and the SP rows of their
-// senders and the RP rows of their receivers, into the shared tiles.  Each
-// thread issues up to 12 of its 16-byte loads before its first shared
-// store, so they are in flight together (a loop that stores after each load
-// waits out one memory latency per load); 12 caps the registers it holds.
-template <typename T, int L, int LD>
-__device__ __forceinline__ void load_tile(T* eT, T* xT, T* rT, const T* eb, const T* spb,
-                                          const T* rpb, const int* snd_s, const int* rcv_s,
-                                          int ts, int rows) {
-  constexpr int CH = int(L * sizeof(T) / 16);
-  constexpr int PER = TILE * CH / THREADS;  // vectors per thread and array
-  constexpr int STEP = PER < 4 ? PER : 4;   // of those, in flight at once
-  static_assert(TILE * CH % THREADS == 0 && PER % STEP == 0,
-                "a tile's vectors must split evenly over the threads");
-#pragma unroll
-  for (int p0 = 0; p0 < PER; p0 += STEP) {
-    int4 v[3][STEP];
-#pragma unroll
-    for (int s = 0; s < STEP; ++s) {
-      const int i = threadIdx.x + (p0 + s) * THREADS;
-      const int r = i / CH, c = i - r * CH;
-      if (r < rows) {
-        v[0][s] = __ldg(reinterpret_cast<const int4*>(eb + (size_t)(ts + r) * L) + c);
-        v[1][s] = __ldg(reinterpret_cast<const int4*>(spb + (size_t)snd_s[r] * L) + c);
-        v[2][s] = __ldg(reinterpret_cast<const int4*>(rpb + (size_t)rcv_s[r] * L) + c);
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < STEP; ++s) {
-      const int i = threadIdx.x + (p0 + s) * THREADS;
-      const int r = i / CH, c = i - r * CH;
-      if (r < rows) {
-        reinterpret_cast<int4*>(eT + r * LD)[c] = v[0][s];
-        reinterpret_cast<int4*>(xT + r * LD)[c] = v[1][s];
-        reinterpret_cast<int4*>(rT + r * LD)[c] = v[2][s];
-      }
-    }
-  }
-}
-
-// N consecutive elements, stored as one vector.
-template <typename T, int N>
-struct alignas(sizeof(T) * N) Vec {
-  T v[N];
-};
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma16816(float* c, uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// out[r][c] = sum_k A[r][k] * W[c][k] for the TILE x L tile on tensor cores.
-// Warp (wm, wn) owns rows 16*wm .. +16 and columns wn*L/2 .. +L/2.  Calls
-// epi(r, c, acc) once for each output element.
-template <int L, class Epi>
-__device__ __forceinline__ void tile_matmul_bf16(const bf16* A, const bf16* W, Epi epi) {
-  constexpr int LD = L + 8;
-  constexpr int NT = L / 16;  // 8-column n-tiles per warp
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = wm * 16 + g;
-  const int nbase = wn * (L / 2);
-  float acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-  for (int k0 = 0; k0 < L; k0 += 16) {
-    const uint32_t a0 = ld32(A + r0 * LD + k0 + 2 * t);
-    const uint32_t a1 = ld32(A + (r0 + 8) * LD + k0 + 2 * t);
-    const uint32_t a2 = ld32(A + r0 * LD + k0 + 2 * t + 8);
-    const uint32_t a3 = ld32(A + (r0 + 8) * LD + k0 + 2 * t + 8);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int n = nbase + 8 * j + g;
-      const uint32_t b0 = ld32(W + n * LD + k0 + 2 * t);
-      const uint32_t b1 = ld32(W + n * LD + k0 + 2 * t + 8);
-      mma16816(acc[j], a0, a1, a2, a3, b0, b1);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int c = nbase + 8 * j + 2 * t;
-    epi(r0, c, acc[j][0]);
-    epi(r0, c + 1, acc[j][1]);
-    epi(r0 + 8, c, acc[j][2]);
-    epi(r0 + 8, c + 1, acc[j][3]);
-  }
-}
-
-// float32 variant: thread (ty, tx) of a 16 x 16 layout owns rows
-// 4*ty .. +4 and columns tx + 16*j; k runs in order.
-template <int L, class Epi>
-__device__ __forceinline__ void tile_matmul_f32(const float* A, const float* W, Epi epi) {
-  constexpr int LD = L + Num<float>::PAD;
-  constexpr int TN = L / 16;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float acc[4][TN];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  for (int k = 0; k < L; k += 4) {
-    float4 a[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(A + (ty * 4 + i) * LD + k);
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const float4 w = __ldg(reinterpret_cast<const float4*>(W + (size_t)(tx + 16 * j) * L + k));
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float s = acc[i][j];
-        s = fmaf(a[i].x, w.x, s);
-        s = fmaf(a[i].y, w.y, s);
-        s = fmaf(a[i].z, w.z, s);
-        s = fmaf(a[i].w, w.w, s);
-        acc[i][j] = s;
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) epi(ty * 4 + i, tx + 16 * j, acc[i][j]);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 template <typename T, int L>
 __global__ void __launch_bounds__(THREADS, 1) fused_block_fwd_kernel(const Args args) {
@@ -290,6 +120,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_block_fwd_kernel(const Args 
   const T* sp = static_cast<const T*>(args.sp);
   const T* rp = static_cast<const T*>(args.rp);
   T* e2 = static_cast<T*>(args.e2);
+  const bool streams = args.a1 != nullptr;
   const int E = args.E, N = args.N, G = args.G;
 
   if constexpr (Lay::kBf16) {
@@ -298,9 +129,9 @@ __global__ void __launch_bounds__(THREADS, 1) fused_block_fwd_kernel(const Args 
     load_rows<bf16, L, L + 8>(Ws + 2 * L * (L + 8), static_cast<const bf16*>(args.w3));
   }
   for (int c = threadIdx.x; c < L; c += THREADS) {
-    prm[c] = Nm::to_f(Nm::from_f(args.b1[c]));
-    prm[L + c] = Nm::to_f(Nm::from_f(args.b2[c]));
-    prm[2 * L + c] = Nm::to_f(Nm::from_f(args.b3[c]));
+    prm[c] = rnd<T>(args.b1[c]);
+    prm[L + c] = rnd<T>(args.b2[c]);
+    prm[2 * L + c] = rnd<T>(args.b3[c]);
     prm[3 * L + c] = args.lns[c];
     prm[4 * L + c] = args.lnb[c];
   }
@@ -308,13 +139,13 @@ __global__ void __launch_bounds__(THREADS, 1) fused_block_fwd_kernel(const Args 
 
   auto matmul = [&](const T* A, int layer, auto epi) {
     if constexpr (Lay::kBf16) {
-      tile_matmul_bf16<L>(reinterpret_cast<const bf16*>(A), Ws + layer * L * (L + 8), epi);
+      tile_matmul_bf16<L, false>(reinterpret_cast<const bf16*>(A), Ws + layer * L * (L + 8), epi);
     } else {
       const void* w = layer == 0 ? args.we : (layer == 1 ? args.w2 : args.w3);
-      tile_matmul_f32<L>(reinterpret_cast<const float*>(A), static_cast<const float*>(w), epi);
+      tile_matmul_f32<L, false>(reinterpret_cast<const float*>(A), static_cast<const float*>(w),
+                                epi);
     }
   };
-  auto rnd = [](float v) { return Nm::to_f(Nm::from_f(v)); };
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long work = (long long)G * args.B;
@@ -340,27 +171,30 @@ __global__ void __launch_bounds__(THREADS, 1) fused_block_fwd_kernel(const Args 
           val_s[i] = args.mask ? args.mask[ts + i] : 1.f;
         }
         __syncthreads();
-        load_tile<T, L, LDT>(eT, xT, rT, eb, spb, rpb, snd_s, rcv_s, ts, rows);
+        load_tile<T, L, LDT, true>(eT, xT, rT, eb, spb, rpb, snd_s, rcv_s, ts, rows);
         __syncthreads();
 
         // layer 1 (factored): h = ((e@We + SP[snd]) + RP[rcv]) + b1; a1 -> xT
         matmul(eT, 0, [&](int r, int c, float acc) {
-          float h = rnd(acc);
-          h = rnd(h + Nm::to_f(xT[r * LDT + c]));
-          h = rnd(h + Nm::to_f(rT[r * LDT + c]));
-          h = rnd(h + prm[c]);
+          const float h = layer1_value<T>(acc, Nm::to_f(xT[r * LDT + c]),
+                                          Nm::to_f(rT[r * LDT + c]), prm[c]);
           xT[r * LDT + c] = Nm::from_f(fmaxf(h, 0.f));
         });
         __syncthreads();
         // layer 2: a2 = relu(a1@W2 + b2) -> rT
         matmul(xT, 1, [&](int r, int c, float acc) {
-          const float z = rnd(rnd(acc) + prm[L + c]);
-          rT[r * LDT + c] = Nm::from_f(fmaxf(z, 0.f));
+          rT[r * LDT + c] = Nm::from_f(fmaxf(rnd<T>(bias_sum<T>(acc, prm[L + c])), 0.f));
         });
         __syncthreads();
+        if (streams) {  // a1 leaves before layer 3 overwrites it
+          const size_t o = (size_t)b * E * L;
+          store_tile<T, L, LDT>(static_cast<T*>(args.a1) + o, xT, ts, rows);
+          store_tile<T, L, LDT>(static_cast<T*>(args.a2) + o, rT, ts, rows);
+          __syncthreads();
+        }
         // layer 3: z3 = a2@W3 + b3 -> xT
         matmul(rT, 2, [&](int r, int c, float acc) {
-          xT[r * LDT + c] = Nm::from_f(rnd(acc) + prm[2 * L + c]);
+          xT[r * LDT + c] = Nm::from_f(bias_sum<T>(acc, prm[2 * L + c]));
         });
         __syncthreads();
 
@@ -368,29 +202,23 @@ __global__ void __launch_bounds__(THREADS, 1) fused_block_fwd_kernel(const Args 
         // one warp per edge row.  e2 goes to device memory and to eT.
         for (int r = warp; r < rows; r += WARPS) {
           float z[CPL];
-          float s = 0.f;
 #pragma unroll
-          for (int q = 0; q < CPL; ++q) {
-            z[q] = Nm::to_f(xT[r * LDT + lane * CPL + q]);
-            s += z[q];
-          }
-          const float mu = warp_sum(s) * (1.f / L);
-          float v = 0.f;
-#pragma unroll
-          for (int q = 0; q < CPL; ++q) {
-            const float d = z[q] - mu;
-            v += d * d;
-          }
-          const float isg = rsqrtf(warp_sum(v) * (1.f / L) + 1e-5f);
+          for (int q = 0; q < CPL; ++q) z[q] = Nm::to_f(xT[r * LDT + lane * CPL + q]);
+          float mu, isg;
+          ln_row_stats<L, CPL>(z, mu, isg);
           Vec<T, CPL> out;
 #pragma unroll
           for (int q = 0; q < CPL; ++q) {
             const int c = lane * CPL + q;
-            const float o = (z[q] - mu) * isg * prm[3 * L + c] + prm[4 * L + c];
-            out.v[q] = Nm::from_f(Nm::to_f(eT[r * LDT + c]) + rnd(o));
+            out.v[q] = Nm::from_f(e2_sum<T>(Nm::to_f(eT[r * LDT + c]), ln_xhat(z[q], mu, isg),
+                                            prm[3 * L + c], prm[4 * L + c]));
             eT[r * LDT + c] = out.v[q];
           }
           *reinterpret_cast<Vec<T, CPL>*>(e2b + (size_t)(ts + r) * L + lane * CPL) = out;
+          if (streams && lane == 0) {
+            args.mu[(size_t)b * E + ts + r] = mu;
+            args.isg[(size_t)b * E + ts + r] = isg;
+          }
         }
         __syncthreads();
       }
@@ -514,16 +342,18 @@ int dispatch_width(int L, const Args& a, cudaStream_t s) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns 0, a cudaError_t code, or -1
-// for a (dtype, L) the kernel does not take.
+// dtype: 0 = float32, 1 = bfloat16.  a1, a2, mu, isg are all null (no
+// streams) or all set.  Returns 0, a cudaError_t code, or -1 for a
+// (dtype, L) the kernel does not take.
 int hgn_fused_block_fwd(int dtype, int L, const void* e, const void* sp, const void* rp,
                         const void* we, const void* w2, const void* w3, const float* b1,
                         const float* b2, const float* b3, const float* lns, const float* lnb,
                         const int* senders, const int* receivers, const float* mask,
-                        const int* row_ptr, const int* groups, void* e2, float* agg, int B,
-                        int E, int N, int G, void* stream) {
-  Args a{e,       sp,        rp,   we,      w2,     w3, b1,  b2, b3, lns, lnb,
-         senders, receivers, mask, row_ptr, groups, e2, agg, B,  E,  N,   G};
+                        const int* row_ptr, const int* groups, void* e2, float* agg, void* a1,
+                        void* a2, float* mu, float* isg, int B, int E, int N, int G,
+                        void* stream) {
+  Args a{e,       sp,        rp,   we,      w2,     w3, b1,  b2, b3, lns, lnb, senders, receivers,
+         mask,    row_ptr,   groups, e2,    agg,    a1, a2,  mu, isg, B,  E,   N,   G};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_width<float>(L, a, s);
   if (dtype == 1) return dispatch_width<bf16>(L, a, s);

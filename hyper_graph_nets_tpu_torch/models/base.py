@@ -76,6 +76,8 @@ class SystemModel:
         bal_cfg = model.get("graph_balancer", {})
         self.field = model["field"]
         self.output_size = model["size"]
+        self.noise_scale = model.get("noise")
+        self.noise_gamma = model.get("gamma", 1.0)
         self.message_passing_steps = model["message_passing_steps"]
         self.aggregation = model.get("aggregation", "pna")
         self.latent_size = model.get("latent_size", 128)
@@ -114,6 +116,7 @@ class SystemModel:
             architecture=self.architecture,
             compute_dtype=self.compute_dtype,
             agg_vjp=self.params["model"].get("agg_vjp", "xla"),
+            fused_bwd=self.params["model"].get("fused_bwd", "remat"),
         )
 
     def init_state(self, generator: Optional[torch.Generator] = None) -> ModelState:
@@ -139,7 +142,9 @@ class SystemModel:
             num_nodes = int(np.asarray(cells).max()) + 1
         plan = None
         if self.gnn_config.agg_vjp == "fused":
-            plan = plan_segments(edges.receivers, num_nodes).to(device)
+            plan = plan_segments(
+                edges.receivers, num_nodes, senders=edges.senders
+            ).to(device)
         return Topology(
             senders=torch.from_numpy(edges.senders).to(device),
             receivers=torch.from_numpy(edges.receivers).to(device),

@@ -9,9 +9,10 @@ none``:
   concatenating ``[sum | mean | max | min]``.
 
 ``agg_vjp: fused`` routes an eligible edge set (pna, ``[3L -> L -> L -> L]``
-+ LayerNorm, a segment plan) through the fused kernel K1
-(``ops/fused_block.py``); ``xla`` and ``gather`` take the unfused path, which
-is the same forward math.  The hierarchical architectures and
++ LayerNorm, a segment plan) through the fused kernels
+(``ops/fused_block.py``): K1 forward and, under autograd, K2 (``fused_bwd:
+remat``) or K3 (``fused_bwd: stream``) backward; ``xla`` and ``gather`` take
+the unfused path, which is the same forward math.  The hierarchical architectures and
 ``agg_vjp: sorted`` (kernel K4) belong to later slices of the port.
 """
 from __future__ import annotations
@@ -37,6 +38,7 @@ CANONICAL_EDGE_ORDER: Tuple[str, ...] = (
 )
 
 AGG_PATHS = ("xla", "gather", "fused")
+FUSED_BWD = ("remat", "stream")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +55,9 @@ class GNNConfig:
     architecture: str = "none"
     compute_dtype: Optional[str] = None  # e.g. 'bfloat16'
     agg_vjp: str = "xla"
+    # backward of the fused path: 'remat' (K2 recomputes the forward chain)
+    # or 'stream' (K1 saves a1/a2 and the LayerNorm statistics, K3 reads them)
+    fused_bwd: str = "remat"
 
     def __post_init__(self):
         if self.agg_vjp == "sorted":
@@ -62,6 +67,10 @@ class GNNConfig:
             )
         if self.agg_vjp not in AGG_PATHS:
             raise ValueError(f"agg_vjp must be one of {AGG_PATHS}, got {self.agg_vjp!r}")
+        if self.fused_bwd not in FUSED_BWD:
+            raise ValueError(
+                f"fused_bwd must be 'remat' or 'stream', got {self.fused_bwd!r}"
+            )
         if self.architecture != "none":
             raise NotImplementedError(
                 f"architecture {self.architecture!r}: the port runs flat blocks "
@@ -161,7 +170,8 @@ def _fused_eligible(eparams: MLP, es: EdgeSet, cfg: GNNConfig) -> bool:
 def _fused_update_and_agg(
     eparams: MLP, all_nodes: torch.Tensor, es: EdgeSet, cfg: GNNConfig, num_total: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Edge update + pna aggregate in one K1 call (single-device branch)."""
+    """Edge update + pna aggregate in one fused call (single-device branch):
+    K1 forward, and K2 or K3 backward as ``cfg.fused_bwd`` says."""
     from hyper_graph_nets_tpu_torch.ops.fused_block import fused_edge_block
 
     L = all_nodes.shape[-1]
@@ -183,7 +193,7 @@ def _fused_update_and_agg(
     }
     e2, agg = fused_edge_block(
         feats, sp, rp, weights, es.senders, es.receivers, es.mask, num_total,
-        plan=es.plan,
+        plan=es.plan, bwd=cfg.fused_bwd,
     )
     if cfg.cd is not None:
         agg = agg.to(cfg.cd)

@@ -2,7 +2,8 @@
 
 Each ``csrc/*.cu`` file has a plain C interface and is compiled on its own by
 ``nvcc`` for ``sm_90a`` into ``_build/<stem>-<hash>.so``, where the hash
-covers the source bytes and the flags, then loaded with ``ctypes``.  Nothing
+covers the source bytes, the bytes of every ``csrc`` header it includes
+(``#include "..."``) and the flags, then loaded with ``ctypes``.  Nothing
 is built at import time; a missing ``nvcc`` or a failed build raises.
 """
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from typing import Dict, Sequence
@@ -47,9 +49,25 @@ def source_path(name: str) -> str:
     return os.path.join(CSRC_DIR, name)
 
 
+def _local_headers(source: str) -> Sequence[str]:
+    """Headers beside ``source`` that it includes with quotes, transitively."""
+    seen, todo = [], [source]
+    while todo:
+        with open(todo.pop(), encoding="utf-8") as f:
+            names = re.findall(r'^\s*#\s*include\s+"([^"]+)"', f.read(), re.MULTILINE)
+        for name in names:
+            path = os.path.join(os.path.dirname(source), name)
+            if path not in seen:
+                seen.append(path)
+                todo.append(path)
+    return sorted(seen)
+
+
 def library_path(source: str) -> str:
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [source, *_local_headers(source)]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
 

@@ -2,9 +2,11 @@
 
 Counterpart of ``hyper_graph_nets_tpu/utils/config.py``: multi-doc YAML where
 the doc named ``DEFAULT`` is selected, plus nested dict access.  The port
-parses the same ``configs/*.yaml`` files unchanged.  TPU tuning keys
-(``fused_chunk``, ``fused_pb``, ``fused_pb_bwd``, ``fused_bwd``,
-``scan_unroll``) are read by nothing here and so have no effect.
+parses the same ``configs/*.yaml`` files unchanged.  ``fused_bwd`` picks the
+fused path's backward kernel (``remat``: K2, ``stream``: K3).  The TPU
+tuning keys ``fused_chunk``, ``fused_pb``, ``fused_pb_bwd`` and
+``scan_unroll`` are read by nothing here and so have no effect; the results
+are the same.
 """
 from __future__ import annotations
 

@@ -1,14 +1,15 @@
-"""The port's CUDA kernel on the card (marker ``cuda``; skips without a card).
+"""The port's CUDA kernels on the card (marker ``cuda``; skips without a card).
 
 This file imports neither JAX nor the JAX package, so on a machine with a
 card and no JAX it runs without the repository's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
-K1 is held against its plain PyTorch version on the same inputs (an
-isolated receiver and a masked tail, or receivers whose edges span several
-kernel tiles), and a small flag MeshGraphNets predictor is held against the
-same state on the CPU.
+K1, K2 and K3 are held against their plain PyTorch versions on the same
+inputs (an isolated receiver and a masked tail, receivers whose edges span
+several kernel tiles, or exactly tied edges), a small flag MeshGraphNets
+predictor and a 2-block training step are held against the same state on
+the CPU.
 
 Tolerances: float32 rtol = atol = 1e-5 (summation order).  bf16: e2 within
 rtol = 2**-7, atol = 2**-5 and the aggregate within rtol = atol = 2**-5
@@ -16,6 +17,19 @@ rtol = 2**-7, atol = 2**-5 and the aggregate within rtol = atol = 2**-5
 in another order rounds the other way, by one bf16 unit in the last place);
 the sum over a receiver's 150 edges within atol = 150 * 2**-5.
 Predictor outputs (bf16, 2 blocks) within 5% of the largest |output|.
+
+K2 and K3 against their plain versions, both on K1's forward values (the
+plain backward takes K1's e2, a1, a2 for its relu masks and tie compare: a
+product summed in another order may move a value within one rounding of 0
+across it, or break a tie): each output within rtol + atol * max|want|,
+float32 rtol = atol = 1e-4 (summation order); bf16 rtol = atol = 2**-6 (one
+bf16 unit in the last place, 2**-7, passed through the LayerNorm and MLP
+backward); the column sums by relative L2 norm, 1e-4 and 2**-5.  K2's own
+recompute of a1, a2 equals K1's bit for bit, and the routed max/min mass
+equals the tie count of K1's output exactly.  A training step (2 blocks,
+B = 2) on the card against the CPU: float32 loss rtol 1e-4 and gradients
+within relative L2 1e-3; bf16 loss within 2**-5 and gradients within
+relative L2 2**-3.
 """
 import numpy as np
 import pytest
@@ -23,13 +37,28 @@ import torch
 
 from hyper_graph_nets_tpu_torch.data.preprocessing import add_targets
 from hyper_graph_nets_tpu_torch.data.synthetic import flag_trajectory
+from hyper_graph_nets_tpu_torch.models.get_model import get_model
 from hyper_graph_nets_tpu_torch.ops.fused_block import (
+    agg_cotangent_rhs,
     fused_edge_block,
+    fused_edge_block_bwd,
+    fused_edge_block_bwd_reference,
+    fused_edge_block_bwd_stream,
+    fused_edge_block_bwd_stream_reference,
+    fused_edge_block_fwd,
     fused_edge_block_reference,
+    plan_segments,
 )
 from hyper_graph_nets_tpu_torch.runtime import configure_numerics
 from hyper_graph_nets_tpu_torch.serving import Predictor
-from torch_port_cases import BF16_ULP, flag_config, long_segment_case, masked_edge_case
+from hyper_graph_nets_tpu_torch.training.trainer import Trainer
+from torch_port_cases import (
+    BF16_ULP,
+    flag_config,
+    long_segment_case,
+    masked_edge_case,
+    tie_edge_case,
+)
 
 TOLS = {
     torch.float32: dict(e2=(1e-5, 1e-5), agg=(1e-5, 1e-5)),
@@ -48,6 +77,9 @@ def _case(name, L):
     if name == "masked":
         arrays, weights, snd, rcv, mask, N, _ = masked_edge_case(seed=2, B=3, L=L)
         return arrays, weights, snd, rcv, mask, N, 10
+    if name == "ties":
+        arrays, weights, snd, rcv, mask, N, _ = tie_edge_case(seed=2, B=3, L=L)
+        return arrays, weights, snd, rcv, mask, N, None
     arrays, weights, snd, rcv, mask, N = long_segment_case(seed=2, B=3, L=L)
     return arrays, weights, snd, rcv, mask, N, 9
 
@@ -93,3 +125,136 @@ def test_predictor_on_card_matches_cpu():
     base = 2 * traj["world_pos"] - traj["prev|world_pos"]
     scale = np.abs(want - base).max()
     assert np.abs(got - want).max() <= 0.05 * scale
+
+
+BWD_TOLS = {torch.float32: (1e-4, 1e-4, 1e-4), torch.bfloat16: (2.0**-6, 2.0**-6, 2.0**-5)}
+
+
+def _bwd_inputs(case, dtype, L, route_only=False):
+    """Card tensors of a case, K1's forward with its streams, and cotangents
+    (random, or only g_max = g_min = 1)."""
+    arrays, weights, snd, rcv, mask, N, _ = _case(case, L)
+    t = {k: torch.tensor(v).to(dtype).cuda() for k, v in arrays.items()}
+    w = {k: torch.tensor(v.T.copy() if v.ndim == 2 else v).cuda() for k, v in weights.items()}
+    topo = (torch.tensor(snd).cuda(), torch.tensor(rcv).cuda(), torch.tensor(mask).cuda(), N)
+    plan = plan_segments(rcv, N, senders=snd).to("cuda")
+    fwd = fused_edge_block_fwd(t["e"], t["sp"], t["rp"], w, *topo, plan=plan, save_streams=True)
+    B, E, L = t["e"].shape
+    gen = torch.Generator().manual_seed(5)
+    if route_only:
+        de2 = torch.zeros(B, E, L, dtype=dtype, device="cuda")
+        dagg = torch.zeros(B, N, 4 * L, device="cuda")
+        dagg[..., 2 * L :] = 1.0
+    else:
+        de2 = (torch.randn(B, E, L, generator=gen) * torch.tensor(mask)[:, None]).to(dtype).cuda()
+        dagg = torch.randn(B, N, 4 * L, generator=gen).cuda()
+    drhs = agg_cotangent_rhs(fwd[1], dagg, topo[1], topo[2], N)
+    return t, w, topo, plan, fwd, de2, drhs
+
+
+def _assert_bwd_close(got, want, dtype):
+    rtol, atol, l2 = BWD_TOLS[dtype]
+    for g, w in zip(got[:6], want[:6]):  # de, dh, dz2, dz3, dsp, drp
+        torch.testing.assert_close(
+            g.float(), w.float(), rtol=rtol, atol=atol * float(w.float().abs().max())
+        )
+    for k in range(5):  # column sums
+        assert float((got[6][k] - want[6][k]).norm()) <= l2 * float(want[6][k].norm()), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("L", [32, 128])
+@pytest.mark.parametrize("case", ["masked", "long_segments", "ties"])
+def test_k2_k3_kernels_match_plain(dtype, L, case):
+    _need_card()
+    t, w, topo, plan, fwd, de2, drhs = _bwd_inputs(case, dtype, L)
+    e2, agg, a1, a2, mu, isg = fwd
+    before = (fused_edge_block_bwd.launches, fused_edge_block_bwd_stream.launches)
+    k2 = fused_edge_block_bwd(t["e"], t["sp"], t["rp"], w, de2, drhs, *topo, plan=plan)
+    k3 = fused_edge_block_bwd_stream(t["e"], a1, a2, mu, isg, w, de2, drhs, *topo, plan=plan)
+    torch.cuda.synchronize()
+    assert (fused_edge_block_bwd.launches, fused_edge_block_bwd_stream.launches) == (
+        before[0] + 1, before[1] + 1
+    )
+    # K2 recomputes K1's forward bit for bit
+    assert torch.equal(k2[4], a1) and torch.equal(k2[5], a2)
+    ref2 = fused_edge_block_bwd_reference(
+        t["e"], t["sp"], t["rp"], w, de2, drhs, *topo, forward=(e2, a1, a2)
+    )
+    ref3 = fused_edge_block_bwd_stream_reference(t["e"], a1, a2, mu, isg, w, de2, drhs, *topo, e2=e2)
+    _assert_bwd_close(k2[:4] + k2[6:], ref2[:4] + ref2[6:], dtype)
+    _assert_bwd_close(k3, ref3, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["masked", "long_segments", "ties"])
+def test_routed_mass_equals_the_tie_count(case):
+    """With only g_max = g_min = 1, the column sums of the routed cotangent
+    count the edges equal to their receiver's extremum in K1's output; every
+    receiver with valid edges routes at least once per part and column."""
+    _need_card()
+    t, w, topo, plan, fwd, de2, drhs = _bwd_inputs(case, torch.bfloat16, 128, route_only=True)
+    e2, agg, a1, a2, mu, isg = fwd
+    L = e2.shape[-1]
+    r = topo[1].long()
+    valid = topo[2] > 0
+    want = sum(
+        ((e2.float() == agg[:, r, k * L : (k + 1) * L]) & valid[None, :, None]).float().sum(dim=(0, 1))
+        for k in (2, 3)
+    )
+    receivers = e2.shape[0] * int(torch.unique(r[valid]).numel())
+    assert bool((want >= 2 * receivers).all())
+    k2 = fused_edge_block_bwd(t["e"], t["sp"], t["rp"], w, de2, drhs, *topo, plan=plan)
+    k3 = fused_edge_block_bwd_stream(t["e"], a1, a2, mu, isg, w, de2, drhs, *topo, plan=plan)
+    assert torch.equal(k2[-1][4], want) and torch.equal(k3[-1][4], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bwd", ["remat", "stream"])
+def test_fused_edge_block_under_grad_runs_k1_and_its_backward(bwd):
+    """On a CUDA tensor under grad: K1 forward, K2 or K3 backward, an output
+    that keeps the autograd graph."""
+    _need_card()
+    arrays, weights, snd, rcv, mask, N, _ = _case("masked", 128)
+    t = {k: torch.tensor(v).cuda().requires_grad_() for k, v in arrays.items()}
+    w = {k: torch.tensor(v.T.copy() if v.ndim == 2 else v).cuda().requires_grad_() for k, v in weights.items()}
+    args = (torch.tensor(snd).cuda(), torch.tensor(rcv).cuda(), torch.tensor(mask).cuda(), N)
+    counts = lambda: (fused_edge_block.launches, fused_edge_block_bwd.launches, fused_edge_block_bwd_stream.launches)
+    before = counts()
+    e2, agg = fused_edge_block(t["e"], t["sp"], t["rp"], w, *args, bwd=bwd)
+    assert e2.grad_fn is not None and agg.grad_fn is not None
+    (agg.sum() + e2.sum()).backward()
+    torch.cuda.synchronize()
+    k2, k3 = (1, 0) if bwd == "remat" else (0, 1)
+    assert counts() == (before[0] + 1, before[1] + k2, before[2] + k3)
+    assert all(x.grad is not None for x in [*t.values(), *w.values()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bwd", ["remat", "stream"])
+def test_train_step_on_card_matches_cpu(dtype, bwd):
+    _need_card()
+    config = flag_config(None if dtype == "float32" else dtype)
+    config["params"]["model"].update(noise=0.003, gamma=0.9, fused_bwd=bwd)
+    traj = add_targets(flag_trajectory(num_steps=4, nx=10, ny=10), "world_pos", True)
+    model = get_model(config)
+    state = model.init_state(torch.Generator().manual_seed(1))
+    normal = torch.randn(traj["world_pos"].shape, generator=torch.Generator().manual_seed(2))
+    results = {}
+    for device in ("cuda", "cpu"):
+        trainer = Trainer(model, config, device=device)
+        tstate = trainer.init_train_state(state=state)
+        topo = model.topology_from_trajectory(traj, device=device)
+        before = fused_edge_block_bwd.launches + fused_edge_block_bwd_stream.launches
+        loss, _ = trainer.loss_and_grads(tstate, topo, trainer.frames(traj), normal=normal.to(device))
+        launched = fused_edge_block_bwd.launches + fused_edge_block_bwd_stream.launches - before
+        assert launched == (2 if device == "cuda" else 0)  # one per block
+        grads = {n: p.grad.cpu() for n, p in tstate.model.params.named_parameters()}
+        results[device] = (float(loss), grads)
+    (lc, gc), (lh, gh) = results["cuda"], results["cpu"]
+    loss_tol, grad_tol = (1e-4, 1e-3) if dtype == "float32" else (2.0**-5, 2.0**-3)
+    assert abs(lc - lh) <= loss_tol * abs(lh)
+    for name, g in gh.items():
+        assert float((gc[name] - g).norm()) <= grad_tol * float(g.norm()), name

@@ -22,6 +22,8 @@ edge names; neither reaches an aggregate.
 The CUDA kernel itself is held against the plain version on the card in
 tests/test_torch_port_cuda.py.
 """
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -138,3 +140,20 @@ def test_plan_segments_rows_and_groups():
         plan_segments(np.array([1, 0], np.int32), 2)
     with pytest.raises(ValueError, match=r"\[0, 2\)"):
         plan_segments(np.array([0, 2], np.int32), 2)
+
+
+def test_build_key_covers_included_headers(tmp_path):
+    """A change to a header a kernel source includes gives the source a new
+    library (the kernels share fused_block_common.cuh)."""
+    from hyper_graph_nets_tpu_torch.ops import build
+
+    for name in ("fused_block_fwd.cu", "fused_block_bwd.cu"):
+        headers = build._local_headers(build.source_path(name))
+        assert [os.path.basename(h) for h in headers] == ["fused_block_common.cuh"]
+    src, inner, outer = tmp_path / "k.cu", tmp_path / "a.cuh", tmp_path / "b.cuh"
+    src.write_text('#include "a.cuh"\n#include <cuda_runtime.h>\n')
+    inner.write_text('#include "b.cuh"\n')
+    outer.write_text("// v1\n")
+    first = build.library_path(str(src))
+    outer.write_text("// v2\n")
+    assert build.library_path(str(src)) != first

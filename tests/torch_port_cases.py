@@ -56,6 +56,24 @@ def long_segment_case(seed: int = 0, B: int = 2, L: int = 32):
     return arrays, weights, snd, rcv, mask, N
 
 
+def tie_edge_case(seed: int = 0, B: int = 2, L: int = 32):
+    """K1 inputs on a 6x6 grid in which every third receiver gets its first
+    edge twice: the same sender, receiver and features, so the two copies'
+    e2 tie exactly in every column.  Returns the usual tuple plus the edge
+    positions of the second copies."""
+    rng = np.random.default_rng(seed)
+    snd, rcv, N = grid_edges(6, 6)
+    arrays, weights = _k1_arrays(rng, B, len(snd), N, L)
+    dup = np.asarray(
+        [np.flatnonzero(rcv == n)[0] for n in range(0, N, 3) if np.any(rcv == n)]
+    )
+    order = np.sort(np.concatenate([np.arange(len(snd)), dup]))  # copies adjacent
+    copies = np.flatnonzero(np.diff(order) == 0) + 1
+    arrays["e"] = np.ascontiguousarray(arrays["e"][:, order])
+    mask = np.ones(len(order), np.float32)
+    return arrays, weights, snd[order], rcv[order], mask, N, copies
+
+
 def _k1_arrays(rng, B, E, N, L):
     arrays = {
         "e": rng.normal(size=(B, E, L)).astype(np.float32),
