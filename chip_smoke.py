@@ -19,20 +19,27 @@ Phases (any failure exits non-zero; nothing is caught and dropped):
    (remat backward) and K3 (stream backward) at B = 21 in bf16 and float32,
    with a masked tail and an isolated receiver, with exactly tied edges,
    and the routed max/min mass against the exact tie count of K1's output;
-   the float32 weight-gradient products of one block;
+   the float32 weight-gradient products of one block; K4f and K4b (the
+   sorted pna of ``agg_vjp: sorted``) at B = 21 in bf16 and float32 and at
+   B = 1, with a masked tail and an isolated receiver, exactly tied edges
+   and the routed max/min mass against the tie count of K4f's output, timed
+   beside four ``torch.segment_reduce`` calls on the same inputs (context
+   only: the port never calls them);
 4. serving: ``Predictor.from_config`` on configs/flag_full_scale.yaml with
-   RMP off (latent 128, 15 blocks, bf16, ``agg_vjp: fused``), seeded random
-   weights, normalizers accumulated over a 40x40 synthetic flag trajectory
-   (1,600 nodes, 9,282 edges); ``one_step`` on 21 frames and a 50-step
-   ``rollout``, with every kernel's launch count read around that run; the
+   RMP off (latent 128, 15 blocks, bf16, ``agg_vjp: fused``, then
+   ``agg_vjp: sorted``), seeded random weights, normalizers accumulated over
+   a 40x40 synthetic flag trajectory (1,600 nodes, 9,282 edges);
+   ``one_step`` on 21 frames and a 50-step ``rollout``, with every kernel's
+   launch count read around that run (15 K1, or 15 K4f, per forward); the
    card's ``one_step`` held against the same state on the CPU;
 5. training: ``Trainer.train_step`` on the same configuration, B = 21, Adam
-   at lr 1e-4, noise 0.003, gamma 0.9, with ``fused_bwd: remat`` and then
-   ``stream``; the launch counts read around one step of each (15 K1 and
-   15 K2, or 15 K1 and 15 K3); the card's loss and gradients held against
-   the same state and noise on the CPU (B = 2, bf16 and float32); the loss
-   after 30 steps on one batch below the first step's; train-step ms
-   (median of 10 after 3 warm-up steps) and edges/s;
+   at lr 1e-4, noise 0.003, gamma 0.9, with ``fused_bwd: remat``, then
+   ``stream``, then ``agg_vjp: sorted``; the launch counts read around one
+   step of each (15 K1 and 15 K2, 15 K1 and 15 K3, or 15 K4f and 15 K4b);
+   the card's loss and gradients held against the same state and noise on
+   the CPU (B = 2, bf16 and float32); the loss after 30 steps on one batch
+   below the first step's (remat and sorted); train-step ms (median of 10
+   after 3 warm-up steps) and edges/s;
 6. timings, each with the card (with --profile also the device's busy share
    and kernel time by name), the kernels' JSON line, then the device JSON
    line last.
@@ -96,6 +103,14 @@ SERVE_TOL = {"net_out": 0.05, "acceleration": 0.01}
 # for the worst gradient.)
 TRAIN_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (2.0**-5, 2.0**-4)}
 
+# K4f against its plain version (which sums with atomics on the card, in
+# another order): sum and mean within rtol + 1e-5 absolute, float32 rtol
+# 1e-5, bf16 one unit in the last place (2**-7) where the float32 sums round
+# to neighbouring bf16 values; max and min exactly equal.  K4b against its
+# plain version on K4f's output: bit for bit (the same float32 steps, an
+# exact tie compare).
+SORTED_TOL = {"float32": 1e-5, "bfloat16": 2.0**-7}
+
 ONE_STEP_FRAMES = 21  # the batch bench.py trains on
 ROLLOUT_STEPS = 50
 TRAIN_FRAMES = 21
@@ -104,6 +119,7 @@ LOSS_STEPS = 30
 WARMUP_STEPS = 3
 TIMED_STEPS = 10
 L_MAIN = 128
+TRACE_ATTEMPTS = 3
 BWD_KERNELS = ("fused_block_bwd_kernel", "sender_sum_kernel", "dpar_reduce_kernel")
 
 
@@ -161,21 +177,32 @@ def kernel_device_ms(fn, iters: int, names) -> float:
     contain one of ``names`` (each launched once per call), traced over
     ``iters`` calls after a warm-up: the kernels' own time, without the
     host's launch cost (which bounds a small launch timed back to back with
-    CUDA events)."""
+    CUDA events).
+
+    On the H100's machine a trace may come back with only some of the
+    window's kernel records (0 to 19 of 20 seen), whatever the kernel: each
+    kernel's time is then the mean over the launches the trace did record.
+    A window in which some kernel has no record is traced again, up to
+    TRACE_ATTEMPTS times, and then the call fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     names = (names,) if isinstance(names, str) else tuple(names)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    times = [us for kname, us in device_kernels(prof) if any(n in kname for n in names)]
-    if len(times) != iters * len(names):
-        raise RuntimeError(f"traced {len(times)} launches of {names}, expected {iters} each")
-    return sum(times) / iters / 1e3
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        times = {n: [us for kname, us in kernels if n in kname] for n in names}
+        if any(len(t) != iters for t in times.values()):
+            log(f"trace {attempt} of {TRACE_ATTEMPTS}: {({n: len(t) for n, t in times.items()})} "
+                f"launches recorded of {iters} each")
+        if all(times.values()):
+            return sum(sum(t) / len(t) for t in times.values()) / 1e3
+    raise RuntimeError(f"no trace of {names} recorded every kernel in {TRACE_ATTEMPTS} attempts")
 
 
 def k1_inputs(dtype, B, snd, rcv, N, L, gen, device, mask=None):
@@ -541,7 +568,152 @@ def phase_backward(card, peaks, topo_np, seed):
     return results
 
 
-def phase_slice(card, seed, rollout_steps, profile_dir=None):
+def sorted_bound_ms(dtype_name, B, E, N, L, peaks, backward) -> tuple:
+    """Least time for one K4f call (edges in, [B, N, 4L] out) or K4b call
+    (edges, the node cotangent and the saved max/min in, edge cotangent
+    out), each in the data's dtype, with row_ptr (no mask: the timed calls
+    pass none); about 4 and 6 operations per edge element, float32 outside
+    the tensor cores."""
+    s = 2 if dtype_name == "bfloat16" else 4
+    edge, node = B * E * L * s, B * N * L * s
+    bytes_moved = (N + 1) * 4
+    bytes_moved += (edge + 4 * node + 2 * node + edge) if backward else (edge + 4 * node)
+    flops = (6 if backward else 4) * B * E * L
+    return _bound(bytes_moved, flops, "float32", peaks)
+
+
+def phase_sorted(card, peaks, topo_np, seed):
+    """K4f and K4b against their plain versions, timed, with a masked tail,
+    tied edges and the routed max/min mass."""
+    import torch
+
+    from hyper_graph_nets_tpu_torch.ops.segment_pna import (
+        pna_sorted,
+        pna_sorted_bwd,
+        pna_sorted_bwd_reference,
+        pna_sorted_reference,
+        sorted_plan,
+    )
+
+    snd, rcv, N = topo_np
+    L = L_MAIN
+    gen = torch.Generator().manual_seed(seed + 2)
+
+    def setup(dtype_name, B, rcv, mask=None, rows=None):
+        dtype = getattr(torch, dtype_name)
+        E = len(rcv)
+        data = torch.randn(B, E, L, generator=gen)
+        if rows is not None:  # copied edges get their original's features
+            data = data[:, torch.as_tensor(rows)]
+        data = data.to(dtype).cuda().contiguous()
+        r = torch.as_tensor(rcv).cuda()
+        m = None if mask is None else torch.as_tensor(mask).cuda()
+        plan = sorted_plan(rcv, N, mask).to("cuda")
+        return data, r, m, plan
+
+    def check(tag, dtype_name, data, r, m, plan, g=None):
+        """K4f and K4b once each against their plain versions; returns the
+        outputs and the largest error of K4f's sum and mean."""
+        out = pna_sorted(data, r, m, N, plan=plan)
+        if g is None:
+            g = torch.randn(out.shape, generator=gen).to(data.dtype).cuda()
+        ge = pna_sorted_bwd(g, out, data, r, m, N, plan=plan)
+        torch.cuda.synchronize()
+        want = pna_sorted_reference(data, r, m, N)
+        rt = SORTED_TOL[dtype_name]
+        err = check_close(f"K4f {tag} sum/mean", out[..., : 2 * L], want[..., : 2 * L], rt, 1e-5)
+        if not torch.equal(out[..., 2 * L :], want[..., 2 * L :]):
+            raise AssertionError(f"K4f {tag}: max/min differ from the plain version")
+        if not torch.equal(ge, pna_sorted_bwd_reference(g, out, data, r, m, N)):
+            raise AssertionError(f"K4b {tag}: differs from the plain version on K4f's output")
+        if not bool(torch.isfinite(ge.float()).all()):
+            raise AssertionError(f"K4b {tag}: not finite")
+        return out, g, ge, err
+
+    results = {}
+    for dtype_name, B in (("bfloat16", TRAIN_FRAMES), ("float32", TRAIN_FRAMES), ("bfloat16", 1)):
+        E = len(rcv)
+        data, r, m, plan = setup(dtype_name, B, rcv)
+        out, g, ge, err = check(f"{dtype_name} B={B}", dtype_name, data, r, m, plan)
+        fwd = lambda: pna_sorted(data, r, None, N, plan=plan)
+        bwd = lambda: pna_sorted_bwd(g, out, data, r, None, N, plan=plan)
+        lengths = (plan.row_ptr[1:] - plan.row_ptr[:-1]).expand(B, N).contiguous()
+        library = lambda: [
+            torch.segment_reduce(data, op, lengths=lengths, axis=1) for op in ("sum", "mean", "max", "min")
+        ]
+        for name, run, plain, kname, backward in (
+            ("K4f", fwd, lambda: pna_sorted_reference(data, r, None, N), "pna_fwd_kernel", False),
+            ("K4b", bwd, lambda: pna_sorted_bwd_reference(g, out, data, r, None, N), "pna_bwd_kernel", True),
+        ):
+            ms = kernel_device_ms(run, iters=20, names=kname)
+            call_ms = cuda_time_ms(run, iters=50)
+            plain_ms = cuda_time_ms(plain, iters=10)
+            bound, bound_by = sorted_bound_ms(dtype_name, B, E, N, L, peaks, backward)
+            res = dict(
+                max_abs_err=err if name == "K4f" else 0.0, ms=ms, call_ms=call_ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+            )
+            if name == "K4f":
+                res["segment_reduce_x4_ms"] = cuda_time_ms(library, iters=10)
+            results[(name, dtype_name, B)] = res
+            extra = f", 4 segment_reduce {res['segment_reduce_x4_ms']:.3f} ms" if name == "K4f" else ""
+            log(
+                f"{name} {dtype_name} B={B} E={E} N={N} L={L}: kernel {ms * 1e3:.1f} us "
+                f"(wrapper call {call_ms * 1e3:.1f} us), bound {bound * 1e3:.2f} us ({bound_by}), "
+                f"plain {plain_ms:.3f} ms{extra}, max abs err {res['max_abs_err']:.3g} [{card}]"
+            )
+
+    # masked tail and an isolated receiver, and exactly tied edges; bf16, B = 3
+    snd_m, rcv_m, mask = masked_topology(snd, rcv, N)
+    data, r, m, plan = setup("bfloat16", 3, rcv_m, mask=mask)
+    out, _, ge, _ = check("masked", "bfloat16", data, r, m, plan)
+    if not (bool((out[:, 10] == 0).all()) and bool((ge[:, m == 0] == 0).all())):
+        raise AssertionError("K4f/K4b: isolated receiver or masked edges not 0")
+    log("K4f/K4b masked tail + isolated receiver: ok")
+    snd_t, rcv_t, rows, copies = tie_topology(snd, rcv, N)
+    copies = torch.as_tensor(copies).cuda()
+    data_t, r_t, _, plan_t = setup("bfloat16", 3, rcv_t, rows=rows)
+    _, _, ge, _ = check("ties", "bfloat16", data_t, r_t, None, plan_t)
+    if not torch.equal(ge[:, copies], ge[:, copies - 1]):
+        raise AssertionError("K4b: the two copies of a tied edge got different cotangents")
+    log("K4f/K4b tied edges: ok")
+
+    # routed mass: with only g_max = g_min = 1 the column sums of the edge
+    # cotangent count the edges equal to their receiver's extremum in K4f's
+    # own output, exactly; every receiver with valid edges routes at least once
+    masses = {}
+    data_main, r_main, _, plan_main = setup("bfloat16", TRAIN_FRAMES, rcv)
+    for tag, (d, rr, mm, pl) in (
+        ("main", (data_main, r_main, None, plan_main)), ("masked", (data, r, m, plan)),
+        ("ties", (data_t, r_t, None, plan_t)),
+    ):
+        out = pna_sorted(d, rr, mm, N, plan=pl)
+        g = torch.zeros_like(out)
+        g[..., 2 * L :] = 1.0
+        _, _, ge, _ = check(f"routed mass {tag}", "bfloat16", d, rr, mm, pl, g=g)
+        valid = torch.ones_like(rr, dtype=torch.bool) if mm is None else mm > 0
+        want = sum(
+            ((d.float() == out.float()[:, rr.long(), k * L : (k + 1) * L]) & valid[None, :, None])
+            .float().sum(dim=(0, 1))
+            for k in (2, 3)
+        )
+        mass = ge.float().sum(dim=(0, 1))
+        receivers = d.shape[0] * int(torch.unique(rr[valid]).numel())
+        if not torch.equal(mass, want):
+            raise AssertionError(
+                f"K4b routed mass ({tag}) differs from the tie count of K4f's output in "
+                f"{int((mass != want).sum())} columns"
+            )
+        if not bool((want >= 2 * receivers).all()):
+            raise AssertionError(f"K4b routed mass ({tag}): a receiver routed nothing")
+        masses[tag] = (float(want.min()), 2 * receivers)
+        log(f"K4b routed max+min mass ({tag}): min over columns {float(want.min()):.0f} >= "
+            f"{2 * receivers} (2 x receivers with valid edges), equal to K4f's tie count")
+    results["routed_mass"] = masses
+    return results
+
+
+def phase_slice(card, seed, rollout_steps, profile_dir=None, agg_vjp="fused"):
     """Serve MGN-15MP through the port's Predictor; returns timings and counts."""
     import numpy as np
     import torch
@@ -551,11 +723,12 @@ def phase_slice(card, seed, rollout_steps, profile_dir=None):
     from hyper_graph_nets_tpu_torch.serving import Predictor
     from hyper_graph_nets_tpu_torch.training.trainer import batched_forward
 
-    config = main_config()
+    config = main_config(agg_vjp=agg_vjp)
     predictor = Predictor.from_config(config)
     model = predictor.model
     cfg = model.gnn_config
-    check_mgn15(cfg)
+    check_mgn15(cfg, agg_vjp)
+    kernel = "K1" if agg_vjp == "fused" else "K4f"
     blocks = cfg.message_passing_steps
     # seeded weights, normalizers accumulated over the trajectory
     state = model.init_state(torch.Generator().manual_seed(seed))
@@ -572,7 +745,8 @@ def phase_slice(card, seed, rollout_steps, profile_dir=None):
     E, N = int(topo.senders.shape[0]), topo.num_nodes
     B = ONE_STEP_FRAMES
     batch = {k: v[:B] for k, v in traj.items()}
-    log(f"serving: flag MGN-15MP latent 128 bf16, N={N} E={E}, one_step B={B}, rollout {rollout_steps}")
+    log(f"serving ({agg_vjp}): flag MGN-15MP latent 128 bf16, N={N} E={E}, one_step B={B}, "
+        f"rollout {rollout_steps}")
 
     # the main path: every count set to 0 just before, read just after
     reset_counts()
@@ -580,10 +754,11 @@ def phase_slice(card, seed, rollout_steps, profile_dir=None):
     launches_one_step = read_counts()
     result = predictor.rollout(traj, num_steps=rollout_steps)
     launches = read_counts()
-    want = {"K1": blocks * (1 + rollout_steps), "K2": 0, "K3": 0}
-    if launches_one_step["K1"] != blocks or launches != want:
+    want = dict.fromkeys(launches, 0)
+    want[kernel] = blocks * (1 + rollout_steps)
+    if launches_one_step[kernel] != blocks or launches != want:
         raise AssertionError(
-            f"serving launches: {launches_one_step} in one_step (want K1 {blocks}), "
+            f"serving launches: {launches_one_step} in one_step (want {kernel} {blocks}), "
             f"{launches} in all (want {want})"
         )
     if pred.shape != (B, N, 3) or not np.isfinite(pred).all():
@@ -592,7 +767,7 @@ def phase_slice(card, seed, rollout_steps, profile_dir=None):
         np.isfinite(result["pred_pos"]).all() and np.isfinite(result["mse"]).all()
     ):
         raise AssertionError("rollout output not finite/shaped")
-    log(f"serving launches: {launches_one_step['K1']} K1 per one_step, {launches} in all")
+    log(f"serving launches: {launches_one_step[kernel]} {kernel} per one_step, {launches} in all")
 
     # the card against the CPU, same state, bf16 on both
     cpu = Predictor(config, state=predictor.state, device="cpu")
@@ -611,7 +786,7 @@ def phase_slice(card, seed, rollout_steps, profile_dir=None):
     out_err = float((outs[0] - outs[1]).abs().max())
     out_scale = float(outs[1].abs().max())
     log(
-        f"one_step card vs CPU: net out max err {out_err:.4g} of max {out_scale:.4g}; "
+        f"one_step ({agg_vjp}) card vs CPU: net out max err {out_err:.4g} of max {out_scale:.4g}; "
         f"acceleration max err {acc_err:.4g} of max {acc_scale:.4g}"
     )
     if out_err > SERVE_TOL["net_out"] * out_scale or acc_err > SERVE_TOL["acceleration"] * acc_scale:
@@ -639,16 +814,20 @@ def phase_slice(card, seed, rollout_steps, profile_dir=None):
         one_step_vs_cpu_acceleration_err=acc_err,
     )
     log(
-        f"one_step B={B}: {one_step_ms:.2f} ms, {timings['one_step_edges_per_s']:.4g} edges/s [{card}]"
+        f"one_step ({agg_vjp}) B={B}: {one_step_ms:.2f} ms, "
+        f"{timings['one_step_edges_per_s']:.4g} edges/s [{card}]"
     )
     log(
-        f"rollout: {rollout_ms_step:.2f} ms/step, {timings['rollout_edges_per_s']:.4g} edges/s [{card}]"
+        f"rollout ({agg_vjp}): {rollout_ms_step:.2f} ms/step, "
+        f"{timings['rollout_edges_per_s']:.4g} edges/s [{card}]"
     )
     if profile_dir:
         timings["profile"] = {
-            "one_step": device_profile(lambda: predictor.one_step(batch), card, profile_dir, "one_step"),
+            "one_step": device_profile(
+                lambda: predictor.one_step(batch), card, profile_dir, f"one_step_{agg_vjp}"
+            ),
             "rollout_5_steps": device_profile(
-                lambda: predictor.rollout(traj, num_steps=5), card, profile_dir, "rollout"
+                lambda: predictor.rollout(traj, num_steps=5), card, profile_dir, f"rollout_{agg_vjp}"
             ),
         }
     return launches, timings
@@ -664,33 +843,40 @@ def main_config(**model):
     return config
 
 
-def check_mgn15(cfg):
+def check_mgn15(cfg, agg_vjp="fused"):
     if (cfg.latent_size, cfg.message_passing_steps, cfg.agg_vjp, cfg.compute_dtype) != (
-        128, 15, "fused", "bfloat16"
+        128, 15, agg_vjp, "bfloat16"
     ):
-        raise AssertionError(f"flag_full_scale is not MGN-15MP: {cfg}")
+        raise AssertionError(f"flag_full_scale is not MGN-15MP with agg_vjp {agg_vjp}: {cfg}")
 
 
 def reset_counts():
     from hyper_graph_nets_tpu_torch.ops import fused_block as fb
+    from hyper_graph_nets_tpu_torch.ops import segment_pna as sp
 
     fb.fused_edge_block.launches = 0
     fb.fused_edge_block_bwd.launches = 0
     fb.fused_edge_block_bwd_stream.launches = 0
+    sp.pna_sorted.launches = 0
+    sp.pna_sorted_bwd.launches = 0
 
 
 def read_counts():
     from hyper_graph_nets_tpu_torch.ops import fused_block as fb
+    from hyper_graph_nets_tpu_torch.ops import segment_pna as sp
 
     return {
         "K1": fb.fused_edge_block.launches,
         "K2": fb.fused_edge_block_bwd.launches,
         "K3": fb.fused_edge_block_bwd_stream.launches,
+        "K4f": sp.pna_sorted.launches,
+        "K4b": sp.pna_sorted_bwd.launches,
     }
 
 
 def phase_train(card, seed, profile_dir=None):
-    """Train MGN-15MP through the port's Trainer with each backward."""
+    """Train MGN-15MP through the port's Trainer with each backward: the
+    fused path's remat (K2) and stream (K3), and the sorted path (K4b)."""
     import numpy as np
     import torch
 
@@ -702,14 +888,16 @@ def phase_train(card, seed, profile_dir=None):
     traj = add_targets(
         flag_trajectory(num_steps=TRAIN_FRAMES + 2, nx=40, ny=40, seed=seed), "world_pos", history=True
     )
-    launches = {"K1": 0, "K2": 0, "K3": 0}
+    launches = {"K1": 0, "K2": 0, "K3": 0, "K4f": 0, "K4b": 0}
     timings, cpu_grads = {}, {}
-    for mode in ("remat", "stream"):
-        config = main_config(fused_bwd=mode)
+    for mode in ("remat", "stream", "sorted"):
+        agg_vjp = "sorted" if mode == "sorted" else "fused"
+        path = dict(agg_vjp=agg_vjp) if mode == "sorted" else dict(fused_bwd=mode)
+        config = main_config(**path)
         model = get_model(config)
         cfg = model.gnn_config
-        check_mgn15(cfg)
-        if cfg.fused_bwd != mode or model.noise_scale != 0.003 or model.noise_gamma != 0.9:
+        check_mgn15(cfg, agg_vjp)
+        if (mode != "sorted" and cfg.fused_bwd != mode) or model.noise_scale != 0.003 or model.noise_gamma != 0.9:
             raise AssertionError(f"train config: {cfg}, noise {model.noise_scale}/{model.noise_gamma}")
         blocks = cfg.message_passing_steps
         trainer = Trainer(model, config)
@@ -727,7 +915,9 @@ def phase_train(card, seed, profile_dir=None):
         tstate, loss = trainer.train_step(tstate, topo, frames, generator=gen)
         torch.cuda.synchronize()
         counts = read_counts()
-        want = {"K1": blocks, "K2": blocks if mode == "remat" else 0, "K3": blocks if mode == "stream" else 0}
+        want = dict.fromkeys(launches, 0)
+        for k in {"remat": ("K1", "K2"), "stream": ("K1", "K3"), "sorted": ("K4f", "K4b")}[mode]:
+            want[k] = blocks
         if counts != want:
             raise AssertionError(f"train step ({mode}) launches {counts}, want {want}")
         for k in launches:
@@ -736,7 +926,7 @@ def phase_train(card, seed, profile_dir=None):
 
         # loss curve on one fixed batch, and the step's time
         losses, step_s = [float(loss)], []
-        n = LOSS_STEPS if mode == "remat" else 1 + WARMUP_STEPS + TIMED_STEPS
+        n = LOSS_STEPS if mode in ("remat", "sorted") else 1 + WARMUP_STEPS + TIMED_STEPS
         for _ in range(n - 1):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -745,7 +935,7 @@ def phase_train(card, seed, profile_dir=None):
             step_s.append(time.perf_counter() - t0)
         if not all(np.isfinite(losses)):
             raise AssertionError(f"train ({mode}) losses not finite: {losses}")
-        if mode == "remat" and not losses[-1] < losses[0]:
+        if n == LOSS_STEPS and not losses[-1] < losses[0]:
             raise AssertionError(f"loss did not fall over {n} steps: {losses[0]} -> {losses[-1]}")
         ms = 1e3 * float(np.median(step_s[WARMUP_STEPS : WARMUP_STEPS + TIMED_STEPS]))
         timings[mode] = dict(
@@ -765,7 +955,7 @@ def phase_train(card, seed, profile_dir=None):
 
         # the card against the CPU: same state and noise, B = CPU_FRAMES
         for dtype_name in ("bfloat16", "float32"):
-            cmp_config = main_config(fused_bwd=mode, compute_dtype=None if dtype_name == "float32" else dtype_name)
+            cmp_config = main_config(**path, compute_dtype=None if dtype_name == "float32" else dtype_name)
             cmp_model = get_model(cmp_config)
             state = cmp_model.init_state(torch.Generator().manual_seed(seed + 1))
             small = {k: v[:CPU_FRAMES] for k, v in traj.items()}
@@ -773,8 +963,8 @@ def phase_train(card, seed, profile_dir=None):
                                  dtype=torch.float64)
             grads, losses_cmp = {}, {}
             for where in ("cuda", "cpu"):
-                if where == "cpu" and dtype_name in cpu_grads:
-                    losses_cmp["cpu"], grads["cpu"] = cpu_grads[dtype_name]
+                if where == "cpu" and (agg_vjp, dtype_name) in cpu_grads:
+                    losses_cmp["cpu"], grads["cpu"] = cpu_grads[(agg_vjp, dtype_name)]
                     continue
                 tr = Trainer(cmp_model, cmp_config, device=where)
                 ts = tr.init_train_state(state=state)
@@ -782,7 +972,7 @@ def phase_train(card, seed, profile_dir=None):
                 loss, _ = tr.loss_and_grads(ts, t, tr.frames(small), normal=normal.to(where))
                 losses_cmp[where] = float(loss)
                 grads[where] = {n: p.grad.cpu() for n, p in ts.model.params.named_parameters()}
-            cpu_grads[dtype_name] = (losses_cmp["cpu"], grads["cpu"])
+            cpu_grads[(agg_vjp, dtype_name)] = (losses_cmp["cpu"], grads["cpu"])
             loss_tol, grad_tol = TRAIN_TOL[dtype_name]
             loss_err = abs(losses_cmp["cuda"] - losses_cmp["cpu"]) / abs(losses_cmp["cpu"])
             worst = max((rel_l2(grads["cuda"][n], g), n) for n, g in grads["cpu"].items())
@@ -888,18 +1078,22 @@ def main(argv=None) -> int:
     topo_np = (edges.senders, edges.receivers, 1600)
     k1 = phase_kernels(card, peaks, topo_np, args.seed)
     bwd = phase_backward(card, peaks, topo_np, args.seed)
+    k4 = phase_sorted(card, peaks, topo_np, args.seed)
 
     # 4-5. the main paths, their counts and timings
-    serve_launches, serve_timings = phase_slice(card, args.seed, ROLLOUT_STEPS, args.profile)
+    serve_launches, serve_timings = {}, {}
+    for agg_vjp in ("fused", "sorted"):
+        n, serve_timings[agg_vjp] = phase_slice(card, args.seed, ROLLOUT_STEPS, args.profile, agg_vjp)
+        serve_launches = {k: serve_launches.get(k, 0) + v for k, v in n.items()}
     train_launches, train_timings = phase_train(card, args.seed, args.profile)
     launches = {k: serve_launches[k] + train_launches[k] for k in serve_launches}
 
     main_k1 = k1[("bfloat16", ONE_STEP_FRAMES)]
-    entry = lambda name, src, line, n, r: {
+    entry = lambda name, src, pallas, n, r: {
         "name": name,
         "route": "cuda",
         "source": f"hyper_graph_nets_tpu_torch/csrc/{src}",
-        "replaces": f"hyper_graph_nets_tpu/ops/pallas/fused_block.py:{line}",
+        "replaces": f"hyper_graph_nets_tpu/ops/pallas/{pallas}",
         "launches": n,
         "max_abs_err": r["max_abs_err"],
         "ms": r["ms"],
@@ -909,11 +1103,15 @@ def main(argv=None) -> int:
         "library_ms": None,
     }
     kernels = [
-        entry("fused_edge_block_fwd (K1)", "fused_block_fwd.cu", 393, launches["K1"], main_k1),
-        entry("fused_edge_block_bwd remat (K2)", "fused_block_bwd.cu", 1008, launches["K2"],
+        entry("fused_edge_block_fwd (K1)", "fused_block_fwd.cu", "fused_block.py:393", launches["K1"], main_k1),
+        entry("fused_edge_block_bwd remat (K2)", "fused_block_bwd.cu", "fused_block.py:1008", launches["K2"],
               bwd[("K2", "bfloat16")]),
-        entry("fused_edge_block_bwd stream (K3)", "fused_block_bwd.cu", 1284, launches["K3"],
+        entry("fused_edge_block_bwd stream (K3)", "fused_block_bwd.cu", "fused_block.py:1284", launches["K3"],
               bwd[("K3", "bfloat16")]),
+        entry("pna_sorted (K4f)", "segment_pna.cu", "segment_pna.py:81", launches["K4f"],
+              k4[("K4f", "bfloat16", TRAIN_FRAMES)]),
+        entry("pna_sorted_bwd (K4b)", "segment_pna.cu", "segment_pna.py:183", launches["K4b"],
+              k4[("K4b", "bfloat16", TRAIN_FRAMES)]),
     ]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -925,6 +1123,9 @@ def main(argv=None) -> int:
                     "k1": {f"{d} B={b}": v for (d, b), v in k1.items()},
                     "backward": {
                         (k if isinstance(k, str) else " ".join(k)): v for k, v in bwd.items()
+                    },
+                    "sorted": {
+                        (k if isinstance(k, str) else " ".join(map(str, k))): v for k, v in k4.items()
                     },
                     "serving": serve_timings,
                     "serving_launches": serve_launches,

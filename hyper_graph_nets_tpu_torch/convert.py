@@ -83,7 +83,7 @@ def state_from_jax_numpy(
     if extra:
         raise NotImplementedError(
             f"parameters {sorted(extra)} belong to hierarchical blocks "
-            "(ROADMAP slice 5)"
+            "(ROADMAP slice 8)"
         )
     blocks = []
     for i in range(_num_steps(proc)):

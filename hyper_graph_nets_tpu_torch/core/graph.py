@@ -3,8 +3,9 @@
 Counterpart of ``hyper_graph_nets_tpu/core/graph.py``.  Feature tensors may
 carry a leading batch dimension (``[B, N, F]`` / ``[B, E, F]``); topology
 (senders, receivers, mask) is shared by the batch.  Edges keep the
-receiver-sorted order of ``core.mesh.cells_to_edges``; the fused kernel's
-segment plan rides on the edge set in place of the JAX package's band plan.
+receiver-sorted order of ``core.mesh.cells_to_edges``; a kernel's plan
+(fused or sorted) rides on the edge set in place of the JAX package's band
+plan.
 """
 from __future__ import annotations
 
@@ -34,8 +35,13 @@ class EdgeSet:
 
     ``senders``/``receivers`` are int32 node indices; ``mask`` is 1.0 for
     valid edges and 0.0 for padding (None = all valid).  ``plan`` is the
-    receiver segment plan of the fused kernel (``ops.fused_block.SegmentPlan``),
-    or None when the set does not take the fused path.
+    edge set's kernel plan: the fused kernel's receiver segment plan
+    (``ops.fused_block.SegmentPlan``) under ``agg_vjp: fused``, the sorted
+    pna kernel's (``ops.segment_pna.SortedPlan``) under ``agg_vjp: sorted``,
+    or None.  ``gather_idx``/``gather_valid`` are the static ``[N, d_max]``
+    neighbour-edge matrix of the receivers (``core.mesh.receivers_to_gather``)
+    and ``snd_gather_*`` that of the senders: the ``agg_vjp: gather`` path
+    aggregates and routes cotangents through them.
     """
 
     features: torch.Tensor  # [..., E, F]
@@ -43,6 +49,14 @@ class EdgeSet:
     receivers: torch.Tensor  # [E] int32
     mask: Optional[torch.Tensor] = None  # [E] float
     plan: Optional[object] = None
+    gather_idx: Optional[torch.Tensor] = None  # [N, d_max] int32
+    gather_valid: Optional[torch.Tensor] = None  # [N, d_max] float32
+    snd_gather_idx: Optional[torch.Tensor] = None
+    snd_gather_valid: Optional[torch.Tensor] = None
+
+    @property
+    def num_edges(self) -> int:
+        return self.senders.shape[-1]
 
     def replace(self, **changes) -> "EdgeSet":
         return dataclasses.replace(self, **changes)

@@ -2,13 +2,13 @@
 
 Counterpart of ``hyper_graph_nets_tpu/core/mesh.py``.  Edges are returned
 sorted by receiver, so every receiver owns one contiguous edge range — the
-layout the fused edge-block kernel (``ops/fused_block.py``) aggregates over
-without atomics.
+layout the fused edge-block kernel (``ops/fused_block.py``) and the sorted
+pna kernel (``ops/segment_pna.py``) aggregate over without atomics.
 """
 from __future__ import annotations
 
 import hashlib
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -52,6 +52,37 @@ def cells_to_edges(cells: np.ndarray, deform: bool = False) -> MeshEdges:
         unique_senders=uniq_snd,
         unique_receivers=uniq_rcv,
     )
+
+
+def receivers_to_gather(
+    receivers: np.ndarray,
+    num_nodes: int,
+    mask: Optional[np.ndarray] = None,
+    min_degree: Optional[int] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Dense ``[N, d_max]`` edge-index matrix of a static topology.
+
+    Row ``n`` lists, in edge order, the valid edges whose receiver is ``n``,
+    padded with edge 0 at valid 0.0; ``d_max`` is the largest degree (at
+    least 1, and at least ``min_degree``).  Passing senders gives the
+    sender-side inverse incidence.  Feeds ``segment_ops.gather_aggregate``,
+    ``pna_gather`` and ``gather_rows``.
+    """
+    receivers = np.asarray(receivers)
+    valid_edges = np.ones(len(receivers), bool) if mask is None else np.asarray(mask) > 0
+    counts = np.bincount(receivers[valid_edges], minlength=num_nodes)
+    d_max = max(int(counts.max(initial=0)), 1)
+    if min_degree is not None:
+        d_max = max(d_max, min_degree)
+    idx = np.zeros((num_nodes, d_max), np.int32)
+    valid = np.zeros((num_nodes, d_max), np.float32)
+    cursor = np.zeros(num_nodes, np.int32)
+    for e in np.nonzero(valid_edges)[0]:
+        r = receivers[e]
+        idx[r, cursor[r]] = e
+        valid[r, cursor[r]] = 1.0
+        cursor[r] += 1
+    return idx, valid
 
 
 def mesh_fingerprint(cells, num_nodes: int) -> tuple:

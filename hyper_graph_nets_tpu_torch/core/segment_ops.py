@@ -5,8 +5,15 @@ Counterpart of ``hyper_graph_nets_tpu/core/segment_ops.py``.  ``data`` is
 Masked edges contribute nothing, and empty segments give 0 for every
 operation (``segment_ops.py:9-11`` of the JAX package).  Reductions run in
 float32 and the result is cast back to the data's dtype.  These serve
-``node_dynamic`` and the unfused (``agg_vjp: xla | gather``) path; the fused
-path aggregates inside its kernel (``ops/fused_block.py``).
+``node_dynamic``, the ``agg_vjp: xla`` path and the plain versions of the
+kernels; the fused and sorted paths aggregate in their kernels
+(``ops/fused_block.py``, ``ops/segment_pna.py``).
+
+The ``agg_vjp: gather`` path aggregates over a static neighbour matrix
+(:func:`gather_aggregate`) with gather-only backwards (:func:`pna_gather`,
+:func:`gather_rows`): the max/min cotangent goes in full to every tied edge,
+as in the JAX package, where autograd through ``scatter_reduce`` would split
+it.
 """
 from __future__ import annotations
 
@@ -107,3 +114,116 @@ def aggregate(
     if aggregation not in _OPS:
         raise ValueError(f"invalid segment operation {aggregation!r}")
     return _OPS[aggregation](data, segment_ids, num_segments, mask)
+
+
+# -- the gather path (agg_vjp: gather) ----------------------------------------
+
+
+def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[..., idx, :]`` for an index tensor of any shape: ``[..., *idx.shape, F]``."""
+    rows = x.index_select(x.dim() - 2, idx.reshape(-1).long())
+    return rows.reshape(x.shape[:-2] + tuple(idx.shape) + (x.shape[-1],))
+
+
+def gather_aggregate(
+    data: torch.Tensor,
+    gather_idx: torch.Tensor,
+    gather_valid: torch.Tensor,
+    aggregation: str,
+) -> torch.Tensor:
+    """Aggregation over a static ``[N, d_max]`` neighbour-edge matrix
+    (``core.mesh.receivers_to_gather``), the JAX package's
+    ``segment_ops.gather_aggregate``.  Empty rows give 0.
+
+    Types follow the JAX function: sums and means are float32 (the float32
+    ``gather_valid`` promotes them), max and min keep the data's dtype, and
+    pna's concatenation is float32.  Autograd through max/min splits a
+    cotangent among tied edges, as the VJP of ``jnp.max`` does.
+    """
+    g = _take_rows(data, gather_idx)  # [..., N, d, F]
+    valid = gather_valid[..., None]
+    total = (g * valid).sum(dim=-2)
+    if aggregation == "sum":
+        return total
+    safe_deg = torch.clamp(gather_valid.sum(dim=-1), min=1.0)[..., None]
+    if aggregation == "mean":
+        return total / safe_deg
+    mx = torch.where(valid > 0, g, _NEG_INF).amax(dim=-2)
+    mx = torch.where(mx <= _NEG_INF / 2, 0.0, mx)
+    if aggregation == "max":
+        return mx
+    mn = torch.where(valid > 0, g, _POS_INF).amin(dim=-2)
+    mn = torch.where(mn >= _POS_INF / 2, 0.0, mn)
+    if aggregation == "min":
+        return mn
+    if aggregation == "pna":
+        return torch.cat([total, total / safe_deg, mx, mn], dim=-1)
+    raise ValueError(f"invalid aggregation {aggregation!r}")
+
+
+class PnaGather(torch.autograd.Function):
+    """pna over the neighbour matrix with a gather-only backward (the JAX
+    package's ``segment_ops.pna_gather``): each edge gathers its receiver's
+    ``g_sum + g_mean / deg``, and the full ``g_max`` (``g_min``) when its
+    value equals the saved max (min) exactly, so every tied edge gets all of
+    it; the result is multiplied by the edge mask."""
+
+    @staticmethod
+    def forward(ctx, data, gather_idx, gather_valid, receivers, edge_mask):
+        out = gather_aggregate(data, gather_idx, gather_valid, "pna")
+        deg = torch.clamp(gather_valid.sum(dim=-1), min=1.0)
+        ctx.save_for_backward(data, receivers, edge_mask, out, deg)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        data, receivers, edge_mask, out, deg = ctx.saved_tensors
+        F = data.shape[-1]
+        g_sum, g_mean, g_max, g_min = g.split(F, dim=-1)
+        mx, mn = out[..., 2 * F : 3 * F], out[..., 3 * F :]
+        take = lambda x: _take_rows(x, receivers)
+        g_edge = take(g_sum) + take(g_mean * (1.0 / deg)[..., None])
+        g_edge = g_edge + torch.where(data == take(mx), take(g_max), 0.0)
+        g_edge = g_edge + torch.where(data == take(mn), take(g_min), 0.0)
+        g_edge = g_edge * edge_mask[..., None]
+        return g_edge.to(data.dtype), None, None, None, None
+
+
+def pna_gather(
+    data: torch.Tensor,
+    gather_idx: torch.Tensor,
+    gather_valid: torch.Tensor,
+    receivers: torch.Tensor,
+    edge_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``gather_aggregate(..., 'pna')`` whose backward routes the node
+    cotangent to edges by gathers along ``receivers`` (:class:`PnaGather`).
+    ``edge_mask`` (``[..., E]``, None: all valid) zeroes padded edges'
+    cotangents."""
+    if edge_mask is None:
+        edge_mask = torch.ones(data.shape[:-1], dtype=torch.float32, device=data.device)
+    return PnaGather.apply(data, gather_idx, gather_valid, receivers, edge_mask)
+
+
+class GatherRows(torch.autograd.Function):
+    """``x[..., idx, :]`` whose backward sums each source row's cotangents
+    through the static inverse incidence (``inv_idx``/``inv_valid``,
+    ``receivers_to_gather(idx)``), by gathers: the JAX package's
+    ``segment_ops.gather_rows``."""
+
+    @staticmethod
+    def forward(ctx, x, idx, inv_idx, inv_valid):
+        ctx.save_for_backward(inv_idx, inv_valid)
+        return _take_rows(x, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        inv_idx, inv_valid = ctx.saved_tensors
+        gg = _take_rows(g, inv_idx)  # [..., N, d, F]
+        gx = (gg * inv_valid.to(g.dtype)[..., None]).sum(dim=-2)
+        return gx, None, None, None
+
+
+def gather_rows(x, idx, inv_idx, inv_valid) -> torch.Tensor:
+    """Row gather with a gather-only backward (:class:`GatherRows`)."""
+    return GatherRows.apply(x, idx, inv_idx, inv_valid)

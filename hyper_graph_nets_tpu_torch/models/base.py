@@ -10,14 +10,14 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from hyper_graph_nets_tpu_torch.core import normalizer as norm
 from hyper_graph_nets_tpu_torch.core.graph import Graph, NodeType
-from hyper_graph_nets_tpu_torch.core.mesh import cells_to_edges
+from hyper_graph_nets_tpu_torch.core.mesh import cells_to_edges, receivers_to_gather
 from hyper_graph_nets_tpu_torch.nn.blocks import GNNConfig
 from hyper_graph_nets_tpu_torch.nn.meshgraphnet import (
     MeshGraphNet,
@@ -25,6 +25,7 @@ from hyper_graph_nets_tpu_torch.nn.meshgraphnet import (
     network_init,
 )
 from hyper_graph_nets_tpu_torch.ops.fused_block import SegmentPlan, plan_segments
+from hyper_graph_nets_tpu_torch.ops.segment_pna import SortedPlan, sorted_plan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,15 +49,23 @@ class ModelState:
 class Topology(NamedTuple):
     """Per-trajectory mesh topology on the model's device.
 
-    ``mask`` is None when every edge is valid; ``plan`` is the fused
-    kernel's receiver segment plan (``agg_vjp: fused`` only).
+    ``mask`` is None when every edge is valid; ``plan`` is the kernel plan
+    of ``agg_vjp``: the fused kernels' :class:`SegmentPlan` under ``fused``,
+    the sorted pna kernels' :class:`SortedPlan` under ``sorted``, else None.
+    The receiver and sender neighbour matrices (``receivers_to_gather``) are
+    built for every topology, as in the JAX package (``models/base.py:
+    402-416``).
     """
 
     senders: torch.Tensor  # [E] int32, sorted by receiver
     receivers: torch.Tensor  # [E] int32
     num_nodes: int
     mask: Optional[torch.Tensor] = None  # [E] float32
-    plan: Optional[SegmentPlan] = None
+    plan: Optional[Union[SegmentPlan, SortedPlan]] = None
+    gather_idx: Optional[torch.Tensor] = None  # [N, d_max] int32
+    gather_valid: Optional[torch.Tensor] = None  # [N, d_max] float32
+    snd_gather_idx: Optional[torch.Tensor] = None
+    snd_gather_valid: Optional[torch.Tensor] = None
 
 
 def norm_feature(rel: torch.Tensor) -> torch.Tensor:
@@ -145,11 +154,20 @@ class SystemModel:
             plan = plan_segments(
                 edges.receivers, num_nodes, senders=edges.senders
             ).to(device)
+        elif self.gnn_config.agg_vjp == "sorted":
+            plan = sorted_plan(edges.receivers, num_nodes).to(device)
+        gidx, gvalid = receivers_to_gather(edges.receivers, num_nodes)
+        sidx, svalid = receivers_to_gather(edges.senders, num_nodes)
+        dev = lambda a: torch.from_numpy(a).to(device)
         return Topology(
-            senders=torch.from_numpy(edges.senders).to(device),
-            receivers=torch.from_numpy(edges.receivers).to(device),
+            senders=dev(edges.senders),
+            receivers=dev(edges.receivers),
             num_nodes=num_nodes,
             plan=plan,
+            gather_idx=dev(gidx),
+            gather_valid=dev(gvalid),
+            snd_gather_idx=dev(sidx),
+            snd_gather_valid=dev(svalid),
         )
 
     def topology_from_trajectory(
@@ -173,7 +191,7 @@ class SystemModel:
         if self.params["model"].get("inference_quant") == "int8":
             raise NotImplementedError(
                 "inference_quant 'int8' comes with the int8 serving slice "
-                "(ROADMAP slice 6)"
+                "(ROADMAP slice 9)"
             )
         return state
 

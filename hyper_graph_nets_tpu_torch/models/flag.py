@@ -116,6 +116,10 @@ class FlagModel(SystemModel):
                     receivers=topo.receivers,
                     mask=topo.mask,
                     plan=topo.plan,
+                    gather_idx=topo.gather_idx,
+                    gather_valid=topo.gather_valid,
+                    snd_gather_idx=topo.snd_gather_idx,
+                    snd_gather_valid=topo.snd_gather_valid,
                 )
             },
         )

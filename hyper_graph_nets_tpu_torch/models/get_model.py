@@ -14,6 +14,6 @@ def get_model(config: dict) -> SystemModel:
         return FlagModel(params)
     if "cylinder" in dataset or "plate" in dataset:
         raise NotImplementedError(
-            f"dataset {dataset!r}: plate and cylinder come in ROADMAP slice 4"
+            f"dataset {dataset!r}: plate and cylinder come in ROADMAP slice 7"
         )
     raise NotImplementedError(f"unknown dataset {dataset!r}")

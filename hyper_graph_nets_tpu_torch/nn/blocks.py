@@ -8,12 +8,26 @@ none``:
 - node update ``x' = x + MLP([x, agg(e') per edge set])`` with pna
   concatenating ``[sum | mean | max | min]``.
 
-``agg_vjp: fused`` routes an eligible edge set (pna, ``[3L -> L -> L -> L]``
-+ LayerNorm, a segment plan) through the fused kernels
-(``ops/fused_block.py``): K1 forward and, under autograd, K2 (``fused_bwd:
-remat``) or K3 (``fused_bwd: stream``) backward; ``xla`` and ``gather`` take
-the unfused path, which is the same forward math.  The hierarchical architectures and
-``agg_vjp: sorted`` (kernel K4) belong to later slices of the port.
+``agg_vjp`` picks how an edge set is updated and aggregated, as in the JAX
+package (same forward math on every path):
+
+- ``fused``: an eligible set (pna, ``[3L -> L -> L -> L]`` + LayerNorm, a
+  segment plan) runs the fused kernels (``ops/fused_block.py``): K1 forward
+  and, under autograd, K2 (``fused_bwd: remat``) or K3 (``stream``)
+  backward; other sets take the ``xla`` form.
+- ``sorted``: the unfused edge update, and the pna of the sets in
+  ``SORTED_EDGE_SETS`` through the sorted pna kernels
+  (``ops/segment_pna.py``: K4f forward, K4b backward) while one row of
+  float32 edge features fits ``MAX_EDGE_BLOCK_BYTES``; otherwise the
+  ``gather`` form's aggregate (or scatter without a neighbour matrix).
+- ``gather``: the sender and receiver gathers and pna over the static
+  neighbour matrices with gather-only backwards (``core.segment_ops.
+  gather_rows``, ``pna_gather``): tied edges get the full max/min cotangent.
+- ``xla``: the unfused update and scatter aggregation, differentiated by
+  autograd (tied edges split the max/min cotangent, as the VJP of JAX's
+  segment max does).
+
+The hierarchical architectures belong to a later slice of the port.
 """
 from __future__ import annotations
 
@@ -24,8 +38,14 @@ import torch
 from torch import nn
 
 from hyper_graph_nets_tpu_torch.core.graph import EdgeSet, Graph
-from hyper_graph_nets_tpu_torch.core.segment_ops import aggregate
+from hyper_graph_nets_tpu_torch.core.segment_ops import (
+    aggregate,
+    gather_aggregate,
+    gather_rows,
+    pna_gather,
+)
 from hyper_graph_nets_tpu_torch.nn.mlp import MLP, dense
+from hyper_graph_nets_tpu_torch.ops.segment_pna import MAX_EDGE_BLOCK_BYTES, pna_sorted
 
 CANONICAL_EDGE_ORDER: Tuple[str, ...] = (
     "mesh_edges",
@@ -37,8 +57,12 @@ CANONICAL_EDGE_ORDER: Tuple[str, ...] = (
     "inter_cluster_world",
 )
 
-AGG_PATHS = ("xla", "gather", "fused")
+AGG_PATHS = ("xla", "gather", "sorted", "fused")
 FUSED_BWD = ("remat", "stream")
+# edge sets whose valid edges are non-decreasing in receiver with the masked
+# ones at the tail: the ones agg_vjp 'sorted' aggregates by kernel (the JAX
+# package's GNNConfig.sorted_edge_sets default)
+SORTED_EDGE_SETS = ("mesh_edges",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,11 +84,6 @@ class GNNConfig:
     fused_bwd: str = "remat"
 
     def __post_init__(self):
-        if self.agg_vjp == "sorted":
-            raise NotImplementedError(
-                "agg_vjp 'sorted' runs the sorted pna kernel (K4), which the "
-                "port has not ported yet (ROADMAP slice 6); use 'fused' or 'xla'"
-            )
         if self.agg_vjp not in AGG_PATHS:
             raise ValueError(f"agg_vjp must be one of {AGG_PATHS}, got {self.agg_vjp!r}")
         if self.fused_bwd not in FUSED_BWD:
@@ -74,7 +93,7 @@ class GNNConfig:
         if self.architecture != "none":
             raise NotImplementedError(
                 f"architecture {self.architecture!r}: the port runs flat blocks "
-                "only; RMP and the hierarchical blocks come in ROADMAP slice 5"
+                "only; RMP and the hierarchical blocks come in ROADMAP slice 8"
             )
 
     @property
@@ -139,9 +158,30 @@ def _update_edge_features(
     b1 = eparams.biases[0]
     if cfg.cd is not None:
         b1 = b1.to(cfg.cd)
-    h = s_part[..., es.senders.long(), :] + r_part[..., es.receivers.long(), :]
+    if (
+        cfg.agg_vjp == "gather"
+        and es.gather_idx is not None
+        and es.snd_gather_idx is not None
+        and _gather_dense_ok(es)
+        and _gather_dense_ok(es, es.snd_gather_idx)
+    ):
+        # gather-only backward through the static inverse incidences
+        s_rows = gather_rows(s_part, es.senders, es.snd_gather_idx, es.snd_gather_valid)
+        r_rows = gather_rows(r_part, es.receivers, es.gather_idx, es.gather_valid)
+    else:
+        s_rows = s_part[..., es.senders.long(), :]
+        r_rows = r_part[..., es.receivers.long(), :]
+    h = s_rows + r_rows
     h = h + e_part + b1
     return es.features + eparams(h, cfg.cd, from_layer=1)
+
+
+def _gather_dense_ok(es: EdgeSet, idx: Optional[torch.Tensor] = None) -> bool:
+    """The JAX package's gate on the ``[rows, d_max]`` neighbour matrix: at
+    most 4x padding over the edge count (skewed degrees fall back to
+    scatter)."""
+    rows, d_max = (es.gather_idx if idx is None else idx).shape[-2:]
+    return rows * d_max <= 4 * es.num_edges
 
 
 def _fused_mlp_shape_ok(eparams: MLP, es: EdgeSet, cfg: GNNConfig) -> bool:
@@ -208,16 +248,34 @@ def _aggregate_sets(
     cfg: GNNConfig,
     precomputed: Optional[Dict[str, torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """Concatenated per-set aggregates over node rows."""
+    """Concatenated per-set aggregates over node rows, dispatched as the JAX
+    package's ``_aggregate_sets`` (``nn/blocks.py:521-582``) for the flat
+    path; ``xla`` keeps the scatter form, whose values are the same."""
     parts = []
     for name in names:
         if precomputed is not None and name in precomputed:
             parts.append(precomputed[name])
             continue
         es = graph.edge_sets[name]
-        parts.append(
-            aggregate(edge_feats[name], es.receivers, num_total, cfg.aggregation, es.mask)
-        )
+        f = edge_feats[name]
+        if (
+            cfg.agg_vjp == "sorted"
+            and cfg.aggregation == "pna"
+            and name in SORTED_EDGE_SETS
+            and f.shape[-2] * f.shape[-1] * 4 <= MAX_EDGE_BLOCK_BYTES
+        ):
+            # K4f, and K4b under autograd.  The card has no VMEM, so the byte
+            # gate means nothing there; it is kept so that both packages take
+            # the same path, with the same tie rule, on every mesh.
+            parts.append(pna_sorted(f, es.receivers, es.mask, num_total, plan=es.plan))
+            continue
+        if cfg.agg_vjp in ("gather", "sorted") and es.gather_idx is not None and _gather_dense_ok(es):
+            if cfg.agg_vjp == "gather" and cfg.aggregation == "pna":
+                parts.append(pna_gather(f, es.gather_idx, es.gather_valid, es.receivers, es.mask))
+            else:
+                parts.append(gather_aggregate(f, es.gather_idx, es.gather_valid, cfg.aggregation))
+            continue
+        parts.append(aggregate(f, es.receivers, num_total, cfg.aggregation, es.mask))
     return torch.cat(parts, dim=-1)
 
 

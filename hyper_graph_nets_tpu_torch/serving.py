@@ -69,7 +69,7 @@ class Predictor:
         if checkpoint is not None:
             raise NotImplementedError(
                 "checkpoint loading comes with the checkpoint slice (ROADMAP "
-                "slice 3); pass a converted state to Predictor(config, state=...)"
+                "slice 6); pass a converted state to Predictor(config, state=...)"
             )
         config = (
             read_yaml(config_or_name)

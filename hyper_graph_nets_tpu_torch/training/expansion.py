@@ -12,12 +12,12 @@ def build_expansion(model, config: dict):
     """The configured expansion: None when neither RMP nor the balancer is set."""
     if model.use_balancer:
         raise NotImplementedError(
-            "graph_balancer: the balancer (kernel K5) comes in ROADMAP slice 6"
+            "graph_balancer: the balancer (kernel K5) comes in ROADMAP slice 4"
         )
     if model.use_rmp:
         raise NotImplementedError(
             "rmp: remote message passing and the hierarchical blocks come in "
-            "ROADMAP slice 5; set model.rmp.clustering and model.rmp.connector "
+            "ROADMAP slice 8; set model.rmp.clustering and model.rmp.connector "
             "to 'none' to serve the flat MeshGraphNets model"
         )
     return None

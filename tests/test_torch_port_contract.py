@@ -32,7 +32,12 @@ from hyper_graph_nets_tpu_torch.core.mesh import cells_to_edges, mesh_fingerprin
 from hyper_graph_nets_tpu_torch.data.preprocessing import add_targets
 from hyper_graph_nets_tpu_torch.data.synthetic import flag_trajectory
 from hyper_graph_nets_tpu_torch.nn.mlp import MLP
-from hyper_graph_nets_tpu_torch.ops.fused_block import fused_edge_block
+from hyper_graph_nets_tpu_torch.ops.fused_block import (
+    fused_edge_block,
+    fused_edge_block_bwd,
+    fused_edge_block_bwd_stream,
+)
+from hyper_graph_nets_tpu_torch.ops.segment_pna import pna_sorted, pna_sorted_bwd
 from hyper_graph_nets_tpu_torch.serving import Predictor
 from hyper_graph_nets_tpu_torch.utils.config import read_yaml
 from torch_port_cases import flag_config
@@ -128,14 +133,31 @@ def _with(**model):
     [
         _with(rmp={"clustering": "spectral", "connector": "hyper"}),
         _with(graph_balancer={"algorithm": "ricci"}),
-        _with(agg_vjp="sorted"),
         _with(inference_quant="int8"),
     ],
-    ids=["rmp", "balancer", "agg_vjp_sorted", "int8"],
+    ids=["rmp", "balancer", "int8"],
 )
 def test_later_slices_raise(config):
     with pytest.raises(NotImplementedError):
         Predictor(config, device="cpu")
+
+
+def test_cpu_predictor_sorted_serves_without_launching():
+    """``agg_vjp: sorted`` builds and serves on the CPU (the sorted pna's
+    plain versions); no kernel counter moves."""
+    counts = lambda: (
+        fused_edge_block.launches, fused_edge_block_bwd.launches,
+        fused_edge_block_bwd_stream.launches, pna_sorted.launches, pna_sorted_bwd.launches,
+    )
+    before = counts()
+    traj = add_targets(flag_trajectory(num_steps=4, nx=6, ny=6), "world_pos", True)
+    p = Predictor(_with(agg_vjp="sorted"), device="cpu")
+    assert p.model.gnn_config.agg_vjp == "sorted"
+    out = p.one_step(traj)
+    r = p.rollout(traj, num_steps=2)
+    assert out.shape == (2, 36, 3) and np.isfinite(out).all()
+    assert r["pred_pos"].shape == (2, 36, 3) and np.isfinite(r["mse"]).all()
+    assert counts() == before
 
 
 def test_checkpoint_and_other_datasets_raise():

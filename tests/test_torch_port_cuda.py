@@ -30,6 +30,15 @@ equals the tie count of K1's output exactly.  A training step (2 blocks,
 B = 2) on the card against the CPU: float32 loss rtol 1e-4 and gradients
 within relative L2 1e-3; bf16 loss within 2**-5 and gradients within
 relative L2 2**-3.
+
+K4f and K4b (``agg_vjp: sorted``) against their plain versions on the same
+inputs (a masked tail and an isolated receiver, exactly tied edges): K4f's
+max and min exactly equal, sum and mean within rtol = atol = 1e-5 (float32)
+or one bf16 unit in the last place (2**-7 relative, 1e-5 absolute): the
+plain version sums with atomics on the card, in another order.  K4b equals
+its plain version bit for bit on K4f's own output: both take the same
+float32 steps, and the compare is exact.  Serving and a training step with
+``agg_vjp: sorted`` on the card against the CPU, with the tolerances above.
 """
 import numpy as np
 import pytest
@@ -48,6 +57,13 @@ from hyper_graph_nets_tpu_torch.ops.fused_block import (
     fused_edge_block_fwd,
     fused_edge_block_reference,
     plan_segments,
+)
+from hyper_graph_nets_tpu_torch.ops.segment_pna import (
+    pna_sorted,
+    pna_sorted_bwd,
+    pna_sorted_bwd_reference,
+    pna_sorted_reference,
+    sorted_plan,
 )
 from hyper_graph_nets_tpu_torch.runtime import configure_numerics
 from hyper_graph_nets_tpu_torch.serving import Predictor
@@ -233,11 +249,14 @@ def test_fused_edge_block_under_grad_runs_k1_and_its_backward(bwd):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("bwd", ["remat", "stream"])
+@pytest.mark.parametrize("bwd", ["remat", "stream", "sorted"])
 def test_train_step_on_card_matches_cpu(dtype, bwd):
     _need_card()
-    config = flag_config(None if dtype == "float32" else dtype)
-    config["params"]["model"].update(noise=0.003, gamma=0.9, fused_bwd=bwd)
+    agg_vjp = "sorted" if bwd == "sorted" else "fused"
+    config = flag_config(None if dtype == "float32" else dtype, agg_vjp=agg_vjp)
+    config["params"]["model"].update(noise=0.003, gamma=0.9)
+    if agg_vjp == "fused":
+        config["params"]["model"]["fused_bwd"] = bwd
     traj = add_targets(flag_trajectory(num_steps=4, nx=10, ny=10), "world_pos", True)
     model = get_model(config)
     state = model.init_state(torch.Generator().manual_seed(1))
@@ -247,9 +266,12 @@ def test_train_step_on_card_matches_cpu(dtype, bwd):
         trainer = Trainer(model, config, device=device)
         tstate = trainer.init_train_state(state=state)
         topo = model.topology_from_trajectory(traj, device=device)
-        before = fused_edge_block_bwd.launches + fused_edge_block_bwd_stream.launches
+        bwd_count = lambda: (
+            fused_edge_block_bwd.launches + fused_edge_block_bwd_stream.launches + pna_sorted_bwd.launches
+        )
+        before = bwd_count()
         loss, _ = trainer.loss_and_grads(tstate, topo, trainer.frames(traj), normal=normal.to(device))
-        launched = fused_edge_block_bwd.launches + fused_edge_block_bwd_stream.launches - before
+        launched = bwd_count() - before
         assert launched == (2 if device == "cuda" else 0)  # one per block
         grads = {n: p.grad.cpu() for n, p in tstate.model.params.named_parameters()}
         results[device] = (float(loss), grads)
@@ -258,3 +280,97 @@ def test_train_step_on_card_matches_cpu(dtype, bwd):
     assert abs(lc - lh) <= loss_tol * abs(lh)
     for name, g in gh.items():
         assert float((gc[name] - g).norm()) <= grad_tol * float(g.norm()), name
+
+
+# -- K4f and K4b (agg_vjp: sorted) -------------------------------------------
+
+
+def _sorted_inputs(case, dtype, L, B=3):
+    """Card tensors of a case for K4f/K4b: (data, receivers, mask, N, plan,
+    positions of tied copies)."""
+    if case == "masked":
+        arrays, _, snd, rcv, mask, N, _ = masked_edge_case(seed=3, B=B, L=L)
+        copies = None
+    else:
+        arrays, _, snd, rcv, mask, N, copies = tie_edge_case(seed=3, B=B, L=L)
+    data = torch.tensor(arrays["e"]).to(dtype).cuda()
+    plan = sorted_plan(rcv, N, mask).to("cuda")
+    return data, torch.tensor(rcv).cuda(), torch.tensor(mask).cuda(), N, plan, copies
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("L", [32, 128])
+@pytest.mark.parametrize("case", ["masked", "ties"])
+def test_k4f_k4b_kernels_match_plain(dtype, L, case):
+    _need_card()
+    data, rcv, mask, N, plan, copies = _sorted_inputs(case, dtype, L)
+    before = (pna_sorted.launches, pna_sorted_bwd.launches)
+    out = pna_sorted(data, rcv, mask, N, plan=plan)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(6)).to(dtype).cuda()
+    ge = pna_sorted_bwd(g, out, data, rcv, mask, N, plan=plan)
+    torch.cuda.synchronize()
+    assert (pna_sorted.launches, pna_sorted_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want = pna_sorted_reference(data, rcv, mask, N)
+    rtol = 1e-5 if dtype == torch.float32 else BF16_ULP
+    torch.testing.assert_close(out[..., : 2 * L].float(), want[..., : 2 * L].float(), rtol=rtol, atol=1e-5)
+    assert torch.equal(out[..., 2 * L :], want[..., 2 * L :])
+    assert torch.equal(ge, pna_sorted_bwd_reference(g, out, data, rcv, mask, N))
+    if case == "masked":
+        assert bool((out[:, 10] == 0).all())
+        assert bool((ge[:, mask == 0] == 0).all())
+    else:
+        c = torch.as_tensor(copies).cuda()
+        assert torch.equal(ge[:, c], ge[:, c - 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["masked", "ties"])
+def test_k4b_routed_mass_equals_the_tie_count(case):
+    """With only g_max = g_min = 1, the edge cotangents' column sums count
+    the edges equal to their receiver's extremum in K4f's output, exactly."""
+    _need_card()
+    data, rcv, mask, N, plan, _ = _sorted_inputs(case, torch.bfloat16, 128)
+    L = data.shape[-1]
+    out = pna_sorted(data, rcv, mask, N, plan=plan)
+    g = torch.zeros_like(out)
+    g[..., 2 * L :] = 1.0
+    ge = pna_sorted_bwd(g, out, data, rcv, mask, N, plan=plan)
+    r, valid = rcv.long(), mask > 0
+    want = sum(
+        ((data.float() == out.float()[:, r, k * L : (k + 1) * L]) & valid[None, :, None]).float().sum(dim=(0, 1))
+        for k in (2, 3)
+    )
+    assert torch.equal(ge.float().sum(dim=(0, 1)), want)
+    assert bool((want >= 2 * data.shape[0] * int(torch.unique(r[valid]).numel())).all())
+
+
+@pytest.mark.cuda
+def test_pna_sorted_under_grad_runs_k4f_and_k4b():
+    _need_card()
+    data, rcv, mask, N, plan, _ = _sorted_inputs("masked", torch.bfloat16, 128)
+    x = data.clone().requires_grad_()
+    before = (pna_sorted.launches, pna_sorted_bwd.launches)
+    out = pna_sorted(x, rcv, mask, N, plan=plan)
+    assert out.grad_fn is not None
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert (pna_sorted.launches, pna_sorted_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert x.grad is not None and bool((x.grad[:, mask == 0] == 0).all())
+
+
+@pytest.mark.cuda
+def test_sorted_predictor_on_card_matches_cpu():
+    _need_card()
+    config = flag_config("bfloat16", agg_vjp="sorted")
+    traj = add_targets(flag_trajectory(num_steps=5, nx=10, ny=10), "world_pos", True)
+    card = Predictor(config)
+    cpu = Predictor(config, state=card.state, device="cpu")
+    before = (fused_edge_block.launches, pna_sorted.launches)
+    got = card.one_step(traj)
+    assert (fused_edge_block.launches, pna_sorted.launches) == (before[0], before[1] + 2)
+    want = cpu.one_step(traj)
+    assert np.isfinite(got).all()
+    base = 2 * traj["world_pos"] - traj["prev|world_pos"]
+    scale = np.abs(want - base).max()
+    assert np.abs(got - want).max() <= 0.05 * scale

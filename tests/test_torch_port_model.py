@@ -2,8 +2,9 @@
 
 Same weights (JAX init, moved by ``convert.state_from_jax_numpy``), same
 numpy inputs, flag topology on a 10x10 grid, latent 32, 2 message-passing
-blocks.  The JAX side runs the fused Pallas kernel in interpret mode; the
-port runs on the CPU, where its kernel wrapper takes the plain version.
+blocks, for the ``fused``, ``xla``, ``sorted`` and ``gather`` paths.  The
+JAX side runs its Pallas kernels in interpret mode; the port runs on the
+CPU, where its kernel wrappers take their plain versions.
 
 Tolerances:
 - float32: rtol = atol = 1e-4 on node latents and outputs (summation order
@@ -38,7 +39,9 @@ from hyper_graph_nets_tpu_torch.convert import state_from_jax_numpy
 from hyper_graph_nets_tpu_torch.core.graph import EdgeSet, Graph
 from hyper_graph_nets_tpu_torch.nn.blocks import GNNConfig
 from hyper_graph_nets_tpu_torch.nn.meshgraphnet import network_activations
+from hyper_graph_nets_tpu_torch.core.mesh import receivers_to_gather
 from hyper_graph_nets_tpu_torch.ops.fused_block import fused_edge_block, plan_segments
+from hyper_graph_nets_tpu_torch.ops.segment_pna import sorted_plan
 from hyper_graph_nets_tpu_torch.serving import Predictor
 from torch_port_cases import flag_config, grid_edges
 
@@ -71,7 +74,14 @@ def _cfg_kwargs(compute_dtype, agg_vjp):
     )
 
 
-CASES = [("float32", "fused"), ("float32", "xla"), ("bfloat16", "fused")]
+CASES = [
+    ("float32", "fused"),
+    ("float32", "xla"),
+    ("bfloat16", "fused"),
+    ("float32", "sorted"),
+    ("bfloat16", "sorted"),
+    ("float32", "gather"),
+]
 
 
 @pytest.mark.parametrize("dtype,agg_vjp", CASES)
@@ -81,6 +91,9 @@ def test_block_activations_match_jax(dtype, agg_vjp):
     rng = np.random.default_rng(3)
     nodes = rng.normal(size=(N, 5)).astype(np.float32)
     edges = rng.normal(size=(len(snd), 7)).astype(np.float32)
+    # the neighbour matrices every topology carries (gather and sorted read them)
+    gather = dict(zip(("gather_idx", "gather_valid"), receivers_to_gather(rcv, N)))
+    gather.update(zip(("snd_gather_idx", "snd_gather_valid"), receivers_to_gather(snd, N)))
 
     jcfg = JGNNConfig(**_cfg_kwargs(cd, agg_vjp))
     jparams = jax_network_init(jax.random.PRNGKey(0), jcfg)
@@ -94,6 +107,7 @@ def test_block_activations_match_jax(dtype, agg_vjp):
                 band_plan=(
                     build_band_plan(snd, rcv, N, chunk=128) if agg_vjp == "fused" else None
                 ),
+                **{k: jnp.asarray(v) for k, v in gather.items()},
             )
         },
     )
@@ -107,7 +121,11 @@ def test_block_activations_match_jax(dtype, agg_vjp):
                 features=torch.tensor(edges),
                 senders=torch.tensor(snd),
                 receivers=torch.tensor(rcv),
-                plan=plan_segments(rcv, N) if agg_vjp == "fused" else None,
+                plan=(
+                    plan_segments(rcv, N) if agg_vjp == "fused"
+                    else sorted_plan(rcv, N) if agg_vjp == "sorted" else None
+                ),
+                **{k: torch.tensor(v) for k, v in gather.items()},
             )
         },
     )
