@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch port on one NVIDIA GPU: build and check its kernels, serve
 flag MeshGraphNets (MGN-15MP) through ``Predictor``, and train it through
-``Trainer``.
+``Trainer``, without and with the Ricci graph balancer.
 
     python3 chip_smoke.py [--seed 0] [--out FILE.json] [--profile DIR]
 
@@ -17,29 +17,38 @@ Phases (any failure exits non-zero; nothing is caught and dropped):
    card could take: bytes moved over the memory rate or operations over the
    peak rate, whichever is larger).  K1 with and without its streams; K2
    (remat backward) and K3 (stream backward) at B = 21 in bf16 and float32,
-   with a masked tail and an isolated receiver, with exactly tied edges,
+   with a masked tail and an isolated receiver, with masked edges inside
+   segments (as the balancer removes mesh edges), with exactly tied edges,
    and the routed max/min mass against the exact tie count of K1's output;
    the float32 weight-gradient products of one block; K4f and K4b (the
    sorted pna of ``agg_vjp: sorted``) at B = 21 in bf16 and float32 and at
-   B = 1, with a masked tail and an isolated receiver, exactly tied edges
-   and the routed max/min mass against the tie count of K4f's output, timed
-   beside four ``torch.segment_reduce`` calls on the same inputs (context
-   only: the port never calls them);
+   B = 1, with a masked tail and an isolated receiver, masked edges inside
+   segments, exactly tied edges and the routed max/min mass against the tie
+   count of K4f's output, timed beside four ``torch.segment_reduce`` calls
+   on the same inputs (context only: the port never calls them); K5 (the
+   (max, x) product of the balanced-Forman curvature) bit for bit on the
+   40x40 flag's operands in both orders, on random inputs at 1,600 cubed and
+   on odd shapes; SDRF on the 40x40 flag (150 loops, tau 150, removal)
+   through K5 and through K5's plain version: the same edges;
 4. serving: ``Predictor.from_config`` on configs/flag_full_scale.yaml with
    RMP off (latent 128, 15 blocks, bf16, ``agg_vjp: fused``, then
-   ``agg_vjp: sorted``), seeded random weights, normalizers accumulated over
-   a 40x40 synthetic flag trajectory (1,600 nodes, 9,282 edges);
-   ``one_step`` on 21 frames and a 50-step ``rollout``, with every kernel's
-   launch count read around that run (15 K1, or 15 K4f, per forward); the
-   card's ``one_step`` held against the same state on the CPU;
+   ``agg_vjp: sorted``, then ``fused`` with ``graph_balancer.algorithm:
+   ricci``), seeded random weights, normalizers accumulated over a 40x40
+   synthetic flag trajectory (1,600 nodes, 9,282 edges); ``one_step`` on 21
+   frames and a 50-step ``rollout``, with every kernel's launch count read
+   around that run (15 K1, or 15 K4f, per forward; with the balancer 2 K5
+   per SDRF loop of each call's prepare); the card's ``one_step`` held
+   against the same state (and the same balancer static) on the CPU;
 5. training: ``Trainer.train_step`` on the same configuration, B = 21, Adam
    at lr 1e-4, noise 0.003, gamma 0.9, with ``fused_bwd: remat``, then
-   ``stream``, then ``agg_vjp: sorted``; the launch counts read around one
-   step of each (15 K1 and 15 K2, 15 K1 and 15 K3, or 15 K4f and 15 K4b);
-   the card's loss and gradients held against the same state and noise on
-   the CPU (B = 2, bf16 and float32); the loss after 30 steps on one batch
-   below the first step's (remat and sorted); train-step ms (median of 10
-   after 3 warm-up steps) and edges/s;
+   ``stream``, then ``agg_vjp: sorted``, then remat with the balancer; the
+   launch counts read around one step of each (15 K1 and 15 K2, 15 K1 and
+   15 K3, or 15 K4f and 15 K4b; with the balancer also the trainer's
+   prepare: 2 K5 per SDRF loop); the card's loss and gradients held against
+   the same state, noise and static on the CPU (B = 2, bf16 and float32);
+   the loss after 30 steps on one batch below the first step's (remat,
+   sorted, balancer); train-step ms (median of 10 after 3 warm-up steps)
+   and edges/s;
 6. timings, each with the card (with --profile also the device's busy share
    and kernel time by name), the kernels' JSON line, then the device JSON
    line last.
@@ -102,6 +111,14 @@ SERVE_TOL = {"net_out": 0.05, "acceleration": 0.01}
 # relative L2 2**-4.  (Measured on an H100: float32 1.7e-4 and bf16 1.3e-2
 # for the worst gradient.)
 TRAIN_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (2.0**-5, 2.0**-4)}
+# bf16 only: the gradients of the balancer's ``balance`` edge models, summed
+# over B x 298 valid balance edges where a mesh-edge tensor sums over
+# B x 9,282.  A relu input within one bf16 rounding of 0 flips between the
+# card and the CPU and moves its row's whole contribution, about
+# 1/sqrt(600) = 4% of such a per-tensor norm each (measured on an H100: 0.186
+# for one bias); a missing or misrouted gradient gives 1 or more.  In float32
+# they are held to TRAIN_TOL with every other tensor.
+BALANCE_BF16_GRAD_TOL = 0.5
 
 # K4f against its plain version (which sums with atomics on the card, in
 # another order): sum and mean within rtol + 1e-5 absolute, float32 rtol
@@ -370,7 +387,31 @@ def phase_kernels(card, peaks, topo_np, seed):
     if not bool((agg[:, 10] == 0).all()):
         raise AssertionError("K1: isolated receiver's aggregate is not 0")
     log("K1 masked tail + isolated receiver: ok")
+
+    # masked edges inside segments, spread through the mesh (the balancer's
+    # removals), and receiver 10 with all its edges masked
+    mask_i = interior_mask(rcv)
+    x = k1_inputs(torch.bfloat16, 3, snd, rcv, N, L, gen, "cuda", mask=mask_i)
+    e2, agg = fused_edge_block(**x, plan=plan_segments(rcv, N, senders=snd).to("cuda"))
+    re2, ragg = fused_edge_block_reference(**x)
+    check_close("K1 interior mask e2", e2, re2, *TOL["bfloat16"]["e2"])
+    check_close("K1 interior mask agg", agg, ragg, *TOL["bfloat16"]["agg"])
+    if not bool((agg[:, 10] == 0).all()):
+        raise AssertionError("K1 interior mask: receiver 10's aggregate is not 0")
+    log(f"K1 interior mask ({int((mask_i == 0).sum())} of {len(mask_i)} edges masked inside segments): ok")
     return results
+
+
+def interior_mask(rcv):
+    """Every seventh edge from the fourth masked, inside receivers' segments
+    as the graph balancer's removals are, and receiver 10 with all its edges
+    masked."""
+    import numpy as np
+
+    mask = np.ones(len(rcv), np.float32)
+    mask[3::7] = 0.0
+    mask[rcv == 10] = 0.0
+    return mask
 
 
 def masked_topology(snd, rcv, N, pad=5):
@@ -524,6 +565,12 @@ def phase_backward(card, peaks, topo_np, seed):
         if not bool((drp[:, 10] == 0).all()):
             raise AssertionError(f"{name}: isolated receiver's drp is not 0")
     log("K2/K3 masked tail + isolated receiver: ok")
+    x, topo, plan, fwd, de2, drhs = setup("bfloat16", 3, snd, rcv, mask=interior_mask(rcv))
+    *_, out2, out3 = check_both("interior mask", "bfloat16", x, topo, plan, fwd, de2, drhs)
+    for name, drp in (("K2", out2[7]), ("K3", out3[5])):
+        if not bool((drp[:, 10] == 0).all()):
+            raise AssertionError(f"{name} interior mask: receiver 10's drp is not 0")
+    log("K2/K3 interior mask: ok")
     snd_t, rcv_t, rows, copies = tie_topology(snd, rcv, N)
     copies = torch.as_tensor(copies).cuda()
     x, topo, plan, fwd, de2, drhs = setup("bfloat16", 3, snd_t, rcv_t, rows=rows)
@@ -670,6 +717,13 @@ def phase_sorted(card, peaks, topo_np, seed):
     if not (bool((out[:, 10] == 0).all()) and bool((ge[:, m == 0] == 0).all())):
         raise AssertionError("K4f/K4b: isolated receiver or masked edges not 0")
     log("K4f/K4b masked tail + isolated receiver: ok")
+    mask_i = interior_mask(rcv)
+    data_i, r_i, m_i, _ = setup("bfloat16", 3, rcv, mask=mask_i)
+    plan_i = sorted_plan(rcv, N).to("cuda")  # built without the mask, as build_topology does
+    out, _, ge, _ = check("interior mask", "bfloat16", data_i, r_i, m_i, plan_i)
+    if not (bool((out[:, 10] == 0).all()) and bool((ge[:, m_i == 0] == 0).all())):
+        raise AssertionError("K4f/K4b interior mask: receiver 10 or masked edges not 0")
+    log("K4f/K4b interior mask: ok")
     snd_t, rcv_t, rows, copies = tie_topology(snd, rcv, N)
     copies = torch.as_tensor(copies).cuda()
     data_t, r_t, _, plan_t = setup("bfloat16", 3, rcv_t, rows=rows)
@@ -685,7 +739,7 @@ def phase_sorted(card, peaks, topo_np, seed):
     data_main, r_main, _, plan_main = setup("bfloat16", TRAIN_FRAMES, rcv)
     for tag, (d, rr, mm, pl) in (
         ("main", (data_main, r_main, None, plan_main)), ("masked", (data, r, m, plan)),
-        ("ties", (data_t, r_t, None, plan_t)),
+        ("ties", (data_t, r_t, None, plan_t)), ("interior", (data_i, r_i, m_i, plan_i)),
     ):
         out = pna_sorted(d, rr, mm, N, plan=pl)
         g = torch.zeros_like(out)
@@ -713,22 +767,127 @@ def phase_sorted(card, peaks, topo_np, seed):
     return results
 
 
-def phase_slice(card, seed, rollout_steps, profile_dir=None, agg_vjp="fused"):
-    """Serve MGN-15MP through the port's Predictor; returns timings and counts."""
+def maxprod_bound_ms(N, K, M, peaks) -> tuple:
+    """Least time for one K5 call: x and y read once and out written once
+    (float32), or its N*K*M multiplies and maxes at the float32 instruction
+    rate, half the published float32 FLOP/s (which count a fused
+    multiply-add as two operations): 4*N*K*M "FLOP" at that peak."""
+    return _bound((N * K + K * M + N * M) * 4, 4 * N * K * M, "float32", peaks)
+
+
+def flag_adjacency(topo_np):
+    """The 0/1 adjacency ``A`` of the mesh and ``B = relu(A @ A - A)``: the
+    operands of the curvature's two K5 calls."""
+    import torch
+
+    snd, rcv, N = topo_np
+    A = torch.zeros(N, N, device="cuda")
+    A[torch.as_tensor(snd).long(), torch.as_tensor(rcv).long()] = 1.0
+    return A, torch.clamp(A @ A - A, min=0.0)
+
+
+def phase_maxprod(card, peaks, topo_np, seed):
+    """K5 against its plain version, bit for bit: the 40x40 flag's curvature
+    operands in both orders, random non-negative inputs at 1,600 cubed, and
+    odd shapes; timed at the flag's shapes."""
+    import torch
+
+    from hyper_graph_nets_tpu_torch.ops.maxprod import maxprod, maxprod_reference
+
+    gen = torch.Generator().manual_seed(seed + 3)
+    rand = lambda *s: (torch.rand(*s, generator=gen) * (torch.rand(*s, generator=gen) > 0.5)).cuda()
+    A, B = flag_adjacency(topo_np)
+    cases = {
+        "flag B x A": (B, A), "flag A x B": (A, B),
+        "random 1600^3": (rand(1600, 1600), rand(1600, 1600)),
+        "odd 1000x1300x700": (rand(1000, 1300), rand(1300, 700)),
+        "odd 37x5x129": (rand(37, 5), rand(5, 129)),
+    }
+    results = {}
+    for tag, (x, y) in cases.items():
+        got = maxprod(x, y)
+        torch.cuda.synchronize()
+        if not torch.equal(got, maxprod_reference(x, y)):
+            raise AssertionError(f"K5 {tag}: differs from the plain version")
+        log(f"K5 {tag}: equal to the plain version bit for bit")
+    for tag in ("flag B x A", "random 1600^3"):
+        x, y = cases[tag]
+        N, K = x.shape
+        M = y.shape[1]
+        run = lambda: maxprod(x, y)
+        ms = kernel_device_ms(run, iters=20, names="maxprod_kernel")
+        call_ms = cuda_time_ms(run, iters=20)
+        plain_ms = cuda_time_ms(lambda: maxprod_reference(x, y), iters=3, warmup=1)
+        bound, bound_by = maxprod_bound_ms(N, K, M, peaks)
+        results[tag] = dict(
+            max_abs_err=0.0, ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+        )
+        log(
+            f"K5 {tag} N={N} K={K} M={M}: kernel {ms * 1e3:.1f} us (wrapper call {call_ms * 1e3:.1f} us), "
+            f"bound {bound * 1e3:.1f} us ({bound_by}), plain {plain_ms:.3f} ms, max abs err 0 [{card}]"
+        )
+    return results
+
+
+def phase_sdrf(card, topo_np):
+    """SDRF on the 40x40 flag with the configuration's settings (150 loops,
+    tau 150, removal), once through K5 and once through its plain version on
+    the card: the same added and removed edges."""
+    import torch
+
+    from hyper_graph_nets_tpu_torch.balancer.ricci import sdrf
+    from hyper_graph_nets_tpu_torch.ops.maxprod import maxprod, maxprod_reference
+
+    snd, rcv, N = topo_np
+    kw = dict(loops=150, remove_edges=True, tau=150, device="cuda")
+    runs = {}
+    for name, fn in (("K5", maxprod), ("plain", maxprod_reference)):
+        before = maxprod.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lists = sdrf(snd, rcv, N, maxprod_fn=fn, **kw)
+        seconds = time.perf_counter() - t0
+        runs[name] = (lists, sdrf.loops_run, maxprod.launches - before, seconds)
+    (lists, loops, k5, seconds), (plain_lists, plain_loops, plain_k5, plain_s) = runs["K5"], runs["plain"]
+    added, removed = lists
+    if lists != plain_lists or loops != plain_loops:
+        raise AssertionError("SDRF through K5 differs from SDRF through the plain version")
+    if k5 != 2 * loops or plain_k5 != 0:
+        raise AssertionError(f"SDRF: {k5} K5 launches in {loops} loops (want 2 per loop), {plain_k5} in the plain run")
+    mesh = set(zip(snd.tolist(), rcv.tolist()))
+    removed_mesh = sum((s, r) in mesh for s, r in zip(removed["senders"], removed["receivers"]))
+    log(
+        f"SDRF 40x40 flag (loops 150, tau 150, removal): {loops} loops run, {len(added['senders'])} edges "
+        f"added, {len(removed['senders'])} removed ({removed_mesh} of them mesh edges), both directions; "
+        f"{k5} K5 launches; {seconds:.3f} s through K5, {plain_s:.3f} s through the plain version; "
+        f"equal lists [{card}]"
+    )
+    return dict(
+        loops_run=loops, added=len(added["senders"]), removed=len(removed["senders"]),
+        removed_mesh_edges=removed_mesh, k5_launches=k5, seconds=seconds, plain_seconds=plain_s,
+    )
+
+
+def phase_slice(card, seed, rollout_steps, profile_dir=None, agg_vjp="fused", balancer=False):
+    """Serve MGN-15MP through the port's Predictor; returns timings and counts.
+    With ``balancer`` the configuration's Ricci balancer is on: each call
+    runs SDRF in ``prepare`` (K5) and serves the expanded graph."""
     import numpy as np
     import torch
 
+    from hyper_graph_nets_tpu_torch.balancer.ricci import sdrf
     from hyper_graph_nets_tpu_torch.data.preprocessing import add_targets
     from hyper_graph_nets_tpu_torch.data.synthetic import flag_trajectory
     from hyper_graph_nets_tpu_torch.serving import Predictor
     from hyper_graph_nets_tpu_torch.training.trainer import batched_forward
 
-    config = main_config(agg_vjp=agg_vjp)
+    config = balancer_config(agg_vjp=agg_vjp) if balancer else main_config(agg_vjp=agg_vjp)
     predictor = Predictor.from_config(config)
     model = predictor.model
     cfg = model.gnn_config
-    check_mgn15(cfg, agg_vjp)
+    check_mgn15(cfg, agg_vjp, balancer)
     kernel = "K1" if agg_vjp == "fused" else "K4f"
+    path = agg_vjp + (" + ricci balancer" if balancer else "")
     blocks = cfg.message_passing_steps
     # seeded weights, normalizers accumulated over the trajectory
     state = model.init_state(torch.Generator().manual_seed(seed))
@@ -745,22 +904,31 @@ def phase_slice(card, seed, rollout_steps, profile_dir=None, agg_vjp="fused"):
     E, N = int(topo.senders.shape[0]), topo.num_nodes
     B = ONE_STEP_FRAMES
     batch = {k: v[:B] for k, v in traj.items()}
-    log(f"serving ({agg_vjp}): flag MGN-15MP latent 128 bf16, N={N} E={E}, one_step B={B}, "
+    log(f"serving ({path}): flag MGN-15MP latent 128 bf16, N={N} E={E}, one_step B={B}, "
         f"rollout {rollout_steps}")
 
-    # the main path: every count set to 0 just before, read just after
+    # the main path: every count set to 0 just before, read just after; with
+    # the balancer, each call's prepare runs SDRF (2 K5 per loop run)
     reset_counts()
     pred = predictor.one_step(batch)
+    loops = [sdrf.loops_run] if balancer else []
     launches_one_step = read_counts()
     result = predictor.rollout(traj, num_steps=rollout_steps)
+    loops += [sdrf.loops_run] if balancer else []
     launches = read_counts()
     want = dict.fromkeys(launches, 0)
     want[kernel] = blocks * (1 + rollout_steps)
+    want["K5"] = 2 * sum(loops)
     if launches_one_step[kernel] != blocks or launches != want:
         raise AssertionError(
             f"serving launches: {launches_one_step} in one_step (want {kernel} {blocks}), "
             f"{launches} in all (want {want})"
         )
+    static = predictor.expansion.static if balancer else None
+    if balancer:
+        bstat = static[0]
+        log(f"balancer: SDRF ran {loops} loops per prepare; {int(bstat.bal_mask.sum())} balance edges "
+            f"(capacity {bstat.bal_mask.numel()}), {int((bstat.mesh_keep == 0).sum())} mesh edges removed")
     if pred.shape != (B, N, 3) or not np.isfinite(pred).all():
         raise AssertionError(f"one_step output {pred.shape} not finite/shaped")
     if result["pred_pos"].shape != (rollout_steps, N, 3) or not (
@@ -769,9 +937,10 @@ def phase_slice(card, seed, rollout_steps, profile_dir=None, agg_vjp="fused"):
         raise AssertionError("rollout output not finite/shaped")
     log(f"serving launches: {launches_one_step[kernel]} {kernel} per one_step, {launches} in all")
 
-    # the card against the CPU, same state, bf16 on both
+    # the card against the CPU, same state and (with the balancer) the same
+    # static, bf16 on both
     cpu = Predictor(config, state=predictor.state, device="cpu")
-    pred_cpu = cpu.one_step(batch)
+    pred_cpu = cpu.one_step(batch, static=static)
     base = 2 * batch["world_pos"] - batch["prev|world_pos"]
     acc, acc_cpu = pred - base, pred_cpu - base
     acc_err = float(np.abs(acc - acc_cpu).max())
@@ -782,29 +951,35 @@ def phase_slice(card, seed, rollout_steps, profile_dir=None, agg_vjp="fused"):
             t = p.model.topology_from_trajectory(batch, device=p.device)
             fr = {k: torch.as_tensor(v, device=p.device) for k, v in batch.items() if k != "cells"}
             g, _, _ = p.model.make_graph(p.state, t, fr, False)
+            if balancer:
+                g, _ = p.expansion.expand(p.state, g, fr, p.model, False, static=static)
             outs.append(batched_forward(p.model, p.state.params, g).cpu())
     out_err = float((outs[0] - outs[1]).abs().max())
     out_scale = float(outs[1].abs().max())
     log(
-        f"one_step ({agg_vjp}) card vs CPU: net out max err {out_err:.4g} of max {out_scale:.4g}; "
+        f"one_step ({path}) card vs CPU: net out max err {out_err:.4g} of max {out_scale:.4g}; "
         f"acceleration max err {acc_err:.4g} of max {acc_scale:.4g}"
     )
     if out_err > SERVE_TOL["net_out"] * out_scale or acc_err > SERVE_TOL["acceleration"] * acc_scale:
         raise AssertionError(f"one_step card vs CPU outside tolerance {SERVE_TOL}")
 
-    # timings (host clock around synchronized work)
-    one_step_s = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        predictor.one_step(batch)
-        one_step_s.append(time.perf_counter() - t0)
+    # timings (host clock around synchronized work); with the balancer,
+    # one_step with its prepare (SDRF) and with the prepared static
+    def host_ms(fn, n):
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return 1e3 * float(np.median(times))
+
+    one_step_ms = host_ms(lambda: predictor.one_step(batch, static=static), 5)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    predictor.rollout(traj, num_steps=rollout_steps)
-    rollout_s = time.perf_counter() - t0
-    one_step_ms = 1e3 * float(np.median(one_step_s))
-    rollout_ms_step = 1e3 * rollout_s / rollout_steps
+    predictor.rollout(traj, num_steps=rollout_steps, static=static)
+    rollout_ms_step = 1e3 * (time.perf_counter() - t0) / rollout_steps
     timings = dict(
         one_step_ms=one_step_ms,
         one_step_edges_per_s=B * E / (one_step_ms / 1e3),
@@ -813,21 +988,35 @@ def phase_slice(card, seed, rollout_steps, profile_dir=None, agg_vjp="fused"):
         one_step_vs_cpu_net_out_err=out_err,
         one_step_vs_cpu_acceleration_err=acc_err,
     )
+    extra = ""
+    if balancer:
+        frame0 = {k: v[0] for k, v in traj.items()}
+        topo_card = predictor._topology(traj)
+
+        def prepare():
+            predictor.expansion.reset(0, 1)
+            predictor.expansion.prepare(model, frame0, topo_card)
+
+        timings["prepare_s"] = host_ms(prepare, 3) / 1e3
+        timings["one_step_with_prepare_ms"] = host_ms(lambda: predictor.one_step(batch), 3)
+        extra = (f"; with its prepare (SDRF) {timings['one_step_with_prepare_ms']:.2f} ms, "
+                 f"prepare alone {timings['prepare_s']:.3f} s")
     log(
-        f"one_step ({agg_vjp}) B={B}: {one_step_ms:.2f} ms, "
-        f"{timings['one_step_edges_per_s']:.4g} edges/s [{card}]"
+        f"one_step ({path}) B={B}: {one_step_ms:.2f} ms, "
+        f"{timings['one_step_edges_per_s']:.4g} edges/s{extra} [{card}]"
     )
     log(
-        f"rollout ({agg_vjp}): {rollout_ms_step:.2f} ms/step, "
+        f"rollout ({path}): {rollout_ms_step:.2f} ms/step, "
         f"{timings['rollout_edges_per_s']:.4g} edges/s [{card}]"
     )
     if profile_dir:
+        tag = agg_vjp + ("_balancer" if balancer else "")
         timings["profile"] = {
             "one_step": device_profile(
-                lambda: predictor.one_step(batch), card, profile_dir, f"one_step_{agg_vjp}"
+                lambda: predictor.one_step(batch, static=static), card, profile_dir, f"one_step_{tag}"
             ),
             "rollout_5_steps": device_profile(
-                lambda: predictor.rollout(traj, num_steps=5), card, profile_dir, f"rollout_{agg_vjp}"
+                lambda: predictor.rollout(traj, num_steps=5, static=static), card, profile_dir, f"rollout_{tag}"
             ),
         }
     return launches, timings
@@ -843,43 +1032,59 @@ def main_config(**model):
     return config
 
 
-def check_mgn15(cfg, agg_vjp="fused"):
+def balancer_config(**model):
+    """``main_config`` with the Ricci balancer on; every other balancer key
+    (loops 150, tau 150, remove_edges, frequency 1) from the file."""
+    config = main_config(**model)
+    bal = config["params"]["model"]["graph_balancer"]
+    bal["algorithm"] = "ricci"
+    if (bal["ricci"]["loops"], bal["ricci"]["tau"], bal["remove_edges"], bal["frequency"]) != (150, 150, True, 1):
+        raise AssertionError(f"flag_full_scale's graph_balancer changed: {bal}")
+    return config
+
+
+def check_mgn15(cfg, agg_vjp="fused", balancer=False):
     if (cfg.latent_size, cfg.message_passing_steps, cfg.agg_vjp, cfg.compute_dtype) != (
         128, 15, agg_vjp, "bfloat16"
     ):
         raise AssertionError(f"flag_full_scale is not MGN-15MP with agg_vjp {agg_vjp}: {cfg}")
+    sets = ("mesh_edges", "balance") if balancer else ("mesh_edges",)
+    if cfg.edge_sets != sets:
+        raise AssertionError(f"edge sets {cfg.edge_sets}, want {sets}")
 
 
-def reset_counts():
+def _counters():
     from hyper_graph_nets_tpu_torch.ops import fused_block as fb
-    from hyper_graph_nets_tpu_torch.ops import segment_pna as sp
-
-    fb.fused_edge_block.launches = 0
-    fb.fused_edge_block_bwd.launches = 0
-    fb.fused_edge_block_bwd_stream.launches = 0
-    sp.pna_sorted.launches = 0
-    sp.pna_sorted_bwd.launches = 0
-
-
-def read_counts():
-    from hyper_graph_nets_tpu_torch.ops import fused_block as fb
+    from hyper_graph_nets_tpu_torch.ops import maxprod as mp
     from hyper_graph_nets_tpu_torch.ops import segment_pna as sp
 
     return {
-        "K1": fb.fused_edge_block.launches,
-        "K2": fb.fused_edge_block_bwd.launches,
-        "K3": fb.fused_edge_block_bwd_stream.launches,
-        "K4f": sp.pna_sorted.launches,
-        "K4b": sp.pna_sorted_bwd.launches,
+        "K1": fb.fused_edge_block,
+        "K2": fb.fused_edge_block_bwd,
+        "K3": fb.fused_edge_block_bwd_stream,
+        "K4f": sp.pna_sorted,
+        "K4b": sp.pna_sorted_bwd,
+        "K5": mp.maxprod,
     }
+
+
+def reset_counts():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {k: fn.launches for k, fn in _counters().items()}
 
 
 def phase_train(card, seed, profile_dir=None):
     """Train MGN-15MP through the port's Trainer with each backward: the
-    fused path's remat (K2) and stream (K3), and the sorted path (K4b)."""
+    fused path's remat (K2) and stream (K3), the sorted path (K4b), and the
+    fused remat path with the Ricci balancer (its prepare runs SDRF, K5)."""
     import numpy as np
     import torch
 
+    from hyper_graph_nets_tpu_torch.balancer.ricci import sdrf
     from hyper_graph_nets_tpu_torch.data.preprocessing import add_targets
     from hyper_graph_nets_tpu_torch.data.synthetic import flag_trajectory
     from hyper_graph_nets_tpu_torch.models.get_model import get_model
@@ -888,16 +1093,20 @@ def phase_train(card, seed, profile_dir=None):
     traj = add_targets(
         flag_trajectory(num_steps=TRAIN_FRAMES + 2, nx=40, ny=40, seed=seed), "world_pos", history=True
     )
-    launches = {"K1": 0, "K2": 0, "K3": 0, "K4f": 0, "K4b": 0}
+    launches = dict.fromkeys(read_counts(), 0)
     timings, cpu_grads = {}, {}
-    for mode in ("remat", "stream", "sorted"):
+    frame0 = {k: v[0] for k, v in traj.items()}
+    for mode in ("remat", "stream", "sorted", "balancer"):
         agg_vjp = "sorted" if mode == "sorted" else "fused"
-        path = dict(agg_vjp=agg_vjp) if mode == "sorted" else dict(fused_bwd=mode)
-        config = main_config(**path)
+        balancer = mode == "balancer"
+        bwd = "remat" if balancer else mode
+        path = dict(agg_vjp=agg_vjp) if mode == "sorted" else dict(fused_bwd=bwd)
+        make_config = balancer_config if balancer else main_config
+        config = make_config(**path)
         model = get_model(config)
         cfg = model.gnn_config
-        check_mgn15(cfg, agg_vjp)
-        if (mode != "sorted" and cfg.fused_bwd != mode) or model.noise_scale != 0.003 or model.noise_gamma != 0.9:
+        check_mgn15(cfg, agg_vjp, balancer)
+        if (mode != "sorted" and cfg.fused_bwd != bwd) or model.noise_scale != 0.003 or model.noise_gamma != 0.9:
             raise AssertionError(f"train config: {cfg}, noise {model.noise_scale}/{model.noise_gamma}")
         blocks = cfg.message_passing_steps
         trainer = Trainer(model, config)
@@ -910,14 +1119,19 @@ def phase_train(card, seed, profile_dir=None):
         torch.cuda.reset_peak_memory_stats()
         log(f"training ({mode}): flag MGN-15MP latent 128 bf16, B={B} N={N} E={E}, lr {trainer.lr}")
 
-        # the main path: every count set to 0 just before, read just after
+        # the main path: every count set to 0 just before, read just after;
+        # with the balancer, the trainer's prepare (SDRF) and one step
         reset_counts()
-        tstate, loss = trainer.train_step(tstate, topo, frames, generator=gen)
+        static = trainer.expansion.prepare(model, frame0, topo) if balancer else None
+        tstate, loss = trainer.train_step(tstate, topo, frames, generator=gen, static=static)
         torch.cuda.synchronize()
         counts = read_counts()
         want = dict.fromkeys(launches, 0)
-        for k in {"remat": ("K1", "K2"), "stream": ("K1", "K3"), "sorted": ("K4f", "K4b")}[mode]:
+        for k in {"remat": ("K1", "K2"), "stream": ("K1", "K3"), "sorted": ("K4f", "K4b"),
+                  "balancer": ("K1", "K2")}[mode]:
             want[k] = blocks
+        if balancer:
+            want["K5"] = 2 * sdrf.loops_run
         if counts != want:
             raise AssertionError(f"train step ({mode}) launches {counts}, want {want}")
         for k in launches:
@@ -926,11 +1140,11 @@ def phase_train(card, seed, profile_dir=None):
 
         # loss curve on one fixed batch, and the step's time
         losses, step_s = [float(loss)], []
-        n = LOSS_STEPS if mode in ("remat", "sorted") else 1 + WARMUP_STEPS + TIMED_STEPS
+        n = LOSS_STEPS if mode in ("remat", "sorted", "balancer") else 1 + WARMUP_STEPS + TIMED_STEPS
         for _ in range(n - 1):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            tstate, loss = trainer.train_step(tstate, topo, frames, generator=gen)
+            tstate, loss = trainer.train_step(tstate, topo, frames, generator=gen, static=static)
             losses.append(float(loss))  # waits for the step
             step_s.append(time.perf_counter() - t0)
         if not all(np.isfinite(losses)):
@@ -949,41 +1163,49 @@ def phase_train(card, seed, profile_dir=None):
         )
         if profile_dir:
             timings[mode]["profile"] = device_profile(
-                lambda: trainer.train_step(tstate, topo, frames, generator=gen),
+                lambda: trainer.train_step(tstate, topo, frames, generator=gen, static=static),
                 card, profile_dir, f"train_{mode}",
             )
 
-        # the card against the CPU: same state and noise, B = CPU_FRAMES
+        # the card against the CPU: same state, noise and (with the
+        # balancer) static, B = CPU_FRAMES
         for dtype_name in ("bfloat16", "float32"):
-            cmp_config = main_config(**path, compute_dtype=None if dtype_name == "float32" else dtype_name)
+            cmp_config = make_config(**path, compute_dtype=None if dtype_name == "float32" else dtype_name)
             cmp_model = get_model(cmp_config)
             state = cmp_model.init_state(torch.Generator().manual_seed(seed + 1))
             small = {k: v[:CPU_FRAMES] for k, v in traj.items()}
             normal = torch.randn(small["world_pos"].shape, generator=torch.Generator().manual_seed(seed + 2),
                                  dtype=torch.float64)
             grads, losses_cmp = {}, {}
+            cpu_key = (agg_vjp, balancer, dtype_name)
             for where in ("cuda", "cpu"):
-                if where == "cpu" and (agg_vjp, dtype_name) in cpu_grads:
-                    losses_cmp["cpu"], grads["cpu"] = cpu_grads[(agg_vjp, dtype_name)]
+                if where == "cpu" and cpu_key in cpu_grads:
+                    losses_cmp["cpu"], grads["cpu"] = cpu_grads[cpu_key]
                     continue
                 tr = Trainer(cmp_model, cmp_config, device=where)
                 ts = tr.init_train_state(state=state)
                 t = cmp_model.topology_from_trajectory(small, device=where)
-                loss, _ = tr.loss_and_grads(ts, t, tr.frames(small), normal=normal.to(where))
+                loss, _ = tr.loss_and_grads(ts, t, tr.frames(small), normal=normal.to(where), static=static)
                 losses_cmp[where] = float(loss)
                 grads[where] = {n: p.grad.cpu() for n, p in ts.model.params.named_parameters()}
-            cpu_grads[(agg_vjp, dtype_name)] = (losses_cmp["cpu"], grads["cpu"])
+            cpu_grads[cpu_key] = (losses_cmp["cpu"], grads["cpu"])
             loss_tol, grad_tol = TRAIN_TOL[dtype_name]
             loss_err = abs(losses_cmp["cuda"] - losses_cmp["cpu"]) / abs(losses_cmp["cpu"])
-            worst = max((rel_l2(grads["cuda"][n], g), n) for n, g in grads["cpu"].items())
+            errs = {n: rel_l2(grads["cuda"][n], g) for n, g in grads["cpu"].items()}
+            own = {n: e for n, e in errs.items() if ".balance." in n and dtype_name == "bfloat16"}
+            worst = max((e, n) for n, e in errs.items() if n not in own)
+            worst_own = max(((e, n) for n, e in own.items()), default=(0.0, "-"))
             log(
                 f"train step ({mode}) {dtype_name} card vs CPU, B={CPU_FRAMES}: loss {losses_cmp['cuda']:.6f} "
                 f"vs {losses_cmp['cpu']:.6f} (rel {loss_err:.3g}); worst gradient relative L2 "
                 f"{worst[0]:.3g} ({worst[1]})"
+                + (f"; of the balance edge models {worst_own[0]:.3g} ({worst_own[1]})" if own else "")
             )
-            if loss_err > loss_tol or worst[0] > grad_tol:
+            if loss_err > loss_tol or worst[0] > grad_tol or worst_own[0] > BALANCE_BF16_GRAD_TOL:
                 raise AssertionError(f"train step ({mode}) {dtype_name} card vs CPU outside {TRAIN_TOL[dtype_name]}")
-            timings[mode][f"vs_cpu_{dtype_name}"] = dict(loss_rel=loss_err, worst_grad_rel_l2=worst[0])
+            timings[mode][f"vs_cpu_{dtype_name}"] = dict(
+                loss_rel=loss_err, worst_grad_rel_l2=worst[0], worst_balance_grad_rel_l2=worst_own[0]
+            )
     return launches, timings
 
 
@@ -1079,11 +1301,14 @@ def main(argv=None) -> int:
     k1 = phase_kernels(card, peaks, topo_np, args.seed)
     bwd = phase_backward(card, peaks, topo_np, args.seed)
     k4 = phase_sorted(card, peaks, topo_np, args.seed)
+    k5 = phase_maxprod(card, peaks, topo_np, args.seed)
+    sdrf_run = phase_sdrf(card, topo_np)
 
     # 4-5. the main paths, their counts and timings
     serve_launches, serve_timings = {}, {}
-    for agg_vjp in ("fused", "sorted"):
-        n, serve_timings[agg_vjp] = phase_slice(card, args.seed, ROLLOUT_STEPS, args.profile, agg_vjp)
+    for agg_vjp, balancer in (("fused", False), ("sorted", False), ("fused", True)):
+        name = "fused_balancer" if balancer else agg_vjp
+        n, serve_timings[name] = phase_slice(card, args.seed, ROLLOUT_STEPS, args.profile, agg_vjp, balancer)
         serve_launches = {k: serve_launches.get(k, 0) + v for k, v in n.items()}
     train_launches, train_timings = phase_train(card, args.seed, args.profile)
     launches = {k: serve_launches[k] + train_launches[k] for k in serve_launches}
@@ -1112,6 +1337,7 @@ def main(argv=None) -> int:
               k4[("K4f", "bfloat16", TRAIN_FRAMES)]),
         entry("pna_sorted_bwd (K4b)", "segment_pna.cu", "segment_pna.py:183", launches["K4b"],
               k4[("K4b", "bfloat16", TRAIN_FRAMES)]),
+        entry("maxprod (K5)", "maxprod.cu", "maxprod.py:28", launches["K5"], k5["flag B x A"]),
     ]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -1127,6 +1353,8 @@ def main(argv=None) -> int:
                     "sorted": {
                         (k if isinstance(k, str) else " ".join(map(str, k))): v for k, v in k4.items()
                     },
+                    "maxprod": k5,
+                    "sdrf": sdrf_run,
                     "serving": serve_timings,
                     "serving_launches": serve_launches,
                     "training": train_timings,

@@ -5,7 +5,9 @@ The port serves flag MeshGraphNets (flat blocks, pna aggregation) through
 :class:`hyper_graph_nets_tpu_torch.training.trainer.Trainer`.  With
 ``agg_vjp: fused`` each message-passing block runs hand-written CUDA
 kernels: the forward in ``csrc/fused_block_fwd.cu`` and, in training, the
-backward (``fused_bwd: remat`` or ``stream``) in ``csrc/fused_block_bwd.cu``.
+backward (``fused_bwd: remat`` or ``stream``) in ``csrc/fused_block_bwd.cu``;
+with ``agg_vjp: sorted`` the pna in ``csrc/segment_pna.cu``; with the Ricci
+graph balancer the curvature's (max, x) product in ``csrc/maxprod.cu``.
 The package imports neither JAX nor the JAX package; ``convert.py`` takes
 the JAX package's state as numpy arrays.
 """

@@ -3,20 +3,21 @@
 //
 // Replaces hyper_graph_nets_tpu/ops/pallas/segment_pna.py::_fwd_kernel (K4f)
 // and ::_bwd_kernel with its cotangent preparation in _pna_sorted_bwd (K4b).
-// The valid edges are non-decreasing in receiver; the host gives each
-// receiver n its CSR range row_ptr[n]:row_ptr[n+1] of valid edges, and the
-// masked tail [num_valid, E) lies in no range.
+// The valid edges (mask > 0) are non-decreasing in receiver; the host gives
+// each receiver n a CSR range row_ptr[n]:row_ptr[n+1] that holds all its
+// valid edges and may hold masked ones (a padded tail, or mesh edges the
+// graph balancer removed); the edges [span, E) lie in no range.
 //
-//   K4f  out[b, n] = [sum | sum / max(cnt, 1) | max | min] over the range,
-//        with sum = f32 sum of d * mask in edge order, cnt = f32 sum of the
-//        mask, max/min over the range's edges; 0 for an empty range; one
-//        rounding to the data's type.
+//   K4f  out[b, n] = [sum | sum / max(cnt, 1) | max | min] over the valid
+//        edges of the range, with sum = f32 sum of d * mask in edge order,
+//        cnt = f32 sum of the mask, max/min over those edges; 0 for a
+//        receiver without one; one rounding to the data's type.
 //   K4b  ge[b, e] = ((g_sum + g_mean * inv) + [d == max] g_max
 //                    + [d == min] g_min) * mask, in f32, one rounding to the
-//        data's type; inv = 1 / max(deg, 1), deg = the range's length; the
-//        tie test compares the stored edge value with the stored (rounded)
-//        max or min exactly, so every tied edge gets the full cotangent.
-//        Edges of no range get 0.
+//        data's type, for a valid edge; inv = 1 / max(deg, 1), deg = the
+//        count of the range's valid edges; the tie test compares the stored
+//        edge value with the stored (rounded) max or min exactly, so every
+//        tied edge gets the full cotangent.  Masked edges get 0.
 //
 // What bounds them.  Both are memory-bound: a handful of adds per element
 // read.  At the flag main-path shapes (B = 21, E = 9,282, N = 1,600,
@@ -34,8 +35,11 @@
 // no atomics: runs repeat bit for bit.  Each lane owns VEC = 4 columns per
 // 128-column stripe and reads them in one 8-byte (bf16) or 16-byte (f32)
 // load, so a warp reads a 256-byte bf16 row at L = 128 in one transaction.
-// K4b reads its receiver's cotangent row and saved max/min once and writes
-// each edge's row; the warps past B * N zero the masked tail.  The f32
+// Masked edges inside a range are skipped by a warp-uniform branch on the
+// mask (K4f reads none of their rows; K4b writes them 0 and counts the valid
+// edges first, one per lane, summed across the warp).  K4b reads its
+// receiver's cotangent row and saved max/min once and writes each edge's
+// row; the warps past B * N zero the edges past the span.  The f32
 // steps use __fadd_rn / __fmul_rn so nvcc contracts nothing into an FMA,
 // and the division is IEEE (no fast math).
 // Later work: several receivers per warp at small L, prefetch of the next
@@ -106,6 +110,7 @@ __global__ void __launch_bounds__(THREADS) pna_fwd_kernel(const T* __restrict__ 
   T* ob = out + ((size_t)b * N + n) * 4 * L;
   for (int c = lane * VEC; c < L; c += 32 * VEC) {
     float sm[VEC], mx[VEC], mn[VEC], cnt = 0.f;
+    bool any = false;
 #pragma unroll
     for (int q = 0; q < VEC; ++q) {
       sm[q] = 0.f;
@@ -114,9 +119,11 @@ __global__ void __launch_bounds__(THREADS) pna_fwd_kernel(const T* __restrict__ 
     }
 #pragma unroll 4
     for (int e = e0; e < e1; ++e) {
+      const float m = mask ? mask[e] : 1.f;
+      if (!(m > 0.f)) continue;  // the same for every lane
+      any = true;
       float v[VEC];
       Io<T>::load(db + (size_t)e * L + c, v);
-      const float m = mask ? mask[e] : 1.f;
       cnt = __fadd_rn(cnt, m);
 #pragma unroll
       for (int q = 0; q < VEC; ++q) {
@@ -125,7 +132,6 @@ __global__ void __launch_bounds__(THREADS) pna_fwd_kernel(const T* __restrict__ 
         mn[q] = fminf(mn[q], v[q]);
       }
     }
-    const bool any = e1 > e0;
     const float den = fmaxf(cnt, 1.f);
     float mean[VEC];
 #pragma unroll
@@ -144,8 +150,8 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS) pna_bwd_kernel(
     const T* __restrict__ g, const T* __restrict__ out, const T* __restrict__ data,
     const int* __restrict__ row_ptr, const float* __restrict__ mask, T* __restrict__ ge, int B,
-    int E, int N, int L, int num_valid) {
-  const int items = N + (E - num_valid);  // receivers, then tail edges
+    int E, int N, int L, int span) {
+  const int items = N + (E - span);  // receivers, then the edges past the span
   const long long w = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (w >= (long long)B * items) return;
   const int lane = threadIdx.x & 31;
@@ -153,13 +159,16 @@ __global__ void __launch_bounds__(THREADS) pna_bwd_kernel(
   T* geb = ge + (size_t)b * E * L;
   if (i >= N) {  // an edge of no receiver: its cotangent is 0
     const float zero[VEC] = {0.f, 0.f, 0.f, 0.f};
-    T* row = geb + (size_t)(num_valid + i - N) * L;
+    T* row = geb + (size_t)(span + i - N) * L;
     for (int c = lane * VEC; c < L; c += 32 * VEC) Io<T>::store(row + c, zero);
     return;
   }
   const int e0 = row_ptr[i], e1 = row_ptr[i + 1];
   if (e0 == e1) return;
-  const float inv = __fdiv_rn(1.f, fmaxf(float(e1 - e0), 1.f));
+  int deg = 0;
+  for (int e = e0 + lane; e < e1; e += 32) deg += (mask ? mask[e] > 0.f : true) ? 1 : 0;
+  deg = __reduce_add_sync(0xffffffffu, deg);
+  const float inv = __fdiv_rn(1.f, fmaxf(float(deg), 1.f));
   const T* gr = g + ((size_t)b * N + i) * 4 * L;
   const T* orow = out + ((size_t)b * N + i) * 4 * L;
   const T* db = data + (size_t)b * E * L;
@@ -176,8 +185,13 @@ __global__ void __launch_bounds__(THREADS) pna_bwd_kernel(
 #pragma unroll 4
     for (int e = e0; e < e1; ++e) {
       float d[VEC], v[VEC];
-      Io<T>::load(db + (size_t)e * L + c, d);
       const float m = mask ? mask[e] : 1.f;
+      if (!(m > 0.f)) {  // a masked edge inside the range: 0
+        const float zero[VEC] = {0.f, 0.f, 0.f, 0.f};
+        Io<T>::store(geb + (size_t)e * L + c, zero);
+        continue;
+      }
+      Io<T>::load(db + (size_t)e * L + c, d);
 #pragma unroll
       for (int q = 0; q < VEC; ++q) {
         float x = __fadd_rn(g1[q], d[q] == mx[q] ? gmx[q] : 0.f);
@@ -203,13 +217,13 @@ int launch_fwd(const void* data, const int* row_ptr, const float* mask, void* ou
 
 template <typename T>
 int launch_bwd(const void* g, const void* out, const void* data, const int* row_ptr,
-               const float* mask, void* ge, int B, int E, int N, int L, int num_valid,
+               const float* mask, void* ge, int B, int E, int N, int L, int span,
                cudaStream_t s) {
-  const long long warps = (long long)B * (N + E - num_valid);
+  const long long warps = (long long)B * (N + E - span);
   if (warps == 0) return 0;
   pna_bwd_kernel<T><<<blocks_for(warps), THREADS, 0, s>>>(
       static_cast<const T*>(g), static_cast<const T*>(out), static_cast<const T*>(data), row_ptr,
-      mask, static_cast<T*>(ge), B, E, N, L, num_valid);
+      mask, static_cast<T*>(ge), B, E, N, L, span);
   return (int)cudaGetLastError();
 }
 
@@ -230,12 +244,12 @@ int hgn_pna_sorted_fwd(int dtype, const void* data, const int* row_ptr, const fl
 
 int hgn_pna_sorted_bwd(int dtype, const void* g, const void* out, const void* data,
                        const int* row_ptr, const float* mask, void* ge, int B, int E, int N,
-                       int L, int num_valid, void* stream) {
+                       int L, int span, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_bwd<float>(g, out, data, row_ptr, mask, ge, B, E, N, L, num_valid, s);
+    return launch_bwd<float>(g, out, data, row_ptr, mask, ge, B, E, N, L, span, s);
   if (dtype == 1)
-    return launch_bwd<bf16>(g, out, data, row_ptr, mask, ge, B, E, N, L, num_valid, s);
+    return launch_bwd<bf16>(g, out, data, row_ptr, mask, ge, B, E, N, L, span, s);
   return -1;
 }
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
+import math
 from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -68,6 +69,13 @@ class Topology(NamedTuple):
     snd_gather_valid: Optional[torch.Tensor] = None
 
 
+def reset_due(step: int, num_steps: int, frequency: int) -> bool:
+    """Whether an expansion's cache resets at ``step`` of ``num_steps``:
+    ``frequency`` times over the run (every call at frequency 1 and step 0,
+    as ``Predictor`` asks)."""
+    return step % math.ceil(num_steps / frequency) == 0
+
+
 def norm_feature(rel: torch.Tensor) -> torch.Tensor:
     """``[rel, ||rel||]`` feature block used by every edge featurizer."""
     return torch.cat([rel, torch.sqrt((rel * rel).sum(dim=-1, keepdim=True))], dim=-1)
@@ -100,6 +108,7 @@ class SystemModel:
         if not self.use_rmp and rmp_cfg.get("connector") == "repeated":
             self.architecture = "repeated"
         self.use_balancer = bal_cfg.get("algorithm", "none") != "none"
+        self.balance_frequency = bal_cfg.get("frequency", 1)
 
     # -- schema hooks (subclasses override) --------------------------------
     def edge_in_dims(self) -> Tuple[Tuple[str, int], ...]:

@@ -8,7 +8,10 @@ Counterpart of ``hyper_graph_nets_tpu/models/flag.py``:
   normalizer always accumulates (the reference's quirk, kept);
 - output: acceleration, integrated as ``pos = 2*cur + acc - prev``;
 - rollout: a Python loop in which boundary (non-NORMAL) nodes hold their
-  positions.
+  positions;
+- with ``graph_balancer`` set, a ``balance`` edge set featurized as mesh
+  edges (``mesh_edge_features``), added by the expansion after
+  ``make_graph``.
 
 Frames may carry a leading batch dimension; the featurizers index the node
 axis (-2) and so run batched or not.
@@ -40,7 +43,11 @@ class FlagModel(SystemModel):
         return self.world_dim + 2  # velocity ++ one-hot(2)
 
     def edge_in_dims(self) -> Tuple[Tuple[str, int], ...]:
-        return (("mesh_edges", self.world_dim + 1 + self.mesh_dim + 1),)
+        mesh_edge_dim = self.world_dim + 1 + self.mesh_dim + 1
+        dims = [("mesh_edges", mesh_edge_dim)]
+        if self.use_balancer:
+            dims.append(("balance", mesh_edge_dim))
+        return tuple(dims)
 
     def normalizer_schema(self) -> Dict[str, int]:
         return {
@@ -49,6 +56,17 @@ class FlagModel(SystemModel):
             "node_dynamic": 1,
             "mesh_edge": self.world_dim + 1 + self.mesh_dim + 1,
         }
+
+    def mesh_edge_features(
+        self, frames: Dict[str, torch.Tensor], senders: torch.Tensor, receivers: torch.Tensor
+    ) -> torch.Tensor:
+        """Mesh-edge features ``[..., E, 7]`` of any (sender, receiver) pairs
+        (the balancer's edges)."""
+        snd, rcv = senders.long(), receivers.long()
+        world, mesh = frames["world_pos"], frames["mesh_pos"]
+        rel_w = world[..., snd, :] - world[..., rcv, :]
+        rel_m = mesh[..., snd, :] - mesh[..., rcv, :]
+        return torch.cat([norm_feature(rel_w), norm_feature(rel_m)], dim=-1)
 
     # ------------------------------------------------------------------
     def frame_features(
@@ -60,20 +78,15 @@ class FlagModel(SystemModel):
     ) -> Dict[str, torch.Tensor]:
         """Raw (unnormalized) features of one frame or a batch of frames."""
         world_pos = frame["world_pos"]
-        mesh_pos = frame["mesh_pos"]
         num_nodes = world_pos.shape[-2]
-        snd, rcv = senders.long(), receivers.long()
 
         velocity = world_pos - frame["prev|world_pos"]
         type_flag = (frame["node_type"][..., 0] != NodeType.NORMAL).long()
         one_hot = torch.nn.functional.one_hot(type_flag, 2).to(world_pos.dtype)
         node_features = torch.cat([velocity, one_hot], dim=-1)
 
-        rel_world = world_pos[..., snd, :] - world_pos[..., rcv, :]
-        rel_mesh = mesh_pos[..., snd, :] - mesh_pos[..., rcv, :]
-        edge_features = torch.cat([norm_feature(rel_world), norm_feature(rel_mesh)], dim=-1)
-
-        speed = torch.sqrt((rel_world * rel_world).sum(dim=-1, keepdim=True))
+        edge_features = self.mesh_edge_features(frame, senders, receivers)
+        speed = edge_features[..., self.world_dim : self.world_dim + 1]  # |rel_world|
         dyn_max = segment_ops.segment_max(speed, receivers, num_nodes, mask=edge_mask)
         dyn_min = segment_ops.segment_min(speed, receivers, num_nodes, mask=edge_mask)
         return {
@@ -149,8 +162,12 @@ class FlagModel(SystemModel):
         topo: Topology,
         trajectory: Dict[str, np.ndarray],
         num_steps: Optional[int] = None,
+        expansion=None,
+        static=None,
     ) -> Tuple[Dict[str, object], torch.Tensor]:
-        """Recursive rollout from the first frame; returns (traj_ops, per-step MSE)."""
+        """Recursive rollout from the first frame; returns (traj_ops, per-step
+        MSE).  With an ``expansion`` every step's graph is expanded (with
+        ``static``, or the expansion's prepared one) after ``make_graph``."""
         T = trajectory["cells"].shape[0]
         num_steps = T if num_steps is None else min(num_steps, T)
         device = topo.senders.device
@@ -166,6 +183,8 @@ class FlagModel(SystemModel):
         for _ in range(num_steps):
             frame = {**static_frame, "world_pos": cur_pos, "prev|world_pos": prev_pos}
             graph, _, _ = self.make_graph(state, topo, frame, False)
+            if expansion is not None:
+                graph, _ = expansion.expand(state, graph, frame, self, is_training=False, static=static)
             prediction = self.update(state, frame, self.forward(state, graph))
             preds.append(cur_pos)
             prev_pos, cur_pos = cur_pos, torch.where(normal, prediction, cur_pos)

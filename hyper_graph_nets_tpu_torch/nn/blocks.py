@@ -23,9 +23,14 @@ package (same forward math on every path):
 - ``gather``: the sender and receiver gathers and pna over the static
   neighbour matrices with gather-only backwards (``core.segment_ops.
   gather_rows``, ``pna_gather``): tied edges get the full max/min cotangent.
-- ``xla``: the unfused update and scatter aggregation, differentiated by
+- ``xla``: the unfused update and the aggregate over the neighbour matrix
+  (``gather_aggregate``, or scatter without one), differentiated by
   autograd (tied edges split the max/min cotangent, as the VJP of JAX's
-  segment max does).
+  max does).
+
+An edge set without a kernel plan (the graph balancer's ``balance`` set)
+takes the unfused update with plain index gathers on every path, and the
+aggregate above.
 
 The hierarchical architectures belong to a later slice of the port.
 """
@@ -59,8 +64,8 @@ CANONICAL_EDGE_ORDER: Tuple[str, ...] = (
 
 AGG_PATHS = ("xla", "gather", "sorted", "fused")
 FUSED_BWD = ("remat", "stream")
-# edge sets whose valid edges are non-decreasing in receiver with the masked
-# ones at the tail: the ones agg_vjp 'sorted' aggregates by kernel (the JAX
+# edge sets whose valid edges are non-decreasing in receiver (masked ones
+# anywhere): the ones agg_vjp 'sorted' aggregates by kernel (the JAX
 # package's GNNConfig.sorted_edge_sets default)
 SORTED_EDGE_SETS = ("mesh_edges",)
 
@@ -250,7 +255,11 @@ def _aggregate_sets(
 ) -> torch.Tensor:
     """Concatenated per-set aggregates over node rows, dispatched as the JAX
     package's ``_aggregate_sets`` (``nn/blocks.py:521-582``) for the flat
-    path; ``xla`` keeps the scatter form, whose values are the same."""
+    path: a set with a neighbour matrix that passes ``_gather_dense_ok``
+    aggregates over it on every path (the fused sets come precomputed), the
+    rest by scatter.  Masked edges (padding, or mesh edges the balancer
+    removed, whose neighbour-matrix entries it also zeroes) reach no
+    aggregate on any path."""
     parts = []
     for name in names:
         if precomputed is not None and name in precomputed:
@@ -269,7 +278,7 @@ def _aggregate_sets(
             # the same path, with the same tie rule, on every mesh.
             parts.append(pna_sorted(f, es.receivers, es.mask, num_total, plan=es.plan))
             continue
-        if cfg.agg_vjp in ("gather", "sorted") and es.gather_idx is not None and _gather_dense_ok(es):
+        if es.gather_idx is not None and _gather_dense_ok(es):
             if cfg.agg_vjp == "gather" and cfg.aggregation == "pna":
                 parts.append(pna_gather(f, es.gather_idx, es.gather_valid, es.receivers, es.mask))
             else:

@@ -2,17 +2,23 @@
 
 Counterpart of ``hyper_graph_nets_tpu/ops/pallas/segment_pna.py``
 (``pna_sorted`` over ``_fwd_kernel`` and ``_bwd_kernel``), the aggregation
-of ``agg_vjp: sorted``.  For edges whose valid ones are non-decreasing in
-receiver, with the masked edges at the tail:
+of ``agg_vjp: sorted``.  For edges whose valid ones (mask > 0) are
+non-decreasing in receiver, with masked edges anywhere (a padded tail, or
+mesh edges the graph balancer removed):
 
     out = [sum | mean | max | min] of each receiver's valid edges
 
 in float32 (sums and counts weighted by the mask, mean = sum / max(cnt, 1),
-0 for a receiver without edges), rounded once to the data's dtype.  The
-backward is gather-only: an edge's cotangent is its receiver's
-``g_sum + g_mean / max(deg, 1)``, plus the full ``g_max`` (``g_min``) when
-its value equals the saved max (min) exactly, so every tied edge gets all of
-it, times the mask; edges of no receiver get 0.
+0 for a receiver without valid edges), rounded once to the data's dtype.
+The backward is gather-only: a valid edge's cotangent is its receiver's
+``g_sum + g_mean / max(deg, 1)`` (``deg`` counts the valid edges), plus the
+full ``g_max`` (``g_min``) when its value equals the saved max (min) exactly,
+so every tied edge gets all of it, times the mask; masked edges get 0.
+
+The JAX package's kernel takes masked edges only at the tail: it moves a
+masked edge's receiver past the node space, so an interior one breaks the
+receiver order its CSR search needs (ROADMAP section 3).  Here the kernels
+skip masked edges inside a receiver's range instead.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/segment_pna.cu``); on a CPU tensor it runs its plain PyTorch
@@ -41,14 +47,17 @@ VEC = 4  # columns per lane and vector load; L must be a multiple
 class SortedPlan:
     """Receiver CSR of one edge set, built once per topology on the host.
 
-    ``row_ptr[n]:row_ptr[n+1]`` are the valid edges of receiver ``n``; the
-    masked tail ``[num_valid, num_edges)`` lies in no range.
+    ``row_ptr[n]:row_ptr[n+1]`` holds every valid edge of receiver ``n`` and
+    no valid edge of another; masked edges may lie inside a range (the
+    kernels skip them).  The edges ``[span, num_edges)`` after the last
+    valid one lie in no range.  A plan stays right for a later mask that
+    only masks more edges, as the graph balancer's does.
     """
 
     row_ptr: torch.Tensor  # [N + 1] int32
     num_nodes: int
     num_edges: int
-    num_valid: int
+    span: int
 
     def to(self, device) -> "SortedPlan":
         return dataclasses.replace(self, row_ptr=self.row_ptr.to(device))
@@ -61,16 +70,14 @@ def _host(x) -> np.ndarray:
 def sorted_plan(receivers, num_nodes: int, mask=None) -> SortedPlan:
     """Host: the :class:`SortedPlan` of an edge set.
 
-    Raises ``ValueError`` unless the valid edges (mask > 0) come first, are
-    non-decreasing in receiver and lie in ``[0, num_nodes)``: the contract of
-    the JAX package's ``pna_sorted`` (``segment_pna.py:375-383``).
+    Raises ``ValueError`` unless the valid edges (mask > 0) are
+    non-decreasing in receiver and lie in ``[0, num_nodes)``; masked edges
+    may sit anywhere and name any receiver.
     """
     rcv = _host(receivers).astype(np.int64)
     valid = np.ones(rcv.shape, bool) if mask is None else _host(mask) > 0
-    num_valid = int(valid.sum())
-    if not valid[:num_valid].all():
-        raise ValueError("masked edges must sit at the tail of a sorted edge set")
-    rv = rcv[:num_valid]
+    pos = np.flatnonzero(valid)
+    rv = rcv[pos]
     if rv.size and (rv.min() < 0 or rv.max() >= num_nodes):
         raise ValueError(f"receivers of valid edges must lie in [0, {num_nodes})")
     if np.any(np.diff(rv) < 0):
@@ -78,12 +85,18 @@ def sorted_plan(receivers, num_nodes: int, mask=None) -> SortedPlan:
             "receivers of valid edges must be non-decreasing (core.mesh."
             "cells_to_edges sorts them); the sorted pna kernel reads CSR ranges"
         )
-    row_ptr = np.searchsorted(rv, np.arange(num_nodes + 1), side="left")
+    span = int(pos[-1]) + 1 if pos.size else 0
+    # receiver n's range starts at its first valid edge (or, without one,
+    # where the next receiver's starts) and ends at the span; the masked
+    # edges before the first valid one go to receiver 0's range
+    starts = np.append(pos, span)  # the position of the k-th valid edge
+    row_ptr = starts[np.searchsorted(rv, np.arange(num_nodes + 1), side="left")]
+    row_ptr[0] = 0
     return SortedPlan(
         row_ptr=torch.from_numpy(row_ptr.astype(np.int32)),
         num_nodes=int(num_nodes),
         num_edges=int(rcv.size),
-        num_valid=num_valid,
+        span=span,
     )
 
 
@@ -92,8 +105,9 @@ def sorted_plan(receivers, num_nodes: int, mask=None) -> SortedPlan:
 
 def pna_sorted_reference(data, receivers, mask, num_nodes) -> torch.Tensor:
     """Plain K4f on ``[..., E, L]``: float32 sums of ``data * mask`` and
-    counts of the mask in edge order, max and min over valid edges, one
-    rounding to ``data.dtype`` (``segment_ops.aggregate(..., 'pna')``)."""
+    counts of the mask in edge order, max and min over valid edges
+    (mask > 0, wherever they lie), one rounding to ``data.dtype``
+    (``segment_ops.aggregate(..., 'pna')``)."""
     return segment_ops.aggregate(data, receivers, num_nodes, "pna", mask)
 
 
@@ -101,8 +115,9 @@ def pna_sorted_bwd_reference(g, out, data, receivers, mask, num_nodes) -> torch.
     """Plain K4b: the edge cotangent ``[..., E, L]`` in ``data.dtype`` from
     the output cotangent ``g`` and the saved output ``out`` (``[..., N, 4L]``),
     with the kernel's float32 steps: ``g1 = g_sum + g_mean * (1/max(deg, 1))``
-    per node (two roundings), then per edge ``g1 + [d == max] g_max +
-    [d == min] g_min``, times the mask; edges that are not valid get 0."""
+    per node (two roundings; ``deg`` counts the valid edges), then per edge
+    ``g1 + [d == max] g_max + [d == min] g_min``, times the mask; edges that
+    are not valid get 0, wherever they lie."""
     L = data.shape[-1]
     valid = torch.ones_like(receivers, dtype=torch.bool) if mask is None else mask > 0
     rcv = torch.where(valid, receivers.long(), 0)
@@ -226,7 +241,7 @@ def pna_sorted_bwd(g, out, data, receivers, mask, num_nodes, plan=None) -> torch
     ge = torch.empty_like(data)
     rc = lib.hgn_pna_sorted_bwd(
         _DTYPES[data.dtype], _ptr(g), _ptr(out), _ptr(data), _ptr(plan.row_ptr), _ptr(mask),
-        _ptr(ge), B, E, num_nodes, L, plan.num_valid,
+        _ptr(ge), B, E, num_nodes, L, plan.span,
         torch.cuda.current_stream(data.device).cuda_stream,
     )
     _raise_on(rc, lib, "pna_sorted backward")
@@ -267,7 +282,7 @@ def pna_sorted(
 
     ``data`` is ``[E, L]`` or ``[B, E, L]`` (float32 or bfloat16; the
     topology is shared by the batch); ``receivers`` ``[E]`` int32 with the
-    valid edges non-decreasing and the masked ones at the tail; ``mask``
+    valid edges non-decreasing (masked ones anywhere); ``mask``
     ``[E]`` float32 or None.  Returns ``[..., num_nodes, 4L]`` in the data's
     dtype.  ``plan`` is the edge set's :class:`SortedPlan` on the data's
     device (built from ``receivers`` and ``mask`` when omitted).  Under

@@ -5,7 +5,11 @@ the model and its state on one device; :meth:`Predictor.one_step` predicts
 the next state of every frame of a trajectory in one batch, and
 :meth:`Predictor.rollout` rolls out from the first frame.  With
 ``model.agg_vjp: fused`` every message-passing block runs the fused
-edge-block kernel (``ops/fused_block.py``).
+edge-block kernel (``ops/fused_block.py``).  With ``model.graph_balancer``
+set, each call resets the expansion and runs its ``prepare`` (SDRF, whose
+curvature runs K5, ``ops/maxprod.py``), as the JAX package's
+``_prepare_expansion`` does, unless the caller passes a prepared ``static``;
+every graph is then expanded after ``make_graph``.
 
 Example::
 
@@ -51,7 +55,7 @@ class Predictor:
         self.config = config
         self.params = config.get("params", config)
         self.model = get_model(config)
-        # raises for RMP / balancer configs (later slices of the port)
+        # the graph balancer, or None; RMP raises (a later slice of the port)
         self.expansion = build_expansion(self.model, config)
         if state is None:
             state = self.model.init_state()
@@ -88,6 +92,20 @@ class Predictor:
             )
         return self._topo_cache[key]
 
+    def _prepare_expansion(self, trajectory: Dict[str, np.ndarray], topo: Topology):
+        """Reset the expansion and prepare it on the trajectory's first
+        frame; returns its static (None without an expansion)."""
+        if self.expansion is None:
+            return None
+        self.expansion.reset(0, trajectory["cells"].shape[0])
+        frame0 = {k: v[0] for k, v in trajectory.items()}
+        return self.expansion.prepare(self.model, frame0, topo)
+
+    def _static(self, trajectory, topo, static):
+        if self.expansion is None or static is not None:
+            return static
+        return self._prepare_expansion(trajectory, topo)
+
     def _frames(self, trajectory: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return {
             k: torch.as_tensor(v, device=self.device)
@@ -100,12 +118,19 @@ class Predictor:
         self,
         trajectory: Dict[str, np.ndarray],
         num_steps: Optional[int] = None,
+        static=None,
     ) -> Dict[str, Any]:
         """Recursive rollout from the trajectory's first frame: the model's
         rollout ops (``pred_pos``, ``gt_pos``, ``faces``, ``mesh_pos``) plus
-        per-step ``mse``, as numpy arrays."""
+        per-step ``mse``, as numpy arrays.  ``static`` is a prepared
+        expansion static (``expansion.prepare``) to use in place of
+        preparing one here."""
         topo = self._topology(trajectory)
-        ops, mse = self.model.rollout(self.state, topo, trajectory, num_steps=num_steps)
+        static = self._static(trajectory, topo, static)
+        ops, mse = self.model.rollout(
+            self.state, topo, trajectory, num_steps=num_steps,
+            expansion=self.expansion, static=static,
+        )
         out = {
             k: v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
             for k, v in ops.items()
@@ -114,11 +139,17 @@ class Predictor:
         return out
 
     @torch.inference_mode()
-    def one_step(self, trajectory: Dict[str, np.ndarray]) -> np.ndarray:
+    def one_step(self, trajectory: Dict[str, np.ndarray], static=None) -> np.ndarray:
         """Next-state prediction of the model's field for every frame, as
-        one batch: ``[B, N, D]`` (positions for flag)."""
+        one batch: ``[B, N, D]`` (positions for flag).  ``static`` as in
+        :meth:`rollout`."""
         topo = self._topology(trajectory)
+        static = self._static(trajectory, topo, static)
         frames = self._frames(trajectory)
         graph, _, _ = self.model.make_graph(self.state, topo, frames, False)
+        if self.expansion is not None:
+            graph, _ = self.expansion.expand(
+                self.state, graph, frames, self.model, is_training=False, static=static
+            )
         out = batched_forward(self.model, self.state.params, graph)
         return self.model.update(self.state, frames, out).cpu().numpy()

@@ -1,7 +1,8 @@
 """Training: train and validation steps over batched frames.
 
-Counterpart of ``hyper_graph_nets_tpu/training/trainer.py`` for graphs
-without an expansion (no RMP, no balancer).  The JAX package vmaps the
+Counterpart of ``hyper_graph_nets_tpu/training/trainer.py`` for flat
+graphs, with the graph balancer's expansion when it is configured (RMP is a
+later slice).  The JAX package vmaps the
 network over frames that share one topology; here the batch dimension is
 written out, and every layer of the network takes ``[B, N, F]`` /
 ``[B, E, F]`` features directly.
@@ -22,6 +23,13 @@ Example::
     topo = model.topology_from_trajectory(traj, device=trainer.device)
     frames = trainer.frames(batch)               # [B, ...] tensors on the card
     tstate, loss = trainer.train_step(tstate, topo, frames)
+
+With ``model.graph_balancer`` set, prepare the expansion once per reset and
+pass its static to each step, as ``make_train_step(topo, expansion)`` takes
+it::
+
+    static = trainer.expansion.prepare(model, frame0, topo)
+    tstate, loss = trainer.train_step(tstate, topo, frames, static=static)
 """
 from __future__ import annotations
 
@@ -130,8 +138,8 @@ class Trainer:
         self.device = resolve_device(device)
         configure_numerics()
         self.model = model
-        # raises for RMP / balancer configs (later slices of the port)
-        build_expansion(model, config)
+        # the graph balancer, or None; RMP raises (a later slice of the port)
+        self.expansion = build_expansion(model, config)
         params = config.get("params", config)
         model_cfg = params["model"]
         self.lr = float(model_cfg.get("learning_rate", 1e-4))
@@ -171,11 +179,13 @@ class Trainer:
         frames: Dict[str, torch.Tensor],
         normal: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        static=None,
     ) -> Tuple[torch.Tensor, Dict[str, object]]:
         """Noise, loss and backward of one step: returns the loss and the new
         normalizer states, and leaves each parameter's gradient in its
         ``.grad``.  ``normal`` is the standard-normal noise draw (drawn from
-        ``generator`` when omitted)."""
+        ``generator`` when omitted); ``static`` is the prepared expansion's
+        (its cached one when omitted)."""
         model = self.model
         if model.noise_scale is not None:
             x = frames[model.field]
@@ -187,6 +197,10 @@ class Trainer:
         params = tstate.model.params
         params.zero_grad(set_to_none=True)
         graph, _, mstate = model.make_graph(tstate.model, topo, frames, True)
+        if self.expansion is not None:
+            graph, mstate = self.expansion.expand(
+                mstate, graph, frames, model, is_training=True, static=static
+            )
         target, mstate = model.get_target(mstate, frames, is_training=True)
         out = batched_forward(model, params, graph)
         loss = masked_mse(model, target, out, frames["node_type"])
@@ -200,14 +214,16 @@ class Trainer:
         frames: Dict[str, torch.Tensor],
         normal: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        static=None,
     ) -> Tuple[TrainState, torch.Tensor]:
-        """One Adam step (``make_train_step`` without expansion).
+        """One Adam step (``make_train_step``; ``static`` as in
+        :meth:`loss_and_grads`).
 
         Updates the parameters in place and returns ``(new state, loss)``:
         the new state holds new normalizer states (the old ones are left as
         they were) and ``step + 1``.
         """
-        loss, normalizers = self.loss_and_grads(tstate, topo, frames, normal, generator)
+        loss, normalizers = self.loss_and_grads(tstate, topo, frames, normal, generator, static)
         opt = tstate.opt_state
         for group in opt.param_groups:
             group["lr"] = self.learning_rate(tstate.step)
@@ -217,12 +233,15 @@ class Trainer:
 
     @torch.no_grad()
     def validation_step(
-        self, mstate: ModelState, topo: Topology, frames: Dict[str, torch.Tensor]
+        self, mstate: ModelState, topo: Topology, frames: Dict[str, torch.Tensor], static=None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One-step evaluation: (normalized loss, de-normalized field error);
-        no noise, no normalizer accumulation (``make_validation_step``)."""
+        no noise, no normalizer accumulation (``make_validation_step``);
+        ``static`` as in :meth:`loss_and_grads`."""
         model = self.model
         graph, _, _ = model.make_graph(mstate, topo, frames, False)
+        if self.expansion is not None:
+            graph, _ = self.expansion.expand(mstate, graph, frames, model, is_training=False, static=static)
         target, _ = model.get_target(mstate, frames, is_training=False)
         out = batched_forward(model, mstate.params, graph)
         loss = masked_mse(model, target, out, frames["node_type"])

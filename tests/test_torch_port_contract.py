@@ -5,7 +5,8 @@ and its host-side pieces against the JAX package's.
   a fresh interpreter and by a scan of the sources).
 - Entry points default to the card and raise without one; CPU runs never
   launch the kernel.
-- Configurations of later slices raise ``NotImplementedError``.
+- Configurations of later slices (and an unknown balancer) raise
+  ``NotImplementedError``; the Ricci balancer serves on the CPU.
 - Mesh edges, synthetic data, config parsing, the normalizer and the
   segment ops agree with the JAX package (float32: rtol = 1e-6, atol = 1e-6).
 """
@@ -55,6 +56,8 @@ def test_port_and_chip_smoke_import_no_jax():
         "import sys\n"
         "import hyper_graph_nets_tpu_torch, hyper_graph_nets_tpu_torch.serving\n"
         "import hyper_graph_nets_tpu_torch.convert, chip_smoke\n"
+        "import hyper_graph_nets_tpu_torch.balancer.ricci, hyper_graph_nets_tpu_torch.balancer.base\n"
+        "import hyper_graph_nets_tpu_torch.ops.maxprod, hyper_graph_nets_tpu_torch.training.trainer\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -132,7 +135,7 @@ def _with(**model):
     "config",
     [
         _with(rmp={"clustering": "spectral", "connector": "hyper"}),
-        _with(graph_balancer={"algorithm": "ricci"}),
+        _with(graph_balancer={"algorithm": "forman"}),  # no such balancer
         _with(inference_quant="int8"),
     ],
     ids=["rmp", "balancer", "int8"],
@@ -140,6 +143,28 @@ def _with(**model):
 def test_later_slices_raise(config):
     with pytest.raises(NotImplementedError):
         Predictor(config, device="cpu")
+
+
+def test_cpu_predictor_serves_the_ricci_balancer_without_launching():
+    """A ``graph_balancer: ricci`` config builds, runs SDRF in ``prepare``
+    (on each call, as the JAX package's Predictor does) and serves on the
+    CPU; K5's counter does not move."""
+    from hyper_graph_nets_tpu_torch.ops.maxprod import maxprod
+
+    before = (fused_edge_block.launches, maxprod.launches)
+    traj = add_targets(flag_trajectory(num_steps=4, nx=6, ny=6), "world_pos", True)
+    p = Predictor(
+        _with(graph_balancer={"algorithm": "ricci", "remove_edges": True, "ricci": {"loops": 4, "tau": 150}}),
+        device="cpu",
+    )
+    assert p.model.gnn_config.edge_sets == ("mesh_edges", "balance")
+    out = p.one_step(traj)
+    r = p.rollout(traj, num_steps=2)
+    static = p.expansion.static[0]
+    assert int(static.bal_mask.sum()) >= 2 and static.bal_mask.shape == (8,)
+    assert out.shape == (2, 36, 3) and np.isfinite(out).all()
+    assert r["pred_pos"].shape == (2, 36, 3) and np.isfinite(r["mse"]).all()
+    assert (fused_edge_block.launches, maxprod.launches) == before
 
 
 def test_cpu_predictor_sorted_serves_without_launching():

@@ -39,6 +39,14 @@ plain version sums with atomics on the card, in another order.  K4b equals
 its plain version bit for bit on K4f's own output: both take the same
 float32 steps, and the compare is exact.  Serving and a training step with
 ``agg_vjp: sorted`` on the card against the CPU, with the tolerances above.
+The "interior" cases mask edges inside receivers' segments, as the graph
+balancer removes mesh edges.
+
+K5 (the (max, x) product of the Ricci balancer) equals its plain version
+bit for bit (each product one rounded multiply, max exact); SDRF through K5
+equals SDRF through the plain version on the card (the same lists); a
+balancer predictor on the card against the CPU on the same state and the
+same static, within 5% of the largest |acceleration|.
 """
 import numpy as np
 import pytest
@@ -71,6 +79,7 @@ from hyper_graph_nets_tpu_torch.training.trainer import Trainer
 from torch_port_cases import (
     BF16_ULP,
     flag_config,
+    interior_mask_case,
     long_segment_case,
     masked_edge_case,
     tie_edge_case,
@@ -96,6 +105,9 @@ def _case(name, L):
     if name == "ties":
         arrays, weights, snd, rcv, mask, N, _ = tie_edge_case(seed=2, B=3, L=L)
         return arrays, weights, snd, rcv, mask, N, None
+    if name == "interior":
+        arrays, weights, snd, rcv, mask, N = interior_mask_case(seed=2, B=3, L=L)
+        return arrays, weights, snd, rcv, mask, N, 10
     arrays, weights, snd, rcv, mask, N = long_segment_case(seed=2, B=3, L=L)
     return arrays, weights, snd, rcv, mask, N, 9
 
@@ -103,7 +115,7 @@ def _case(name, L):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("L", [32, 128])
-@pytest.mark.parametrize("case", ["masked", "long_segments"])
+@pytest.mark.parametrize("case", ["masked", "long_segments", "interior"])
 def test_k1_kernel_matches_plain(dtype, L, case):
     _need_card()
     arrays, weights, snd, rcv, mask, N, isolated = _case(case, L)
@@ -181,7 +193,7 @@ def _assert_bwd_close(got, want, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("L", [32, 128])
-@pytest.mark.parametrize("case", ["masked", "long_segments", "ties"])
+@pytest.mark.parametrize("case", ["masked", "long_segments", "ties", "interior"])
 def test_k2_k3_kernels_match_plain(dtype, L, case):
     _need_card()
     t, w, topo, plan, fwd, de2, drhs = _bwd_inputs(case, dtype, L)
@@ -291,6 +303,9 @@ def _sorted_inputs(case, dtype, L, B=3):
     if case == "masked":
         arrays, _, snd, rcv, mask, N, _ = masked_edge_case(seed=3, B=B, L=L)
         copies = None
+    elif case == "interior":
+        arrays, _, snd, rcv, mask, N = interior_mask_case(seed=3, B=B, L=L)
+        copies = None
     else:
         arrays, _, snd, rcv, mask, N, copies = tie_edge_case(seed=3, B=B, L=L)
     data = torch.tensor(arrays["e"]).to(dtype).cuda()
@@ -301,7 +316,7 @@ def _sorted_inputs(case, dtype, L, B=3):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("L", [32, 128])
-@pytest.mark.parametrize("case", ["masked", "ties"])
+@pytest.mark.parametrize("case", ["masked", "ties", "interior"])
 def test_k4f_k4b_kernels_match_plain(dtype, L, case):
     _need_card()
     data, rcv, mask, N, plan, copies = _sorted_inputs(case, dtype, L)
@@ -316,7 +331,7 @@ def test_k4f_k4b_kernels_match_plain(dtype, L, case):
     torch.testing.assert_close(out[..., : 2 * L].float(), want[..., : 2 * L].float(), rtol=rtol, atol=1e-5)
     assert torch.equal(out[..., 2 * L :], want[..., 2 * L :])
     assert torch.equal(ge, pna_sorted_bwd_reference(g, out, data, rcv, mask, N))
-    if case == "masked":
+    if case in ("masked", "interior"):
         assert bool((out[:, 10] == 0).all())
         assert bool((ge[:, mask == 0] == 0).all())
     else:
@@ -325,7 +340,7 @@ def test_k4f_k4b_kernels_match_plain(dtype, L, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["masked", "ties"])
+@pytest.mark.parametrize("case", ["masked", "ties", "interior"])
 def test_k4b_routed_mass_equals_the_tie_count(case):
     """With only g_max = g_min = 1, the edge cotangents' column sums count
     the edges equal to their receiver's extremum in K4f's output, exactly."""
@@ -370,6 +385,83 @@ def test_sorted_predictor_on_card_matches_cpu():
     got = card.one_step(traj)
     assert (fused_edge_block.launches, pna_sorted.launches) == (before[0], before[1] + 2)
     want = cpu.one_step(traj)
+    assert np.isfinite(got).all()
+    base = 2 * traj["world_pos"] - traj["prev|world_pos"]
+    scale = np.abs(want - base).max()
+    assert np.abs(got - want).max() <= 0.05 * scale
+
+
+# -- K5 and the Ricci balancer -------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1600, 1600, 1600), (1000, 1300, 700), (37, 5, 129), (64, 0, 3)])
+def test_k5_matches_plain_bit_for_bit(shape):
+    _need_card()
+    from hyper_graph_nets_tpu_torch.ops.maxprod import maxprod, maxprod_reference
+
+    N, K, M = shape
+    gen = torch.Generator().manual_seed(7)
+    x = (torch.rand(N, K, generator=gen) * (torch.rand(N, K, generator=gen) > 0.5)).cuda()
+    y = (torch.rand(K, M, generator=gen) * (torch.rand(K, M, generator=gen) > 0.5)).cuda()
+    before = maxprod.launches
+    got = maxprod(x, y)
+    torch.cuda.synchronize()
+    assert maxprod.launches == before + 1 and got.shape == (N, M)
+    want = maxprod_reference(x, y) if K else torch.zeros(N, M, device="cuda")
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_k5_on_the_flag_curvature_operands():
+    """``B = relu(A @ A - A)`` and ``A`` of the 40 x 40 flag, both orders."""
+    _need_card()
+    from hyper_graph_nets_tpu_torch.core.mesh import cells_to_edges
+    from hyper_graph_nets_tpu_torch.data.synthetic import _grid_triangulation
+    from hyper_graph_nets_tpu_torch.ops.maxprod import maxprod, maxprod_reference
+
+    edges = cells_to_edges(_grid_triangulation(40, 40))
+    A = torch.zeros(1600, 1600, device="cuda")
+    A[torch.tensor(edges.senders).long(), torch.tensor(edges.receivers).long()] = 1.0
+    B = torch.clamp(A @ A - A, min=0.0)
+    for x, y in ((B, A), (A, B)):
+        assert torch.equal(maxprod(x, y), maxprod_reference(x, y))
+
+
+@pytest.mark.cuda
+def test_sdrf_through_k5_equals_sdrf_through_the_plain_version():
+    _need_card()
+    from hyper_graph_nets_tpu_torch.balancer.ricci import sdrf
+    from hyper_graph_nets_tpu_torch.ops.maxprod import maxprod, maxprod_reference
+    from torch_port_cases import grid_edges
+
+    snd, rcv, N = grid_edges(12, 12)
+    before = maxprod.launches
+    got = sdrf(snd, rcv, N, loops=20, remove_edges=True, tau=150, device="cuda")
+    assert maxprod.launches == before + 2 * sdrf.loops_run
+    assert got == sdrf(snd, rcv, N, loops=20, remove_edges=True, tau=150, device="cuda", maxprod_fn=maxprod_reference)
+    assert got == sdrf(snd, rcv, N, loops=20, remove_edges=True, tau=150)  # on the CPU
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agg_vjp", ["fused", "sorted"])
+def test_balancer_predictor_on_card_matches_cpu(agg_vjp):
+    _need_card()
+    from hyper_graph_nets_tpu_torch.ops.maxprod import maxprod
+
+    config = flag_config("bfloat16", agg_vjp=agg_vjp)
+    config["params"]["model"]["graph_balancer"] = {
+        "algorithm": "ricci", "remove_edges": True, "ricci": {"loops": 10, "tau": 150},
+    }
+    traj = add_targets(flag_trajectory(num_steps=5, nx=10, ny=10), "world_pos", True)
+    card = Predictor(config)
+    cpu = Predictor(config, state=card.state, device="cpu")
+    before = maxprod.launches
+    got = card.one_step(traj)
+    assert maxprod.launches > before
+    static = card.expansion.static
+    assert bool((static[0].mesh_keep == 0).any())  # SDRF removed mesh edges
+    want = cpu.one_step(traj, static=static)
     assert np.isfinite(got).all()
     base = 2 * traj["world_pos"] - traj["prev|world_pos"]
     scale = np.abs(want - base).max()

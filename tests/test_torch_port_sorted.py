@@ -190,15 +190,19 @@ def test_pna_sorted_bwd_reference_steps():
 
 
 def test_sorted_plan_contract():
+    """A masked tail lies past the span; a masked edge inside the valid
+    ones (a mesh edge the balancer removed) stays in its receiver's range,
+    which the kernels skip; the valid receivers must be non-decreasing."""
     data, rcv, mask, _, _ = _sorted_case(5, 30, 90, 100, 4)
     plan = sorted_plan(rcv, 30, mask)
-    assert plan.num_valid == 90 and plan.num_edges == 100 and plan.num_nodes == 30
+    assert plan.span == 90 and plan.num_edges == 100 and plan.num_nodes == 30
     np.testing.assert_array_equal(
         plan.row_ptr.numpy(), np.searchsorted(rcv[:90], np.arange(31), side="left")
     )
-    assert sorted_plan(rcv[:90], 30).num_valid == 90
-    with pytest.raises(ValueError, match="tail"):
-        sorted_plan(rcv, 30, np.r_[mask[:50], 0.0, mask[51:]])
+    assert sorted_plan(rcv[:90], 30).span == 90
+    interior = sorted_plan(rcv, 30, np.r_[mask[:50], 0.0, mask[51:]])
+    # only a receiver whose first edge is the masked one starts one edge later
+    assert interior.span == 90 and set((interior.row_ptr - plan.row_ptr).tolist()) <= {0, 1}
     with pytest.raises(ValueError, match="non-decreasing"):
         sorted_plan(rcv[::-1].copy(), 30)
     with pytest.raises(ValueError, match="lie in"):

@@ -38,6 +38,20 @@ def masked_edge_case(seed: int = 0, B: int = 2, L: int = 32):
     return arrays, weights, snd, rcv, mask, N, num_valid
 
 
+def interior_mask_case(seed: int = 0, B: int = 2, L: int = 32):
+    """K1 inputs on an 8x8 grid with masked edges inside receivers'
+    segments, spread through the mesh as the graph balancer's removals are
+    (every seventh edge from the fourth), and receiver 10 with all its edges
+    masked (its aggregate must be 0).  Receivers stay sorted; no tail."""
+    rng = np.random.default_rng(seed)
+    snd, rcv, N = grid_edges(8, 8)
+    mask = np.ones(len(rcv), np.float32)
+    mask[3::7] = 0.0
+    mask[rcv == 10] = 0.0
+    arrays, weights = _k1_arrays(rng, B, len(snd), N, L)
+    return arrays, weights, snd, rcv, mask, N
+
+
 def long_segment_case(seed: int = 0, B: int = 2, L: int = 32):
     """K1 inputs whose receivers own more edges than one kernel tile.
 
