@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch port on one NVIDIA GPU: build and check its kernels, serve
-flag MeshGraphNets (MGN-15MP) through ``Predictor``, and train it through
-``Trainer``, without and with the Ricci graph balancer.
+flag MeshGraphNets (MGN-15MP) through ``Predictor`` and through the halo
+forward over a rank group, and train it through ``Trainer``, without and with
+the Ricci graph balancer.
 
     python3 chip_smoke.py [--seed 0] [--out FILE.json] [--profile DIR]
 
@@ -29,7 +30,16 @@ Phases (any failure exits non-zero; nothing is caught and dropped):
    (max, x) product of the balanced-Forman curvature) bit for bit on the
    40x40 flag's operands in both orders, on random inputs at 1,600 cubed and
    on odd shapes; SDRF on the 40x40 flag (150 loops, tau 150, removal)
-   through K5 and through K5's plain version: the same edges;
+   through K5 and through K5's plain version: the same edges; K6 (the ring
+   all-reduce) bit for bit with its plain version for 2, 3 and 4 ranks on
+   the card at the halo payload [6400, 128] float32 with the pna segments,
+   on an odd shape, with one rank's launch delayed and over 100 calls in a
+   row, timed per ring (CUDA events, all ranks) and per launch (traced)
+   beside its bounds; K1 raw and K7 (the fused block with the banded ring)
+   at the halo shards of the 40x40 flag (4 ranks of 2,560 edges, chunks
+   dealt round-robin) in bf16 and float32: K1 raw against its plain
+   version, K7's e2 bit for bit with K1's and its aggregate against K1 raw
+   + the plain all-reduce + finalize;
 4. serving: ``Predictor.from_config`` on configs/flag_full_scale.yaml with
    RMP off (latent 128, 15 blocks, bf16, ``agg_vjp: fused``, then
    ``agg_vjp: sorted``, then ``fused`` with ``graph_balancer.algorithm:
@@ -39,6 +49,13 @@ Phases (any failure exits non-zero; nothing is caught and dropped):
    around that run (15 K1, or 15 K4f, per forward; with the balancer 2 K5
    per SDRF loop of each call's prepare); the card's ``one_step`` held
    against the same state (and the same balancer static) on the CPU;
+   then the halo forward (``parallel.halo.make_halo_forward``) of the same
+   configuration over 4 ranks on the card, one frame per call, for
+   ``agg_vjp: fused`` (K1 raw + the plain all-reduce), ``xla`` with the ring
+   (K6) and ``fused`` with overlap (K7): the launch counts of one forward
+   (15 per rank), every rank against the single-device forward on the card
+   and against the CPU, ms per forward (50 calls) beside the single-device
+   forward;
 5. training: ``Trainer.train_step`` on the same configuration, B = 21, Adam
    at lr 1e-4, noise 0.003, gamma 0.9, with ``fused_bwd: remat``, then
    ``stream``, then ``agg_vjp: sorted``, then remat with the balancer; the
@@ -868,6 +885,376 @@ def phase_sdrf(card, topo_np):
     )
 
 
+HALO_RANKS = 4  # the halo forward's rank group, all on cuda:0
+HALO_BANDS = 4  # K7's node-row bands
+HALO_CHUNK = 256  # the round-robin layout's chunk (the JAX package's default_chunk())
+HALO_TIMED = 50  # halo forwards timed per path
+RING_CALLS = 100  # K6 calls in a row (the epochs)
+
+
+def one_card_group(n):
+    """A rank group of n ranks on cuda:0 (the contract's one card)."""
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+
+    return RankGroup(n, devices=["cuda:0"] * n)
+
+
+def group_time_ms(group, fn, iters, warmup=3):
+    """Device time per call of ``fn``, which enqueues one collective on the
+    ranks' streams: CUDA events on the current stream around ``iters``
+    calls, the ranks' streams fenced to it on both sides."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    group.check()
+    cur = torch.cuda.current_stream()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record(cur)
+    for s in group.streams:
+        s.wait_stream(cur)
+    for _ in range(iters):
+        fn()
+    for s in group.streams:
+        cur.wait_stream(s)
+    end.record(cur)
+    group.check()
+    return start.elapsed_time(end) / iters
+
+
+def traced_launch_ms(group, fn, iters, name):
+    """Mean traced device time of one launch of the kernel ``name`` (each
+    call of ``fn`` launches it once per rank), retraced as kernel_device_ms
+    does when the trace drops every record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    group.check()
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            group.check()
+        times = [us for kname, us in device_kernels(prof) if name in kname]
+        if len(times) != iters * group.n:
+            log(f"trace {attempt} of {TRACE_ATTEMPTS}: {len(times)} of {iters * group.n} {name} launches recorded")
+        if times:
+            return sum(times) / len(times) / 1e3
+    raise RuntimeError(f"no trace of {name} recorded a launch in {TRACE_ATTEMPTS} attempts")
+
+
+def ring_bounds_ms(n, payload_bytes, peaks) -> dict:
+    """K6's bounds on one card: ``bound_ms`` for the function (n partials
+    read, n results written), ``ring_bound_ms`` for the ring's own traffic,
+    2P + 4P(n-1) bytes per rank (x read and out written; per hop P sent and
+    the received P folded into out), summed over the ranks sharing the
+    card."""
+    bw = peaks[1]
+    return dict(
+        bound_ms=2 * n * payload_bytes / bw * 1e3,
+        bound_by="bytes",
+        ring_bound_ms=n * (2 + 4 * (n - 1)) * payload_bytes / bw * 1e3,
+    )
+
+
+def phase_ring(card, peaks, seed):
+    """K6 against its plain version bit for bit: 2, 3 and 4 ranks at the
+    halo forward's payload [4N, L] = [6400, 128] float32 with the pna
+    segments, an odd shape, a rank whose launch comes late, and 100 calls in
+    a row; timed beside its bounds."""
+    import torch
+
+    from hyper_graph_nets_tpu_torch.ops.ring import (
+        ring_all_reduce_segments,
+        ring_all_reduce_segments_reference,
+    )
+
+    gen = torch.Generator().manual_seed(seed + 4)
+    N, L = 1600, L_MAIN
+    pna = lambda n_rows: [(0, n_rows, "sum"), (n_rows, 2 * n_rows, "sum"),
+                          (2 * n_rows, 3 * n_rows, "max"), (3 * n_rows, 4 * n_rows, "min")]
+
+    def check(tag, group, xs, segments, got=None):
+        torch.cuda.synchronize()
+        got = ring_all_reduce_segments(xs, segments, group) if got is None else got
+        group.check()
+        want = ring_all_reduce_segments_reference(xs, segments)
+        for r in range(group.n):
+            if not torch.equal(got[r], want[r]):
+                bad = int((got[r] != want[r]).sum())
+                raise AssertionError(f"K6 {tag}: rank {r} differs from the plain version in {bad} elements")
+
+    results = {}
+    for n in (2, 3, 4):
+        group = one_card_group(n)
+        xs = [torch.randn(4 * N, L, generator=gen).cuda() for _ in range(n)]
+        check(f"n={n} [{4 * N}, {L}]", group, xs, pna(N))
+        run = lambda: ring_all_reduce_segments(xs, pna(N), group)
+        ms = group_time_ms(group, run, iters=50)
+        launch_ms = traced_launch_ms(group, run, iters=20, name="ring_kernel")
+        plain_ms = cuda_time_ms(lambda: ring_all_reduce_segments_reference(xs, pna(N)), iters=10)
+        bounds = ring_bounds_ms(n, 4 * N * L * 4, peaks)
+        results[n] = dict(max_abs_err=0.0, ms=ms, launch_ms=launch_ms, plain_ms=plain_ms, **bounds)
+        log(
+            f"K6 n={n} ranks on one card, payload [{4 * N}, {L}] float32: {ms * 1e3:.1f} us per ring "
+            f"(CUDA events, all ranks), {launch_ms * 1e3:.1f} us per rank's launch (traced, spins "
+            f"included); bound {bounds['bound_ms'] * 1e3:.2f} us (bytes), ring traffic "
+            f"{bounds['ring_bound_ms'] * 1e3:.2f} us; plain {plain_ms:.3f} ms; bit for bit [{card}]"
+        )
+
+    group = one_card_group(3)
+    xs = [torch.randn(4 * 251, 37, generator=gen).cuda() for _ in range(3)]
+    check("odd [1004, 37], n=3", group, xs, pna(251))
+    segs = [(0, 300, "max"), (300, 700, "sum"), (900, 1004, "min")]  # rows 700-900 keep x_r
+    check("odd segments", group, xs, segs)
+    log("K6 odd shape [1004, 37] (scalar path) and uneven segments with uncovered rows: bit for bit")
+
+    group = one_card_group(4)
+    xs = [torch.randn(4 * N, L, generator=gen).cuda() for _ in range(4)]
+    torch.cuda.synchronize()
+    with torch.cuda.stream(group.stream(1)):
+        torch.cuda._sleep(20_000_000)  # rank 1 starts about 10 ms late
+    check("rank 1 delayed", group, xs, pna(N), got=ring_all_reduce_segments(xs, pna(N), group))
+    log("K6 with rank 1's launch delayed about 10 ms: bit for bit")
+
+    inputs, outputs = [], []
+    for _ in range(RING_CALLS):
+        xs = [torch.randn(4 * N, L, generator=gen).cuda() for _ in range(4)]
+        inputs.append(xs)
+    torch.cuda.synchronize()
+    epoch0 = group.epoch
+    for xs in inputs:
+        outputs.append(ring_all_reduce_segments(xs, pna(N), group))
+    group.check()
+    for k, (xs, got) in enumerate(zip(inputs, outputs)):
+        check(f"call {k} of {RING_CALLS}", group, xs, pna(N), got=got)
+    log(f"K6 {RING_CALLS} calls in a row (epochs {epoch0 + 1} to {group.epoch}), no sync between: bit for bit")
+    return results
+
+
+def overlap_shards(dtype, gen, n=HALO_RANKS, chunk=HALO_CHUNK):
+    """The 40x40 flag's edges padded to chunk * n and dealt round-robin
+    (the halo forward's layout), with random K1 inputs on cuda:0: a list of
+    the ranks' shard arguments, and N."""
+    import numpy as np
+    import torch
+
+    from hyper_graph_nets_tpu_torch.core.mesh import cells_to_edges
+    from hyper_graph_nets_tpu_torch.data.synthetic import _grid_triangulation
+    from hyper_graph_nets_tpu_torch.ops.fused_block import plan_segments
+    from hyper_graph_nets_tpu_torch.ops.fused_overlap import chunk_roundrobin_permutation
+    from hyper_graph_nets_tpu_torch.parallel.sharding import pad_to_multiple
+
+    edges = cells_to_edges(_grid_triangulation(40, 40))
+    N, L, E = 1600, L_MAIN, len(edges.senders)
+    snd = pad_to_multiple(edges.senders, chunk * n, 0)
+    rcv = pad_to_multiple(edges.receivers, chunk * n, N - 1)
+    mask = np.zeros(len(snd), np.float32)
+    mask[:E] = 1.0
+    perm = chunk_roundrobin_permutation(len(snd), n, chunk)
+    snd, rcv, mask = snd[perm], rcv[perm], mask[perm]
+    per = len(snd) // n
+    x = k1_inputs(dtype, 1, snd[:per], rcv[:per], N, L, gen, "cuda")
+    shards = []
+    for r in range(n):
+        sl = slice(r * per, (r + 1) * per)
+        s, rc = torch.as_tensor(snd[sl]).cuda(), torch.as_tensor(rcv[sl]).cuda()
+        shards.append(dict(
+            e=torch.randn(per, L, generator=gen).to(dtype).cuda(), sp=x["sp"][0], rp=x["rp"][0],
+            weights=x["weights"], senders=s, receivers=rc, mask=torch.as_tensor(mask[sl]).cuda(),
+            plan=plan_segments(rcv[sl], N, senders=snd[sl]).to("cuda"),
+        ))
+    return shards, N
+
+
+def phase_overlap(card, peaks, seed):
+    """K1 raw and K7 at the halo forward's shard shapes (4 ranks of 2,560
+    edges of the 40x40 flag, round-robin): K1 raw against its plain version,
+    K7's e2 against K1's bit for bit and its aggregate against K1 raw + the
+    plain all-reduce + finalize; timed beside their bounds."""
+    import torch
+
+    from hyper_graph_nets_tpu_torch.core.segment_ops import finalize_partials
+    from hyper_graph_nets_tpu_torch.ops.fused_block import fused_edge_block_fwd, fused_edge_block_reference
+    from hyper_graph_nets_tpu_torch.ops.fused_overlap import (
+        fused_edge_block_overlap,
+        fused_edge_block_overlap_reference,
+    )
+
+    gen = torch.Generator().manual_seed(seed + 5)
+    results = {}
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        shards, N = overlap_shards(dtype, gen)
+        n, L, E = len(shards), L_MAIN, shards[0]["e"].shape[0]
+        group = one_card_group(n)
+        topo = lambda x: (x["senders"], x["receivers"], x["mask"], N)
+        raw_call = lambda x: fused_edge_block_fwd(
+            x["e"][None], x["sp"][None], x["rp"][None], x["weights"], *topo(x), x["plan"], raw=True
+        )
+        # K1 raw against its plain version, on every rank's shard
+        raws, err = [], 0.0
+        for r, x in enumerate(shards):
+            e2, raw = raw_call(x)
+            torch.cuda.synchronize()
+            re2, rraw = fused_edge_block_reference(
+                x["e"][None], x["sp"][None], x["rp"][None], x["weights"], *topo(x), raw=True
+            )
+            err = max(err, check_close(f"K1 raw {dtype_name} rank {r} e2", e2, re2, *TOL[dtype_name]["e2"]))
+            err = max(err, check_close(f"K1 raw {dtype_name} rank {r} agg", raw, rraw, *TOL[dtype_name]["agg"]))
+            raws.append((e2[0], raw[0]))
+        run_raw = lambda: raw_call(shards[0])
+        raw_ms = kernel_device_ms(run_raw, iters=20, names="fused_block_fwd_kernel")
+        raw_plain = cuda_time_ms(
+            lambda: fused_edge_block_reference(
+                shards[0]["e"][None], shards[0]["sp"][None], shards[0]["rp"][None], shards[0]["weights"],
+                *topo(shards[0]), raw=True,
+            ), iters=10,
+        )
+        raw_bound, raw_by = k1_bound_ms(dtype_name, 1, E, N, L, peaks)
+        results[("K1 raw", dtype_name)] = dict(
+            max_abs_err=err, ms=raw_ms, plain_ms=raw_plain, bound_ms=raw_bound, bound_by=raw_by,
+        )
+        log(f"K1 raw {dtype_name} shard E={E} N={N} L={L}: kernel {raw_ms * 1e3:.1f} us, bound "
+            f"{raw_bound * 1e3:.2f} us ({raw_by}), plain {raw_plain:.3f} ms, max abs err {err:.3g} [{card}]")
+
+        # K7 against the separate pass: K1 raw + the plain all-reduce + finalize
+        torch.cuda.synchronize()
+        got = fused_edge_block_overlap(shards, N, group, HALO_BANDS)
+        group.check()
+        acc = raws[0][1][:, : 2 * L]
+        for _, raw in raws[1:]:  # the plain all-reduce: rank order 0 .. n-1
+            acc = acc + raw[:, : 2 * L]
+        total = torch.cat([
+            acc,
+            torch.stack([r[1][:, 2 * L : 3 * L] for r in raws]).amax(0),
+            torch.stack([r[1][:, 3 * L :] for r in raws]).amin(0),
+        ], dim=-1)
+        want = finalize_partials(total)
+        agg_tol = 1e-6 if dtype_name == "float32" else TOL["bfloat16"]["agg"][0]
+        err7 = 0.0
+        for r in range(n):
+            if not torch.equal(got[r][0], raws[r][0]):
+                raise AssertionError(f"K7 {dtype_name} rank {r}: e2 differs from K1's on the same shard")
+            err7 = max(err7, check_close(f"K7 {dtype_name} rank {r} agg", got[r][1], want, agg_tol, agg_tol))
+        run7 = lambda: fused_edge_block_overlap(shards, N, group, HALO_BANDS)
+        ms7 = group_time_ms(group, run7, iters=50)
+        launch7 = traced_launch_ms(group, run7, iters=20, name="fused_overlap_kernel")
+        plain7 = cuda_time_ms(lambda: fused_edge_block_overlap_reference(shards, N), iters=5)
+        k1b, by7 = k1_bound_ms(dtype_name, 1, E, N, L, peaks)
+        ring_b = ring_bounds_ms(n, N * 4 * L * 4, peaks)
+        results[("K7", dtype_name)] = dict(
+            max_abs_err=err7, ms=ms7, launch_ms=launch7, plain_ms=plain7, bound_ms=n * k1b, bound_by=by7,
+            ring_bound_ms=n * k1b + ring_b["ring_bound_ms"],
+        )
+        log(
+            f"K7 {dtype_name} {n} ranks on one card, shard E={E}, {HALO_BANDS} bands: {ms7 * 1e3:.1f} us per "
+            f"call (CUDA events, all ranks), {launch7 * 1e3:.1f} us per rank's launch (traced); bound "
+            f"{n * k1b * 1e3:.2f} us ({by7}), with the ring's traffic {results[('K7', dtype_name)]['ring_bound_ms'] * 1e3:.2f} us; "
+            f"plain {plain7:.3f} ms; e2 bit for bit with K1, agg max abs err {err7:.3g} [{card}]"
+        )
+    return results
+
+
+def phase_halo(card, seed):
+    """Serve flag MGN-15MP through the halo forward over 4 ranks on one
+    card: agg_vjp fused (K1 raw + plain all-reduce), xla with the ring (K6)
+    and fused with overlap (K7); launch counts, the card against the
+    single-device forward and the CPU, ms per forward."""
+    import numpy as np
+    import torch
+
+    from hyper_graph_nets_tpu_torch.data.preprocessing import add_targets
+    from hyper_graph_nets_tpu_torch.data.synthetic import flag_trajectory
+    from hyper_graph_nets_tpu_torch.models.get_model import get_model
+    from hyper_graph_nets_tpu_torch.parallel.halo import make_halo_forward, split_graph
+    from hyper_graph_nets_tpu_torch.parallel.sharding import shard_topology
+
+    traj = add_targets(flag_trajectory(num_steps=4, nx=40, ny=40, seed=seed), "world_pos", history=True)
+    frame_np = {k: v[0] for k, v in traj.items() if k != "cells"}
+    group = one_card_group(HALO_RANKS)
+    log(f"rank group: {group.n} ranks, torch.cuda.device_count() = {torch.cuda.device_count()}; "
+        f"{group.layout()} (one card: a ring's remote writes land in its own memory)")
+    launches, timings = dict.fromkeys(read_counts(), 0), {}
+    for path, agg_vjp, ring, overlap, kernel in (
+        ("fused", "fused", False, False, "K1"),
+        ("ring", "xla", True, False, "K6"),
+        ("overlap", "fused", False, True, "K7"),
+    ):
+        config = main_config(agg_vjp=agg_vjp)
+        model = get_model(config)
+        cfg = model.gnn_config
+        check_mgn15(cfg, agg_vjp)
+        blocks = cfg.message_passing_steps
+        state = model.init_state(torch.Generator().manual_seed(seed))
+        topo_cpu = model.topology_from_trajectory(traj, device="cpu")
+        frames_cpu = {k: torch.as_tensor(v) for k, v in traj.items() if k != "cells"}
+        with torch.no_grad():
+            _, _, state = model.make_graph(state, topo_cpu, frames_cpu, True)
+        state_card = state.to("cuda")
+        topo = model.topology_from_trajectory(traj, device="cuda")
+        frame = {k: torch.as_tensor(v, device="cuda") for k, v in frame_np.items()}
+        stopo = shard_topology(topo, group, overlap_bands=HALO_BANDS if overlap else None)
+        with torch.no_grad():
+            graph, _, _ = model.make_graph(state_card, stopo, frame, False)
+            single_graph, _, _ = model.make_graph(state_card, topo, frame, False)
+        rank_graphs = split_graph(graph, group)
+        fwd = make_halo_forward(model, group, ring=ring, overlap=overlap)
+        E_rank = rank_graphs[0].edge_sets["mesh_edges"].num_edges
+
+        # the main path: every count set to 0 just before, read just after
+        reset_counts()
+        outs = fwd(state_card, rank_graphs, all_ranks=True)
+        counts = read_counts()
+        want = dict.fromkeys(counts, 0)
+        want[kernel] = blocks * group.n
+        if counts != want:
+            raise AssertionError(f"halo forward ({path}) launches {counts}, want {want}")
+        for k in launches:
+            launches[k] += counts[k]
+        with torch.no_grad():
+            single = model.forward(state_card, single_graph)
+            cpu_graph, _, _ = model.make_graph(state, topo_cpu, {k: v[0] for k, v in frames_cpu.items()}, False)
+            cpu_out = model.forward(state, cpu_graph)
+        scale = float(cpu_out.abs().max())
+        errs = dict(
+            ranks=max(float((o - outs[0]).abs().max()) for o in outs),
+            single_card=float((outs[0] - single).abs().max()),
+            cpu=float((outs[0].cpu() - cpu_out).abs().max()),
+        )
+        if outs[0].shape != (1600, 3) or not bool(torch.isfinite(outs[0]).all()):
+            raise AssertionError(f"halo forward ({path}): output {tuple(outs[0].shape)} not finite/shaped")
+        if max(errs.values()) > SERVE_TOL["net_out"] * scale:
+            raise AssertionError(f"halo forward ({path}) outside {SERVE_TOL['net_out']} of max {scale}: {errs}")
+
+        def host_ms(fn, n):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0) / n
+
+        ms = host_ms(lambda: fwd(state_card, rank_graphs), HALO_TIMED)
+        with torch.no_grad():
+            single_ms = host_ms(lambda: model.forward(state_card, single_graph), HALO_TIMED)
+        timings[path] = dict(
+            ms_per_forward=ms, single_device_ms=single_ms, edges_per_rank=E_rank, launches=counts[kernel],
+            max_err_vs_ranks=errs["ranks"], max_err_vs_single=errs["single_card"], max_err_vs_cpu=errs["cpu"],
+            out_scale=scale,
+        )
+        log(
+            f"halo forward ({path}, agg_vjp {agg_vjp}) flag MGN-15MP latent 128 bf16, 40x40, {group.n} ranks "
+            f"of {E_rank} edges: {counts[kernel]} {kernel} ({blocks} per rank); {ms:.2f} ms per forward "
+            f"(host clock, {HALO_TIMED} calls) vs single-device forward B=1 {single_ms:.2f} ms; max err "
+            f"ranks {errs['ranks']:.3g}, vs single-device {errs['single_card']:.3g}, vs CPU {errs['cpu']:.3g} "
+            f"of max {scale:.3g} [{card}]"
+        )
+    return launches, timings
+
+
 def phase_slice(card, seed, rollout_steps, profile_dir=None, agg_vjp="fused", balancer=False):
     """Serve MGN-15MP through the port's Predictor; returns timings and counts.
     With ``balancer`` the configuration's Ricci balancer is on: each call
@@ -1055,7 +1442,9 @@ def check_mgn15(cfg, agg_vjp="fused", balancer=False):
 
 def _counters():
     from hyper_graph_nets_tpu_torch.ops import fused_block as fb
+    from hyper_graph_nets_tpu_torch.ops import fused_overlap as fo
     from hyper_graph_nets_tpu_torch.ops import maxprod as mp
+    from hyper_graph_nets_tpu_torch.ops import ring
     from hyper_graph_nets_tpu_torch.ops import segment_pna as sp
 
     return {
@@ -1065,6 +1454,8 @@ def _counters():
         "K4f": sp.pna_sorted,
         "K4b": sp.pna_sorted_bwd,
         "K5": mp.maxprod,
+        "K6": ring.ring_all_reduce_segments,
+        "K7": fo.fused_edge_block_overlap,
     }
 
 
@@ -1303,6 +1694,8 @@ def main(argv=None) -> int:
     k4 = phase_sorted(card, peaks, topo_np, args.seed)
     k5 = phase_maxprod(card, peaks, topo_np, args.seed)
     sdrf_run = phase_sdrf(card, topo_np)
+    k6 = phase_ring(card, peaks, args.seed)
+    k7 = phase_overlap(card, peaks, args.seed)
 
     # 4-5. the main paths, their counts and timings
     serve_launches, serve_timings = {}, {}
@@ -1310,8 +1703,9 @@ def main(argv=None) -> int:
         name = "fused_balancer" if balancer else agg_vjp
         n, serve_timings[name] = phase_slice(card, args.seed, ROLLOUT_STEPS, args.profile, agg_vjp, balancer)
         serve_launches = {k: serve_launches.get(k, 0) + v for k, v in n.items()}
+    halo_launches, halo_timings = phase_halo(card, args.seed)
     train_launches, train_timings = phase_train(card, args.seed, args.profile)
-    launches = {k: serve_launches[k] + train_launches[k] for k in serve_launches}
+    launches = {k: serve_launches[k] + halo_launches[k] + train_launches[k] for k in serve_launches}
 
     main_k1 = k1[("bfloat16", ONE_STEP_FRAMES)]
     entry = lambda name, src, pallas, n, r: {
@@ -1338,6 +1732,11 @@ def main(argv=None) -> int:
         entry("pna_sorted_bwd (K4b)", "segment_pna.cu", "segment_pna.py:183", launches["K4b"],
               k4[("K4b", "bfloat16", TRAIN_FRAMES)]),
         entry("maxprod (K5)", "maxprod.cu", "maxprod.py:28", launches["K5"], k5["flag B x A"]),
+        dict(entry("ring_all_reduce_segments (K6)", "ring.cu", "ring.py:60", launches["K6"], k6[HALO_RANKS]),
+             ring_bound_ms=k6[HALO_RANKS]["ring_bound_ms"]),
+        dict(entry("fused_edge_block_overlap (K7)", "fused_overlap.cu", "fused_overlap.py:171", launches["K7"],
+                   k7[("K7", "bfloat16")]),
+             ring_bound_ms=k7[("K7", "bfloat16")]["ring_bound_ms"]),
     ]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -1355,6 +1754,10 @@ def main(argv=None) -> int:
                     },
                     "maxprod": k5,
                     "sdrf": sdrf_run,
+                    "ring": {f"n={n}": v for n, v in k6.items()},
+                    "overlap": {" ".join(k): v for k, v in k7.items()},
+                    "halo": halo_timings,
+                    "halo_launches": halo_launches,
                     "serving": serve_timings,
                     "serving_launches": serve_launches,
                     "training": train_timings,

@@ -50,7 +50,9 @@ def _count32(data, ids, num_segments, mask):
     return counts[..., None]
 
 
-def _extremum32(data, ids, num_segments, mask, reduce: str):
+def _extremum_raw32(data, ids, num_segments, mask, reduce: str):
+    """Segment max (``amax``) or min in float32; -1e30 (+1e30) where a
+    segment has no valid edge."""
     fill = _NEG_INF if reduce == "amax" else _POS_INF
     d = data.to(torch.float32)
     valid = _valid(mask)
@@ -58,9 +60,16 @@ def _extremum32(data, ids, num_segments, mask, reduce: str):
         d = torch.where(valid, d, torch.full_like(d, fill))
     out = torch.full(_out_shape(d, num_segments), fill, device=d.device)
     index = ids.long().view(*([1] * (d.dim() - 2)), -1, 1).expand_as(d)
-    out.scatter_reduce_(d.dim() - 2, index, d, reduce, include_self=True)
-    empty = out <= _NEG_INF / 2 if reduce == "amax" else out >= _POS_INF / 2
-    return torch.where(empty, torch.zeros_like(out), out)
+    return out.scatter_reduce_(d.dim() - 2, index, d, reduce, include_self=True)
+
+
+def _empty_to_zero(x: torch.Tensor, reduce: str) -> torch.Tensor:
+    empty = x <= _NEG_INF / 2 if reduce == "amax" else x >= _POS_INF / 2
+    return torch.where(empty, torch.zeros_like(x), x)
+
+
+def _extremum32(data, ids, num_segments, mask, reduce: str):
+    return _empty_to_zero(_extremum_raw32(data, ids, num_segments, mask, reduce), reduce)
 
 
 def segment_sum(data, segment_ids, num_segments, mask=None):
@@ -114,6 +123,106 @@ def aggregate(
     if aggregation not in _OPS:
         raise ValueError(f"invalid segment operation {aggregation!r}")
     return _OPS[aggregation](data, segment_ids, num_segments, mask)
+
+
+def pna_partials(data, segment_ids, num_segments, mask=None) -> torch.Tensor:
+    """Unfinalized pna partials of one edge shard, float32 ``[..., N, 4F]``:
+    ``[sum | count (broadcast over F) | max | min]`` with -1e30 / +1e30 where
+    the shard has no valid edge for a segment (the raw output of the JAX
+    package's fused kernel, ``finalize=False``)."""
+    counts = _count32(data, segment_ids, num_segments, mask)
+    return torch.cat(
+        [
+            _sum32(data, segment_ids, num_segments, mask),
+            counts.expand(_out_shape(data, num_segments)),
+            _extremum_raw32(data, segment_ids, num_segments, mask, "amax"),
+            _extremum_raw32(data, segment_ids, num_segments, mask, "amin"),
+        ],
+        dim=-1,
+    )
+
+
+def finalize_partials(raw: torch.Tensor) -> torch.Tensor:
+    """``[sum | sum / max(count, 1) | max | min]`` from combined partials,
+    empty segments' extrema 0 (``fused_block.py:1915-1923``)."""
+    F = raw.shape[-1] // 4
+    s, n, mx, mn = raw.split(F, dim=-1)
+    return torch.cat(
+        [s, s / torch.clamp(n, min=1.0), _empty_to_zero(mx, "amax"), _empty_to_zero(mn, "amin")],
+        dim=-1,
+    )
+
+
+# -- edge-parallel aggregation over a rank group (the halo forward) ----------
+
+
+def collective_aggregate(
+    data: torch.Tensor,
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    aggregation: str,
+    mask: Optional[torch.Tensor],
+    group,
+    ring: bool = False,
+) -> torch.Tensor:
+    """Aggregation of one rank's edge shard over every rank's edges: local
+    partials combined across the rank group (``parallel.group.RankGroup``),
+    the JAX package's ``collective_aggregate`` (``core/segment_ops.py:
+    226-349``).  Called from inside ``group.run``.
+
+    Without ``ring`` the partials combine by the group's plain all-reduce in
+    the data's dtype (sums, then counts, maxima and minima; the counterpart
+    of ``psum``/``pmax``/``pmin``).  With ``ring`` every pna partial travels
+    in ONE float32 payload ``[sum; count; max; min]`` (``[4N, F]``) through
+    K6 (``ops.ring.ring_all_reduce_segments``) and the result is cast back to
+    the data's dtype.  Unbatched ``[E, F]`` data only, as in JAX.
+    """
+    if data.dim() != 2:
+        raise ValueError("collective aggregation supports unbatched [E, F] data only")
+    if aggregation not in ("sum", "mean", "max", "min", "pna"):
+        raise ValueError(f"invalid collective aggregation {aggregation!r}")
+    n = num_segments
+    if ring:
+        from hyper_graph_nets_tpu_torch.ops.ring import ring_all_reduce_segments
+
+        if aggregation == "sum":
+            total = group.exchange(
+                _sum32(data, segment_ids, n, mask),
+                lambda xs: ring_all_reduce_segments(xs, [(0, n, "sum")], group),
+            )
+            return total.to(data.dtype)
+        raw = pna_partials(data, segment_ids, n, mask)  # [N, 4F]
+        F = data.shape[-1]
+        payload = torch.cat(raw.split(F, dim=-1), dim=0).contiguous()  # [4N, F]
+        segments = [(0, n, "sum"), (n, 2 * n, "sum"), (2 * n, 3 * n, "max"), (3 * n, 4 * n, "min")]
+        combined = group.exchange(
+            payload, lambda xs: ring_all_reduce_segments(xs, segments, group)
+        )
+        out = finalize_partials(torch.cat(combined.split(n, dim=0), dim=-1))
+    else:
+        dt = data.dtype
+        total = group.all_reduce_plain(_sum32(data, segment_ids, n, mask).to(dt), "sum")
+        if aggregation == "sum":
+            return total
+        counts = group.all_reduce_plain(_count32(data, segment_ids, n, mask).to(dt), "sum")
+        mean = total / torch.clamp(counts, min=1.0)
+        if aggregation == "mean":
+            return mean
+        mx = group.all_reduce_plain(_extremum_raw32(data, segment_ids, n, mask, "amax").to(dt), "max")
+        mx = _empty_to_zero(mx, "amax")
+        if aggregation == "max":
+            return mx
+        mn = group.all_reduce_plain(_extremum_raw32(data, segment_ids, n, mask, "amin").to(dt), "min")
+        mn = _empty_to_zero(mn, "amin")
+        if aggregation == "min":
+            return mn
+        return torch.cat([total, mean, mx, mn], dim=-1)
+    F = data.shape[-1]
+    parts = {"mean": 1, "max": 2, "min": 3}
+    if aggregation in parts:
+        k = parts[aggregation]
+        out = out[..., k * F : (k + 1) * F]
+    return out.to(data.dtype)
 
 
 # -- the gather path (agg_vjp: gather) ----------------------------------------

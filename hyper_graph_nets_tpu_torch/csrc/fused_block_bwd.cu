@@ -412,25 +412,29 @@ __global__ void dpar_reduce_kernel(const float* part, float* dpar, int parts, in
   dpar[i] = s;
 }
 
+// CTAs that fit on the current device at once.  The shared-memory attribute
+// is set per device, so both it and the count are kept per device ordinal.
 template <typename T, int L, bool STREAM>
 int grid_cap() {
-  static int cap = 0;  // CTAs that fit on the card at once
-  if (cap == 0) {
+  static int cap[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return -(int)err;
+  if (dev >= MAX_DEVICES) return -(int)cudaErrorInvalidDevice;
+  if (cap[dev] == 0) {
     using Lay = BwdLayout<T, L>;
-    cudaError_t err = cudaFuncSetAttribute(fused_block_bwd_kernel<T, L, STREAM>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)Lay::total);
+    err = cudaFuncSetAttribute(fused_block_bwd_kernel<T, L, STREAM>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Lay::total);
     if (err != cudaSuccess) return -(int)err;
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return -(int)err;
+    int sms = 0, per_sm = 0;
     if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
       return -(int)err;
     if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
              &per_sm, fused_block_bwd_kernel<T, L, STREAM>, THREADS, Lay::total)) != cudaSuccess)
       return -(int)err;
-    cap = sms * (per_sm > 0 ? per_sm : 1);
+    cap[dev] = sms * (per_sm > 0 ? per_sm : 1);
   }
-  return cap;
+  return cap[dev];
 }
 
 template <typename T, int L, bool STREAM>

@@ -23,6 +23,7 @@ constexpr int THREADS = 256;  // 8 warps
 constexpr int WARPS = THREADS / 32;
 constexpr float BIG = 1e30f;
 constexpr float LN_EPS = 1e-5f;
+constexpr int MAX_DEVICES = 64;  // device ordinals the per-device launch state covers
 
 using bf16 = __nv_bfloat16;
 

@@ -32,6 +32,16 @@ An edge set without a kernel plan (the graph balancer's ``balance`` set)
 takes the unfused update with plain index gathers on every path, and the
 aggregate above.
 
+Under the halo forward (``parallel/halo.py``) ``GNNConfig.axis_name`` holds
+the rank group the edges are split over, and each rank runs the blocks on
+its edge shard with every node row: a ``fused`` set runs K1 unfinalized and
+the group's plain all-reduce (``ops.fused_block.fused_edge_block_collective``)
+or, with ``halo_overlap`` and a plan that carries bands, K7
+(``ops/fused_overlap.py``); every other set aggregates its local partials
+and combines them across the ranks (``core.segment_ops.collective_aggregate``:
+the plain all-reduce, or K6 with ``halo_ring``), before the sorted and gather
+branches, as in the JAX package.
+
 The hierarchical architectures belong to a later slice of the port.
 """
 from __future__ import annotations
@@ -45,6 +55,7 @@ from torch import nn
 from hyper_graph_nets_tpu_torch.core.graph import EdgeSet, Graph
 from hyper_graph_nets_tpu_torch.core.segment_ops import (
     aggregate,
+    collective_aggregate,
     gather_aggregate,
     gather_rows,
     pna_gather,
@@ -87,6 +98,17 @@ class GNNConfig:
     # backward of the fused path: 'remat' (K2 recomputes the forward chain)
     # or 'stream' (K1 saves a1/a2 and the LayerNorm statistics, K3 reads them)
     fused_bwd: str = "remat"
+    # set by the halo forward (parallel/halo.py): the rank group
+    # (parallel.group.RankGroup) whose ranks each hold an edge shard; the
+    # aggregations combine the ranks' partials.  The group is 1-D, so the
+    # JAX package's halo_mesh_axes has no counterpart.
+    axis_name: Optional[object] = None
+    # with axis_name: combine the partials of unfused sets through K6 (the
+    # ring all-reduce) instead of the plain all-reduce
+    halo_ring: bool = False
+    # with axis_name and a fused set whose plan carries overlap bands: K7,
+    # the fused block and the banded ring in one kernel
+    halo_overlap: bool = False
 
     def __post_init__(self):
         if self.agg_vjp not in AGG_PATHS:
@@ -207,7 +229,20 @@ def _fused_eligible(eparams: MLP, es: EdgeSet, cfg: GNNConfig) -> bool:
     return (
         cfg.agg_vjp == "fused"
         and cfg.aggregation == "pna"
+        and cfg.axis_name is None
         and es.plan is not None
+        and _fused_mlp_shape_ok(eparams, es, cfg)
+    )
+
+
+def _fused_collective_eligible(eparams: MLP, es: EdgeSet, cfg: GNNConfig) -> bool:
+    """The fused path on one rank's unbatched edge shard (halo forward)."""
+    return (
+        cfg.agg_vjp == "fused"
+        and cfg.aggregation == "pna"
+        and cfg.axis_name is not None
+        and es.plan is not None
+        and es.features.dim() == 2
         and _fused_mlp_shape_ok(eparams, es, cfg)
     )
 
@@ -215,9 +250,15 @@ def _fused_eligible(eparams: MLP, es: EdgeSet, cfg: GNNConfig) -> bool:
 def _fused_update_and_agg(
     eparams: MLP, all_nodes: torch.Tensor, es: EdgeSet, cfg: GNNConfig, num_total: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Edge update + pna aggregate in one fused call (single-device branch):
-    K1 forward, and K2 or K3 backward as ``cfg.fused_bwd`` says."""
-    from hyper_graph_nets_tpu_torch.ops.fused_block import fused_edge_block
+    """Edge update + pna aggregate in one fused call: on one device K1
+    forward, and K2 or K3 backward as ``cfg.fused_bwd`` says; on a rank's
+    edge shard (``cfg.axis_name``) K1 unfinalized with the plain all-reduce,
+    or K7 (forward only)."""
+    from hyper_graph_nets_tpu_torch.ops.fused_block import (
+        fused_edge_block,
+        fused_edge_block_collective,
+    )
+    from hyper_graph_nets_tpu_torch.ops.fused_overlap import fused_edge_block_collective_overlap
 
     L = all_nodes.shape[-1]
     ws, wr, we = _first_layer_parts(eparams, L)
@@ -236,10 +277,17 @@ def _fused_update_and_agg(
         "lns": eparams.ln_scale,
         "lnb": eparams.ln_bias,
     }
-    e2, agg = fused_edge_block(
-        feats, sp, rp, weights, es.senders, es.receivers, es.mask, num_total,
-        plan=es.plan, bwd=cfg.fused_bwd,
-    )
+    topology = (es.senders, es.receivers, es.mask, num_total)
+    if cfg.axis_name is None:
+        e2, agg = fused_edge_block(feats, sp, rp, weights, *topology, plan=es.plan, bwd=cfg.fused_bwd)
+    elif cfg.halo_overlap and es.plan.overlap_bands:
+        e2, agg = fused_edge_block_collective_overlap(
+            feats, sp, rp, weights, *topology, es.plan, cfg.axis_name
+        )
+    else:
+        e2, agg = fused_edge_block_collective(
+            feats, sp, rp, weights, *topology, es.plan, cfg.axis_name
+        )
     if cfg.cd is not None:
         agg = agg.to(cfg.cd)
     return e2, agg
@@ -267,6 +315,15 @@ def _aggregate_sets(
             continue
         es = graph.edge_sets[name]
         f = edge_feats[name]
+        if cfg.axis_name is not None:
+            # an edge shard: local partials combined across the rank group
+            parts.append(
+                collective_aggregate(
+                    f, es.receivers, num_total, cfg.aggregation, es.mask, cfg.axis_name,
+                    ring=cfg.halo_ring,
+                )
+            )
+            continue
         if (
             cfg.agg_vjp == "sorted"
             and cfg.aggregation == "pna"
@@ -298,7 +355,7 @@ def _flat_apply_once(block: GraphNetBlock, graph: Graph, cfg: GNNConfig) -> Grap
     for name in names:
         es = graph.edge_sets[name]
         eparams = block.edge_models[name]
-        if _fused_eligible(eparams, es, cfg):
+        if _fused_eligible(eparams, es, cfg) or _fused_collective_eligible(eparams, es, cfg):
             new_feats[name], fused_aggs[name] = _fused_update_and_agg(
                 eparams, all_nodes, es, cfg, num_total
             )

@@ -14,6 +14,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from typing import Dict, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -27,6 +28,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()  # the ranks of a group load the kernels from several threads
 
 
 def _nvcc() -> str:
@@ -111,7 +113,8 @@ def build_log(source: str) -> str:
 
 def load(source: str) -> ctypes.CDLL:
     """Build ``source`` if needed and load it (once per process)."""
-    lib = build([source])[source]
-    if lib not in _loaded:
-        _loaded[lib] = ctypes.CDLL(lib)
-    return _loaded[lib]
+    with _lock:
+        lib = build([source])[source]
+        if lib not in _loaded:
+            _loaded[lib] = ctypes.CDLL(lib)
+        return _loaded[lib]

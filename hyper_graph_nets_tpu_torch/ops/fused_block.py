@@ -64,6 +64,9 @@ class SegmentPlan:
     num_edges: int
     snd_perm: Optional[torch.Tensor] = None  # [E] int32
     snd_ptr: Optional[torch.Tensor] = None  # [N + 1] int32
+    # node-row bands of the compute-overlapped halo ring (K7, ops/
+    # fused_overlap.py) for a rank's edge shard; 0: no overlap
+    overlap_bands: int = 0
 
     @property
     def num_groups(self) -> int:
@@ -177,10 +180,13 @@ def fused_edge_block_reference(
     mask: Optional[torch.Tensor],
     num_nodes: int,
     save_streams: bool = False,
+    raw: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch K1 with the kernel's rounding points: ``(e2, agg)``, and
     with ``save_streams`` also ``a1, a2`` (``e.dtype``) and the LayerNorm
-    ``mu, isg`` (float32, ``[..., E]``).
+    ``mu, isg`` (float32, ``[..., E]``).  With ``raw`` the aggregate is the
+    unfinalized partials ``[sum | count | max | min]`` (-1e30 / +1e30 where
+    a receiver has no valid edge), the JAX kernel's ``finalize=False``.
 
     LayerNorm statistics are float32; the aggregate sums the rounded ``e2``
     in float32.  Autograd through this function splits a max/min cotangent
@@ -190,7 +196,10 @@ def fused_edge_block_reference(
     a1, a2, z3 = _edge_mlp_reference(e, sp, rp, weights, senders, receivers)
     mu, isg = _ln_stats(z3)
     _, e2 = _xhat_e2(e, z3, mu, isg, weights)
-    agg = segment_ops.aggregate(e2.float(), receivers, num_nodes, "pna", mask)
+    if raw:
+        agg = segment_ops.pna_partials(e2.float(), receivers, num_nodes, mask)
+    else:
+        agg = segment_ops.aggregate(e2.float(), receivers, num_nodes, "pna", mask)
     if save_streams:
         return e2, agg, a1, a2, mu[..., 0], isg[..., 0]
     return e2, agg
@@ -287,7 +296,7 @@ def fused_edge_block_bwd_stream_reference(
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    FWD_SOURCE: {"hgn_fused_block_fwd": [_ci, _ci] + [_vp] * 22 + [_ci] * 4 + [_vp]},
+    FWD_SOURCE: {"hgn_fused_block_fwd": [_ci, _ci] + [_vp] * 22 + [_ci] * 5 + [_vp]},
     BWD_SOURCE: {
         "hgn_fused_block_bwd": [_ci, _ci, _ci] + [_vp] * 34 + [_ci] * 4 + [_vp],
         "hgn_fused_block_bwd_ctas": [_ci, _ci, _ci],
@@ -374,7 +383,7 @@ def _resolve_plan(plan, senders, receivers, num_nodes, device) -> SegmentPlan:
     return plan
 
 
-def _k1_launch(e, sp, rp, weights, senders, receivers, mask, num_nodes, plan, save_streams):
+def _k1_launch(e, sp, rp, weights, senders, receivers, mask, num_nodes, plan, save_streams, raw):
     plan = _resolve_plan(plan, senders, receivers, num_nodes, e.device)
     B, E, L = _validate(e, {"sp": sp, "rp": rp}, senders, receivers, mask, num_nodes, plan)
     w, p = _kernel_weights(weights, e.dtype, L, e.device)
@@ -392,7 +401,7 @@ def _k1_launch(e, sp, rp, weights, senders, receivers, mask, num_nodes, plan, sa
         _ptr(p["b1"]), _ptr(p["b2"]), _ptr(p["b3"]), _ptr(p["lns"]), _ptr(p["lnb"]),
         _ptr(senders), _ptr(receivers), _ptr(mask), _ptr(plan.row_ptr), _ptr(plan.groups),
         _ptr(e2), _ptr(agg), _ptr(a1), _ptr(a2), _ptr(mu), _ptr(isg),
-        B, E, num_nodes, plan.num_groups,
+        B, E, num_nodes, plan.num_groups, int(raw),
         torch.cuda.current_stream(e.device).cuda_stream,
     )
     _raise_on(rc, lib, "fused_edge_block")
@@ -468,9 +477,10 @@ def fused_edge_block_bwd(
         return fused_edge_block_bwd_reference(
             e, sp, rp, weights, de2, drhs, senders, receivers, mask, num_nodes
         )
-    outs = _bwd_launch(
-        0, e, sp, rp, None, weights, de2, drhs, senders, receivers, mask, num_nodes, plan
-    )
+    with torch.cuda.device(e.device):
+        outs = _bwd_launch(
+            0, e, sp, rp, None, weights, de2, drhs, senders, receivers, mask, num_nodes, plan
+        )
     fused_edge_block_bwd.launches += 1
     return outs
 
@@ -485,10 +495,11 @@ def fused_edge_block_bwd_stream(
         return fused_edge_block_bwd_stream_reference(
             e, a1, a2, mu, isg, weights, de2, drhs, senders, receivers, mask, num_nodes
         )
-    outs = _bwd_launch(
-        1, e, None, None, (a1, a2, mu, isg), weights, de2, drhs, senders, receivers,
-        mask, num_nodes, plan,
-    )
+    with torch.cuda.device(e.device):
+        outs = _bwd_launch(
+            1, e, None, None, (a1, a2, mu, isg), weights, de2, drhs, senders, receivers,
+            mask, num_nodes, plan,
+        )
     fused_edge_block_bwd_stream.launches += 1
     return outs
 
@@ -518,19 +529,23 @@ class _Edges:
 
 
 def fused_edge_block_fwd(
-    e, sp, rp, weights, senders, receivers, mask, num_nodes, plan=None, save_streams=False
+    e, sp, rp, weights, senders, receivers, mask, num_nodes, plan=None, save_streams=False,
+    raw=False,
 ):
     """K1 on ``[B, E, L]`` inputs: ``(e2, agg)``, and with ``save_streams``
-    also ``a1, a2, mu, isg`` (see :func:`fused_edge_block_reference`).  A
-    CUDA tensor launches the kernel (counted on ``fused_edge_block.launches``);
-    a CPU tensor runs the plain version."""
+    also ``a1, a2, mu, isg`` (see :func:`fused_edge_block_reference`); with
+    ``raw`` the aggregate is the unfinalized partials.  A CUDA tensor
+    launches the kernel (counted on ``fused_edge_block.launches``); a CPU
+    tensor runs the plain version."""
     if e.device.type == "cpu":
         return fused_edge_block_reference(
-            e, sp, rp, weights, senders, receivers, mask, num_nodes, save_streams=save_streams
+            e, sp, rp, weights, senders, receivers, mask, num_nodes, save_streams=save_streams,
+            raw=raw,
         )
-    return _k1_launch(
-        e, sp, rp, weights, senders, receivers, mask, num_nodes, plan, save_streams
-    )
+    with torch.cuda.device(e.device):  # the kernels' launch state is per device
+        return _k1_launch(
+            e, sp, rp, weights, senders, receivers, mask, num_nodes, plan, save_streams, raw
+        )
 
 
 def agg_cotangent_rhs(agg, dagg, receivers, mask, num_nodes) -> torch.Tensor:
@@ -635,3 +650,40 @@ def fused_edge_block(
 
 
 fused_edge_block.launches = 0  # K1 launches since the count was last reset
+
+
+# -- the edge-sharded forward (halo forward) ----------------------------------
+
+
+def fused_edge_block_collective(
+    e: torch.Tensor,
+    sp: torch.Tensor,
+    rp: torch.Tensor,
+    weights: Dict[str, torch.Tensor],
+    senders: torch.Tensor,
+    receivers: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    num_nodes: int,
+    plan: Optional[SegmentPlan],
+    group,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One rank's edge shard of the fused block over a rank group (called
+    inside ``group.run``): K1 unfinalized on the shard, the partials combined
+    by the group's plain all-reduce (sum and count summed, max and min
+    folded, in rank order), then finalized.  ``(e2 [E, L], agg [N, 4L]
+    float32)``.  Forward only, as the JAX package's
+    ``fused_edge_block_collective`` (``fused_block.py:1884-1924``)."""
+    e2, raw = fused_edge_block_fwd(
+        e[None], sp[None], rp[None], weights, senders, receivers, mask, num_nodes, plan, raw=True
+    )
+    L = e.shape[-1]
+
+    def combine(raws):  # one rendezvous: [sum | count] summed, max and min folded
+        parts = [
+            group.reduce_plain([x[:, lo:hi] for x in raws], op)
+            for lo, hi, op in ((0, 2 * L, "sum"), (2 * L, 3 * L, "max"), (3 * L, 4 * L, "min"))
+        ]
+        return list(zip(*parts))
+
+    combined = group.exchange(raw[0], combine)
+    return e2[0], segment_ops.finalize_partials(torch.cat(combined, dim=-1))

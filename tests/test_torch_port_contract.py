@@ -58,6 +58,9 @@ def test_port_and_chip_smoke_import_no_jax():
         "import hyper_graph_nets_tpu_torch.convert, chip_smoke\n"
         "import hyper_graph_nets_tpu_torch.balancer.ricci, hyper_graph_nets_tpu_torch.balancer.base\n"
         "import hyper_graph_nets_tpu_torch.ops.maxprod, hyper_graph_nets_tpu_torch.training.trainer\n"
+        "import hyper_graph_nets_tpu_torch.ops.ring, hyper_graph_nets_tpu_torch.ops.fused_overlap\n"
+        "import hyper_graph_nets_tpu_torch.parallel.group, hyper_graph_nets_tpu_torch.parallel.sharding\n"
+        "import hyper_graph_nets_tpu_torch.parallel.halo\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -86,6 +89,8 @@ def test_port_sources_name_no_jax_import():
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
+    names = {os.path.relpath(f, PORT) for f in files}
+    assert {"parallel/halo.py", "parallel/group.py", "ops/ring.py", "ops/fused_overlap.py"} <= names
     for path in files:
         bad = set(_imported_roots(path)) & set(FORBIDDEN)
         assert not bad, f"{path} imports {bad}"

@@ -47,6 +47,16 @@ bit for bit (each product one rounded multiply, max exact); SDRF through K5
 equals SDRF through the plain version on the card (the same lists); a
 balancer predictor on the card against the CPU on the same state and the
 same static, within 5% of the largest |acceleration|.
+
+K1's raw mode against its plain version with K1's tolerances.  K6 equals
+its plain version bit for bit (the same float32 folds in the same order)
+for 2, 3 and 4 ranks, with a late rank and over 100 calls in a row.  K7's
+e2 equals K1's on the same shard bit for bit; its aggregate is within 1e-6
+(float32: the raw partials summed in another order) or the bf16 aggregate
+tolerance of K1 raw + the plain all-reduce + finalize.  The halo forward of
+a 2-block bf16 flag over 4 ranks on the card within 5% of the largest
+|output| of the CPU's and of the single-device forward.  K1 on a second
+card (skips with one).
 """
 import numpy as np
 import pytest
@@ -466,3 +476,228 @@ def test_balancer_predictor_on_card_matches_cpu(agg_vjp):
     base = 2 * traj["world_pos"] - traj["prev|world_pos"]
     scale = np.abs(want - base).max()
     assert np.abs(got - want).max() <= 0.05 * scale
+
+
+# -- the halo forward's kernels: K1 raw, K6, K7 ------------------------------
+#
+# K1 raw against its plain version with K1's tolerances.  K6 against its
+# plain version bit for bit (the same float32 folds in the same order), for
+# 2, 3 and 4 ranks on the card(s) there are, with one rank's launch delayed
+# and over many calls in a row.  K7's e2 equals K1's on the same shard bit
+# for bit, its aggregate K1 raw + the plain all-reduce + finalize within
+# 1e-6 (float32; the raw partials' float32 sums in another order) or the
+# bf16 aggregate tolerance above.
+
+
+def _ring_payload(n, R, C, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(R, C, generator=gen) for _ in range(n)]
+
+
+def _pna_segments(N):
+    return [(0, N, "sum"), (N, 2 * N, "sum"), (2 * N, 3 * N, "max"), (3 * N, 4 * N, "min")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_k1_raw_kernel_matches_plain(dtype):
+    _need_card()
+    arrays, weights, snd, rcv, mask, N, isolated = _case("masked", 128)
+    t = {k: torch.tensor(v).to(dtype).cuda() for k, v in arrays.items()}
+    w = {k: torch.tensor(v.T.copy() if v.ndim == 2 else v).cuda() for k, v in weights.items()}
+    args = (torch.tensor(snd).cuda(), torch.tensor(rcv).cuda(), torch.tensor(mask).cuda(), N)
+    e2, raw = fused_edge_block_fwd(t["e"], t["sp"], t["rp"], w, *args, raw=True)
+    torch.cuda.synchronize()
+    re2, rraw = fused_edge_block_reference(t["e"], t["sp"], t["rp"], w, *args, raw=True)
+    (er, ea), (gr, ga) = TOLS[dtype]["e2"], TOLS[dtype]["agg"]
+    torch.testing.assert_close(e2.float(), re2.float(), rtol=er, atol=ea)
+    torch.testing.assert_close(raw, rraw, rtol=gr, atol=ga)
+    L = 128
+    assert bool((raw[:, isolated, : 2 * L] == 0).all())
+    assert bool((raw[:, isolated, 2 * L : 3 * L] == -1e30).all())
+    assert bool((raw[:, isolated, 3 * L :] == 1e30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3, 4])
+@pytest.mark.parametrize("shape", [(4 * 1600, 128), (4 * 251, 37)], ids=["main", "odd"])
+def test_k6_matches_plain_bit_for_bit(n, shape):
+    _need_card()
+    from hyper_graph_nets_tpu_torch.ops.ring import (
+        ring_all_reduce_segments,
+        ring_all_reduce_segments_reference,
+    )
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+
+    group = RankGroup(n)
+    xs = [x.to(group.device(r)) for r, x in enumerate(_ring_payload(n, *shape))]
+    segments = _pna_segments(shape[0] // 4)
+    torch.cuda.synchronize()
+    before = ring_all_reduce_segments.launches
+    got = ring_all_reduce_segments(xs, segments, group)
+    group.check()
+    assert ring_all_reduce_segments.launches == before + n
+    want = ring_all_reduce_segments_reference(xs, segments)
+    for r in range(n):
+        assert torch.equal(got[r], want[r]), f"rank {r}"
+
+
+@pytest.mark.cuda
+def test_k6_with_a_delayed_rank_and_many_calls():
+    _need_card()
+    from hyper_graph_nets_tpu_torch.ops.ring import (
+        ring_all_reduce_segments,
+        ring_all_reduce_segments_reference,
+    )
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+
+    n, N = 4, 1600
+    group = RankGroup(n)
+    segments = _pna_segments(N)
+    for call in range(100):
+        xs = [x.to(group.device(r)) for r, x in enumerate(_ring_payload(n, 4 * N, 128, seed=call))]
+        torch.cuda.synchronize()
+        if call % 10 == 0:  # rank 1 starts about 1 ms late
+            with torch.cuda.device(group.device(1)), torch.cuda.stream(group.stream(1)):
+                torch.cuda._sleep(2_000_000)
+        got = ring_all_reduce_segments(xs, segments, group)
+        if call % 10 == 9:
+            group.check()
+            want = ring_all_reduce_segments_reference(xs, segments)
+            for r in range(n):
+                assert torch.equal(got[r], want[r]), f"call {call} rank {r}"
+    group.check()
+
+
+def _overlap_shards(n, dtype, L=128, nx=20, chunk=64, seed=0):
+    """One frame's edge shards of an nx x nx grid, dealt round-robin by
+    chunk over n ranks, with K1 inputs; (shards, N)."""
+    from hyper_graph_nets_tpu_torch.ops.fused_overlap import chunk_roundrobin_permutation
+    from hyper_graph_nets_tpu_torch.parallel.sharding import pad_to_multiple
+    from torch_port_cases import grid_edges
+
+    snd, rcv, N = grid_edges(nx, nx)
+    E = len(snd)
+    snd = pad_to_multiple(snd, chunk * n, 0)
+    rcv = pad_to_multiple(rcv, chunk * n, N - 1)
+    mask = np.zeros(len(snd), np.float32)
+    mask[:E] = 1.0
+    perm = chunk_roundrobin_permutation(len(snd), n, chunk)
+    snd, rcv, mask = snd[perm], rcv[perm], mask[perm]
+    rng = np.random.default_rng(seed)
+    per = len(snd) // n
+    sp = torch.tensor(rng.normal(size=(N, L)).astype(np.float32)).to(dtype)
+    rp = torch.tensor(rng.normal(size=(N, L)).astype(np.float32)).to(dtype)
+    weights = {k: torch.tensor(0.1 * rng.normal(size=(L, L)).astype(np.float32)) for k in ("we", "w2", "w3")}
+    weights.update({k: torch.tensor(0.1 * rng.normal(size=L).astype(np.float32)) for k in ("b1", "b2", "b3", "lnb")})
+    weights["lns"] = torch.tensor(1 + 0.1 * rng.normal(size=L).astype(np.float32))
+    shards = []
+    for r in range(n):
+        sl = slice(r * per, (r + 1) * per)
+        shards.append(dict(
+            e=torch.tensor(rng.normal(size=(per, L)).astype(np.float32)).to(dtype),
+            sp=sp, rp=rp, weights=weights,
+            senders=torch.tensor(snd[sl]), receivers=torch.tensor(rcv[sl]), mask=torch.tensor(mask[sl]),
+        ))
+    return shards, N
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_k7_matches_k1_raw_and_the_all_reduce(n, dtype):
+    _need_card()
+    from hyper_graph_nets_tpu_torch.ops.fused_block import plan_segments
+    from hyper_graph_nets_tpu_torch.ops.fused_overlap import fused_edge_block_overlap
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+    from hyper_graph_nets_tpu_torch.core.segment_ops import finalize_partials
+
+    group = RankGroup(n)
+    shards, N = _overlap_shards(n, dtype)
+    on = lambda x, d: {k: (v.to(d) if torch.is_tensor(v) else {a: b.to(d) for a, b in v.items()}) for k, v in x.items()}
+    shards = [on(x, group.device(r)) for r, x in enumerate(shards)]
+    for x in shards:
+        x["plan"] = plan_segments(x["receivers"], N, senders=x["senders"]).to(x["e"].device)
+    torch.cuda.synchronize()
+    got = fused_edge_block_overlap(shards, N, group, bands=4)
+    group.check()
+    raws = []
+    for r, x in enumerate(shards):
+        e2, raw = fused_edge_block_fwd(
+            x["e"][None], x["sp"][None], x["rp"][None], x["weights"], x["senders"], x["receivers"],
+            x["mask"], N, x["plan"], raw=True,
+        )
+        assert torch.equal(got[r][0], e2[0]), f"rank {r} e2"
+        raws.append(raw[0].to(group.device(0)))
+    L = 128
+    total = torch.cat([
+        sum(raws[1:], raws[0])[:, : 2 * L],
+        torch.stack([x[:, 2 * L : 3 * L] for x in raws]).amax(0),
+        torch.stack([x[:, 3 * L :] for x in raws]).amin(0),
+    ], dim=-1)
+    want = finalize_partials(total)
+    tol = 1e-6 if dtype == torch.float32 else TOLS[dtype]["agg"][0]
+    for r in range(n):
+        torch.testing.assert_close(got[r][1].to(want.device), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_k1_launches_on_a_second_card():
+    """The kernels' shared-memory attribute is per device: K1 on cuda:1
+    after cuda:0."""
+    _need_card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    arrays, weights, snd, rcv, mask, N, _ = _case("masked", 128)
+    outs = []
+    for dev in ("cuda:0", "cuda:1"):
+        t = {k: torch.tensor(v).to(torch.bfloat16).to(dev) for k, v in arrays.items()}
+        w = {k: torch.tensor(v.T.copy() if v.ndim == 2 else v).to(dev) for k, v in weights.items()}
+        args = (torch.tensor(snd).to(dev), torch.tensor(rcv).to(dev), torch.tensor(mask).to(dev), N)
+        outs.append(fused_edge_block(t["e"], t["sp"], t["rp"], w, *args))
+        torch.cuda.synchronize(dev)
+    assert torch.equal(outs[0][0].cpu(), outs[1][0].cpu())
+    assert torch.equal(outs[0][1].cpu(), outs[1][1].cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["fused", "ring", "overlap"])
+def test_halo_forward_on_card_matches_cpu(path):
+    """The halo forward of a 2-block bf16 flag over 4 ranks on the card
+    against the same ranks on the CPU and the single-device forward, within
+    5% of the largest |output|; 2 K6 or K7 launches per rank."""
+    _need_card()
+    from hyper_graph_nets_tpu_torch.ops.fused_overlap import fused_edge_block_overlap
+    from hyper_graph_nets_tpu_torch.ops.ring import ring_all_reduce_segments
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+    from hyper_graph_nets_tpu_torch.parallel.halo import make_halo_forward, split_graph
+    from hyper_graph_nets_tpu_torch.parallel.sharding import shard_topology
+
+    config = flag_config("bfloat16", agg_vjp="xla" if path == "ring" else "fused")
+    model = get_model(config)
+    state = model.init_state(torch.Generator().manual_seed(0))
+    traj = add_targets(flag_trajectory(num_steps=4, nx=10, ny=10), "world_pos", True)
+    outs = {}
+    for where in ("cuda", "cpu"):
+        group = RankGroup(4, device=None if where == "cuda" else "cpu")
+        st = state.to(group.device(0))
+        topo = model.topology_from_trajectory(traj, device=group.device(0))
+        stopo = shard_topology(topo, group, overlap_bands=4 if path == "overlap" else None, chunk=32)
+        frame = {k: torch.as_tensor(v[0], device=group.device(0)) for k, v in traj.items() if k != "cells"}
+        with torch.no_grad():
+            graph, _, _ = model.make_graph(st, stopo, frame, False)
+        fwd = make_halo_forward(model, group, ring=path == "ring", overlap=path == "overlap")
+        before = (ring_all_reduce_segments.launches, fused_edge_block_overlap.launches)
+        outs[where] = [o.cpu() for o in fwd(st, split_graph(graph, group), all_ranks=True)]
+        after = (ring_all_reduce_segments.launches, fused_edge_block_overlap.launches)
+        want = {"fused": (0, 0), "ring": (8, 0), "overlap": (0, 8)}[path] if where == "cuda" else (0, 0)
+        assert (after[0] - before[0], after[1] - before[1]) == want
+        if where == "cpu":
+            with torch.no_grad():
+                g1, _, _ = model.make_graph(st, topo, frame, False)
+                single = model.forward(st, g1)
+    scale = float(single.abs().max())
+    for r in range(4):
+        assert torch.isfinite(outs["cuda"][r]).all()
+        assert float((outs["cuda"][r] - outs["cpu"][r]).abs().max()) <= 0.05 * scale
+        assert float((outs["cuda"][r] - single).abs().max()) <= 0.05 * scale

@@ -144,12 +144,18 @@ def test_plan_segments_rows_and_groups():
 
 def test_build_key_covers_included_headers(tmp_path):
     """A change to a header a kernel source includes gives the source a new
-    library (the kernels share fused_block_common.cuh)."""
+    library (the kernels share fused_block_common.cuh; K1 and K7 share
+    fused_block_fwd.cuh, K6 and K7 ring_common.cuh), transitively."""
     from hyper_graph_nets_tpu_torch.ops import build
 
-    for name in ("fused_block_fwd.cu", "fused_block_bwd.cu"):
+    for name, want in (
+        ("fused_block_fwd.cu", ["fused_block_common.cuh", "fused_block_fwd.cuh"]),
+        ("fused_block_bwd.cu", ["fused_block_common.cuh"]),
+        ("fused_overlap.cu", ["fused_block_common.cuh", "fused_block_fwd.cuh", "ring_common.cuh"]),
+        ("ring.cu", ["ring_common.cuh"]),
+    ):
         headers = build._local_headers(build.source_path(name))
-        assert [os.path.basename(h) for h in headers] == ["fused_block_common.cuh"]
+        assert [os.path.basename(h) for h in headers] == want
     src, inner, outer = tmp_path / "k.cu", tmp_path / "a.cuh", tmp_path / "b.cuh"
     src.write_text('#include "a.cuh"\n#include <cuda_runtime.h>\n')
     inner.write_text('#include "b.cuh"\n')
