@@ -16,7 +16,8 @@ Phases (any failure exits non-zero; nothing is caught and dropped):
    (the kernel's device time from torch.profiler, the wrapper call and the
    plain version with CUDA events) beside its bound (the least time the
    card could take: bytes moved over the memory rate or operations over the
-   peak rate, whichever is larger).  K1 with and without its streams; K2
+   peak rate, whichever is larger).  K1 with and without its streams, at
+   B = 21 and B = 1 and raw on both halo shard layouts; K2
    (remat backward) and K3 (stream backward) at B = 21 in bf16 and float32,
    with a masked tail and an isolated receiver, with masked edges inside
    segments (as the balancer removes mesh edges), with exactly tied edges,
@@ -38,8 +39,9 @@ Phases (any failure exits non-zero; nothing is caught and dropped):
    beside its bounds; K1 raw and K7 (the fused block with the banded ring)
    at the halo shards of the 40x40 flag (4 ranks of 2,560 edges, chunks
    dealt round-robin) in bf16 and float32: K1 raw against its plain
-   version, K7's e2 bit for bit with K1's and its aggregate against K1 raw
-   + the plain all-reduce + finalize;
+   version on every rank's shard (timed in the K1 checks above), K7's e2
+   bit for bit with K1's and its aggregate against K1 raw + the plain
+   all-reduce + finalize;
 4. serving: ``Predictor.from_config`` on configs/flag_full_scale.yaml with
    RMP off (latent 128, 15 blocks, bf16, ``agg_vjp: fused``, then
    ``agg_vjp: sorted``, then ``fused`` with ``graph_balancer.algorithm:
@@ -365,6 +367,38 @@ def phase_kernels(card, peaks, topo_np, seed):
             f"K1 {dtype_name} B={B} E={E} N={N} L={L}: kernel {ms * 1e3:.1f} us "
             f"(wrapper call {call_ms * 1e3:.1f} us), bound {bound * 1e3:.2f} us "
             f"({bound_by}), plain {plain_ms:.3f} ms, max abs err {err:.3g} [{card}]"
+        )
+
+    # raw mode on one rank's edge shard of the halo forward: 2,560 edges of
+    # the 40x40 flag padded and dealt round-robin by chunks (the overlap
+    # layout), and rank 0's 2,321 contiguous edges (the fused path's)
+    shard = overlap_shards(torch.bfloat16, gen)[0][0]
+    per = -(-E // HALO_RANKS)
+    x1 = k1_inputs(torch.bfloat16, 1, snd[:per], rcv[:per], N, L, gen, "cuda")
+    raw_cases = [
+        ("raw shard", (shard["e"][None], shard["sp"][None], shard["rp"][None], shard["weights"],
+                       shard["senders"], shard["receivers"], shard["mask"], N), shard["plan"]),
+        ("raw contiguous shard", (x1["e"], x1["sp"], x1["rp"], x1["weights"], x1["senders"],
+                                  x1["receivers"], None, N),
+         plan_segments(rcv[:per], N, senders=snd[:per]).to("cuda")),
+    ]
+    for tag, raw_args, raw_plan in raw_cases:
+        E_raw = raw_args[0].shape[1]
+        run = lambda: fused_edge_block_fwd(*raw_args, plan=raw_plan, raw=True)
+        e2, raw = run()
+        torch.cuda.synchronize()
+        re2, rraw = fused_edge_block_reference(*raw_args, raw=True)
+        err = max(check_close(f"K1 {tag} e2", e2, re2, *TOL["bfloat16"]["e2"]),
+                  check_close(f"K1 {tag} agg", raw, rraw, *TOL["bfloat16"]["agg"]))
+        ms = kernel_device_ms(run, iters=20, names="fused_block_fwd_kernel")
+        plain_ms = cuda_time_ms(lambda: fused_edge_block_reference(*raw_args, raw=True), iters=10)
+        bound, bound_by = k1_bound_ms("bfloat16", 1, E_raw, N, L, peaks)
+        results[("bfloat16 " + tag, 1)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+        )
+        log(
+            f"K1 {tag} bfloat16 E={E_raw} N={N} L={L}: kernel {ms * 1e3:.1f} us, bound "
+            f"{bound * 1e3:.2f} us ({bound_by}), plain {plain_ms:.3f} ms, max abs err {err:.3g} [{card}]"
         )
 
     # with the streams K3 reads (save_streams), at the main path's shapes
@@ -1070,9 +1104,10 @@ def overlap_shards(dtype, gen, n=HALO_RANKS, chunk=HALO_CHUNK):
 
 def phase_overlap(card, peaks, seed):
     """K1 raw and K7 at the halo forward's shard shapes (4 ranks of 2,560
-    edges of the 40x40 flag, round-robin): K1 raw against its plain version,
-    K7's e2 against K1's bit for bit and its aggregate against K1 raw + the
-    plain all-reduce + finalize; timed beside their bounds."""
+    edges of the 40x40 flag, round-robin): K1 raw against its plain version
+    (``phase_kernels`` times it on this shard), K7's e2 against K1's bit for
+    bit and its aggregate against K1 raw + the plain all-reduce + finalize;
+    K7 timed beside its bounds."""
     import torch
 
     from hyper_graph_nets_tpu_torch.core.segment_ops import finalize_partials
@@ -1104,20 +1139,8 @@ def phase_overlap(card, peaks, seed):
             err = max(err, check_close(f"K1 raw {dtype_name} rank {r} e2", e2, re2, *TOL[dtype_name]["e2"]))
             err = max(err, check_close(f"K1 raw {dtype_name} rank {r} agg", raw, rraw, *TOL[dtype_name]["agg"]))
             raws.append((e2[0], raw[0]))
-        run_raw = lambda: raw_call(shards[0])
-        raw_ms = kernel_device_ms(run_raw, iters=20, names="fused_block_fwd_kernel")
-        raw_plain = cuda_time_ms(
-            lambda: fused_edge_block_reference(
-                shards[0]["e"][None], shards[0]["sp"][None], shards[0]["rp"][None], shards[0]["weights"],
-                *topo(shards[0]), raw=True,
-            ), iters=10,
-        )
-        raw_bound, raw_by = k1_bound_ms(dtype_name, 1, E, N, L, peaks)
-        results[("K1 raw", dtype_name)] = dict(
-            max_abs_err=err, ms=raw_ms, plain_ms=raw_plain, bound_ms=raw_bound, bound_by=raw_by,
-        )
-        log(f"K1 raw {dtype_name} shard E={E} N={N} L={L}: kernel {raw_ms * 1e3:.1f} us, bound "
-            f"{raw_bound * 1e3:.2f} us ({raw_by}), plain {raw_plain:.3f} ms, max abs err {err:.3g} [{card}]")
+        results[("K1 raw", dtype_name)] = dict(max_abs_err=err)
+        log(f"K1 raw {dtype_name} {n} shards E={E} N={N} L={L}: max abs err {err:.3g} [{card}]")
 
         # K7 against the separate pass: K1 raw + the plain all-reduce + finalize
         torch.cuda.synchronize()
@@ -1708,6 +1731,9 @@ def main(argv=None) -> int:
     launches = {k: serve_launches[k] + halo_launches[k] + train_launches[k] for k in serve_launches}
 
     main_k1 = k1[("bfloat16", ONE_STEP_FRAMES)]
+    k1_shapes = {"B=21": main_k1, "B=1": k1[("bfloat16", 1)], "raw shard": k1[("bfloat16 raw shard", 1)],
+                 "raw contiguous shard": k1[("bfloat16 raw contiguous shard", 1)]}
+    shapes = lambda runs: {tag: {"ms": r["ms"], "bound_ms": r["bound_ms"]} for tag, r in runs.items()}
     entry = lambda name, src, pallas, n, r: {
         "name": name,
         "route": "cuda",
@@ -1722,7 +1748,8 @@ def main(argv=None) -> int:
         "library_ms": None,
     }
     kernels = [
-        entry("fused_edge_block_fwd (K1)", "fused_block_fwd.cu", "fused_block.py:393", launches["K1"], main_k1),
+        dict(entry("fused_edge_block_fwd (K1)", "fused_block_fwd.cu", "fused_block.py:393", launches["K1"], main_k1),
+             shapes=shapes(k1_shapes)),
         entry("fused_edge_block_bwd remat (K2)", "fused_block_bwd.cu", "fused_block.py:1008", launches["K2"],
               bwd[("K2", "bfloat16")]),
         entry("fused_edge_block_bwd stream (K3)", "fused_block_bwd.cu", "fused_block.py:1284", launches["K3"],
@@ -1731,7 +1758,8 @@ def main(argv=None) -> int:
               k4[("K4f", "bfloat16", TRAIN_FRAMES)]),
         entry("pna_sorted_bwd (K4b)", "segment_pna.cu", "segment_pna.py:183", launches["K4b"],
               k4[("K4b", "bfloat16", TRAIN_FRAMES)]),
-        entry("maxprod (K5)", "maxprod.cu", "maxprod.py:28", launches["K5"], k5["flag B x A"]),
+        dict(entry("maxprod (K5)", "maxprod.cu", "maxprod.py:28", launches["K5"], k5["flag B x A"]),
+             shapes=shapes(k5)),
         dict(entry("ring_all_reduce_segments (K6)", "ring.cu", "ring.py:60", launches["K6"], k6[HALO_RANKS]),
              ring_bound_ms=k6[HALO_RANKS]["ring_bound_ms"]),
         dict(entry("fused_edge_block_overlap (K7)", "fused_overlap.cu", "fused_overlap.py:171", launches["K7"],

@@ -16,6 +16,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace hgn {
 
 constexpr int TILE = 64;      // edges per tile
@@ -58,12 +60,23 @@ struct alignas(sizeof(T) * N) Vec {
   T v[N];
 };
 
+// A CTA runs one or more teams of THREADS threads, each on its own tile (K1
+// runs two; the other kernels one).  The tile code indexes threads and warps
+// within its team and synchronizes only its team.
+__device__ __forceinline__ int team_tid() { return threadIdx.x & (THREADS - 1); }
+
+// Barrier of the calling thread's team (named barrier 1 + team).
+__device__ __forceinline__ void team_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + (int)(threadIdx.x / THREADS)), "n"(THREADS)
+               : "memory");
+}
+
 // Copy L consecutive rows of L elements (16-byte vectors) into a shared
 // array of row stride LD (the staged weights).
 template <typename T, int L, int LD>
 __device__ __forceinline__ void load_rows(T* dst, const T* src) {
   constexpr int CH = int(L * sizeof(T) / 16);
-  for (int i = threadIdx.x; i < L * CH; i += THREADS) {
+  for (int i = team_tid(); i < L * CH; i += THREADS) {
     const int r = i / CH, c = i - r * CH;
     reinterpret_cast<int4*>(dst + (size_t)r * LD)[c] =
         __ldg(reinterpret_cast<const int4*>(src + (size_t)r * L) + c);
@@ -89,7 +102,7 @@ __device__ __forceinline__ void load_tile(T* aT, T* xT, T* yT, const T* a, const
     int4 v[3][STEP];
 #pragma unroll
     for (int s = 0; s < STEP; ++s) {
-      const int i = threadIdx.x + (p0 + s) * THREADS;
+      const int i = team_tid() + (p0 + s) * THREADS;
       const int r = i / CH, c = i - r * CH;
       if (r < rows) {
         const int xr = GATHER ? xi[r] : ts + r;
@@ -101,7 +114,7 @@ __device__ __forceinline__ void load_tile(T* aT, T* xT, T* yT, const T* a, const
     }
 #pragma unroll
     for (int s = 0; s < STEP; ++s) {
-      const int i = threadIdx.x + (p0 + s) * THREADS;
+      const int i = team_tid() + (p0 + s) * THREADS;
       const int r = i / CH, c = i - r * CH;
       if (r < rows) {
         reinterpret_cast<int4*>(aT + r * LD)[c] = v[0][s];
@@ -112,11 +125,27 @@ __device__ __forceinline__ void load_tile(T* aT, T* xT, T* yT, const T* a, const
   }
 }
 
+// 16 bytes from device memory to shared memory without passing through
+// registers (cp.async, cached in L2 only); lands by cp_async_wait_all.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// This thread's copies have landed (a barrier then shows every thread's).
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 // Store `rows` rows of a shared tile (row stride LD) to rows ts .. of `dst`.
 template <typename T, int L, int LD>
 __device__ __forceinline__ void store_tile(T* dst, const T* tile, int ts, int rows) {
   constexpr int CH = int(L * sizeof(T) / 16);
-  for (int i = threadIdx.x; i < rows * CH; i += THREADS) {
+  for (int i = team_tid(); i < rows * CH; i += THREADS) {
     const int r = i / CH, c = i - r * CH;
     reinterpret_cast<int4*>(dst + (size_t)(ts + r) * L)[c] =
         reinterpret_cast<const int4*>(tile + r * LD)[c];
@@ -145,50 +174,82 @@ __device__ __forceinline__ void ldsm_x2_trans(uint32_t& r0, uint32_t& r1, const 
                : "r"(a));
 }
 
+// Four 8x8 bf16 matrices: lanes 8i .. 8i+7 name the rows of the i-th.
+__device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3,
+                                        const bf16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(a));
+}
+
 // out[r][c] = sum_k A[r][k] * B(k, c) for the TILE x L tile on tensor cores,
 // k in the same order for every call.  TRANS = false: B(k, c) = W[c][k]
 // (A @ W^T, the forward products of an [out][in] weight); TRANS = true:
 // B(k, c) = W[k][c] (A @ W, the backward products).  A and W are shared,
-// row stride L + 8.  Warp (wm, wn) owns rows 16*wm .. +16 and columns
-// wn*L/2 .. +L/2.  Calls epi(r, c, acc) once for each output element.
+// row stride L + 8.  Warp (wm, wn) of the team owns rows 16*wm .. +16 and
+// columns wn*L/2 .. +L/2.  Calls epi(r, c, acc) once for each output
+// element, or, for an epi that takes two values, epi(r, c, acc_c, acc_c1)
+// once for each pair of neighbouring columns (c even): the same values, for
+// an epilogue that reads and writes its row's two elements at once.  The
+// forward products load their fragments with ldmatrix (one instruction for
+// A's 16 x 16 and one for two n-tiles of W): the same registers as four and
+// two 32-bit loads, so the same sums.
 template <int L, bool TRANS, class Epi>
 __device__ __forceinline__ void tile_matmul_bf16(const bf16* A, const bf16* W, Epi epi) {
   constexpr int LD = L + 8;
   constexpr int NT = L / 16;  // 8-column n-tiles per warp
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  static_assert(NT % 2 == 0, "n-tiles are loaded in pairs");
+  const int warp = team_tid() >> 5, lane = threadIdx.x & 31;
   const int wm = warp & 3, wn = warp >> 2;
   const int g = lane >> 2, t = lane & 3;
   const int r0 = wm * 16 + g;
   const int nbase = wn * (L / 2);
+  // ldmatrix rows: A's four 8x8 blocks (rows +0/+8, k +0/+8), W's two n-tiles
+  // (k +0/+8 of n-tile j, then of j + 1)
+  [[maybe_unused]] const bf16* const a_row =
+      A + (wm * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
+  [[maybe_unused]] const bf16* const w_row =
+      W + (nbase + (lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8;
   float acc[NT][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 #pragma unroll
   for (int k0 = 0; k0 < L; k0 += 16) {
-    const uint32_t a0 = ld32(A + r0 * LD + k0 + 2 * t);
-    const uint32_t a1 = ld32(A + (r0 + 8) * LD + k0 + 2 * t);
-    const uint32_t a2 = ld32(A + r0 * LD + k0 + 2 * t + 8);
-    const uint32_t a3 = ld32(A + (r0 + 8) * LD + k0 + 2 * t + 8);
+    uint32_t a0, a1, a2, a3;
+    if constexpr (TRANS) {
+      a0 = ld32(A + r0 * LD + k0 + 2 * t);
+      a1 = ld32(A + (r0 + 8) * LD + k0 + 2 * t);
+      a2 = ld32(A + r0 * LD + k0 + 2 * t + 8);
+      a3 = ld32(A + (r0 + 8) * LD + k0 + 2 * t + 8);
+    } else {
+      ldsm_x4(a0, a1, a2, a3, a_row + k0);
+    }
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      uint32_t b0, b1;
+    for (int j = 0; j < NT; j += 2) {
+      uint32_t b[4];
       if constexpr (TRANS) {
-        ldsm_x2_trans(b0, b1, W + (k0 + (lane & 15)) * LD + nbase + 8 * j);
+        ldsm_x2_trans(b[0], b[1], W + (k0 + (lane & 15)) * LD + nbase + 8 * j);
+        ldsm_x2_trans(b[2], b[3], W + (k0 + (lane & 15)) * LD + nbase + 8 * (j + 1));
       } else {
-        const int n = nbase + 8 * j + g;
-        b0 = ld32(W + n * LD + k0 + 2 * t);
-        b1 = ld32(W + n * LD + k0 + 2 * t + 8);
+        ldsm_x4(b[0], b[1], b[2], b[3], w_row + 8 * j * LD + k0);
       }
-      mma16816(acc[j], a0, a1, a2, a3, b0, b1);
+      mma16816(acc[j], a0, a1, a2, a3, b[0], b[1]);
+      mma16816(acc[j + 1], a0, a1, a2, a3, b[2], b[3]);
     }
   }
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     const int c = nbase + 8 * j + 2 * t;
-    epi(r0, c, acc[j][0]);
-    epi(r0, c + 1, acc[j][1]);
-    epi(r0 + 8, c, acc[j][2]);
-    epi(r0 + 8, c + 1, acc[j][3]);
+    if constexpr (std::is_invocable_v<Epi, int, int, float, float>) {
+      epi(r0, c, acc[j][0], acc[j][1]);
+      epi(r0 + 8, c, acc[j][2], acc[j][3]);
+    } else {
+      epi(r0, c, acc[j][0]);
+      epi(r0, c + 1, acc[j][1]);
+      epi(r0 + 8, c, acc[j][2]);
+      epi(r0 + 8, c + 1, acc[j][3]);
+    }
   }
 }
 
@@ -199,7 +260,7 @@ template <int L, bool TRANS, class Epi>
 __device__ __forceinline__ void tile_matmul_f32(const float* A, const float* W, Epi epi) {
   constexpr int LD = L + Num<float>::PAD;
   constexpr int TN = L / 16;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int tx = team_tid() & 15, ty = team_tid() >> 4;
   float acc[4][TN];
 #pragma unroll
   for (int i = 0; i < 4; ++i)

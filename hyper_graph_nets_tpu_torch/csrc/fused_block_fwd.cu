@@ -28,28 +28,48 @@
 // (gathered rows, h, a1, a2, z3) in shared memory, so device memory sees
 // each input once and each output once.
 //
-// Design (simple and right first).
+// Design.
 // - The host splits the receivers into groups of whole segments holding at
-//   most TILE edges each (a receiver with more edges forms its own group and
-//   spans several tiles).  One work item is (batch element, group); CTAs are
-//   persistent and stride over work items.  Because a CTA owns whole
-//   segments, the aggregate needs no atomics and no second pass, and the
-//   result does not depend on scheduling.
-// - bf16: the three weight matrices are staged once per CTA in shared
-//   memory ([out][in], rows padded by 8 so the fragment loads of one warp
-//   hit 32 distinct banks), and the products run on tensor cores with
-//   mma.sync m16n8k16 (bf16 in, float32 accumulate).  float32: the
-//   products are float32 FMA in the same tile loop, weights read through
-//   the read-only cache.
+//   most TILE edges and GROUP_NODES receivers each (a receiver with more
+//   edges forms its own group and spans several tiles).  One work item is
+//   (batch element, group).  Because one team owns a group's segments, the
+//   aggregate needs no atomics and no second pass, and the result does not
+//   depend on scheduling.
+// - Two teams of 8 warps per CTA, one CTA per SM.  What sets K1's pace is
+//   the chain of one tile's phases, each ended by a barrier (gather, three
+//   products with their epilogues, LayerNorm, pna): with one team of 8
+//   warps an SM sat idle through each phase's tail and each load's latency
+//   (about 15 us a tile on an H100; a cp.async second buffer for one team
+//   did not help, so the gather was not the cause).  Two teams share the staged
+//   weights (104 KB in bf16 at L = 128) and each has its own tile buffers
+//   (3 x 17 KB) and segment carry, 219 KB in all; each synchronizes only
+//   itself (named barriers, team_sync), so one team's barrier waits, copies
+//   and pna overlap the other's products.  Teams are persistent and stride
+//   over work items; at 512 threads a thread has 128 registers.
+// - Each team loads its next tile's indices while its tile computes and
+//   copies the next tile's rows by cp.async (16 bytes, L2 only) into each
+//   buffer as soon as it is free: RP rows into rT after the third product,
+//   SP rows into xT after the LayerNorm, e rows into eT after the pna; the
+//   next work item's edge range (the plan's group_edges) is read a tile
+//   earlier still.  The prologue issues the
+//   staged weights and both teams' first tiles together.
+// - The grid: one CTA per SM, fewer when the work is small (ceil(work / 2)
+//   CTAs), so that a frame (B = 1, about 150 items) runs each item on its
+//   own team.
+// - bf16: the products run on tensor cores with mma.sync m16n8k16 (bf16 in,
+//   float32 accumulate) from the staged weights ([out][in], rows padded by
+//   8), fragments by ldmatrix.  float32: float32 FMA in the same tile loop,
+//   weights read through the read-only cache.
+// - The pna gives each receiver a half warp (16 receivers of a team at a
+//   time) and loads four edges' rows before summing them in edge order.
 // - The chain h -> a1 -> a2 -> z3 -> LayerNorm -> e2 is the shared code of
-//   fused_block_common.cuh, which the backward kernels recompute with.
+//   fused_block_common.cuh, which the backward kernels recompute with; a
+//   tile is fwd_tile in fused_block_fwd.cuh, which K7 (fused_overlap.cu)
+//   runs too.  So e2 is the same bit for bit in K1, K2's recompute and K7.
 // - A segment that crosses a tile boundary carries its partial aggregate in
-//   shared memory (two slots, alternating by tile parity).
-// - A tile's rows are gathered by index with up to 12 16-byte loads in
-//   flight per thread; e2 and agg leave as vector stores.
-// - One work item is fwd_item in fused_block_fwd.cuh, which K7
-//   (fused_overlap.cu) runs too.
-// Later work: wgmma, TMA, warp specialisation, more than one CTA per SM.
+//   the team's shared memory (two slots, alternating by tile parity).
+// Later work: wgmma (with K2/K3, whose recompute must stay bit for bit),
+// TMA, a long segment's tiles spread over teams.
 
 #include "fused_block_fwd.cuh"
 
@@ -57,25 +77,153 @@ namespace {
 
 using namespace hgn;
 
+constexpr int NTEAM = 2;  // teams of THREADS threads per CTA, each on its own tile
+static_assert(THREADS == 4 * TILE, "a quarter row of a tile per thread");
+
+// A work item (batch element b, receivers n0 .. n1, edges e0 .. e1); w < 0
+// when there is none.
+struct Item {
+  int w, b, n0, n1, e0, e1;
+};
+
+__device__ __forceinline__ Item load_item(const FwdArgs& a, int w, int work) {
+  if (w >= work) return Item{-1, 0, 0, 0, 0, 0};
+  const int b = w / a.G, g = w - b * a.G;
+  return Item{w, b, a.groups[g], a.groups[g + 1], a.group_edges[g], a.group_edges[g + 1]};
+}
+
+__device__ __forceinline__ int item_tiles(const Item& it) {
+  return it.e1 > it.e0 ? (it.e1 - it.e0 + TILE - 1) / TILE : 1;
+}
+
+// The team's tile after tile t of `it`: the item's next tile, or the first
+// of the team's next item (`stride` items on).
+__device__ __forceinline__ void next_tile(const FwdArgs& a, const Item& it, int t, int work,
+                                          int stride, Item& nit, int& nt) {
+  if (it.w >= 0 && t + 1 < item_tiles(it)) {
+    nit = it;
+    nt = t + 1;
+  } else {
+    nit = it.w < 0 ? it : load_item(a, it.w + stride, work);
+    nt = 0;
+  }
+}
+
+// This thread's share of one tile's loads: row team_tid() / 4 of the tile,
+// quarter team_tid() % 4 of its vectors.
+struct RowLoad {
+  int b, edge, snd, rcv;  // edge < 0: no row
+  float valid;
+};
+
+__device__ __forceinline__ RowLoad load_indices(const FwdArgs& a, const Item& it, int t) {
+  RowLoad rl{0, -1, 0, 0, 0.f};
+  if (it.w < 0) return rl;
+  const int ts = it.e0 + t * TILE;
+  const int r = team_tid() >> 2;
+  if (ts + r < min(ts + TILE, it.e1)) {
+    rl.b = it.b;
+    rl.edge = ts + r;
+    rl.snd = a.senders[rl.edge];
+    rl.rcv = a.receivers[rl.edge];
+    rl.valid = a.mask ? a.mask[rl.edge] : 1.f;
+  }
+  return rl;
+}
+
+// Issue the copies of this thread's share of one of a tile's row arrays
+// into the team's buffers (0: e, with the mask; 1: SP[snd]; 2: RP[rcv]),
+// and commit them as a group.
 template <typename T, int L>
-__global__ void __launch_bounds__(THREADS, 1) fused_block_fwd_kernel(const FwdArgs args) {
+__device__ __forceinline__ void load_rows_async(const FwdArgs& a, const RowLoad& rl,
+                                                const FwdSmem<T>& s, int which) {
+  constexpr int LDT = FwdLayout<T, L>::LDT;
+  constexpr int EPV = 16 / sizeof(T);        // elements per 16-byte vector
+  constexpr int CPT = L / EPV / 4;           // vectors per thread and array
+  static_assert(L % (4 * EPV) == 0, "a row's vectors must split over four threads");
+  if (rl.edge >= 0) {
+    const int r = team_tid() >> 2, c0 = (team_tid() & 3) * CPT * EPV;
+    const T* src;
+    T* dst;
+    if (which == 0) {
+      src = static_cast<const T*>(a.e) + ((size_t)rl.b * a.E + rl.edge) * L;
+      dst = s.eT;
+      if ((team_tid() & 3) == 0) s.val_s[r] = rl.valid;
+    } else {
+      src = static_cast<const T*>(which == 1 ? a.sp : a.rp) +
+            ((size_t)rl.b * a.N + (which == 1 ? rl.snd : rl.rcv)) * L;
+      dst = which == 1 ? s.xT : s.rT;
+    }
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) cp_async16(dst + r * LDT + c0 + j * EPV, src + c0 + j * EPV);
+  }
+  cp_async_commit();
+}
+
+// The three weights into shared memory by every thread of the CTA.
+template <int L>
+__device__ __forceinline__ void stage_weights_async(bf16* Ws, const FwdArgs& a) {
+  constexpr int CH = L * int(sizeof(bf16)) / 16;  // vectors per weight row
+  for (int i = threadIdx.x; i < 3 * L * CH; i += blockDim.x) {
+    const int m = i / (L * CH), rem = i - m * L * CH;
+    const int r = rem / CH, c = rem - r * CH;
+    const bf16* w = static_cast<const bf16*>(m == 0 ? a.we : (m == 1 ? a.w2 : a.w3));
+    cp_async16(Ws + (m * L + r) * (L + 8) + c * 8, w + (size_t)r * L + c * 8);
+  }
+}
+
+template <typename T, int L>
+__global__ void __launch_bounds__(NTEAM * THREADS, 1) fused_block_fwd_kernel(const FwdArgs args) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const FwdSmem<T> s = fwd_setup<T, L>(args, smem);
-  const long long work = (long long)args.G * args.B;
-  for (long long w = blockIdx.x; w < work; w += gridDim.x) {
-    const int b = int(w / args.G);
-    fwd_item<T, L>(args, s, b, int(w - (long long)b * args.G));
+  const int team = threadIdx.x / THREADS;
+  const FwdSmem<T> s = fwd_carve<T, L, NTEAM>(smem, team);
+  const int work = args.G * args.B, stride = NTEAM * gridDim.x;
+
+  // prologue: the weights and each team's first tile in flight together
+  if constexpr (FwdLayout<T, L>::kBf16) stage_weights_async<L>(s.Ws, args);
+  fwd_params<T, L>(args, s.prm);
+  Item cur = load_item(args, blockIdx.x + team * gridDim.x, work);
+  int t = 0;
+  RowLoad rl = load_indices(args, cur, 0);
+  for (int which = 0; which < 3; ++which) load_rows_async<T, L>(args, rl, s, which);
+  Item nxt;
+  int nt;
+  next_tile(args, cur, 0, work, stride, nxt, nt);
+  cp_async_wait_all();
+  __syncthreads();  // weights, parameters and both teams' first tiles have landed
+
+  while (cur.w >= 0) {
+    Item after;
+    int at;
+    next_tile(args, nxt, nt, work, stride, after, at);  // its edge range, a tile early
+    const int ts = cur.e0 + t * TILE, te = min(ts + TILE, cur.e1);
+    fwd_tile<T, L>(args, s, cur.b, cur.n0, cur.n1, t, ts, te, [&](int stage) {
+      if (stage == 0) {
+        rl = load_indices(args, nxt, nt);
+      } else {
+        load_rows_async<T, L>(args, rl, s, 3 - stage);  // RP rows into rT, then SP rows into xT
+      }
+    });
+    load_rows_async<T, L>(args, rl, s, 0);  // fwd_tile ended in the team's barrier
+    cp_async_wait_all();
+    team_sync();
+    cur = nxt;
+    t = nt;
+    nxt = after;
+    nt = at;
   }
 }
 
 template <typename T, int L>
 int launch(const FwdArgs& a, cudaStream_t stream) {
-  const int grid_cap = fwd_grid_cap<T, L>(fused_block_fwd_kernel<T, L>);
+  const int grid_cap = fwd_grid_cap<T, L, NTEAM>(fused_block_fwd_kernel<T, L>);
   if (grid_cap < 0) return -grid_cap;
   const long long work = (long long)a.G * a.B;
   if (work == 0) return 0;
-  const int grid = (int)(work < grid_cap ? work : grid_cap);
-  fused_block_fwd_kernel<T, L><<<grid, THREADS, FwdLayout<T, L>::total, stream>>>(a);
+  if (work > 0x7fffffff || a.group_edges == nullptr) return -1;
+  const int grid = (int)(work < (long long)NTEAM * grid_cap ? (work + NTEAM - 1) / NTEAM : grid_cap);
+  fused_block_fwd_kernel<T, L>
+      <<<grid, NTEAM * THREADS, FwdLayout<T, L, NTEAM>::total, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -93,18 +241,20 @@ int dispatch_width(int L, const FwdArgs& a, cudaStream_t s) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  a1, a2, mu, isg are all null (no
-// streams) or all set.  Returns 0, a cudaError_t code, or -1 for a
-// (dtype, L) the kernel does not take.  raw = 1 writes the unfinalized
-// partials [sum | cnt | max (-BIG if none) | min (+BIG if none)].
+// streams) or all set.  group_edges [G + 1] = row_ptr[groups].  Returns 0, a
+// cudaError_t code, or -1 for arguments the kernel does not take.  raw = 1
+// writes the unfinalized partials [sum | cnt | max (-BIG if none) | min
+// (+BIG if none)].
 int hgn_fused_block_fwd(int dtype, int L, const void* e, const void* sp, const void* rp,
                         const void* we, const void* w2, const void* w3, const float* b1,
                         const float* b2, const float* b3, const float* lns, const float* lnb,
                         const int* senders, const int* receivers, const float* mask,
-                        const int* row_ptr, const int* groups, void* e2, float* agg, void* a1,
-                        void* a2, float* mu, float* isg, int B, int E, int N, int G, int raw,
-                        void* stream) {
-  FwdArgs a{e,       sp,      rp,     we,  w2, w3, b1,  b2, b3, lns, lnb, senders, receivers,
-            mask,    row_ptr, groups, e2,  agg, a1, a2, mu, isg, B,  E,   N,   G,       raw};
+                        const int* row_ptr, const int* groups, const int* group_edges, void* e2,
+                        float* agg, void* a1, void* a2, float* mu, float* isg, int B, int E,
+                        int N, int G, int raw, void* stream) {
+  FwdArgs a{e,       sp,      rp,     we,  w2,  w3, b1, b2,  b3, lns, lnb, senders, receivers,
+            mask,    row_ptr, groups, e2,  agg, a1, a2, mu,  isg, B, E,  N,   G,       raw,
+            group_edges};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_width<float>(L, a, s);
   if (dtype == 1) return dispatch_width<bf16>(L, a, s);

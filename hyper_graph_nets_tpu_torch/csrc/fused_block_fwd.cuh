@@ -1,5 +1,6 @@
-// The fused edge-block forward of one work item, shared by K1
-// (fused_block_fwd.cu) and K7 (fused_overlap.cu).
+// The fused edge-block forward of one tile of edges, shared by K1
+// (fused_block_fwd.cu: two teams of a CTA on two tiles at once) and K7
+// (fused_overlap.cu: one team, one work item at a time).
 //
 // A work item is (batch element, group): a group is a run of whole receiver
 // segments holding at most TILE edges (a receiver with more edges forms its
@@ -18,7 +19,9 @@
 //
 // The rounding points are the TPU kernel's: every product accumulates in
 // float32 and is rounded to the compute type, bias adds run in the compute
-// type, and the aggregate sums the rounded e2 in float32.
+// type, and the aggregate sums the rounded e2 in float32, one sequential sum
+// per receiver and column in edge order.  Each e2 row depends only on its
+// own edge, so how tiles are staged or scheduled does not change it.
 
 #pragma once
 
@@ -50,10 +53,34 @@ struct FwdArgs {
   float* mu;             // [B][E] (with a1)
   float* isg;            // [B][E] (with a1)
   int B, E, N, G;
-  int raw;  // 1: write the unfinalized partials
+  int raw;                 // 1: write the unfinalized partials
+  const int* group_edges;  // [G + 1] edge boundaries of the groups (K1's pipeline)
 };
 
-template <typename T, int L>
+// N consecutive elements from shared memory, in 16-byte (or smaller) loads:
+// a row of the tile is 16-byte aligned, not more.
+template <typename T, int N>
+__device__ __forceinline__ Vec<T, N> load_vec(const T* p) {
+  if constexpr (sizeof(T) * N <= 16) {
+    return *reinterpret_cast<const Vec<T, N>*>(p);
+  } else {
+    constexpr int H = 16 / sizeof(T);
+    Vec<T, N> v;
+#pragma unroll
+    for (int h = 0; h < N; h += H) {
+      const Vec<T, H> x = *reinterpret_cast<const Vec<T, H>*>(p + h);
+#pragma unroll
+      for (int q = 0; q < H; ++q) v.v[h + q] = x.v[q];
+    }
+    return v;
+  }
+}
+
+// A CTA runs NTEAM teams of THREADS threads, each on its own tiles, with its
+// own tile buffers and segment carry: K1 two (one team's loads and barrier
+// waits overlap the other's products), K7 one.  The weights and parameters
+// are staged once per CTA and shared.
+template <typename T, int L, int NTEAM = 1>
 struct FwdLayout {
   static constexpr bool kBf16 = sizeof(T) == 2;
   static constexpr int LDT = L + Num<T>::PAD;  // tile row stride (elements)
@@ -63,67 +90,79 @@ struct FwdLayout {
   static constexpr size_t prm_bytes = align16(size_t(5) * L * sizeof(float));
   static constexpr size_t carry_bytes = align16(size_t(2) * (3 * L + 1) * sizeof(float));
   static constexpr size_t idx_bytes = align16(size_t(3) * TILE * sizeof(int));
-  static constexpr size_t total = w_bytes + 3 * tile_bytes + prm_bytes + carry_bytes + idx_bytes;
+  static constexpr size_t team_bytes = 3 * tile_bytes + idx_bytes + carry_bytes;
+  static constexpr size_t total = w_bytes + prm_bytes + NTEAM * team_bytes;
 };
 
-// A CTA's shared arrays.
+// One team's view of the CTA's shared arrays.
 template <typename T>
 struct FwdSmem {
-  bf16* Ws;      // staged weights (bf16 only)
+  bf16* Ws;      // staged weights (bf16 only), shared by the teams
+  float* prm;    // b1 b2 b3 (rounded), lns, lnb, shared by the teams
   T* eT;         // e, then e2
   T* xT;         // SP rows, then a1, then z3
   T* rT;         // RP rows, then a2
-  float* prm;    // b1 b2 b3 (rounded), lns, lnb
-  float* carry;  // 2 x [sum L | max L | min L | cnt]
-  int* snd_s;
+  int* snd_s;    // the tile's senders and receivers (K7's loads)
   int* rcv_s;
-  float* val_s;
+  float* val_s;  // the tile's mask
+  float* carry;  // 2 x [sum L | max L | min L | cnt]
 };
 
-// Carve the shared arrays and stage the weights; once per CTA, ends in a
-// barrier.
-template <typename T, int L>
-__device__ __forceinline__ FwdSmem<T> fwd_setup(const FwdArgs& args, unsigned char* smem) {
-  using Lay = FwdLayout<T, L>;
+template <typename T, int L, int NTEAM>
+__device__ __forceinline__ FwdSmem<T> fwd_carve(unsigned char* smem, int team) {
+  using Lay = FwdLayout<T, L, NTEAM>;
   FwdSmem<T> s;
-  size_t off = 0;
-  s.Ws = reinterpret_cast<bf16*>(smem + off);
-  off += Lay::w_bytes;
-  s.eT = reinterpret_cast<T*>(smem + off);
-  off += Lay::tile_bytes;
-  s.xT = reinterpret_cast<T*>(smem + off);
-  off += Lay::tile_bytes;
-  s.rT = reinterpret_cast<T*>(smem + off);
-  off += Lay::tile_bytes;
-  s.prm = reinterpret_cast<float*>(smem + off);
-  off += Lay::prm_bytes;
-  s.carry = reinterpret_cast<float*>(smem + off);
-  off += Lay::carry_bytes;
-  s.snd_s = reinterpret_cast<int*>(smem + off);
+  s.Ws = reinterpret_cast<bf16*>(smem);
+  s.prm = reinterpret_cast<float*>(smem + Lay::w_bytes);
+  unsigned char* g = smem + Lay::w_bytes + Lay::prm_bytes + team * Lay::team_bytes;
+  s.eT = reinterpret_cast<T*>(g);
+  s.xT = reinterpret_cast<T*>(g + Lay::tile_bytes);
+  s.rT = reinterpret_cast<T*>(g + 2 * Lay::tile_bytes);
+  s.snd_s = reinterpret_cast<int*>(g + 3 * Lay::tile_bytes);
   s.rcv_s = s.snd_s + TILE;
   s.val_s = reinterpret_cast<float*>(s.rcv_s + TILE);
+  s.carry = reinterpret_cast<float*>(g + 3 * Lay::tile_bytes + Lay::idx_bytes);
+  return s;
+}
 
-  if constexpr (Lay::kBf16) {
+// The rounded biases and the LayerNorm parameters into shared memory (all
+// threads of the CTA).
+template <typename T, int L>
+__device__ __forceinline__ void fwd_params(const FwdArgs& args, float* prm) {
+  for (int c = threadIdx.x; c < L; c += blockDim.x) {
+    prm[c] = rnd<T>(args.b1[c]);
+    prm[L + c] = rnd<T>(args.b2[c]);
+    prm[2 * L + c] = rnd<T>(args.b3[c]);
+    prm[3 * L + c] = args.lns[c];
+    prm[4 * L + c] = args.lnb[c];
+  }
+}
+
+// K7: carve one team's arrays and stage the weights; once per CTA, ends in
+// a barrier.
+template <typename T, int L>
+__device__ __forceinline__ FwdSmem<T> fwd_setup(const FwdArgs& args, unsigned char* smem) {
+  FwdSmem<T> s = fwd_carve<T, L, 1>(smem, 0);
+  if constexpr (FwdLayout<T, L>::kBf16) {
     load_rows<bf16, L, L + 8>(s.Ws, static_cast<const bf16*>(args.we));
     load_rows<bf16, L, L + 8>(s.Ws + L * (L + 8), static_cast<const bf16*>(args.w2));
     load_rows<bf16, L, L + 8>(s.Ws + 2 * L * (L + 8), static_cast<const bf16*>(args.w3));
   }
-  for (int c = threadIdx.x; c < L; c += THREADS) {
-    s.prm[c] = rnd<T>(args.b1[c]);
-    s.prm[L + c] = rnd<T>(args.b2[c]);
-    s.prm[2 * L + c] = rnd<T>(args.b3[c]);
-    s.prm[3 * L + c] = args.lns[c];
-    s.prm[4 * L + c] = args.lnb[c];
-  }
+  fwd_params<T, L>(args, s.prm);
   __syncthreads();
   return s;
 }
 
-// One work item: batch element b, group grp.  Every thread of the CTA
-// calls it; it ends in a barrier.
-template <typename T, int L>
-__device__ __forceinline__ void fwd_item(const FwdArgs& args, const FwdSmem<T>& s, int b,
-                                         int grp) {
+// One tile of work item (b, n0 .. n1): edges ts .. te, the item's t-th
+// tile, whose rows (and mask) are staged in s.  Every thread of the team
+// calls it; it ends in the team's barrier.  hook(0) runs first, hook(1)
+// once rT is free (after the third product) and hook(2) once xT is free
+// (after the LayerNorm): K1 loads its next tile's indices at 0 and starts
+// the copies of its RP rows at 1 and of its SP rows at 2, so that they land
+// while this tile finishes.
+template <typename T, int L, class Hook>
+__device__ __forceinline__ void fwd_tile(const FwdArgs& args, const FwdSmem<T>& s, int b, int n0,
+                                         int n1, int t, int ts, int te, Hook hook) {
   using Nm = Num<T>;
   using Lay = FwdLayout<T, L>;
   constexpr int LDT = Lay::LDT;
@@ -147,170 +186,267 @@ __device__ __forceinline__ void fwd_item(const FwdArgs& args, const FwdSmem<T>& 
   const bool streams = args.a1 != nullptr;
   const bool raw = args.raw != 0;
   const int E = args.E, N = args.N;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = team_tid() >> 5, lane = threadIdx.x & 31;
+  const int rows = te - ts;
+  T* e2b = static_cast<T*>(args.e2) + (size_t)b * E * L;
+  float* aggb = args.agg + (size_t)b * N * 4 * L;
+
+  // pna: a half warp per receiver (PNA_PER receivers of the team at a
+  // time), lane hl of it owns columns hl * PCL .. +PCL.  The half warp's
+  // first receiver's segment is in flight through the products.
+  constexpr int PCL = L / 16;
+  constexpr int PNA_PER = 2 * WARPS;
+  const int hl = lane & 15;
+  int n = n0 + 2 * warp + (lane >> 4);
+  int ns_next = 0, ne_next = 0;
+  if (n < n1) {
+    ns_next = args.row_ptr[n];
+    ne_next = args.row_ptr[n + 1];
+  }
+
+  // the epilogues' values, one definition for the one- and two-column forms
+  auto a1_value = [&](float acc, int c, T x, T r) {
+    return Nm::from_f(fmaxf(layer1_value<T>(acc, Nm::to_f(x), Nm::to_f(r), prm[c]), 0.f));
+  };
+  auto a2_value = [&](float acc, int c) {
+    return Nm::from_f(fmaxf(rnd<T>(bias_sum<T>(acc, prm[L + c])), 0.f));
+  };
+  auto z3_value = [&](float acc, int c) { return Nm::from_f(bias_sum<T>(acc, prm[2 * L + c])); };
+
+  hook(0);
+  if (rows > 0) {
+    // layer 1 (factored): h = ((e@We + SP[snd]) + RP[rcv]) + b1; a1 -> xT
+    if constexpr (Lay::kBf16) {
+      matmul(eT, 0, [&](int r, int c, float acc0, float acc1) {
+        Vec<T, 2>* xp = reinterpret_cast<Vec<T, 2>*>(xT + r * LDT + c);
+        const Vec<T, 2> x = *xp;
+        const Vec<T, 2> rr = *reinterpret_cast<const Vec<T, 2>*>(rT + r * LDT + c);
+        *xp = Vec<T, 2>{{a1_value(acc0, c, x.v[0], rr.v[0]), a1_value(acc1, c + 1, x.v[1], rr.v[1])}};
+      });
+    } else {
+      matmul(eT, 0, [&](int r, int c, float acc) {
+        xT[r * LDT + c] = a1_value(acc, c, xT[r * LDT + c], rT[r * LDT + c]);
+      });
+    }
+    team_sync();
+    // layer 2: a2 = relu(a1@W2 + b2) -> rT
+    if constexpr (Lay::kBf16) {
+      matmul(xT, 1, [&](int r, int c, float acc0, float acc1) {
+        *reinterpret_cast<Vec<T, 2>*>(rT + r * LDT + c) =
+            Vec<T, 2>{{a2_value(acc0, c), a2_value(acc1, c + 1)}};
+      });
+    } else {
+      matmul(xT, 1, [&](int r, int c, float acc) { rT[r * LDT + c] = a2_value(acc, c); });
+    }
+    team_sync();
+    if (streams) {  // a1 leaves before layer 3 overwrites it
+      const size_t o = (size_t)b * E * L;
+      store_tile<T, L, LDT>(static_cast<T*>(args.a1) + o, xT, ts, rows);
+      store_tile<T, L, LDT>(static_cast<T*>(args.a2) + o, rT, ts, rows);
+      team_sync();
+    }
+    // layer 3: z3 = a2@W3 + b3 -> xT
+    if constexpr (Lay::kBf16) {
+      matmul(rT, 2, [&](int r, int c, float acc0, float acc1) {
+        *reinterpret_cast<Vec<T, 2>*>(xT + r * LDT + c) =
+            Vec<T, 2>{{z3_value(acc0, c), z3_value(acc1, c + 1)}};
+      });
+    } else {
+      matmul(rT, 2, [&](int r, int c, float acc) { xT[r * LDT + c] = z3_value(acc, c); });
+    }
+    team_sync();
+    hook(1);
+
+    // LayerNorm with float32 statistics, residual in the compute type; one
+    // warp per edge row, RPW rows of a warp side by side so that their
+    // shuffle chains overlap.  e2 goes to device memory and to eT.
+    constexpr int RPW = TILE / WARPS / 2;  // 4 rows per warp at a time
+    for (int r0 = warp; r0 < rows; r0 += RPW * WARPS) {
+      float z[RPW][CPL], mu[RPW], isg[RPW];
+      Vec<T, CPL> ev[RPW];
+#pragma unroll
+      for (int u = 0; u < RPW; ++u) {  // rows past `rows` hold stale values and are not stored
+        const int r = r0 + u * WARPS;
+        const Vec<T, CPL> zv = *reinterpret_cast<const Vec<T, CPL>*>(xT + r * LDT + lane * CPL);
+        ev[u] = *reinterpret_cast<const Vec<T, CPL>*>(eT + r * LDT + lane * CPL);
+#pragma unroll
+        for (int q = 0; q < CPL; ++q) z[u][q] = Nm::to_f(zv.v[q]);
+      }
+#pragma unroll
+      for (int u = 0; u < RPW; ++u) ln_row_stats<L, CPL>(z[u], mu[u], isg[u]);
+#pragma unroll
+      for (int u = 0; u < RPW; ++u) {
+        const int r = r0 + u * WARPS;
+        if (r >= rows) break;
+        Vec<T, CPL> out;
+#pragma unroll
+        for (int q = 0; q < CPL; ++q) {
+          const int c = lane * CPL + q;
+          out.v[q] = Nm::from_f(e2_sum<T>(Nm::to_f(ev[u].v[q]), ln_xhat(z[u][q], mu[u], isg[u]),
+                                          prm[3 * L + c], prm[4 * L + c]));
+        }
+        *reinterpret_cast<Vec<T, CPL>*>(eT + r * LDT + lane * CPL) = out;
+        *reinterpret_cast<Vec<T, CPL>*>(e2b + (size_t)(ts + r) * L + lane * CPL) = out;
+        if (streams && lane == 0) {
+          args.mu[(size_t)b * E + ts + r] = mu[u];
+          args.isg[(size_t)b * E + ts + r] = isg[u];
+        }
+      }
+    }
+    team_sync();
+    hook(2);
+  } else {
+    hook(1);
+    hook(2);
+  }
+
+  // pna over the receivers of this group that have edges in this tile, one
+  // sequential float32 sum per receiver and column in edge order; the next
+  // receiver's segment bounds are loaded while this one sums.
+  for (; n < n1; n += PNA_PER) {
+    const int ns = ns_next, ne = ne_next;
+    if (n + PNA_PER < n1) {
+      ns_next = args.row_ptr[n + PNA_PER];
+      ne_next = args.row_ptr[n + PNA_PER + 1];
+    }
+    // lane's PCL columns of part k of the output row
+    auto part = [&](int k) {
+      return reinterpret_cast<Vec<float, PCL>*>(aggb + (size_t)n * 4 * L + k * L + hl * PCL);
+    };
+    auto put = [&](int k, const float (&v)[PCL]) {
+      Vec<float, PCL> o;
+#pragma unroll
+      for (int q = 0; q < PCL; ++q) o.v[q] = v[q];
+      *part(k) = o;
+    };
+    if (ns == ne) {
+      if (t == 0) {
+        float zero[PCL], lo[PCL], hi[PCL];
+#pragma unroll
+        for (int q = 0; q < PCL; ++q) {
+          zero[q] = 0.f;
+          lo[q] = raw ? -BIG : 0.f;
+          hi[q] = raw ? BIG : 0.f;
+        }
+        put(0, zero);
+        put(1, zero);
+        put(2, lo);
+        put(3, hi);
+      }
+      continue;
+    }
+    const int lo = max(ns, ts), hi = min(ne, te);
+    if (lo >= hi) continue;
+    float sm[PCL], mx[PCL], mn[PCL], cnt;
+    if (ns >= ts) {
+#pragma unroll
+      for (int q = 0; q < PCL; ++q) {
+        sm[q] = 0.f;
+        mx[q] = -BIG;
+        mn[q] = BIG;
+      }
+      cnt = 0.f;
+    } else {  // continues a segment from the previous tile
+      const float* cin = carry + ((t + 1) & 1) * (3 * L + 1);
+#pragma unroll
+      for (int q = 0; q < PCL; ++q) {
+        const int c = hl * PCL + q;
+        sm[q] = cin[c];
+        mx[q] = cin[L + c];
+        mn[q] = cin[2 * L + c];
+      }
+      cnt = cin[3 * L];
+    }
+    // UNR edges' rows and masks loaded together, then summed in edge order
+    constexpr int UNR = 4;
+    for (int i0 = lo; i0 < hi; i0 += UNR) {
+      Vec<T, PCL> ev[UNR];
+      float val[UNR];
+#pragma unroll
+      for (int u = 0; u < UNR; ++u) {
+        const int i = i0 + u;
+        val[u] = i < hi ? s.val_s[i - ts] : 0.f;
+        if (i < hi) ev[u] = load_vec<T, PCL>(eT + (i - ts) * LDT + hl * PCL);
+      }
+#pragma unroll
+      for (int u = 0; u < UNR; ++u) {
+        if (!(val[u] > 0.f)) continue;
+        cnt += 1.f;
+#pragma unroll
+        for (int q = 0; q < PCL; ++q) {
+          const float v = Nm::to_f(ev[u].v[q]);
+          sm[q] += v;
+          mx[q] = fmaxf(mx[q], v);
+          mn[q] = fminf(mn[q], v);
+        }
+      }
+    }
+    if (ne <= te) {
+      const float den = fmaxf(cnt, 1.f);
+      const bool any = cnt > 0.f;
+      float o_mid[PCL];
+#pragma unroll
+      for (int q = 0; q < PCL; ++q) {
+        o_mid[q] = raw ? cnt : sm[q] / den;
+        if (!(raw || any)) mx[q] = mn[q] = 0.f;
+      }
+      put(0, sm);
+      put(1, o_mid);
+      put(2, mx);
+      put(3, mn);
+    } else {
+      float* cout = carry + (t & 1) * (3 * L + 1);
+#pragma unroll
+      for (int q = 0; q < PCL; ++q) {
+        const int c = hl * PCL + q;
+        cout[c] = sm[q];
+        cout[L + c] = mx[q];
+        cout[2 * L + c] = mn[q];
+      }
+      if (hl == 0) cout[3 * L] = cnt;
+    }
+  }
+  team_sync();
+}
+
+// K7: one work item, batch element b, group grp, its tiles loaded and then
+// computed in turn.  Every thread of the team calls it; it ends in the
+// team's barrier.
+template <typename T, int L>
+__device__ __forceinline__ void fwd_item(const FwdArgs& args, const FwdSmem<T>& s, int b,
+                                         int grp) {
+  constexpr int LDT = FwdLayout<T, L>::LDT;
+  const int E = args.E, N = args.N;
   const int n0 = args.groups[grp], n1 = args.groups[grp + 1];
   const int e0 = args.row_ptr[n0], e1 = args.row_ptr[n1];
   const int ntiles = e1 > e0 ? (e1 - e0 + TILE - 1) / TILE : 1;
   const T* eb = static_cast<const T*>(args.e) + (size_t)b * E * L;
   const T* spb = static_cast<const T*>(args.sp) + (size_t)b * N * L;
   const T* rpb = static_cast<const T*>(args.rp) + (size_t)b * N * L;
-  T* e2b = static_cast<T*>(args.e2) + (size_t)b * E * L;
-  float* aggb = args.agg + (size_t)b * N * 4 * L;
 
   for (int t = 0; t < ntiles; ++t) {
     const int ts = e0 + t * TILE;
     const int te = min(ts + TILE, e1);
     const int rows = te - ts;
     if (rows > 0) {
-      for (int i = threadIdx.x; i < rows; i += THREADS) {
+      for (int i = team_tid(); i < rows; i += THREADS) {
         s.snd_s[i] = args.senders[ts + i];
         s.rcv_s[i] = args.receivers[ts + i];
         s.val_s[i] = args.mask ? args.mask[ts + i] : 1.f;
       }
-      __syncthreads();
-      load_tile<T, L, LDT, true>(eT, xT, rT, eb, spb, rpb, s.snd_s, s.rcv_s, ts, rows);
-      __syncthreads();
-
-      // layer 1 (factored): h = ((e@We + SP[snd]) + RP[rcv]) + b1; a1 -> xT
-      matmul(eT, 0, [&](int r, int c, float acc) {
-        const float h = layer1_value<T>(acc, Nm::to_f(xT[r * LDT + c]),
-                                        Nm::to_f(rT[r * LDT + c]), prm[c]);
-        xT[r * LDT + c] = Nm::from_f(fmaxf(h, 0.f));
-      });
-      __syncthreads();
-      // layer 2: a2 = relu(a1@W2 + b2) -> rT
-      matmul(xT, 1, [&](int r, int c, float acc) {
-        rT[r * LDT + c] = Nm::from_f(fmaxf(rnd<T>(bias_sum<T>(acc, prm[L + c])), 0.f));
-      });
-      __syncthreads();
-      if (streams) {  // a1 leaves before layer 3 overwrites it
-        const size_t o = (size_t)b * E * L;
-        store_tile<T, L, LDT>(static_cast<T*>(args.a1) + o, xT, ts, rows);
-        store_tile<T, L, LDT>(static_cast<T*>(args.a2) + o, rT, ts, rows);
-        __syncthreads();
-      }
-      // layer 3: z3 = a2@W3 + b3 -> xT
-      matmul(rT, 2, [&](int r, int c, float acc) {
-        xT[r * LDT + c] = Nm::from_f(bias_sum<T>(acc, prm[2 * L + c]));
-      });
-      __syncthreads();
-
-      // LayerNorm with float32 statistics, residual in the compute type;
-      // one warp per edge row.  e2 goes to device memory and to eT.
-      for (int r = warp; r < rows; r += WARPS) {
-        float z[CPL];
-#pragma unroll
-        for (int q = 0; q < CPL; ++q) z[q] = Nm::to_f(xT[r * LDT + lane * CPL + q]);
-        float mu, isg;
-        ln_row_stats<L, CPL>(z, mu, isg);
-        Vec<T, CPL> out;
-#pragma unroll
-        for (int q = 0; q < CPL; ++q) {
-          const int c = lane * CPL + q;
-          out.v[q] = Nm::from_f(e2_sum<T>(Nm::to_f(eT[r * LDT + c]), ln_xhat(z[q], mu, isg),
-                                          prm[3 * L + c], prm[4 * L + c]));
-          eT[r * LDT + c] = out.v[q];
-        }
-        *reinterpret_cast<Vec<T, CPL>*>(e2b + (size_t)(ts + r) * L + lane * CPL) = out;
-        if (streams && lane == 0) {
-          args.mu[(size_t)b * E + ts + r] = mu;
-          args.isg[(size_t)b * E + ts + r] = isg;
-        }
-      }
-      __syncthreads();
+      team_sync();
+      load_tile<T, L, LDT, true>(s.eT, s.xT, s.rT, eb, spb, rpb, s.snd_s, s.rcv_s, ts, rows);
+      team_sync();
     }
-
-    // pna over the receivers of this group that have edges in this tile;
-    // one warp per receiver, lane owns CPL columns.
-    for (int n = n0 + warp; n < n1; n += WARPS) {
-      const int ns = args.row_ptr[n], ne = args.row_ptr[n + 1];
-      // lane's CPL columns of part k of the output row
-      auto part = [&](int k) {
-        return reinterpret_cast<Vec<float, CPL>*>(aggb + (size_t)n * 4 * L + k * L + lane * CPL);
-      };
-      if (ns == ne) {
-        if (t == 0) {
-          Vec<float, CPL> zero{}, lo, hi;
-#pragma unroll
-          for (int q = 0; q < CPL; ++q) {
-            lo.v[q] = raw ? -BIG : 0.f;
-            hi.v[q] = raw ? BIG : 0.f;
-          }
-          *part(0) = zero;
-          *part(1) = zero;
-          *part(2) = lo;
-          *part(3) = hi;
-        }
-        continue;
-      }
-      const int lo = max(ns, ts), hi = min(ne, te);
-      if (lo >= hi) continue;
-      float sm[CPL], mx[CPL], mn[CPL], cnt;
-      if (ns >= ts) {
-#pragma unroll
-        for (int q = 0; q < CPL; ++q) {
-          sm[q] = 0.f;
-          mx[q] = -BIG;
-          mn[q] = BIG;
-        }
-        cnt = 0.f;
-      } else {  // continues a segment from the previous tile
-        const float* cin = carry + ((t + 1) & 1) * (3 * L + 1);
-#pragma unroll
-        for (int q = 0; q < CPL; ++q) {
-          const int c = lane * CPL + q;
-          sm[q] = cin[c];
-          mx[q] = cin[L + c];
-          mn[q] = cin[2 * L + c];
-        }
-        cnt = cin[3 * L];
-      }
-      for (int i = lo; i < hi; ++i) {
-        if (!(s.val_s[i - ts] > 0.f)) continue;
-        cnt += 1.f;
-#pragma unroll
-        for (int q = 0; q < CPL; ++q) {
-          const float v = Nm::to_f(eT[(i - ts) * LDT + lane * CPL + q]);
-          sm[q] += v;
-          mx[q] = fmaxf(mx[q], v);
-          mn[q] = fminf(mn[q], v);
-        }
-      }
-      if (ne <= te) {
-        const float den = fmaxf(cnt, 1.f);
-        const bool any = cnt > 0.f;
-        Vec<float, CPL> o_sum, o_mid, o_max, o_min;
-#pragma unroll
-        for (int q = 0; q < CPL; ++q) {
-          o_sum.v[q] = sm[q];
-          o_mid.v[q] = raw ? cnt : sm[q] / den;
-          o_max.v[q] = (raw || any) ? mx[q] : 0.f;
-          o_min.v[q] = (raw || any) ? mn[q] : 0.f;
-        }
-        *part(0) = o_sum;
-        *part(1) = o_mid;
-        *part(2) = o_max;
-        *part(3) = o_min;
-      } else {
-        float* cout = carry + (t & 1) * (3 * L + 1);
-#pragma unroll
-        for (int q = 0; q < CPL; ++q) {
-          const int c = lane * CPL + q;
-          cout[c] = sm[q];
-          cout[L + c] = mx[q];
-          cout[2 * L + c] = mn[q];
-        }
-        if (lane == 0) cout[3 * L] = cnt;
-      }
-    }
-    __syncthreads();
+    fwd_tile<T, L>(args, s, b, n0, n1, t, ts, te, [](int) {});
   }
 }
 
-// Set the kernel's dynamic shared memory on the current device and return
-// how many of its CTAs fit there at once (negated error code on failure).
-// The attribute is per device, so the state is kept per device ordinal.
-template <typename T, int L, class Kernel>
+// Set the kernel's dynamic shared memory (NTEAM teams of THREADS threads)
+// on the current device and return how many of its CTAs fit there at once
+// (negated error code on failure).  The attribute is per device, so the
+// state is kept per device ordinal (and per instantiation).
+template <typename T, int L, int NTEAM = 1, class Kernel>
 int fwd_grid_cap(Kernel kernel) {
   static int cap[MAX_DEVICES] = {};
   int dev = 0;
@@ -318,13 +454,13 @@ int fwd_grid_cap(Kernel kernel) {
   if (err != cudaSuccess) return -(int)err;
   if (dev >= MAX_DEVICES) return -(int)cudaErrorInvalidDevice;
   if (cap[dev] == 0) {
-    const int bytes = (int)FwdLayout<T, L>::total;
+    const int bytes = (int)FwdLayout<T, L, NTEAM>::total;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return -(int)err;
     int sms = 0, per_sm = 0;
     if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
       return -(int)err;
-    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, bytes)) !=
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NTEAM * THREADS, bytes)) !=
         cudaSuccess)
       return -(int)err;
     cap[dev] = sms * (per_sm > 0 ? per_sm : 1);

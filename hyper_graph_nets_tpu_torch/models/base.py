@@ -135,6 +135,7 @@ class SystemModel:
             compute_dtype=self.compute_dtype,
             agg_vjp=self.params["model"].get("agg_vjp", "xla"),
             fused_bwd=self.params["model"].get("fused_bwd", "remat"),
+            fused_fwd=self.params["model"].get("fused_fwd", "kernel"),
         )
 
     def init_state(self, generator: Optional[torch.Generator] = None) -> ModelState:

@@ -98,6 +98,11 @@ class GNNConfig:
     # backward of the fused path: 'remat' (K2 recomputes the forward chain)
     # or 'stream' (K1 saves a1/a2 and the LayerNorm statistics, K3 reads them)
     fused_bwd: str = "remat"
+    # forward of the fused path: 'kernel' (K1).  'xla' selects the JAX
+    # package's hybrid (an unfused forward, then K2 with a tie tolerance),
+    # which the port does not have: it raises on the fused path.  Any other
+    # value, and 'xla' on another path, runs as 'kernel', as in the JAX package.
+    fused_fwd: str = "kernel"
     # set by the halo forward (parallel/halo.py): the rank group
     # (parallel.group.RankGroup) whose ranks each hold an edge shard; the
     # aggregations combine the ranks' partials.  The group is 1-D, so the
@@ -116,6 +121,12 @@ class GNNConfig:
         if self.fused_bwd not in FUSED_BWD:
             raise ValueError(
                 f"fused_bwd must be 'remat' or 'stream', got {self.fused_bwd!r}"
+            )
+        if self.fused_fwd == "xla" and self.agg_vjp == "fused":
+            raise NotImplementedError(
+                "fused_fwd 'xla' (the JAX package's hybrid: an unfused forward, "
+                "then K2 with a tie tolerance) is not ported; ROADMAP section 2, "
+                "first row ('K2 with a tie tolerance') is the work that would lift this"
             )
         if self.architecture != "none":
             raise NotImplementedError(

@@ -36,6 +36,10 @@ from hyper_graph_nets_tpu_torch.core import segment_ops
 from hyper_graph_nets_tpu_torch.nn.mlp import dense
 
 TILE = 64  # edges per kernel tile; must match csrc/fused_block_common.cuh
+# receivers per work group at most: a group's pna runs a few rounds of K1's
+# half warps however many of its receivers have no edges (an edge shard of
+# the halo forward leaves most receivers empty)
+GROUP_NODES = 64
 WIDTHS = (32, 128)  # latent sizes the kernels are instantiated for
 BWD_MODES = ("remat", "stream")
 EDGE_WEIGHT_KEYS = ("we", "w2", "w3", "b1", "b2", "b3", "lns", "lnb")
@@ -52,10 +56,11 @@ class SegmentPlan:
 
     ``row_ptr[n]:row_ptr[n+1]`` are the edges of receiver ``n``; ``groups``
     splits the receivers into runs of whole segments of at most ``TILE``
-    edges (a receiver with more edges is a group of its own).  Each kernel
-    work item is one (batch element, group).  ``snd_perm[snd_ptr[n]:
-    snd_ptr[n+1]]`` are the edges sent by node ``n``, in edge order: the
-    backward kernels sum the sender cotangent over them.
+    edges and ``GROUP_NODES`` receivers (a receiver with more edges is a
+    group of its own).  Each kernel work item is one (batch element,
+    group).  ``snd_perm[snd_ptr[n]:snd_ptr[n+1]]`` are the edges sent by
+    node ``n``, in edge order: the backward kernels sum the sender
+    cotangent over them.
     """
 
     row_ptr: torch.Tensor  # [N + 1] int32
@@ -64,6 +69,9 @@ class SegmentPlan:
     num_edges: int
     snd_perm: Optional[torch.Tensor] = None  # [E] int32
     snd_ptr: Optional[torch.Tensor] = None  # [N + 1] int32
+    # [G + 1] int32, row_ptr[groups]: the groups' edge boundaries, which K1
+    # reads ahead of its pipeline
+    group_edges: Optional[torch.Tensor] = None
     # node-row bands of the compute-overlapped halo ring (K7, ops/
     # fused_overlap.py) for a rank's edge shard; 0: no overlap
     overlap_bands: int = 0
@@ -80,6 +88,7 @@ class SegmentPlan:
             groups=move(self.groups),
             snd_perm=move(self.snd_perm),
             snd_ptr=move(self.snd_ptr),
+            group_edges=move(self.group_edges),
         )
 
 
@@ -110,9 +119,10 @@ def plan_segments(
     groups = [0]
     for n in range(num_nodes):
         start = groups[-1]
-        if n > start and row_ptr[n + 1] - row_ptr[start] > tile:
+        if n > start and (row_ptr[n + 1] - row_ptr[start] > tile or n - start >= GROUP_NODES):
             groups.append(n)
     groups.append(num_nodes)
+    groups = np.asarray(groups, np.int64)
     snd_perm = snd_ptr = None
     if senders is not None:
         snd = _host_ids(senders, num_nodes, "senders")
@@ -125,11 +135,12 @@ def plan_segments(
         )
     return SegmentPlan(
         row_ptr=torch.from_numpy(row_ptr.astype(np.int32)),
-        groups=torch.from_numpy(np.asarray(groups, np.int32)),
+        groups=torch.from_numpy(groups.astype(np.int32)),
         num_nodes=int(num_nodes),
         num_edges=int(rcv.size),
         snd_perm=snd_perm,
         snd_ptr=snd_ptr,
+        group_edges=torch.from_numpy(row_ptr[groups].astype(np.int32)),
     )
 
 
@@ -296,7 +307,7 @@ def fused_edge_block_bwd_stream_reference(
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    FWD_SOURCE: {"hgn_fused_block_fwd": [_ci, _ci] + [_vp] * 22 + [_ci] * 5 + [_vp]},
+    FWD_SOURCE: {"hgn_fused_block_fwd": [_ci, _ci] + [_vp] * 23 + [_ci] * 5 + [_vp]},
     BWD_SOURCE: {
         "hgn_fused_block_bwd": [_ci, _ci, _ci] + [_vp] * 34 + [_ci] * 4 + [_vp],
         "hgn_fused_block_bwd_ctas": [_ci, _ci, _ci],
@@ -400,7 +411,7 @@ def _k1_launch(e, sp, rp, weights, senders, receivers, mask, num_nodes, plan, sa
         _ptr(e), _ptr(sp), _ptr(rp), _ptr(w["we"]), _ptr(w["w2"]), _ptr(w["w3"]),
         _ptr(p["b1"]), _ptr(p["b2"]), _ptr(p["b3"]), _ptr(p["lns"]), _ptr(p["lnb"]),
         _ptr(senders), _ptr(receivers), _ptr(mask), _ptr(plan.row_ptr), _ptr(plan.groups),
-        _ptr(e2), _ptr(agg), _ptr(a1), _ptr(a2), _ptr(mu), _ptr(isg),
+        _ptr(plan.group_edges), _ptr(e2), _ptr(agg), _ptr(a1), _ptr(a2), _ptr(mu), _ptr(isg),
         B, E, num_nodes, plan.num_groups, int(raw),
         torch.cuda.current_stream(e.device).cuda_stream,
     )

@@ -150,6 +150,35 @@ def test_later_slices_raise(config):
         Predictor(config, device="cpu")
 
 
+def test_fused_fwd_xla_on_the_fused_path_raises():
+    """``fused_fwd: xla`` selects the JAX package's hybrid on the fused path
+    (an unfused forward, then K2 with a tie tolerance), which the port does
+    not have: building the network config refuses it."""
+    from hyper_graph_nets_tpu_torch.models.get_model import get_model
+
+    model = get_model(_with(agg_vjp="fused", fused_fwd="xla"))
+    with pytest.raises(NotImplementedError, match="tie tolerance"):
+        model.gnn_config
+    with pytest.raises(NotImplementedError, match="ROADMAP section 2"):
+        Predictor(_with(agg_vjp="fused", fused_fwd="xla"), device="cpu")
+
+
+@pytest.mark.parametrize(
+    "agg_vjp, fused_fwd",
+    [("fused", "kernel"), ("gather", "xla"), ("sorted", "xla"), ("fused", None)],
+    ids=["fused-kernel", "gather-xla", "sorted-xla", "fused-unset"],
+)
+def test_fused_fwd_other_cases_build_as_before(agg_vjp, fused_fwd):
+    """Every other case builds: the JAX package takes the hybrid only on the
+    fused path, and the key defaults to 'kernel'."""
+    model = {"agg_vjp": agg_vjp} if fused_fwd is None else {"agg_vjp": agg_vjp, "fused_fwd": fused_fwd}
+    traj = add_targets(flag_trajectory(num_steps=3, nx=4, ny=4), "world_pos", True)
+    p = Predictor(_with(**model), device="cpu")
+    assert p.model.gnn_config.agg_vjp == agg_vjp
+    assert p.model.gnn_config.fused_fwd == (fused_fwd or "kernel")
+    assert np.isfinite(p.one_step(traj)).all()
+
+
 def test_cpu_predictor_serves_the_ricci_balancer_without_launching():
     """A ``graph_balancer: ricci`` config builds, runs SDRF in ``prepare``
     (on each call, as the JAX package's Predictor does) and serves on the

@@ -88,7 +88,9 @@ from hyper_graph_nets_tpu_torch.serving import Predictor
 from hyper_graph_nets_tpu_torch.training.trainer import Trainer
 from torch_port_cases import (
     BF16_ULP,
+    _k1_arrays,
     flag_config,
+    grid_edges,
     interior_mask_case,
     long_segment_case,
     masked_edge_case,
@@ -146,6 +148,65 @@ def test_k1_kernel_matches_plain(dtype, L, case):
     torch.testing.assert_close(agg[..., L:], ragg[..., L:], rtol=gr, atol=ga)
     torch.testing.assert_close(agg[..., :L], ragg[..., :L], rtol=gr, atol=sum_atol)
     assert bool((agg[:, isolated] == 0).all())
+
+
+def _pipeline_case(name):
+    """K1 inputs that exercise its tile pipeline: (arrays, weights, senders,
+    receivers, mask, N).
+
+    ``frame``: one frame of a 10 x 10 grid (B = 1, a few CTAs with one or
+    two tiles each).  ``three_tiles``: B = 2, receiver 4 with 150 edges, so
+    its segment spans three tiles and the next tile is in the same work
+    item.  ``under_one_tile``: 40 edges, fewer than one tile, B = 3.
+    ``next_batch``: two groups and B = 300, so a CTA's next work item lies
+    in a later batch element.  ``empty_receivers``: 700 receivers, most
+    with no edge (a halo shard's shape), so groups close at GROUP_NODES
+    receivers and some hold no edge at all."""
+    rng = np.random.default_rng(11)
+    if name == "frame":
+        snd, rcv, N = grid_edges(10, 10)
+        B = 1
+    else:
+        counts = {
+            "three_tiles": [3, 2, 4, 1, 150, 2, 0, 5],
+            "under_one_tile": [4] * 10,
+            "next_batch": [5] * 20,
+            "empty_receivers": [0, 0, 0, 2] * 100 + [0] * 300,
+        }[name]
+        N = len(counts)
+        rcv = np.repeat(np.arange(N), counts).astype(np.int32)
+        snd = rng.integers(0, N, size=len(rcv)).astype(np.int32)
+        B = {"three_tiles": 2, "under_one_tile": 3, "next_batch": 300, "empty_receivers": 1}[name]
+    mask = (rng.random(len(rcv)) > 0.1).astype(np.float32)
+    arrays, weights = _k1_arrays(rng, B, len(rcv), N, 128)
+    return arrays, weights, snd, rcv, mask, N
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["frame", "three_tiles", "under_one_tile", "next_batch", "empty_receivers"])
+def test_k1_pipeline_matches_plain(case):
+    """K1's two teams and their prefetch of the next tile (within a work
+    item, across work items and across batch elements) against its plain
+    version, bf16, L = 128."""
+    _need_card()
+    arrays, weights, snd, rcv, mask, N = _pipeline_case(case)
+    t = {k: torch.tensor(v).to(torch.bfloat16).cuda() for k, v in arrays.items()}
+    w = {k: torch.tensor(v.T.copy() if v.ndim == 2 else v).cuda() for k, v in weights.items()}
+    args = (torch.tensor(snd).cuda(), torch.tensor(rcv).cuda(), torch.tensor(mask).cuda(), N)
+    plan = plan_segments(rcv, N, senders=snd).to("cuda")
+    if case == "next_batch":
+        assert plan.num_groups == 2
+    before = fused_edge_block.launches
+    e2, agg = fused_edge_block(t["e"], t["sp"], t["rp"], w, *args, plan=plan)
+    torch.cuda.synchronize()
+    assert fused_edge_block.launches == before + 1
+    re2, ragg = fused_edge_block_reference(t["e"], t["sp"], t["rp"], w, *args)
+    (er, ea), (gr, ga) = TOLS[torch.bfloat16]["e2"], TOLS[torch.bfloat16]["agg"]
+    torch.testing.assert_close(e2.float(), re2.float(), rtol=er, atol=ea)
+    L = 128
+    sum_atol = ga * 150 if case == "three_tiles" else ga  # see test_k1_kernel_matches_plain
+    torch.testing.assert_close(agg[..., L:], ragg[..., L:], rtol=gr, atol=ga)
+    torch.testing.assert_close(agg[..., :L], ragg[..., :L], rtol=gr, atol=sum_atol)
 
 
 @pytest.mark.cuda
@@ -405,7 +466,10 @@ def test_sorted_predictor_on_card_matches_cpu():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1600, 1600, 1600), (1000, 1300, 700), (37, 5, 129), (64, 0, 3)])
+@pytest.mark.parametrize(
+    "shape",
+    [(1600, 1600, 1600), (1000, 1300, 700), (37, 5, 129), (64, 0, 3), (1, 1, 1), (129, 257, 131)],
+)
 def test_k5_matches_plain_bit_for_bit(shape):
     _need_card()
     from hyper_graph_nets_tpu_torch.ops.maxprod import maxprod, maxprod_reference
@@ -420,6 +484,18 @@ def test_k5_matches_plain_bit_for_bit(shape):
     assert maxprod.launches == before + 1 and got.shape == (N, M)
     want = maxprod_reference(x, y) if K else torch.zeros(N, M, device="cuda")
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1600, 1600, 1600), (65, 33, 70)])
+def test_k5_of_zeros_is_zero(shape):
+    _need_card()
+    from hyper_graph_nets_tpu_torch.ops.maxprod import maxprod, maxprod_reference
+
+    N, K, M = shape
+    x, y = torch.zeros(N, K, device="cuda"), torch.zeros(K, M, device="cuda")
+    got = maxprod(x, y)
+    assert torch.equal(got, maxprod_reference(x, y)) and not bool(got.any())
 
 
 @pytest.mark.cuda

@@ -136,10 +136,41 @@ def test_plan_segments_rows_and_groups():
         # whole segments, at most a tile of edges unless one receiver has more
         receivers_with_edges = int(np.count_nonzero(np.diff(rp[a : b + 1])))
         assert rp[b] - rp[a] <= 4 or receivers_with_edges == 1
+    assert plan.group_edges.tolist() == rp[groups].tolist()
     with pytest.raises(ValueError, match="non-decreasing"):
         plan_segments(np.array([1, 0], np.int32), 2)
     with pytest.raises(ValueError, match=r"\[0, 2\)"):
         plan_segments(np.array([0, 2], np.int32), 2)
+
+
+@pytest.mark.parametrize(
+    "counts",
+    [[2, 2, 2, 150, 2, 2], [64, 64, 1], [3] * 40 + [0] * 5, [70], [2] * 10 + [0] * 300,
+     [0, 0, 1] * 100 + [130]],
+    ids=["receiver-over-two-tiles", "full-tiles", "empty-receivers-at-the-end", "one-receiver",
+         "empty-receivers-over-a-group", "sparse-shard-then-long-segment"],
+)
+def test_plan_group_edges_follow_the_groups(counts):
+    """K1 reads each group's edge range from ``group_edges`` (row_ptr at the
+    group boundaries): it starts at 0, ends at E, and a group holds at most
+    a tile of edges unless one receiver owns them all, and at most
+    ``GROUP_NODES`` receivers (a halo shard leaves most receivers empty)."""
+    from hyper_graph_nets_tpu_torch.ops.fused_block import GROUP_NODES, TILE
+
+    rcv = np.repeat(np.arange(len(counts)), counts).astype(np.int32)
+    plan = plan_segments(rcv, len(counts))
+    rp, groups, ge = plan.row_ptr.numpy(), plan.groups.numpy(), plan.group_edges.numpy()
+    assert ge.dtype == np.int32 and ge.tolist() == rp[groups].tolist()
+    assert ge[0] == 0 and ge[-1] == len(rcv) and np.all(np.diff(ge) >= 0)
+    for a, b in zip(groups[:-1], groups[1:]):
+        owners = int(np.count_nonzero(np.diff(rp[a : b + 1])))
+        assert rp[b] - rp[a] <= TILE or owners == 1
+        assert 0 < b - a <= GROUP_NODES
+    # greedy: a group closes only when the next receiver would break a limit
+    for a, b in zip(groups[:-2], groups[1:-1]):
+        assert rp[b + 1] - rp[a] > TILE or b + 1 - a > GROUP_NODES
+    moved = plan.to("cpu")
+    assert torch.equal(moved.group_edges, plan.group_edges)
 
 
 def test_build_key_covers_included_headers(tmp_path):
