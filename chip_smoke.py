@@ -21,7 +21,8 @@ Phases (any failure exits non-zero; nothing is caught and dropped):
    (remat backward) and K3 (stream backward) at B = 21 in bf16 and float32,
    with a masked tail and an isolated receiver, with masked edges inside
    segments (as the balancer removes mesh edges), with exactly tied edges,
-   and the routed max/min mass against the exact tie count of K1's output;
+   at B = 1, and the routed max/min mass against the exact tie count of
+   K1's output, each timed as its three kernels and as each alone;
    the float32 weight-gradient products of one block; K4f and K4b (the
    sorted pna of ``agg_vjp: sorted``) at B = 21 in bf16 and float32 and at
    B = 1, with a masked tail and an isolated receiver, masked edges inside
@@ -579,17 +580,19 @@ def phase_backward(card, peaks, topo_np, seed):
         plain3 = lambda: fused_edge_block_bwd_stream_reference(x["e"], a1, a2, mu, isg, w, de2, drhs, *topo)
         for name, fn, plain, err, stream in (("K2", k2, plain2, err2, False), ("K3", k3, plain3, err3, True)):
             ms = kernel_device_ms(fn, iters=10, names=BWD_KERNELS)
-            main_ms = kernel_device_ms(fn, iters=10, names=BWD_KERNELS[:1])
+            main_ms, sender_ms, reduce_ms = (kernel_device_ms(fn, iters=10, names=n) for n in BWD_KERNELS)
             call_ms = cuda_time_ms(fn, iters=20)
             plain_ms = cuda_time_ms(plain, iters=5)
             bound, bound_by = bwd_bound_ms(dtype_name, B, E, N, L, peaks, stream)
             results[(name, dtype_name)] = dict(
-                max_abs_err=err, ms=ms, main_kernel_ms=main_ms, call_ms=call_ms,
-                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                max_abs_err=err, ms=ms, main_kernel_ms=main_ms, sender_sum_ms=sender_ms,
+                dpar_reduce_ms=reduce_ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by,
             )
             log(
                 f"{name} {dtype_name} B={B} E={E} N={N} L={L}: kernels {ms * 1e3:.1f} us "
-                f"(main kernel {main_ms * 1e3:.1f} us, wrapper call {call_ms * 1e3:.1f} us), "
+                f"(main kernel {main_ms * 1e3:.1f}, sender sums {sender_ms * 1e3:.1f}, column-sum "
+                f"reduction {reduce_ms * 1e3:.1f} us; wrapper call {call_ms * 1e3:.1f} us), "
                 f"bound {bound * 1e3:.2f} us ({bound_by}), plain {plain_ms:.3f} ms, "
                 f"max abs err {err:.3g} [{card}]"
             )
@@ -627,6 +630,10 @@ def phase_backward(card, peaks, topo_np, seed):
     x, topo, plan, fwd, de2, drhs = setup("bfloat16", 3, snd_t, rcv_t, rows=rows)
     check_both("ties", "bfloat16", x, topo, plan, fwd, de2, drhs)
     log("K2/K3 tied edges: ok")
+    # one frame: about 150 work items for two teams a CTA on ceil(150 / 2) CTAs
+    x, topo, plan, fwd, de2, drhs = setup("bfloat16", 1, snd, rcv)
+    check_both("B=1", "bfloat16", x, topo, plan, fwd, de2, drhs)
+    log("K2/K3 B=1: ok")
 
     # routed mass: with only g_max = g_min = 1 the column sums of do (dpar
     # row 4) count the edges equal to their receiver's extremum in K1's own
@@ -1750,10 +1757,12 @@ def main(argv=None) -> int:
     kernels = [
         dict(entry("fused_edge_block_fwd (K1)", "fused_block_fwd.cu", "fused_block.py:393", launches["K1"], main_k1),
              shapes=shapes(k1_shapes)),
-        entry("fused_edge_block_bwd remat (K2)", "fused_block_bwd.cu", "fused_block.py:1008", launches["K2"],
-              bwd[("K2", "bfloat16")]),
-        entry("fused_edge_block_bwd stream (K3)", "fused_block_bwd.cu", "fused_block.py:1284", launches["K3"],
-              bwd[("K3", "bfloat16")]),
+        dict(entry("fused_edge_block_bwd remat (K2)", "fused_block_bwd.cu", "fused_block.py:1008",
+                   launches["K2"], bwd[("K2", "bfloat16")]),
+             main_kernel_ms=bwd[("K2", "bfloat16")]["main_kernel_ms"]),
+        dict(entry("fused_edge_block_bwd stream (K3)", "fused_block_bwd.cu", "fused_block.py:1284",
+                   launches["K3"], bwd[("K3", "bfloat16")]),
+             main_kernel_ms=bwd[("K3", "bfloat16")]["main_kernel_ms"]),
         entry("pna_sorted (K4f)", "segment_pna.cu", "segment_pna.py:81", launches["K4f"],
               k4[("K4f", "bfloat16", TRAIN_FRAMES)]),
         entry("pna_sorted_bwd (K4b)", "segment_pna.cu", "segment_pna.py:183", launches["K4b"],

@@ -5,7 +5,8 @@
 // saved extremum exactly (the TPU kernel's tie_tol = 0).  That compare holds
 // only if K2 recomputes, and K3 reconstructs, e2 bit for bit as K1 computed
 // it.  So the whole forward chain lives here, once: the tile products (same
-// fragment order), the rounding points of each epilogue, and the LayerNorm
+// fragment order; K2's and K3's half-tile products keep each element's
+// chain), the rounding points of each epilogue, and the LayerNorm
 // statistics (same per-lane order, same warp_sum butterfly, explicit
 // __fmaf_rn / __fmul_rn so that no compiler contraction can differ between
 // the kernels).
@@ -60,8 +61,8 @@ struct alignas(sizeof(T) * N) Vec {
   T v[N];
 };
 
-// A CTA runs one or more teams of THREADS threads, each on its own tile (K1
-// runs two; the other kernels one).  The tile code indexes threads and warps
+// A CTA runs one or more teams of THREADS threads, each on its own tile (K1,
+// K2 and K3 run two; K7 one).  The tile code indexes threads and warps
 // within its team and synchronizes only its team.
 __device__ __forceinline__ int team_tid() { return threadIdx.x & (THREADS - 1); }
 
@@ -85,10 +86,10 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src) {
 
 // Load one tile of three row arrays into shared tiles of row stride LD:
 // rows ts .. ts + rows of `a`, and of `x` and `y` the rows named by xi[r] /
-// yi[r] (GATHER, K1 and K2) or rows ts + r (K3's streams).  Each thread
-// issues up to 12 of its 16-byte loads before its first shared store, so
-// they are in flight together; 12 caps the registers it holds.
-template <typename T, int L, int LD, bool GATHER>
+// yi[r] (K7's tiles).  Each thread issues up to 12 of its 16-byte loads
+// before its first shared store, so they are in flight together; 12 caps
+// the registers it holds.
+template <typename T, int L, int LD>
 __device__ __forceinline__ void load_tile(T* aT, T* xT, T* yT, const T* a, const T* x,
                                           const T* y, const int* xi, const int* yi, int ts,
                                           int rows) {
@@ -105,11 +106,9 @@ __device__ __forceinline__ void load_tile(T* aT, T* xT, T* yT, const T* a, const
       const int i = team_tid() + (p0 + s) * THREADS;
       const int r = i / CH, c = i - r * CH;
       if (r < rows) {
-        const int xr = GATHER ? xi[r] : ts + r;
-        const int yr = GATHER ? yi[r] : ts + r;
         v[0][s] = __ldg(reinterpret_cast<const int4*>(a + (size_t)(ts + r) * L) + c);
-        v[1][s] = __ldg(reinterpret_cast<const int4*>(x + (size_t)xr * L) + c);
-        v[2][s] = __ldg(reinterpret_cast<const int4*>(y + (size_t)yr * L) + c);
+        v[1][s] = __ldg(reinterpret_cast<const int4*>(x + (size_t)xi[r] * L) + c);
+        v[2][s] = __ldg(reinterpret_cast<const int4*>(y + (size_t)yi[r] * L) + c);
       }
     }
 #pragma unroll
@@ -141,6 +140,11 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// This thread's copies but those of its last committed group have landed.
+__device__ __forceinline__ void cp_async_wait_but_last() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
 // Store `rows` rows of a shared tile (row stride LD) to rows ts .. of `dst`.
 template <typename T, int L, int LD>
 __device__ __forceinline__ void store_tile(T* dst, const T* tile, int ts, int rows) {
@@ -150,10 +154,6 @@ __device__ __forceinline__ void store_tile(T* dst, const T* tile, int ts, int ro
     reinterpret_cast<int4*>(dst + (size_t)(ts + r) * L)[c] =
         reinterpret_cast<const int4*>(tile + r * LD)[c];
   }
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 __device__ __forceinline__ void mma16816(float* c, uint32_t a0, uint32_t a1, uint32_t a2,
@@ -174,6 +174,25 @@ __device__ __forceinline__ void ldsm_x2_trans(uint32_t& r0, uint32_t& r1, const 
                : "r"(a));
 }
 
+// Two 8x8 bf16 matrices: lanes 0-7 name the rows of the first, lanes 8-15
+// those of the second.
+__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1, const bf16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(a));
+}
+
+// Four 8x8 bf16 matrices, transposed on the way: lanes 8i .. 8i+7 name the
+// rows of the i-th.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                              uint32_t& r3, const bf16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(a));
+}
+
 // Four 8x8 bf16 matrices: lanes 8i .. 8i+7 name the rows of the i-th.
 __device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3,
                                         const bf16* p) {
@@ -183,19 +202,18 @@ __device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2
                : "r"(a));
 }
 
-// out[r][c] = sum_k A[r][k] * B(k, c) for the TILE x L tile on tensor cores,
-// k in the same order for every call.  TRANS = false: B(k, c) = W[c][k]
-// (A @ W^T, the forward products of an [out][in] weight); TRANS = true:
-// B(k, c) = W[k][c] (A @ W, the backward products).  A and W are shared,
-// row stride L + 8.  Warp (wm, wn) of the team owns rows 16*wm .. +16 and
-// columns wn*L/2 .. +L/2.  Calls epi(r, c, acc) once for each output
-// element, or, for an epi that takes two values, epi(r, c, acc_c, acc_c1)
-// once for each pair of neighbouring columns (c even): the same values, for
-// an epilogue that reads and writes its row's two elements at once.  The
-// forward products load their fragments with ldmatrix (one instruction for
-// A's 16 x 16 and one for two n-tiles of W): the same registers as four and
-// two 32-bit loads, so the same sums.
-template <int L, bool TRANS, class Epi>
+// out[r][c] = sum_k A[r][k] * W[c][k] (A @ W^T, the forward products of an
+// [out][in] weight) for the TILE x L tile on tensor cores, k in the same
+// order for every call.  A and W are shared, row stride L + 8.  Warp
+// (wm, wn) of the team owns rows 16*wm .. +16 and columns wn*L/2 .. +L/2.
+// Calls epi(r, c, acc) once for each output element, or, for an epi that
+// takes two values, epi(r, c, acc_c, acc_c1) once for each pair of
+// neighbouring columns (c even): the same values, for an epilogue that
+// reads and writes its row's two elements at once.  Fragments load by
+// ldmatrix (one instruction for A's 16 x 16 and one for two n-tiles of W):
+// the same registers as four and two 32-bit loads, so the same sums.  K2's
+// half-tile products (fused_block_bwd.cu) keep each element's chain.
+template <int L, class Epi>
 __device__ __forceinline__ void tile_matmul_bf16(const bf16* A, const bf16* W, Epi epi) {
   constexpr int LD = L + 8;
   constexpr int NT = L / 16;  // 8-column n-tiles per warp
@@ -207,33 +225,19 @@ __device__ __forceinline__ void tile_matmul_bf16(const bf16* A, const bf16* W, E
   const int nbase = wn * (L / 2);
   // ldmatrix rows: A's four 8x8 blocks (rows +0/+8, k +0/+8), W's two n-tiles
   // (k +0/+8 of n-tile j, then of j + 1)
-  [[maybe_unused]] const bf16* const a_row =
-      A + (wm * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
-  [[maybe_unused]] const bf16* const w_row =
-      W + (nbase + (lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8;
+  const bf16* const a_row = A + (wm * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
+  const bf16* const w_row = W + (nbase + (lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8;
   float acc[NT][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 #pragma unroll
   for (int k0 = 0; k0 < L; k0 += 16) {
     uint32_t a0, a1, a2, a3;
-    if constexpr (TRANS) {
-      a0 = ld32(A + r0 * LD + k0 + 2 * t);
-      a1 = ld32(A + (r0 + 8) * LD + k0 + 2 * t);
-      a2 = ld32(A + r0 * LD + k0 + 2 * t + 8);
-      a3 = ld32(A + (r0 + 8) * LD + k0 + 2 * t + 8);
-    } else {
-      ldsm_x4(a0, a1, a2, a3, a_row + k0);
-    }
+    ldsm_x4(a0, a1, a2, a3, a_row + k0);
 #pragma unroll
     for (int j = 0; j < NT; j += 2) {
       uint32_t b[4];
-      if constexpr (TRANS) {
-        ldsm_x2_trans(b[0], b[1], W + (k0 + (lane & 15)) * LD + nbase + 8 * j);
-        ldsm_x2_trans(b[2], b[3], W + (k0 + (lane & 15)) * LD + nbase + 8 * (j + 1));
-      } else {
-        ldsm_x4(b[0], b[1], b[2], b[3], w_row + 8 * j * LD + k0);
-      }
+      ldsm_x4(b[0], b[1], b[2], b[3], w_row + 8 * j * LD + k0);
       mma16816(acc[j], a0, a1, a2, a3, b[0], b[1]);
       mma16816(acc[j + 1], a0, a1, a2, a3, b[2], b[3]);
     }
@@ -256,7 +260,7 @@ __device__ __forceinline__ void tile_matmul_bf16(const bf16* A, const bf16* W, E
 // float32 variant: thread (ty, tx) of a 16 x 16 layout owns rows
 // 4*ty .. +4 and columns tx + 16*j; k runs in order.  W is the [out][in]
 // weight in device memory, read through the read-only cache.
-template <int L, bool TRANS, class Epi>
+template <int L, class Epi>
 __device__ __forceinline__ void tile_matmul_f32(const float* A, const float* W, Epi epi) {
   constexpr int LD = L + Num<float>::PAD;
   constexpr int TN = L / 16;
@@ -273,13 +277,7 @@ __device__ __forceinline__ void tile_matmul_f32(const float* A, const float* W, 
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int c = tx + 16 * j;
-      float4 w;
-      if constexpr (TRANS) {
-        w = make_float4(__ldg(W + (size_t)k * L + c), __ldg(W + (size_t)(k + 1) * L + c),
-                        __ldg(W + (size_t)(k + 2) * L + c), __ldg(W + (size_t)(k + 3) * L + c));
-      } else {
-        w = __ldg(reinterpret_cast<const float4*>(W + (size_t)c * L + k));
-      }
+      const float4 w = __ldg(reinterpret_cast<const float4*>(W + (size_t)c * L + k));
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         float s = acc[i][j];

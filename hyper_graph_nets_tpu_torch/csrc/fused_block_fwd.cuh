@@ -175,10 +175,10 @@ __device__ __forceinline__ void fwd_tile(const FwdArgs& args, const FwdSmem<T>& 
 
   auto matmul = [&](const T* A, int layer, auto epi) {
     if constexpr (Lay::kBf16) {
-      tile_matmul_bf16<L, false>(reinterpret_cast<const bf16*>(A), s.Ws + layer * L * (L + 8), epi);
+      tile_matmul_bf16<L>(reinterpret_cast<const bf16*>(A), s.Ws + layer * L * (L + 8), epi);
     } else {
       const void* w = layer == 0 ? args.we : (layer == 1 ? args.w2 : args.w3);
-      tile_matmul_f32<L, false>(reinterpret_cast<const float*>(A), static_cast<const float*>(w),
+      tile_matmul_f32<L>(reinterpret_cast<const float*>(A), static_cast<const float*>(w),
                                 epi);
     }
   };
@@ -435,7 +435,7 @@ __device__ __forceinline__ void fwd_item(const FwdArgs& args, const FwdSmem<T>& 
         s.val_s[i] = args.mask ? args.mask[ts + i] : 1.f;
       }
       team_sync();
-      load_tile<T, L, LDT, true>(s.eT, s.xT, s.rT, eb, spb, rpb, s.snd_s, s.rcv_s, ts, rows);
+      load_tile<T, L, LDT>(s.eT, s.xT, s.rT, eb, spb, rpb, s.snd_s, s.rcv_s, ts, rows);
       team_sync();
     }
     fwd_tile<T, L>(args, s, b, n0, n1, t, ts, te, [](int) {});

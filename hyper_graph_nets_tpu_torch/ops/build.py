@@ -3,8 +3,10 @@
 Each ``csrc/*.cu`` file has a plain C interface and is compiled on its own by
 ``nvcc`` for ``sm_90a`` into ``_build/<stem>-<hash>.so``, where the hash
 covers the source bytes, the bytes of every ``csrc`` header it includes
-(``#include "..."``) and the flags, then loaded with ``ctypes``.  Nothing
-is built at import time; a missing ``nvcc`` or a failed build raises.
+(``#include "..."``), the flags and any extra defines (a probe build, such
+as the backward kernels' phase clock, gets its own library), then loaded
+with ``ctypes``.  Nothing is built at import time; a missing ``nvcc`` or a
+failed build raises.
 """
 from __future__ import annotations
 
@@ -65,8 +67,12 @@ def _local_headers(source: str) -> Sequence[str]:
     return sorted(seen)
 
 
-def library_path(source: str) -> str:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(defines: Sequence[str]) -> list:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def library_path(source: str, defines: Sequence[str] = ()) -> str:
+    digest = hashlib.sha256(" ".join(_flags(defines)).encode())
     for path in [source, *_local_headers(source)]:
         with open(path, "rb") as f:
             digest.update(f.read())
@@ -74,19 +80,19 @@ def library_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
 
 
-def build(sources: Sequence[str]) -> Dict[str, str]:
+def build(sources: Sequence[str], defines: Sequence[str] = ()) -> Dict[str, str]:
     """Compile every source whose library is missing, one ``nvcc`` per
-    source, all started together.  Returns ``{source: library path}``; the
-    compiler's report (registers, shared memory, spills) is kept beside each
-    library as ``<lib>.log``."""
+    source, all started together, with ``-D`` for each of ``defines``.
+    Returns ``{source: library path}``; the compiler's report (registers,
+    shared memory, spills) is kept beside each library as ``<lib>.log``."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    paths = {src: library_path(src) for src in sources}
+    paths = {src: library_path(src, defines) for src in sources}
     pending = {}
     for src, lib in paths.items():
         if os.path.isfile(lib):
             continue
         tmp = f"{lib}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+        cmd = [_nvcc(), *_flags(defines), "-o", tmp, src]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
@@ -105,16 +111,17 @@ def build(sources: Sequence[str]) -> Dict[str, str]:
     return paths
 
 
-def build_log(source: str) -> str:
+def build_log(source: str, defines: Sequence[str] = ()) -> str:
     """The compiler's report for ``source`` (after :func:`build`)."""
-    with open(library_path(source) + ".log") as f:
+    with open(library_path(source, defines) + ".log") as f:
         return f.read()
 
 
-def load(source: str) -> ctypes.CDLL:
-    """Build ``source`` if needed and load it (once per process)."""
+def load(source: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """Build ``source`` (with ``defines``) if needed and load it (once per
+    process)."""
     with _lock:
-        lib = build([source])[source]
+        lib = build([source], defines)[source]
         if lib not in _loaded:
             _loaded[lib] = ctypes.CDLL(lib)
         return _loaded[lib]

@@ -313,24 +313,26 @@ _SIGNATURES = {
         "hgn_fused_block_bwd_ctas": [_ci, _ci, _ci],
     },
 }
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[tuple, ctypes.CDLL] = {}
 
 
-def _lib(source: str) -> ctypes.CDLL:
+def _lib(source: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     """The built library of ``source`` with its C signatures, loaded at
-    first launch."""
-    if source not in _libs:
+    first launch.  ``defines`` name a probe build (``HGN_BWD_PHASES``), a
+    library of its own that the main path never loads."""
+    key = (source, tuple(defines))
+    if key not in _libs:
         from hyper_graph_nets_tpu_torch.ops import build
 
-        lib = build.load(build.source_path(source))
+        lib = build.load(build.source_path(source), defines)
         for name, argtypes in _SIGNATURES[source].items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = _ci
         lib.hgn_cuda_error_string.argtypes = [_ci]
         lib.hgn_cuda_error_string.restype = ctypes.c_char_p
-        _libs[source] = lib
-    return _libs[source]
+        _libs[key] = lib
+    return _libs[key]
 
 
 def _check(cond: bool, what: str):
@@ -422,10 +424,12 @@ def _k1_launch(e, sp, rp, weights, senders, receivers, mask, num_nodes, plan, sa
 
 def _bwd_launch(
     stream_mode, e, sp, rp, streams, weights, de2, drhs, senders, receivers, mask,
-    num_nodes, plan,
+    num_nodes, plan, lib=None,
 ):
     """One launch of K2 (``stream_mode`` 0) or K3 (1): the main kernel, the
-    sender sums and the column-sum reduction, on the current stream."""
+    sender sums and the column-sum reduction, on the current stream.
+    ``lib``: another build of the source (the phase probe), else the main
+    path's."""
     plan = _resolve_plan(plan, senders, receivers, num_nodes, e.device)
     nodes = {} if stream_mode else {"sp": sp, "rp": rp}
     B, E, L = _validate(e, nodes, senders, receivers, mask, num_nodes, plan)
@@ -433,6 +437,7 @@ def _bwd_launch(
         plan.snd_perm is not None and plan.snd_ptr.device == e.device,
         "the backward needs the plan's sender order: plan_segments(..., senders=...)",
     )
+    _check(plan.group_edges is not None, "the plan must hold group_edges (plan_segments)")
     _check(de2.shape == e.shape and de2.dtype == e.dtype and de2.is_contiguous(), "de2")
     _check(
         drhs.shape == (B, num_nodes, 5 * L) and drhs.dtype == torch.float32
@@ -447,7 +452,7 @@ def _bwd_launch(
         for t in (mu_in, isg_in):
             _check(t.shape == (B, E) and t.dtype == torch.float32 and t.is_contiguous(), "mu/isg")
     w, p = _kernel_weights(weights, e.dtype, L, e.device)
-    lib = _lib(BWD_SOURCE)
+    lib = lib or _lib(BWD_SOURCE)
     dt = _DTYPES[e.dtype]
     ctas = lib.hgn_fused_block_bwd_ctas(dt, L, stream_mode)
     if ctas <= 0:
@@ -465,7 +470,7 @@ def _bwd_launch(
         _ptr(w["we"]), _ptr(w["w2"]), _ptr(w["w3"]),
         _ptr(p["b1"]), _ptr(p["b2"]), _ptr(p["b3"]), _ptr(p["lns"]), _ptr(p["lnb"]),
         _ptr(de2), _ptr(drhs),
-        _ptr(senders), _ptr(receivers), _ptr(mask), _ptr(plan.row_ptr), _ptr(plan.groups),
+        _ptr(senders), _ptr(receivers), _ptr(mask), _ptr(plan.row_ptr), _ptr(plan.group_edges),
         _ptr(plan.snd_perm), _ptr(plan.snd_ptr),
         _ptr(de), _ptr(dh), _ptr(dz2), _ptr(dz3), _ptr(a1_out), _ptr(a2_out),
         _ptr(dsp), _ptr(drp), _ptr(dpar), _ptr(part),

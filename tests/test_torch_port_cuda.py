@@ -120,8 +120,38 @@ def _case(name, L):
     if name == "interior":
         arrays, weights, snd, rcv, mask, N = interior_mask_case(seed=2, B=3, L=L)
         return arrays, weights, snd, rcv, mask, N, 10
+    if name in BWD_LAYOUT_CASES:
+        return _bwd_layout_case(name, L)
     arrays, weights, snd, rcv, mask, N = long_segment_case(seed=2, B=3, L=L)
     return arrays, weights, snd, rcv, mask, N, 9
+
+
+# Cases of K2/K3's work layout (two teams a CTA, each walking its work items
+# in 32-row half tiles): receiver edge counts, batch size.  ``odd_items``:
+# three groups of three 20-edge receivers at B = 1, so one team of the last
+# CTA has no item, and the middle receiver of each group straddles its two
+# half tiles; ``straddle``: groups of 30 + 4 + 30 edges (and an empty
+# receiver), so a 4-edge receiver crosses the half-tile boundary and the
+# next runs to the tile's end; ``frame``: one frame of a 10 x 10 grid.
+BWD_LAYOUT_CASES = {
+    "odd_items": ([20] * 9, 1),
+    "straddle": ([30, 4, 30, 0] * 3, 2),
+    "frame": (None, 1),
+}
+
+
+def _bwd_layout_case(name, L):
+    counts, B = BWD_LAYOUT_CASES[name]
+    rng = np.random.default_rng(7)
+    if counts is None:
+        snd, rcv, N = grid_edges(10, 10)
+    else:
+        N = len(counts)
+        rcv = np.repeat(np.arange(N), counts).astype(np.int32)
+        snd = rng.integers(0, N, size=len(rcv)).astype(np.int32)
+    mask = (rng.random(len(rcv)) > 0.1).astype(np.float32)
+    arrays, weights = _k1_arrays(rng, B, len(rcv), N, L)
+    return arrays, weights, snd, rcv, mask, N, None
 
 
 @pytest.mark.cuda
@@ -264,10 +294,19 @@ def _assert_bwd_close(got, want, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("L", [32, 128])
-@pytest.mark.parametrize("case", ["masked", "long_segments", "ties", "interior"])
+@pytest.mark.parametrize(
+    "case", ["masked", "long_segments", "ties", "interior", "odd_items", "straddle", "frame"]
+)
 def test_k2_k3_kernels_match_plain(dtype, L, case):
+    """K2 and K3 against their plain versions: an isolated receiver and a
+    masked tail, a receiver of 150 edges whose drp carries across half tiles
+    and tiles, exact ties, masks inside segments, an odd number of work
+    items (one team idle), receivers straddling a tile's two half tiles, a
+    frame at B = 1."""
     _need_card()
     t, w, topo, plan, fwd, de2, drhs = _bwd_inputs(case, dtype, L)
+    if case == "odd_items":
+        assert plan.num_groups * t["e"].shape[0] == 3
     e2, agg, a1, a2, mu, isg = fwd
     before = (fused_edge_block_bwd.launches, fused_edge_block_bwd_stream.launches)
     k2 = fused_edge_block_bwd(t["e"], t["sp"], t["rp"], w, de2, drhs, *topo, plan=plan)
@@ -287,7 +326,7 @@ def test_k2_k3_kernels_match_plain(dtype, L, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["masked", "long_segments", "ties"])
+@pytest.mark.parametrize("case", ["masked", "long_segments", "ties", "odd_items", "straddle"])
 def test_routed_mass_equals_the_tie_count(case):
     """With only g_max = g_min = 1, the column sums of the routed cotangent
     count the edges equal to their receiver's extremum in K1's output; every

@@ -194,3 +194,49 @@ def test_build_key_covers_included_headers(tmp_path):
     first = build.library_path(str(src))
     outer.write_text("// v2\n")
     assert build.library_path(str(src)) != first
+
+
+def test_build_key_covers_defines():
+    """A probe build (the backward kernels' phase clock, -DHGN_BWD_PHASES)
+    gets a library of its own, and the main path's key is the one without
+    defines."""
+    from hyper_graph_nets_tpu_torch.ops import build
+    from hyper_graph_nets_tpu_torch.ops.fused_block import BWD_SOURCE
+
+    src = build.source_path(BWD_SOURCE)
+    main = build.library_path(src)
+    assert build.library_path(src, ()) == main
+    probe = build.library_path(src, ("HGN_BWD_PHASES",))
+    assert probe != main and os.path.dirname(probe) == os.path.dirname(main)
+    with open(src) as f:
+        assert "#ifdef HGN_BWD_PHASES" in f.read()
+
+
+def _kernel_times():
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(__file__), "..", "tools", "torch_port", "kernel_times.py")
+    spec = importlib.util.spec_from_file_location("kernel_times", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("change", ["none", "dpar order", "dh", "drp"])
+def test_kernel_times_holds_k2_k3_outputs_to_another_checkout(tmp_path, change):
+    """``kernel_times.py --grads``: a1/a2 and de, dh, dz2, dz3 must equal the
+    other checkout's bit for bit, dsp/drp lie within rtol 1e-5 and dpar
+    within relative L2 1e-4 per row."""
+    kt = _kernel_times()
+    gen = torch.Generator().manual_seed(0)
+    outs = {"case": {"K2": {n: torch.randn(4, 8, generator=gen) for n in kt.K2_NAMES}}}
+    assert kt.hold_grads(torch, "parent", outs, str(tmp_path))
+    other = {"case": {"K2": {n: t.clone() for n, t in outs["case"]["K2"].items()}}}
+    named = other["case"]["K2"]
+    if change == "dpar order":  # a float32 sum in another order
+        named["dpar"] = named["dpar"] * (1 + 1e-7)
+    elif change == "dh":  # one element one bf16 unit away
+        named["dh"][0, 0] = named["dh"][0, 0] * (1 + 2.0**-7)
+    elif change == "drp":
+        named["drp"][1, 1] += 1.0
+    assert kt.hold_grads(torch, "change", other, str(tmp_path)) == (change in ("none", "dpar order"))
