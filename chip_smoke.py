@@ -36,13 +36,14 @@ Phases (any failure exits non-zero; nothing is caught and dropped):
    all-reduce) bit for bit with its plain version for 2, 3 and 4 ranks on
    the card at the halo payload [6400, 128] float32 with the pna segments,
    on an odd shape, with one rank's launch delayed and over 100 calls in a
-   row, timed per ring (CUDA events, all ranks) and per launch (traced)
-   beside its bounds; K1 raw and K7 (the fused block with the banded ring)
+   row, timed per ring ungated and gated (CUDA events, all ranks; gated:
+   every rank's launch queued before the first starts) and per launch
+   (traced) beside its bounds; K1 raw and K7 (the fused block with the banded ring)
    at the halo shards of the 40x40 flag (4 ranks of 2,560 edges, chunks
    dealt round-robin) in bf16 and float32: K1 raw against its plain
    version on every rank's shard (timed in the K1 checks above), K7's e2
    bit for bit with K1's and its aggregate against K1 raw + the plain
-   all-reduce + finalize;
+   all-reduce + finalize, timed as K6;
 4. serving: ``Predictor.from_config`` on configs/flag_full_scale.yaml with
    RMP off (latent 128, 15 blocks, bf16, ``agg_vjp: fused``, then
    ``agg_vjp: sorted``, then ``fused`` with ``graph_balancer.algorithm:
@@ -963,6 +964,49 @@ def group_time_ms(group, fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+GATE_CYCLES = 200_000_000  # torch.cuda._sleep before a gated run: about 0.1 s at 1.98 GHz
+
+
+def gated_time_ms(group, fn, iters, warmup=3):
+    """``(device ms, host ms)`` per call of ``fn``.  The device time is taken
+    with every rank's stream held behind one event until the host has
+    enqueued all ``iters`` calls: a
+    ``torch.cuda._sleep`` on the current stream, an event after it that
+    every rank's stream waits for and that starts the clock, then the calls.
+    The first call's kernels of every rank start together and the later
+    calls find their work queued, so this is the kernels' own pace, free of
+    the host's launch path; the host time is the enqueue's (host clock), the
+    launch path's own cost.  The sleep doubles (up to three times) until it
+    outlasts the host's enqueue."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    group.check()
+    cur = torch.cuda.current_stream()
+    cycles = GATE_CYCLES
+    for _ in range(4):
+        before, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        before.record(cur)
+        torch.cuda._sleep(cycles)
+        start.record(cur)
+        for s in group.streams:
+            s.wait_stream(cur)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        for s in group.streams:
+            cur.wait_stream(s)
+        end.record(cur)
+        group.check()
+        if host_ms < before.elapsed_time(start):
+            return start.elapsed_time(end) / iters, host_ms / iters
+        cycles *= 2
+    raise RuntimeError(f"the gate ({before.elapsed_time(start):.1f} ms) never outlasted the host's enqueue "
+                       f"({host_ms:.1f} ms)")
+
+
 def traced_launch_ms(group, fn, iters, name):
     """Mean traced device time of one launch of the kernel ``name`` (each
     call of ``fn`` launches it once per rank), retraced as kernel_device_ms
@@ -987,15 +1031,18 @@ def traced_launch_ms(group, fn, iters, name):
 
 def ring_bounds_ms(n, payload_bytes, peaks) -> dict:
     """K6's bounds on one card: ``bound_ms`` for the function (n partials
-    read, n results written), ``ring_bound_ms`` for the ring's own traffic,
-    2P + 4P(n-1) bytes per rank (x read and out written; per hop P sent and
-    the received P folded into out), summed over the ranks sharing the
-    card."""
+    read, n results written); ``ring_bound_ms`` for the least traffic of the
+    hop schedule, 2nP bytes per rank (x read and out written once, each of
+    the n-1 messages written once and read once), summed over the ranks
+    sharing the card; ``ring_bound_as_built_ms`` for the bound it replaced,
+    2P + 4P(n-1) per rank (the traffic of a ring that copies, then folds:
+    per hop P sent and the received P folded into out)."""
     bw = peaks[1]
     return dict(
         bound_ms=2 * n * payload_bytes / bw * 1e3,
         bound_by="bytes",
-        ring_bound_ms=n * (2 + 4 * (n - 1)) * payload_bytes / bw * 1e3,
+        ring_bound_ms=n * 2 * n * payload_bytes / bw * 1e3,
+        ring_bound_as_built_ms=n * (2 + 4 * (n - 1)) * payload_bytes / bw * 1e3,
     )
 
 
@@ -1033,15 +1080,21 @@ def phase_ring(card, peaks, seed):
         check(f"n={n} [{4 * N}, {L}]", group, xs, pna(N))
         run = lambda: ring_all_reduce_segments(xs, pna(N), group)
         ms = group_time_ms(group, run, iters=50)
+        gated_ms, host_ms = gated_time_ms(group, run, iters=50)
         launch_ms = traced_launch_ms(group, run, iters=20, name="ring_kernel")
         plain_ms = cuda_time_ms(lambda: ring_all_reduce_segments_reference(xs, pna(N)), iters=10)
         bounds = ring_bounds_ms(n, 4 * N * L * 4, peaks)
-        results[n] = dict(max_abs_err=0.0, ms=ms, launch_ms=launch_ms, plain_ms=plain_ms, **bounds)
+        results[n] = dict(max_abs_err=0.0, ms=ms, gated_ms=gated_ms, host_ms=host_ms, launch_ms=launch_ms,
+                          plain_ms=plain_ms,
+                          **bounds)
         log(
             f"K6 n={n} ranks on one card, payload [{4 * N}, {L}] float32: {ms * 1e3:.1f} us per ring "
-            f"(CUDA events, all ranks), {launch_ms * 1e3:.1f} us per rank's launch (traced, spins "
-            f"included); bound {bounds['bound_ms'] * 1e3:.2f} us (bytes), ring traffic "
-            f"{bounds['ring_bound_ms'] * 1e3:.2f} us; plain {plain_ms:.3f} ms; bit for bit [{card}]"
+            f"(CUDA events, all ranks), {gated_ms * 1e3:.1f} us per ring gated (every rank's launch "
+            f"queued before the first starts; the host enqueues a call in {host_ms * 1e3:.1f} us), "
+            f"{launch_ms * 1e3:.1f} us per rank's launch (traced, spins "
+            f"included); bound {bounds['bound_ms'] * 1e3:.2f} us (bytes), ring traffic 2nP per rank "
+            f"{bounds['ring_bound_ms'] * 1e3:.2f} us (a copy-then-fold ring's 2P + 4P(n-1): "
+            f"{bounds['ring_bound_as_built_ms'] * 1e3:.2f} us); plain {plain_ms:.3f} ms; bit for bit [{card}]"
         )
 
     group = one_card_group(3)
@@ -1083,8 +1136,7 @@ def overlap_shards(dtype, gen, n=HALO_RANKS, chunk=HALO_CHUNK):
 
     from hyper_graph_nets_tpu_torch.core.mesh import cells_to_edges
     from hyper_graph_nets_tpu_torch.data.synthetic import _grid_triangulation
-    from hyper_graph_nets_tpu_torch.ops.fused_block import plan_segments
-    from hyper_graph_nets_tpu_torch.ops.fused_overlap import chunk_roundrobin_permutation
+    from hyper_graph_nets_tpu_torch.ops.fused_overlap import chunk_roundrobin_permutation, overlap_plan
     from hyper_graph_nets_tpu_torch.parallel.sharding import pad_to_multiple
 
     edges = cells_to_edges(_grid_triangulation(40, 40))
@@ -1104,7 +1156,7 @@ def overlap_shards(dtype, gen, n=HALO_RANKS, chunk=HALO_CHUNK):
         shards.append(dict(
             e=torch.randn(per, L, generator=gen).to(dtype).cuda(), sp=x["sp"][0], rp=x["rp"][0],
             weights=x["weights"], senders=s, receivers=rc, mask=torch.as_tensor(mask[sl]).cuda(),
-            plan=plan_segments(rcv[sl], N, senders=snd[sl]).to("cuda"),
+            plan=overlap_plan(rcv[sl], mask[sl], N, HALO_BANDS, senders=snd[sl]).to("cuda"),
         ))
     return shards, N
 
@@ -1170,17 +1222,22 @@ def phase_overlap(card, peaks, seed):
             err7 = max(err7, check_close(f"K7 {dtype_name} rank {r} agg", got[r][1], want, agg_tol, agg_tol))
         run7 = lambda: fused_edge_block_overlap(shards, N, group, HALO_BANDS)
         ms7 = group_time_ms(group, run7, iters=50)
+        gated7, host7 = gated_time_ms(group, run7, iters=20)
         launch7 = traced_launch_ms(group, run7, iters=20, name="fused_overlap_kernel")
         plain7 = cuda_time_ms(lambda: fused_edge_block_overlap_reference(shards, N), iters=5)
         k1b, by7 = k1_bound_ms(dtype_name, 1, E, N, L, peaks)
         ring_b = ring_bounds_ms(n, N * 4 * L * 4, peaks)
         results[("K7", dtype_name)] = dict(
-            max_abs_err=err7, ms=ms7, launch_ms=launch7, plain_ms=plain7, bound_ms=n * k1b, bound_by=by7,
+            max_abs_err=err7, ms=ms7, gated_ms=gated7, host_ms=host7, launch_ms=launch7, plain_ms=plain7,
+            bound_ms=n * k1b,
+            bound_by=by7,
             ring_bound_ms=n * k1b + ring_b["ring_bound_ms"],
         )
         log(
             f"K7 {dtype_name} {n} ranks on one card, shard E={E}, {HALO_BANDS} bands: {ms7 * 1e3:.1f} us per "
-            f"call (CUDA events, all ranks), {launch7 * 1e3:.1f} us per rank's launch (traced); bound "
+            f"call (CUDA events, all ranks), {gated7 * 1e3:.1f} us per call gated (host enqueue "
+            f"{host7 * 1e3:.1f} us), {launch7 * 1e3:.1f} us "
+            f"per rank's launch (traced); bound "
             f"{n * k1b * 1e3:.2f} us ({by7}), with the ring's traffic {results[('K7', dtype_name)]['ring_bound_ms'] * 1e3:.2f} us; "
             f"plain {plain7:.3f} ms; e2 bit for bit with K1, agg max abs err {err7:.3g} [{card}]"
         )
@@ -1770,10 +1827,10 @@ def main(argv=None) -> int:
         dict(entry("maxprod (K5)", "maxprod.cu", "maxprod.py:28", launches["K5"], k5["flag B x A"]),
              shapes=shapes(k5)),
         dict(entry("ring_all_reduce_segments (K6)", "ring.cu", "ring.py:60", launches["K6"], k6[HALO_RANKS]),
-             ring_bound_ms=k6[HALO_RANKS]["ring_bound_ms"]),
+             ring_bound_ms=k6[HALO_RANKS]["ring_bound_ms"], gated_ms=k6[HALO_RANKS]["gated_ms"]),
         dict(entry("fused_edge_block_overlap (K7)", "fused_overlap.cu", "fused_overlap.py:171", launches["K7"],
                    k7[("K7", "bfloat16")]),
-             ring_bound_ms=k7[("K7", "bfloat16")]["ring_bound_ms"]),
+             ring_bound_ms=k7[("K7", "bfloat16")]["ring_bound_ms"], gated_ms=k7[("K7", "bfloat16")]["gated_ms"]),
     ]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

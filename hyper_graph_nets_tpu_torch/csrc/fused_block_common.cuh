@@ -62,7 +62,7 @@ struct alignas(sizeof(T) * N) Vec {
 };
 
 // A CTA runs one or more teams of THREADS threads, each on its own tile (K1,
-// K2 and K3 run two; K7 one).  The tile code indexes threads and warps
+// K2, K3 and K7's compute CTAs run two).  The tile code indexes threads and warps
 // within its team and synchronizes only its team.
 __device__ __forceinline__ int team_tid() { return threadIdx.x & (THREADS - 1); }
 
@@ -70,58 +70,6 @@ __device__ __forceinline__ int team_tid() { return threadIdx.x & (THREADS - 1); 
 __device__ __forceinline__ void team_sync() {
   asm volatile("bar.sync %0, %1;\n" ::"r"(1 + (int)(threadIdx.x / THREADS)), "n"(THREADS)
                : "memory");
-}
-
-// Copy L consecutive rows of L elements (16-byte vectors) into a shared
-// array of row stride LD (the staged weights).
-template <typename T, int L, int LD>
-__device__ __forceinline__ void load_rows(T* dst, const T* src) {
-  constexpr int CH = int(L * sizeof(T) / 16);
-  for (int i = team_tid(); i < L * CH; i += THREADS) {
-    const int r = i / CH, c = i - r * CH;
-    reinterpret_cast<int4*>(dst + (size_t)r * LD)[c] =
-        __ldg(reinterpret_cast<const int4*>(src + (size_t)r * L) + c);
-  }
-}
-
-// Load one tile of three row arrays into shared tiles of row stride LD:
-// rows ts .. ts + rows of `a`, and of `x` and `y` the rows named by xi[r] /
-// yi[r] (K7's tiles).  Each thread issues up to 12 of its 16-byte loads
-// before its first shared store, so they are in flight together; 12 caps
-// the registers it holds.
-template <typename T, int L, int LD>
-__device__ __forceinline__ void load_tile(T* aT, T* xT, T* yT, const T* a, const T* x,
-                                          const T* y, const int* xi, const int* yi, int ts,
-                                          int rows) {
-  constexpr int CH = int(L * sizeof(T) / 16);
-  constexpr int PER = TILE * CH / THREADS;  // vectors per thread and array
-  constexpr int STEP = PER < 4 ? PER : 4;   // of those, in flight at once
-  static_assert(TILE * CH % THREADS == 0 && PER % STEP == 0,
-                "a tile's vectors must split evenly over the threads");
-#pragma unroll
-  for (int p0 = 0; p0 < PER; p0 += STEP) {
-    int4 v[3][STEP];
-#pragma unroll
-    for (int s = 0; s < STEP; ++s) {
-      const int i = team_tid() + (p0 + s) * THREADS;
-      const int r = i / CH, c = i - r * CH;
-      if (r < rows) {
-        v[0][s] = __ldg(reinterpret_cast<const int4*>(a + (size_t)(ts + r) * L) + c);
-        v[1][s] = __ldg(reinterpret_cast<const int4*>(x + (size_t)xi[r] * L) + c);
-        v[2][s] = __ldg(reinterpret_cast<const int4*>(y + (size_t)yi[r] * L) + c);
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < STEP; ++s) {
-      const int i = team_tid() + (p0 + s) * THREADS;
-      const int r = i / CH, c = i - r * CH;
-      if (r < rows) {
-        reinterpret_cast<int4*>(aT + r * LD)[c] = v[0][s];
-        reinterpret_cast<int4*>(xT + r * LD)[c] = v[1][s];
-        reinterpret_cast<int4*>(yT + r * LD)[c] = v[2][s];
-      }
-    }
-  }
 }
 
 // 16 bytes from device memory to shared memory without passing through

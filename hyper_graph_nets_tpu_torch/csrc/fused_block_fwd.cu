@@ -78,140 +78,11 @@ namespace {
 using namespace hgn;
 
 constexpr int NTEAM = 2;  // teams of THREADS threads per CTA, each on its own tile
-static_assert(THREADS == 4 * TILE, "a quarter row of a tile per thread");
-
-// A work item (batch element b, receivers n0 .. n1, edges e0 .. e1); w < 0
-// when there is none.
-struct Item {
-  int w, b, n0, n1, e0, e1;
-};
-
-__device__ __forceinline__ Item load_item(const FwdArgs& a, int w, int work) {
-  if (w >= work) return Item{-1, 0, 0, 0, 0, 0};
-  const int b = w / a.G, g = w - b * a.G;
-  return Item{w, b, a.groups[g], a.groups[g + 1], a.group_edges[g], a.group_edges[g + 1]};
-}
-
-__device__ __forceinline__ int item_tiles(const Item& it) {
-  return it.e1 > it.e0 ? (it.e1 - it.e0 + TILE - 1) / TILE : 1;
-}
-
-// The team's tile after tile t of `it`: the item's next tile, or the first
-// of the team's next item (`stride` items on).
-__device__ __forceinline__ void next_tile(const FwdArgs& a, const Item& it, int t, int work,
-                                          int stride, Item& nit, int& nt) {
-  if (it.w >= 0 && t + 1 < item_tiles(it)) {
-    nit = it;
-    nt = t + 1;
-  } else {
-    nit = it.w < 0 ? it : load_item(a, it.w + stride, work);
-    nt = 0;
-  }
-}
-
-// This thread's share of one tile's loads: row team_tid() / 4 of the tile,
-// quarter team_tid() % 4 of its vectors.
-struct RowLoad {
-  int b, edge, snd, rcv;  // edge < 0: no row
-  float valid;
-};
-
-__device__ __forceinline__ RowLoad load_indices(const FwdArgs& a, const Item& it, int t) {
-  RowLoad rl{0, -1, 0, 0, 0.f};
-  if (it.w < 0) return rl;
-  const int ts = it.e0 + t * TILE;
-  const int r = team_tid() >> 2;
-  if (ts + r < min(ts + TILE, it.e1)) {
-    rl.b = it.b;
-    rl.edge = ts + r;
-    rl.snd = a.senders[rl.edge];
-    rl.rcv = a.receivers[rl.edge];
-    rl.valid = a.mask ? a.mask[rl.edge] : 1.f;
-  }
-  return rl;
-}
-
-// Issue the copies of this thread's share of one of a tile's row arrays
-// into the team's buffers (0: e, with the mask; 1: SP[snd]; 2: RP[rcv]),
-// and commit them as a group.
-template <typename T, int L>
-__device__ __forceinline__ void load_rows_async(const FwdArgs& a, const RowLoad& rl,
-                                                const FwdSmem<T>& s, int which) {
-  constexpr int LDT = FwdLayout<T, L>::LDT;
-  constexpr int EPV = 16 / sizeof(T);        // elements per 16-byte vector
-  constexpr int CPT = L / EPV / 4;           // vectors per thread and array
-  static_assert(L % (4 * EPV) == 0, "a row's vectors must split over four threads");
-  if (rl.edge >= 0) {
-    const int r = team_tid() >> 2, c0 = (team_tid() & 3) * CPT * EPV;
-    const T* src;
-    T* dst;
-    if (which == 0) {
-      src = static_cast<const T*>(a.e) + ((size_t)rl.b * a.E + rl.edge) * L;
-      dst = s.eT;
-      if ((team_tid() & 3) == 0) s.val_s[r] = rl.valid;
-    } else {
-      src = static_cast<const T*>(which == 1 ? a.sp : a.rp) +
-            ((size_t)rl.b * a.N + (which == 1 ? rl.snd : rl.rcv)) * L;
-      dst = which == 1 ? s.xT : s.rT;
-    }
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) cp_async16(dst + r * LDT + c0 + j * EPV, src + c0 + j * EPV);
-  }
-  cp_async_commit();
-}
-
-// The three weights into shared memory by every thread of the CTA.
-template <int L>
-__device__ __forceinline__ void stage_weights_async(bf16* Ws, const FwdArgs& a) {
-  constexpr int CH = L * int(sizeof(bf16)) / 16;  // vectors per weight row
-  for (int i = threadIdx.x; i < 3 * L * CH; i += blockDim.x) {
-    const int m = i / (L * CH), rem = i - m * L * CH;
-    const int r = rem / CH, c = rem - r * CH;
-    const bf16* w = static_cast<const bf16*>(m == 0 ? a.we : (m == 1 ? a.w2 : a.w3));
-    cp_async16(Ws + (m * L + r) * (L + 8) + c * 8, w + (size_t)r * L + c * 8);
-  }
-}
 
 template <typename T, int L>
 __global__ void __launch_bounds__(NTEAM * THREADS, 1) fused_block_fwd_kernel(const FwdArgs args) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int team = threadIdx.x / THREADS;
-  const FwdSmem<T> s = fwd_carve<T, L, NTEAM>(smem, team);
-  const int work = args.G * args.B, stride = NTEAM * gridDim.x;
-
-  // prologue: the weights and each team's first tile in flight together
-  if constexpr (FwdLayout<T, L>::kBf16) stage_weights_async<L>(s.Ws, args);
-  fwd_params<T, L>(args, s.prm);
-  Item cur = load_item(args, blockIdx.x + team * gridDim.x, work);
-  int t = 0;
-  RowLoad rl = load_indices(args, cur, 0);
-  for (int which = 0; which < 3; ++which) load_rows_async<T, L>(args, rl, s, which);
-  Item nxt;
-  int nt;
-  next_tile(args, cur, 0, work, stride, nxt, nt);
-  cp_async_wait_all();
-  __syncthreads();  // weights, parameters and both teams' first tiles have landed
-
-  while (cur.w >= 0) {
-    Item after;
-    int at;
-    next_tile(args, nxt, nt, work, stride, after, at);  // its edge range, a tile early
-    const int ts = cur.e0 + t * TILE, te = min(ts + TILE, cur.e1);
-    fwd_tile<T, L>(args, s, cur.b, cur.n0, cur.n1, t, ts, te, [&](int stage) {
-      if (stage == 0) {
-        rl = load_indices(args, nxt, nt);
-      } else {
-        load_rows_async<T, L>(args, rl, s, 3 - stage);  // RP rows into rT, then SP rows into xT
-      }
-    });
-    load_rows_async<T, L>(args, rl, s, 0);  // fwd_tile ended in the team's barrier
-    cp_async_wait_all();
-    team_sync();
-    cur = nxt;
-    t = nt;
-    nxt = after;
-    nt = at;
-  }
+  fwd_teams<T, L, NTEAM>(args, smem, blockIdx.x + (int)(threadIdx.x / THREADS) * gridDim.x, NTEAM * gridDim.x);
 }
 
 template <typename T, int L>

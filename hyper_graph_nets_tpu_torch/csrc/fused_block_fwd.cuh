@@ -1,6 +1,6 @@
-// The fused edge-block forward of one tile of edges, shared by K1
-// (fused_block_fwd.cu: two teams of a CTA on two tiles at once) and K7
-// (fused_overlap.cu: one team, one work item at a time).
+// The fused edge-block forward of one tile of edges, and the loop of a CTA's
+// teams over work items, shared by K1 (fused_block_fwd.cu) and K7's compute
+// CTAs (fused_overlap.cu): two teams of a CTA on two tiles at once.
 //
 // A work item is (batch element, group): a group is a run of whole receiver
 // segments holding at most TILE edges (a receiver with more edges forms its
@@ -77,8 +77,8 @@ __device__ __forceinline__ Vec<T, N> load_vec(const T* p) {
 }
 
 // A CTA runs NTEAM teams of THREADS threads, each on its own tiles, with its
-// own tile buffers and segment carry: K1 two (one team's loads and barrier
-// waits overlap the other's products), K7 one.  The weights and parameters
+// own tile buffers and segment carry: K1 and K7 two (one team's loads and
+// barrier waits overlap the other's products).  The weights and parameters
 // are staged once per CTA and shared.
 template <typename T, int L, int NTEAM = 1>
 struct FwdLayout {
@@ -102,7 +102,7 @@ struct FwdSmem {
   T* eT;         // e, then e2
   T* xT;         // SP rows, then a1, then z3
   T* rT;         // RP rows, then a2
-  int* snd_s;    // the tile's senders and receivers (K7's loads)
+  int* snd_s;    // the tile's senders and receivers
   int* rcv_s;
   float* val_s;  // the tile's mask
   float* carry;  // 2 x [sum L | max L | min L | cnt]
@@ -136,21 +136,6 @@ __device__ __forceinline__ void fwd_params(const FwdArgs& args, float* prm) {
     prm[3 * L + c] = args.lns[c];
     prm[4 * L + c] = args.lnb[c];
   }
-}
-
-// K7: carve one team's arrays and stage the weights; once per CTA, ends in
-// a barrier.
-template <typename T, int L>
-__device__ __forceinline__ FwdSmem<T> fwd_setup(const FwdArgs& args, unsigned char* smem) {
-  FwdSmem<T> s = fwd_carve<T, L, 1>(smem, 0);
-  if constexpr (FwdLayout<T, L>::kBf16) {
-    load_rows<bf16, L, L + 8>(s.Ws, static_cast<const bf16*>(args.we));
-    load_rows<bf16, L, L + 8>(s.Ws + L * (L + 8), static_cast<const bf16*>(args.w2));
-    load_rows<bf16, L, L + 8>(s.Ws + 2 * L * (L + 8), static_cast<const bf16*>(args.w3));
-  }
-  fwd_params<T, L>(args, s.prm);
-  __syncthreads();
-  return s;
 }
 
 // One tile of work item (b, n0 .. n1): edges ts .. te, the item's t-th
@@ -409,36 +394,158 @@ __device__ __forceinline__ void fwd_tile(const FwdArgs& args, const FwdSmem<T>& 
   team_sync();
 }
 
-// K7: one work item, batch element b, group grp, its tiles loaded and then
-// computed in turn.  Every thread of the team calls it; it ends in the
-// team's barrier.
-template <typename T, int L>
-__device__ __forceinline__ void fwd_item(const FwdArgs& args, const FwdSmem<T>& s, int b,
-                                         int grp) {
-  constexpr int LDT = FwdLayout<T, L>::LDT;
-  const int E = args.E, N = args.N;
-  const int n0 = args.groups[grp], n1 = args.groups[grp + 1];
-  const int e0 = args.row_ptr[n0], e1 = args.row_ptr[n1];
-  const int ntiles = e1 > e0 ? (e1 - e0 + TILE - 1) / TILE : 1;
-  const T* eb = static_cast<const T*>(args.e) + (size_t)b * E * L;
-  const T* spb = static_cast<const T*>(args.sp) + (size_t)b * N * L;
-  const T* rpb = static_cast<const T*>(args.rp) + (size_t)b * N * L;
+static_assert(THREADS == 4 * TILE, "a quarter row of a tile per thread");
 
-  for (int t = 0; t < ntiles; ++t) {
-    const int ts = e0 + t * TILE;
-    const int te = min(ts + TILE, e1);
-    const int rows = te - ts;
-    if (rows > 0) {
-      for (int i = team_tid(); i < rows; i += THREADS) {
-        s.snd_s[i] = args.senders[ts + i];
-        s.rcv_s[i] = args.receivers[ts + i];
-        s.val_s[i] = args.mask ? args.mask[ts + i] : 1.f;
-      }
-      team_sync();
-      load_tile<T, L, LDT>(s.eT, s.xT, s.rT, eb, spb, rpb, s.snd_s, s.rcv_s, ts, rows);
-      team_sync();
+// A work item (batch element b, receivers n0 .. n1, edges e0 .. e1); w < 0
+// when there is none.  A K7 tail item (padding edges) has n0 == n1: it
+// writes e2 and no aggregate row.
+struct Item {
+  int w, b, n0, n1, e0, e1;
+};
+
+__device__ __forceinline__ Item load_item(const FwdArgs& a, int w, int work) {
+  if (w >= work) return Item{-1, 0, 0, 0, 0, 0};
+  const int b = w / a.G, g = w - b * a.G;
+  return Item{w, b, a.groups[g], a.groups[g + 1], a.group_edges[g], a.group_edges[g + 1]};
+}
+
+__device__ __forceinline__ int item_tiles(const Item& it) {
+  return it.e1 > it.e0 ? (it.e1 - it.e0 + TILE - 1) / TILE : 1;
+}
+
+// The team's tile after tile t of `it`: the item's next tile, or the first
+// of the team's next item (`stride` items on).
+__device__ __forceinline__ void next_tile(const FwdArgs& a, const Item& it, int t, int work,
+                                          int stride, Item& nit, int& nt) {
+  if (it.w >= 0 && t + 1 < item_tiles(it)) {
+    nit = it;
+    nt = t + 1;
+  } else {
+    nit = it.w < 0 ? it : load_item(a, it.w + stride, work);
+    nt = 0;
+  }
+}
+
+// This thread's share of one tile's loads: row team_tid() / 4 of the tile,
+// quarter team_tid() % 4 of its vectors.
+struct RowLoad {
+  int b, edge, snd, rcv;  // edge < 0: no row
+  float valid;
+};
+
+__device__ __forceinline__ RowLoad load_indices(const FwdArgs& a, const Item& it, int t) {
+  RowLoad rl{0, -1, 0, 0, 0.f};
+  if (it.w < 0) return rl;
+  const int ts = it.e0 + t * TILE;
+  const int r = team_tid() >> 2;
+  if (ts + r < min(ts + TILE, it.e1)) {
+    rl.b = it.b;
+    rl.edge = ts + r;
+    rl.snd = a.senders[rl.edge];
+    rl.rcv = a.receivers[rl.edge];
+    rl.valid = a.mask ? a.mask[rl.edge] : 1.f;
+  }
+  return rl;
+}
+
+// Issue the copies of this thread's share of one of a tile's row arrays
+// into the team's buffers (0: e, with the mask; 1: SP[snd]; 2: RP[rcv]),
+// and commit them as a group.
+template <typename T, int L>
+__device__ __forceinline__ void load_rows_async(const FwdArgs& a, const RowLoad& rl,
+                                                const FwdSmem<T>& s, int which) {
+  constexpr int LDT = FwdLayout<T, L>::LDT;
+  constexpr int EPV = 16 / sizeof(T);        // elements per 16-byte vector
+  constexpr int CPT = L / EPV / 4;           // vectors per thread and array
+  static_assert(L % (4 * EPV) == 0, "a row's vectors must split over four threads");
+  if (rl.edge >= 0) {
+    const int r = team_tid() >> 2, c0 = (team_tid() & 3) * CPT * EPV;
+    const T* src;
+    T* dst;
+    if (which == 0) {
+      src = static_cast<const T*>(a.e) + ((size_t)rl.b * a.E + rl.edge) * L;
+      dst = s.eT;
+      if ((team_tid() & 3) == 0) s.val_s[r] = rl.valid;
+    } else {
+      src = static_cast<const T*>(which == 1 ? a.sp : a.rp) +
+            ((size_t)rl.b * a.N + (which == 1 ? rl.snd : rl.rcv)) * L;
+      dst = which == 1 ? s.xT : s.rT;
     }
-    fwd_tile<T, L>(args, s, b, n0, n1, t, ts, te, [](int) {});
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) cp_async16(dst + r * LDT + c0 + j * EPV, src + c0 + j * EPV);
+  }
+  cp_async_commit();
+}
+
+// The three weights into shared memory by every thread of the CTA.
+template <int L>
+__device__ __forceinline__ void stage_weights_async(bf16* Ws, const FwdArgs& a) {
+  constexpr int CH = L * int(sizeof(bf16)) / 16;  // vectors per weight row
+  for (int i = threadIdx.x; i < 3 * L * CH; i += blockDim.x) {
+    const int m = i / (L * CH), rem = i - m * L * CH;
+    const int r = rem / CH, c = rem - r * CH;
+    const bf16* w = static_cast<const bf16*>(m == 0 ? a.we : (m == 1 ? a.w2 : a.w3));
+    cp_async16(Ws + (m * L + r) * (L + 8) + c * 8, w + (size_t)r * L + c * 8);
+  }
+}
+
+// The teams' loop of a CTA (K1's kernel, and K7's compute CTAs): NTEAM teams,
+// each starting at work item `first` (the caller gives each team its own)
+// and striding by `stride` items.  The prologue issues the
+// staged weights and each team's first tile together; then each team loads
+// its next tile's indices while its tile computes and copies the next tile's
+// rows by cp.async into each buffer as soon as it is free (RP rows into rT
+// after the third product, SP rows into xT after the LayerNorm, e rows into
+// eT after the pna), and reads the next work item's edge range a tile
+// earlier still.  item_done(it) runs, by every thread of the team, after
+// an item's last tile (K7 counts its bands there).  Every thread of the CTA
+// calls it.
+struct NoItemDone {
+  __device__ void operator()(const Item&) const {}
+};
+
+template <typename T, int L, int NTEAM, class ItemDone = NoItemDone>
+__device__ __forceinline__ void fwd_teams(const FwdArgs& args, unsigned char* smem, int first, int stride,
+                                          ItemDone item_done = {}) {
+  const int team = threadIdx.x / THREADS;
+  const FwdSmem<T> s = fwd_carve<T, L, NTEAM>(smem, team);
+  const int work = args.G * args.B;
+
+  // prologue: the weights and each team's first tile in flight together
+  if constexpr (FwdLayout<T, L>::kBf16) stage_weights_async<L>(s.Ws, args);
+  fwd_params<T, L>(args, s.prm);
+  Item cur = load_item(args, first, work);
+  int t = 0;
+  RowLoad rl = load_indices(args, cur, 0);
+  for (int which = 0; which < 3; ++which) load_rows_async<T, L>(args, rl, s, which);
+  Item nxt;
+  int nt;
+  next_tile(args, cur, 0, work, stride, nxt, nt);
+  cp_async_wait_all();
+  __syncthreads();  // weights, parameters and every team's first tile have landed
+
+  while (cur.w >= 0) {
+    Item after;
+    int at;
+    next_tile(args, nxt, nt, work, stride, after, at);  // its edge range, a tile early
+    const int ts = cur.e0 + t * TILE, te = min(ts + TILE, cur.e1);
+    fwd_tile<T, L>(args, s, cur.b, cur.n0, cur.n1, t, ts, te, [&](int stage) {
+      if (stage == 0) {
+        rl = load_indices(args, nxt, nt);
+      } else {
+        load_rows_async<T, L>(args, rl, s, 3 - stage);  // RP rows into rT, then SP rows into xT
+      }
+    });
+    if constexpr (!std::is_same<ItemDone, NoItemDone>::value) {
+      if (t + 1 == item_tiles(cur)) item_done(cur);
+    }
+    load_rows_async<T, L>(args, rl, s, 0);  // fwd_tile ended in the team's barrier
+    cp_async_wait_all();
+    team_sync();
+    cur = nxt;
+    t = nt;
+    nxt = after;
+    nt = at;
   }
 }
 

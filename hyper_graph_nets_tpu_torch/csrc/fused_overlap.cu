@@ -2,39 +2,49 @@
 // (sm_90a).
 //
 // Replaces hyper_graph_nets_tpu/ops/pallas/fused_overlap.py::_overlap_kernel
-// (pallas_call at :390).  One launch per rank of a group, on the rank's
-// stream, over the rank's edge shard (one frame): it computes the shard's e2
-// as K1 does (the same fwd_item, fused_block_fwd.cuh), its raw pna partials,
-// and combines them over the ranks while later groups still compute, then
-// finalizes: agg = [sum | sum / max(cnt, 1) | max | min], 0 where no rank
-// has a valid edge.  e2 equals K1's on the same shard bit for bit; agg
-// equals K1 raw + the plain all-reduce + finalize up to the float32 sum
-// order of the raw partials (the ring folds the ranks in the JAX order).
+// (pallas_call at :390).  One kernel per rank of a group, each on the
+// rank's stream and card, all launched by one C call, over the rank's edge
+// shard (one frame): it computes the shard's e2 as K1 does (the same
+// fwd_teams and fwd_tile, fused_block_fwd.cuh), its raw pna partials, and
+// combines them over the ranks band by band while later work items still
+// compute, then finalizes: agg = [sum | sum / max(cnt, 1) | max | min], 0
+// where no rank has a valid edge.  e2 equals K1's on the same shard bit for
+// bit; agg equals K1 raw + the plain all-reduce + finalize up to the
+// float32 sum order of the raw partials (the ring folds the ranks in the
+// JAX order).
 //
 // What bounds it.  Per rank at the main path's shard (2,560 edges, N =
 // 1,600, L = 128, bf16): K1's traffic for the shard (e, SP, RP in, e2 and
-// the [N, 4L] float32 partials out, about 5.3 MB) plus the ring's (ring.cu)
-// on 3.28 MB; the three L x L products are 0.25 GFLOP.  Bound by memory;
+// the [N, 4L] float32 partials out, about 5.3 MB) plus the ring's 2nP on
+// P = 3.28 MB; the three L x L products are 0.25 GFLOP.  Bound by memory;
 // on one card the ranks share its memory rate.
 //
 // Design.
 // - The node rows are split into nb bands of rb rows (the wrapper splits
 //   each of the plan's bands into sub-bands, so that about half a rank's
-//   CTAs ring).  CTAs 0 .. nb-1 are the band rings, the others compute: persistent CTAs over the shard's
-//   groups (whole receiver segments, in receiver order).  A compute CTA
-//   that finishes a group adds one to the counter of every band the group's
-//   rows touch; with the round-robin edge layout every rank's groups span
-//   all rows, so early bands complete while later groups compute.
-// - Band b's CTA signals its barrier at once, counts the groups that touch
-//   its rows, waits until the counter reaches that count (and resets it for
-//   the next call), then runs the ring of ring_common.cuh over its rows
-//   (columns [0, 2L) sum, [2L, 3L) max, [3L, 4L) min) and finalizes them.
+//   CTAs ring).  CTAs 0 .. nb-1 are the band rings; the others compute.
+// - Compute CTAs run K1's two teams of 8 warps sharing the staged weights
+//   (fwd_teams), persistent over the work list the wrapper builds: the
+//   groups of the shard's valid prefix (whole receiver segments, in receiver
+//   order), then the padded tail (the trailing edges with mask 0) as e2-only
+//   items of at most TILE edges with no receivers.  So the tail's padding
+//   edges, all at receiver N-1, are no longer one team's serial chain in
+//   front of the last band: receiver N-1's aggregate comes from its valid
+//   edges alone (the same value bit for bit: masked edges are skipped, not
+//   added as 0).  A team that finishes a group adds one to the counter of
+//   every band the group's rows touch; with the round-robin edge layout
+//   every rank's groups span all rows, so early bands complete while later
+//   items compute.
+// - Band b's CTA counts the groups that touch its rows, waits until its
+//   counter reaches that count (and resets it for the next call), then runs
+//   ring_run (ring_common.cuh) over its rows (columns [0, 2L) sum, [2L, 3L)
+//   max, [3L, 4L) min), in chunks of whole rows held in the kernel's shared
+//   memory, and finalizes each chunk there before its TMA copy to agg.  A
+//   ring CTA computes nothing and uses all its threads for the ring.
 // - Every CTA of every rank must be resident together (the band rings spin
 //   on their neighbours): the wrapper keeps a rank's grid at most SMs /
-//   (ranks on the card).  K1's shared memory means one CTA per SM.
-// - Copies, folds and the finalize keep UNROLL 16-byte loads in flight per
-//   thread: a ring CTA alone has to move its band at a useful rate.
-// Later work: pipelining hops of different bands, TMA bulk copies.
+//   (ranks on the card), ring CTAs included.  K1's shared memory means one
+//   CTA per SM.
 
 #include "fused_block_fwd.cuh"
 #include "ring_common.cuh"
@@ -43,6 +53,12 @@ namespace {
 
 using namespace hgn;
 using namespace hgn_ring;
+
+constexpr int NTEAM = 2;      // compute CTAs: K1's teams
+#ifndef HGN_RING_CHUNK  // a tuning build's (tools/torch_port/ring_sweep.py)
+#define HGN_RING_CHUNK 16384
+#endif
+constexpr int CHUNK = HGN_RING_CHUNK;  // ring chunk: floats at most (64 KB)
 
 struct OvArgs {
   int nb, rb;          // bands, rows per band
@@ -55,52 +71,25 @@ struct OvArgs {
   int n, rank;
   u64 epoch;
   int* err;
+  bool sys;  // the ranks span several cards
 };
 
-template <typename T, int L>
-__device__ void band_ring(const FwdArgs& args, const OvArgs& ov) {
-  const int b = blockIdx.x;
-  const int lo = b * ov.rb, hi = min(args.N, lo + ov.rb);
-  if (lo >= hi) return;  // the same on every rank
-  const size_t off = (size_t)b * FLAG_WORDS;
-  const Ring R{ov.flags_mine + off, ov.flags_left + off, ov.flags_right + off, ov.slot_mine,
-               ov.slot_right, (size_t)args.N * 4 * L, ov.n, ov.rank, b, ov.epoch, ov.err};
-  if (ov.n > 1) ring_barrier(R);
-  if (threadIdx.x == 0) {
-    unsigned want = 0;
-    for (int g = 0; g < args.G; ++g) want += args.groups[g] < hi && args.groups[g + 1] > lo;
-    wait_ge<unsigned>(ov.counters + b, want, R, W_BAND, -1);
-    *reinterpret_cast<volatile unsigned*>(ov.counters + b) = 0u;  // every increment is in
-  }
-  __syncthreads();
-  const size_t e0 = (size_t)lo * 4 * L, e1 = (size_t)hi * 4 * L;
-  ring_steps<4>(R, args.agg, args.agg, e0, e1, [](size_t e) {
-    const int c = (int)(e % (4 * L));
-    return c < 2 * L ? (int)SUM : (c < 3 * L ? (int)MAX : (int)MIN);
-  });
-  __syncthreads();
-  // finalize, four floats at a time: the count columns become the mean,
-  // empty extrema 0
-  float4* agg4 = reinterpret_cast<float4*>(args.agg);
-  const size_t v0 = e0 / 4, v1 = e1 / 4;  // a row is L float4s
-  for (size_t v = v0 + threadIdx.x; v < v1; v += UNROLL * blockDim.x) {
-    float4 x[UNROLL], sm[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const size_t w = v + u * blockDim.x;
-      const int c = (int)(w % L) * 4;  // column of the vector's first float
-      if (w < v1 && c >= L) x[u] = __ldcg(agg4 + w);
-      if (w < v1 && c >= L && c < 2 * L) sm[u] = __ldcg(agg4 + w - L / 4);
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const size_t w = v + u * blockDim.x;
-      const int c = (int)(w % L) * 4;
-      if (w >= v1 || c < L) continue;
-      float4 o = x[u];
+// The finalize of a chunk of whole [N, 4L] rows in shared memory, by the
+// ring's workers: the count columns become the mean, empty extrema 0; four
+// floats a time, a row is L float4s.
+template <int L>
+struct Finalize {
+  static constexpr bool active = true;
+  __device__ void operator()(float* acc, size_t, int cnt, int wt, int nwk) const {
+    float4* a4 = reinterpret_cast<float4*>(acc);
+    for (int v = wt; v < cnt / 4; v += nwk) {
+      const int c = (v % L) * 4;  // column of the vector's first float
+      if (c < L) continue;
+      float4 o = a4[v];
       if (c < 2 * L) {
-        o = make_float4(sm[u].x / fmaxf(o.x, 1.f), sm[u].y / fmaxf(o.y, 1.f),
-                        sm[u].z / fmaxf(o.z, 1.f), sm[u].w / fmaxf(o.w, 1.f));
+        const float4 sm = a4[v - L / 4];
+        o = make_float4(sm.x / fmaxf(o.x, 1.f), sm.y / fmaxf(o.y, 1.f), sm.z / fmaxf(o.z, 1.f),
+                        sm.w / fmaxf(o.w, 1.f));
       } else if (c < 3 * L) {
         o = make_float4(o.x <= -BIG / 2 ? 0.f : o.x, o.y <= -BIG / 2 ? 0.f : o.y,
                         o.z <= -BIG / 2 ? 0.f : o.z, o.w <= -BIG / 2 ? 0.f : o.w);
@@ -108,46 +97,134 @@ __device__ void band_ring(const FwdArgs& args, const OvArgs& ov) {
         o = make_float4(o.x >= BIG / 2 ? 0.f : o.x, o.y >= BIG / 2 ? 0.f : o.y,
                         o.z >= BIG / 2 ? 0.f : o.z, o.w >= BIG / 2 ? 0.f : o.w);
       }
-      __stcg(agg4 + w, o);
+      a4[v] = o;
     }
   }
+};
+
+template <typename T, int L>
+__device__ void band_ring(const FwdArgs& args, const OvArgs& ov, unsigned char* smem) {
+  const int b = blockIdx.x;
+  const int lo = b * ov.rb, hi = min(args.N, lo + ov.rb);
+  const size_t off = (size_t)b * FLAG_WORDS;
+  const Ring R{ov.flags_mine + off, ov.flags_left + off, ov.flags_right + off, ov.slot_mine,
+               ov.slot_right, (size_t)args.N * 4 * L, ov.n, ov.rank, b, ov.epoch, ov.err, ov.sys};
+  // the band's compute: every group that touches its rows has counted
+  auto wait_band = [&](RingClock& clk) {
+    unsigned want = 0;
+    for (int g = 0; g < args.G; ++g) want += args.groups[g] < hi && args.groups[g + 1] > lo;
+    wait_ge<unsigned>(ov.counters + b, want, R, W_BAND, -1);
+    *reinterpret_cast<volatile unsigned*>(ov.counters + b) = 0u;  // every increment is in
+    clk.mark(P_BAND);
+  };
+  // chunks of whole rows: at most CHUNK floats, and NSTAGE stages and one
+  // accumulator within the compute CTAs' shared memory
+  constexpr size_t SMEM = FwdLayout<T, L, NTEAM>::total;
+  constexpr int ROW = 4 * L;
+  constexpr int FIT = (int)((SMEM - BAR_BYTES) / sizeof(float) / (NSTAGE + 1)) / ROW * ROW;
+  static_assert(FIT >= ROW, "a ring chunk of one row must fit beside the stages");
+  constexpr int CAP = CHUNK < ROW ? ROW : CHUNK / ROW * ROW;
+  constexpr int MAX_CHUNK = CAP < FIT ? CAP : FIT;
+  const size_t e0 = (size_t)lo * ROW, e1 = (size_t)max(lo, hi) * ROW;
+  ring_run<4>(R, smem, SMEM, args.agg, args.agg, e0, e1, ROW, MAX_CHUNK,
+              [](size_t e) {
+                const int c = (int)(e % ROW);
+                return c < 2 * L ? (int)SUM : (c < 3 * L ? (int)MAX : (int)MIN);
+              },
+              Finalize<L>{}, wait_band);
 }
 
 template <typename T, int L>
-__global__ void __launch_bounds__(THREADS, 1) fused_overlap_kernel(const FwdArgs args,
-                                                                   const OvArgs ov) {
+__global__ void __launch_bounds__(NTEAM * THREADS, 1) fused_overlap_kernel(const FwdArgs args,
+                                                                           const OvArgs ov) {
+  extern __shared__ __align__(128) unsigned char smem[];
   if ((int)blockIdx.x < ov.nb) {
-    band_ring<T, L>(args, ov);
+    band_ring<T, L>(args, ov, smem);
     return;
   }
-  extern __shared__ __align__(16) unsigned char smem[];
-  const FwdSmem<T> s = fwd_setup<T, L>(args, smem);
-  const int stride = gridDim.x - ov.nb;
-  for (int g = blockIdx.x - ov.nb; g < args.G; g += stride) {
-    fwd_item<T, L>(args, s, 0, g);
-    __threadfence();  // this CTA's e2 and partials, before the count
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      const int n0 = args.groups[g], n1 = args.groups[g + 1];
-      for (int b = n0 / ov.rb; b <= (n1 - 1) / ov.rb && b < ov.nb; ++b) atomicAdd(ov.counters + b, 1u);
-    }
-  }
+  const int c = blockIdx.x - ov.nb, nc = gridDim.x - ov.nb;
+  const long long t0 = compute_clock();
+  unsigned items = 0;
+  fwd_teams<T, L, NTEAM>(args, smem, c + (int)(threadIdx.x / THREADS) * nc, NTEAM * nc, [&](const Item& it) {
+    ++items;
+    if (it.n1 <= it.n0) return;  // a tail item: e2 only, no band
+    __threadfence();             // this team's e2 and partials, before the count
+    team_sync();
+    if (team_tid() == 0)
+      for (int b = it.n0 / ov.rb; b <= (it.n1 - 1) / ov.rb && b < ov.nb; ++b) atomicAdd(ov.counters + b, 1u);
+  });
+  if (team_tid() == 0) compute_done(t0, items);
 }
 
+}  // namespace
+
+// One rank's shard, buffers and neighbours (ops/fused_overlap.py builds one
+// per rank, in rank order).  groups / group_edges are K7's work list (the
+// valid prefix's groups, then the tail items), row_ptr the valid prefix's.
+struct OvRank {
+  const void* e;
+  const void* sp;
+  const void* rp;
+  const void* we;
+  const void* w2;
+  const void* w3;
+  const float* b1;
+  const float* b2;
+  const float* b3;
+  const float* lns;
+  const float* lnb;
+  const int* senders;
+  const int* receivers;
+  const float* mask;
+  const int* row_ptr;
+  const int* groups;
+  const int* group_edges;
+  void* e2;
+  float* agg;
+  int E, G, grid;
+  void* flags_mine;
+  void* flags_left;
+  void* flags_right;
+  float* slot_mine;
+  float* slot_right;
+  unsigned* counters;
+  int device;
+  void* stream;
+};
+
+namespace {
+
 template <typename T, int L>
-int launch(const FwdArgs& a, const OvArgs& ov, int grid, cudaStream_t stream) {
-  const int cap = fwd_grid_cap<T, L>(fused_overlap_kernel<T, L>);
-  if (cap < 0) return -cap;
-  if (grid <= ov.nb || grid > cap) return -1;
-  fused_overlap_kernel<T, L><<<grid, THREADS, FwdLayout<T, L>::total, stream>>>(a, ov);
-  return (int)cudaGetLastError();
+int launch_group(int n, const OvRank* ranks, int N, int nb, int rb, unsigned long long epoch, int* err) {
+  bool sys = FORCE_SYS;  // the ranks span several cards
+  for (int r = 0; r < n; ++r) sys |= ranks[r].device != ranks[0].device;
+  int rc = 0;
+  for (int r = 0; r < n && rc == 0; ++r) {
+    const OvRank& k = ranks[r];
+    cudaError_t e = cudaSetDevice(k.device);
+    if (e != cudaSuccess) return (int)e;
+    const int cap = fwd_grid_cap<T, L, NTEAM>(fused_overlap_kernel<T, L>);
+    if (cap < 0) return -cap;
+    if (k.grid <= nb || k.grid > cap) return -1;
+    // one frame, raw partials, no streams
+    const FwdArgs a{k.e, k.sp, k.rp, k.we, k.w2, k.w3, k.b1, k.b2, k.b3, k.lns, k.lnb, k.senders,
+                    k.receivers, k.mask, k.row_ptr, k.groups, k.e2, k.agg, nullptr, nullptr, nullptr,
+                    nullptr, 1, k.E, N, k.G, 1, k.group_edges};
+    const OvArgs ov{nb, rb, static_cast<u64*>(k.flags_mine), static_cast<u64*>(k.flags_left),
+                    static_cast<u64*>(k.flags_right), k.slot_mine, k.slot_right, k.counters, n, r, epoch, err,
+                    sys};
+    fused_overlap_kernel<T, L>
+        <<<k.grid, NTEAM * THREADS, FwdLayout<T, L, NTEAM>::total, static_cast<cudaStream_t>(k.stream)>>>(a, ov);
+    rc = (int)cudaGetLastError();
+  }
+  return rc;
 }
 
 template <typename T>
-int dispatch_width(int L, const FwdArgs& a, const OvArgs& ov, int grid, cudaStream_t s) {
+int dispatch_width(int L, int n, const OvRank* ranks, int N, int nb, int rb, unsigned long long epoch, int* err) {
   switch (L) {
-    case 32: return launch<T, 32>(a, ov, grid, s);
-    case 128: return launch<T, 128>(a, ov, grid, s);
+    case 32: return launch_group<T, 32>(n, ranks, N, nb, rb, epoch, err);
+    case 128: return launch_group<T, 128>(n, ranks, N, nb, rb, epoch, err);
     default: return -1;
   }
 }
@@ -156,38 +233,22 @@ int dispatch_width(int L, const FwdArgs& a, const OvArgs& ov, int grid, cudaStre
 
 extern "C" {
 
-// One frame (B = 1) of the rank's shard; dtype 0 = float32, 1 = bfloat16.
-// grid = nb band CTAs + the compute CTAs.  Returns 0, a cudaError_t code,
-// or -1 for arguments the kernel does not take.
-int hgn_fused_overlap(int dtype, int L, const void* e, const void* sp, const void* rp,
-                      const void* we, const void* w2, const void* w3, const float* b1,
-                      const float* b2, const float* b3, const float* lns, const float* lnb,
-                      const int* senders, const int* receivers, const float* mask,
-                      const int* row_ptr, const int* groups, void* e2, float* agg, int E, int N,
-                      int G, int nb, int rb, void* flags_mine, void* flags_left,
-                      void* flags_right, float* slot_mine, float* slot_right, unsigned* counters,
-                      int n, int rank, unsigned long long epoch, int* err, int grid,
-                      void* stream) {
-  if (nb < 1 || rb < 1 || (long long)nb * rb < N || n < 1 || n >= (int)STEP_SPAN) return -1;
-  FwdArgs a{e,       sp,      rp,     we, w2,  w3,      b1,      b2,      b3, lns, lnb, senders,
-            receivers, mask,  row_ptr, groups, e2, agg, nullptr, nullptr, nullptr, nullptr,
-            1,       E,       N,      G,  1};
-  OvArgs ov{nb,
-            rb,
-            static_cast<u64*>(flags_mine),
-            static_cast<u64*>(flags_left),
-            static_cast<u64*>(flags_right),
-            slot_mine,
-            slot_right,
-            counters,
-            n,
-            rank,
-            epoch,
-            err};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_width<float>(L, a, ov, grid, s);
-  if (dtype == 1) return dispatch_width<bf16>(L, a, ov, grid, s);
-  return -1;
+// Launch every rank's K7 (one frame, B = 1), rank 0 first, each on its
+// device and stream; dtype 0 = float32, 1 = bfloat16.  A rank's grid = nb
+// band CTAs + its compute CTAs.  Returns 0, a cudaError_t code, or -1 for
+// arguments the kernel does not take.  A failed launch stops the loop: the
+// ranks launched before it then fail through the error word.
+int hgn_fused_overlap_group(int dtype, int L, int n, const OvRank* ranks, int N, int nb, int rb,
+                            unsigned long long epoch, int* err) {
+  if (nb < 1 || rb < 1 || (long long)nb * rb < N || n < 1) return -1;
+  int prev = 0;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e != cudaSuccess) return (int)e;
+  int rc = -1;
+  if (dtype == 0) rc = dispatch_width<float>(L, n, ranks, N, nb, rb, epoch, err);
+  if (dtype == 1) rc = dispatch_width<bf16>(L, n, ranks, N, nb, rb, epoch, err);
+  cudaSetDevice(prev);
+  return rc;
 }
 
 const char* hgn_cuda_error_string(int code) {

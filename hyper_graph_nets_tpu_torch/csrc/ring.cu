@@ -4,27 +4,36 @@
 // (its kernel at :60, pallas_call at :134).  Every rank of a group holds a
 // float32 partial x_r [R, C]; each row segment (lo, hi, op) is combined
 // over the ranks with sum, max or min, rows outside every segment keep
-// x_r.  One launch per rank, on that rank's stream, all n enqueued before
-// any host synchronization; the protocol is ring_common.cuh's.  Each rank
-// folds x_r, x_{r-1}, ..., x_{r-n+1} in that order, as the JAX ring does, so
-// the result equals the plain version (ops/ring.py) bit for bit.
+// x_r.  One C call launches every rank's kernel, each on that rank's stream
+// and card, so the ranks start within microseconds of each other; the
+// protocol is ring_common.cuh's.  Each rank folds x_r, x_{r-1}, ...,
+// x_{r-n+1} in that order, as the JAX ring does, so the result equals the
+// plain version (ops/ring.py) bit for bit.
 //
 // What bounds it.  At the halo forward's payload ([4N, L] = [6,400, 128],
-// 3.28 MB per rank) the work is data movement: the function reads n
-// partials and writes n results; the ring as built moves, per rank, x read
-// and out written (2P) and at each of the n-1 hops P read and written to
-// the neighbour, P read back and out read and written (5P).  On one card the
-// n ranks share its memory rate.
+// P = 3.28 MB per rank) the work is data movement: the function reads n
+// partials and writes n results (2nP over the group); the hop schedule
+// moves, per rank, x read and out written and n-1 messages each written
+// once and read once, 2nP again.  On one card the n ranks share its memory
+// rate.
 //
-// Design (simple and right first).
-// - The rows are split into `grid` contiguous blocks, one CTA each; CTA c
-//   of every rank runs its own sub-ring over its rows with its own flag
-//   row, so no CTA waits for another CTA of its rank.
-// - Each rank's grid is at most SMs / (ranks on the card): every CTA of
-//   every rank can be resident at once, which the spinning needs.
-// - Copies and folds go through L2 (__ldcg / __stcg): slots are written by
-//   another SM or another card.
-// Later work: TMA bulk copies, fewer fences, a fold fused into the copy.
+// Design.
+// - The payload's float4s are split into `grid` contiguous sub-rings, one
+//   CTA each; CTA c of every rank runs its own ring over its floats with its
+//   own flag row, so no CTA waits for another CTA of its rank.  Sub-ring
+//   bounds need not fall on rows: the op is looked up per float (per float4
+//   when C % 4 == 0).
+// - ring_run (ring_common.cuh): the accumulator in shared memory, a chunk
+//   at a time signalled on its own, TMA bulk copies for x, the own slot and
+//   out, one pass that folds each received chunk and forwards it.  Chunks
+//   are at most CHUNK floats, made equal; a window is as many as SMEM holds.
+//   Fewer, larger chunks won: each chunk costs the control thread a flag
+//   round trip (tools/torch_port/ring_sweep.py times 16 KB against 64 KB).
+// - Each rank's grid is at most SMs / (ranks on the card), one CTA per SM:
+//   every CTA of every rank can be resident at once, which the spinning
+//   needs.
+// - The wrapper hands 16-byte aligned buffers whose float count is a
+//   multiple of 4 (it pads an odd payload).
 
 #include <cuda_runtime.h>
 
@@ -34,11 +43,17 @@ namespace {
 
 using namespace hgn_ring;
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 512;            // the control warp and 15 worker warps
+#ifndef HGN_RING_CHUNK  // a tuning build's (tools/torch_port/ring_sweep.py)
+#define HGN_RING_CHUNK 16384
+#endif
+constexpr int CHUNK = HGN_RING_CHUNK;  // floats per chunk at most (64 KB)
+constexpr size_t SMEM = 200 * 1024;     // stages and accumulators of one sub-ring
 constexpr int MAX_SEGMENTS = 8;
+constexpr int MAX_DEVICES = 64;
 
 struct RingArgs {
-  const float* x;  // [R][C] my partial
+  const float* x;  // [R][C] (padded to a multiple of 4 floats) my partial
   float* out;      // [R][C] my result
   int R, C;
   int nseg;
@@ -46,48 +61,75 @@ struct RingArgs {
   u64* flags_mine;  // [grid][FLAG_WORDS]
   u64* flags_left;
   u64* flags_right;
-  float* slot_mine;  // [2][R * C]
+  float* slot_mine;  // [2][P]
   float* slot_right;
+  size_t P;  // floats per slot: R * C rounded up to 4
   int n, rank;
   u64 epoch;
   int* err;
+  bool sys;  // the ranks span several cards
 };
 
 template <int VEC>
-__global__ void __launch_bounds__(THREADS) ring_kernel(const RingArgs a) {
+__global__ void __launch_bounds__(THREADS, 1) ring_kernel(const RingArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
   const int sub = blockIdx.x, subs = gridDim.x;
-  const int r0 = (int)((long long)a.R * sub / subs), r1 = (int)((long long)a.R * (sub + 1) / subs);
-  const size_t e0 = (size_t)r0 * a.C, e1 = (size_t)r1 * a.C;
-  using V = typename std::conditional<VEC == 4, float4, float>::type;
-  copy_range(reinterpret_cast<V*>(a.out), reinterpret_cast<const V*>(a.x), e0 / VEC, e1 / VEC);
-  if (a.n < 2) return;
+  const size_t nv = a.P / 4;
+  const size_t e0 = 4 * (nv * sub / subs), e1 = 4 * (nv * (sub + 1) / subs);
   const size_t off = (size_t)sub * FLAG_WORDS;
   const Ring R{a.flags_mine + off, a.flags_left + off, a.flags_right + off, a.slot_mine,
-               a.slot_right, (size_t)a.R * a.C, a.n, a.rank, sub, a.epoch, a.err};
-  ring_barrier(R);
+               a.slot_right, a.P, a.n, a.rank, sub, a.epoch, a.err, a.sys};
   const int C = a.C;
-  ring_steps<VEC>(R, a.x, a.out, e0, e1, [&](size_t e) {
+  ring_run<VEC>(R, smem, SMEM, a.x, a.out, e0, e1, 4, CHUNK, [&](size_t e) {
     const int row = (int)(e / C);
     for (int k = 0; k < a.nseg; ++k)
       if (row >= a.seg_lo[k] && row < a.seg_hi[k]) return a.seg_op[k];
     return (int)KEEP;
-  });
+  }, NoFinalize{}, NoWait{});
+}
+
+// The kernels' shared memory, set once per device ordinal.
+int prepare(int dev) {
+  static bool done[MAX_DEVICES] = {};
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (done[dev]) return 0;
+  cudaError_t err = cudaFuncSetAttribute(ring_kernel<4>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ring_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  if (err != cudaSuccess) return (int)err;
+  done[dev] = true;
+  return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// seg: nseg (lo, hi, op) triples on the host, op 0 sum, 1 max, 2 min.
-// Returns 0, a cudaError_t code, or -1 for arguments the kernel does not take.
-int hgn_ring_all_reduce(const float* x, float* out, int R, int C, int nseg, const int* seg,
-                        void* flags_mine, void* flags_left, void* flags_right, float* slot_mine,
-                        float* slot_right, int n, int rank, unsigned long long epoch, int* err,
-                        int grid, void* stream) {
-  if (nseg < 0 || nseg > MAX_SEGMENTS || grid < 1 || n < 1 || n >= (int)STEP_SPAN) return -1;
+// One rank's buffers and neighbours (ops/ring.py builds one per rank, in
+// rank order).
+struct RingRank {
+  const float* x;
+  float* out;
+  void* flags_mine;
+  void* flags_left;
+  void* flags_right;
+  float* slot_mine;
+  float* slot_right;
+  int device;
+  void* stream;
+};
+
+// Launch every rank's K6, rank 0 first, each on its device and stream.
+// seg: nseg (lo, hi, op) triples on the host, op 0 sum, 1 max, 2 min;
+// P: floats per payload, a multiple of 4 (R * C rounded up).  Returns 0, a
+// cudaError_t code, or -1 for arguments the kernel does not take.  A failed
+// launch stops the loop: the ranks launched before it then fail through the
+// error word.
+int hgn_ring_all_reduce_group(int n, const RingRank* ranks, int R, int C, unsigned long long P, int nseg,
+                              const int* seg, unsigned long long epoch, int* err, int grid) {
+  if (nseg < 0 || nseg > MAX_SEGMENTS || grid < 1 || n < 1 || P % 4 || P < (unsigned long long)R * C)
+    return -1;
   RingArgs a{};
-  a.x = x;
-  a.out = out;
   a.R = R;
   a.C = C;
   a.nseg = nseg;
@@ -96,24 +138,44 @@ int hgn_ring_all_reduce(const float* x, float* out, int R, int C, int nseg, cons
     a.seg_hi[k] = seg[3 * k + 1];
     a.seg_op[k] = seg[3 * k + 2];
   }
-  a.flags_mine = static_cast<u64*>(flags_mine);
-  a.flags_left = static_cast<u64*>(flags_left);
-  a.flags_right = static_cast<u64*>(flags_right);
-  a.slot_mine = slot_mine;
-  a.slot_right = slot_right;
+  a.P = P;
   a.n = n;
-  a.rank = rank;
   a.epoch = epoch;
   a.err = err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = C % 4 == 0 && (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out) |
-                                  reinterpret_cast<uintptr_t>(slot_mine) |
-                                  reinterpret_cast<uintptr_t>(slot_right)) % 16 == 0;
-  if (vec)
-    ring_kernel<4><<<grid, THREADS, 0, s>>>(a);
-  else
-    ring_kernel<1><<<grid, THREADS, 0, s>>>(a);
-  return (int)cudaGetLastError();
+  a.sys = FORCE_SYS;
+  for (int r = 0; r < n; ++r) a.sys |= ranks[r].device != ranks[0].device;
+  int prev = 0;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e != cudaSuccess) return (int)e;
+  int rc = 0;
+  for (int r = 0; r < n && rc == 0; ++r) {
+    const RingRank& k = ranks[r];
+    if ((reinterpret_cast<uintptr_t>(k.x) | reinterpret_cast<uintptr_t>(k.out) |
+         reinterpret_cast<uintptr_t>(k.slot_mine) | reinterpret_cast<uintptr_t>(k.slot_right)) % 16) {
+      rc = -1;
+      break;
+    }
+    if ((e = cudaSetDevice(k.device)) != cudaSuccess || (rc = prepare(k.device)) != 0) {
+      rc = rc ? rc : (int)e;
+      break;
+    }
+    a.x = k.x;
+    a.out = k.out;
+    a.flags_mine = static_cast<u64*>(k.flags_mine);
+    a.flags_left = static_cast<u64*>(k.flags_left);
+    a.flags_right = static_cast<u64*>(k.flags_right);
+    a.slot_mine = k.slot_mine;
+    a.slot_right = k.slot_right;
+    a.rank = r;
+    cudaStream_t s = static_cast<cudaStream_t>(k.stream);
+    if (C % 4 == 0)
+      ring_kernel<4><<<grid, THREADS, SMEM, s>>>(a);
+    else
+      ring_kernel<1><<<grid, THREADS, SMEM, s>>>(a);
+    rc = (int)cudaGetLastError();
+  }
+  cudaSetDevice(prev);
+  return rc;
 }
 
 // Let `dev` write into `peer`'s memory (a rank group over several cards).

@@ -75,6 +75,9 @@ class SegmentPlan:
     # node-row bands of the compute-overlapped halo ring (K7, ops/
     # fused_overlap.py) for a rank's edge shard; 0: no overlap
     overlap_bands: int = 0
+    # K7's work list for the shard (ops.fused_overlap.OverlapWork, built by
+    # ops.fused_overlap.overlap_plan), or None
+    overlap: Optional[object] = None
 
     @property
     def num_groups(self) -> int:
@@ -89,6 +92,7 @@ class SegmentPlan:
             snd_perm=move(self.snd_perm),
             snd_ptr=move(self.snd_ptr),
             group_edges=move(self.group_edges),
+            overlap=None if self.overlap is None else self.overlap.to(device),
         )
 
 

@@ -15,18 +15,23 @@ the chunk round-robin edge layout (:func:`chunk_roundrobin_permutation`,
 used by ``parallel.sharding.shard_topology``) every rank's shard spans all
 rows in receiver order, so early bands finish first.  The kernel keeps a
 counter of finished groups per band on the card, so it needs no host-built
-schedule (the JAX package's ``build_overlap_schedule``).
+schedule (the JAX package's ``build_overlap_schedule``); its work list
+(:class:`OverlapWork`: the groups of the shard's valid prefix, then the
+padded tail as e2-only items) is built on the host with the plan
+(:func:`overlap_plan`).
 
-On CUDA tensors :func:`fused_edge_block_overlap` launches K7
-(``csrc/fused_overlap.cu``) once per rank on the rank's stream, all before
-any host synchronization (``fused_edge_block_overlap.launches``, one per
-rank).  On CPU tensors it runs the plain version: K1's plain version in raw
-mode per rank, K6's plain version over the columns ``[0, 2L)`` sum,
-``[2L, 3L)`` max, ``[3L, 4L)`` min, then the finalize.
+On CUDA tensors :func:`fused_edge_block_overlap` checks and allocates
+everything first, then launches K7 (``csrc/fused_overlap.cu``) on every
+rank by one C call, each rank's kernel on its card and stream
+(``fused_edge_block_overlap.launches``, one per rank).  On CPU tensors it
+runs the plain version: K1's plain version in raw mode per rank, K6's plain
+version over the columns ``[0, 2L)`` sum, ``[2L, 3L)`` max, ``[3L, 4L)``
+min, then the finalize.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,21 +45,31 @@ from hyper_graph_nets_tpu_torch.parallel.group import MAX_BANDS
 SOURCE = "fused_overlap.cu"
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
-_SIGNATURE = [_ci, _ci] + [_vp] * 18 + [_ci] * 5 + [_vp] * 6 + [_ci, _ci, ctypes.c_ulonglong, _vp, _ci, _vp]
-_libs: Dict[str, ctypes.CDLL] = {}
+_POINTERS = ("e", "sp", "rp", "we", "w2", "w3", "b1", "b2", "b3", "lns", "lnb", "senders", "receivers",
+             "mask", "row_ptr", "groups", "group_edges", "e2", "agg")
 
 
-def _lib() -> ctypes.CDLL:
-    if SOURCE not in _libs:
-        from hyper_graph_nets_tpu_torch.ops import build
+class OvRank(ctypes.Structure):
+    """One rank's entry of ``hgn_fused_overlap_group`` (``csrc/fused_overlap.cu``)."""
 
-        lib = build.load(build.source_path(SOURCE))
-        lib.hgn_fused_overlap.argtypes = _SIGNATURE
-        lib.hgn_fused_overlap.restype = _ci
-        lib.hgn_cuda_error_string.argtypes = [_ci]
-        lib.hgn_cuda_error_string.restype = ctypes.c_char_p
-        _libs[SOURCE] = lib
-    return _libs[SOURCE]
+    _fields_ = (
+        [(name, _vp) for name in _POINTERS]
+        + [("E", _ci), ("G", _ci), ("grid", _ci)]
+        + [(name, _vp) for name in ("flags_mine", "flags_left", "flags_right", "slot_mine", "slot_right",
+                                    "counters")]
+        + [("device", _ci), ("stream", _vp)]
+    )
+
+
+_SIGNATURES = {
+    "hgn_fused_overlap_group": [_ci, _ci, _ci, _vp, _ci, _ci, _ci, ctypes.c_ulonglong, _vp],
+    "hgn_cuda_error_string": [_ci],
+}
+
+
+def _lib(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """K7's library (with ``defines``: ``ring.RING_PHASES``, the probe)."""
+    return ring._lib(SOURCE, defines, _SIGNATURES)
 
 
 def chunk_roundrobin_permutation(n_edges_padded: int, num_shards: int, chunk: int) -> np.ndarray:
@@ -72,6 +87,66 @@ def chunk_roundrobin_permutation(n_edges_padded: int, num_shards: int, chunk: in
     n_chunks = n_edges_padded // chunk
     order = np.concatenate([np.arange(s, n_chunks, num_shards) for s in range(num_shards)])
     return (order[:, None] * chunk + np.arange(chunk)[None, :]).reshape(-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class OverlapWork:
+    """K7's work list for one rank's shard.  The valid prefix is the edges
+    up to the last one with a mask above 0 (in the round-robin layout, every
+    valid edge), the tail the masked edges after it (the padding).  Items
+    ``g < num_groups`` are the valid prefix's groups (``plan_segments`` of
+    it), the others the tail in pieces of at most ``TILE`` edges:
+    ``groups[g]:groups[g+1]`` are item g's receivers (none for a tail item:
+    both are N), ``group_edges[g]:group_edges[g+1]`` its edges, and
+    ``row_ptr`` [N + 1] the valid prefix's receiver segments.  A tail item
+    writes e2 and no aggregate row, and no band waits for it."""
+
+    row_ptr: torch.Tensor  # [N + 1] int32
+    groups: torch.Tensor  # [items + 1] int32
+    group_edges: torch.Tensor  # [items + 1] int32
+    num_valid: int
+    num_groups: int
+
+    @property
+    def num_items(self) -> int:
+        return self.groups.shape[0] - 1
+
+    def to(self, device) -> "OverlapWork":
+        return dataclasses.replace(
+            self, row_ptr=self.row_ptr.to(device), groups=self.groups.to(device),
+            group_edges=self.group_edges.to(device),
+        )
+
+
+def overlap_work(receivers, mask, num_nodes: int) -> OverlapWork:
+    """Host: :class:`OverlapWork` of a receiver-sorted shard (``mask`` None:
+    every edge valid)."""
+    rcv = fb._host_ids(receivers, num_nodes, "receivers")
+    E = rcv.size
+    m = np.ones(E, np.float32) if mask is None else np.asarray(
+        mask.cpu() if isinstance(mask, torch.Tensor) else mask, np.float32)
+    valid = np.flatnonzero(m > 0)
+    nv = int(valid[-1]) + 1 if valid.size else 0
+    plan = fb.plan_segments(rcv[:nv], num_nodes)
+    tail_ends = np.minimum(nv + fb.TILE * np.arange(1, -(-(E - nv) // fb.TILE) + 1), E)
+    as_i32 = lambda *parts: torch.from_numpy(np.concatenate(parts).astype(np.int32))
+    return OverlapWork(
+        row_ptr=plan.row_ptr,
+        groups=as_i32(plan.groups.numpy(), np.full(tail_ends.size, num_nodes)),
+        group_edges=as_i32(plan.group_edges.numpy(), tail_ends),
+        num_valid=nv,
+        num_groups=plan.num_groups,
+    )
+
+
+def overlap_plan(receivers, mask, num_nodes: int, bands: int, senders=None) -> fb.SegmentPlan:
+    """Host: the :class:`SegmentPlan` of one rank's shard for K7:
+    ``plan_segments`` of the shard (K1 raw runs on it too) with
+    ``overlap_bands`` and K7's work list (``plan.overlap``)."""
+    return dataclasses.replace(
+        fb.plan_segments(receivers, num_nodes, senders=senders),
+        overlap_bands=int(bands), overlap=overlap_work(receivers, mask, num_nodes),
+    )
 
 
 def band_rows(num_nodes: int, bands: int) -> int:
@@ -114,59 +189,54 @@ def fused_edge_block_overlap_reference(shards: Sequence[dict], num_nodes: int):
     return [(e2, segment_ops.finalize_partials(f.T)) for e2, f in zip(e2s, folded)]
 
 
-def fused_edge_block_overlap(shards: Sequence[dict], num_nodes: int, group, bands: int):
+def fused_edge_block_overlap(shards: Sequence[dict], num_nodes: int, group, bands: int, lib=None):
     """K7 over every rank's shard (the list of the ranks' keyword arguments,
     see :func:`fused_edge_block_overlap_reference`; ``plan`` also, on the
     card), each ready on its rank's stream: ``[(e2, agg), ...]``, each on
-    its rank's stream."""
+    its rank's stream (``lib``: a probe build of K7)."""
     if len(shards) != group.n:
         raise ValueError(f"{len(shards)} shards for a group of {group.n}")
     if shards[0]["e"].device.type == "cpu":
         return fused_edge_block_overlap_reference(shards, num_nodes)
-    lib = _lib()
+    lib = lib or _lib()
     L = shards[0]["e"].shape[-1]
     grid = min(group.ctas_per_rank(r) for r in range(group.n))
     nb = ring_ctas(bands, grid)
     rb = band_rows(num_nodes, nb)
     state = group.ring_state("k7", num_nodes * 4 * L)
     err = ring.device_error_word(group)
-    prepared, outs = [], []
-    for r, x in enumerate(shards):  # checks and outputs first: no allocation between the launches
+    ranks, outs, alive = ring.rank_table(group, state, OvRank), [], []
+    for r, x in enumerate(shards):  # every check and output first: nothing between the launches
         e = x["e"]
         dev = group.device(r)
         fb._check(e.dim() == 2 and e.device == dev, f"rank {r}: e must be [E, L] on {dev}")
         with torch.cuda.device(dev), torch.cuda.stream(group.stream(r)):
             plan = fb._resolve_plan(x.get("plan"), x["senders"], x["receivers"], num_nodes, dev)
-            E = e.shape[0]
             fb._validate(
                 e[None], {"sp": x["sp"][None], "rp": x["rp"][None]}, x["senders"], x["receivers"],
                 x["mask"], num_nodes, plan,
             )
+            # a plan without K7's work list (not from overlap_plan): built here, reading the shard back
+            work = plan.overlap or overlap_work(x["receivers"], x["mask"], num_nodes).to(dev)
             w, p = fb._kernel_weights(x["weights"], e.dtype, L, dev)
-            prepared.append((plan, E, w, p))
-            outs.append((torch.empty_like(e), torch.empty((num_nodes, 4 * L), dtype=torch.float32, device=dev)))
-    epoch = group.next_epoch()
-    for r, x in enumerate(shards):
-        plan, E, w, p = prepared[r]
-        e2, agg = outs[r]
-        slots, flags, counters = state[r]
-        left, right = state[group.left(r)], state[group.right(r)]
-        grid_r = min(grid, nb + plan.num_groups)
-        with torch.cuda.device(group.device(r)):
-            rc = lib.hgn_fused_overlap(
-                fb._DTYPES[x["e"].dtype], L,
-                fb._ptr(x["e"]), fb._ptr(x["sp"]), fb._ptr(x["rp"]),
-                fb._ptr(w["we"]), fb._ptr(w["w2"]), fb._ptr(w["w3"]),
-                fb._ptr(p["b1"]), fb._ptr(p["b2"]), fb._ptr(p["b3"]), fb._ptr(p["lns"]), fb._ptr(p["lnb"]),
-                fb._ptr(x["senders"]), fb._ptr(x["receivers"]), fb._ptr(x["mask"]),
-                fb._ptr(plan.row_ptr), fb._ptr(plan.groups), fb._ptr(e2), fb._ptr(agg),
-                E, num_nodes, plan.num_groups, nb, rb,
-                flags.data_ptr(), left[1].data_ptr(), right[1].data_ptr(),
-                slots.data_ptr(), right[0].data_ptr(), counters.data_ptr(),
-                group.n, r, epoch, err, grid_r, group.stream(r).cuda_stream,
-            )
-        ring.raise_on(rc, lib, "fused_edge_block_overlap")
-        fused_edge_block_overlap.launches += 1
+            e2 = torch.empty_like(e)
+            agg = torch.empty((num_nodes, 4 * L), dtype=torch.float32, device=dev)
+        tensors = dict(e=e, sp=x["sp"], rp=x["rp"], senders=x["senders"], receivers=x["receivers"],
+                       mask=x["mask"], row_ptr=work.row_ptr, groups=work.groups,
+                       group_edges=work.group_edges, e2=e2, agg=agg, **w, **p)
+        entry = ranks[r]
+        for k in _POINTERS:
+            setattr(entry, k, fb._ptr(tensors[k]))
+        # nb band rings and, as K1 does, a compute CTA for every two work items
+        entry.E, entry.G = e.shape[0], work.num_items
+        entry.grid = nb + min(grid - nb, -(-work.num_items // 2))
+        alive.append(tensors)  # the weights in the kernel's types, until the launch
+        outs.append((e2, agg))
+    rc = lib.hgn_fused_overlap_group(
+        fb._DTYPES[shards[0]["e"].dtype], L, group.n, ranks, num_nodes, nb, rb, group.next_epoch(), err
+    )
+    ring.raise_on(rc, lib, "fused_edge_block_overlap")
+    fused_edge_block_overlap.launches += group.n
     return outs
 
 

@@ -9,16 +9,18 @@ max, min; rows outside every segment keep ``x_r``.  Rank r's result folds
 that device, so results may differ between ranks in the last place of a
 float32 sum, and the kernel equals its plain version bit for bit.
 
-On CUDA tensors :func:`ring_all_reduce_segments` launches K6
-(``csrc/ring.cu``) once per rank on the rank's stream, every launch before
-any host synchronization (counted on ``ring_all_reduce_segments.launches``,
-one per rank); each ``x_r`` must be ready on rank r's stream, and each
-result is, on the same stream.  On CPU tensors it runs the plain version,
-:func:`ring_all_reduce_segments_reference`, the same hops in Python.
+On CUDA tensors :func:`ring_all_reduce_segments` checks and allocates
+everything first, then launches K6 (``csrc/ring.cu``) on every rank by one
+C call, each rank's kernel on its card and stream (counted on
+``ring_all_reduce_segments.launches``, one per rank); each ``x_r`` must be
+ready on rank r's stream, and each result is, on the same stream.  On CPU
+tensors it runs the plain version, :func:`ring_all_reduce_segments_reference`,
+the same hops in Python.
 """
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import Dict, List, Sequence, Tuple
 
 import torch
@@ -28,29 +30,60 @@ OPS = {"sum": 0, "max": 1, "min": 2}
 MAX_SEGMENTS = 8
 _COMBINE = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}
 
-_vp, _ci = ctypes.c_void_p, ctypes.c_int
+_vp, _ci, _cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
+
+
+class RingRank(ctypes.Structure):
+    """One rank's entry of ``hgn_ring_all_reduce_group`` (``csrc/ring.cu``)."""
+
+    _fields_ = [("x", _vp), ("out", _vp), ("flags_mine", _vp), ("flags_left", _vp), ("flags_right", _vp),
+                ("slot_mine", _vp), ("slot_right", _vp), ("device", _ci), ("stream", _vp)]
+
+
 _SIGNATURES = {
-    "hgn_ring_all_reduce": [_vp, _vp, _ci, _ci, _ci, _vp] + [_vp] * 5
-    + [_ci, _ci, ctypes.c_ulonglong, _vp, _ci, _vp],
+    "hgn_ring_all_reduce_group": [_ci, _vp, _ci, _ci, _cu, _ci, _vp, _cu, _vp, _ci],
     "hgn_enable_peer_access": [_ci, _ci],
     "hgn_host_device_pointer": [_vp, ctypes.POINTER(ctypes.c_void_p)],
     "hgn_cuda_error_string": [_ci],
 }
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[tuple, ctypes.CDLL] = {}
+# the define of the ring CTAs' phase probe (a library of its own, never the
+# main path's): kernel_times.py --ring-phases
+RING_PHASES = ("HGN_RING_PHASES",)
 
 
-def _lib() -> ctypes.CDLL:
-    if SOURCE not in _libs:
+def _lib(source: str = SOURCE, defines: Tuple[str, ...] = (), signatures=None) -> ctypes.CDLL:
+    """The built library of ``source`` (with ``defines``: a probe build)
+    with its C signatures, loaded at first launch."""
+    key = (source, tuple(defines))
+    if key not in _libs:
         from hyper_graph_nets_tpu_torch.ops import build
 
-        lib = build.load(build.source_path(SOURCE))
-        for name, argtypes in _SIGNATURES.items():
+        lib = build.load(build.source_path(source), defines)
+        for name, argtypes in (signatures or _SIGNATURES).items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = _ci
         lib.hgn_cuda_error_string.restype = ctypes.c_char_p
-        _libs[SOURCE] = lib
-    return _libs[SOURCE]
+        lib.hgn_ring_phases.argtypes = [_vp, _ci]
+        lib.hgn_ring_phases.restype = _ci
+        lib.hgn_ring_phase_names.argtypes = []
+        lib.hgn_ring_phase_names.restype = ctypes.c_char_p
+        _libs[key] = lib
+    return _libs[key]
+
+
+def read_phases(lib: ctypes.CDLL) -> Tuple[Dict[str, int], int, int, int]:
+    """The probe build's counts since the last read (and clears them):
+    ``({phase: cycles summed over the ring CTAs}, ring CTAs, K7's compute
+    teams' cycles, their work items)``."""
+    names = lib.hgn_ring_phase_names().decode().split(",")
+    buf = (ctypes.c_ulonglong * 32)()
+    n = lib.hgn_ring_phases(buf, len(buf))
+    if n < 0:
+        raise RuntimeError(f"the ring phase probe returned {n}: not a probe build?")
+    vals = list(buf)
+    return dict(zip(names, vals[:n])), vals[n], vals[n + 1], vals[n + 2]
 
 
 def raise_on(rc: int, lib: ctypes.CDLL, what: str) -> None:
@@ -75,6 +108,50 @@ def device_error_word(group) -> int:
     out = ctypes.c_void_p()
     raise_on(lib.hgn_host_device_pointer(host.data_ptr(), ctypes.byref(out)), lib, "host pointer")
     return out.value
+
+
+def rank_state(group, state) -> List[dict]:
+    """Per rank, in rank order, what a group launch takes besides its
+    payload: its own flag row, slots and band counters, its left
+    neighbour's flag row, its right neighbour's flag row and slots, its
+    device ordinal and stream handle (-1 and 0 on the CPU)."""
+    rows = []
+    for r in range(group.n):
+        slots, flags, counters = state[r]
+        left, right = state[group.left(r)], state[group.right(r)]
+        dev, stream = group.device(r), group.stream(r)
+        rows.append(dict(
+            flags_mine=flags.data_ptr(), flags_left=left[1].data_ptr(), flags_right=right[1].data_ptr(),
+            slot_mine=slots.data_ptr(), slot_right=right[0].data_ptr(), counters=counters.data_ptr(),
+            device=-1 if dev.index is None else dev.index, stream=0 if stream is None else stream.cuda_stream,
+        ))
+    return rows
+
+
+def struct_array(cls, rows: Sequence[dict]):
+    """A ctypes array of ``cls``, entry r's fields filled from ``rows[r]``
+    (the fields a row does not name stay 0)."""
+    arr = (cls * len(rows))()
+    for entry, row in zip(arr, rows):
+        for name, _ in cls._fields_:
+            if name in row:
+                setattr(entry, name, row[name])
+    return arr
+
+
+_TABLES = weakref.WeakKeyDictionary()  # group -> {struct: (ring state, array)}
+
+
+def rank_table(group, state, cls):
+    """The group launch's array of ``cls`` with every rank's own and
+    neighbour state filled in (:func:`rank_state`), built once per group,
+    ring state and struct and kept (the host's launch path sets only the
+    per-call fields)."""
+    tables = _TABLES.setdefault(group, {})
+    kept = tables.get(cls)
+    if kept is None or kept[0] is not state:
+        kept = tables[cls] = (state, struct_array(cls, rank_state(group, state)))
+    return kept[1]
 
 
 def check_segments(segments: Sequence[Tuple[int, int, str]], rows: int) -> None:
@@ -105,11 +182,12 @@ def ring_all_reduce_segments_reference(
 
 
 def ring_all_reduce_segments(
-    xs: Sequence[torch.Tensor], segments: Sequence[Tuple[int, int, str]], group
+    xs: Sequence[torch.Tensor], segments: Sequence[Tuple[int, int, str]], group, lib=None
 ) -> List[torch.Tensor]:
     """All-reduce the ranks' float32 ``[R, C]`` partials ``xs`` (one per
     rank, on its device) with per-row-segment ops; returns one result per
-    rank.  CPU tensors run the plain version; CUDA tensors launch K6."""
+    rank.  CPU tensors run the plain version; CUDA tensors launch K6
+    (``lib``: a probe build of it)."""
     if len(xs) != group.n:
         raise ValueError(f"{len(xs)} partials for a group of {group.n}")
     R, C = xs[0].shape
@@ -121,30 +199,28 @@ def ring_all_reduce_segments(
             raise ValueError(f"rank {r}: the payload must be contiguous on {group.device(r)}")
     if xs[0].device.type == "cpu":
         return ring_all_reduce_segments_reference(xs, segments)
-    lib = _lib()
-    state = group.ring_state("k6", R * C)
+    lib = lib or _lib()
+    P = -(-R * C // 4) * 4  # floats per payload: the kernel moves float4s
+    state = group.ring_state("k6", P)
     err = device_error_word(group)
     seg = (ctypes.c_int * (3 * max(len(segments), 1)))(
         *[v for lo, hi, op in segments for v in (lo, hi, OPS[op])]
     )
-    grid = max(1, min(R, min(group.ctas_per_rank(r) for r in range(group.n))))
-    outs = []
-    for r in range(group.n):  # every output first: no allocation between the launches
+    grid = max(1, min(P // 4, min(group.ctas_per_rank(r) for r in range(group.n))))
+    ranks, outs, alive = rank_table(group, state, RingRank), [], []
+    for r, x in enumerate(xs):  # every copy and output first: nothing between the launches
         with torch.cuda.device(group.device(r)), torch.cuda.stream(group.stream(r)):
-            outs.append(torch.empty_like(xs[r]))
-    epoch = group.next_epoch()
-    for r in range(group.n):
-        left, right = group.left(r), group.right(r)
-        slots, flags, _ = state[r]
-        with torch.cuda.device(group.device(r)):
-            rc = lib.hgn_ring_all_reduce(
-                xs[r].data_ptr(), outs[r].data_ptr(), R, C, len(segments), seg,
-                flags.data_ptr(), state[left][1].data_ptr(), state[right][1].data_ptr(),
-                slots.data_ptr(), state[right][0].data_ptr(),
-                group.n, r, epoch, err, grid, group.stream(r).cuda_stream,
-            )
-        raise_on(rc, lib, "ring_all_reduce_segments")
-        ring_all_reduce_segments.launches += 1
+            if P == R * C and x.data_ptr() % 16 == 0:
+                out = torch.empty_like(x)
+            else:  # an odd payload, padded into an aligned buffer
+                x = torch.cat([x.reshape(-1), x.new_zeros(P - R * C)])
+                alive.append(x)  # until the launch
+                out = torch.empty(P, dtype=torch.float32, device=x.device)
+        ranks[r].x, ranks[r].out = x.data_ptr(), out.data_ptr()
+        outs.append(out[: R * C].view(R, C) if out.dim() == 1 else out)
+    rc = lib.hgn_ring_all_reduce_group(group.n, ranks, R, C, P, len(segments), seg, group.next_epoch(), err, grid)
+    raise_on(rc, lib, "ring_all_reduce_segments")
+    ring_all_reduce_segments.launches += group.n
     return outs
 
 

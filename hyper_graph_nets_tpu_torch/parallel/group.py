@@ -9,9 +9,9 @@ its own thread under the rank's device and stream, so every rank runs the
 same network code in lockstep, taking turns.  A collective
 (:meth:`exchange`, :meth:`all_reduce_plain`) is a rendezvous: every rank
 hands in its tensor, the last runs the combine for all of them (the
-hand-written ring kernels launch there, one per rank, each on its rank's
-stream, all before any host synchronization), and each rank gets its own
-result back.
+hand-written ring kernels launch there: one C call launches every rank's
+kernel, each on its rank's card and stream, with no host synchronization
+between them), and each rank gets its own result back.
 
 On the card, rank r sits on ``cuda:(r % device_count)``: on a node with n
 cards every rank has its own card (peer access is turned on between them,
@@ -35,8 +35,9 @@ import torch
 
 from hyper_graph_nets_tpu_torch.runtime import resolve_device
 
-# flag rows (8 int64 words each) of a rank and ring kind: one per K6
-# sub-ring (at most the card's SMs) or K7 band
+# flag rows (8 int64 words each: READY, CREDIT and the two barrier words of
+# csrc/ring_common.cuh) of a rank and ring kind: one per K6 sub-ring (at
+# most the card's SMs) or K7 band
 RING_FLAG_ROWS = 256
 MAX_BANDS = 64
 WAIT_KINDS = {1: "barrier", 2: "credit", 3: "ready", 4: "band completion"}

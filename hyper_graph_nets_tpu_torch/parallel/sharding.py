@@ -16,7 +16,7 @@ import torch
 
 from hyper_graph_nets_tpu_torch.models.base import Topology
 from hyper_graph_nets_tpu_torch.ops.fused_block import SegmentPlan, plan_segments
-from hyper_graph_nets_tpu_torch.ops.fused_overlap import chunk_roundrobin_permutation
+from hyper_graph_nets_tpu_torch.ops.fused_overlap import chunk_roundrobin_permutation, overlap_plan
 
 # edges per chunk of the round-robin layout: the JAX package's
 # default_chunk() when the TPU's scoped-VMEM limit is not raised, so both
@@ -57,7 +57,8 @@ def shard_topology(
     ``overlap_bands`` (fused only) pads to ``chunk * n`` and deals the chunks
     round-robin
     (``ops.fused_overlap.chunk_roundrobin_permutation``), so every rank's
-    slice spans all receivers, and its plans carry that many bands for K7.
+    slice spans all receivers, and its plans carry that many bands and K7's
+    work list (``ops.fused_overlap.overlap_plan``).
     The result lies on rank 0's device and has no neighbour matrices (they
     index global edge ids); ``halo.split_graph`` gives each rank its slice.
     """
@@ -80,12 +81,14 @@ def shard_topology(
     rank_plans = None
     if plans:
         per = len(snd) // g
+        shard = lambda r: slice(r * per, (r + 1) * per)
         rank_plans = RankPlans(
             tuple(
-                dataclasses.replace(
-                    plan_segments(rcv[r * per : (r + 1) * per], topo.num_nodes,
-                                  senders=snd[r * per : (r + 1) * per]),
-                    overlap_bands=int(overlap_bands) if use_overlap else 0,
+                (
+                    overlap_plan(rcv[shard(r)], mask[shard(r)], topo.num_nodes, overlap_bands,
+                                 senders=snd[shard(r)])
+                    if use_overlap
+                    else plan_segments(rcv[shard(r)], topo.num_nodes, senders=snd[shard(r)])
                 ).to(group.device(r))
                 for r in range(g)
             )

@@ -684,6 +684,201 @@ def test_k6_with_a_delayed_rank_and_many_calls():
     group.check()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3, 4])
+@pytest.mark.parametrize(
+    "shape", [(2050, 132), (40000, 128), (333, 7)], ids=["uneven_chunks", "two_windows", "odd_numel"]
+)
+def test_k6_on_uneven_chunks_windows_and_odd_payloads(n, shape):
+    """K6 bit for bit where a sub-ring's floats do not split evenly into
+    chunks, where a sub-ring needs more than one window of shared memory,
+    and on a payload whose float count is not a multiple of 4 (padded)."""
+    _need_card()
+    from hyper_graph_nets_tpu_torch.ops.ring import (
+        ring_all_reduce_segments,
+        ring_all_reduce_segments_reference,
+    )
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+
+    group = RankGroup(n)
+    R = shape[0]
+    segments = [(0, R // 3, "max"), (R // 3, R // 2, "sum"), (R // 2 + 5, R, "min")]  # a gap keeps x_r
+    for call in range(3):
+        xs = [x.to(group.device(r)) for r, x in enumerate(_ring_payload(n, *shape, seed=call))]
+        torch.cuda.synchronize()
+        got = ring_all_reduce_segments(xs, segments, group)
+        group.check()
+        want = ring_all_reduce_segments_reference(xs, segments)
+        for r in range(n):
+            assert got[r].shape == shape and torch.equal(got[r], want[r]), f"call {call} rank {r}"
+
+
+_LATE_RANK = """
+import sys
+import torch
+sys.path.insert(0, {root!r})
+sys.path.insert(0, {tests!r})
+from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+group = RankGroup(2, devices=["cuda:0", "cuda:0"])
+if {kernel!r} == "K6":
+    from hyper_graph_nets_tpu_torch.ops.ring import ring_all_reduce_segments
+    xs = [torch.randn(64, 128, device="cuda:0") for _ in range(2)]
+    run = lambda: ring_all_reduce_segments(xs, [(0, 64, "sum")], group)
+else:
+    from test_torch_port_cuda import _on, _tail_shards
+    from hyper_graph_nets_tpu_torch.ops.fused_overlap import fused_edge_block_overlap
+    shards, N = _tail_shards(2, torch.bfloat16, (0, 23))
+    shards = [dict(_on(x, "cuda:0"), plan=x["plan"].to("cuda:0")) for x in shards]
+    run = lambda: fused_edge_block_overlap(shards, N, group, bands=4)
+run()  # every buffer, the ring state and the error word exist before the late call
+group.check()
+with torch.cuda.stream(group.stream(1)):
+    torch.cuda._sleep(8_000_000_000)  # rank 1 starts seconds late: past the 2 s spin limit
+run()
+try:
+    group.check()
+except RuntimeError as exc:
+    print(exc)
+    sys.exit(3)
+sys.exit(0)
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K6", "K7"])
+def test_a_rank_without_its_neighbour_fails_through_the_error_word(kernel):
+    """A rank whose neighbour's kernel starts past the spin limit traps after
+    writing the error word, and ``group.check`` raises on it (in a process
+    of its own: the trap ends the card's context), instead of hanging."""
+    _need_card()
+    import os
+    import subprocess
+    import sys
+
+    tests = os.path.dirname(os.path.abspath(__file__))
+    code = _LATE_RANK.format(root=os.path.dirname(tests), tests=tests, kernel=kernel)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 3, proc.stdout + proc.stderr
+    assert "waited past its time limit" in proc.stdout, proc.stdout
+
+
+def _tail_shards(n, dtype, tails, L=128, nx=10, seed=0):
+    """An nx x nx grid's edges split contiguously over n ranks, rank r's
+    shard followed by tails[r] masked padding edges at receiver N-1 (a tail
+    of None: the shard is only its padding, 100 edges), with K1 inputs and
+    K7's plans; (shards, N)."""
+    from hyper_graph_nets_tpu_torch.ops.fused_overlap import overlap_plan
+    from torch_port_cases import grid_edges
+
+    snd, rcv, N = grid_edges(nx, nx)
+    rng = np.random.default_rng(seed)
+    bounds = np.linspace(0, len(snd), n + 1).astype(int)
+    sp = torch.tensor(rng.normal(size=(N, L)).astype(np.float32)).to(dtype)
+    rp = torch.tensor(rng.normal(size=(N, L)).astype(np.float32)).to(dtype)
+    weights = {k: torch.tensor(0.1 * rng.normal(size=(L, L)).astype(np.float32)) for k in ("we", "w2", "w3")}
+    weights.update({k: torch.tensor(0.1 * rng.normal(size=L).astype(np.float32)) for k in ("b1", "b2", "b3", "lnb")})
+    weights["lns"] = torch.tensor(1 + 0.1 * rng.normal(size=L).astype(np.float32))
+    shards = []
+    for r in range(n):
+        s, c = snd[bounds[r] : bounds[r + 1]], rcv[bounds[r] : bounds[r + 1]]
+        tail = tails[r]
+        if tail is None:
+            s, c, tail = s[:0], c[:0], 100
+        s = np.concatenate([s, np.zeros(tail, s.dtype)])
+        c = np.concatenate([c, np.full(tail, N - 1, c.dtype)])
+        m = (np.arange(len(s)) < len(s) - tail).astype(np.float32)
+        shards.append(dict(
+            e=torch.tensor(rng.normal(size=(len(s), L)).astype(np.float32)).to(dtype),
+            sp=sp, rp=rp, weights=weights, senders=torch.tensor(s), receivers=torch.tensor(c),
+            mask=torch.tensor(m), plan=overlap_plan(c, m, N, 4, senders=s),
+        ))
+    return shards, N
+
+
+def _check_k7(shards, N, group, dtype):
+    """K7 on the shards: e2 equal to K1 raw's on each shard bit for bit,
+    agg within the tolerance of K1 raw + the plain all-reduce + finalize."""
+    from hyper_graph_nets_tpu_torch.core.segment_ops import finalize_partials
+    from hyper_graph_nets_tpu_torch.ops.fused_overlap import fused_edge_block_overlap
+
+    torch.cuda.synchronize()
+    got = fused_edge_block_overlap(shards, N, group, bands=4)
+    group.check()
+    raws = []
+    for r, x in enumerate(shards):
+        e2, raw = fused_edge_block_fwd(
+            x["e"][None], x["sp"][None], x["rp"][None], x["weights"], x["senders"], x["receivers"],
+            x["mask"], N, x.get("plan"), raw=True,
+        )
+        assert torch.equal(got[r][0], e2[0]), f"rank {r} e2"
+        raws.append(raw[0].to(group.device(0)))
+    L = shards[0]["e"].shape[-1]
+    total = torch.cat([
+        sum(raws[1:], raws[0])[:, : 2 * L],
+        torch.stack([x[:, 2 * L : 3 * L] for x in raws]).amax(0),
+        torch.stack([x[:, 3 * L :] for x in raws]).amin(0),
+    ], dim=-1)
+    want = finalize_partials(total)
+    tol = 1e-6 if dtype == torch.float32 else TOLS[dtype]["agg"][0]
+    for r in range(len(shards)):
+        torch.testing.assert_close(got[r][1].to(want.device), want, rtol=tol, atol=tol)
+
+
+def _on(x, device):
+    move = lambda v: v.to(device) if torch.is_tensor(v) else v
+    return {k: ({a: b.to(device) for a, b in v.items()} if isinstance(v, dict) else move(v)) for k, v in x.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "tails", [(0, 23, 150, 64), (0, 0, 0, None), (None, 5, None, 129)],
+    ids=["tails", "one_all_tail", "two_all_tail"],
+)
+def test_k7_on_padded_tails_and_all_tail_shards(tails, dtype):
+    """K7 where ranks' shards end in no tail, a tail shorter than a tile,
+    one over two tiles, or are nothing but padding: the tail is e2-only work
+    that no band waits for."""
+    _need_card()
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+
+    group = RankGroup(len(tails))
+    shards, N = _tail_shards(len(tails), dtype, tails)
+    shards = [_on(x, group.device(r)) for r, x in enumerate(shards)]
+    for x in shards:
+        x["plan"] = x["plan"].to(x["e"].device)
+    _check_k7(shards, N, group, dtype)
+
+
+@pytest.mark.cuda
+def test_k7_with_a_delayed_rank_and_many_calls():
+    """K7 100 calls in a row without a host synchronization, one rank's
+    launch delayed every tenth call, each call's outputs held."""
+    _need_card()
+    from hyper_graph_nets_tpu_torch.ops.fused_overlap import fused_edge_block_overlap
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+
+    n = 4
+    group = RankGroup(n)
+    shards, N = _tail_shards(n, torch.bfloat16, (0, 23, 150, 64))
+    shards = [_on(x, group.device(r)) for r, x in enumerate(shards)]
+    for x in shards:
+        x["plan"] = x["plan"].to(x["e"].device)
+    _check_k7(shards, N, group, torch.bfloat16)
+    first = [tuple(t.clone() for t in out) for out in fused_edge_block_overlap(shards, N, group, bands=4)]
+    group.check()
+    outs = []
+    for call in range(100):
+        if call % 10 == 0:  # rank 1 starts about 1 ms late
+            with torch.cuda.device(group.device(1)), torch.cuda.stream(group.stream(1)):
+                torch.cuda._sleep(2_000_000)
+        outs.append(fused_edge_block_overlap(shards, N, group, bands=4))
+    group.check()
+    for call, out in enumerate(outs):
+        for r in range(n):
+            assert torch.equal(out[r][0], first[r][0]) and torch.equal(out[r][1], first[r][1]), f"call {call} rank {r}"
+
+
 def _overlap_shards(n, dtype, L=128, nx=20, chunk=64, seed=0):
     """One frame's edge shards of an nx x nx grid, dealt round-robin by
     chunk over n ranks, with K1 inputs; (shards, N)."""

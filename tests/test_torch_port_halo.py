@@ -29,6 +29,7 @@ Tolerances:
   chain, and the rank partials are summed in bf16 in another order.  Every
   rank's output agrees with rank 0's within the same tolerance.
 """
+import ctypes
 import functools
 
 import numpy as np
@@ -367,6 +368,131 @@ def test_shard_topology_matches_jax(overlap_bands):
     if overlap_bands:
         # every rank's shard is chunks of the padded list dealt round-robin
         assert len(st.senders) % (256 * n) == 0
+
+
+# -- K7's work list and the group launches' arguments ---------------------------
+
+
+def _work_cases():
+    """``{name: (receivers, mask, N)}``: the 40x40 flag's four overlap
+    shards (padded and dealt round-robin by 256-edge chunks, as
+    ``shard_topology`` does), and a 10x10 grid's receiver-sorted edges
+    followed by a tail of masked padding edges at receiver N-1 that is
+    empty, shorter than a tile, longer than two tiles, or the whole shard."""
+    from hyper_graph_nets_tpu_torch.parallel.sharding import DEFAULT_CHUNK, pad_to_multiple
+    from torch_port_cases import grid_edges
+
+    cases = {}
+    _, rcv, N = grid_edges(40, 40)
+    n, E = 4, len(rcv)
+    padded = pad_to_multiple(rcv, DEFAULT_CHUNK * n, N - 1)
+    mask = (np.arange(len(padded)) < E).astype(np.float32)
+    perm = chunk_roundrobin_permutation(len(padded), n, DEFAULT_CHUNK)
+    padded, mask = padded[perm], mask[perm]
+    per = len(padded) // n
+    for r in range(n):
+        cases[f"flag40 rank {r}"] = (padded[r * per : (r + 1) * per], mask[r * per : (r + 1) * per], N)
+    _, rcv, N = grid_edges(10, 10)
+    for name, valid, tail in (("no tail", len(rcv), 0), ("tail under a tile", len(rcv), 23),
+                              ("tail over two tiles", len(rcv), 150), ("all tail", 0, 100)):
+        cases[name] = (
+            np.concatenate([rcv[:valid], np.full(tail, N - 1, rcv.dtype)]),
+            np.concatenate([np.ones(valid, np.float32), np.zeros(tail, np.float32)]),
+            N,
+        )
+    return cases
+
+
+@pytest.mark.parametrize("case", list(_work_cases()))
+def test_k7_work_list_covers_each_edge_once_and_counts_each_band(case):
+    """K7's work list as the wrapper builds it (``overlap_work``): every edge
+    lies in exactly one item, the tail items (the masked edges after the last
+    valid one) have no receivers and so touch no band, and for every band
+    split the count a band's ring waits for (the kernel counts the items
+    whose receivers meet its rows) equals the counts the compute teams add
+    (one per band an item's rows touch) and the items that hold an edge or
+    an empty row of the band."""
+    from hyper_graph_nets_tpu_torch.ops.fused_overlap import band_rows, overlap_work, ring_ctas
+
+    rcv, mask, N = _work_cases()[case]
+    work = overlap_work(rcv, mask, N)
+    groups, edges = work.groups.numpy(), work.group_edges.numpy()
+    E, nv = len(rcv), work.num_valid
+    assert nv == (np.flatnonzero(mask > 0)[-1] + 1 if (mask > 0).any() else 0)
+    # every edge in exactly one item, in order
+    assert edges[0] == 0 and edges[-1] == E and np.all(np.diff(edges) >= 0)
+    owner = np.repeat(np.arange(work.num_items), np.diff(edges))
+    assert len(owner) == E
+    # the valid prefix's items own whole receiver segments, up to num_valid
+    row_ptr = work.row_ptr.numpy()
+    assert row_ptr[0] == 0 and row_ptr[N] == nv
+    for g in range(work.num_groups):
+        assert edges[g] == row_ptr[groups[g]] and edges[g + 1] == row_ptr[groups[g + 1]]
+        assert np.all((rcv[edges[g] : edges[g + 1]] >= groups[g]) & (rcv[edges[g] : edges[g + 1]] < groups[g + 1]))
+    assert groups[work.num_groups] == N
+    # the tail: items of at most TILE edges, no receivers, every edge masked
+    tail = range(work.num_groups, work.num_items)
+    assert len(tail) == -(-(E - nv) // 64)
+    for g in tail:
+        assert groups[g] == groups[g + 1] == N and 0 < edges[g + 1] - edges[g] <= 64
+    assert not (mask[nv:] > 0).any()
+    for nb in (1, 4, ring_ctas(4, 33), 64):
+        rb = band_rows(N, nb)
+        for b in range(nb):
+            lo, hi = b * rb, min(N, (b + 1) * rb)
+            waits = sum(int(groups[g] < hi and groups[g + 1] > lo) for g in range(work.num_items))
+            adds = sum(
+                int(groups[g + 1] > groups[g] and groups[g] // rb <= b <= (groups[g + 1] - 1) // rb)
+                for g in range(work.num_items)
+            )
+            touching = sum(int(bool(set(range(groups[g], groups[g + 1])) & set(range(lo, hi))))
+                           for g in range(work.num_items))
+            assert waits == adds == touching, (nb, b)
+
+
+def test_group_launch_arguments_are_in_rank_order_with_each_neighbour():
+    """The per-rank entries that K6's and K7's single C call takes
+    (``ring.rank_state``, ``ring.struct_array``, ``ring.rank_table``): entry
+    r holds rank r's own flags, slots and counters, its left neighbour's
+    flags and its right neighbour's flags and slots; the group keeps the
+    table until its ring state grows; the ctypes layouts are the C structs'
+    (pointers 8 bytes, ints 4, each pointer 8-aligned)."""
+    from hyper_graph_nets_tpu_torch.ops import fused_overlap as fo
+    from hyper_graph_nets_tpu_torch.ops import ring
+
+    n = 4
+    group = RankGroup(n, device="cpu")
+    state = group.ring_state("k6", 64)
+    rows = ring.rank_state(group, state)
+    assert len(rows) == n
+    for r, row in enumerate(rows):
+        (slots, flags, counters), left, right = state[r], state[(r - 1) % n], state[(r + 1) % n]
+        assert (row["flags_mine"], row["slot_mine"], row["counters"]) == (
+            flags.data_ptr(), slots.data_ptr(), counters.data_ptr())
+        assert row["flags_left"] == left[1].data_ptr()
+        assert (row["flags_right"], row["slot_right"]) == (right[1].data_ptr(), right[0].data_ptr())
+        assert (row["device"], row["stream"]) == (-1, 0)
+    arr = ring.struct_array(ring.RingRank, [dict(row, x=1000 + r, out=2000 + r) for r, row in enumerate(rows)])
+    assert ctypes.sizeof(ring.RingRank) == 7 * 8 + 8 + 8
+    for r in range(n):
+        assert (arr[r].x, arr[r].out) == (1000 + r, 2000 + r)
+        for name in ("flags_mine", "flags_left", "flags_right", "slot_mine", "slot_right", "device"):
+            assert getattr(arr[r], name) == rows[r][name]
+    # the group keeps its table until its ring state changes
+    table = ring.rank_table(group, state, ring.RingRank)
+    assert ring.rank_table(group, state, ring.RingRank) is table
+    for r in range(n):
+        for name in ("flags_mine", "flags_left", "flags_right", "slot_mine", "slot_right", "device", "stream"):
+            assert (getattr(table[r], name) or 0) == rows[r][name]  # a null c_void_p reads None
+    grown = group.ring_state("k6", 128)
+    assert grown is not state and ring.rank_table(group, grown, ring.RingRank) is not table
+    zeros = {name: 0 for name, _ in fo.OvRank._fields_}
+    arr7 = ring.struct_array(fo.OvRank, [dict(zeros, **row, E=10 + r) for r, row in enumerate(rows)])
+    assert ctypes.sizeof(fo.OvRank) == 19 * 8 + 3 * 4 + 4 + 6 * 8 + 8 + 8
+    for r in range(n):
+        assert arr7[r].E == 10 + r
+        for name in ("flags_mine", "flags_left", "flags_right", "slot_mine", "slot_right", "counters"):
+            assert getattr(arr7[r], name) == rows[r][name]
 
 
 # -- the whole halo forward -----------------------------------------------------

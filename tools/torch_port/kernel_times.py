@@ -7,6 +7,7 @@ to compare two commits, unpack both and run them in turns in one call
 (parent, change, change, parent):
 
     python tools/torch_port/kernel_times.py change [--halo] [--e2 DIR] [--grads DIR] [--phases]
+        [--ring-phases] [--halo-out DIR]
     (cd parent_checkout && python ../tools/torch_port/kernel_times.py parent [--e2 DIR] [--grads DIR])
 
 Shapes: the 40x40 flag at B=21 (one_step, training) and B=1 (rollout);
@@ -16,9 +17,22 @@ contiguous edges (fused); K2 and K3 at B=21 on K1's own forward, each
 timed as its three kernels together, and as each of them alone (the main
 kernel, the sender sums, the column-sum reduction); K5 on a random 1,600^3
 product.  With ``--halo`` also the checkout's own K6 and K7 checks and
-timings (``chip_smoke.phase_ring`` and ``phase_overlap``), whose
-per-launch times include the spins of ranks that wait for their
-neighbours.
+timings (``chip_smoke.phase_ring`` and ``phase_overlap``): per call of all
+ranks ungated (CUDA events, what a caller pays, the host's launch path
+included) and gated (every rank's stream held behind one event until all
+calls are queued: the kernels' own pace), and per rank's launch (traced,
+the spins of ranks that wait for their neighbours included).
+
+With ``--ring-phases`` K6 (2, 3 and 4 ranks) and K7 (bf16) also run from
+the ring's phase-probe build (``-DHGN_RING_PHASES``, a library of its own),
+ungated and gated: each phase's share of the ring CTAs' cycles, the cycles
+per ring CTA and call, and K7's compute cycles per group.
+
+With ``--halo-out DIR`` K6's outputs (2, 3 and 4 ranks with the pna
+segments, and the odd ``[1004, 37]`` shape at 3 ranks) and K7's e2 and agg
+(bf16 and float32), on the same seeded inputs in every checkout, are saved
+to ``DIR/TAG-halo.pt`` and held against each other tag's file: all equal
+bit for bit (exit 1 if not).
 
 With ``--e2 DIR`` K1's outputs at every shape (the same seeded inputs in
 every checkout) are saved to ``DIR/TAG.pt`` and held against each other
@@ -207,6 +221,91 @@ def bwd_phases(fb, torch, run, name, tag, cs):
           f"{ms * 1e3:.1f} us traced", flush=True)
 
 
+HALO_K6 = ((2, 6400, 128), (3, 6400, 128), (4, 6400, 128), (3, 1004, 37))
+
+
+def _pna(rows):
+    q = rows // 4
+    return [(0, q, "sum"), (q, 2 * q, "sum"), (2 * q, 3 * q, "max"), (3 * q, 4 * q, "min")]
+
+
+def halo_outputs(cs, torch):
+    """K6's and K7's outputs on seeded inputs: ``{case: [tensors]}``."""
+    from hyper_graph_nets_tpu_torch.ops.fused_overlap import fused_edge_block_overlap
+    from hyper_graph_nets_tpu_torch.ops.ring import ring_all_reduce_segments
+
+    outs = {}
+    for n, R, C in HALO_K6:
+        gen = torch.Generator().manual_seed(100 + n + C)
+        xs = [torch.randn(R, C, generator=gen).cuda() for _ in range(n)]
+        group = cs.one_card_group(n)
+        got = ring_all_reduce_segments(xs, _pna(R), group)
+        group.check()
+        outs[f"K6 n={n} [{R}, {C}]"] = [g.cpu() for g in got]
+    for dtype_name in ("bfloat16", "float32"):
+        shards, N = cs.overlap_shards(getattr(torch, dtype_name), torch.Generator().manual_seed(200))
+        group = cs.one_card_group(len(shards))
+        got = fused_edge_block_overlap(shards, N, group, cs.HALO_BANDS)
+        group.check()
+        outs[f"K7 {dtype_name} e2"] = [e2.cpu() for e2, _ in got]
+        outs[f"K7 {dtype_name} agg"] = [agg.cpu() for _, agg in got]
+    return outs
+
+
+def hold_halo(torch, tag, outs, out_dir):
+    """Save this checkout's K6/K7 outputs and hold them against the others':
+    every tensor equal bit for bit."""
+    os.makedirs(out_dir, exist_ok=True)
+    torch.save(outs, os.path.join(out_dir, f"{tag}-halo.pt"))
+    ok = True
+    for path in sorted(glob.glob(os.path.join(out_dir, "*-halo.pt"))):
+        other = os.path.basename(path)[: -len("-halo.pt")]
+        if other == tag:
+            continue
+        theirs = torch.load(path)
+        for case, tensors in outs.items():
+            same = [torch.equal(a, b) for a, b in zip(tensors, theirs[case])]
+            ok &= all(same)
+            print(f"[{tag}] {case} against {other}: bit for bit on ranks "
+                  f"{[r for r, x in enumerate(same) if x]} of {len(same)}", flush=True)
+    return ok
+
+
+def ring_phases(cs, torch, tag):
+    """K6 and K7 from the phase-probe build, ungated and gated."""
+    from hyper_graph_nets_tpu_torch.ops import fused_overlap as fo
+    from hyper_graph_nets_tpu_torch.ops import ring
+
+    lib6, lib7 = ring._lib(ring.SOURCE, ring.RING_PHASES), fo._lib(ring.RING_PHASES)
+    runs = []
+    for n in (2, 3, 4):
+        gen = torch.Generator().manual_seed(300 + n)
+        xs = [torch.randn(6400, 128, generator=gen).cuda() for _ in range(n)]
+        group = cs.one_card_group(n)
+        runs.append((f"K6 n={n}", group, lambda xs=xs, group=group: ring.ring_all_reduce_segments(
+            xs, _pna(6400), group, lib=lib6), lib6))
+    shards, N = cs.overlap_shards(torch.bfloat16, torch.Generator().manual_seed(301))
+    group = cs.one_card_group(len(shards))
+    runs.append(("K7 bf16", group, lambda: fo.fused_edge_block_overlap(shards, N, group, cs.HALO_BANDS, lib=lib7),
+                 lib7))
+    for name, group, run, lib in runs:
+        for mode in ("ungated", "gated"):
+            for _ in range(3):
+                run()
+            group.check()
+            ring.read_phases(lib)  # clear
+            if mode == "gated":
+                ms = cs.gated_time_ms(group, run, iters=20, warmup=0)[0]
+            else:
+                ms = cs.group_time_ms(group, run, iters=20, warmup=0)
+            phases, ctas, comp, groups = ring.read_phases(lib)
+            total = sum(phases.values())
+            shares = ", ".join(f"{k} {100.0 * c / max(total, 1):.1f}%" for k, c in phases.items() if c)
+            comp_note = f"; compute {comp / max(groups, 1):.0f} cycles per group" if groups else ""
+            print(f"[{tag}] {name} phases ({mode}, probe build, {ms * 1e3:.1f} us per call): {shares}; "
+                  f"{total / max(ctas, 1):.0f} cycles per ring CTA and call{comp_note}", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("tag")
@@ -214,6 +313,8 @@ def main(argv=None) -> int:
     ap.add_argument("--e2", metavar="DIR")
     ap.add_argument("--grads", metavar="DIR")
     ap.add_argument("--phases", action="store_true")
+    ap.add_argument("--ring-phases", action="store_true")
+    ap.add_argument("--halo-out", metavar="DIR")
     args = ap.parse_args(argv)
 
     sys.path.insert(0, os.getcwd())
@@ -266,11 +367,15 @@ def main(argv=None) -> int:
     if args.phases:
         for name, run in bwd.items():
             bwd_phases(fb, torch, run, name, args.tag, cs)
+    if args.halo_out:
+        ok &= hold_halo(torch, args.tag, halo_outputs(cs, torch), os.path.abspath(args.halo_out))
     if args.halo:
         card, peaks = cs.nvidia_smi(), cs.peaks_for(torch.cuda.get_device_name(0))
         cs.log = lambda msg: print(f"[{args.tag}] {msg}", flush=True)
         cs.phase_ring(card, peaks, 0)
         cs.phase_overlap(card, peaks, 0)
+    if args.ring_phases:
+        ring_phases(cs, torch, args.tag)
     return 0 if ok else 1
 
 
