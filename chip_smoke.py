@@ -17,11 +17,11 @@ Phases (any failure exits non-zero; nothing is caught and dropped):
    plain version with CUDA events) beside its bound (the least time the
    card could take: bytes moved over the memory rate or operations over the
    peak rate, whichever is larger).  K1 with and without its streams, at
-   B = 21 and B = 1 and raw on both halo shard layouts; K2
+   B = 21, 1, 15 and 32 and raw on both halo shard layouts; K2
    (remat backward) and K3 (stream backward) at B = 21 in bf16 and float32,
    with a masked tail and an isolated receiver, with masked edges inside
    segments (as the balancer removes mesh edges), with exactly tied edges,
-   at B = 1, and the routed max/min mass against the exact tie count of
+   at B = 1 and 15, and the routed max/min mass against the exact tie count of
    K1's output, each timed as its three kernels and as each alone;
    the float32 weight-gradient products of one block; K4f and K4b (the
    sorted pna of ``agg_vjp: sorted``) at B = 21 in bf16 and float32 and at
@@ -70,7 +70,24 @@ Phases (any failure exits non-zero; nothing is caught and dropped):
    the loss after 30 steps on one batch below the first step's (remat,
    sorted, balancer); train-step ms (median of 10 after 3 warm-up steps)
    and edges/s;
-6. timings, each with the card (with --profile also the device's busy share
+6. the task loop: ``get_task`` on the same configuration with the file's
+   own task settings (2 training trajectories of 60 frames on the 40x40
+   flag, 57 frames each, B = 21, 1 epoch, 10-step n-step windows), written
+   to and read from a temporary data directory: ``run_iterations`` (fit,
+   then the one-step, rollout and n-step evaluators on the validation
+   split, the GIF and the checkpoint) and ``get_scalars`` (the evaluators
+   on the test split), with the launches read around fit and each
+   evaluator (15 K1 and 15 K2 per fit batch at B = 21 and 15; 15 K1 per
+   forward of the one-step evaluator at B = 21 and 15, of the rollout
+   evaluator at B = 1 and of the n-step evaluator at B = 32 and 15) and
+   finite scalars; a second task on the same directory resumes at epoch 1
+   and launches nothing; ``Predictor.from_config(checkpoint=...)`` serves
+   the task's state bit for bit; the one-step and n-step evaluators' scalars
+   against the CPU's on the same state; the CLI (``python -m
+   hyper_graph_nets_tpu_torch.main flag_fused_demo``) twice in a
+   subprocess, the second run resuming; the epoch's seconds, fit edges/s,
+   rollout-evaluator ms/step and n-step-evaluator seconds;
+7. timings, each with the card (with --profile also the device's busy share
    and kernel time by name), the kernels' JSON line, then the device JSON
    line last.
 
@@ -80,6 +97,7 @@ port's package is not beside this file.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -130,7 +148,15 @@ SERVE_TOL = {"net_out": 0.05, "acceleration": 0.01}
 # single elements round the other way and such differences pass through 15
 # blocks and their backward: loss within 2**-5, each gradient within
 # relative L2 2**-4.  (Measured on an H100: float32 1.7e-4 and bf16 1.3e-2
-# for the worst gradient.)
+# for the worst gradient.)  Both sides run with PyTorch's deterministic
+# algorithms (``fixed_scatter_order``): with the balancer the card's
+# scatter-adds (the balance edge set's aggregate, a gather's backward) are
+# atomic, their float32 sums change order from run to run, and now and then
+# a relu input of a balance edge model lands on the other side of 0 and moves
+# that model's gradients past 1e-3, about one run in a thousand
+# (``tools/torch_port/train_spread.py``; PERF.md section 6).  In a fixed
+# order every run reads the same; the port's kernels add in a fixed order
+# anyway.
 TRAIN_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (2.0**-5, 2.0**-4)}
 # bf16 only: the gradients of the balancer's ``balance`` edge models, summed
 # over B x 298 valid balance edges where a mesh-edge tensor sums over
@@ -150,6 +176,8 @@ BALANCE_BF16_GRAD_TOL = 0.5
 SORTED_TOL = {"float32": 1e-5, "bfloat16": 2.0**-7}
 
 ONE_STEP_FRAMES = 21  # the batch bench.py trains on
+TASK_LAST_BATCH = 15  # the task loop's batches of 57 frames: 21, 21, 15
+TASK_N_STEP_CHUNK = 32  # the n-step evaluator's windows per batch
 ROLLOUT_STEPS = 50
 TRAIN_FRAMES = 21
 CPU_FRAMES = 2  # card against CPU
@@ -322,6 +350,22 @@ def check_close(name, got, want, rtol, atol):
     return float(err.max())
 
 
+
+@contextlib.contextmanager
+def fixed_scatter_order():
+    """PyTorch's deterministic algorithms while the block runs (its
+    scatter-adds sum in a fixed order; an operation that has no such form
+    raises), then the setting as it was."""
+    import torch
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
 def rel_l2(got, want) -> float:
     d = float((got.float() - want.float()).norm())
     return d / max(float(want.float().norm()), 1e-30)
@@ -344,7 +388,9 @@ def phase_kernels(card, peaks, topo_np, seed):
     L, E = L_MAIN, len(snd)
     gen = torch.Generator().manual_seed(seed)
     results = {}
-    cases = [("bfloat16", ONE_STEP_FRAMES), ("float32", ONE_STEP_FRAMES), ("bfloat16", 1)]
+    # B = 15 and 32: the task loop's last batch of 57 frames and its n-step chunk
+    cases = [("bfloat16", ONE_STEP_FRAMES), ("float32", ONE_STEP_FRAMES), ("bfloat16", 1),
+             ("bfloat16", TASK_LAST_BATCH), ("bfloat16", TASK_N_STEP_CHUNK)]
     for dtype_name, B in cases:
         dtype = getattr(torch, dtype_name)
         x = k1_inputs(dtype, B, snd, rcv, N, L, gen, "cuda")
@@ -631,10 +677,12 @@ def phase_backward(card, peaks, topo_np, seed):
     x, topo, plan, fwd, de2, drhs = setup("bfloat16", 3, snd_t, rcv_t, rows=rows)
     check_both("ties", "bfloat16", x, topo, plan, fwd, de2, drhs)
     log("K2/K3 tied edges: ok")
-    # one frame: about 150 work items for two teams a CTA on ceil(150 / 2) CTAs
-    x, topo, plan, fwd, de2, drhs = setup("bfloat16", 1, snd, rcv)
-    check_both("B=1", "bfloat16", x, topo, plan, fwd, de2, drhs)
-    log("K2/K3 B=1: ok")
+    # one frame: about 150 work items for two teams a CTA on ceil(150 / 2)
+    # CTAs; and the task loop's last batch of 57 frames
+    for B in (1, TASK_LAST_BATCH):
+        x, topo, plan, fwd, de2, drhs = setup("bfloat16", B, snd, rcv)
+        check_both(f"B={B}", "bfloat16", x, topo, plan, fwd, de2, drhs)
+        log(f"K2/K3 B={B}: ok")
 
     # routed mass: with only g_max = g_min = 1 the column sums of do (dpar
     # row 4) count the edges equal to their receiver's extremum in K1's own
@@ -1646,44 +1694,303 @@ def phase_train(card, seed, profile_dir=None):
             )
 
         # the card against the CPU: same state, noise and (with the
-        # balancer) static, B = CPU_FRAMES
-        for dtype_name in ("bfloat16", "float32"):
-            cmp_config = make_config(**path, compute_dtype=None if dtype_name == "float32" else dtype_name)
-            cmp_model = get_model(cmp_config)
-            state = cmp_model.init_state(torch.Generator().manual_seed(seed + 1))
-            small = {k: v[:CPU_FRAMES] for k, v in traj.items()}
-            normal = torch.randn(small["world_pos"].shape, generator=torch.Generator().manual_seed(seed + 2),
-                                 dtype=torch.float64)
-            grads, losses_cmp = {}, {}
-            cpu_key = (agg_vjp, balancer, dtype_name)
-            for where in ("cuda", "cpu"):
-                if where == "cpu" and cpu_key in cpu_grads:
-                    losses_cmp["cpu"], grads["cpu"] = cpu_grads[cpu_key]
-                    continue
-                tr = Trainer(cmp_model, cmp_config, device=where)
-                ts = tr.init_train_state(state=state)
-                t = cmp_model.topology_from_trajectory(small, device=where)
-                loss, _ = tr.loss_and_grads(ts, t, tr.frames(small), normal=normal.to(where), static=static)
-                losses_cmp[where] = float(loss)
-                grads[where] = {n: p.grad.cpu() for n, p in ts.model.params.named_parameters()}
-            cpu_grads[cpu_key] = (losses_cmp["cpu"], grads["cpu"])
-            loss_tol, grad_tol = TRAIN_TOL[dtype_name]
-            loss_err = abs(losses_cmp["cuda"] - losses_cmp["cpu"]) / abs(losses_cmp["cpu"])
-            errs = {n: rel_l2(grads["cuda"][n], g) for n, g in grads["cpu"].items()}
-            own = {n: e for n, e in errs.items() if ".balance." in n and dtype_name == "bfloat16"}
-            worst = max((e, n) for n, e in errs.items() if n not in own)
-            worst_own = max(((e, n) for n, e in own.items()), default=(0.0, "-"))
-            log(
-                f"train step ({mode}) {dtype_name} card vs CPU, B={CPU_FRAMES}: loss {losses_cmp['cuda']:.6f} "
-                f"vs {losses_cmp['cpu']:.6f} (rel {loss_err:.3g}); worst gradient relative L2 "
-                f"{worst[0]:.3g} ({worst[1]})"
-                + (f"; of the balance edge models {worst_own[0]:.3g} ({worst_own[1]})" if own else "")
-            )
-            if loss_err > loss_tol or worst[0] > grad_tol or worst_own[0] > BALANCE_BF16_GRAD_TOL:
-                raise AssertionError(f"train step ({mode}) {dtype_name} card vs CPU outside {TRAIN_TOL[dtype_name]}")
-            timings[mode][f"vs_cpu_{dtype_name}"] = dict(
-                loss_rel=loss_err, worst_grad_rel_l2=worst[0], worst_balance_grad_rel_l2=worst_own[0]
-            )
+        # balancer) static, B = CPU_FRAMES, PyTorch's scatter-adds in a fixed
+        # order on both sides (see TRAIN_TOL)
+        with fixed_scatter_order():
+            for dtype_name in ("bfloat16", "float32"):
+                cmp_config = make_config(**path, compute_dtype=None if dtype_name == "float32" else dtype_name)
+                cmp_model = get_model(cmp_config)
+                state = cmp_model.init_state(torch.Generator().manual_seed(seed + 1))
+                small = {k: v[:CPU_FRAMES] for k, v in traj.items()}
+                normal = torch.randn(small["world_pos"].shape, generator=torch.Generator().manual_seed(seed + 2),
+                                     dtype=torch.float64)
+                grads, losses_cmp = {}, {}
+                cpu_key = (agg_vjp, balancer, dtype_name)
+                for where in ("cuda", "cpu"):
+                    if where == "cpu" and cpu_key in cpu_grads:
+                        losses_cmp["cpu"], grads["cpu"] = cpu_grads[cpu_key]
+                        continue
+                    tr = Trainer(cmp_model, cmp_config, device=where)
+                    ts = tr.init_train_state(state=state)
+                    t = cmp_model.topology_from_trajectory(small, device=where)
+                    loss, _ = tr.loss_and_grads(ts, t, tr.frames(small), normal=normal.to(where), static=static)
+                    losses_cmp[where] = float(loss)
+                    grads[where] = {n: p.grad.cpu() for n, p in ts.model.params.named_parameters()}
+                cpu_grads[cpu_key] = (losses_cmp["cpu"], grads["cpu"])
+                loss_tol, grad_tol = TRAIN_TOL[dtype_name]
+                loss_err = abs(losses_cmp["cuda"] - losses_cmp["cpu"]) / abs(losses_cmp["cpu"])
+                errs = {n: rel_l2(grads["cuda"][n], g) for n, g in grads["cpu"].items()}
+                own = {n: e for n, e in errs.items() if ".balance." in n and dtype_name == "bfloat16"}
+                worst = max((e, n) for n, e in errs.items() if n not in own)
+                worst_own = max(((e, n) for n, e in own.items()), default=(0.0, "-"))
+                log(
+                    f"train step ({mode}) {dtype_name} card vs CPU, B={CPU_FRAMES}: loss {losses_cmp['cuda']:.6f} "
+                    f"vs {losses_cmp['cpu']:.6f} (rel {loss_err:.3g}); worst gradient relative L2 "
+                    f"{worst[0]:.3g} ({worst[1]})"
+                    + (f"; of the balance edge models {worst_own[0]:.3g} ({worst_own[1]})" if own else "")
+                )
+                if loss_err > loss_tol or worst[0] > grad_tol or worst_own[0] > BALANCE_BF16_GRAD_TOL:
+                    raise AssertionError(
+                        f"train step ({mode}) {dtype_name} card vs CPU outside {TRAIN_TOL[dtype_name]}: loss "
+                        f"{loss_err:.3g}, worst gradients {sorted(errs.items(), key=lambda kv: -kv[1])[:4]}"
+                    )
+                timings[mode][f"vs_cpu_{dtype_name}"] = dict(
+                    loss_rel=loss_err, worst_grad_rel_l2=worst[0], worst_balance_grad_rel_l2=worst_own[0]
+                )
+    return launches, timings
+
+
+# The task's evaluator scalars on the card against the CPU, same state, bf16
+# on both (relative difference): the one-step loss and error over the
+# validation trajectory's 57 frames (K1 at B=21 and 15) and the n-step loss
+# over 32 windows of 10 steps (one chunk: K1 at B=32, the task path's
+# chunk). Each limit is about 10x the sound reading (7.4e-7, 5.4e-7,
+# 2.5e-5 on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md), and the check is
+# run again with a K1 fault planted on the card (TASK_FAULTS; the same run
+# read 5.7e-3 or more for each): the phase fails unless each fault breaks a
+# limit.
+TASK_TOL = {"validation_loss": 1e-5, "position_error": 1e-5, "n_step_loss": 2.5e-4}
+TASK_CPU_TIMESTEPS = 42  # the n-step comparison's frames: 32 windows of 10 steps
+
+
+def _toward_zero(x):
+    """``x`` with every nonzero element one unit in the last place nearer 0."""
+    import torch
+
+    bits = x.view({2: torch.int16, 4: torch.int32}[x.element_size()])
+    return torch.where(x != 0, bits - 1, bits).view(x.dtype)
+
+
+# Planted K1 faults: what a wrong kernel could get wrong without failing to
+# run. ``e2_ulp``: the edge output rounded one bf16 unit toward zero (a
+# rounding fault, at most one unit); ``lost_receivers``: every 64th
+# receiver's aggregate left at zero (a work group not written).
+def _fault_e2_ulp(e2, agg, *rest):
+    return (_toward_zero(e2), agg, *rest)
+
+
+def _fault_lost_receivers(e2, agg, *rest):
+    agg = agg.clone()
+    agg[:, ::64] = 0
+    return (e2, agg, *rest)
+
+
+TASK_FAULTS = {"e2_ulp": _fault_e2_ulp, "lost_receivers": _fault_lost_receivers}
+CLI_CONFIG = "flag_fused_demo"
+
+
+def task_config():
+    """``main_config`` with the file's own task settings, checked."""
+    config = main_config()
+    task = config["params"]["task"]
+    want = dict(batch_size=21, epochs=1, n_timesteps=57, trajectories=2)
+    if {k: task[k] for k in want} != want or task["synthetic"] != dict(trajectories=2, num_steps=60, nx=40, ny=40) \
+            or task["test"]["n_steps"] != 10:
+        raise AssertionError(f"flag_full_scale's task settings changed: {task}")
+    return config
+
+
+def phase_task(card):
+    """The task loop on the card: ``get_task(flag_full_scale, RMP off)``,
+    ``run_iterations`` (fit over 2 trajectories, the three evaluators on the
+    validation split, GIF, checkpoint) and ``get_scalars`` (the evaluators on
+    the test split), with the launches read around fit and each evaluator;
+    a second task resuming from the checkpoint; ``Predictor`` served from
+    the checkpoint; the evaluators' scalars against the CPU; the CLI twice
+    on configs/flag_fused_demo.yaml in a subprocess."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hyper_graph_nets_tpu_torch.data import tfrecord
+    from hyper_graph_nets_tpu_torch.data.loader import get_data
+    from hyper_graph_nets_tpu_torch.ops import fused_block as fb
+    from hyper_graph_nets_tpu_torch.serving import Predictor
+    from hyper_graph_nets_tpu_torch.training import checkpoint
+    from hyper_graph_nets_tpu_torch.training.simulator import MeshSimulator
+    from hyper_graph_nets_tpu_torch.training.task import get_task
+    from hyper_graph_nets_tpu_torch.training.trainer import TrainState
+
+    config = task_config()
+    params = config["params"]
+    B, T, n = params["task"]["batch_size"], params["task"]["n_timesteps"], params["task"]["test"]["n_steps"]
+    timings = {}
+    with tempfile.TemporaryDirectory(prefix="hgn_task_") as root:
+        t0 = time.perf_counter()
+        for split in ("train", "valid", "test"):
+            get_data(config, split, data_dir=root)
+        timings["data_s"] = time.perf_counter() - t0
+        synth = params["task"]["synthetic"]
+        log(f"task: synthetic {params['task']['dataset']} {synth['nx']}x{synth['ny']} written and read in "
+            f"{timings['data_s']:.2f} s (CRC32C: {tfrecord.crc32c_backend()})")
+        task = get_task(config, data_dir=root)
+        sim = task.simulator
+        blocks = sim.model.gnn_config.message_passing_steps
+        check_mgn15(sim.model.gnn_config)
+
+        # each phase's launches, seconds and K1's batch sizes
+        calls = {name: [] for name in ("fit", "one_step", "rollout", "n_step")}
+        batches = []
+        k1 = fb.fused_edge_block_fwd
+
+        def recorded_k1(e, *args, **kwargs):
+            batches.append(e.shape[0])
+            return k1(e, *args, **kwargs)
+
+        def counted(name, fn):
+            def run(*args, **kwargs):
+                torch.cuda.synchronize()
+                before, b0, t0 = read_counts(), len(batches), time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                after = read_counts()
+                calls[name].append(dict(
+                    launches={k: after[k] - before[k] for k in after if after[k] != before[k]},
+                    s=time.perf_counter() - t0, batches=sorted(set(batches[b0:])),
+                ))
+                return out
+            return run
+
+        for name in calls:
+            attr = "fit_trajectory" if name == "fit" else f"{name}_evaluator"
+            setattr(sim, attr, counted(name, getattr(sim, attr)))
+
+        # the main path: every count set to 0 just before, read just after
+        fb.fused_edge_block_fwd = recorded_k1
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            task.run_iterations()
+            torch.cuda.synchronize()
+            timings["epoch_s"] = time.perf_counter() - t0
+            scalars = task.get_scalars()
+            launches = read_counts()
+        finally:
+            fb.fused_edge_block_fwd = k1
+        log(f"task launches: {launches}; scalars {scalars}")
+
+        windows = T - n
+        chunk = sim.model.n_step_chunk_size(windows)
+        want_each = {
+            "fit": {"K1": blocks * -(-T // B), "K2": blocks * -(-T // B)},
+            "one_step": {"K1": blocks * -(-T // B)},
+            "rollout": {"K1": blocks * T},
+            "n_step": {"K1": blocks * n * -(-windows // chunk)},
+        }
+        want_batches = {"fit": [T % B, B], "one_step": [T % B, B], "rollout": [1],
+                        "n_step": sorted({chunk, windows % chunk or chunk})}
+        want_calls = {"fit": params["task"]["trajectories"], "one_step": 2, "rollout": 2, "n_step": 2}
+        for name, runs in calls.items():
+            log(f"task {name}: " + "; ".join(
+                f"{r['launches']} in {r['s']:.3f} s, B {r['batches']}" for r in runs))
+            if len(runs) != want_calls[name] or any(
+                r["launches"] != want_each[name] or r["batches"] != want_batches[name] for r in runs
+            ):
+                raise AssertionError(f"task {name}: {runs}, want {want_calls[name]} x {want_each[name]} "
+                                     f"at B {want_batches[name]}")
+        want = dict.fromkeys(launches, 0)
+        for name, runs in calls.items():
+            for k, v in want_each[name].items():
+                want[k] += v * len(runs)
+        if launches != want:
+            raise AssertionError(f"task launches {launches}, want {want}")
+        if not all(np.isfinite(v) for v in scalars.values()) or len(scalars) != 4:
+            raise AssertionError(f"task scalars not finite: {scalars}")
+        ckpt = os.path.join(task.out_dir, checkpoint.checkpoint_name(config, 1))
+        if not os.path.isfile(ckpt):
+            raise AssertionError(f"no checkpoint at {ckpt}")
+        with open(os.path.join(task.out_dir, "run.metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        fit_rate = [r["edges_per_s"] for r in records if "edges_per_s" in r]
+        timings.update(
+            scalars=scalars, launches=launches,
+            calls={k: [dict(r, launches=dict(r["launches"])) for r in v] for k, v in calls.items()},
+            fit_edges_per_s=fit_rate,
+            rollout_ms_per_step=[1e3 * r["s"] / T for r in calls["rollout"]],
+            n_step_s=[r["s"] for r in calls["n_step"]],
+        )
+
+        # a second task on the same directory resumes and trains nothing
+        reset_counts()
+        again = get_task(config, data_dir=root)
+        again.run_iterations()
+        torch.cuda.synchronize()
+        resumed = read_counts()
+        if again.start_epoch != 1 or any(resumed.values()):
+            raise AssertionError(f"resume: start epoch {again.start_epoch}, launches {resumed}")
+        log(f"task resumed at epoch {again.start_epoch} (step {again.tstate.step}); launches {resumed}")
+
+        # serving from the checkpoint: bit for bit the task's own state
+        test = next(iter(get_data(config, "test", data_dir=root)))
+        batch = {k: v[:B] for k, v in test.items()}
+        served = Predictor.from_config(config, checkpoint=task.out_dir).one_step(batch)
+        direct = Predictor(config, state=task.tstate.model).one_step(batch)
+        if not np.array_equal(served, direct):
+            raise AssertionError("Predictor from the checkpoint differs from the task's state")
+        log("Predictor.from_config(checkpoint=...).one_step equals the task state's bit for bit")
+
+        # the evaluators on the card against the CPU, same state; then on the
+        # card again with each planted K1 fault, which the check must catch
+        cpu_sim = MeshSimulator(config, out_dir=os.path.join(root, "cpu"), device="cpu")
+        cpu_state = TrainState(model=task.tstate.model.to("cpu"), opt_state=None, step=task.tstate.step)
+
+        def evaluate(where, s, ts):
+            valid = lambda: get_data(config, "valid", data_dir=root)
+            del batches[:]
+            t0 = time.perf_counter()
+            out = s.one_step_evaluator(ts, valid(), n_trajectories=1, logging=False)
+            out.update(s.n_step_evaluator(ts, valid(), n_step=n, n_trajectories=1,
+                                          num_timesteps=TASK_CPU_TIMESTEPS, logging=False))
+            log(f"task evaluators on {where}: {out} in {time.perf_counter() - t0:.1f} s, "
+                f"K1 at B {sorted(set(batches))}")
+            return out
+
+        cpu = evaluate("cpu", cpu_sim, cpu_state)
+        rel = lambda out: {k: abs(out[k] - cpu[k]) / abs(cpu[k]) for k in TASK_TOL}
+        fb.fused_edge_block_fwd = recorded_k1
+        try:
+            errs = rel(evaluate("cuda", sim, task.tstate))
+            card_batches = sorted(set(batches))
+            faults = {}
+            for fault, plant in TASK_FAULTS.items():
+                fb.fused_edge_block_fwd = lambda *a, plant=plant, **kw: plant(*recorded_k1(*a, **kw))
+                faults[fault] = rel(evaluate(f"cuda with fault {fault}", sim, task.tstate))
+        finally:
+            fb.fused_edge_block_fwd = k1
+        log(f"task evaluators card vs CPU (relative; limits {TASK_TOL}): {errs}")
+        for fault, e in faults.items():
+            log(f"task evaluators card with K1 fault {fault} vs CPU (relative): {e}")
+        timings["vs_cpu"], timings["vs_cpu_faults"] = errs, faults
+        if card_batches != sorted({TASK_LAST_BATCH, B, TASK_N_STEP_CHUNK}):
+            raise AssertionError(f"task evaluators card vs CPU ran K1 at B {card_batches}")
+        if any(errs[k] > TASK_TOL[k] for k in TASK_TOL):
+            raise AssertionError(f"task evaluators card vs CPU outside {TASK_TOL}: {errs}")
+        caught = {f: any(e[k] > TASK_TOL[k] for k in TASK_TOL) for f, e in faults.items()}
+        if not all(caught.values()):
+            raise AssertionError(f"task evaluators card vs CPU: a planted K1 fault passed the check: {faults}")
+
+        # the CLI as shipped, twice: the second run resumes
+        cli = [sys.executable, "-m", "hyper_graph_nets_tpu_torch.main", CLI_CONFIG, "--data-dir",
+               os.path.join(root, "cli")]
+        timings["cli_s"] = []
+        for run in range(2):
+            t0 = time.perf_counter()
+            out = subprocess.run(cli, cwd=HERE, capture_output=True, text=True, timeout=600)
+            timings["cli_s"].append(time.perf_counter() - t0)
+            if out.returncode != 0:
+                raise AssertionError(f"CLI run {run} exited {out.returncode}:\n{out.stdout}\n{out.stderr}")
+            log(f"CLI {CLI_CONFIG} run {run}: exit 0 in {timings['cli_s'][-1]:.1f} s; "
+                + ", ".join(out.stdout.strip().splitlines()[-4:]))
+        with open(os.path.join(root, "cli", "flag_simple", "output", "run.metrics.jsonl")) as f:
+            if '"resumed_from_epoch": 1.0' not in f.read():
+                raise AssertionError("the second CLI run did not resume from epoch 1")
+
+    log(f"task epoch (fit + validation evaluators + GIF + checkpoint): {timings['epoch_s']:.3f} s; "
+        f"fit edges/s (logger, per trajectory) {', '.join(f'{r:.4g}' for r in fit_rate)} [{card}]")
+    log(f"task rollout evaluator: {', '.join(f'{r:.2f}' for r in timings['rollout_ms_per_step'])} ms/step "
+        f"(B=1, {T} steps); n-step evaluator {', '.join(f'{r:.3f}' for r in timings['n_step_s'])} s "
+        f"({windows} windows of {n} steps, chunks of {chunk}) [{card}]")
     return launches, timings
 
 
@@ -1792,10 +2099,14 @@ def main(argv=None) -> int:
         serve_launches = {k: serve_launches.get(k, 0) + v for k, v in n.items()}
     halo_launches, halo_timings = phase_halo(card, args.seed)
     train_launches, train_timings = phase_train(card, args.seed, args.profile)
-    launches = {k: serve_launches[k] + halo_launches[k] + train_launches[k] for k in serve_launches}
+    task_launches, task_timings = phase_task(card)
+    launches = {
+        k: serve_launches[k] + halo_launches[k] + train_launches[k] + task_launches[k] for k in serve_launches
+    }
 
     main_k1 = k1[("bfloat16", ONE_STEP_FRAMES)]
-    k1_shapes = {"B=21": main_k1, "B=1": k1[("bfloat16", 1)], "raw shard": k1[("bfloat16 raw shard", 1)],
+    k1_shapes = {"B=21": main_k1, "B=1": k1[("bfloat16", 1)], "B=15": k1[("bfloat16", TASK_LAST_BATCH)],
+                 "B=32": k1[("bfloat16", TASK_N_STEP_CHUNK)], "raw shard": k1[("bfloat16 raw shard", 1)],
                  "raw contiguous shard": k1[("bfloat16 raw contiguous shard", 1)]}
     shapes = lambda runs: {tag: {"ms": r["ms"], "bound_ms": r["bound_ms"]} for tag, r in runs.items()}
     entry = lambda name, src, pallas, n, r: {
@@ -1856,6 +2167,8 @@ def main(argv=None) -> int:
                     "serving_launches": serve_launches,
                     "training": train_timings,
                     "training_launches": train_launches,
+                    "task": task_timings,
+                    "task_launches": task_launches,
                     "kernels": kernels,
                 },
                 f, indent=1,

@@ -10,11 +10,15 @@ This is the only module that knows the JAX layout:
   ``max_accumulations`` / ``std_epsilon``).
 
 Inputs are nested dicts (lists for MLP layers) of numpy arrays, so neither
-side needs the other's framework.
+side needs the other's framework.  :func:`train_state_from_jax_numpy` also
+moves optax's Adam state: its moments ``mu`` and ``nu`` have the
+parameters' layout and convert the same way, its ``count`` is each
+parameter's ``step`` in ``torch.optim.Adam``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import dataclasses
+from typing import TYPE_CHECKING, Any, Dict
 
 import numpy as np
 import torch
@@ -24,6 +28,9 @@ from hyper_graph_nets_tpu_torch.models.base import ModelState
 from hyper_graph_nets_tpu_torch.nn.blocks import GraphNetBlock
 from hyper_graph_nets_tpu_torch.nn.meshgraphnet import MeshGraphNet
 from hyper_graph_nets_tpu_torch.nn.mlp import MLP
+
+if TYPE_CHECKING:
+    from hyper_graph_nets_tpu_torch.training.trainer import Trainer, TrainState
 
 _FLAT_BLOCK_KEYS = {"edge_models", "node_model_cross"}
 _ENCODER_KEYS = {"node_model", "edge_models"}
@@ -104,3 +111,30 @@ def state_from_jax_numpy(
         params=net,
         normalizers={name: _normalizer(d) for name, d in normalizers.items()},
     )
+
+
+def train_state_from_jax_numpy(
+    trainer: "Trainer",
+    params: Dict[str, Any],
+    normalizers: Dict[str, Dict[str, Any]],
+    mu: Dict[str, Any],
+    nu: Dict[str, Any],
+    count,
+    step,
+) -> "TrainState":
+    """``trainer``'s train state, on its device, from the JAX package's
+    weights, normalizer states, Adam moments (``mu``, ``nu``: trees of the
+    weights' layout) and Adam ``count``, and its train-state ``step``, all
+    as numpy.  The next Adam update is then the JAX package's next one."""
+    tstate = trainer.init_train_state(state=state_from_jax_numpy(params, normalizers))
+    moments = {
+        key: dict(state_from_jax_numpy(tree, {}).params.named_parameters())
+        for key, tree in (("exp_avg", mu), ("exp_avg_sq", nu))
+    }
+    opt = tstate.opt_state
+    for name, p in tstate.model.params.named_parameters():
+        opt.state[p] = {
+            "step": torch.tensor(float(np.asarray(count))),
+            **{key: m[name].detach().to(p) for key, m in moments.items()},
+        }
+    return dataclasses.replace(tstate, step=int(np.asarray(step)))

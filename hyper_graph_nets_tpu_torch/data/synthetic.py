@@ -1,9 +1,11 @@
 """Synthetic flag trajectories (numpy).
 
-Counterpart of ``flag_trajectory`` in ``hyper_graph_nets_tpu/data/synthetic.py``:
+Counterpart of ``hyper_graph_nets_tpu/data/synthetic.py`` for flag:
 mass-spring cloth on a triangulated grid, pinned at two corners, under
-gravity and a seeded wind, with the keys of the flag_simple dataset.  Same
-seed, same arrays as the JAX package's generator.
+gravity and a seeded wind, with the keys of the flag_simple dataset, and the
+``meta.json`` schema of generated data.  Same seed, same arrays as the JAX
+package's generator.  The cylinder and plate generators come with the
+plate and cylinder slice of the port (ROADMAP queue 1, item 3).
 """
 from __future__ import annotations
 
@@ -80,3 +82,24 @@ def flag_trajectory(
         "node_type": np.tile(node_type[None], (T, 1, 1)),
         "world_pos": world_pos,
     }
+
+
+GENERATORS = {
+    "flag_minimal": flag_trajectory,
+    "flag_simple": flag_trajectory,
+}
+
+
+def make_meta(dataset: str, trajectory: Dict[str, np.ndarray]) -> dict:
+    """A DeepMind-style meta.json dict for generated data."""
+    features = {}
+    T = trajectory["cells"].shape[0]
+    for key, val in trajectory.items():
+        static = key in ("cells", "mesh_pos", "node_type")
+        features[key] = {
+            "type": "static" if static else "dynamic",
+            "shape": [1 if static else T] + list(val.shape[1:]),
+            "dtype": str(val.dtype),
+        }
+    return {"dataset": dataset, "trajectory_length": T, "features": features}
+

@@ -109,6 +109,37 @@ class SystemModel:
             self.architecture = "repeated"
         self.use_balancer = bal_cfg.get("algorithm", "none") != "none"
         self.balance_frequency = bal_cfg.get("frequency", 1)
+        # host-side eval counters that rollout and n-step computations add
+        # to; the simulator's evaluators drain them (pop_eval_metrics)
+        self.eval_metrics: Dict[str, float] = {}
+
+    def pop_eval_metrics(self) -> Dict[str, float]:
+        """Drain the accumulated eval counters (see ``eval_metrics``)."""
+        out, self.eval_metrics = self.eval_metrics, {}
+        return out
+
+    def n_step_chunk_size(self, num_windows: int) -> int:
+        """Windows per batched forward (config ``model.n_step_chunk``, 32)."""
+        cfg = int(self.params["model"].get("n_step_chunk", 32))
+        return max(1, min(cfg, num_windows))
+
+    @staticmethod
+    def _n_step_chunked(window_losses, starts: np.ndarray, chunk: int) -> Tuple[float, float]:
+        """Run n-step windows ``chunk`` at a time (the last chunk may be
+        short) and return (mean over windows of each window's mean loss,
+        mean over windows of its last-step loss): the JAX package's
+        ``_n_step_chunked``.  ``window_losses(starts)`` returns the
+        per-window, per-step losses ``[len(starts), n + 1]``; the sums stay
+        on the device until the end."""
+        W = len(starts)
+        if W == 0:
+            return float("nan"), float("nan")
+        mean_sum = last_sum = 0.0
+        for s0 in range(0, W, chunk):
+            losses = window_losses(starts[s0 : s0 + chunk])
+            mean_sum = mean_sum + losses.mean(dim=1).sum()
+            last_sum = last_sum + losses[:, -1].sum()
+        return float(mean_sum) / W, float(last_sum) / W
 
     # -- schema hooks (subclasses override) --------------------------------
     def edge_in_dims(self) -> Tuple[Tuple[str, int], ...]:

@@ -8,7 +8,8 @@ Counterpart of ``hyper_graph_nets_tpu/models/flag.py``:
   normalizer always accumulates (the reference's quirk, kept);
 - output: acceleration, integrated as ``pos = 2*cur + acc - prev``;
 - rollout: a Python loop in which boundary (non-NORMAL) nodes hold their
-  positions;
+  positions; the n-step evaluation runs a chunk of sliding windows as one
+  batch of frames;
 - with ``graph_balancer`` set, a ``balance`` edge set featurized as mesh
   edges (``mesh_edge_features``), added by the expansion after
   ``make_graph``.
@@ -41,6 +42,10 @@ class FlagModel(SystemModel):
 
     def node_in_dim(self) -> int:
         return self.world_dim + 2  # velocity ++ one-hot(2)
+
+    def carry_to_frame(self, carry) -> Dict[str, torch.Tensor]:
+        """Rollout carry ``(prev_pos, cur_pos)`` -> frame fields."""
+        return {"prev|world_pos": carry[0], "world_pos": carry[1]}
 
     def edge_in_dims(self) -> Tuple[Tuple[str, int], ...]:
         mesh_edge_dim = self.world_dim + 1 + self.mesh_dim + 1
@@ -156,6 +161,15 @@ class FlagModel(SystemModel):
         return 2 * frames["world_pos"] + acceleration - frames["prev|world_pos"]
 
     # ------------------------------------------------------------------
+    def _step(self, state, topo, frame, normal, expansion, static) -> torch.Tensor:
+        """The next positions of one frame or a batch of frames; boundary
+        (non-NORMAL) nodes hold theirs."""
+        graph, _, _ = self.make_graph(state, topo, frame, False)
+        if expansion is not None:
+            graph, _ = expansion.expand(state, graph, frame, self, is_training=False, static=static)
+        prediction = self.update(state, frame, self.forward(state, graph))
+        return torch.where(normal, prediction, frame["world_pos"])
+
     def rollout(
         self,
         state: ModelState,
@@ -164,10 +178,15 @@ class FlagModel(SystemModel):
         num_steps: Optional[int] = None,
         expansion=None,
         static=None,
-    ) -> Tuple[Dict[str, object], torch.Tensor]:
-        """Recursive rollout from the first frame; returns (traj_ops, per-step
-        MSE).  With an ``expansion`` every step's graph is expanded (with
-        ``static``, or the expansion's prepared one) after ``make_graph``."""
+        start_carry=None,
+        return_carry: bool = False,
+    ):
+        """Recursive rollout from the first frame (or from ``start_carry``,
+        a ``(prev_pos, cur_pos)`` pair); returns (traj_ops, per-step MSE),
+        and the final carry with ``return_carry``, for the segmented
+        rollouts of an expansion that resets mid-rollout.  With an
+        ``expansion`` every step's graph is expanded (with ``static``, or
+        the expansion's prepared one) after ``make_graph``."""
         T = trajectory["cells"].shape[0]
         num_steps = T if num_steps is None else min(num_steps, T)
         device = topo.senders.device
@@ -179,15 +198,13 @@ class FlagModel(SystemModel):
         static_frame = {"mesh_pos": init["mesh_pos"], "node_type": init["node_type"]}
         normal = (init["node_type"][:, 0] == NodeType.NORMAL)[:, None]
         prev_pos, cur_pos = init["prev|world_pos"], init["world_pos"]
+        if start_carry is not None:
+            prev_pos, cur_pos = start_carry
         preds = []
         for _ in range(num_steps):
             frame = {**static_frame, "world_pos": cur_pos, "prev|world_pos": prev_pos}
-            graph, _, _ = self.make_graph(state, topo, frame, False)
-            if expansion is not None:
-                graph, _ = expansion.expand(state, graph, frame, self, is_training=False, static=static)
-            prediction = self.update(state, frame, self.forward(state, graph))
             preds.append(cur_pos)
-            prev_pos, cur_pos = cur_pos, torch.where(normal, prediction, cur_pos)
+            prev_pos, cur_pos = cur_pos, self._step(state, topo, frame, normal, expansion, static)
         pred = torch.stack(preds)
         gt = torch.as_tensor(trajectory["world_pos"][:num_steps], device=device)
         mse = (gt - pred).square().mean(dim=(-2, -1))
@@ -197,4 +214,51 @@ class FlagModel(SystemModel):
             "gt_pos": trajectory["world_pos"],
             "pred_pos": pred,
         }
+        if return_carry:
+            return traj_ops, mse, (prev_pos, cur_pos)
         return traj_ops, mse
+
+    def n_step_computation(
+        self,
+        state: ModelState,
+        topo: Topology,
+        trajectory: Dict[str, np.ndarray],
+        n_step: int,
+        num_timesteps: Optional[int] = None,
+        expansion=None,
+        static=None,
+    ) -> Tuple[float, float]:
+        """Sliding-window n-step losses: every window starting at frame
+        ``s < T - n_step`` rolls out ``n_step`` steps from frame ``s``, and
+        its per-step MSE against frames ``s .. s + n_step`` is averaged.
+        Returns (mean of the windows' mean losses, mean of their last-step
+        losses).  A chunk of windows (``n_step_chunk_size``) runs as one
+        batch of ``[chunk, N, ...]`` frames, so each block's kernel runs at
+        B = chunk.  The JAX package also runs a forward after the last
+        step, whose prediction nothing reads; this loop does not."""
+        T = trajectory["cells"].shape[0] if num_timesteps is None else num_timesteps
+        starts = np.arange(T - n_step)
+        device = topo.senders.device
+        mesh_pos = torch.as_tensor(trajectory["mesh_pos"][0], device=device)
+        node_type = torch.as_tensor(trajectory["node_type"][0], device=device)
+        normal = (node_type[:, 0] == NodeType.NORMAL)[:, None]
+        world, prev = trajectory["world_pos"], trajectory["prev|world_pos"]
+
+        def window_losses(idx: np.ndarray) -> torch.Tensor:
+            c = len(idx)
+            static_frame = {
+                "mesh_pos": mesh_pos.expand(c, *mesh_pos.shape),
+                "node_type": node_type.expand(c, *node_type.shape),
+            }
+            prev_pos = torch.as_tensor(prev[idx], device=device)
+            cur_pos = torch.as_tensor(world[idx], device=device)
+            gt = torch.as_tensor(np.stack([world[idx + k] for k in range(n_step + 1)]), device=device)
+            losses = []
+            for k in range(n_step + 1):
+                losses.append((gt[k] - cur_pos).square().mean(dim=(-2, -1)))
+                if k < n_step:
+                    frame = {**static_frame, "world_pos": cur_pos, "prev|world_pos": prev_pos}
+                    prev_pos, cur_pos = cur_pos, self._step(state, topo, frame, normal, expansion, static)
+            return torch.stack(losses, dim=1)
+
+        return self._n_step_chunked(window_losses, starts, self.n_step_chunk_size(len(starts)))

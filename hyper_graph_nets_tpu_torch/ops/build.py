@@ -1,4 +1,5 @@
-"""Build the port's CUDA sources into shared libraries, at first use.
+"""Build the port's CUDA sources (and its one host C source) into shared
+libraries, at first use.
 
 Each ``csrc/*.cu`` file has a plain C interface and is compiled on its own by
 ``nvcc`` for ``sm_90a`` into ``_build/<stem>-<hash>.so``, where the hash
@@ -6,7 +7,9 @@ covers the source bytes, the bytes of every ``csrc`` header it includes
 (``#include "..."``), the flags and any extra defines (a probe build, such
 as the backward kernels' phase clock, gets its own library), then loaded
 with ``ctypes``.  Nothing is built at import time; a missing ``nvcc`` or a
-failed build raises.
+failed build raises.  :func:`load_host` does the same for a host C source
+(``csrc/crc32c.c``) with the system C compiler (``cc``, which ``nvcc`` needs
+as its host compiler anyway).
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+CC_FLAGS = ("-O3", "-shared", "-fPIC")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()  # the ranks of a group load the kernels from several threads
@@ -72,7 +77,11 @@ def _flags(defines: Sequence[str]) -> list:
 
 
 def library_path(source: str, defines: Sequence[str] = ()) -> str:
-    digest = hashlib.sha256(" ".join(_flags(defines)).encode())
+    return _library_path(source, _flags(defines))
+
+
+def _library_path(source: str, flags: Sequence[str]) -> str:
+    digest = hashlib.sha256(" ".join(flags).encode())
     for path in [source, *_local_headers(source)]:
         with open(path, "rb") as f:
             digest.update(f.read())
@@ -122,6 +131,29 @@ def load(source: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
     process)."""
     with _lock:
         lib = build([source], defines)[source]
+        if lib not in _loaded:
+            _loaded[lib] = ctypes.CDLL(lib)
+        return _loaded[lib]
+
+
+def load_host(source: str) -> ctypes.CDLL:
+    """Build the host C ``source`` with ``cc`` if needed and load it (once
+    per process).  Raises ``RuntimeError`` when there is no C compiler or the
+    build fails."""
+    with _lock:
+        lib = _library_path(source, CC_FLAGS)
+        if not os.path.isfile(lib):
+            cc = shutil.which("cc") or shutil.which("gcc") or shutil.which("clang")
+            if cc is None:
+                raise RuntimeError(f"no C compiler (cc, gcc or clang) to build {source}")
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{lib}.{os.getpid()}.tmp"
+            out = subprocess.run(
+                [cc, *CC_FLAGS, "-o", tmp, source], capture_output=True, text=True
+            )
+            if out.returncode != 0:
+                raise RuntimeError(f"{cc} failed on {source}:\n{out.stderr}")
+            os.replace(tmp, lib)
         if lib not in _loaded:
             _loaded[lib] = ctypes.CDLL(lib)
         return _loaded[lib]

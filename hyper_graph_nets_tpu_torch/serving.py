@@ -15,6 +15,7 @@ Example::
 
     from hyper_graph_nets_tpu_torch.serving import Predictor
     p = Predictor.from_config("flag_full_scale")   # on the card
+    p = Predictor.from_config("flag_fused_demo", checkpoint="data/flag_simple/output")
     preds = p.one_step(trajectory)                 # [B, N, 3] next positions
     result = p.rollout(trajectory, num_steps=50)   # pred_pos, gt_pos, mse, ...
 """
@@ -30,6 +31,7 @@ from hyper_graph_nets_tpu_torch.core.mesh import mesh_fingerprint
 from hyper_graph_nets_tpu_torch.models.base import ModelState, Topology
 from hyper_graph_nets_tpu_torch.models.get_model import get_model
 from hyper_graph_nets_tpu_torch.runtime import resolve_device
+from hyper_graph_nets_tpu_torch.training import checkpoint as ckpt
 from hyper_graph_nets_tpu_torch.training.expansion import build_expansion
 from hyper_graph_nets_tpu_torch.training.trainer import batched_forward
 from hyper_graph_nets_tpu_torch.utils.config import read_yaml
@@ -69,18 +71,19 @@ class Predictor:
         checkpoint: Optional[str] = None,
         device=None,
     ) -> "Predictor":
-        """Build from a config name under ``configs/`` or a config dict."""
-        if checkpoint is not None:
-            raise NotImplementedError(
-                "checkpoint loading comes with the checkpoint slice (ROADMAP "
-                "slice 6); pass a converted state to Predictor(config, state=...)"
-            )
+        """Build from a config name under ``configs/`` or a config dict,
+        with the state of ``checkpoint`` when given: a checkpoint file (the
+        port's ``.pt`` or the JAX package's ``.pkl``) or a directory, whose
+        newest checkpoint of this configuration is taken."""
         config = (
             read_yaml(config_or_name)
             if isinstance(config_or_name, str)
             else config_or_name
         )
-        return cls(config, device=device)
+        state = None
+        if checkpoint is not None:
+            state = ckpt.load_model_state(ckpt.find(checkpoint, config), get_model(config))
+        return cls(config, state=state, device=device)
 
     def _topology(self, trajectory: Dict[str, np.ndarray]) -> Topology:
         key = mesh_fingerprint(

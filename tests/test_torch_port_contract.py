@@ -6,7 +6,8 @@ and its host-side pieces against the JAX package's.
 - Entry points default to the card and raise without one; CPU runs never
   launch the kernel.
 - Configurations of later slices (and an unknown balancer) raise
-  ``NotImplementedError``; the Ricci balancer serves on the CPU.
+  ``NotImplementedError``, a missing checkpoint ``FileNotFoundError``; the
+  Ricci balancer serves on the CPU.
 - Mesh edges, synthetic data, config parsing, the normalizer and the
   segment ops agree with the JAX package (float32: rtol = 1e-6, atol = 1e-6).
 """
@@ -220,13 +221,47 @@ def test_cpu_predictor_sorted_serves_without_launching():
 
 
 def test_checkpoint_and_other_datasets_raise():
-    with pytest.raises(NotImplementedError):
+    """A checkpoint path that holds nothing raises (loading one is
+    tests/test_torch_port_task.py's); plate and cylinder are a later slice."""
+    with pytest.raises(FileNotFoundError):
         Predictor.from_config(flag_config("bfloat16"), checkpoint="somewhere", device="cpu")
     for dataset in ("cylinder_flow", "deforming_plate"):
         config = flag_config("bfloat16")
         config["params"]["task"]["dataset"] = dataset
         with pytest.raises(NotImplementedError):
             Predictor(config, device="cpu")
+
+
+def _train_spread():
+    import importlib.util
+
+    path = os.path.join(REPO, "tools", "torch_port", "train_spread.py")
+    spec = importlib.util.spec_from_file_location("train_spread", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_train_check_holds_the_scatter_order_fixed():
+    """``chip_smoke.fixed_scatter_order`` turns PyTorch's deterministic
+    algorithms on for its block only.  ``tools/torch_port/train_spread.py``
+    (the train-step check repeated), with the CPU on both sides at 8x8, 2
+    blocks, latent 16, float32 with the balancer: in a fixed order every run
+    reads exactly 0 (the same operations in the same order); as they come,
+    every run stays within ``TRAIN_TOL``."""
+    spread = _train_spread()
+    cs = spread.cs
+    assert not torch.are_deterministic_algorithms_enabled()
+    with cs.fixed_scatter_order():
+        assert torch.are_deterministic_algorithms_enabled()
+    assert not torch.are_deterministic_algorithms_enabled()
+    res = spread.spread(seconds=60, fixed_seconds=60, device="cpu", nx=8,
+                        model=dict(message_passing_steps=2, latent_size=16), max_runs=2)
+    assert not torch.are_deterministic_algorithms_enabled()
+    assert res["fixed"]["runs"] == res["atomic"]["runs"] == 2
+    assert dict(res["fixed"]["worst"]) == {"0": 2} and dict(res["fixed"]["loss"]) == {"0": 2}
+    assert all(float(w) <= cs.TRAIN_TOL["float32"][1] for w in res["atomic"]["worst"])
+    assert any(".balance." in name for name in res["names"])
 
 
 # -- host-side pieces against the JAX package ---------------------------------
