@@ -2,7 +2,8 @@
 """Run the PyTorch port on one NVIDIA GPU: build and check its kernels, serve
 flag MeshGraphNets (MGN-15MP) through ``Predictor`` and through the halo
 forward over a rank group, and train it through ``Trainer``, without and with
-the Ricci graph balancer.
+the Ricci graph balancer, and serve and train flag HyperGraphNets (remote
+message passing) as configs/flag_full_scale.yaml ships it.
 
     python3 chip_smoke.py [--seed 0] [--out FILE.json] [--profile DIR]
 
@@ -87,7 +88,21 @@ Phases (any failure exits non-zero; nothing is caught and dropped):
    hyper_graph_nets_tpu_torch.main flag_fused_demo``) twice in a
    subprocess, the second run resuming; the epoch's seconds, fit edges/s,
    rollout-evaluator ms/step and n-step-evaluator seconds;
-7. timings, each with the card (with --profile also the device's busy share
+7. remote message passing (``phase_rmp``): configs/flag_full_scale.yaml as
+   shipped (spectral clustering into 16 clusters on the host, scipy only;
+   ``connector: hyper``; 15 hierarchical blocks, bf16, fused remat) served
+   (``one_step`` B = 21 and a 50-step ``rollout``, each call reclustering
+   in its prepare, timed on a line of its own) and trained (B = 21, the
+   loss after 30 steps below the first step's) with 15 K1 per forward and
+   15 K2 per train step, the mesh set planned over the 1,616 rows; K1 and
+   K2 at those rows against their plain versions (the 16 hyper rows
+   receive nothing); the same train step twice, with RMP and with the
+   balancer, bit for bit without PyTorch's deterministic algorithms; the
+   card against the CPU at B = 2 (loss, gradients, one_step accelerations;
+   RMP_TOL) and again with planted K1 faults, which must break it; the CLI
+   on flag_full_scale twice, the second run resuming; whether scikit-learn
+   imports (information only);
+8. timings, each with the card (with --profile also the device's busy share
    and kernel time by name), the kernels' JSON line, then the device JSON
    line last.
 
@@ -149,14 +164,13 @@ SERVE_TOL = {"net_out": 0.05, "acceleration": 0.01}
 # blocks and their backward: loss within 2**-5, each gradient within
 # relative L2 2**-4.  (Measured on an H100: float32 1.7e-4 and bf16 1.3e-2
 # for the worst gradient.)  Both sides run with PyTorch's deterministic
-# algorithms (``fixed_scatter_order``): with the balancer the card's
-# scatter-adds (the balance edge set's aggregate, a gather's backward) are
-# atomic, their float32 sums change order from run to run, and now and then
-# a relu input of a balance edge model lands on the other side of 0 and moves
-# that model's gradients past 1e-3, about one run in a thousand
-# (``tools/torch_port/train_spread.py``; PERF.md section 6).  In a fixed
-# order every run reads the same; the port's kernels add in a fixed order
-# anyway.
+# algorithms (``fixed_scatter_order``).  Without it the balance edge set's
+# sums once went through PyTorch's atomic scatter-adds, whose float32 order
+# changed from run to run and moved a balance edge model's gradients past
+# 1e-3 about one run in a thousand (``tools/torch_port/train_spread.py``;
+# PERF.md section 6); every unplanned set now sums in a fixed order
+# (``core.segment_ops.FixedSum``, held bit for bit by ``phase_rmp``), and
+# the wrapper stays as a second guard.
 TRAIN_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (2.0**-5, 2.0**-4)}
 # bf16 only: the gradients of the balancer's ``balance`` edge models, summed
 # over B x 298 valid balance edges where a mesh-edge tensor sums over
@@ -535,6 +549,23 @@ def tie_topology(snd, rcv, N):
     return snd[order], rcv[order], order, copies
 
 
+def compare_bwd(tag, dtype_name, got, want):
+    """K2/K3 outputs against their plain versions' (BWD_TOL): de, dh, dz2,
+    dz3, dsp, drp elementwise; dpar rows by relative L2.  Returns the largest
+    error of de, dh, dz2, dz3."""
+    rtol, atol, l2 = BWD_TOL[dtype_name]
+    err = 0.0
+    for name, g, w in zip(("de", "dh", "dz2", "dz3", "dsp", "drp"), got[:6], want[:6]):
+        e = check_close(f"{tag} {name}", g, w, rtol, atol * float(w.float().abs().max()))
+        if name in ("de", "dh", "dz2", "dz3"):
+            err = max(err, e)
+    for k in range(5):
+        r = rel_l2(got[6][k], want[6][k])
+        if not r <= l2:
+            raise AssertionError(f"{tag} dpar row {k}: relative L2 {r:.3g} > {l2}")
+    return err
+
+
 def phase_backward(card, peaks, topo_np, seed):
     """K2 and K3 against their plain versions, the routed max/min mass, and
     the weight-gradient products of one block."""
@@ -584,20 +615,6 @@ def phase_backward(card, peaks, topo_np, seed):
         )
         return k2, k3
 
-    def compare(tag, dtype_name, got, want):
-        """de, dh, dz2, dz3, dsp, drp elementwise; dpar rows by relative L2."""
-        rtol, atol, l2 = BWD_TOL[dtype_name]
-        err = 0.0
-        for name, g, w in zip(("de", "dh", "dz2", "dz3", "dsp", "drp"), got[:6], want[:6]):
-            e = check_close(f"{tag} {name}", g, w, rtol, atol * float(w.float().abs().max()))
-            if name in ("de", "dh", "dz2", "dz3"):
-                err = max(err, e)
-        for k in range(5):
-            r = rel_l2(got[6][k], want[6][k])
-            if not r <= l2:
-                raise AssertionError(f"{tag} dpar row {k}: relative L2 {r:.3g} > {l2}")
-        return err
-
     def check_both(tag, dtype_name, x, topo, plan, fwd, de2, drhs):
         e2, agg, a1, a2, mu, isg = fwd
         k2, k3 = kernels(x, topo, plan, fwd, de2, drhs)
@@ -611,8 +628,8 @@ def phase_backward(card, peaks, topo_np, seed):
             x["e"], x["sp"], x["rp"], w, de2, drhs, *topo, forward=(e2, a1, a2)
         )
         ref3 = fused_edge_block_bwd_stream_reference(x["e"], a1, a2, mu, isg, w, de2, drhs, *topo, e2=e2)
-        err2 = compare(f"K2 {tag}", dtype_name, out2[:4] + out2[6:], ref2[:4] + ref2[6:])
-        err3 = compare(f"K3 {tag}", dtype_name, out3, ref3)
+        err2 = compare_bwd(f"K2 {tag}", dtype_name, out2[:4] + out2[6:], ref2[:4] + ref2[6:])
+        err3 = compare_bwd(f"K3 {tag}", dtype_name, out3, ref3)
         return err2, err3, k2, k3, out2, out3
 
     results = {}
@@ -1994,6 +2011,434 @@ def phase_task(card):
     return launches, timings
 
 
+# -- remote message passing: configs/flag_full_scale.yaml as shipped ----------
+
+RMP_CLUSTERS = 16  # and so 1,616 rows on the 40x40 flag: 1,600 mesh rows, 16 hyper rows
+# The RMP train step's loss and gradients and its one_step output on the
+# card against the CPU (same converted state, noise and static, B = 2
+# frames, 15 hierarchical blocks): loss relative error, each gradient's
+# relative L2 (``grad`` for the mesh tier, the encoders, decoder and mesh
+# node models; ``tier_grad`` for the cluster tier, RMP_TIER: the hyper
+# encoder and node models and the up, inter and down edge models, each fed
+# by the B x 16 hyper rows.  Their float32 errors are lumpy where the mesh
+# tier's are not: tools/torch_port/rmp_tier_spread.py read the cluster
+# tier's worst from 1.2e-4 to 3.4e-3 over frame and cluster counts, one
+# tensor at a time, and the mesh tier's 0.8e-4 to 2.2e-4; PERF.md section
+# 6), and the one_step accelerations' largest error over their largest
+# magnitude.
+# Readings on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6), the same
+# on every run since the train step is bit for bit: bf16 loss 1.9e-5,
+# cluster tier 0.073, accelerations 8.7e-3; float32 loss 7.2e-8, cluster
+# tier 1.4e-3, accelerations 6.5e-4.  Each run also plants K1 faults
+# (TASK_FAULTS), each of which must break one limit: in bf16 both (e2_ulp
+# read 0.161 on a mesh-tier tensor); in float32 the lost receivers (one
+# float32 unit in the last place of e2 sits inside the summation-order
+# differences the limits allow).
+RMP_FAULTS = {"bfloat16": ("e2_ulp", "lost_receivers"), "float32": ("lost_receivers",)}
+RMP_TIER = ("hyper_", "inter_cluster", "intra_cluster_to_cluster", "intra_cluster_to_mesh")
+RMP_TOL = {
+    "float32": {"loss": 1e-6, "grad": 1e-3, "tier_grad": 1e-2, "acceleration": 5e-3},
+    "bfloat16": {"loss": 2e-4, "grad": 2.0**-4, "tier_grad": 0.25, "acceleration": 0.02},
+}
+RMP_CLI_CONFIG = "flag_full_scale"
+
+
+def rmp_config(**model):
+    """configs/flag_full_scale.yaml as shipped (RMP on), its RMP settings
+    checked; ``model`` overrides keys of the model section."""
+    from hyper_graph_nets_tpu_torch.utils.config import read_yaml
+
+    config = read_yaml("flag_full_scale")
+    rmp = config["params"]["model"]["rmp"]
+    want = dict(clustering="spectral", connector="hyper", num_clusters=RMP_CLUSTERS, hyper_noise=0.005,
+                frequency=1, hyper_node_features=True)
+    if {k: rmp.get(k) for k in want} != want or rmp["intra_cluster_sampling"]["enabled"]:
+        raise AssertionError(f"flag_full_scale's rmp settings changed: {rmp}")
+    config["params"]["model"].update(model)
+    return config
+
+
+def check_rmp(cfg, compute_dtype="bfloat16"):
+    got = (cfg.latent_size, cfg.message_passing_steps, cfg.agg_vjp, cfg.fused_bwd, cfg.compute_dtype,
+           cfg.architecture)
+    if got != (128, 15, "fused", "remat", compute_dtype, "hyper"):
+        raise AssertionError(f"flag_full_scale is not HGN-15MP fused remat {compute_dtype}: {cfg}")
+    sets = ("mesh_edges", "intra_cluster_to_cluster", "intra_cluster_to_mesh", "inter_cluster")
+    if cfg.edge_sets != sets:
+        raise AssertionError(f"edge sets {cfg.edge_sets}, want {sets}")
+
+
+def rmp_state(config, traj, seed):
+    """Seeded weights (CPU) whose normalizers, the RMP ones included, have
+    seen the trajectory in training mode (one clustering, seeded noise)."""
+    import torch
+
+    from hyper_graph_nets_tpu_torch.models.get_model import get_model
+    from hyper_graph_nets_tpu_torch.training.expansion import build_expansion
+
+    model = get_model(config)
+    exp = build_expansion(model, config)
+    state = model.init_state(torch.Generator().manual_seed(seed))
+    topo = model.topology_from_trajectory(traj, device="cpu")
+    static = exp.prepare(model, {k: v[0] for k, v in traj.items()}, topo)
+    frames = {k: torch.as_tensor(v) for k, v in traj.items() if k != "cells"}
+    with torch.no_grad():
+        graph, _, state = model.make_graph(state, topo, frames, True)
+        _, state = exp.expand(state, graph, frames, model, True, static=static,
+                              generator=torch.Generator().manual_seed(seed + 3))
+        _, state = model.get_target(state, frames, True)
+    return state
+
+
+def _host_ms(fn, n):
+    import numpy as np
+    import torch
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * float(np.median(times))
+
+
+def _rmp_kernels(card, peaks, static, snd, rcv, N, seed):
+    """K1 and K2 on the mesh set over the N + K rows of the RMP path (the
+    hyper rows receive no edge), at B = 21 in bf16, against their plain
+    versions; the hyper rows' aggregates and node cotangents must be 0."""
+    import torch
+
+    from hyper_graph_nets_tpu_torch.ops.fused_block import (
+        agg_cotangent_rhs,
+        fused_edge_block,
+        fused_edge_block_bwd,
+        fused_edge_block_bwd_reference,
+        fused_edge_block_fwd,
+        fused_edge_block_reference,
+    )
+
+    rows, L, B, E = N + RMP_CLUSTERS, L_MAIN, TRAIN_FRAMES, len(snd)
+    plan = static.mesh_plan
+    if plan is None or plan.num_nodes != rows:
+        raise AssertionError(f"the RMP mesh plan covers {None if plan is None else plan.num_nodes} rows, want {rows}")
+    gen = torch.Generator().manual_seed(seed + 5)
+    x = k1_inputs(torch.bfloat16, B, snd, rcv, rows, L, gen, "cuda")
+    run = lambda: fused_edge_block(**x, plan=plan)
+    e2, agg = run()
+    torch.cuda.synchronize()
+    re2, ragg = fused_edge_block_reference(**x)
+    err = max(check_close("K1 rmp e2", e2, re2, *TOL["bfloat16"]["e2"]),
+              check_close("K1 rmp agg", agg, ragg, *TOL["bfloat16"]["agg"]))
+    if not bool((agg[:, N:] == 0).all()):
+        raise AssertionError("K1 over the RMP rows: a hyper row's aggregate is not 0")
+    out = {}
+    ms = kernel_device_ms(run, iters=20, names="fused_block_fwd_kernel")
+    plain_ms = cuda_time_ms(lambda: fused_edge_block_reference(**x), iters=10)
+    bound, bound_by = k1_bound_ms("bfloat16", B, E, rows, L, peaks)
+    out["K1"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+    log(f"K1 bfloat16 B={B} E={E} rows={rows} (RMP mesh set): kernel {ms * 1e3:.1f} us, bound "
+        f"{bound * 1e3:.2f} us ({bound_by}), plain {plain_ms:.3f} ms, max abs err {err:.3g} [{card}]")
+
+    topo = (x["senders"], x["receivers"], None, rows)
+    fwd = fused_edge_block_fwd(x["e"], x["sp"], x["rp"], x["weights"], *topo, plan=plan, save_streams=True)
+    de2 = torch.randn(B, E, L, generator=gen).to(torch.bfloat16).cuda()
+    dagg = torch.randn(B, rows, 4 * L, generator=gen).cuda()
+    drhs = agg_cotangent_rhs(fwd[1], dagg, x["receivers"], None, rows)
+    k2 = lambda: fused_edge_block_bwd(x["e"], x["sp"], x["rp"], x["weights"], de2, drhs, *topo, plan=plan)
+    got = k2()
+    torch.cuda.synchronize()
+    want = fused_edge_block_bwd_reference(x["e"], x["sp"], x["rp"], x["weights"], de2, drhs, *topo,
+                                          forward=(fwd[0], fwd[2], fwd[3]))
+    err = compare_bwd("K2 rmp", "bfloat16", got[:4] + got[6:], want[:4] + want[6:])
+    if not (bool((got[6][:, N:] == 0).all()) and bool((got[7][:, N:] == 0).all())):
+        raise AssertionError("K2 over the RMP rows: a hyper row's dsp/drp is not 0")
+    ms = kernel_device_ms(k2, iters=10, names=BWD_KERNELS)
+    plain_ms = cuda_time_ms(
+        lambda: fused_edge_block_bwd_reference(x["e"], x["sp"], x["rp"], x["weights"], de2, drhs, *topo),
+        iters=5,
+    )
+    bound, bound_by = bwd_bound_ms("bfloat16", B, E, rows, L, peaks, stream=False)
+    out["K2"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+    log(f"K2 bfloat16 B={B} E={E} rows={rows} (RMP mesh set): kernels {ms * 1e3:.1f} us, bound "
+        f"{bound * 1e3:.2f} us ({bound_by}), plain {plain_ms:.3f} ms, max abs err {err:.3g} [{card}]")
+    return out
+
+
+def _train_twice(trainer, state, topo, frames, static, normal, hyper):
+    """Two loss_and_grads from the same state, noise and static, outside any
+    deterministic-algorithms setting: (loss, gradients, normalizer fields)
+    of each."""
+    import torch
+
+    runs = []
+    for _ in range(2):
+        ts = trainer.init_train_state(state=state)
+        loss, norms = trainer.loss_and_grads(ts, topo, frames, normal=normal, static=static, hyper_normal=hyper)
+        torch.cuda.synchronize()
+        runs.append((loss.cpu(), [p.grad.cpu() for p in ts.model.params.parameters()],
+                     [getattr(ns, f).cpu() for ns in norms.values() for f in ("acc_sum", "acc_sum_squared")]))
+    return runs
+
+
+def _bit_for_bit(tag, runs):
+    import torch
+
+    (l0, g0, n0), (l1, g1, n1) = runs
+    same = torch.equal(l0, l1) and all(map(torch.equal, g0, g1)) and all(map(torch.equal, n0, n1))
+    differ = sum(not torch.equal(a, b) for a, b in zip(g0, g1))
+    log(f"train step ({tag}) twice from one state and noise, no deterministic-algorithms setting: "
+        f"loss {float(l0):.8f} / {float(l1):.8f}; {len(g0) - differ} of {len(g0)} gradients bit for bit")
+    if not same:
+        raise AssertionError(f"train step ({tag}) is not the same bit for bit on a second run ({differ} "
+                             "gradients differ)")
+
+
+def rmp_vs_cpu(traj, small, normal, hyper, seed, card_device):
+    """The RMP train step's loss and gradients and one_step's accelerations
+    on the card against the CPU (``small``: B = CPU_FRAMES frames; the same
+    converted state, noise and static), in bf16 and float32, and again on
+    the card with each planted K1 fault of RMP_FAULTS.  Returns ``(sound,
+    faulted)``: ``{"<dtype> <where>": {limit: reading}}``."""
+    import numpy as np
+
+    from hyper_graph_nets_tpu_torch.models.get_model import get_model
+    from hyper_graph_nets_tpu_torch.ops import fused_block as fb
+    from hyper_graph_nets_tpu_torch.serving import Predictor
+    from hyper_graph_nets_tpu_torch.training.trainer import Trainer
+
+    frame0 = {k: v[0] for k, v in traj.items()}
+    base = 2 * small["world_pos"] - small["prev|world_pos"]
+    in_tier = lambda n: any(tag in n for tag in RMP_TIER)
+    vs_cpu, faults = {}, {}
+    k1 = fb.fused_edge_block_fwd
+    for dtype_name in ("bfloat16", "float32"):
+        cfg = rmp_config(compute_dtype=None if dtype_name == "float32" else dtype_name)
+        cmodel = get_model(cfg)
+        check_rmp(cmodel.gnn_config, None if dtype_name == "float32" else dtype_name)
+        cstate = rmp_state(cfg, traj, seed + 1)
+        static = None
+        runs = {}
+        for where in ("cpu", "card", *(f"card {f}" for f in RMP_FAULTS[dtype_name])):
+            device = "cpu" if where == "cpu" else card_device
+            tr = Trainer(cmodel, cfg, device=device)
+            t = cmodel.topology_from_trajectory(small, device=device)
+            if static is None:
+                static = tr.expansion.prepare(cmodel, frame0, t)
+            st = tuple(s.to(device) for s in static)
+            if " " in where:
+                plant = TASK_FAULTS[where.split()[1]]
+                fb.fused_edge_block_fwd = lambda *a, plant=plant, **kw: plant(*k1(*a, **kw))
+            try:
+                ts = tr.init_train_state(state=cstate)
+                loss, _ = tr.loss_and_grads(ts, t, tr.frames(small), normal=normal.to(device), static=st,
+                                            hyper_normal=hyper.to(device))
+                grads = {n: p.grad.cpu() for n, p in ts.model.params.named_parameters()}
+                pred = Predictor(cfg, state=cstate, device=device).one_step(small, static=st)
+            finally:
+                fb.fused_edge_block_fwd = k1
+            runs[where] = (float(loss), grads, pred - base)
+        lc, gc, ac = runs["cpu"]
+        for where, (l, g, a) in runs.items():
+            if where == "cpu":
+                continue
+            errs = sorted(((rel_l2(g[n], gc[n]), n) for n in gc), reverse=True)
+            rest = [e for e in errs if not in_tier(e[1])]
+            tier = [e for e in errs if in_tier(e[1])]
+            out = dict(loss=abs(l - lc) / abs(lc), grad=rest[0][0], tier_grad=tier[0][0],
+                       acceleration=float(np.abs(a - ac).max() / np.abs(ac).max()))
+            top = lambda es: ", ".join(f"{e:.3g} {n}" for e, n in es[:4])
+            log(f"rmp {dtype_name} {where} vs CPU, B={CPU_FRAMES}: loss rel {out['loss']:.3g}; one_step acceleration "
+                f"{out['acceleration']:.3g}; worst gradients (relative L2) {top(rest)}; of the cluster tier "
+                f"{top(tier)} (limits {RMP_TOL[dtype_name]})")
+            (vs_cpu if where == "card" else faults)[f"{dtype_name} {where}"] = out
+    return vs_cpu, faults
+
+
+def phase_rmp(card, peaks, seed, profile_dir=None):
+    """The RMP path of configs/flag_full_scale.yaml as shipped: serving and
+    training through Predictor and Trainer (15 K1 per forward, 15 K2 per
+    train step), K1/K2 over the 1,616 rows against their plain versions,
+    two train steps bit for bit (RMP and the balancer path), the card
+    against the CPU with planted K1 faults, and the CLI twice."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hyper_graph_nets_tpu_torch.data.preprocessing import add_targets
+    from hyper_graph_nets_tpu_torch.data.synthetic import flag_trajectory
+    from hyper_graph_nets_tpu_torch.models.get_model import get_model
+    from hyper_graph_nets_tpu_torch.serving import Predictor
+    from hyper_graph_nets_tpu_torch.training.trainer import Trainer
+
+    try:
+        import sklearn
+
+        log(f"rmp: scikit-learn {sklearn.__version__} imports on this machine; the port does not use it")
+    except ImportError:
+        log("rmp: scikit-learn does not import on this machine; the port does not use it")
+    if torch.are_deterministic_algorithms_enabled():
+        raise AssertionError("deterministic algorithms are on before the RMP phase")
+
+    config = rmp_config()
+    traj = add_targets(flag_trajectory(num_steps=ROLLOUT_STEPS + 3, nx=40, ny=40, seed=seed), "world_pos",
+                       history=True)
+    predictor = Predictor.from_config(config)
+    model = predictor.model
+    check_rmp(model.gnn_config)
+    blocks = model.gnn_config.message_passing_steps
+    state = rmp_state(config, traj, seed)
+    predictor.state = state.to(predictor.device)
+    B = ONE_STEP_FRAMES
+    batch = {k: v[:B] for k, v in traj.items()}
+    log(f"rmp serving: flag HGN-15MP as shipped (spectral, {RMP_CLUSTERS} clusters, connector hyper, latent 128, "
+        f"bf16, fused remat), one_step B={B}, rollout {ROLLOUT_STEPS}")
+
+    # serving, the main path: counts set to 0 just before, read just after
+    reset_counts()
+    pred = predictor.one_step(batch)
+    one = read_counts()
+    result = predictor.rollout(traj, num_steps=ROLLOUT_STEPS)
+    serve = read_counts()
+    want = dict.fromkeys(serve, 0)
+    want["K1"] = blocks * (1 + ROLLOUT_STEPS)
+    if one["K1"] != blocks or serve != want:
+        raise AssertionError(f"rmp serving launches {one} in one_step, {serve} in all; want {want}")
+    static = predictor.expansion.static
+    rstat = static[0]
+    if rstat.num_clusters != RMP_CLUSTERS or int((rstat.sizes > 0).sum()) != RMP_CLUSTERS:
+        raise AssertionError(f"rmp static: {rstat.num_clusters} clusters, sizes {rstat.sizes.tolist()}")
+    N = predictor._topology(traj).num_nodes
+    if pred.shape != (B, N, 3) or not np.isfinite(pred).all():
+        raise AssertionError(f"rmp one_step output {pred.shape} not finite/shaped")
+    if result["pred_pos"].shape != (ROLLOUT_STEPS, N, 3) or not np.isfinite(result["mse"]).all():
+        raise AssertionError("rmp rollout output not finite/shaped")
+    log(f"rmp serving launches: {one['K1']} K1 per one_step, {serve} in all; {int(rstat.inter_mask.sum())} "
+        f"inter-cluster edges, cluster sizes {sorted(int(s) for s in rstat.sizes.tolist())}")
+    E = int(predictor._topology(traj).senders.shape[0])
+    frame0 = {k: v[0] for k, v in traj.items()}
+
+    def prepare():
+        predictor.expansion.reset(0, 1)
+        predictor.expansion.prepare(model, frame0, predictor._topology(traj))
+
+    timings = dict(
+        one_step_ms=_host_ms(lambda: predictor.one_step(batch), 5),
+        one_step_static_ms=_host_ms(lambda: predictor.one_step(batch, static=static), 5),
+        prepare_s=_host_ms(prepare, 5) / 1e3,
+    )
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    predictor.rollout(traj, num_steps=ROLLOUT_STEPS)
+    timings["rollout_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / ROLLOUT_STEPS
+    timings["one_step_edges_per_s"] = B * E / (timings["one_step_static_ms"] / 1e3)
+    log(f"rmp one_step B={B}: {timings['one_step_ms']:.2f} ms with its prepare, {timings['one_step_static_ms']:.2f} "
+        f"ms with a prepared static ({timings['one_step_edges_per_s']:.4g} edges/s) [{card}]")
+    log(f"rmp prepare (spectral clustering into {RMP_CLUSTERS}, static, fixed-order sums, mesh plan over "
+        f"{N + RMP_CLUSTERS} rows), on every serving call: {timings['prepare_s']:.4f} s [{card}]")
+    log(f"rmp rollout: {timings['rollout_ms_per_step']:.2f} ms/step with one prepare, "
+        f"{E / (timings['rollout_ms_per_step'] / 1e3):.4g} edges/s [{card}]")
+
+    snd = predictor._topology(traj).senders.cpu().numpy()
+    rcv = predictor._topology(traj).receivers.cpu().numpy()
+    kernels = _rmp_kernels(card, peaks, rstat, snd, rcv, N, seed)
+
+    # training, the main path
+    trainer = Trainer(model, config)
+    topo = model.topology_from_trajectory(traj, device=trainer.device)
+    frames = trainer.frames({k: v[:TRAIN_FRAMES] for k, v in traj.items()})
+    gen = torch.Generator(device=trainer.device).manual_seed(seed)
+    tstate = trainer.init_train_state(state=state)
+    reset_counts()
+    tstatic = trainer.expansion.prepare(model, frame0, topo)
+    tstate, loss = trainer.train_step(tstate, topo, frames, generator=gen, static=tstatic)
+    torch.cuda.synchronize()
+    train = read_counts()
+    want = dict.fromkeys(train, 0)
+    want["K1"] = want["K2"] = blocks
+    if train != want:
+        raise AssertionError(f"rmp train step launches {train}, want {want}")
+    log(f"rmp train step launches (prepare + one step): {train}")
+    losses, step_s = [float(loss)], []
+    for _ in range(LOSS_STEPS - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tstate, loss = trainer.train_step(tstate, topo, frames, generator=gen, static=tstatic)
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t0)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"rmp loss did not fall over {LOSS_STEPS} steps: {losses}")
+    ms = 1e3 * float(np.median(step_s[WARMUP_STEPS : WARMUP_STEPS + TIMED_STEPS]))
+    timings.update(train_step_ms=ms, train_edges_per_s=TRAIN_FRAMES * E / (ms / 1e3),
+                   first_loss=losses[0], last_loss=losses[-1], peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"rmp train step B={TRAIN_FRAMES}: {ms:.2f} ms (median of {TIMED_STEPS} after {WARMUP_STEPS} warm-up), "
+        f"{timings['train_edges_per_s']:.4g} edges/s; loss {losses[0]:.5f} -> {losses[-1]:.5f} over "
+        f"{LOSS_STEPS} steps [{card}]")
+    if profile_dir:
+        timings["profile"] = {
+            "one_step": device_profile(lambda: predictor.one_step(batch, static=static), card, profile_dir,
+                                       "one_step_rmp"),
+            "rollout_5_steps": device_profile(lambda: predictor.rollout(traj, num_steps=5, static=static), card,
+                                              profile_dir, "rollout_rmp"),
+            "train": device_profile(lambda: trainer.train_step(tstate, topo, frames, generator=gen, static=tstatic),
+                                    card, profile_dir, "train_rmp"),
+        }
+
+    # bit for bit: the same step twice, RMP and the balancer path, with no
+    # deterministic-algorithms setting
+    small = {k: v[:CPU_FRAMES] for k, v in traj.items()}
+    normal = torch.randn(small["world_pos"].shape, generator=torch.Generator().manual_seed(seed + 2))
+    sframes = trainer.frames(small)
+    hyper = torch.randn(trainer.expansion.hyper_noise_shape(model, sframes, tstatic),
+                        generator=torch.Generator().manual_seed(seed + 4))
+    _bit_for_bit("rmp", _train_twice(trainer, state, topo, sframes, tstatic, normal.cuda(), hyper.cuda()))
+    bconfig = balancer_config()
+    bmodel = get_model(bconfig)
+    btrainer = Trainer(bmodel, bconfig)
+    btopo = bmodel.topology_from_trajectory(traj, device=btrainer.device)
+    bstatic = btrainer.expansion.prepare(bmodel, frame0, btopo)
+    bstate = bmodel.init_state(torch.Generator().manual_seed(seed + 1))
+    _bit_for_bit("balancer", _train_twice(btrainer, bstate, btopo, btrainer.frames(small), bstatic,
+                                          normal.cuda(), None))
+
+    # the card against the CPU, B = 2, same state, noise and static; then
+    # the card again with each planted K1 fault, which must break a limit
+    vs_cpu, faults = rmp_vs_cpu(traj, small, normal, hyper, seed, predictor.device)
+    timings["vs_cpu"], timings["vs_cpu_faults"] = vs_cpu, faults
+    for key, errs in vs_cpu.items():
+        tol = RMP_TOL[key.split()[0]]
+        if any(errs[k] > tol[k] for k in tol):
+            raise AssertionError(f"rmp {key} vs CPU outside {tol}: {errs}")
+    for key, errs in faults.items():
+        tol = RMP_TOL[key.split()[0]]
+        if not any(errs[k] > tol[k] for k in tol):
+            raise AssertionError(f"rmp {key}: a planted K1 fault passed the card-vs-CPU check: {errs}")
+
+    # the CLI as shipped, twice: one epoch, then a run that resumes
+    with tempfile.TemporaryDirectory(prefix="hgn_rmp_cli_") as root:
+        cli = [sys.executable, "-m", "hyper_graph_nets_tpu_torch.main", RMP_CLI_CONFIG, "--data-dir", root]
+        timings["cli_s"] = []
+        for run in range(2):
+            t0 = time.perf_counter()
+            out = subprocess.run(cli, cwd=HERE, capture_output=True, text=True, timeout=600)
+            timings["cli_s"].append(time.perf_counter() - t0)
+            if out.returncode != 0:
+                raise AssertionError(f"CLI {RMP_CLI_CONFIG} run {run} exited {out.returncode}:\n"
+                                     f"{out.stdout[-4000:]}\n{out.stderr[-4000:]}")
+            log(f"CLI {RMP_CLI_CONFIG} run {run}: exit 0 in {timings['cli_s'][-1]:.1f} s; "
+                + ", ".join(out.stdout.strip().splitlines()[-4:]))
+        out_dir = os.path.join(root, "flag_simple", "output")
+        with open(os.path.join(out_dir, "run.metrics.jsonl")) as f:
+            if '"resumed_from_epoch": 1.0' not in f.read():
+                raise AssertionError("the second CLI run of flag_full_scale did not resume from epoch 1")
+        images = [n for n in os.listdir(out_dir) if n.startswith("cluster_epoch")]
+        log(f"CLI {RMP_CLI_CONFIG}: cluster images {images or 'none (no matplotlib)'}")
+    launches = {k: serve[k] + train[k] for k in serve}
+    return launches, timings, kernels
+
+
 def device_profile(fn, card, out_dir, name, top=8):
     """One traced run of ``fn``: device busy share and kernel time by name.
 
@@ -2100,8 +2545,10 @@ def main(argv=None) -> int:
     halo_launches, halo_timings = phase_halo(card, args.seed)
     train_launches, train_timings = phase_train(card, args.seed, args.profile)
     task_launches, task_timings = phase_task(card)
+    rmp_launches, rmp_timings, rmp_kernels = phase_rmp(card, peaks, args.seed, args.profile)
     launches = {
-        k: serve_launches[k] + halo_launches[k] + train_launches[k] + task_launches[k] for k in serve_launches
+        k: serve_launches[k] + halo_launches[k] + train_launches[k] + task_launches[k] + rmp_launches[k]
+        for k in serve_launches
     }
 
     main_k1 = k1[("bfloat16", ONE_STEP_FRAMES)]
@@ -2109,6 +2556,8 @@ def main(argv=None) -> int:
                  "B=32": k1[("bfloat16", TASK_N_STEP_CHUNK)], "raw shard": k1[("bfloat16 raw shard", 1)],
                  "raw contiguous shard": k1[("bfloat16 raw contiguous shard", 1)]}
     shapes = lambda runs: {tag: {"ms": r["ms"], "bound_ms": r["bound_ms"]} for tag, r in runs.items()}
+    rmp_rows = lambda k: {f"B=21 rows={1600 + RMP_CLUSTERS} (RMP)": {
+        f: rmp_kernels[k][f] for f in ("ms", "bound_ms", "plain_ms", "max_abs_err")}}
     entry = lambda name, src, pallas, n, r: {
         "name": name,
         "route": "cuda",
@@ -2124,10 +2573,10 @@ def main(argv=None) -> int:
     }
     kernels = [
         dict(entry("fused_edge_block_fwd (K1)", "fused_block_fwd.cu", "fused_block.py:393", launches["K1"], main_k1),
-             shapes=shapes(k1_shapes)),
+             shapes={**shapes(k1_shapes), **rmp_rows("K1")}),
         dict(entry("fused_edge_block_bwd remat (K2)", "fused_block_bwd.cu", "fused_block.py:1008",
                    launches["K2"], bwd[("K2", "bfloat16")]),
-             main_kernel_ms=bwd[("K2", "bfloat16")]["main_kernel_ms"]),
+             main_kernel_ms=bwd[("K2", "bfloat16")]["main_kernel_ms"], shapes=rmp_rows("K2")),
         dict(entry("fused_edge_block_bwd stream (K3)", "fused_block_bwd.cu", "fused_block.py:1284",
                    launches["K3"], bwd[("K3", "bfloat16")]),
              main_kernel_ms=bwd[("K3", "bfloat16")]["main_kernel_ms"]),
@@ -2169,6 +2618,9 @@ def main(argv=None) -> int:
                     "training_launches": train_launches,
                     "task": task_timings,
                     "task_launches": task_launches,
+                    "rmp": rmp_timings,
+                    "rmp_launches": rmp_launches,
+                    "rmp_kernels": rmp_kernels,
                     "kernels": kernels,
                 },
                 f, indent=1,

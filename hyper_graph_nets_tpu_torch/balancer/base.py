@@ -22,10 +22,12 @@ import torch
 
 from hyper_graph_nets_tpu_torch.core.graph import EdgeSet, Graph
 from hyper_graph_nets_tpu_torch.core.mesh import receivers_to_gather
+from hyper_graph_nets_tpu_torch.core.segment_ops import EdgeSums
 
 
 class BalancerStatic(NamedTuple):
-    """The balance edges and the mesh edges' keep mask, as tensors."""
+    """The balance edges and the mesh edges' keep mask, as tensors, and
+    the balance set's fixed-order sums."""
 
     bal_senders: torch.Tensor  # [Eb] int32, receiver-sorted, padding at the tail
     bal_receivers: torch.Tensor  # [Eb] int32
@@ -33,6 +35,7 @@ class BalancerStatic(NamedTuple):
     bal_gather_idx: torch.Tensor  # [N, d] int32
     bal_gather_valid: torch.Tensor  # [N, d] float32
     mesh_keep: torch.Tensor  # [E] float32, 0 for removed mesh edges
+    bal_sums: EdgeSums
 
     def to(self, device) -> "BalancerStatic":
         return BalancerStatic(*(t.to(device) for t in self))
@@ -103,7 +106,8 @@ class GraphBalancer:
         )
         device = topo.senders.device
         self._static = BalancerStatic(
-            *(torch.from_numpy(a).to(device) for a in (snd, rcv, mask, gidx, gval, keep))
+            *(torch.from_numpy(a).to(device) for a in (snd, rcv, mask, gidx, gval, keep)),
+            bal_sums=EdgeSums.build(snd, rcv, topo.num_nodes).to(device),
         )
         return self._static
 
@@ -138,6 +142,7 @@ class GraphBalancer:
             mask=bmask,
             gather_idx=static.bal_gather_idx,
             gather_valid=static.bal_gather_valid,
+            sums=static.bal_sums,
         )
 
         keep = static.mesh_keep

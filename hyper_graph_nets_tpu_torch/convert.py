@@ -4,7 +4,11 @@ This is the only module that knows the JAX layout:
 
 - dense weights are ``[in, out]`` (the port holds ``[out, in]``);
 - the processor's block parameters are stacked on a leading
-  ``[message_passing_steps, ...]`` axis (``nn/meshgraphnet.py:48-52``);
+  ``[message_passing_steps, ...]`` axis (``nn/meshgraphnet.py:48-52``),
+  the hierarchical blocks' node models (``hyper_node_model_up``,
+  ``node_model_down``, ``hyper_node_model_cross``, multiscale's list
+  ``hyper_node_models_cross``) included; the hyper tier's encoder is
+  ``encoder.hyper_node_model``;
 - a normalizer state has the fields ``acc_count``, ``num_accumulations``,
   ``acc_sum``, ``acc_sum_squared`` (and optionally the static
   ``max_accumulations`` / ``std_epsilon``).
@@ -32,8 +36,11 @@ from hyper_graph_nets_tpu_torch.nn.mlp import MLP
 if TYPE_CHECKING:
     from hyper_graph_nets_tpu_torch.training.trainer import Trainer, TrainState
 
-_FLAT_BLOCK_KEYS = {"edge_models", "node_model_cross"}
-_ENCODER_KEYS = {"node_model", "edge_models"}
+_BLOCK_KEYS = {
+    "edge_models", "node_model_cross", "hyper_node_model_up", "node_model_down",
+    "hyper_node_model_cross", "hyper_node_models_cross",
+}
+_ENCODER_KEYS = {"node_model", "edge_models", "hyper_node_model"}
 
 
 def _tensor(a) -> torch.Tensor:
@@ -83,22 +90,25 @@ def state_from_jax_numpy(
     params: Dict[str, Any], normalizers: Dict[str, Dict[str, Any]]
 ) -> ModelState:
     """The port's state (float32, on the CPU) from JAX params and normalizer
-    states given as nested dicts of numpy arrays.  Raises for parameter
-    trees of architectures the port does not run yet."""
+    states given as nested dicts of numpy arrays.  Raises on parameters the
+    port does not know."""
     enc, proc = params["encoder"], params["processor"]
-    extra = (set(enc) - _ENCODER_KEYS) | (set(proc) - _FLAT_BLOCK_KEYS)
+    extra = (set(enc) - _ENCODER_KEYS) | (set(proc) - _BLOCK_KEYS)
     if extra:
-        raise NotImplementedError(
-            f"parameters {sorted(extra)} belong to hierarchical blocks "
-            "(ROADMAP slice 8)"
-        )
+        raise NotImplementedError(f"unknown parameters {sorted(extra)}")
+    optional = lambda block, key: _mlp(block[key]) if key in block else None
     blocks = []
     for i in range(_num_steps(proc)):
         block = _index(proc, i)
+        cross = block.get("hyper_node_models_cross")
         blocks.append(
             GraphNetBlock(
                 {name: _mlp(p) for name, p in block["edge_models"].items()},
                 _mlp(block["node_model_cross"]),
+                hyper_node_model_up=optional(block, "hyper_node_model_up"),
+                node_model_down=optional(block, "node_model_down"),
+                hyper_node_model_cross=optional(block, "hyper_node_model_cross"),
+                hyper_node_models_cross=None if cross is None else [_mlp(p) for p in cross],
             )
         )
     net = MeshGraphNet(
@@ -106,6 +116,7 @@ def state_from_jax_numpy(
         edge_encoders={name: _mlp(p) for name, p in enc["edge_models"].items()},
         blocks=blocks,
         decoder=_mlp(params["decoder"]),
+        hyper_encoder=optional(enc, "hyper_node_model"),
     )
     return ModelState(
         params=net,

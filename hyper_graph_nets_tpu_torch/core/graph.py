@@ -5,7 +5,8 @@ carry a leading batch dimension (``[B, N, F]`` / ``[B, E, F]``); topology
 (senders, receivers, mask) is shared by the batch.  Edges keep the
 receiver-sorted order of ``core.mesh.cells_to_edges``; a kernel's plan
 (fused or sorted) rides on the edge set in place of the JAX package's band
-plan.
+plan.  Remote message passing adds a hyper tier of node features; edge
+indices address the concatenated ``[mesh; hyper]`` rows.
 """
 from __future__ import annotations
 
@@ -41,7 +42,10 @@ class EdgeSet:
     or None.  ``gather_idx``/``gather_valid`` are the static ``[N, d_max]``
     neighbour-edge matrix of the receivers (``core.mesh.receivers_to_gather``)
     and ``snd_gather_*`` that of the senders: the ``agg_vjp: gather`` path
-    aggregates and routes cotangents through them.
+    aggregates and routes cotangents through them.  ``sums`` holds the
+    fixed-order sums over the receivers and the senders
+    (``core.segment_ops.EdgeSums``): the unfused paths' scatter sums and
+    gather backwards run through them, in the same order on every run.
     """
 
     features: torch.Tensor  # [..., E, F]
@@ -53,6 +57,7 @@ class EdgeSet:
     gather_valid: Optional[torch.Tensor] = None  # [N, d_max] float32
     snd_gather_idx: Optional[torch.Tensor] = None
     snd_gather_valid: Optional[torch.Tensor] = None
+    sums: Optional[object] = None
 
     @property
     def num_edges(self) -> int:
@@ -64,10 +69,28 @@ class EdgeSet:
 
 @dataclasses.dataclass(frozen=True)
 class Graph:
-    """Mesh node features plus a name-keyed dict of edge sets."""
+    """Mesh node features, the hyper tier's (None without remote message
+    passing) and a name-keyed dict of edge sets."""
 
     node_features: torch.Tensor  # [..., N, F]
     edge_sets: Dict[str, EdgeSet]
+    hyper_features: Optional[torch.Tensor] = None  # [..., K, F]
+    hyper_mask: Optional[torch.Tensor] = None  # [..., K] float, as the JAX Graph carries
+
+    @property
+    def num_nodes(self) -> int:
+        return self.node_features.shape[-2]
+
+    @property
+    def num_hyper_nodes(self) -> int:
+        return 0 if self.hyper_features is None else self.hyper_features.shape[-2]
 
     def replace(self, **changes) -> "Graph":
         return dataclasses.replace(self, **changes)
+
+
+def concat_node_tiers(graph: Graph) -> torch.Tensor:
+    """Mesh and hyper node features as one ``[..., N + K, F]`` tensor."""
+    if graph.num_hyper_nodes == 0:
+        return graph.node_features
+    return torch.cat([graph.node_features, graph.hyper_features], dim=-2)

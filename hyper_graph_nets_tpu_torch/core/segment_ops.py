@@ -14,11 +14,26 @@ The ``agg_vjp: gather`` path aggregates over a static neighbour matrix
 :func:`gather_rows`): the max/min cotangent goes in full to every tied edge,
 as in the JAX package, where autograd through ``scatter_reduce`` would split
 it.
+
+Fixed-order sums (:class:`FixedSum`, :class:`EdgeSums`): an edge set
+without a kernel plan sums its edges into node rows in the aggregate's sum
+and count, and its edge update gathers node rows whose backward sums edge
+cotangents into node rows.  ``index_add_`` (and the backward of an index
+gather) adds with atomics on the card, in an order that changes from run
+to run.  A :class:`FixedSum`, built once per topology on the host, sums by
+gathers and dense reductions instead: each segment's elements, in edge
+order, in chunks of at most ``FIXED_SUM_CAP``, then the chunks' sums the
+same way until one row is left per segment.  :func:`segment_sum_fixed` and
+:func:`gather_fixed` are the sum and the gather, each with the other as its
+backward, so a train step through them is the same bit for bit on every
+run.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 _NEG_INF = -1e30
@@ -33,18 +48,168 @@ def _valid(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if mask is None else (mask > 0)[..., None]
 
 
-def _sum32(data, ids, num_segments, mask):
+# -- fixed-order sums ----------------------------------------------------------
+
+FIXED_SUM_CAP = 32  # elements summed per row of one level, at most
+
+
+@dataclasses.dataclass(frozen=True)
+class FixedSum:
+    """Host-built plan of the sum of ``[..., E, F]`` rows into the
+    ``num_segments`` segments of ``ids``, in a fixed order.
+
+    Each level gathers its input rows into ``[R, C]`` slots (``idx``, with
+    ``valid`` False for padding) and sums over the slots; ``place`` then
+    picks each segment's row of the last level's output, or the zero row
+    appended after it for an empty segment.
+    """
+
+    ids: torch.Tensor  # [E] int64
+    levels: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]  # ([R, C] int64, [R, C] bool)
+    place: torch.Tensor  # [num_segments] int64
+    num_segments: int
+
+    def to(self, device) -> "FixedSum":
+        return FixedSum(
+            self.ids.to(device),
+            tuple((i.to(device), v.to(device)) for i, v in self.levels),
+            self.place.to(device),
+            self.num_segments,
+        )
+
+    def with_rows(self, num_segments: int) -> "FixedSum":
+        """The same sum into more segments; the added ones stay empty."""
+        extra = num_segments - self.num_segments
+        if extra < 0:
+            raise ValueError("with_rows only adds segments")
+        rows = int(self.levels[-1][0].shape[0]) if self.levels else int(self.ids.shape[0])
+        pad = torch.full((extra,), rows, dtype=torch.int64, device=self.place.device)
+        return dataclasses.replace(
+            self, place=torch.cat([self.place, pad]), num_segments=num_segments
+        )
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """``[..., E, F] -> [..., num_segments, F]``, no autograd."""
+        if x.shape[-2] != self.ids.shape[0]:
+            raise ValueError(f"{x.shape[-2]} rows, the plan sums {self.ids.shape[0]}")
+        axis = x.dim() - 2
+        for idx, valid in self.levels:
+            g = x.index_select(axis, idx.reshape(-1)).reshape(
+                x.shape[:-2] + tuple(idx.shape) + (x.shape[-1],)
+            )
+            x = torch.where(valid[..., None], g, torch.zeros((), dtype=g.dtype, device=g.device))
+            x = x.sum(dim=-2)
+        x = torch.cat([x, x.new_zeros(x.shape[:-2] + (1, x.shape[-1]))], dim=axis)
+        return x.index_select(axis, self.place)
+
+
+def fixed_sum_plan(ids, num_segments: int) -> FixedSum:
+    """Host: the :class:`FixedSum` of ``ids`` (``[E]``, values in
+    ``[0, num_segments)``), on the CPU."""
+    ids = np.asarray(ids.cpu() if isinstance(ids, torch.Tensor) else ids, np.int64)
+    if ids.size and (ids.min() < 0 or ids.max() >= num_segments):
+        raise ValueError(f"ids must lie in [0, {num_segments})")
+    items = np.argsort(ids, kind="stable")  # each segment's elements in edge order
+    seg = ids[items]
+    levels = []
+    while seg.size:
+        uniq, starts, counts = np.unique(seg, return_index=True, return_counts=True)
+        if counts.max() == 1:
+            break
+        width = 1
+        while width < min(int(counts.max()), FIXED_SUM_CAP):
+            width *= 2
+        owner = np.repeat(np.arange(len(uniq)), counts)
+        rank = np.arange(len(seg)) - starts[owner]
+        chunks = (counts + width - 1) // width
+        first = np.concatenate([[0], np.cumsum(chunks)[:-1]])
+        row, col = first[owner] + rank // width, rank % width
+        idx = np.zeros((int(chunks.sum()), width), np.int64)
+        valid = np.zeros(idx.shape, bool)
+        idx[row, col] = items
+        valid[row, col] = True
+        levels.append((torch.from_numpy(idx), torch.from_numpy(valid)))
+        seg = np.repeat(uniq, chunks)
+        items = np.arange(len(seg))
+    place = np.full(num_segments, len(items), np.int64)
+    place[seg] = items
+    return FixedSum(
+        torch.from_numpy(ids), tuple(levels), torch.from_numpy(place), int(num_segments)
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeSums:
+    """The fixed-order sums of one edge set: over its receivers (the
+    aggregate, and the receiver gather's backward) and over its senders
+    (the sender gather's backward)."""
+
+    receivers: FixedSum
+    senders: FixedSum
+
+    @classmethod
+    def build(cls, senders, receivers, num_nodes: int) -> "EdgeSums":
+        return cls(fixed_sum_plan(receivers, num_nodes), fixed_sum_plan(senders, num_nodes))
+
+    def to(self, device) -> "EdgeSums":
+        return EdgeSums(self.receivers.to(device), self.senders.to(device))
+
+    def with_rows(self, num_nodes: int) -> "EdgeSums":
+        return EdgeSums(self.receivers.with_rows(num_nodes), self.senders.with_rows(num_nodes))
+
+
+class _SegmentSumFixed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, plan: FixedSum):
+        ctx.plan = plan
+        return plan(data)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.index_select(g.dim() - 2, ctx.plan.ids), None
+
+
+class _GatherFixed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, plan: FixedSum):
+        if x.shape[-2] != plan.num_segments:
+            raise ValueError(f"{x.shape[-2]} node rows, the plan has {plan.num_segments}")
+        ctx.plan = plan
+        return x.index_select(x.dim() - 2, plan.ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.plan(g), None
+
+
+def segment_sum_fixed(data: torch.Tensor, plan: FixedSum) -> torch.Tensor:
+    """Segment sum of ``data`` ``[..., E, F]`` in the plan's fixed order;
+    its backward is a gather."""
+    return _SegmentSumFixed.apply(data, plan)
+
+
+def gather_fixed(x: torch.Tensor, plan: FixedSum) -> torch.Tensor:
+    """``x[..., plan.ids, :]``, whose backward sums each row's cotangents in
+    the plan's fixed order."""
+    return _GatherFixed.apply(x, plan)
+
+
+def _sum32(data, ids, num_segments, mask, sums: Optional[FixedSum] = None):
     d = data.to(torch.float32)
     if mask is not None:
         d = d * mask[..., None].to(torch.float32)
+    if sums is not None:
+        return segment_sum_fixed(d, sums)[..., :num_segments, :]
     out = d.new_zeros(_out_shape(d, num_segments))
     return out.index_add_(out.dim() - 2, ids.long(), d)
 
 
-def _count32(data, ids, num_segments, mask):
+def _count32(data, ids, num_segments, mask, sums: Optional[FixedSum] = None):
     ones = torch.ones(data.shape[-2], dtype=torch.float32, device=data.device)
     if mask is not None:
         ones = ones * mask.to(torch.float32)
+    if sums is not None:
+        return sums(ones[..., None])[..., :num_segments, :]
     counts = ones.new_zeros(ones.shape[:-1] + (num_segments,))
     counts.index_add_(counts.dim() - 1, ids.long(), ones)
     return counts[..., None]
@@ -104,15 +269,19 @@ def aggregate(
     num_segments: int,
     aggregation: str,
     mask: Optional[torch.Tensor] = None,
+    sums: Optional[FixedSum] = None,
 ) -> torch.Tensor:
     """Aggregate edge features to receiver nodes.
 
     ``aggregation='pna'`` concatenates ``[sum | mean | max | min]``; any
-    other name selects the single segment op.
+    other name selects the single segment op.  With ``sums`` (the
+    :class:`FixedSum` of ``segment_ids`` over at least ``num_segments``
+    rows) the sums and counts run in its fixed order; max and min do not
+    depend on the order.
     """
     if aggregation == "pna":
-        total = _sum32(data, segment_ids, num_segments, mask)
-        counts = _count32(data, segment_ids, num_segments, mask)
+        total = _sum32(data, segment_ids, num_segments, mask, sums)
+        counts = _count32(data, segment_ids, num_segments, mask, sums)
         parts = [
             total,
             total / torch.clamp(counts, min=1.0),
@@ -122,6 +291,11 @@ def aggregate(
         return torch.cat(parts, dim=-1).to(data.dtype)
     if aggregation not in _OPS:
         raise ValueError(f"invalid segment operation {aggregation!r}")
+    if sums is not None and aggregation in ("sum", "mean"):
+        total = _sum32(data, segment_ids, num_segments, mask, sums)
+        if aggregation == "mean":
+            total = total / torch.clamp(_count32(data, segment_ids, num_segments, mask, sums), min=1.0)
+        return total.to(data.dtype)
     return _OPS[aggregation](data, segment_ids, num_segments, mask)
 
 

@@ -8,7 +8,7 @@ disk.  The files are byte for byte the ones the JAX package writes from the
 same seeds, so either package reads the other's ``input`` directory.
 
 Left out: the cylinder and plate generators (with the plate and cylinder
-slice of the port: ROADMAP queue 1, item 3), and ``task.loader: tfdata``,
+slice of the port: ROADMAP queue 1, item 4), and ``task.loader: tfdata``,
 which needs TensorFlow.  Both raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -104,7 +104,7 @@ def get_data(
     if dataset in _LATER_SLICE:
         raise NotImplementedError(
             f"dataset {dataset!r}: the cylinder and plate data come with the "
-            "plate and cylinder slice (ROADMAP queue 1, item 3)"
+            "plate and cylinder slice (ROADMAP queue 1, item 4)"
         )
     if dataset not in _SYNTH_DEFAULTS:
         raise NotImplementedError(f"unknown dataset {dataset!r}")

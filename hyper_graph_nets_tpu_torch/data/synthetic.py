@@ -5,7 +5,7 @@ mass-spring cloth on a triangulated grid, pinned at two corners, under
 gravity and a seeded wind, with the keys of the flag_simple dataset, and the
 ``meta.json`` schema of generated data.  Same seed, same arrays as the JAX
 package's generator.  The cylinder and plate generators come with the
-plate and cylinder slice of the port (ROADMAP queue 1, item 3).
+plate and cylinder slice of the port (ROADMAP queue 1, item 4).
 """
 from __future__ import annotations
 

@@ -11,6 +11,7 @@ import copy
 import dataclasses
 import functools
 import math
+import warnings
 from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -19,12 +20,14 @@ import torch
 from hyper_graph_nets_tpu_torch.core import normalizer as norm
 from hyper_graph_nets_tpu_torch.core.graph import Graph, NodeType
 from hyper_graph_nets_tpu_torch.core.mesh import cells_to_edges, receivers_to_gather
+from hyper_graph_nets_tpu_torch.core.segment_ops import EdgeSums
 from hyper_graph_nets_tpu_torch.nn.blocks import GNNConfig
 from hyper_graph_nets_tpu_torch.nn.meshgraphnet import (
     MeshGraphNet,
     network_apply,
     network_init,
 )
+from hyper_graph_nets_tpu_torch.ops import reorder
 from hyper_graph_nets_tpu_torch.ops.fused_block import SegmentPlan, plan_segments
 from hyper_graph_nets_tpu_torch.ops.segment_pna import SortedPlan, sorted_plan
 
@@ -51,11 +54,14 @@ class Topology(NamedTuple):
     """Per-trajectory mesh topology on the model's device.
 
     ``mask`` is None when every edge is valid; ``plan`` is the kernel plan
-    of ``agg_vjp``: the fused kernels' :class:`SegmentPlan` under ``fused``,
+    of ``agg_vjp``: the fused kernels' :class:`SegmentPlan` under ``fused``
+    (only where the JAX package builds its band plan: the numbering passes
+    ``ops.reorder.check_banded``; otherwise the set runs unfused, as there),
     the sorted pna kernels' :class:`SortedPlan` under ``sorted``, else None.
     The receiver and sender neighbour matrices (``receivers_to_gather``) are
     built for every topology, as in the JAX package (``models/base.py:
-    402-416``).
+    402-416``), and so are the fixed-order sums (``sums``) of the unfused
+    paths.
     """
 
     senders: torch.Tensor  # [E] int32, sorted by receiver
@@ -67,6 +73,7 @@ class Topology(NamedTuple):
     gather_valid: Optional[torch.Tensor] = None  # [N, d_max] float32
     snd_gather_idx: Optional[torch.Tensor] = None
     snd_gather_valid: Optional[torch.Tensor] = None
+    sums: Optional[EdgeSums] = None
 
 
 def reset_due(step: int, num_steps: int, frequency: int) -> bool:
@@ -108,7 +115,9 @@ class SystemModel:
         if not self.use_rmp and rmp_cfg.get("connector") == "repeated":
             self.architecture = "repeated"
         self.use_balancer = bal_cfg.get("algorithm", "none") != "none"
+        self.rmp_frequency = rmp_cfg.get("frequency", 1)
         self.balance_frequency = bal_cfg.get("frequency", 1)
+        self.rmp_config = rmp_cfg
         # host-side eval counters that rollout and n-step computations add
         # to; the simulator's evaluators drain them (pop_eval_metrics)
         self.eval_metrics: Dict[str, float] = {}
@@ -148,6 +157,14 @@ class SystemModel:
     def node_in_dim(self) -> int:
         raise NotImplementedError
 
+    def hyper_in_dim(self) -> Optional[int]:
+        """Raw hyper node width: the node features' cluster means, and
+        ``[size, mesh spread, world spread]`` with ``hyper_node_features``."""
+        if not self.use_rmp:
+            return None
+        extra = 3 if self.rmp_config.get("hyper_node_features", True) else 0
+        return self.node_in_dim() + extra
+
     def normalizer_schema(self) -> Dict[str, int]:
         raise NotImplementedError
 
@@ -163,6 +180,7 @@ class SystemModel:
             message_passing_steps=self.message_passing_steps,
             aggregation=self.aggregation,
             architecture=self.architecture,
+            hyper_in_dim=self.hyper_in_dim(),
             compute_dtype=self.compute_dtype,
             agg_vjp=self.params["model"].get("agg_vjp", "xla"),
             fused_bwd=self.params["model"].get("fused_bwd", "remat"),
@@ -190,25 +208,41 @@ class SystemModel:
         edges = cells_to_edges(np.asarray(cells), deform=deform)
         if num_nodes is None:
             num_nodes = int(np.asarray(cells).max()) + 1
+        return self.topology_from_edges(edges.senders, edges.receivers, num_nodes, device=device)
+
+    def topology_from_edges(self, senders, receivers, num_nodes: int, device="cpu") -> Topology:
+        """Host: a receiver-sorted edge list -> topology on ``device``, with
+        the kernel plan of ``agg_vjp``, the neighbour matrices and the
+        fixed-order sums."""
+        senders = np.asarray(senders, np.int32)
+        receivers = np.asarray(receivers, np.int32)
         plan = None
         if self.gnn_config.agg_vjp == "fused":
-            plan = plan_segments(
-                edges.receivers, num_nodes, senders=edges.senders
-            ).to(device)
+            chunk = self.params["model"].get("fused_chunk")
+            if reorder.check_banded(senders, receivers, chunk=chunk):
+                plan = plan_segments(receivers, num_nodes, senders=senders).to(device)
+            elif torch.device(device).type != "cpu":
+                warnings.warn(
+                    "agg_vjp 'fused': the mesh numbering fails the band criterion "
+                    "(ops.reorder.check_banded), so its edge sets run unfused, without "
+                    "K1/K2; relabel it (ops.reorder.reorder_trajectory) to fuse them",
+                    stacklevel=2,
+                )
         elif self.gnn_config.agg_vjp == "sorted":
-            plan = sorted_plan(edges.receivers, num_nodes).to(device)
-        gidx, gvalid = receivers_to_gather(edges.receivers, num_nodes)
-        sidx, svalid = receivers_to_gather(edges.senders, num_nodes)
+            plan = sorted_plan(receivers, num_nodes).to(device)
+        gidx, gvalid = receivers_to_gather(receivers, num_nodes)
+        sidx, svalid = receivers_to_gather(senders, num_nodes)
         dev = lambda a: torch.from_numpy(a).to(device)
         return Topology(
-            senders=dev(edges.senders),
-            receivers=dev(edges.receivers),
+            senders=dev(senders),
+            receivers=dev(receivers),
             num_nodes=num_nodes,
             plan=plan,
             gather_idx=dev(gidx),
             gather_valid=dev(gvalid),
             snd_gather_idx=dev(sidx),
             snd_gather_valid=dev(svalid),
+            sums=EdgeSums.build(senders, receivers, num_nodes).to(device),
         )
 
     def topology_from_trajectory(
@@ -255,3 +289,54 @@ class SystemModel:
     def loss_mask(self, node_type: torch.Tensor) -> torch.Tensor:
         """Rows contributing to the loss (flag: NORMAL nodes)."""
         return node_type[..., 0] == NodeType.NORMAL
+
+    # -- geometry and clustering hooks ---------------------------------------
+    def geometry(self, frames) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(target_feature, mesh_features)``: the world and mesh coordinate
+        streams of the frames."""
+        raise NotImplementedError
+
+    def obstacle_mask_np(self, frame: Dict[str, np.ndarray]) -> Optional[np.ndarray]:
+        """Nodes left out of the clustering (plate's obstacles); None here."""
+        return None
+
+    def world_edge_receiver_nodes(self, frame: Dict[str, np.ndarray], topo: Topology) -> Optional[np.ndarray]:
+        """Nodes receiving world edges in ``frame`` (models with world edges)."""
+        return None
+
+    def host_graph(self, frame: Dict[str, np.ndarray], topo: Topology):
+        """Numpy snapshot of one frame for the host-side clustering: the
+        coordinate streams, the valid mesh edges with their unnormalized
+        features, and each node's max - min incident ``|rel_world|``."""
+        from hyper_graph_nets_tpu_torch.rmp.clustering import HostGraph
+
+        host = lambda v: v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        target, mesh = (np.asarray(a) for a in self.geometry({k: host(v) for k, v in frame.items()}))
+        snd, rcv = host(topo.senders), host(topo.receivers)
+        if topo.mask is not None:
+            valid = host(topo.mask) > 0
+            snd, rcv = snd[valid], rcv[valid]
+        rel_t = target[snd] - target[rcv]
+        rel_m = mesh[snd] - mesh[rcv]
+        tn = np.linalg.norm(rel_t, axis=-1, keepdims=True)
+        ef = np.concatenate([rel_t, tn, rel_m, np.linalg.norm(rel_m, axis=-1, keepdims=True)], axis=-1)
+        dyn_max = np.full(topo.num_nodes, -np.inf)
+        dyn_min = np.full(topo.num_nodes, np.inf)
+        np.maximum.at(dyn_max, rcv, tn[:, 0])
+        np.minimum.at(dyn_min, rcv, tn[:, 0])
+        dyn = np.where(np.isfinite(dyn_max) & np.isfinite(dyn_min), dyn_max - dyn_min, 0.0)
+        obstacle = self.obstacle_mask_np(frame)
+        # padded nodes (node_type < 0) are left out like obstacles
+        padded = host(frame["node_type"])[:, 0] < 0
+        if padded.any():
+            obstacle = padded if obstacle is None else (obstacle | padded)
+        return HostGraph(
+            target_feature=target,
+            mesh_features=mesh,
+            senders=snd,
+            receivers=rcv,
+            edge_features=ef,
+            node_dynamic=dyn,
+            obstacle_mask=obstacle,
+            world_dim=target.shape[-1],
+        )

@@ -12,7 +12,11 @@ Counterpart of ``hyper_graph_nets_tpu/models/flag.py``:
   batch of frames;
 - with ``graph_balancer`` set, a ``balance`` edge set featurized as mesh
   edges (``mesh_edge_features``), added by the expansion after
-  ``make_graph``.
+  ``make_graph``;
+- with remote message passing, the three cluster-tier edge sets (or, with
+  ``connector: multi``, mesh edges with 4 type tags and nodes with 2 tier
+  tags) and the ``intra_edge``, ``inter_edge`` and ``hyper_node``
+  normalizers; ``geometry`` gives the connector world and mesh positions.
 
 Frames may carry a leading batch dimension; the featurizers index the node
 axis (-2) and so run batched or not.
@@ -40,8 +44,12 @@ class FlagModel(SystemModel):
     world_dim = 3
     mesh_dim = 2
 
+    def geometry(self, frames):
+        return frames["world_pos"], frames["mesh_pos"]
+
     def node_in_dim(self) -> int:
-        return self.world_dim + 2  # velocity ++ one-hot(2)
+        base = self.world_dim + 2  # velocity ++ one-hot(2)
+        return base + 2 if self.architecture == "multi" else base
 
     def carry_to_frame(self, carry) -> Dict[str, torch.Tensor]:
         """Rollout carry ``(prev_pos, cur_pos)`` -> frame fields."""
@@ -49,18 +57,28 @@ class FlagModel(SystemModel):
 
     def edge_in_dims(self) -> Tuple[Tuple[str, int], ...]:
         mesh_edge_dim = self.world_dim + 1 + self.mesh_dim + 1
+        if self.architecture == "multi":
+            # the remote sets folded into mesh_edges with 4 one-hot tags
+            return (("mesh_edges", mesh_edge_dim + 4),)
         dims = [("mesh_edges", mesh_edge_dim)]
         if self.use_balancer:
             dims.append(("balance", mesh_edge_dim))
+        if self.use_rmp:
+            for name in ("intra_cluster_to_cluster", "intra_cluster_to_mesh", "inter_cluster"):
+                dims.append((name, mesh_edge_dim))
         return tuple(dims)
 
     def normalizer_schema(self) -> Dict[str, int]:
-        return {
+        mesh_edge_dim = self.world_dim + 1 + self.mesh_dim + 1
+        schema = {
             "output": self.output_size,
-            "node": self.world_dim + 2,
+            "node": self.world_dim + 2,  # raw width (multi's tier tags come later)
             "node_dynamic": 1,
-            "mesh_edge": self.world_dim + 1 + self.mesh_dim + 1,
+            "mesh_edge": mesh_edge_dim,
         }
+        if self.use_rmp:
+            schema.update(intra_edge=mesh_edge_dim, inter_edge=mesh_edge_dim, hyper_node=3)
+        return schema
 
     def mesh_edge_features(
         self, frames: Dict[str, torch.Tensor], senders: torch.Tensor, receivers: torch.Tensor
@@ -138,6 +156,7 @@ class FlagModel(SystemModel):
                     gather_valid=topo.gather_valid,
                     snd_gather_idx=topo.snd_gather_idx,
                     snd_gather_valid=topo.snd_gather_valid,
+                    sums=topo.sums,
                 )
             },
         )

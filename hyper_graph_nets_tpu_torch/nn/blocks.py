@@ -1,12 +1,20 @@
-"""GraphNet message-passing blocks: the flat path.
+"""GraphNet message-passing blocks: flat and hierarchical.
 
-Counterpart of ``hyper_graph_nets_tpu/nn/blocks.py`` for ``architecture:
-none``:
+Counterpart of ``hyper_graph_nets_tpu/nn/blocks.py``:
 
 - edge update ``e' = e + MLP([x[snd], x[rcv], e])`` with the first layer
-  factored into sender, receiver and edge parts;
+  factored into sender, receiver and edge parts, always from the
+  block-input edge features;
 - node update ``x' = x + MLP([x, agg(e') per edge set])`` with pna
-  concatenating ``[sum | mean | max | min]``.
+  concatenating ``[sum | mean | max | min]``;
+- ``architecture``: ``none`` (flat), ``multi`` (flat over the merged
+  multigraph, mesh rows updated), ``hetero`` (flat, with a node model of
+  its own for the hyper rows), ``repeated`` (the flat block twice), and the
+  hierarchical ``hyper`` and ``multiscale``: the ordered sub-steps mesh ->
+  up -> cross (3 rounds for multiscale, each with its own hyper model) ->
+  down (-> mesh again for multiscale), each sub-step's node update seeing
+  the node state its predecessors left and aggregating into its own tier's
+  rows only.
 
 ``agg_vjp`` picks how an edge set is updated and aggregated, as in the JAX
 package (same forward math on every path):
@@ -14,7 +22,9 @@ package (same forward math on every path):
 - ``fused``: an eligible set (pna, ``[3L -> L -> L -> L]`` + LayerNorm, a
   segment plan) runs the fused kernels (``ops/fused_block.py``): K1 forward
   and, under autograd, K2 (``fused_bwd: remat``) or K3 (``stream``)
-  backward; other sets take the ``xla`` form.
+  backward; other sets take the ``xla`` form.  In a hierarchical block the
+  mesh set's plan covers all ``N + K`` rows (``rmp.connector``), so its
+  aggregate is computed over every row and cut to the mesh window.
 - ``sorted``: the unfused edge update, and the pna of the sets in
   ``SORTED_EDGE_SETS`` through the sorted pna kernels
   (``ops/segment_pna.py``: K4f forward, K4b backward) while one row of
@@ -28,9 +38,12 @@ package (same forward math on every path):
   autograd (tied edges split the max/min cotangent, as the VJP of JAX's
   max does).
 
-An edge set without a kernel plan (the graph balancer's ``balance`` set)
-takes the unfused update with plain index gathers on every path, and the
-aggregate above.
+An edge set without a kernel plan (the graph balancer's ``balance`` set,
+the cluster-tier sets, a mesh that the band criterion rejects) takes the
+unfused update and the aggregate above.  Its scatter sums and the backward
+of its index gathers run through the set's fixed-order sums
+(``EdgeSet.sums``, ``core.segment_ops.FixedSum``), so a train step is the
+same bit for bit on every run.
 
 Under the halo forward (``parallel/halo.py``) ``GNNConfig.axis_name`` holds
 the rank group the edges are split over, and each rank runs the blocks on
@@ -41,8 +54,6 @@ or, with ``halo_overlap`` and a plan that carries bands, K7
 and combines them across the ranks (``core.segment_ops.collective_aggregate``:
 the plain all-reduce, or K6 with ``halo_ring``), before the sorted and gather
 branches, as in the JAX package.
-
-The hierarchical architectures belong to a later slice of the port.
 """
 from __future__ import annotations
 
@@ -52,11 +63,12 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from hyper_graph_nets_tpu_torch.core.graph import EdgeSet, Graph
+from hyper_graph_nets_tpu_torch.core.graph import EdgeSet, Graph, concat_node_tiers
 from hyper_graph_nets_tpu_torch.core.segment_ops import (
     aggregate,
     collective_aggregate,
     gather_aggregate,
+    gather_fixed,
     gather_rows,
     pna_gather,
 )
@@ -72,6 +84,16 @@ CANONICAL_EDGE_ORDER: Tuple[str, ...] = (
     "inter_cluster",
     "inter_cluster_world",
 )
+
+MESH_TIER_SETS = ("mesh_edges", "world_edges", "balance")
+UP_SETS = ("intra_cluster_to_cluster",)
+CROSS_SETS = ("inter_cluster", "inter_cluster_world")
+DOWN_SETS = ("intra_cluster_to_mesh",)
+
+HIERARCHICAL_ARCHITECTURES = ("hyper", "multiscale", "hetero")
+ARCHITECTURES = ("none", "hyper", "multiscale", "hetero", "multi", "repeated")
+MULTISCALE_ROUNDS = 3
+REPEATED_ROUNDS = 2  # flat block applications per step of 'repeated'
 
 AGG_PATHS = ("xla", "gather", "sorted", "fused")
 FUSED_BWD = ("remat", "stream")
@@ -92,7 +114,8 @@ class GNNConfig:
     num_layers: int = 2
     message_passing_steps: int = 5
     aggregation: str = "pna"
-    architecture: str = "none"
+    architecture: str = "none"  # one of ARCHITECTURES
+    hyper_in_dim: Optional[int] = None
     compute_dtype: Optional[str] = None  # e.g. 'bfloat16'
     agg_vjp: str = "xla"
     # backward of the fused path: 'remat' (K2 recomputes the forward chain)
@@ -128,11 +151,17 @@ class GNNConfig:
                 "then K2 with a tie tolerance) is not ported; ROADMAP section 2, "
                 "first row ('K2 with a tie tolerance') is the work that would lift this"
             )
-        if self.architecture != "none":
-            raise NotImplementedError(
-                f"architecture {self.architecture!r}: the port runs flat blocks "
-                "only; RMP and the hierarchical blocks come in ROADMAP slice 8"
-            )
+        if self.architecture not in ARCHITECTURES:
+            raise ValueError(f"architecture must be one of {ARCHITECTURES}, got {self.architecture!r}")
+
+    @property
+    def hierarchical(self) -> bool:
+        return self.architecture in HIERARCHICAL_ARCHITECTURES
+
+    def subset(self, names: Sequence[str]) -> Tuple[str, ...]:
+        """The registered edge sets among ``names``, in ``names``' order."""
+        registered = set(self.edge_sets)
+        return tuple(n for n in names if n in registered)
 
     @property
     def edge_sets(self) -> Tuple[str, ...]:
@@ -156,24 +185,57 @@ class GNNConfig:
 
 
 class GraphNetBlock(nn.Module):
-    """One flat message-passing block: an edge MLP per edge set and one node MLP."""
+    """One message-passing block: an edge MLP per edge set, the mesh node
+    model (the JAX package's ``node_model_cross``) and the node models of
+    the hierarchical architectures: ``hyper_node_model_up`` and
+    ``node_model_down`` (hyper, multiscale), ``hyper_node_model_cross``
+    (hyper, hetero) and ``hyper_node_models_cross`` (multiscale, one per
+    cross round)."""
 
-    def __init__(self, edge_models: Dict[str, MLP], node_model: MLP):
+    def __init__(
+        self,
+        edge_models: Dict[str, MLP],
+        node_model: MLP,
+        hyper_node_model_up: Optional[MLP] = None,
+        node_model_down: Optional[MLP] = None,
+        hyper_node_model_cross: Optional[MLP] = None,
+        hyper_node_models_cross: Optional[Sequence[MLP]] = None,
+    ):
         super().__init__()
         self.edge_models = nn.ModuleDict(edge_models)
         self.node_model = node_model
+        self.hyper_node_model_up = hyper_node_model_up
+        self.node_model_down = node_model_down
+        self.hyper_node_model_cross = hyper_node_model_cross
+        self.hyper_node_models_cross = (
+            None if hyper_node_models_cross is None else nn.ModuleList(hyper_node_models_cross)
+        )
 
     @classmethod
     def init(cls, generator: torch.Generator, cfg: GNNConfig) -> "GraphNetBlock":
         L = cfg.latent_size
         widths = cfg.mlp_widths(L)
+        mlp = lambda sets: MLP.init(generator, cfg.node_update_in_dim(len(sets)), widths)
         edge_models = {
             name: MLP.init(generator, 3 * L, widths) for name in cfg.edge_sets
         }
-        node_model = MLP.init(
-            generator, cfg.node_update_in_dim(len(cfg.edge_sets)), widths
-        )
-        return cls(edge_models, node_model)
+        arch = cfg.architecture
+        if arch in ("hyper", "multiscale"):
+            cross_sets = cfg.subset(CROSS_SETS)
+            return cls(
+                edge_models,
+                mlp(cfg.subset(MESH_TIER_SETS)),
+                hyper_node_model_up=mlp(cfg.subset(UP_SETS)),
+                node_model_down=mlp(cfg.subset(DOWN_SETS)),
+                hyper_node_model_cross=mlp(cross_sets) if arch == "hyper" else None,
+                hyper_node_models_cross=(
+                    [mlp(cross_sets) for _ in range(MULTISCALE_ROUNDS)] if arch == "multiscale" else None
+                ),
+            )
+        # flat, hetero, multi, repeated: one node model over every edge set
+        node_model = mlp(cfg.edge_sets)
+        hyper_cross = mlp(cfg.edge_sets) if arch == "hetero" else None
+        return cls(edge_models, node_model, hyper_node_model_cross=hyper_cross)
 
 
 def _first_layer_parts(eparams: MLP, L: int):
@@ -206,6 +268,10 @@ def _update_edge_features(
         # gather-only backward through the static inverse incidences
         s_rows = gather_rows(s_part, es.senders, es.snd_gather_idx, es.snd_gather_valid)
         r_rows = gather_rows(r_part, es.receivers, es.gather_idx, es.gather_valid)
+    elif es.sums is not None:
+        # backward: fixed-order sums of the edges' cotangents per node row
+        s_rows = gather_fixed(s_part, es.sums.senders)
+        r_rows = gather_fixed(r_part, es.sums.receivers)
     else:
         s_rows = s_part[..., es.senders.long(), :]
         r_rows = r_part[..., es.receivers.long(), :]
@@ -311,18 +377,25 @@ def _aggregate_sets(
     num_total: int,
     cfg: GNNConfig,
     precomputed: Optional[Dict[str, torch.Tensor]] = None,
+    rows: Optional[int] = None,
 ) -> torch.Tensor:
     """Concatenated per-set aggregates over node rows, dispatched as the JAX
-    package's ``_aggregate_sets`` (``nn/blocks.py:521-582``) for the flat
-    path: a set with a neighbour matrix that passes ``_gather_dense_ok``
-    aggregates over it on every path (the fused sets come precomputed), the
-    rest by scatter.  Masked edges (padding, or mesh edges the balancer
-    removed, whose neighbour-matrix entries it also zeroes) reach no
-    aggregate on any path."""
+    package's ``_aggregate_sets`` (``nn/blocks.py:465-583``): a set with a
+    neighbour matrix that passes ``_gather_dense_ok`` aggregates over it on
+    every path (the fused sets come precomputed), the rest by scatter, in
+    the set's fixed order when it carries ``sums``.  Masked edges (padding,
+    or mesh edges the balancer removed, whose neighbour-matrix entries it
+    also zeroes) reach no aggregate on any path.
+
+    ``rows`` aggregates into the first ``rows`` node rows only (the JAX
+    package's ``window=(0, rows)``): a hierarchical block's mesh sub-steps,
+    whose sets' receivers are all mesh rows.
+    """
+    hi = num_total if rows is None else rows
     parts = []
     for name in names:
         if precomputed is not None and name in precomputed:
-            parts.append(precomputed[name])
+            parts.append(precomputed[name][..., :hi, :])
             continue
         es = graph.edge_sets[name]
         f = edge_feats[name]
@@ -332,7 +405,7 @@ def _aggregate_sets(
                 collective_aggregate(
                     f, es.receivers, num_total, cfg.aggregation, es.mask, cfg.axis_name,
                     ring=cfg.halo_ring,
-                )
+                )[..., :hi, :]
             )
             continue
         if (
@@ -344,25 +417,33 @@ def _aggregate_sets(
             # K4f, and K4b under autograd.  The card has no VMEM, so the byte
             # gate means nothing there; it is kept so that both packages take
             # the same path, with the same tie rule, on every mesh.
-            parts.append(pna_sorted(f, es.receivers, es.mask, num_total, plan=es.plan))
+            parts.append(pna_sorted(f, es.receivers, es.mask, hi, plan=es.plan))
             continue
         if es.gather_idx is not None and _gather_dense_ok(es):
+            gidx, gval = es.gather_idx[:hi], es.gather_valid[:hi]
             if cfg.agg_vjp == "gather" and cfg.aggregation == "pna":
-                parts.append(pna_gather(f, es.gather_idx, es.gather_valid, es.receivers, es.mask))
+                parts.append(pna_gather(f, gidx, gval, es.receivers, es.mask))
             else:
-                parts.append(gather_aggregate(f, es.gather_idx, es.gather_valid, cfg.aggregation))
+                parts.append(gather_aggregate(f, gidx, gval, cfg.aggregation))
             continue
-        parts.append(aggregate(f, es.receivers, num_total, cfg.aggregation, es.mask))
+        sums = None if es.sums is None else es.sums.receivers
+        parts.append(aggregate(f, es.receivers, hi, cfg.aggregation, es.mask, sums=sums))
     return torch.cat(parts, dim=-1)
 
 
-def _flat_apply_once(block: GraphNetBlock, graph: Graph, cfg: GNNConfig) -> Graph:
-    names = tuple(n for n in cfg.edge_sets if n in graph.edge_sets)
-    all_nodes = graph.node_features
+def _update_sets(
+    block: GraphNetBlock,
+    graph: Graph,
+    names: Sequence[str],
+    cfg: GNNConfig,
+    new_feats: Dict[str, torch.Tensor],
+    fused_aggs: Dict[str, torch.Tensor],
+) -> None:
+    """Edge updates of ``names`` from the block-input edge features and the
+    graph's current node state, into ``new_feats`` (and, for fused sets,
+    their aggregates over every node row into ``fused_aggs``)."""
+    all_nodes = concat_node_tiers(graph)
     num_total = all_nodes.shape[-2]
-
-    new_feats: Dict[str, torch.Tensor] = {}
-    fused_aggs: Dict[str, torch.Tensor] = {}
     for name in names:
         es = graph.edge_sets[name]
         eparams = block.edge_models[name]
@@ -372,15 +453,74 @@ def _flat_apply_once(block: GraphNetBlock, graph: Graph, cfg: GNNConfig) -> Grap
             )
         else:
             new_feats[name] = _update_edge_features(eparams, all_nodes, es, cfg)
-    agg = _aggregate_sets(new_feats, graph, names, num_total, cfg, fused_aggs)
-    features = torch.cat([all_nodes, agg], dim=-1)
-    upd = block.node_model(features, cfg.cd)
+            fused_aggs.pop(name, None)
+
+
+def _with_edge_features(graph: Graph, new_feats: Dict[str, torch.Tensor]) -> Graph:
     sets = dict(graph.edge_sets)
     for name, f in new_feats.items():
         sets[name] = sets[name].replace(features=f)
-    return graph.replace(node_features=graph.node_features + upd, edge_sets=sets)
+    return graph.replace(edge_sets=sets)
+
+
+def _flat_apply_once(block: GraphNetBlock, graph: Graph, cfg: GNNConfig) -> Graph:
+    names = tuple(n for n in cfg.edge_sets if n in graph.edge_sets)
+    new_feats: Dict[str, torch.Tensor] = {}
+    fused_aggs: Dict[str, torch.Tensor] = {}
+    _update_sets(block, graph, names, cfg, new_feats, fused_aggs)
+    all_nodes = concat_node_tiers(graph)
+    agg = _aggregate_sets(new_feats, graph, names, all_nodes.shape[-2], cfg, fused_aggs)
+    features = torch.cat([all_nodes, agg], dim=-1)
+    n_mesh = graph.num_nodes
+    upd = block.node_model(features[..., :n_mesh, :], cfg.cd)
+    graph = graph.replace(node_features=graph.node_features + upd)
+    if cfg.architecture == "hetero" and graph.hyper_features is not None:
+        hyper_upd = block.hyper_node_model_cross(features[..., n_mesh:, :], cfg.cd)
+        graph = graph.replace(hyper_features=graph.hyper_features + hyper_upd)
+    return _with_edge_features(graph, new_feats)
+
+
+def _hierarchical_apply(block: GraphNetBlock, graph: Graph, cfg: GNNConfig) -> Graph:
+    """The hyper/multiscale block: mesh, up, cross and down sub-steps (and
+    mesh again for multiscale).  Each sub-step's edge update reads the
+    block-input edge features (the graph's edge sets are replaced only at
+    the end) and the current node state; its node update aggregates into
+    its tier's rows: the mesh window ``[0, N)`` directly, the hyper rows as
+    every row's aggregate cut to ``[N, N + K)``, as in the JAX package."""
+    multiscale = cfg.architecture == "multiscale"
+    new_feats: Dict[str, torch.Tensor] = {}
+    fused_aggs: Dict[str, torch.Tensor] = {}
+    n_mesh = graph.num_nodes
+
+    def step(graph: Graph, sets: Sequence[str], model: MLP, tier: str) -> Graph:
+        names = tuple(n for n in sets if n in graph.edge_sets)
+        _update_sets(block, graph, names, cfg, new_feats, fused_aggs)
+        num_total = n_mesh + graph.num_hyper_nodes
+        if tier == "mesh":
+            agg = _aggregate_sets(new_feats, graph, names, num_total, cfg, fused_aggs, rows=n_mesh)
+            upd = model(torch.cat([graph.node_features, agg], dim=-1), cfg.cd)
+            return graph.replace(node_features=graph.node_features + upd)
+        agg = _aggregate_sets(new_feats, graph, names, num_total, cfg, fused_aggs)[..., n_mesh:, :]
+        upd = model(torch.cat([graph.hyper_features, agg], dim=-1), cfg.cd)
+        return graph.replace(hyper_features=graph.hyper_features + upd)
+
+    graph = step(graph, MESH_TIER_SETS, block.node_model, "mesh")
+    graph = step(graph, UP_SETS, block.hyper_node_model_up, "hyper")
+    for i in range(MULTISCALE_ROUNDS if multiscale else 1):
+        model = block.hyper_node_models_cross[i] if multiscale else block.hyper_node_model_cross
+        graph = step(graph, CROSS_SETS, model, "hyper")
+    graph = step(graph, DOWN_SETS, block.node_model_down, "mesh")
+    if multiscale:
+        graph = step(graph, MESH_TIER_SETS, block.node_model, "mesh")
+    return _with_edge_features(graph, new_feats)
 
 
 def block_apply(block: GraphNetBlock, graph: Graph, cfg: GNNConfig) -> Graph:
-    # GNNConfig admits architecture 'none' only (flat blocks)
+    arch = cfg.architecture
+    if arch in ("hyper", "multiscale"):
+        return _hierarchical_apply(block, graph, cfg)
+    if arch == "repeated":
+        for _ in range(REPEATED_ROUNDS):
+            graph = _flat_apply_once(block, graph, cfg)
+        return graph
     return _flat_apply_once(block, graph, cfg)

@@ -41,9 +41,10 @@ from hyper_graph_nets_tpu_torch.parallel.sharding import RankPlans
 
 
 def strip_gather(graph: Graph) -> Graph:
-    """Drop the neighbour matrices: they index global edge ids, invalid on
-    a shard."""
-    gather = dict(gather_idx=None, gather_valid=None, snd_gather_idx=None, snd_gather_valid=None)
+    """Drop the neighbour matrices and the fixed-order sums: they index
+    global edge ids, invalid on a shard."""
+    gather = dict(gather_idx=None, gather_valid=None, snd_gather_idx=None, snd_gather_valid=None,
+                  sums=None)
     return graph.replace(
         edge_sets={name: es.replace(**gather) for name, es in graph.edge_sets.items()}
     )

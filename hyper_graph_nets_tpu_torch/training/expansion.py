@@ -1,11 +1,11 @@
-"""Graph expansion: the graph balancer (and, in a later slice, RMP).
+"""Graph expansion: the graph balancer, then remote message passing.
 
 Counterpart of ``hyper_graph_nets_tpu/training/expansion.py``.  The members
-run in order, each with its own reset cadence; the composite's static is the
-tuple of the members' statics, which a train step or a prediction takes in
-place of running ``prepare`` again.  Remote message passing is not ported
-yet, so a config that asks for it raises: the port never serves a flat graph
-in place of the configured hierarchy.
+run in the JAX package's order (balancer first, then RMP), each with its own
+reset cadence; the composite's static is the tuple of the members' statics,
+which a train step or a prediction takes in place of running ``prepare``
+again.  The training noise on RMP's cluster means is a standard-normal draw
+passed in (``hyper_normal``) or drawn from ``generator``.
 """
 from __future__ import annotations
 
@@ -42,46 +42,76 @@ class CompositeExpansion:
         """Drop each member's cache when its cadence says so."""
         for member, freq in zip(self.members, self.frequencies):
             if reset_due(step, num_steps, freq):
-                member.reset_balancer()
+                if hasattr(member, "reset_clusters"):
+                    member.reset_clusters()
+                if hasattr(member, "reset_balancer"):
+                    member.reset_balancer()
 
     def prepare(self, model, frame: Dict[str, np.ndarray], topo) -> Tuple:
         return tuple(m.prepare(model, frame, topo) for m in self.members)
+
+    def hyper_noise_shape(self, model, frames, static: Optional[Tuple] = None) -> Optional[tuple]:
+        """Shape ``[..., K, D]`` of RMP's training noise on the cluster means
+        for ``frames`` (None without RMP noise)."""
+        statics = static if static is not None else self.static
+        for member, member_static in zip(self.members, statics):
+            if getattr(getattr(member, "connector", None), "noise_scale", None) is None:
+                continue
+            target, mesh = model.geometry(frames)
+            K = (member_static if member_static is not None else member.static).num_clusters
+            return tuple(target.shape[:-2]) + (K, target.shape[-1] + mesh.shape[-1])
+        return None
 
     @property
     def static(self) -> Tuple:
         """The members' current statics."""
         return tuple(m.static for m in self.members)
 
-    def expand(self, state, graph, frames, model, is_training: bool, static: Optional[Tuple] = None):
+    def expand(
+        self,
+        state,
+        graph,
+        frames,
+        model,
+        is_training: bool,
+        static: Optional[Tuple] = None,
+        hyper_normal=None,
+        generator=None,
+    ):
         """Apply every member; returns ``(graph, state)``.  ``static`` (a
-        tuple from :meth:`prepare`) replaces the members' cached statics."""
+        tuple from :meth:`prepare`) replaces the members' cached statics;
+        ``hyper_normal`` and ``generator`` go to RMP (its training noise)."""
         statics = static if static is not None else (None,) * len(self.members)
         for member, member_static in zip(self.members, statics):
+            noise = {}
+            if hasattr(member, "reset_clusters"):
+                noise = dict(normal=hyper_normal, generator=generator)
             graph, state = member.expand(
-                state, graph, frames, model, is_training=is_training, static=member_static
+                state, graph, frames, model, is_training=is_training, static=member_static, **noise
             )
         return graph, state
 
 
 def build_expansion(model, config: dict) -> Optional[CompositeExpansion]:
-    """The configured expansion: the graph balancer, or None.  RMP raises
-    (ROADMAP slice 8)."""
+    """The configured expansion (the graph balancer, then RMP), or None."""
     from hyper_graph_nets_tpu_torch.balancer.base import get_balancer
+    from hyper_graph_nets_tpu_torch.rmp.remote_message_passing import get_rmp
 
-    if model.use_rmp:
-        raise NotImplementedError(
-            "rmp: remote message passing and the hierarchical blocks come in "
-            "ROADMAP slice 8; set model.rmp.clustering and model.rmp.connector "
-            "to 'none' to serve the flat MeshGraphNets model"
-        )
+    members, freqs = [], []
     balancer = get_balancer(config)
-    if balancer is None:
+    if balancer is not None:
+        members.append(balancer)
+        freqs.append(model.balance_frequency)
+    rmp = get_rmp(config)
+    if rmp is not None:
+        members.append(rmp)
+        freqs.append(model.rmp_frequency)
+    if not members:
         return None
     model_cfg = config.get("params", config).get("model", config.get("model", {}))
-    freqs = [model.balance_frequency]
     fingerprint = (
         _freeze(model_cfg.get("rmp", {})),
         _freeze(model_cfg.get("graph_balancer", {})),
         tuple(freqs),
     )
-    return CompositeExpansion([balancer], freqs, fingerprint=fingerprint)
+    return CompositeExpansion(members, freqs, fingerprint=fingerprint)

@@ -22,7 +22,8 @@ step (plate's world-edge truncation) come with the plate slice; flag has
 none.
 
 Runs on the card unless ``device="cpu"``.  The training noise is drawn by
-:meth:`MeshSimulator._normal` from a seeded generator on the device.
+:meth:`MeshSimulator._normal` from a seeded generator on the device: the
+field's, then (with RMP's ``hyper_noise``) the cluster means'.
 """
 from __future__ import annotations
 
@@ -154,8 +155,14 @@ class MeshSimulator:
         for start, end, static in jobs:
             frames = self.trainer.frames({k: v[start:end] for k, v in trajectory.items()})
             normal = None if self.model.noise_scale is None else self._normal(frames[field].shape)
+            hyper_normal = None
+            if self.expansion is not None:
+                shape = self.expansion.hyper_noise_shape(self.model, frames, static)
+                hyper_normal = None if shape is None else self._normal(shape)
             t0 = time.time()
-            tstate, loss = self.trainer.train_step(tstate, topo, frames, normal=normal, static=static)
+            tstate, loss = self.trainer.train_step(
+                tstate, topo, frames, normal=normal, static=static, hyper_normal=hyper_normal
+            )
             device_losses.append(loss)
             dispatch_times.append(time.time() - t0)
 
@@ -342,7 +349,20 @@ class MeshSimulator:
             self.logger.log_artifact("rollouts", path, kind="dataset")
         return path
 
-    def visualize_clusters(self, out_path: str) -> Optional[str]:
-        """Cluster-assignment images come with remote message passing
-        (ROADMAP queue 1, item 2); until then there is nothing to draw."""
-        return None
+    def visualize_clusters(self, out_path: str):
+        """The current cluster assignment of each RMP member: a PNG at
+        ``out_path`` when matplotlib imports (its path is returned, and
+        logged as an artifact), else the first member's labels; None when no
+        member has clustered yet."""
+        if self.expansion is None:
+            return None
+        first = None
+        for member in self.expansion.members:
+            coords = getattr(member, "last_coordinates", None)
+            if not hasattr(member, "visualize_cluster") or coords is None:
+                continue
+            out = member.visualize_cluster(coords, out_path=out_path)
+            if isinstance(out, str) and self.logger:
+                self.logger.log_artifact("cluster_viz", out, kind="image")
+            first = out if first is None else first
+        return first

@@ -1,8 +1,8 @@
 """Training: train and validation steps over batched frames.
 
-Counterpart of ``hyper_graph_nets_tpu/training/trainer.py`` for flat
-graphs, with the graph balancer's expansion when it is configured (RMP is a
-later slice).  The JAX package vmaps the
+Counterpart of ``hyper_graph_nets_tpu/training/trainer.py``, with the
+configured expansion (the graph balancer, remote message passing) applied
+after ``make_graph``.  The JAX package vmaps the
 network over frames that share one topology; here the batch dimension is
 written out, and every layer of the network takes ``[B, N, F]`` /
 ``[B, E, F]`` features directly.
@@ -11,7 +11,9 @@ Training noise (``add_noise``): Gaussian noise on the dynamic field at
 NORMAL nodes, with ``(1 - gamma)`` target compensation.  The standard-normal
 draw comes from an explicit ``torch.Generator`` on the trainer's device, or
 from a tensor the caller passes in (JAX's PRNG cannot be matched, so the
-parity tests pass JAX's draw).
+parity tests pass JAX's draw).  With RMP's ``hyper_noise`` the cluster
+means get noise too: a second standard-normal draw ``[B, K, D]``, from the
+same generator after the field's, or passed in as ``hyper_normal``.
 
 Example::
 
@@ -24,9 +26,9 @@ Example::
     frames = trainer.frames(batch)               # [B, ...] tensors on the card
     tstate, loss = trainer.train_step(tstate, topo, frames)
 
-With ``model.graph_balancer`` set, prepare the expansion once per reset and
-pass its static to each step, as ``make_train_step(topo, expansion)`` takes
-it::
+With ``model.graph_balancer`` or ``model.rmp`` set, prepare the expansion
+once per reset and pass its static to each step, as
+``make_train_step(topo, expansion)`` takes it::
 
     static = trainer.expansion.prepare(model, frame0, topo)
     tstate, loss = trainer.train_step(tstate, topo, frames, static=static)
@@ -138,7 +140,7 @@ class Trainer:
         self.device = resolve_device(device)
         configure_numerics()
         self.model = model
-        # the graph balancer, or None; RMP raises (a later slice of the port)
+        # the graph balancer and RMP, or None
         self.expansion = build_expansion(model, config)
         params = config.get("params", config)
         model_cfg = params["model"]
@@ -180,12 +182,14 @@ class Trainer:
         normal: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         static=None,
+        hyper_normal: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Dict[str, object]]:
         """Noise, loss and backward of one step: returns the loss and the new
         normalizer states, and leaves each parameter's gradient in its
-        ``.grad``.  ``normal`` is the standard-normal noise draw (drawn from
-        ``generator`` when omitted); ``static`` is the prepared expansion's
-        (its cached one when omitted)."""
+        ``.grad``.  ``normal`` is the standard-normal noise draw and
+        ``hyper_normal`` RMP's on the cluster means (each drawn from
+        ``generator`` when omitted, the field's first); ``static`` is the
+        prepared expansion's (its cached one when omitted)."""
         model = self.model
         if model.noise_scale is not None:
             x = frames[model.field]
@@ -199,7 +203,8 @@ class Trainer:
         graph, _, mstate = model.make_graph(tstate.model, topo, frames, True)
         if self.expansion is not None:
             graph, mstate = self.expansion.expand(
-                mstate, graph, frames, model, is_training=True, static=static
+                mstate, graph, frames, model, is_training=True, static=static,
+                hyper_normal=hyper_normal, generator=generator,
             )
         target, mstate = model.get_target(mstate, frames, is_training=True)
         out = batched_forward(model, params, graph)
@@ -215,15 +220,18 @@ class Trainer:
         normal: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         static=None,
+        hyper_normal: Optional[torch.Tensor] = None,
     ) -> Tuple[TrainState, torch.Tensor]:
-        """One Adam step (``make_train_step``; ``static`` as in
+        """One Adam step (``make_train_step``; the noise and ``static`` as in
         :meth:`loss_and_grads`).
 
         Updates the parameters in place and returns ``(new state, loss)``:
         the new state holds new normalizer states (the old ones are left as
         they were) and ``step + 1``.
         """
-        loss, normalizers = self.loss_and_grads(tstate, topo, frames, normal, generator, static)
+        loss, normalizers = self.loss_and_grads(
+            tstate, topo, frames, normal, generator, static, hyper_normal
+        )
         opt = tstate.opt_state
         for group in opt.param_groups:
             group["lr"] = self.learning_rate(tstate.step)

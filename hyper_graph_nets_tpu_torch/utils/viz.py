@@ -6,7 +6,7 @@ with PillowWriter.  matplotlib is imported inside the function, so the
 port imports and runs without it: :func:`animate_rollout` then writes no
 GIF, logs why and returns None, as the JAX package's does on any failure.
 The plate and cylinder animations come with the plate and cylinder slice
-(ROADMAP queue 1, item 3).
+(ROADMAP queue 1, item 4).
 """
 from __future__ import annotations
 

@@ -62,6 +62,8 @@ def test_port_and_chip_smoke_import_no_jax():
         "import hyper_graph_nets_tpu_torch.ops.ring, hyper_graph_nets_tpu_torch.ops.fused_overlap\n"
         "import hyper_graph_nets_tpu_torch.parallel.group, hyper_graph_nets_tpu_torch.parallel.sharding\n"
         "import hyper_graph_nets_tpu_torch.parallel.halo\n"
+        "import hyper_graph_nets_tpu_torch.rmp.remote_message_passing, hyper_graph_nets_tpu_torch.rmp.connector\n"
+        "import hyper_graph_nets_tpu_torch.rmp.clustering\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -120,6 +122,27 @@ def test_cpu_predictor_never_launches_the_kernel():
     assert fused_edge_block.launches == before
 
 
+def test_full_scale_config_loads_as_shipped():
+    """configs/flag_full_scale.yaml with RMP on: spectral clustering into 16
+    clusters, the hierarchical ``hyper`` blocks, the three cluster-tier edge
+    sets and the hyper tier's encoder input (node features + 3)."""
+    p = Predictor(read_yaml("flag_full_scale"), device="cpu")
+    cfg = p.model.gnn_config
+    assert (cfg.latent_size, cfg.message_passing_steps, cfg.agg_vjp) == (128, 15, "fused")
+    assert cfg.architecture == "hyper" and cfg.hyper_in_dim == 8
+    assert cfg.edge_sets == (
+        "mesh_edges", "intra_cluster_to_cluster", "intra_cluster_to_mesh", "inter_cluster"
+    )
+    rmp = p.expansion.members[0]
+    assert type(rmp._clustering).__name__ == "SpectralClustering" and rmp._clustering.num_clusters == 16
+
+
+def test_rmp_fused_tiers_raises_naming_the_roadmap():
+    config = _with(rmp={"clustering": "spectral", "connector": "hyper", "fused_tiers": True})
+    with pytest.raises(NotImplementedError, match="fused_tiers"):
+        Predictor(config, device="cpu")
+
+
 def test_full_scale_config_loads_with_rmp_off():
     config = read_yaml("flag_full_scale")
     config["params"]["model"]["rmp"].update(clustering="none", connector="none")
@@ -140,7 +163,8 @@ def _with(**model):
 @pytest.mark.parametrize(
     "config",
     [
-        _with(rmp={"clustering": "spectral", "connector": "hyper"}),
+        # HDBSCAN needs scikit-learn's algorithms, which the port does not copy
+        _with(rmp={"clustering": "hdbscan", "connector": "hyper"}),
         _with(graph_balancer={"algorithm": "forman"}),  # no such balancer
         _with(inference_quant="int8"),
     ],

@@ -1011,3 +1011,118 @@ def test_halo_forward_on_card_matches_cpu(path):
         assert torch.isfinite(outs["cuda"][r]).all()
         assert float((outs["cuda"][r] - outs["cpu"][r]).abs().max()) <= 0.05 * scale
         assert float((outs["cuda"][r] - single).abs().max()) <= 0.05 * scale
+
+
+# -- remote message passing ----------------------------------------------------
+
+
+def _rmp_config(dtype=None, balancer=False):
+    config = flag_config(dtype, agg_vjp="fused")
+    model = config["params"]["model"]
+    model.update(noise=0.003, gamma=0.9)
+    model["rmp"] = {"clustering": "spectral", "connector": "hyper", "num_clusters": 4, "hyper_noise": 0.005}
+    if balancer:
+        model["rmp"] = {"clustering": "none", "connector": "none"}
+        model["graph_balancer"] = {"algorithm": "ricci", "remove_edges": True, "ricci": {"loops": 8, "tau": 150}}
+    return config
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_k1_k2_over_rmp_rows_match_plain(dtype):
+    """The RMP path's mesh set: K1 and K2 with a plan over N + K rows (a
+    12 x 12 grid and 16 hyper rows that receive no edge) against their plain
+    versions, K1's tolerances and K2's; the hyper rows' aggregates and node
+    cotangents are 0."""
+    _need_card()
+    snd, rcv, N = grid_edges(12, 12)
+    rows, L, B = N + 16, 128, 3
+    rng = np.random.default_rng(5)
+    arrays, weights = _k1_arrays(rng, B, len(snd), rows, L)
+    x = {k: torch.tensor(v).to(dtype).cuda() for k, v in arrays.items()}
+    w = {k: torch.tensor(v.T.copy() if v.ndim == 2 else v).cuda() for k, v in weights.items()}
+    s, r = torch.tensor(snd).cuda(), torch.tensor(rcv).cuda()
+    plan = plan_segments(rcv, rows, senders=snd).to("cuda")
+    topo = (s, r, None, rows)
+    e2, agg, a1, a2, _, _ = fused_edge_block_fwd(x["e"], x["sp"], x["rp"], w, *topo, plan=plan, save_streams=True)
+    re2, ragg = fused_edge_block_reference(x["e"], x["sp"], x["rp"], w, *topo)
+    (rt, at), (rta, ata) = TOLS[dtype]["e2"], TOLS[dtype]["agg"]
+    torch.testing.assert_close(e2.float(), re2.float(), rtol=rt, atol=at)
+    torch.testing.assert_close(agg, ragg, rtol=rta, atol=ata)
+    assert bool((agg[:, N:] == 0).all())
+    gen = torch.Generator().manual_seed(6)
+    de2 = torch.randn(B, len(snd), L, generator=gen).to(dtype).cuda()
+    drhs = agg_cotangent_rhs(agg, torch.randn(B, rows, 4 * L, generator=gen).cuda(), r, None, rows)
+    got = fused_edge_block_bwd(x["e"], x["sp"], x["rp"], w, de2, drhs, *topo, plan=plan)
+    want = fused_edge_block_bwd_reference(x["e"], x["sp"], x["rp"], w, de2, drhs, *topo, forward=(e2, a1, a2))
+    tol = 1e-4 if dtype == torch.float32 else 2.0**-6
+    for name, g, h in zip(("de", "dh", "dz2", "dz3", "dsp", "drp"), got[:4] + got[6:8], want[:4] + want[6:8]):
+        err = float((g.float() - h.float()).abs().max())
+        assert err <= tol * (1 + float(h.float().abs().max())), name
+    assert bool((got[6][:, N:] == 0).all()) and bool((got[7][:, N:] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["rmp", "balancer"])
+def test_train_step_repeats_bit_for_bit(path):
+    """Two train steps from one state, noise and static on the card, with
+    no deterministic-algorithms setting: the same loss, gradients and
+    normalizer states bit for bit (the unplanned sets' sums run in a fixed
+    order; the kernels add in a fixed order)."""
+    _need_card()
+    assert not torch.are_deterministic_algorithms_enabled()
+    config = _rmp_config(balancer=path == "balancer")
+    traj = add_targets(flag_trajectory(num_steps=4, nx=12, ny=12), "world_pos", True)
+    model = get_model(config)
+    trainer = Trainer(model, config)
+    topo = model.topology_from_trajectory(traj, device="cuda")
+    static = trainer.expansion.prepare(model, {k: v[0] for k, v in traj.items()}, topo)
+    state = model.init_state(torch.Generator().manual_seed(1))
+    frames = trainer.frames(traj)
+    normal = torch.randn(traj["world_pos"].shape, generator=torch.Generator().manual_seed(2)).cuda()
+    shape = trainer.expansion.hyper_noise_shape(model, frames, static)
+    hyper = None if shape is None else torch.randn(shape, generator=torch.Generator().manual_seed(3)).cuda()
+    runs = []
+    for _ in range(2):
+        ts = trainer.init_train_state(state=state)
+        loss, norms = trainer.loss_and_grads(ts, topo, frames, normal=normal, static=static, hyper_normal=hyper)
+        runs.append((loss.cpu(), [p.grad.cpu() for p in ts.model.params.parameters()],
+                     [ns.acc_sum.cpu() for ns in norms.values()]))
+    (l0, g0, n0), (l1, g1, n1) = runs
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    assert all(torch.equal(a, b) for a, b in zip(n0, n1))
+
+
+@pytest.mark.cuda
+def test_rmp_train_step_on_card_matches_cpu():
+    """A float32 RMP train step (2 hierarchical blocks, 4 clusters) on the
+    card against the CPU, same state, noise and static: loss rtol 1e-4,
+    gradients within relative L2 1e-3, 2 K1 and 2 K2 on the card."""
+    _need_card()
+    config = _rmp_config()
+    traj = add_targets(flag_trajectory(num_steps=4, nx=12, ny=12), "world_pos", True)
+    model = get_model(config)
+    state = model.init_state(torch.Generator().manual_seed(1))
+    normal = torch.randn(traj["world_pos"].shape, generator=torch.Generator().manual_seed(2))
+    static = None
+    results = {}
+    for device in ("cpu", "cuda"):
+        trainer = Trainer(model, config, device=device)
+        topo = model.topology_from_trajectory(traj, device=device)
+        static = static or trainer.expansion.prepare(model, {k: v[0] for k, v in traj.items()}, topo)
+        st = tuple(s.to(device) for s in static)
+        frames = trainer.frames(traj)
+        hyper = torch.randn(trainer.expansion.hyper_noise_shape(model, frames, st),
+                            generator=torch.Generator().manual_seed(3))
+        before = (fused_edge_block.launches, fused_edge_block_bwd.launches)
+        ts = trainer.init_train_state(state=state)
+        loss, _ = trainer.loss_and_grads(ts, topo, frames, normal=normal.to(device), static=st,
+                                         hyper_normal=hyper.to(device))
+        launched = (fused_edge_block.launches - before[0], fused_edge_block_bwd.launches - before[1])
+        assert launched == ((2, 2) if device == "cuda" else (0, 0))
+        results[device] = (float(loss), {n: p.grad.cpu() for n, p in ts.model.params.named_parameters()})
+    (lc, gc), (lh, gh) = results["cuda"], results["cpu"]
+    assert abs(lc - lh) <= 1e-4 * abs(lh)
+    for name, g in gh.items():
+        assert float((gc[name] - g).norm()) <= 1e-3 * float(g.norm()), name

@@ -263,7 +263,9 @@ def test_frames_to_batches_matches_jax():
 
 
 def test_rmp_trainer_raises():
+    """RMP runs in the port, but not every clustering: HDBSCAN needs
+    scikit-learn's algorithms, and the Trainer refuses it when built."""
     config = _config("bfloat16", "fused")
-    config["params"]["model"]["rmp"] = {"clustering": "spectral", "connector": "hyper"}
-    with pytest.raises(NotImplementedError):
+    config["params"]["model"]["rmp"] = {"clustering": "hdbscan", "connector": "hyper"}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(get_model(config), config, device="cpu")

@@ -8,9 +8,10 @@ PyTorch's deterministic algorithms (``chip_smoke.fixed_scatter_order``).
 
 This runs the card side of that comparison for the path with the Ricci
 balancer, in float32 (where every tensor is held to the same limit), again
-and again: first with PyTorch's scatter-adds as they come (atomic on the card,
-their float32 sums in any order), then in a fixed order, each against one
-CPU run made in a fixed order.  It prints how many card runs read each worst
+and again: first as it comes (no deterministic-algorithms setting; before
+the port's fixed-order sums, ``core.segment_ops.FixedSum``, the balance set
+went through PyTorch's atomic scatter-adds there), then under PyTorch's
+deterministic algorithms, each against one CPU run made in a fixed order.  It prints how many card runs read each worst
 gradient relative L2 (3 significant digits), the loss readings, and the four
 worst tensors of the worst run.
 
