@@ -13,6 +13,11 @@ This is the only module that knows the JAX layout:
   ``acc_sum``, ``acc_sum_squared`` (and optionally the static
   ``max_accumulations`` / ``std_epsilon``).
 
+Edge encoders and edge models are taken per edge set by name and
+normalizers by name, whatever their widths: plate's ``world_edges`` encoder
+and ``world_edge`` normalizer and cylinder's 3-wide ``output`` normalizer
+(velocity and pressure) convert like flag's trees.
+
 Inputs are nested dicts (lists for MLP layers) of numpy arrays, so neither
 side needs the other's framework.  :func:`train_state_from_jax_numpy` also
 moves optax's Adam state: its moments ``mu`` and ``nu`` have the

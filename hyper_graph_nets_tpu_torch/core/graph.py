@@ -2,7 +2,9 @@
 
 Counterpart of ``hyper_graph_nets_tpu/core/graph.py``.  Feature tensors may
 carry a leading batch dimension (``[B, N, F]`` / ``[B, E, F]``); topology
-(senders, receivers, mask) is shared by the batch.  Edges keep the
+(senders, receivers, mask) is shared by the batch, except for an edge set
+that forms anew in every frame (plate's world edges), whose topology is
+``[B, W]``.  Edges keep the
 receiver-sorted order of ``core.mesh.cells_to_edges``; a kernel's plan
 (fused or sorted) rides on the edge set in place of the JAX package's band
 plan.  Remote message passing adds a hyper tier of node features; edge
@@ -45,13 +47,16 @@ class EdgeSet:
     aggregates and routes cotangents through them.  ``sums`` holds the
     fixed-order sums over the receivers and the senders
     (``core.segment_ops.EdgeSums``): the unfused paths' scatter sums and
-    gather backwards run through them, in the same order on every run.
+    gather backwards run through them, in the same order on every run.  A
+    set formed per frame has ``[B, E]`` senders, receivers and mask, no plan
+    and no neighbour matrices, and per-frame sums
+    (``EdgeSums.per_frame``).
     """
 
     features: torch.Tensor  # [..., E, F]
-    senders: torch.Tensor  # [E] int32
-    receivers: torch.Tensor  # [E] int32
-    mask: Optional[torch.Tensor] = None  # [E] float
+    senders: torch.Tensor  # [E] int32, or [B, E] per frame
+    receivers: torch.Tensor  # [E] int32, or [B, E] per frame
+    mask: Optional[torch.Tensor] = None  # [E] (or [B, E]) float
     plan: Optional[object] = None
     gather_idx: Optional[torch.Tensor] = None  # [N, d_max] int32
     gather_valid: Optional[torch.Tensor] = None  # [N, d_max] float32

@@ -26,7 +26,11 @@ order, in chunks of at most ``FIXED_SUM_CAP``, then the chunks' sums the
 same way until one row is left per segment.  :func:`segment_sum_fixed` and
 :func:`gather_fixed` are the sum and the gather, each with the other as its
 backward, so a train step through them is the same bit for bit on every
-run.
+run.  An edge set that forms anew in every frame (plate's world edges:
+``[B, W]`` ids and mask) takes a :class:`FrameSum` instead, built on the
+ids' device by sorts, searches and elementwise passes of static shape, with
+no host sync: a stable sort by segment, then a segmented scan in a fixed
+tree of ``log2 W`` steps.
 """
 from __future__ import annotations
 
@@ -102,6 +106,13 @@ class FixedSum:
         x = torch.cat([x, x.new_zeros(x.shape[:-2] + (1, x.shape[-1]))], dim=axis)
         return x.index_select(axis, self.place)
 
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``x[..., ids, :]``: each element's segment row, no autograd (also
+        the sum's adjoint)."""
+        return x.index_select(x.dim() - 2, self.ids)
+
+    spread = gather
+
 
 def fixed_sum_plan(ids, num_segments: int) -> FixedSum:
     """Host: the :class:`FixedSum` of ``ids`` (``[E]``, values in
@@ -139,6 +150,75 @@ def fixed_sum_plan(ids, num_segments: int) -> FixedSum:
 
 
 @dataclasses.dataclass(frozen=True)
+class FrameSum:
+    """Plan of the sum of ``[..., W, F]`` rows into the ``num_segments``
+    segments of per-frame ids ``[..., W]`` (every leading index a frame of
+    its own), in a fixed order, built where the ids lie.
+
+    Masked elements go to a dropped segment.  The elements are sorted by
+    segment, stably (so each segment keeps its elements in their order),
+    and summed by a segmented Hillis-Steele scan: at step ``d = 1, 2, 4,
+    ...`` each element adds the partial ``d`` places before it when that one
+    is of its segment.  A segment's sum is then its last element's partial,
+    and an empty segment reads the zero row after them.  The order of the
+    additions follows from the ids alone, so a sum is the same bit for bit
+    on every run, and nothing is read back to the host.
+    """
+
+    ids: torch.Tensor  # [..., W] int64: each element's segment
+    key: torch.Tensor  # [..., W] int64: ids, num_segments where masked
+    order: torch.Tensor  # [..., W] int64: the elements sorted by key, stably
+    same: Tuple[torch.Tensor, ...]  # per scan step d: [..., W - d] bool, sorted[i - d] shares i's segment
+    last: torch.Tensor  # [..., num_segments] int64: each segment's last sorted slot, W if empty
+    num_segments: int
+
+    @classmethod
+    def build(cls, ids: torch.Tensor, valid: Optional[torch.Tensor], num_segments: int) -> "FrameSum":
+        """The plan of ``ids`` (values in ``[0, num_segments)``) with
+        ``valid`` (bool or float, the ids' shape; None: all valid)."""
+        ids = ids.long()
+        key = ids if valid is None else torch.where(valid > 0, ids, num_segments)
+        seg, order = torch.sort(key, dim=-1, stable=True)
+        W = ids.shape[-1]
+        same, d = [], 1
+        while d < W:
+            same.append(seg[..., d:] == seg[..., :-d])
+            d *= 2
+        nodes = torch.arange(num_segments, device=ids.device).expand(ids.shape[:-1] + (num_segments,))
+        start = torch.searchsorted(seg, nodes.contiguous())
+        end = torch.searchsorted(seg, nodes.contiguous(), right=True)
+        last = torch.where(end > start, end - 1, W)
+        return cls(ids, key, order, tuple(same), last, int(num_segments))
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """``[..., W, F] -> [..., num_segments, F]``, no autograd."""
+        x = frame_rows(x, self.order)
+        for step, same in enumerate(self.same):
+            d = 1 << step
+            add = torch.where(same[..., None], x[..., :-d, :], torch.zeros((), dtype=x.dtype, device=x.device))
+            x = torch.cat([x[..., :d, :], x[..., d:, :] + add], dim=-2)
+        x = torch.cat([x, x.new_zeros(x.shape[:-2] + (1, x.shape[-1]))], dim=-2)
+        return frame_rows(x, self.last)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``x[..., ids[..., w], :]`` per frame, masked elements included; no
+        autograd."""
+        return frame_rows(x, self.ids)
+
+    def spread(self, g: torch.Tensor) -> torch.Tensor:
+        """The sum's adjoint: each element's segment row of ``g``, 0 for a
+        masked one."""
+        g = torch.cat([g, g.new_zeros(g.shape[:-2] + (1, g.shape[-1]))], dim=-2)
+        return frame_rows(g, self.key)
+
+
+def frame_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[..., idx[..., w], :]``: each frame's rows by that frame's indices
+    (``x`` and ``idx`` share their leading axes)."""
+    return torch.gather(x, -2, idx[..., None].expand(idx.shape + (x.shape[-1],)))
+
+
+@dataclasses.dataclass(frozen=True)
 class EdgeSums:
     """The fixed-order sums of one edge set: over its receivers (the
     aggregate, and the receiver gather's backward) and over its senders
@@ -151,6 +231,14 @@ class EdgeSums:
     def build(cls, senders, receivers, num_nodes: int) -> "EdgeSums":
         return cls(fixed_sum_plan(receivers, num_nodes), fixed_sum_plan(senders, num_nodes))
 
+    @classmethod
+    def per_frame(cls, senders, receivers, mask, num_nodes: int) -> "EdgeSums":
+        """The sums of a set with per-frame ``[..., W]`` senders, receivers
+        and mask, as :class:`FrameSum` plans built on their device.  The
+        sender gather's backward drops masked edges' cotangents: a masked
+        edge reaches no aggregate, so they are zero."""
+        return cls(FrameSum.build(receivers, mask, num_nodes), FrameSum.build(senders, mask, num_nodes))
+
     def to(self, device) -> "EdgeSums":
         return EdgeSums(self.receivers.to(device), self.senders.to(device))
 
@@ -160,37 +248,37 @@ class EdgeSums:
 
 class _SegmentSumFixed(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, data, plan: FixedSum):
+    def forward(ctx, data, plan):
         ctx.plan = plan
         return plan(data)
 
     @staticmethod
     def backward(ctx, g):
-        return g.index_select(g.dim() - 2, ctx.plan.ids), None
+        return ctx.plan.spread(g), None
 
 
 class _GatherFixed(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, plan: FixedSum):
+    def forward(ctx, x, plan):
         if x.shape[-2] != plan.num_segments:
             raise ValueError(f"{x.shape[-2]} node rows, the plan has {plan.num_segments}")
         ctx.plan = plan
-        return x.index_select(x.dim() - 2, plan.ids)
+        return plan.gather(x)
 
     @staticmethod
     def backward(ctx, g):
         return ctx.plan(g), None
 
 
-def segment_sum_fixed(data: torch.Tensor, plan: FixedSum) -> torch.Tensor:
-    """Segment sum of ``data`` ``[..., E, F]`` in the plan's fixed order;
-    its backward is a gather."""
+def segment_sum_fixed(data: torch.Tensor, plan) -> torch.Tensor:
+    """Segment sum of ``data`` ``[..., E, F]`` in the plan's fixed order
+    (a :class:`FixedSum` or a :class:`FrameSum`); its backward is a gather."""
     return _SegmentSumFixed.apply(data, plan)
 
 
-def gather_fixed(x: torch.Tensor, plan: FixedSum) -> torch.Tensor:
-    """``x[..., plan.ids, :]``, whose backward sums each row's cotangents in
-    the plan's fixed order."""
+def gather_fixed(x: torch.Tensor, plan) -> torch.Tensor:
+    """``x[..., ids, :]`` (per frame for a :class:`FrameSum`), whose backward
+    sums each row's cotangents in the plan's fixed order."""
     return _GatherFixed.apply(x, plan)
 
 
@@ -224,7 +312,7 @@ def _extremum_raw32(data, ids, num_segments, mask, reduce: str):
     if valid is not None:
         d = torch.where(valid, d, torch.full_like(d, fill))
     out = torch.full(_out_shape(d, num_segments), fill, device=d.device)
-    index = ids.long().view(*([1] * (d.dim() - 2)), -1, 1).expand_as(d)
+    index = ids.long()[..., None].expand_as(d)
     return out.scatter_reduce_(d.dim() - 2, index, d, reduce, include_self=True)
 
 
@@ -299,15 +387,16 @@ def aggregate(
     return _OPS[aggregation](data, segment_ids, num_segments, mask)
 
 
-def pna_partials(data, segment_ids, num_segments, mask=None) -> torch.Tensor:
+def pna_partials(data, segment_ids, num_segments, mask=None, sums: Optional[FixedSum] = None) -> torch.Tensor:
     """Unfinalized pna partials of one edge shard, float32 ``[..., N, 4F]``:
     ``[sum | count (broadcast over F) | max | min]`` with -1e30 / +1e30 where
     the shard has no valid edge for a segment (the raw output of the JAX
-    package's fused kernel, ``finalize=False``)."""
-    counts = _count32(data, segment_ids, num_segments, mask)
+    package's fused kernel, ``finalize=False``); the sums and counts in the
+    fixed order of ``sums`` when given."""
+    counts = _count32(data, segment_ids, num_segments, mask, sums)
     return torch.cat(
         [
-            _sum32(data, segment_ids, num_segments, mask),
+            _sum32(data, segment_ids, num_segments, mask, sums),
             counts.expand(_out_shape(data, num_segments)),
             _extremum_raw32(data, segment_ids, num_segments, mask, "amax"),
             _extremum_raw32(data, segment_ids, num_segments, mask, "amin"),
@@ -338,11 +427,15 @@ def collective_aggregate(
     mask: Optional[torch.Tensor],
     group,
     ring: bool = False,
+    sums: Optional[FixedSum] = None,
 ) -> torch.Tensor:
     """Aggregation of one rank's edge shard over every rank's edges: local
     partials combined across the rank group (``parallel.group.RankGroup``),
     the JAX package's ``collective_aggregate`` (``core/segment_ops.py:
-    226-349``).  Called from inside ``group.run``.
+    226-349``).  Called from inside ``group.run``.  ``sums`` (the shard's
+    receiver :class:`FixedSum`, ``parallel.sharding.shard_topology``) sums
+    the local partials and counts in a fixed order, so a halo forward is the
+    same bit for bit on every run; without it they add with ``index_add_``.
 
     Without ``ring`` the partials combine by the group's plain all-reduce in
     the data's dtype (sums, then counts, maxima and minima; the counterpart
@@ -361,11 +454,11 @@ def collective_aggregate(
 
         if aggregation == "sum":
             total = group.exchange(
-                _sum32(data, segment_ids, n, mask),
+                _sum32(data, segment_ids, n, mask, sums),
                 lambda xs: ring_all_reduce_segments(xs, [(0, n, "sum")], group),
             )
             return total.to(data.dtype)
-        raw = pna_partials(data, segment_ids, n, mask)  # [N, 4F]
+        raw = pna_partials(data, segment_ids, n, mask, sums)  # [N, 4F]
         F = data.shape[-1]
         payload = torch.cat(raw.split(F, dim=-1), dim=0).contiguous()  # [4N, F]
         segments = [(0, n, "sum"), (n, 2 * n, "sum"), (2 * n, 3 * n, "max"), (3 * n, 4 * n, "min")]
@@ -375,10 +468,10 @@ def collective_aggregate(
         out = finalize_partials(torch.cat(combined.split(n, dim=0), dim=-1))
     else:
         dt = data.dtype
-        total = group.all_reduce_plain(_sum32(data, segment_ids, n, mask).to(dt), "sum")
+        total = group.all_reduce_plain(_sum32(data, segment_ids, n, mask, sums).to(dt), "sum")
         if aggregation == "sum":
             return total
-        counts = group.all_reduce_plain(_count32(data, segment_ids, n, mask).to(dt), "sum")
+        counts = group.all_reduce_plain(_count32(data, segment_ids, n, mask, sums).to(dt), "sum")
         mean = total / torch.clamp(counts, min=1.0)
         if aggregation == "mean":
             return mean

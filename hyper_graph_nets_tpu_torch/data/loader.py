@@ -7,9 +7,8 @@ once from fixed seeds, written through the TFRecord path and streamed from
 disk.  The files are byte for byte the ones the JAX package writes from the
 same seeds, so either package reads the other's ``input`` directory.
 
-Left out: the cylinder and plate generators (with the plate and cylinder
-slice of the port: ROADMAP queue 1, item 4), and ``task.loader: tfdata``,
-which needs TensorFlow.  Both raise ``NotImplementedError``.
+Left out: ``task.loader: tfdata``, which needs TensorFlow; it raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -31,8 +30,9 @@ DATA_DIR = os.path.join(REPO_ROOT, "data")
 _SYNTH_DEFAULTS = {
     "flag_minimal": dict(trajectories=2, num_steps=12, nx=8, ny=8),
     "flag_simple": dict(trajectories=4, num_steps=40, nx=16, ny=16),
+    "cylinder_flow": dict(trajectories=4, num_steps=40, nx=12, ny=8),
+    "deforming_plate": dict(trajectories=4, num_steps=30, nx=7, ny=7),
 }
-_LATER_SLICE = ("cylinder_flow", "deforming_plate")
 
 
 def get_directories(dataset_name: str, data_dir: Optional[str] = None):
@@ -101,11 +101,6 @@ def get_data(
     """The trajectories of ``split`` (windowed by ``add_targets``)."""
     params = config.get("params", config)
     dataset = get_from_nested_dict(params, ["task", "dataset"], raise_error=True)
-    if dataset in _LATER_SLICE:
-        raise NotImplementedError(
-            f"dataset {dataset!r}: the cylinder and plate data come with the "
-            "plate and cylinder slice (ROADMAP queue 1, item 4)"
-        )
     if dataset not in _SYNTH_DEFAULTS:
         raise NotImplementedError(f"unknown dataset {dataset!r}")
     if get_from_nested_dict(params, ["task", "loader"], default_return="python") == "tfdata":

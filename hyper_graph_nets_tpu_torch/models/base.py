@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from hyper_graph_nets_tpu_torch.core import normalizer as norm
-from hyper_graph_nets_tpu_torch.core.graph import Graph, NodeType
+from hyper_graph_nets_tpu_torch.core.graph import EdgeSet, Graph, NodeType
 from hyper_graph_nets_tpu_torch.core.mesh import cells_to_edges, receivers_to_gather
 from hyper_graph_nets_tpu_torch.core.segment_ops import EdgeSums
 from hyper_graph_nets_tpu_torch.nn.blocks import GNNConfig
@@ -61,7 +61,9 @@ class Topology(NamedTuple):
     The receiver and sender neighbour matrices (``receivers_to_gather``) are
     built for every topology, as in the JAX package (``models/base.py:
     402-416``), and so are the fixed-order sums (``sums``) of the unfused
-    paths.
+    paths.  ``aux`` holds a model's own per-trajectory arrays (plate's
+    obstacle indices) and ``world_cap`` plate's world-edge capacity under
+    ``max_world_edges: auto``, as in the JAX package.
     """
 
     senders: torch.Tensor  # [E] int32, sorted by receiver
@@ -74,6 +76,25 @@ class Topology(NamedTuple):
     snd_gather_idx: Optional[torch.Tensor] = None
     snd_gather_valid: Optional[torch.Tensor] = None
     sums: Optional[EdgeSums] = None
+    aux: Optional[Dict[str, torch.Tensor]] = None
+    world_cap: Optional[int] = None
+
+
+def mesh_edge_set(topo: Topology, features: torch.Tensor) -> EdgeSet:
+    """The ``mesh_edges`` set of a topology with its plan, neighbour
+    matrices and fixed-order sums."""
+    return EdgeSet(
+        features=features,
+        senders=topo.senders,
+        receivers=topo.receivers,
+        mask=topo.mask,
+        plan=topo.plan,
+        gather_idx=topo.gather_idx,
+        gather_valid=topo.gather_valid,
+        snd_gather_idx=topo.snd_gather_idx,
+        snd_gather_valid=topo.snd_gather_valid,
+        sums=topo.sums,
+    )
 
 
 def reset_due(step: int, num_steps: int, frequency: int) -> bool:
@@ -81,6 +102,12 @@ def reset_due(step: int, num_steps: int, frequency: int) -> bool:
     ``frequency`` times over the run (every call at frequency 1 and step 0,
     as ``Predictor`` asks)."""
     return step % math.ceil(num_steps / frequency) == 0
+
+
+def one_hot(codes: torch.Tensor, num_classes: int, dtype) -> torch.Tensor:
+    """``jax.nn.one_hot``: all zeros for a code outside ``[0, num_classes)``
+    (a padded node's negative type)."""
+    return (codes[..., None] == torch.arange(num_classes, device=codes.device)).to(dtype)
 
 
 def norm_feature(rel: torch.Tensor) -> torch.Tensor:
@@ -255,11 +282,29 @@ class SystemModel:
         )
 
     def topology_content_key(self, trajectory: Dict[str, np.ndarray]) -> tuple:
-        """Extra cache-key content beyond the mesh connectivity (none here)."""
+        """Extra cache-key content beyond the mesh connectivity (none here;
+        plate's world-edge capacity under ``max_world_edges: auto``)."""
         return ()
+
+    def bucket_topology_extras(self, trajectories) -> Optional[dict]:
+        """Bucket-level dims of a model's topology aux (none here)."""
+        return None
+
+    def pad_topology_aux(self, trajectory, num_nodes: int, extras: Optional[dict]):
+        """``(aux, world_cap)`` of a bucketed topology (none here)."""
+        return None, None
 
     def forward(self, state: ModelState, graph: Graph) -> torch.Tensor:
         return network_apply(state.params, graph, self.gnn_config)
+
+    def predict(self, state: ModelState, topo: Topology, frame, expansion=None, static=None):
+        """``(update, make_graph's aux)`` of one frame or a batch of frames,
+        the graph expanded (with ``static``) when an expansion is given: the
+        step every rollout and n-step loop takes."""
+        graph, aux, _ = self.make_graph(state, topo, frame, False)
+        if expansion is not None:
+            graph, _ = expansion.expand(state, graph, frame, self, is_training=False, static=static)
+        return self.update(state, frame, self.forward(state, graph)), aux
 
     def inference_state(self, state: ModelState) -> ModelState:
         """State for inference; int8 serving is a later slice of the port."""

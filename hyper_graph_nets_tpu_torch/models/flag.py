@@ -30,11 +30,12 @@ import torch
 
 from hyper_graph_nets_tpu_torch.core import normalizer as norm
 from hyper_graph_nets_tpu_torch.core import segment_ops
-from hyper_graph_nets_tpu_torch.core.graph import EdgeSet, Graph, NodeType
+from hyper_graph_nets_tpu_torch.core.graph import Graph, NodeType
 from hyper_graph_nets_tpu_torch.models.base import (
     ModelState,
     SystemModel,
     Topology,
+    mesh_edge_set,
     norm_feature,
 )
 
@@ -145,20 +146,7 @@ class FlagModel(SystemModel):
         )
         graph = Graph(
             node_features=node_feats,
-            edge_sets={
-                "mesh_edges": EdgeSet(
-                    features=edge_feats,
-                    senders=topo.senders,
-                    receivers=topo.receivers,
-                    mask=topo.mask,
-                    plan=topo.plan,
-                    gather_idx=topo.gather_idx,
-                    gather_valid=topo.gather_valid,
-                    snd_gather_idx=topo.snd_gather_idx,
-                    snd_gather_valid=topo.snd_gather_valid,
-                    sums=topo.sums,
-                )
-            },
+            edge_sets={"mesh_edges": mesh_edge_set(topo, edge_feats)},
         )
         aux = {"node_dynamic": node_dyn, "mesh_edge_features_raw": raw["mesh_edge_features"]}
         return graph, aux, state
@@ -183,10 +171,7 @@ class FlagModel(SystemModel):
     def _step(self, state, topo, frame, normal, expansion, static) -> torch.Tensor:
         """The next positions of one frame or a batch of frames; boundary
         (non-NORMAL) nodes hold theirs."""
-        graph, _, _ = self.make_graph(state, topo, frame, False)
-        if expansion is not None:
-            graph, _ = expansion.expand(state, graph, frame, self, is_training=False, static=static)
-        prediction = self.update(state, frame, self.forward(state, graph))
+        prediction, _ = self.predict(state, topo, frame, expansion, static)
         return torch.where(normal, prediction, frame["world_pos"])
 
     def rollout(

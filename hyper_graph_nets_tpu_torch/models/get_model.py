@@ -1,4 +1,4 @@
-"""Model factory: flag only in this slice of the port."""
+"""Model factory: the dataset name picks flag, cylinder or plate."""
 from __future__ import annotations
 
 from hyper_graph_nets_tpu_torch.models.base import SystemModel
@@ -12,8 +12,12 @@ def get_model(config: dict) -> SystemModel:
         from hyper_graph_nets_tpu_torch.models.flag import FlagModel
 
         return FlagModel(params)
-    if "cylinder" in dataset or "plate" in dataset:
-        raise NotImplementedError(
-            f"dataset {dataset!r}: plate and cylinder come in ROADMAP slice 7"
-        )
+    if "cylinder" in dataset:
+        from hyper_graph_nets_tpu_torch.models.cylinder import CylinderModel
+
+        return CylinderModel(params)
+    if "plate" in dataset:
+        from hyper_graph_nets_tpu_torch.models.plate import PlateModel
+
+        return PlateModel(params)
     raise NotImplementedError(f"unknown dataset {dataset!r}")

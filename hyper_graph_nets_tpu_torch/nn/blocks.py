@@ -43,7 +43,10 @@ the cluster-tier sets, a mesh that the band criterion rejects) takes the
 unfused update and the aggregate above.  Its scatter sums and the backward
 of its index gathers run through the set's fixed-order sums
 (``EdgeSet.sums``, ``core.segment_ops.FixedSum``), so a train step is the
-same bit for bit on every run.
+same bit for bit on every run.  A set that forms anew in every frame
+(plate's world edges, ``[B, W]`` senders, receivers and mask) takes the same
+path with per-frame gathers and sums (``core.segment_ops.FrameSum``, built
+on the frames' device).
 
 Under the halo forward (``parallel/halo.py``) ``GNNConfig.axis_name`` holds
 the rank group the edges are split over, and each rank runs the blocks on
@@ -404,7 +407,7 @@ def _aggregate_sets(
             parts.append(
                 collective_aggregate(
                     f, es.receivers, num_total, cfg.aggregation, es.mask, cfg.axis_name,
-                    ring=cfg.halo_ring,
+                    ring=cfg.halo_ring, sums=None if es.sums is None else es.sums.receivers,
                 )[..., :hi, :]
             )
             continue

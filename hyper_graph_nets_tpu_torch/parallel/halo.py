@@ -37,23 +37,27 @@ import torch
 from hyper_graph_nets_tpu_torch.core.graph import Graph
 from hyper_graph_nets_tpu_torch.models.base import ModelState, SystemModel
 from hyper_graph_nets_tpu_torch.nn.meshgraphnet import MeshGraphNet, network_apply
-from hyper_graph_nets_tpu_torch.parallel.sharding import RankPlans
+from hyper_graph_nets_tpu_torch.parallel.sharding import RankPlans, RankSums
 
 
 def strip_gather(graph: Graph) -> Graph:
-    """Drop the neighbour matrices and the fixed-order sums: they index
-    global edge ids, invalid on a shard."""
-    gather = dict(gather_idx=None, gather_valid=None, snd_gather_idx=None, snd_gather_valid=None,
-                  sums=None)
+    """Drop the neighbour matrices and the single-device fixed-order sums:
+    they index global edge ids, invalid on a shard (the per-rank sums of
+    ``shard_topology``, a :class:`RankSums`, stay)."""
+    gather = dict(gather_idx=None, gather_valid=None, snd_gather_idx=None, snd_gather_valid=None)
     return graph.replace(
-        edge_sets={name: es.replace(**gather) for name, es in graph.edge_sets.items()}
+        edge_sets={
+            name: es.replace(**gather, sums=es.sums if isinstance(es.sums, RankSums) else None)
+            for name, es in graph.edge_sets.items()
+        }
     )
 
 
 def split_graph(graph: Graph, group) -> List[Graph]:
     """One unbatched graph (made on ``parallel.sharding.shard_topology``'s
     topology) into one graph per rank, on the rank's device: rank r gets the
-    r-th contiguous slice of every edge array and the plan of its slice;
+    r-th contiguous slice of every edge array and the plan and fixed-order
+    sums of its slice;
     node rows are copied to every rank (the counterpart of the JAX package's
     ``graph_partition_specs``)."""
     graph = strip_gather(graph)
@@ -76,6 +80,7 @@ def split_graph(graph: Graph, group) -> List[Graph]:
                 receivers=cut(es.receivers),
                 mask=cut(es.mask),
                 plan=es.plan.plans[r] if isinstance(es.plan, RankPlans) else None,
+                sums=es.sums.sums[r] if isinstance(es.sums, RankSums) else None,
             )
         out.append(Graph(node_features=graph.node_features.to(dev), edge_sets=sets))
     return out

@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from hyper_graph_nets_tpu_torch.core.segment_ops import EdgeSums
 from hyper_graph_nets_tpu_torch.models.base import Topology
 from hyper_graph_nets_tpu_torch.ops.fused_block import SegmentPlan, plan_segments
 from hyper_graph_nets_tpu_torch.ops.fused_overlap import chunk_roundrobin_permutation, overlap_plan
@@ -31,6 +32,15 @@ class RankPlans:
     stacked per-shard band plan)."""
 
     plans: Tuple[SegmentPlan, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class RankSums:
+    """The fixed-order sums of an edge-sharded set: ``sums[r]`` is rank r's
+    :class:`EdgeSums` over its slice (indices local to the slice), on its
+    device; the unfused sets' local partials sum through them."""
+
+    sums: Tuple[EdgeSums, ...]
 
 
 def pad_to_multiple(arr: np.ndarray, multiple: int, pad_value=0) -> np.ndarray:
@@ -60,7 +70,9 @@ def shard_topology(
     slice spans all receivers, and its plans carry that many bands and K7's
     work list (``ops.fused_overlap.overlap_plan``).
     The result lies on rank 0's device and has no neighbour matrices (they
-    index global edge ids); ``halo.split_graph`` gives each rank its slice.
+    index global edge ids); its ``sums`` are a :class:`RankSums`, each
+    rank's fixed-order sums over its slice, built here on the host once per
+    topology; ``halo.split_graph`` gives each rank its slice.
     """
     g = group.n
     snd = np.asarray(topo.senders.cpu(), np.int32)
@@ -78,10 +90,16 @@ def shard_topology(
     if use_overlap:
         perm = chunk_roundrobin_permutation(len(snd), g, chunk)
         snd, rcv, mask = snd[perm], rcv[perm], mask[perm]
+    per = len(snd) // g
+    shard = lambda r: slice(r * per, (r + 1) * per)
+    rank_sums = RankSums(
+        tuple(
+            EdgeSums.build(snd[shard(r)], rcv[shard(r)], topo.num_nodes).to(group.device(r))
+            for r in range(g)
+        )
+    )
     rank_plans = None
     if plans:
-        per = len(snd) // g
-        shard = lambda r: slice(r * per, (r + 1) * per)
         rank_plans = RankPlans(
             tuple(
                 (
@@ -100,4 +118,5 @@ def shard_topology(
         num_nodes=topo.num_nodes,
         mask=torch.from_numpy(mask).to(dev),
         plan=rank_plans,
+        sums=rank_sums,
     )

@@ -57,7 +57,7 @@ class Predictor:
         self.config = config
         self.params = config.get("params", config)
         self.model = get_model(config)
-        # the graph balancer, or None; RMP raises (a later slice of the port)
+        # the graph balancer or remote message passing, or None
         self.expansion = build_expansion(self.model, config)
         if state is None:
             state = self.model.init_state()
@@ -124,8 +124,10 @@ class Predictor:
         static=None,
     ) -> Dict[str, Any]:
         """Recursive rollout from the trajectory's first frame: the model's
-        rollout ops (``pred_pos``, ``gt_pos``, ``faces``, ``mesh_pos``) plus
-        per-step ``mse``, as numpy arrays.  ``static`` is a prepared
+        rollout ops (``pred_pos``, ``gt_pos``, ``faces``, ``mesh_pos``; for
+        cylinder ``pred_velocity``, ``pred_pressure``, ``gt_velocity``,
+        ``gt_pressure``; for plate also the obstacle ``mask``) plus per-step
+        ``mse``, as numpy arrays.  ``static`` is a prepared
         expansion static (``expansion.prepare``) to use in place of
         preparing one here."""
         topo = self._topology(trajectory)
@@ -142,10 +144,11 @@ class Predictor:
         return out
 
     @torch.inference_mode()
-    def one_step(self, trajectory: Dict[str, np.ndarray], static=None) -> np.ndarray:
+    def one_step(self, trajectory: Dict[str, np.ndarray], static=None):
         """Next-state prediction of the model's field for every frame, as
-        one batch: ``[B, N, D]`` (positions for flag).  ``static`` as in
-        :meth:`rollout`."""
+        one batch: ``[B, N, D]`` positions for flag and plate; for cylinder
+        the pair ``(velocity [B, N, 2], pressure [B, N, 1])``.  ``static``
+        as in :meth:`rollout`."""
         topo = self._topology(trajectory)
         static = self._static(trajectory, topo, static)
         frames = self._frames(trajectory)
@@ -155,4 +158,7 @@ class Predictor:
                 self.state, graph, frames, self.model, is_training=False, static=static
             )
         out = batched_forward(self.model, self.state.params, graph)
-        return self.model.update(self.state, frames, out).cpu().numpy()
+        pred = self.model.update(self.state, frames, out)
+        if isinstance(pred, tuple):
+            return tuple(p.cpu().numpy() for p in pred)
+        return pred.cpu().numpy()

@@ -17,9 +17,10 @@ Counterpart of ``hyper_graph_nets_tpu/training/simulator.py``:
 Left out by design: cross-trajectory bucketing (``set_capacity``,
 ``data/bucketing.py``).  It pads meshes of different sizes to one shape so
 that XLA compiles one step; PyTorch does not recompile per shape, and the
-synthetic flag meshes have one size.  The model counters of the JAX train
-step (plate's world-edge truncation) come with the plate slice; flag has
-none.
+synthetic meshes have one size per dataset.  The model counters of the
+steps (plate's ``world_edge_truncated``) are summed per trajectory in
+training and per pass in the one-step evaluator, on the device until the
+one sync at the end.
 
 Runs on the card unless ``device="cpu"``.  The training noise is drawn by
 :meth:`MeshSimulator._normal` from a seeded generator on the device: the
@@ -150,6 +151,7 @@ class MeshSimulator:
         self._shuffle_rng.shuffle(jobs)
 
         device_losses: List[torch.Tensor] = []
+        device_metrics: Dict[str, torch.Tensor] = {}
         dispatch_times: List[float] = []
         field = self.model.field
         for start, end, static in jobs:
@@ -160,13 +162,18 @@ class MeshSimulator:
                 shape = self.expansion.hyper_noise_shape(self.model, frames, static)
                 hyper_normal = None if shape is None else self._normal(shape)
             t0 = time.time()
-            tstate, loss = self.trainer.train_step(
-                tstate, topo, frames, normal=normal, static=static, hyper_normal=hyper_normal
+            tstate, loss, metrics = self.trainer.train_step(
+                tstate, topo, frames, normal=normal, static=static, hyper_normal=hyper_normal,
+                with_metrics=True,
             )
             device_losses.append(loss)
+            for name, v in metrics.items():
+                device_metrics[name] = device_metrics.get(name, 0) + v
             dispatch_times.append(time.time() - t0)
 
         losses = torch.stack(device_losses).tolist() if device_losses else []
+        # per-trajectory sums of the steps' model counters
+        metric_sums = {name: float(v) for name, v in device_metrics.items()}
         if self.logger:
             for loss, dt in zip(losses, dispatch_times):
                 self.logger.log({"loss": loss, "training time per instance": dt})
@@ -179,6 +186,7 @@ class MeshSimulator:
                     "loss per trajectory": float(np.mean(losses)) if losses else 0.0,
                     "edges_per_s": num_steps * num_edges / max(elapsed, 1e-9),
                     "edges_per_s_valid": num_steps * valid_edges / max(elapsed, 1e-9),
+                    **metric_sums,
                 },
                 commit=False,
             )
@@ -195,6 +203,7 @@ class MeshSimulator:
     ) -> Dict[str, float]:
         """Validation loss and de-normalized error over frame batches."""
         device_out: List[torch.Tensor] = []
+        device_metrics: Dict[str, torch.Tensor] = {}
         for idx, traj in enumerate(trajectories):
             if n_trajectories is not None and idx >= n_trajectories:
                 break
@@ -202,14 +211,19 @@ class MeshSimulator:
             topo = self._topology(traj)
             static = self._prepare_expansion(traj, topo)
             for frames in frames_to_batches(traj, self.batch_size, self.time_steps, device=self.device):
-                loss, err = self.trainer.validation_step(tstate.model, topo, frames, static=static)
+                loss, err, metrics = self.trainer.validation_step(
+                    tstate.model, topo, frames, static=static, with_metrics=True
+                )
                 device_out.append(torch.stack([loss, err]))
+                for name, v in metrics.items():
+                    device_metrics[name] = device_metrics.get(name, 0) + v
         pairs = torch.stack(device_out).tolist() if device_out else []
         losses = [p[0] for p in pairs]
         errors = [p[1] for p in pairs]
         result = {
             "validation_loss": float(np.mean(losses)) if losses else float("nan"),
             "position_error": float(np.mean(errors)) if errors else float("nan"),
+            **{name: float(v) for name, v in device_metrics.items()},
         }
         if logging and self.logger:
             self.logger.log(result, commit=False)
@@ -292,13 +306,15 @@ class MeshSimulator:
                 state, topo, sub, num_steps=s1 - s0, expansion=self.expansion,
                 static=static, start_carry=carry, return_carry=True,
             )
-            preds.append(ops["pred_pos"])
+            pred_key = "pred_pos" if "pred_pos" in ops else "pred_velocity"
+            preds.append(ops[pred_key])
             mses.append(mse)
         ops = dict(ops)
-        ops["pred_pos"] = torch.cat(preds)
+        ops[pred_key] = torch.cat(preds)
         ops["mesh_pos"] = traj["mesh_pos"]
         ops["faces"] = traj["cells"]
-        ops["gt_pos"] = traj["world_pos"][:T]
+        gt_key = "gt_pos" if pred_key == "pred_pos" else "gt_velocity"
+        ops[gt_key] = traj["world_pos" if gt_key == "gt_pos" else "velocity"][:T]
         return ops, torch.cat(mses)
 
     @torch.no_grad()

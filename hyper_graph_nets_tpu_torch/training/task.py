@@ -108,8 +108,9 @@ class MeshTask(AbstractTask):
         for i, ops in enumerate(rollouts[: max(1, n_viz)]):
             suffix = f"_{i}" if i else ""
             path = os.path.join(self.out_dir, f"rollout_epoch{epoch}{suffix}.gif")
+            key = "pred_pos" if "pred_pos" in ops else "pred_velocity"
             out = animate_rollout(
-                ops, self.simulator.model.model_type, path, stride=max(1, len(ops["pred_pos"]) // 20)
+                ops, self.simulator.model.model_type, path, stride=max(1, len(ops[key]) // 20)
             )
             if out:
                 self.logger.log_artifact(f"rollout_gif_epoch{epoch}", out, kind="image")

@@ -36,7 +36,7 @@ once per reset and pass its static to each step, as
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -183,13 +183,15 @@ class Trainer:
         generator: Optional[torch.Generator] = None,
         static=None,
         hyper_normal: Optional[torch.Tensor] = None,
-    ) -> Tuple[torch.Tensor, Dict[str, object]]:
+        with_metrics: bool = False,
+    ):
         """Noise, loss and backward of one step: returns the loss and the new
         normalizer states, and leaves each parameter's gradient in its
         ``.grad``.  ``normal`` is the standard-normal noise draw and
         ``hyper_normal`` RMP's on the cluster means (each drawn from
         ``generator`` when omitted, the field's first); ``static`` is the
-        prepared expansion's (its cached one when omitted)."""
+        prepared expansion's (its cached one when omitted).  With
+        ``with_metrics`` the model counters (:func:`graph_metrics`) follow."""
         model = self.model
         if model.noise_scale is not None:
             x = frames[model.field]
@@ -200,7 +202,7 @@ class Trainer:
             frames = add_noise(frames, model.field, model.noise_scale, model.noise_gamma, normal)
         params = tstate.model.params
         params.zero_grad(set_to_none=True)
-        graph, _, mstate = model.make_graph(tstate.model, topo, frames, True)
+        graph, aux, mstate = model.make_graph(tstate.model, topo, frames, True)
         if self.expansion is not None:
             graph, mstate = self.expansion.expand(
                 mstate, graph, frames, model, is_training=True, static=static,
@@ -210,6 +212,8 @@ class Trainer:
         out = batched_forward(model, params, graph)
         loss = masked_mse(model, target, out, frames["node_type"])
         loss.backward()
+        if with_metrics:
+            return loss.detach(), mstate.normalizers, graph_metrics(aux)
         return loss.detach(), mstate.normalizers
 
     def train_step(
@@ -221,39 +225,58 @@ class Trainer:
         generator: Optional[torch.Generator] = None,
         static=None,
         hyper_normal: Optional[torch.Tensor] = None,
-    ) -> Tuple[TrainState, torch.Tensor]:
+        with_metrics: bool = False,
+    ):
         """One Adam step (``make_train_step``; the noise and ``static`` as in
         :meth:`loss_and_grads`).
 
         Updates the parameters in place and returns ``(new state, loss)``:
         the new state holds new normalizer states (the old ones are left as
-        they were) and ``step + 1``.
+        they were) and ``step + 1``.  With ``with_metrics``, ``(new state,
+        loss, metrics)``: the model counters of the batch
+        (:func:`graph_metrics`, on the device; plate's
+        ``world_edge_truncated``).
         """
-        loss, normalizers = self.loss_and_grads(
-            tstate, topo, frames, normal, generator, static, hyper_normal
+        loss, normalizers, metrics = self.loss_and_grads(
+            tstate, topo, frames, normal, generator, static, hyper_normal, with_metrics=True
         )
         opt = tstate.opt_state
         for group in opt.param_groups:
             group["lr"] = self.learning_rate(tstate.step)
         opt.step()
         new_model = tstate.model.replace(normalizers=normalizers)
-        return TrainState(model=new_model, opt_state=opt, step=tstate.step + 1), loss
+        new_state = TrainState(model=new_model, opt_state=opt, step=tstate.step + 1)
+        if with_metrics:
+            return new_state, loss, metrics
+        return new_state, loss
 
     @torch.no_grad()
     def validation_step(
-        self, mstate: ModelState, topo: Topology, frames: Dict[str, torch.Tensor], static=None
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        self,
+        mstate: ModelState,
+        topo: Topology,
+        frames: Dict[str, torch.Tensor],
+        static=None,
+        with_metrics: bool = False,
+    ):
         """One-step evaluation: (normalized loss, de-normalized field error);
         no noise, no normalizer accumulation (``make_validation_step``);
-        ``static`` as in :meth:`loss_and_grads`."""
+        ``static`` as in :meth:`loss_and_grads`.  A model whose update is a
+        tuple (cylinder's velocity and pressure) is scored on its first
+        part, the field.  With ``with_metrics`` the model counters follow,
+        as in :meth:`train_step`."""
         model = self.model
-        graph, _, _ = model.make_graph(mstate, topo, frames, False)
+        graph, aux, _ = model.make_graph(mstate, topo, frames, False)
         if self.expansion is not None:
             graph, _ = self.expansion.expand(mstate, graph, frames, model, is_training=False, static=static)
         target, _ = model.get_target(mstate, frames, is_training=False)
         out = batched_forward(model, mstate.params, graph)
         loss = masked_mse(model, target, out, frames["node_type"])
         prediction = model.update(mstate, frames, out)
+        if isinstance(prediction, tuple):
+            prediction = prediction[0]
         diff = frames["target|" + model.field] - prediction
         pos_error = masked_mse(model, torch.zeros_like(diff), diff, frames["node_type"])
+        if with_metrics:
+            return loss, pos_error, graph_metrics(aux)
         return loss, pos_error

@@ -246,14 +246,18 @@ def test_cpu_predictor_sorted_serves_without_launching():
 
 def test_checkpoint_and_other_datasets_raise():
     """A checkpoint path that holds nothing raises (loading one is
-    tests/test_torch_port_task.py's); plate and cylinder are a later slice."""
+    tests/test_torch_port_task.py's), and so does a dataset the port has no
+    model for; cylinder_flow and deforming_plate build theirs
+    (tests/test_torch_port_cylinder.py and test_torch_port_plate.py hold
+    them against the JAX package)."""
     with pytest.raises(FileNotFoundError):
         Predictor.from_config(flag_config("bfloat16"), checkpoint="somewhere", device="cpu")
-    for dataset in ("cylinder_flow", "deforming_plate"):
-        config = flag_config("bfloat16")
-        config["params"]["task"]["dataset"] = dataset
-        with pytest.raises(NotImplementedError):
-            Predictor(config, device="cpu")
+    config = flag_config("bfloat16")
+    config["params"]["task"]["dataset"] = "airfoil"
+    with pytest.raises(NotImplementedError, match="unknown dataset"):
+        Predictor(config, device="cpu")
+    for name, model_type in (("cylinder", "cylinder"), ("plate", "plate")):
+        assert Predictor(read_yaml(name), device="cpu").model.model_type == model_type
 
 
 def _train_spread():
@@ -310,7 +314,7 @@ def test_synthetic_flag_and_targets_match_jax():
         np.testing.assert_array_equal(ours[k], theirs[k])
 
 
-@pytest.mark.parametrize("name", ["flag_full_scale", "flag_fused_demo", "minimal", "plateCluster"])
+@pytest.mark.parametrize("name", ["flag_full_scale", "flag_fused_demo", "minimal", "plateCluster", "cylinder", "plate"])
 def test_read_yaml_matches_jax(name):
     assert read_yaml(name) == jax_read_yaml(name)
 

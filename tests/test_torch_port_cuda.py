@@ -1126,3 +1126,104 @@ def test_rmp_train_step_on_card_matches_cpu():
     assert abs(lc - lh) <= 1e-4 * abs(lh)
     for name, g in gh.items():
         assert float((gc[name] - g).norm()) <= 1e-3 * float(g.norm()), name
+
+
+# -- cylinder and plate ------------------------------------------------------------
+
+
+def _model_config(name):
+    from hyper_graph_nets_tpu_torch.utils.config import read_yaml
+
+    config = read_yaml(name)
+    config["params"]["model"].update(latent_size=32, message_passing_steps=2)
+    return config
+
+
+def _model_trajectory(name, num_steps=16):
+    from hyper_graph_nets_tpu_torch.data import synthetic
+
+    if name == "cylinder":
+        return add_targets(synthetic.cylinder_trajectory(num_steps=num_steps, nx=12, ny=7), "velocity", False)
+    return add_targets(synthetic.plate_trajectory(num_steps=num_steps, nx=9, ny=8), "world_pos", False)
+
+
+@pytest.mark.cuda
+def test_plate_world_edges_and_sums_need_no_host_sync():
+    """Plate's world edges (radius query, slots by a running count, the
+    receiver sort) and their fixed-order sums, built on the card for a batch
+    of frames with contact, with every host sync an error: the same edges as
+    the CPU builds, and the aggregate within float32 reordering (rtol 1e-5)
+    of the CPU's."""
+    from hyper_graph_nets_tpu_torch.core.segment_ops import aggregate
+
+    _need_card()
+    config = _model_config("plate")
+    model = get_model(config)
+    traj = _model_trajectory("plate")
+    state = model.init_state(torch.Generator().manual_seed(0))
+    out = {}
+    for device in ("cpu", "cuda"):
+        topo = model.topology_from_trajectory(traj, device=device)
+        frames = {k: torch.as_tensor(v[8:], device=device) for k, v in traj.items() if k != "cells"}
+        st = state.to(device)
+        torch.cuda.synchronize()
+        if device == "cuda":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.no_grad():
+                graph, aux, _ = model.make_graph(st, topo, frames, False)
+                es = graph.edge_sets["world_edges"]
+                agg = aggregate(es.features, es.receivers, topo.num_nodes, "pna", es.mask, sums=es.sums.receivers)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        out[device] = (es.senders.cpu(), es.receivers.cpu(), es.mask.cpu(), aux["world_truncated"].cpu(), agg.cpu())
+    for a, b in zip(out["cuda"][:4], out["cpu"][:4]):
+        assert torch.equal(a, b)
+    assert int(out["cpu"][2].sum()) > 0
+    torch.testing.assert_close(out["cuda"][4], out["cpu"][4], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cylinder", "plate"])
+def test_model_train_step_on_card(name):
+    """A float32 train step (2 blocks, latent 32, B = 4) of cylinder or plate
+    on the card: 2 K1 and 2 K2; twice from one state and noise bit for bit;
+    against the CPU on the same state (normalizers at their accumulation cap)
+    and noise, loss rtol 1e-4 and gradients within relative L2 1e-3."""
+    import dataclasses
+
+    _need_card()
+    config = _model_config(name)
+    model = get_model(config)
+    traj = _model_trajectory(name)
+    batch = {k: v[8:12] for k, v in traj.items()}
+    state = model.init_state(torch.Generator().manual_seed(1))
+    topo_cpu = model.topology_from_trajectory(traj, device="cpu")
+    with torch.no_grad():
+        frames = {k: torch.as_tensor(v) for k, v in traj.items() if k != "cells"}
+        _, _, state = model.make_graph(state, topo_cpu, frames, True)
+        _, state = model.get_target(state, frames, True)
+    state = state.replace(normalizers={
+        k: dataclasses.replace(v, num_accumulations=torch.full_like(v.num_accumulations, v.max_accumulations))
+        for k, v in state.normalizers.items()
+    })
+    field = "velocity" if name == "cylinder" else "world_pos"
+    normal = torch.randn(batch[field].shape, generator=torch.Generator().manual_seed(2))
+    runs = {}
+    for device in ("cpu", "cuda", "cuda"):
+        trainer = Trainer(model, config, device=device)
+        topo = model.topology_from_trajectory(traj, device=device)
+        ts = trainer.init_train_state(state=state)
+        before = (fused_edge_block.launches, fused_edge_block_bwd.launches)
+        loss, _ = trainer.loss_and_grads(ts, topo, trainer.frames(batch), normal=normal.to(device))
+        launched = (fused_edge_block.launches - before[0], fused_edge_block_bwd.launches - before[1])
+        assert launched == ((2, 2) if device == "cuda" else (0, 0))
+        run = (loss.cpu(), [p.grad.cpu() for p in ts.model.params.parameters()])
+        if device in runs:
+            assert torch.equal(run[0], runs[device][0])
+            assert all(torch.equal(a, b) for a, b in zip(run[1], runs[device][1]))
+        runs[device] = run
+    (lc, gc), (lg, gg) = runs["cpu"], runs["cuda"]
+    assert abs(float(lg) - float(lc)) <= 1e-4 * abs(float(lc))
+    for a, b in zip(gg, gc):
+        assert float((a - b).norm()) <= 1e-3 * float(b.norm())

@@ -129,13 +129,16 @@ def test_get_data_regenerates_a_truncated_split(tmp_path):
 @pytest.mark.parametrize(
     "dataset, task, match",
     [
-        ("cylinder_flow", {}, "plate and cylinder slice"),
-        ("deforming_plate", {}, "plate and cylinder slice"),
+        ("airfoil", {}, "unknown dataset"),
+        ("sphere_simple", {}, "unknown dataset"),
         ("flag_minimal", {"loader": "tfdata"}, "TensorFlow"),
     ],
-    ids=["cylinder", "plate", "tfdata"],
+    ids=["airfoil", "sphere", "tfdata"],
 )
 def test_later_datasets_and_tfdata_raise(tmp_path, dataset, task, match):
+    """Datasets without a synthetic generator (the other DeepMind sets) and
+    the TensorFlow loader raise; cylinder_flow and deforming_plate load
+    (tests/test_torch_port_cylinder.py, test_torch_port_plate.py)."""
     with pytest.raises(NotImplementedError, match=match):
         loader.get_data(_config(dataset, **task), "train", data_dir=str(tmp_path))
 

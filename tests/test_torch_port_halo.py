@@ -57,7 +57,7 @@ from hyper_graph_nets_tpu.ops.pallas.ring import ring_all_reduce_segments as jax
 from hyper_graph_nets_tpu.parallel import halo as jax_halo
 from hyper_graph_nets_tpu.parallel import sharding as jax_sharding
 from hyper_graph_nets_tpu_torch.convert import state_from_jax_numpy
-from hyper_graph_nets_tpu_torch.core.segment_ops import collective_aggregate
+from hyper_graph_nets_tpu_torch.core.segment_ops import EdgeSums, collective_aggregate
 from hyper_graph_nets_tpu_torch.models.get_model import get_model
 from hyper_graph_nets_tpu_torch.ops.fused_block import (
     fused_edge_block_fwd,
@@ -74,7 +74,7 @@ from hyper_graph_nets_tpu_torch.ops.ring import (
 )
 from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
 from hyper_graph_nets_tpu_torch.parallel.halo import make_halo_forward, split_graph
-from hyper_graph_nets_tpu_torch.parallel.sharding import RankPlans, shard_topology
+from hyper_graph_nets_tpu_torch.parallel.sharding import RankPlans, RankSums, shard_topology
 from torch_port_cases import flag_config, masked_edge_case
 
 NORMALIZER_FIELDS = ("acc_count", "num_accumulations", "acc_sum", "acc_sum_squared")
@@ -184,6 +184,46 @@ def test_collective_aggregate_matches_jax(ring):
         assert np.all(got[0][N - 2 :].numpy() == 0)
 
     _jax_with_retry(lambda: jax.jit(fn)(jnp.asarray(data), jnp.asarray(ids), jnp.asarray(mask)), check)
+
+
+@pytest.mark.parametrize("ring", [False, True], ids=["plain", "ring"])
+def test_collective_aggregate_in_fixed_order(ring):
+    """With each shard's fixed-order sums (``EdgeSums.build`` on the shard,
+    as ``shard_topology`` builds them) the aggregate equals the
+    ``index_add_`` one within float32 reordering (rtol 1e-6) and is the
+    same bit for bit on a second call; ``shard_topology`` gives every rank
+    the sums of its own slice and ``split_graph`` hands them on."""
+    n, N, E, F = 4, 12, 40, 6
+    rng = np.random.RandomState(8)
+    ids = np.sort(rng.randint(0, N - 2, E)).astype(np.int32)
+    data = rng.randn(E, F).astype(np.float32)
+    mask = np.ones(E, np.float32)
+    mask[-6:] = 0.0
+    ids[-6:] = N - 1
+    group = RankGroup(n, device="cpu")
+    d, i, m = (_torch_rank_shards(a, n) for a in (data, ids, mask))
+    sums = [EdgeSums.build(np.zeros(len(i[r]), np.int32), i[r].numpy(), N) for r in range(n)]
+    run = lambda fixed: group.run(
+        lambda r: collective_aggregate(d[r], i[r], N, "pna", m[r], group, ring=ring,
+                                       sums=sums[r].receivers if fixed else None)
+    )
+    atomic, fixed, again = run(False), run(True), run(True)
+    for r in range(n):
+        np.testing.assert_allclose(fixed[r].numpy(), atomic[r].numpy(), rtol=1e-6, atol=1e-6)
+        assert torch.equal(fixed[r], again[r]) and torch.equal(fixed[r], fixed[0])
+
+    model = get_model(flag_config(None, agg_vjp="xla"))
+    traj = jax_add_targets(jax_flag_trajectory(num_steps=3, nx=6, ny=6), "world_pos", True)
+    stopo = shard_topology(model.topology_from_trajectory(traj), group)
+    assert isinstance(stopo.sums, RankSums) and len(stopo.sums.sums) == n
+    per = stopo.senders.shape[0] // n
+    for r, es in enumerate(stopo.sums.sums):
+        torch.testing.assert_close(es.receivers.ids, stopo.receivers[r * per : (r + 1) * per].long())
+        torch.testing.assert_close(es.senders.ids, stopo.senders[r * per : (r + 1) * per].long())
+    state = model.init_state()
+    graph, _, _ = model.make_graph(state, stopo, {k: torch.as_tensor(v[0]) for k, v in traj.items()}, False)
+    for r, g in enumerate(split_graph(graph, group)):
+        assert g.edge_sets["mesh_edges"].sums is stopo.sums.sums[r]
 
 
 # -- K1 raw and K7 -------------------------------------------------------------

@@ -426,10 +426,16 @@ def jax_draws(step_key, field_shape, hyper_shape, members=1):
 
 def _assert_grads_close(params, want, l2_prefix=None, l2_tol=0.0):
     """Elementwise (rtol 1e-4, atol 1e-4 of the tensor's largest gradient);
-    parameters named ``l2_prefix...`` by relative L2 norm within ``l2_tol``."""
+    parameters named ``l2_prefix...`` by relative L2 norm within ``l2_tol``.
+    A parameter that gets no gradient in the port (None: ``hetero``'s last
+    ``hyper_node_model_cross``, whose output nothing reads) must get zeros
+    in JAX."""
     wparams = dict(want.named_parameters())
     for name, p in params.named_parameters():
         w = wparams[name].detach().numpy()
+        if p.grad is None:
+            assert not np.any(w), name
+            continue
         if l2_prefix is not None and name.startswith(l2_prefix):
             rel = np.linalg.norm(p.grad.numpy() - w) / np.linalg.norm(w)
             assert rel <= l2_tol, (name, rel)
@@ -439,20 +445,37 @@ def _assert_grads_close(params, want, l2_prefix=None, l2_tol=0.0):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("balancer", [False, True], ids=["rmp", "balancer+rmp"])
-def test_loss_and_grads_equal_jax(balancer):
-    """``Trainer.loss_and_grads`` on ``hyper``, float32, ``agg_vjp: fused``
-    (K1 and K2's plain versions on the mesh set), with JAX's field and
-    hyper noise draws, against the JAX ``gather`` path's loss, gradients
-    and normalizer states; with the random balancer (10 pairs added, 10
-    removed) before RMP the balance set rides along."""
-    config = rmp_config("hyper", None, "fused", noise=0.003, gamma=0.9, learning_rate=1e-4,
+@pytest.mark.parametrize(
+    "balancer, arch, agg_vjp, bwd",
+    [
+        (False, "hyper", "fused", "remat"),
+        (True, "hyper", "fused", "remat"),
+        (False, "hyper", "xla", "remat"),
+        (False, "hyper", "sorted", "remat"),
+        (False, "hyper", "fused", "stream"),
+        (False, "multiscale", "fused", "remat"),
+        (False, "multi", "fused", "remat"),
+        (False, "hetero", "fused", "remat"),
+    ],
+    ids=["rmp", "balancer+rmp", "hyper-xla", "hyper-sorted", "hyper-stream", "multiscale", "multi", "hetero"],
+)
+def test_loss_and_grads_equal_jax(balancer, arch, agg_vjp, bwd):
+    """``Trainer.loss_and_grads``, float32, with JAX's field and hyper noise
+    draws, against the JAX ``gather`` path's loss, gradients and normalizer
+    states: ``hyper`` under ``agg_vjp: fused`` (K1 and K2's plain versions
+    on the mesh set; with the random balancer, 10 pairs added and 10
+    removed, before RMP the balance set rides along), under ``xla``,
+    ``sorted`` and fused with ``fused_bwd: stream`` (K3's plain version),
+    and ``multiscale``, ``multi`` and ``hetero`` under fused.  ``hetero``'s
+    last ``hyper_node_model_cross`` gets no gradient: None in the port,
+    zeros in JAX."""
+    config = rmp_config(arch, None, agg_vjp, noise=0.003, gamma=0.9, learning_rate=1e-4, fused_bwd=bwd,
                         **_balancer(balancer))
     traj = _trajectory()
-    jstate, nstate = _jax_state("hyper", None, "gather", balancer)
+    jstate, nstate = _jax_state(arch, None, "gather", balancer)
     frames_np = _frames(traj)
     step_key = jax.random.PRNGKey(11)
-    jconfig = rmp_config("hyper", None, "gather", noise=0.003, gamma=0.9, **_balancer(balancer))
+    jconfig = rmp_config(arch, None, "gather", noise=0.003, gamma=0.9, **_balancer(balancer))
     jmodel = jax_get_model(jconfig)
     jexp = jax_build_expansion(jmodel, jconfig)
     jtopo = jmodel.topology_from_trajectory(traj)
