@@ -16,7 +16,10 @@ This is the only module that knows the JAX layout:
 Edge encoders and edge models are taken per edge set by name and
 normalizers by name, whatever their widths: plate's ``world_edges`` encoder
 and ``world_edge`` normalizer and cylinder's 3-wide ``output`` normalizer
-(velocity and pressure) convert like flag's trees.
+(velocity and pressure) convert like flag's trees, and so does HGN plate's
+(``plateCluster``: the world set beside the three cluster-tier sets, the
+hyper encoder, the hierarchical node models and the RMP normalizers,
+``inter_cluster_world``'s 4-wide encoder among them when it is set).
 
 Inputs are nested dicts (lists for MLP layers) of numpy arrays, so neither
 side needs the other's framework.  :func:`train_state_from_jax_numpy` also

@@ -190,6 +190,24 @@ class FrameSum:
         last = torch.where(end > start, end - 1, W)
         return cls(ids, key, order, tuple(same), last, int(num_segments))
 
+    def with_rows(self, num_segments: int) -> "FrameSum":
+        """The same sum into more segments (a hyper tier's rows after the
+        mesh rows), on the plan's device with no host sync: the added
+        segments stay empty (``last`` padded with ``W``), and a masked
+        element's key moves to the new ``num_segments`` so that
+        :meth:`spread` still reads the zero row for it.  Masked keys stay
+        the largest, so the sort order and the scan's ``same`` masks do not
+        change."""
+        extra = num_segments - self.num_segments
+        if extra < 0:
+            raise ValueError("with_rows only adds segments")
+        W = self.ids.shape[-1]
+        pad = self.last.new_full(self.last.shape[:-1] + (extra,), W)
+        key = torch.where(self.key == self.num_segments, num_segments, self.key)
+        return dataclasses.replace(
+            self, key=key, last=torch.cat([self.last, pad], dim=-1), num_segments=int(num_segments)
+        )
+
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """``[..., W, F] -> [..., num_segments, F]``, no autograd."""
         x = frame_rows(x, self.order)

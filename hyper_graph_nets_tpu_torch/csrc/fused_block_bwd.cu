@@ -39,7 +39,10 @@
 //   atomics; a segment longer than a half tile carries its partial drp
 //   across half tiles (and, for a receiver of more than 64 edges, across
 //   the tiles of its item).  Empty groups are skipped; the sender-sum
-//   kernel writes the zero drp rows of receivers without edges.
+//   kernel writes the zero drp rows of receivers without edges.  A plan
+//   over a valid prefix (the cluster-tier sets) ends in receiver-less
+//   groups of masked edges, from row_ptr[N] on: they get their edge
+//   streams and no drp row, and read no drhs row.
 // - Two teams of 8 warps per CTA, one CTA per SM, sharing the staged
 //   weights (104 KB in bf16 at L = 128), each on its own work item with its
 //   own buffers, synchronizing by named barriers (team_sync): a tile is a
@@ -635,6 +638,7 @@ __global__ void __launch_bounds__(NTEAM * THREADS, 1) fused_block_bwd_kernel(con
     for (int q = 0; q < CPL; ++q) cs_row[k][q] = 0.f;
 
   const int warp = team_tid() >> 5, lane = threadIdx.x & 31;
+  const int seg_end = args.row_ptr[N];  // the segments' end: E but for a masked tail
   PhaseClock clk;
   clk.start();
   for (int hp = 0; cur.w >= 0; ++hp) {
@@ -725,12 +729,16 @@ __global__ void __launch_bounds__(NTEAM * THREADS, 1) fused_block_bwd_kernel(con
             ln_row_stats<L, CPL>(z[u], mu, isg);
           }
           const bool valid = s.val_s[r] > 0.f;
-          const int n = s.rcv_s[r], slot = n - cur.n_lo;
-          const float* g = (slot < Lay::RS ? s.drhsT + slot * 5 * L : drhsb + (size_t)n * 5 * L) +
-                           lane * CPL;
-          Vec<float, CPL> gv[5];
+          // a masked edge reads no drhs row: the masked tail of a valid-prefix
+          // plan may name its receivers in any order, outside the staged rows
+          Vec<float, CPL> gv[5] = {};
+          if (valid) {
+            const int n = s.rcv_s[r], slot = n - cur.n_lo;
+            const float* g = (slot < Lay::RS ? s.drhsT + slot * 5 * L : drhsb + (size_t)n * 5 * L) +
+                             lane * CPL;
 #pragma unroll
-          for (int k = 0; k < 5; ++k) gv[k] = *reinterpret_cast<const Vec<float, CPL>*>(g + k * L);
+            for (int k = 0; k < 5; ++k) gv[k] = *reinterpret_cast<const Vec<float, CPL>*>(g + k * L);
+          }
           float xh[CPL], dx[CPL], dov[CPL], s1 = 0.f, s2 = 0.f;
 #pragma unroll
           for (int q = 0; q < CPL; ++q) {
@@ -808,8 +816,10 @@ __global__ void __launch_bounds__(NTEAM * THREADS, 1) fused_block_bwd_kernel(con
 
     // drp: one warp per run of equal receivers among the half tile's rows,
     // dh summed over its valid edges in edge order, carried from and to the
-    // neighbouring half tiles of the item
-    {
+    // neighbouring half tiles of the item; none in a valid-prefix plan's
+    // masked tail (edges from row_ptr[N] on), whose receivers' rows belong
+    // to the prefix's items or to the sender-sum kernel
+    if (cur.ts < seg_end) {
       float* drpb = args.drp + (size_t)cur.b * N * L;
       const unsigned starts =
           __ballot_sync(0xffffffffu, lane < rows && (lane == 0 || s.rcv_s[lane] != s.rcv_s[lane - 1]));

@@ -32,7 +32,9 @@
 // - The host splits the receivers into groups of whole segments holding at
 //   most TILE edges and GROUP_NODES receivers each (a receiver with more
 //   edges forms its own group and spans several tiles).  One work item is
-//   (batch element, group).  Because one team owns a group's segments, the
+//   (batch element, group); a plan over a valid prefix (the cluster-tier
+//   sets) ends in groups of masked edges and no receiver, which get e2
+//   only.  Because one team owns a group's segments, the
 //   aggregate needs no atomics and no second pass, and the result does not
 //   depend on scheduling.
 // - Two teams of 8 warps per CTA, one CTA per SM.  What sets K1's pace is

@@ -57,10 +57,12 @@ class SegmentPlan:
     ``row_ptr[n]:row_ptr[n+1]`` are the edges of receiver ``n``; ``groups``
     splits the receivers into runs of whole segments of at most ``TILE``
     edges and ``GROUP_NODES`` receivers (a receiver with more edges is a
-    group of its own).  Each kernel work item is one (batch element,
-    group).  ``snd_perm[snd_ptr[n]:snd_ptr[n+1]]`` are the edges sent by
-    node ``n``, in edge order: the backward kernels sum the sender
-    cotangent over them.
+    group of its own); a plan over a valid prefix (``plan_segments(...,
+    num_valid=)``) adds receiver-less groups of the masked tail's edges.
+    Each kernel work item is one (batch element, group).
+    ``snd_perm[snd_ptr[n]:snd_ptr[n+1]]`` are the edges sent by node ``n``,
+    in edge order: the backward kernels sum the sender cotangent over
+    them.
     """
 
     row_ptr: torch.Tensor  # [N + 1] int32
@@ -69,8 +71,8 @@ class SegmentPlan:
     num_edges: int
     snd_perm: Optional[torch.Tensor] = None  # [E] int32
     snd_ptr: Optional[torch.Tensor] = None  # [N + 1] int32
-    # [G + 1] int32, row_ptr[groups]: the groups' edge boundaries, which K1
-    # reads ahead of its pipeline
+    # [G + 1] int32, row_ptr[groups] (then the masked tail's groups): the
+    # groups' edge boundaries, which K1 reads ahead of its pipeline
     group_edges: Optional[torch.Tensor] = None
     # node-row bands of the compute-overlapped halo ring (K7, ops/
     # fused_overlap.py) for a rank's edge shard; 0: no overlap
@@ -104,7 +106,7 @@ def _host_ids(ids, num_nodes: int, what: str) -> np.ndarray:
 
 
 def plan_segments(
-    receivers, num_nodes: int, tile: int = TILE, senders=None
+    receivers, num_nodes: int, tile: int = TILE, senders=None, num_valid: Optional[int] = None
 ) -> SegmentPlan:
     """Host: segment plan of a receiver-sorted edge set.
 
@@ -112,20 +114,36 @@ def plan_segments(
     ``[0, num_nodes)``: the kernels own whole segments and need each
     receiver's edges to be contiguous.  With ``senders`` the plan also holds
     the sender order the backward kernels need.
+
+    ``num_valid`` (the JAX package's band plans' ``num_valid``): only the
+    first ``num_valid`` edges form segments and must be receiver-sorted;
+    the rest are masked padding in any receiver order (a cluster-tier set's
+    non-members, ``rmp.connector.build_static``).  They ride in work groups
+    of at most ``tile`` edges and no receiver (``groups[g] == groups[g + 1]
+    == num_nodes``), in which K1 writes ``e2`` and K2/K3 the edge streams,
+    and no aggregate, ``drp`` or ``dsp`` row sees them.
     """
     rcv = _host_ids(receivers, num_nodes, "receivers")
-    if np.any(np.diff(rcv) < 0):
+    ev = rcv.size if num_valid is None else int(num_valid)
+    if not 0 <= ev <= rcv.size:
+        raise ValueError(f"num_valid {ev} outside [0, {rcv.size}]")
+    if np.any(np.diff(rcv[:ev]) < 0):
         raise ValueError(
             "receivers must be non-decreasing (core.mesh.cells_to_edges "
             "sorts them); the fused kernel aggregates contiguous segments"
         )
-    row_ptr = np.searchsorted(rcv, np.arange(num_nodes + 1), side="left")
+    row_ptr = np.searchsorted(rcv[:ev], np.arange(num_nodes + 1), side="left")
     groups = [0]
     for n in range(num_nodes):
         start = groups[-1]
         if n > start and (row_ptr[n + 1] - row_ptr[start] > tile or n - start >= GROUP_NODES):
             groups.append(n)
     groups.append(num_nodes)
+    group_edges = row_ptr[groups]
+    if ev < rcv.size:  # the padding's receiver-less groups
+        tail = np.append(np.arange(ev + tile, rcv.size, tile), rcv.size)
+        groups += [num_nodes] * len(tail)
+        group_edges = np.concatenate([group_edges, tail])
     groups = np.asarray(groups, np.int64)
     snd_perm = snd_ptr = None
     if senders is not None:
@@ -144,7 +162,7 @@ def plan_segments(
         num_edges=int(rcv.size),
         snd_perm=snd_perm,
         snd_ptr=snd_ptr,
-        group_edges=torch.from_numpy(row_ptr[groups].astype(np.int32)),
+        group_edges=torch.from_numpy(group_edges.astype(np.int32)),
     )
 
 

@@ -7,7 +7,8 @@ need no banded numbering, but the simulator relabels exactly the meshes the
 JAX simulator relabels (``training/simulator.py``), with the same
 permutation, so both packages' rollouts and GIFs match node for node.  So
 the criterion here is a numpy copy of the JAX one, TPU window sizes
-included: it decides the relabel, nothing else.
+included: it decides the relabel, and which cluster-tier sets
+``rmp.fused_tiers`` fuses (``rmp.remote_message_passing``), nothing else.
 """
 from __future__ import annotations
 
@@ -120,16 +121,18 @@ def window_dims(
     receivers: np.ndarray,
     num_valid: Optional[int] = None,
     chunk: Optional[int] = None,
+    sb: Optional[int] = None,
 ) -> Optional[Tuple[int, int]]:
     """``(W, WR)``: the widest sender and receiver windows of the JAX band
-    plan (``plan_dims``), or None when the receivers are unsorted."""
+    plan (``plan_dims``; ``sb`` sender subwindows a chunk, by default the
+    narrowest choice), or None when the receivers are unsorted."""
     snd = np.asarray(senders, np.int64)
     rcv = np.asarray(receivers, np.int64)
     ev = snd.shape[0] if num_valid is None else int(num_valid)
     if ev and np.any(np.diff(rcv[:ev]) < 0):
         return None
     chunk = default_chunk() if chunk is None else chunk
-    sb = _best_sb(snd, rcv, ev, chunk)
+    sb = _best_sb(snd, rcv, ev, chunk) if sb is None else sb
     W = _sender_W(snd, rcv, ev, chunk, sb)
     WR = 128
     for *_, wr_need in _chunk_windows(snd, rcv, ev, chunk):

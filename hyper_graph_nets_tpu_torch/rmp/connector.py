@@ -38,8 +38,9 @@ class RMPStatic(NamedTuple):
     three cluster-tier sets (``core.segment_ops.EdgeSums`` over ``N + K``
     rows) and ``mesh_plan``, the mesh set's fused-kernel plan over
     ``N + K`` rows (None unless the topology carries a
-    ``ops.fused_block.SegmentPlan``); ``RemoteMessagePassing.prepare``
-    attaches them.
+    ``ops.fused_block.SegmentPlan``) and, with ``rmp.fused_tiers``, the
+    cluster-tier sets' plans; ``RemoteMessagePassing.prepare`` attaches
+    them.
     """
 
     labels: np.ndarray  # [N] int32, clamped >= 0
@@ -80,6 +81,12 @@ class RMPStatic(NamedTuple):
     inter_world_sums: Optional[object] = None
     merged_sums: Optional[object] = None  # MultigraphConnector's merged mesh_edges
     mesh_plan: Optional[object] = None
+    # with rmp.fused_tiers: each cluster-tier set's K1/K2 plan over its
+    # valid prefix, None for a set that stays unfused
+    up_plan: Optional[object] = None
+    down_plan: Optional[object] = None
+    inter_plan: Optional[object] = None
+    inter_world_plan: Optional[object] = None
 
     @property
     def num_clusters(self) -> int:
@@ -367,23 +374,24 @@ class HierarchicalConnector:
                 es = es.replace(plan=static.mesh_plan)
             edge_sets[name] = es
 
-        def mk(name, feats, snd, rcv, mask, gather, sums):
+        def mk(name, feats, snd, rcv, mask, gather, sums, plan):
             edge_sets[name] = EdgeSet(
                 features=feats * mask[:, None],
                 senders=snd,
                 receivers=rcv,
                 mask=mask,
+                plan=plan,
                 gather_idx=gather[0],
                 gather_valid=gather[1],
                 sums=sums,
             )
 
         mk("intra_cluster_to_cluster", up_feats, static.up_senders, static.up_receivers,
-           static.up_mask, static.up_gather, static.up_sums)
+           static.up_mask, static.up_gather, static.up_sums, static.up_plan)
         mk("intra_cluster_to_mesh", down_feats, static.down_senders, static.down_receivers,
-           static.down_mask, static.down_gather, static.down_sums)
+           static.down_mask, static.down_gather, static.down_sums, static.down_plan)
         mk("inter_cluster", inter_feats, static.inter_senders, static.inter_receivers,
-           static.inter_mask, static.inter_gather, static.inter_sums)
+           static.inter_mask, static.inter_gather, static.inter_sums, static.inter_plan)
 
         if self.inter_world and static.inter_world_senders is not None:
             # features through the inter normalizer, cut to width 4 as the
@@ -397,7 +405,7 @@ class HierarchicalConnector:
             )
             edge_sets["inter_cluster_world"] = EdgeSet(
                 features=iw_feats[..., :4] * iw_m[:, None], senders=iw_s, receivers=iw_r,
-                mask=iw_m, sums=static.inter_world_sums,
+                mask=iw_m, plan=static.inter_world_plan, sums=static.inter_world_sums,
             )
 
         return graph.replace(edge_sets=edge_sets, hyper_features=hyper_features), state

@@ -11,7 +11,12 @@ sets to a graph of the current frames.
 
 Obstacle nodes (plate) are left out of the clustering (label -1,
 membership 0).  The cluster-tier sets run unfused, as in the JAX package
-without ``rmp.fused_tiers``; ``fused_tiers: true`` raises.
+without ``rmp.fused_tiers``; with ``fused_tiers: true`` and ``agg_vjp:
+fused`` the up, down, inter and inter-world sets that the JAX package's
+``_attach_band_plans`` fuses get a K1/K2 plan over their valid prefix
+(``ops.fused_block.plan_segments(num_valid=)``).  The JAX package forces
+those plans' dims so that a recluster does not recompile; nothing
+recompiles here, so the port's plans are the sets' own.
 """
 from __future__ import annotations
 
@@ -109,7 +114,7 @@ class RemoteMessagePassing:
             world_collide_labels=world_labels,
         )
         static = self._pad_static(static)
-        static = self._attach_plans(static, topo)
+        static = self._attach_plans(static, model, topo)
         self._static = static.to(topo.senders.device)
         return self._static
 
@@ -188,11 +193,11 @@ class RemoteMessagePassing:
             member_valid=cols(static.member_valid),
         )
 
-    def _attach_plans(self, static: RMPStatic, topo) -> RMPStatic:
+    def _attach_plans(self, static: RMPStatic, model, topo) -> RMPStatic:
         """The fixed-order sums of the cluster-tier sets and, when the mesh
         set runs the fused kernels, its plan over ``N + Kp`` rows, whose
-        hyper rows receive nothing.  The cluster-tier sets themselves run
-        unfused (the JAX package's default ``rmp.fused_tiers: false``)."""
+        hyper rows receive nothing.  The cluster-tier sets run unfused
+        unless ``rmp.fused_tiers`` (:func:`_tier_plans`)."""
         from hyper_graph_nets_tpu_torch.ops.fused_block import SegmentPlan, plan_segments
 
         rows = topo.num_nodes + static.num_clusters
@@ -209,6 +214,8 @@ class RemoteMessagePassing:
             )
         if isinstance(topo.plan, SegmentPlan):
             extra["mesh_plan"] = plan_segments(topo.receivers, rows, senders=topo.senders)
+        if model.params["model"].get("agg_vjp") == "fused" and model.rmp_config.get("fused_tiers", False):
+            extra.update(_tier_plans(static, topo.num_nodes, model.params["model"].get("fused_chunk")))
         return static._replace(
             up_sums=sums(static.up_senders, static.up_receivers),
             down_sums=sums(static.down_senders, static.down_receivers),
@@ -268,15 +275,53 @@ class RemoteMessagePassing:
         return out_path
 
 
+def _tier_plans(static: RMPStatic, num_nodes: int, chunk: Optional[int]) -> dict:
+    """K1/K2 plans over ``N + Kp`` rows for the cluster-tier sets that the
+    JAX package fuses under ``rmp.fused_tiers`` (``_attach_band_plans``,
+    ``rmp/remote_message_passing.py:238-335``), by its rule: the valid edges
+    form a receiver-sorted prefix, and every window of its band plan (the
+    plan dims' bounds and each chunk's sender and receiver spans, one
+    sender subwindow a chunk) fits 2,048 rows.  Any other set stays
+    unfused (its plan None), as there."""
+    from hyper_graph_nets_tpu_torch.ops.fused_block import plan_segments
+    from hyper_graph_nets_tpu_torch.ops.reorder import default_chunk, window_dims
+
+    chunk = chunk or default_chunk()
+    N, Kp = int(num_nodes), static.num_clusters
+    rows = N + Kp
+    ru = lambda x: (x + 127) // 128 * 128
+    max_window = 2048
+
+    def plan(snd, rcv, mask, bound):
+        snd, rcv, m = np.asarray(snd), np.asarray(rcv), np.asarray(mask)
+        ev = int(m.sum())
+        if ev and (m[:ev].min() <= 0 or np.any(np.diff(rcv[:ev]) < 0)):
+            return None
+        if max(bound, 128) > max_window:
+            return None
+        dims = window_dims(snd, rcv, num_valid=ev, chunk=chunk, sb=1)
+        if dims is None or max(dims) > max_window:
+            return None
+        return plan_segments(rcv, rows, senders=snd, num_valid=ev)
+
+    kb = ru(Kp + 16)
+    out = dict(
+        # up: senders any mesh node, receivers the hyper rows
+        up_plan=plan(static.up_senders, static.up_receivers, static.up_mask, max(ru(N + 16), ru(Kp + 8))),
+        down_plan=plan(static.down_senders, static.down_receivers, static.down_mask, kb),
+        inter_plan=plan(static.inter_senders, static.inter_receivers, static.inter_mask, kb),
+    )
+    if static.inter_world_senders is not None:
+        out["inter_world_plan"] = plan(
+            static.inter_world_senders, static.inter_world_receivers, static.inter_world_mask, kb
+        )
+    return out
+
+
 def get_rmp(config: dict) -> Optional[RemoteMessagePassing]:
     """The configured remote message passing, or None."""
     params = config.get("params", config)
     rmp_cfg = params["model"].get("rmp", {})
-    if rmp_cfg.get("fused_tiers", False) and params["model"].get("agg_vjp") == "fused":
-        raise NotImplementedError(
-            "rmp.fused_tiers: true (K1/K2 on the cluster-tier sets with forced plan "
-            "dims) is not ported; ROADMAP section 2, row 'rmp.fused_tiers'"
-        )
     clustering = get_clustering_algorithm(rmp_cfg.get("clustering", "none"), rmp_cfg)
     connector = get_connector(rmp_cfg.get("connector", "none"), rmp_cfg)
     if clustering is None or connector is None:

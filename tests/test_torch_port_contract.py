@@ -138,8 +138,19 @@ def test_full_scale_config_loads_as_shipped():
 
 
 def test_rmp_fused_tiers_raises_naming_the_roadmap():
-    config = _with(rmp={"clustering": "spectral", "connector": "hyper", "fused_tiers": True})
-    with pytest.raises(NotImplementedError, match="fused_tiers"):
+    """``rmp.fused_tiers: true`` with ``agg_vjp: fused`` serves: ``prepare``
+    gives the up, down and inter sets K1/K2 plans over their valid
+    prefixes.  What still raises with it names the ROADMAP: the hybrid
+    forward ``fused_fwd: xla`` (section 2, first row)."""
+    config = _with(agg_vjp="fused", rmp={"clustering": "spectral", "connector": "hyper", "num_clusters": 4,
+                                         "fused_tiers": True})
+    p = Predictor(config, device="cpu")
+    traj = add_targets(flag_trajectory(num_steps=4, nx=6, ny=6), "world_pos", True)
+    assert np.isfinite(p.one_step(traj)).all()
+    (static,) = p.expansion.static
+    assert all(plan is not None for plan in (static.up_plan, static.down_plan, static.inter_plan))
+    config["params"]["model"]["fused_fwd"] = "xla"
+    with pytest.raises(NotImplementedError, match="ROADMAP section 2"):
         Predictor(config, device="cpu")
 
 

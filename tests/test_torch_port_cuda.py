@@ -57,6 +57,13 @@ tolerance of K1 raw + the plain all-reduce + finalize.  The halo forward of
 a 2-block bf16 flag over 4 ranks on the card within 5% of the largest
 |output| of the CPU's and of the single-device forward.  K1 on a second
 card (skips with one).
+
+K1 and K2 on a cluster-tier set planned over its valid prefix (a masked
+tail in any receiver order) with K1's and K2's tolerances above; an HGN
+plate train step (2 hierarchical blocks, fused tiers off and on) twice bit
+for bit and against the CPU: loss rtol 1e-4, gradients within relative L2
+1e-3 (1e-2 for the cluster tier, whose few rows carry the cluster means'
+float32 rounding).
 """
 import numpy as np
 import pytest
@@ -1227,3 +1234,105 @@ def test_model_train_step_on_card(name):
     assert abs(float(lg) - float(lc)) <= 1e-4 * abs(float(lc))
     for a, b in zip(gg, gc):
         assert float((a - b).norm()) <= 1e-3 * float(b.norm())
+
+
+# -- HGN plate: valid-prefix plans and the train step -------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["up", "down", "inter"])
+@pytest.mark.parametrize("L", [32, 128])
+def test_k1_k2_on_valid_prefix_plans_match_plain(name, dtype, L):
+    """K1 and K2 on a cluster-tier set planned over its valid prefix
+    (``plan_segments(..., num_valid=)``; the up set's 150-edge segment spans
+    three tiles, its masked tail of 12 non-members names hyper row 0, which
+    has valid edges) against their plain versions, K1's tolerances and K2's:
+    the tail reaches no aggregate and no receiver or sender cotangent."""
+    from torch_port_cases import tier_set_case
+
+    _need_card()
+    arrays, weights, snd, rcv, mask, rows = tier_set_case(name, B=3, L=L)
+    ev = int(mask.sum())
+    x = {k: torch.tensor(v).to(dtype).cuda() for k, v in arrays.items()}
+    w = {k: torch.tensor(v.T.copy() if v.ndim == 2 else v).cuda() for k, v in weights.items()}
+    topo = (torch.tensor(snd).cuda(), torch.tensor(rcv).cuda(), torch.tensor(mask).cuda(), rows)
+    plan = plan_segments(rcv, rows, senders=snd, num_valid=ev).to("cuda")
+    e2, agg, a1, a2, _, _ = fused_edge_block_fwd(x["e"], x["sp"], x["rp"], w, *topo, plan=plan, save_streams=True)
+    re2, ragg = fused_edge_block_reference(x["e"], x["sp"], x["rp"], w, *topo)
+    (rt, at), (rta, ata) = TOLS[dtype]["e2"], TOLS[dtype]["agg"]
+    torch.testing.assert_close(e2.float(), re2.float(), rtol=rt, atol=at)
+    torch.testing.assert_close(agg, ragg, rtol=rta, atol=ata)
+    valid = mask > 0
+    no_recv = torch.tensor(np.bincount(rcv[valid], minlength=rows) == 0).cuda()
+    no_send = torch.tensor(np.bincount(snd[valid], minlength=rows) == 0).cuda()
+    assert bool((agg[:, no_recv] == 0).all())
+    gen = torch.Generator().manual_seed(6)
+    de2 = torch.randn(3, len(snd), L, generator=gen).to(dtype).cuda()
+    drhs = agg_cotangent_rhs(agg, torch.randn(3, rows, 4 * L, generator=gen).cuda(), topo[1], topo[2], rows)
+    got = fused_edge_block_bwd(x["e"], x["sp"], x["rp"], w, de2, drhs, *topo, plan=plan)
+    want = fused_edge_block_bwd_reference(x["e"], x["sp"], x["rp"], w, de2, drhs, *topo, forward=(e2, a1, a2))
+    tol = 1e-4 if dtype == torch.float32 else 2.0**-6
+    for n, g, h in zip(("de", "dh", "dz2", "dz3", "dsp", "drp"), got[:4] + got[6:8], want[:4] + want[6:8]):
+        err = float((g.float() - h.float()).abs().max())
+        assert err <= tol * (1 + float(h.float().abs().max())), n
+    assert bool((got[6][:, no_send] == 0).all()) and bool((got[7][:, no_recv] == 0).all())
+
+
+def _hgn_config(fused_tiers):
+    config = _model_config("plateCluster")
+    config["params"]["model"]["rmp"].update(num_clusters=4, fused_tiers=fused_tiers)
+    return config
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_tiers", [False, True], ids=["tiers_off", "tiers_on"])
+def test_hgn_plate_train_step_on_card(fused_tiers):
+    """A float32 HGN-plate train step (plateCluster cut to 2 hierarchical
+    blocks, latent 32 and 4 clusters, B = 4) on the card: 2 K1 and 2 K2 on
+    the mesh set, 8 of each with ``fused_tiers`` (mesh, up, down, inter);
+    twice from one state, noise and static bit for bit; against the CPU with
+    the tiers unfused on the same state (normalizers at their accumulation
+    cap), noise and static, loss rtol 1e-4 and every gradient within
+    relative L2 1e-2 (the cluster tier's limit of chip_smoke.RMP_TOL; the
+    mesh tier's 1e-3 for the rest)."""
+    import dataclasses
+
+    _need_card()
+    traj = _model_trajectory("plate")
+    batch = {k: v[8:12] for k, v in traj.items()}
+    cpu_config, config = _hgn_config(False), _hgn_config(fused_tiers)
+    model = get_model(config)
+    state = model.init_state(torch.Generator().manual_seed(1))
+    state = state.replace(normalizers={
+        k: dataclasses.replace(v, num_accumulations=torch.full_like(v.num_accumulations, v.max_accumulations))
+        for k, v in state.normalizers.items()
+    })
+    normal = torch.randn(batch["world_pos"].shape, generator=torch.Generator().manual_seed(2))
+    runs = {}
+    for device, cfg in (("cpu", cpu_config), ("cuda", config), ("cuda", config)):
+        m = get_model(cfg)
+        trainer = Trainer(m, cfg, device=device)
+        topo = m.topology_from_trajectory(traj, device=device)
+        static = trainer.expansion.prepare(m, {k: v[0] for k, v in traj.items()}, topo)
+        frames = trainer.frames(batch)
+        hyper = torch.randn(trainer.expansion.hyper_noise_shape(m, frames, static),
+                            generator=torch.Generator().manual_seed(3))
+        ts = trainer.init_train_state(state=state)
+        before = (fused_edge_block.launches, fused_edge_block_bwd.launches)
+        loss, _ = trainer.loss_and_grads(ts, topo, frames, normal=normal.to(device), static=static,
+                                         hyper_normal=hyper.to(device))
+        launched = (fused_edge_block.launches - before[0], fused_edge_block_bwd.launches - before[1])
+        n = 2 * (4 if fused_tiers else 1)
+        assert launched == ((n, n) if device == "cuda" else (0, 0))
+        run = (loss.cpu(), {k: p.grad.cpu() for k, p in ts.model.params.named_parameters()})
+        if device in runs:
+            assert torch.equal(run[0], runs[device][0])
+            assert all(torch.equal(run[1][k], g) for k, g in runs[device][1].items())
+        runs[device] = run
+    (lc, gc), (lg, gg) = runs["cpu"], runs["cuda"]
+    assert abs(float(lg) - float(lc)) <= 1e-4 * abs(float(lc))
+    tier = ("hyper_", "inter_cluster", "intra_cluster_to_cluster", "intra_cluster_to_mesh")
+    for k, g in gc.items():
+        limit = 1e-2 if any(t in k for t in tier) else 1e-3
+        assert float((gg[k] - g).norm()) <= limit * float(g.norm()), k

@@ -88,6 +88,32 @@ def tie_edge_case(seed: int = 0, B: int = 2, L: int = 32):
     return arrays, weights, snd[order], rcv[order], mask, N, copies
 
 
+def tier_set_case(name, members=(150, 81, 60, 0), tail=12, seed=5, B=2, L=32):
+    """A cluster-tier set (``up``, ``down`` or ``inter``) of ``build_static``
+    on a clustering of ``sum(members) + tail`` mesh nodes into 4 clusters
+    (one of them empty; each cluster's nodes spread over the mesh) and
+    ``tail`` non-members (obstacle nodes, label -1), padded as
+    ``_pad_static`` pads it, so its valid edges form a receiver-sorted
+    prefix and its masked tail names receivers out of order.  Returns
+    ``(arrays, weights, senders, receivers, mask, rows)`` (K1 inputs over
+    the ``N + K`` rows, weights in the JAX layout)."""
+    from hyper_graph_nets_tpu_torch.rmp.clustering import Clustering
+    from hyper_graph_nets_tpu_torch.rmp.connector import build_static
+    from hyper_graph_nets_tpu_torch.rmp.remote_message_passing import RemoteMessagePassing
+
+    rng = np.random.default_rng(seed)
+    n_mem = sum(members)
+    labels = np.concatenate([rng.permutation(np.repeat(np.arange(len(members)), members)), -np.ones(tail, int)])
+    clusters = [np.flatnonzero(labels == k) for k in range(len(members))]
+    neighbors = [(a, b) for a in range(3) for b in range(3) if a != b]
+    clustering = Clustering(labels, clusters, neighbors, len(members))
+    static = RemoteMessagePassing._pad_static(build_static(clustering, n_mem + tail))
+    snd, rcv, mask = (np.asarray(getattr(static, f"{name}_{f}")) for f in ("senders", "receivers", "mask"))
+    rows = n_mem + tail + static.num_clusters
+    arrays, weights = _k1_arrays(rng, B, len(snd), rows, L)
+    return arrays, weights, snd.astype(np.int32), rcv.astype(np.int32), mask.astype(np.float32), rows
+
+
 def _k1_arrays(rng, B, E, N, L):
     arrays = {
         "e": rng.normal(size=(B, E, L)).astype(np.float32),
