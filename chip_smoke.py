@@ -6,7 +6,9 @@ the Ricci graph balancer, serve and train flag HyperGraphNets (remote
 message passing) as configs/flag_full_scale.yaml ships it, serve and train
 cylinder and plate MeshGraphNets as configs/cylinder.yaml and
 configs/plate.yaml ship them, and plate HyperGraphNets as
-configs/plateCluster.yaml ships it, with and without rmp.fused_tiers.
+configs/plateCluster.yaml ships it, with and without rmp.fused_tiers, and
+serve flag, flag HyperGraphNets and plate HyperGraphNets with int8 (W8A8)
+weights.
 
     python3 chip_smoke.py [--seed 0] [--out FILE.json] [--profile DIR]
 
@@ -89,9 +91,11 @@ Phases (any failure exits non-zero; nothing is caught and dropped):
    finite scalars; a second task on the same directory resumes at epoch 1
    and launches nothing; ``Predictor.from_config(checkpoint=...)`` serves
    the task's state bit for bit; the one-step and n-step evaluators' scalars
-   against the CPU's on the same state; the CLI (``python -m
-   hyper_graph_nets_tpu_torch.main flag_fused_demo``) twice in a
-   subprocess, the second run resuming; the epoch's seconds, fit edges/s,
+   against the CPU's on the same state (the n-step over 4 windows); the
+   rollout (20 steps) and n-step evaluators under ``inference_quant: int8``
+   on the same state, card against CPU (TASK_INT8_TOL; no kernel launched,
+   int8 products counted, the training state float and as it was after,
+   one flipped weight code planted); the epoch's seconds, fit edges/s,
    rollout-evaluator ms/step and n-step-evaluator seconds;
 7. remote message passing (``phase_rmp``): configs/flag_full_scale.yaml as
    shipped (spectral clustering into 16 clusters on the host, scipy only;
@@ -108,9 +112,8 @@ Phases (any failure exits non-zero; nothing is caught and dropped):
    one dropped intra_cluster_to_mesh edge (in bf16 also all of one
    cluster's), one of which must break the cluster tier's own limit
    (RMP_TIER_CONTROL); in float32 also the card fed the CPU's expand outputs
-   (a bisection of the cluster tier's spread; held to the same limits); the
-   CLI on flag_full_scale twice, the second run resuming; whether
-   scikit-learn imports (information only);
+   (a bisection of the cluster tier's spread; held to the same limits);
+   whether scikit-learn imports (information only);
 8. cylinder and plate (``phase_model``): configs/cylinder.yaml and
    configs/plate.yaml as shipped (latent 128, 5 blocks, float32, fused
    remat, batch 16), seeded weights, normalizers accumulated over a 53-frame
@@ -122,8 +125,7 @@ Phases (any failure exits non-zero; nothing is caught and dropped):
    world edges and their fixed-order sums built with host syncs an error,
    a train step (5 K1 + 5 K2), the loss after 30 steps below the first's,
    the same step twice bit for bit, the card against the CPU at B = 2
-   (MODEL_TOL), and the CLI on cylinder_demo / plate_demo (bf16) for their
-   epochs;
+   (MODEL_TOL);
 9. HGN plate (``phase_hgn_kernels``, ``phase_hgn``): configs/plateCluster.yaml
    as shipped (spectral clustering into 16 clusters, connector hyper, 5
    hierarchical blocks, latent 128, float32, fused remat, batch 16) on the
@@ -135,8 +137,27 @@ Phases (any failure exits non-zero; nothing is caught and dropped):
    launches (5 or 20 K1 and K2) and time, the card against the CPU at B = 2
    (HGN_TOL) with planted K1 faults, a dropped intra_cluster_to_mesh edge
    and, with fused_tiers, a tier set's lost aggregate row, each of which
-   must break a limit; the CLI on plateCluster_demo (bf16);
-10. timings, each with the card (with --profile also the device's busy share
+   must break a limit;
+10. int8 serving (``phase_int8``): ``Predictor(quantize="int8")`` on
+   configs/flag_full_scale.yaml with RMP off (fused as shipped: every set
+   unfused under int8, no K1; then sorted: 15 K4f a forward), as shipped
+   (RMP) and configs/plateCluster.yaml as shipped, seeded weights and
+   accumulated normalizers: one_step (B = 21 or 16) and a rollout (50
+   steps flat, 20 on the RMP paths) with the launches counted and one int8
+   product a dense layer, as many as the CPU makes; ``dense_int8`` on the
+   card bit for bit with the CPU at every (rows, in, out) the main paths
+   gave it, on their activations and in bf16 (the ones ``torch._int_mm``
+   takes only padded among them); the card against the CPU at B = 2 layer
+   by layer (the int8 state and every dense layer on the card's input bit
+   for bit; one flipped weight code must break it) and end to end
+   (INT8_TOL; every 64th row of each int8 product lost must break it);
+   int8 against float on the same state (context) and both paths' one_step
+   and rollout times;
+11. the CLI (``phase_cli``): ``python -m hyper_graph_nets_tpu_torch.main``
+   on flag_fused_demo (twice, the second run resuming), flag_full_scale,
+   cylinder_demo, plate_demo and plateCluster_demo (bf16 demos, RMP as
+   shipped), each config in a process of its own, all started together;
+12. timings, each with the card (with --profile also the device's busy share
    and kernel time by name), the kernels' JSON line, then the device JSON
    line last.
 
@@ -1801,14 +1822,17 @@ def phase_train(card, seed, profile_dir=None):
 # The task's evaluator scalars on the card against the CPU, same state, bf16
 # on both (relative difference): the one-step loss and error over the
 # validation trajectory's 57 frames (K1 at B=21 and 15) and the n-step loss
-# over 32 windows of 10 steps (one chunk: K1 at B=32, the task path's
-# chunk). Each limit is about 10x the sound reading (7.4e-7, 5.4e-7,
-# 2.5e-5 on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md), and the check is
-# run again with a K1 fault planted on the card (TASK_FAULTS; the same run
-# read 5.7e-3 or more for each): the phase fails unless each fault breaks a
-# limit.
+# over 4 windows of 10 steps (one chunk: K1 at B=4; the task path's own
+# chunk of 32 windows runs in its n-step evaluators above, and ran here
+# until the CPU's 32 windows took most of the phase). The limits were set
+# at about 10x the sound reading over 32 windows (7.4e-7, 5.4e-7, 2.5e-5
+# on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md); over 4 windows the
+# n-step reading is 1.1e-4 (the same in every run: the sums run in a fixed
+# order). The check is run again with a K1 fault planted on the card
+# (TASK_FAULTS; each reads 4.1e-3 or more on every scalar): the phase fails
+# unless each fault breaks a limit.
 TASK_TOL = {"validation_loss": 1e-5, "position_error": 1e-5, "n_step_loss": 2.5e-4}
-TASK_CPU_TIMESTEPS = 42  # the n-step comparison's frames: 32 windows of 10 steps
+TASK_CPU_TIMESTEPS = 14  # the n-step comparison's frames: 4 windows of 10 steps
 
 
 def _toward_zero(x):
@@ -1835,6 +1859,18 @@ def _fault_lost_receivers(e2, agg, *rest):
 
 TASK_FAULTS = {"e2_ulp": _fault_e2_ulp, "lost_receivers": _fault_lost_receivers}
 CLI_CONFIG = "flag_fused_demo"
+# The rollout and n-step evaluators under inference_quant: int8 on the task's
+# state, the card against the CPU (relative difference of each scalar): the
+# rollout over TASK_INT8_STEPS steps, the n-step loss over the comparison's 4
+# windows of 10 steps.  Every dense product is exact on both, but an
+# activation one rounding from a code boundary may take the other code on
+# the other device (the phase_int8 note), so the scalars move as int8
+# rounding does.  The limit is about 8x the sound reading (3.3e-5 to 2.5e-4
+# on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md); the control, one weight
+# code flipped (``_flip_one_code``), read 1.0e-2 to 2.1e-2 and must break a
+# limit; the float evaluators read 4.5e-2 to 6.3e-2 off the CPU's int8.
+TASK_INT8_STEPS = 20
+TASK_INT8_TOL = dict.fromkeys(("rollout_loss", "rollout_loss_last", "n_step_loss", "n_step_last_loss"), 2e-3)
 
 
 def task_config():
@@ -1848,14 +1884,84 @@ def task_config():
     return config
 
 
+def task_int8_evaluators(config, root, tstate, cpu_state, n_step):
+    """The rollout and n-step evaluators of ``config`` with
+    ``inference_quant: int8`` on ``tstate`` (the task's, on the card) and
+    ``cpu_state`` (its copy on the CPU): the card's run with its launches
+    and int8 products counted, the training state float and as it was
+    after it, the scalars against the CPU's (TASK_INT8_TOL), again with one
+    weight code flipped (which must break a limit), and the float
+    evaluators' scalars on the card (context)."""
+    import copy
+
+    import torch
+
+    from hyper_graph_nets_tpu_torch.data.loader import get_data
+    from hyper_graph_nets_tpu_torch.nn import quant
+    from hyper_graph_nets_tpu_torch.serving import Predictor
+    from hyper_graph_nets_tpu_torch.training.simulator import MeshSimulator
+
+    float_config, config = config, copy.deepcopy(config)
+    config["params"]["model"]["inference_quant"] = "int8"
+    valid = lambda: get_data(config, "valid", data_dir=root)
+    before = {n: p.detach().clone() for n, p in tstate.model.params.named_parameters()}
+
+    def evaluate(sim, ts):
+        out = sim.rollout_evaluator(ts, valid(), n_rollouts=1, num_steps=TASK_INT8_STEPS, logging=False,
+                                    save=False)
+        out.update(sim.n_step_evaluator(ts, valid(), n_step=n_step, n_trajectories=1,
+                                        num_timesteps=TASK_CPU_TIMESTEPS, logging=False))
+        return {k: out[k] for k in TASK_INT8_TOL}
+
+    t0 = time.perf_counter()
+    cpu = evaluate(MeshSimulator(config, out_dir=os.path.join(root, "int8_cpu"), device="cpu"), cpu_state)
+    cpu_s = time.perf_counter() - t0
+    sim = MeshSimulator(config, out_dir=os.path.join(root, "int8"))
+    torch.cuda.synchronize()
+    reset_counts()
+    quant.int8_matmul.calls = 0
+    t0 = time.perf_counter()
+    got = evaluate(sim, tstate)
+    torch.cuda.synchronize()
+    card_s, launches, products = time.perf_counter() - t0, read_counts(), quant.int8_matmul.calls
+    changed = [n for n, p in tstate.model.params.named_parameters()
+               if p.dtype != torch.float32 or not torch.equal(p, before[n])]
+    rel = lambda out: {k: abs(out[k] - cpu[k]) / abs(cpu[k]) for k in TASK_INT8_TOL}
+    errs = rel(got)
+
+    probe = Predictor(config, state=tstate.model)
+    frames = {k: v[:CPU_FRAMES] for k, v in next(iter(valid())).items()}
+    flipped_state = _flip_one_code(probe, frames)
+    sim.model.inference_state = lambda state: flipped_state
+    try:
+        flipped = rel(evaluate(sim, tstate))
+    finally:
+        del sim.model.inference_state
+    floats = rel(evaluate(MeshSimulator(float_config, out_dir=os.path.join(root, "float")), tstate))
+    log(f"task int8 evaluators: card {got} in {card_s:.1f} s ({products} int8 products, launches {launches}), "
+        f"CPU {cpu} in {cpu_s:.1f} s; card vs CPU (relative; limits {TASK_INT8_TOL}): {errs}; with the "
+        f"flipped code {flipped}; the float evaluators vs the CPU's int8 (context) {floats}")
+    if any(launches.values()) or not products:
+        raise AssertionError(f"task int8 evaluators launched {launches}, {products} int8 products")
+    if changed:
+        raise AssertionError(f"task int8 evaluators changed the training state: {changed[:4]}")
+    if any(errs[k] > TASK_INT8_TOL[k] for k in TASK_INT8_TOL):
+        raise AssertionError(f"task int8 evaluators card vs CPU outside {TASK_INT8_TOL}: {errs}")
+    if not any(flipped[k] > TASK_INT8_TOL[k] for k in TASK_INT8_TOL):
+        raise AssertionError(f"task int8 evaluators: the flipped code passed the check: {flipped}")
+    return dict(card=got, cpu=cpu, vs_cpu=errs, flipped_code_vs_cpu=flipped, float_vs_cpu_int8=floats,
+                card_s=card_s, cpu_s=cpu_s, int8_products=products)
+
+
 def phase_task(card):
     """The task loop on the card: ``get_task(flag_full_scale, RMP off)``,
     ``run_iterations`` (fit over 2 trajectories, the three evaluators on the
     validation split, GIF, checkpoint) and ``get_scalars`` (the evaluators on
     the test split), with the launches read around fit and each evaluator;
     a second task resuming from the checkpoint; ``Predictor`` served from
-    the checkpoint; the evaluators' scalars against the CPU; the CLI twice
-    on configs/flag_fused_demo.yaml in a subprocess."""
+    the checkpoint; the evaluators' scalars against the CPU, float and
+    int8 (``task_int8_evaluators``; the CLI on configs/flag_fused_demo.yaml
+    is in ``phase_cli``)."""
     import tempfile
 
     import numpy as np
@@ -2020,29 +2126,14 @@ def phase_task(card):
         for fault, e in faults.items():
             log(f"task evaluators card with K1 fault {fault} vs CPU (relative): {e}")
         timings["vs_cpu"], timings["vs_cpu_faults"] = errs, faults
-        if card_batches != sorted({TASK_LAST_BATCH, B, TASK_N_STEP_CHUNK}):
+        if card_batches != sorted({TASK_LAST_BATCH, B, min(TASK_N_STEP_CHUNK, TASK_CPU_TIMESTEPS - n)}):
             raise AssertionError(f"task evaluators card vs CPU ran K1 at B {card_batches}")
         if any(errs[k] > TASK_TOL[k] for k in TASK_TOL):
             raise AssertionError(f"task evaluators card vs CPU outside {TASK_TOL}: {errs}")
         caught = {f: any(e[k] > TASK_TOL[k] for k in TASK_TOL) for f, e in faults.items()}
         if not all(caught.values()):
             raise AssertionError(f"task evaluators card vs CPU: a planted K1 fault passed the check: {faults}")
-
-        # the CLI as shipped, twice: the second run resumes
-        cli = [sys.executable, "-m", "hyper_graph_nets_tpu_torch.main", CLI_CONFIG, "--data-dir",
-               os.path.join(root, "cli")]
-        timings["cli_s"] = []
-        for run in range(2):
-            t0 = time.perf_counter()
-            out = subprocess.run(cli, cwd=HERE, capture_output=True, text=True, timeout=600)
-            timings["cli_s"].append(time.perf_counter() - t0)
-            if out.returncode != 0:
-                raise AssertionError(f"CLI run {run} exited {out.returncode}:\n{out.stdout}\n{out.stderr}")
-            log(f"CLI {CLI_CONFIG} run {run}: exit 0 in {timings['cli_s'][-1]:.1f} s; "
-                + ", ".join(out.stdout.strip().splitlines()[-4:]))
-        with open(os.path.join(root, "cli", "flag_simple", "output", "run.metrics.jsonl")) as f:
-            if '"resumed_from_epoch": 1.0' not in f.read():
-                raise AssertionError("the second CLI run did not resume from epoch 1")
+        timings["int8"] = task_int8_evaluators(config, root, task.tstate, cpu_state, n)
 
     log(f"task epoch (fit + validation evaluators + GIF + checkpoint): {timings['epoch_s']:.3f} s; "
         f"fit edges/s (logger, per trajectory) {', '.join(f'{r:.4g}' for r in fit_rate)} [{card}]")
@@ -2386,9 +2477,7 @@ def phase_rmp(card, peaks, seed, profile_dir=None):
     training through Predictor and Trainer (15 K1 per forward, 15 K2 per
     train step), K1/K2 over the 1,616 rows against their plain versions,
     two train steps bit for bit (RMP and the balancer path), the card
-    against the CPU with planted K1 faults, and the CLI twice."""
-    import tempfile
-
+    against the CPU with planted K1 faults (its CLI run is in ``phase_cli``)."""
     import numpy as np
     import torch
 
@@ -2543,25 +2632,6 @@ def phase_rmp(card, peaks, seed, profile_dir=None):
         if key.endswith(RMP_TIER_CONTROL[key.split()[0]]) and not errs["tier_grad"] > tol["tier_grad"]:
             raise AssertionError(f"rmp {key}: the tier fault passed the cluster tier's limit: {errs}")
 
-    # the CLI as shipped, twice: one epoch, then a run that resumes
-    with tempfile.TemporaryDirectory(prefix="hgn_rmp_cli_") as root:
-        cli = [sys.executable, "-m", "hyper_graph_nets_tpu_torch.main", RMP_CLI_CONFIG, "--data-dir", root]
-        timings["cli_s"] = []
-        for run in range(2):
-            t0 = time.perf_counter()
-            out = subprocess.run(cli, cwd=HERE, capture_output=True, text=True, timeout=600)
-            timings["cli_s"].append(time.perf_counter() - t0)
-            if out.returncode != 0:
-                raise AssertionError(f"CLI {RMP_CLI_CONFIG} run {run} exited {out.returncode}:\n"
-                                     f"{out.stdout[-4000:]}\n{out.stderr[-4000:]}")
-            log(f"CLI {RMP_CLI_CONFIG} run {run}: exit 0 in {timings['cli_s'][-1]:.1f} s; "
-                + ", ".join(out.stdout.strip().splitlines()[-4:]))
-        out_dir = os.path.join(root, "flag_simple", "output")
-        with open(os.path.join(out_dir, "run.metrics.jsonl")) as f:
-            if '"resumed_from_epoch": 1.0' not in f.read():
-                raise AssertionError("the second CLI run of flag_full_scale did not resume from epoch 1")
-        images = [n for n in os.listdir(out_dir) if n.startswith("cluster_epoch")]
-        log(f"CLI {RMP_CLI_CONFIG}: cluster images {images or 'none (no matplotlib)'}")
     launches = {k: serve[k] + train[k] for k in serve}
     return launches, timings, kernels
 
@@ -2656,10 +2726,8 @@ def phase_model(card, peaks, seed, name, profile_dir=None):
     world edges), K1/K2 in float32 at the mesh's shapes against their plain
     versions, training (5 K1 + 5 K2 a step, loss falling over 30 steps, two
     steps from one state bit for bit), the card against the CPU, plate's
-    world edges and their fixed-order sums with no host sync, and the CLI on
-    the bf16 demo config."""
-    import tempfile
-
+    world edges and their fixed-order sums with no host sync (the CLI on the
+    bf16 demo config is in ``phase_cli``)."""
     import numpy as np
     import torch
 
@@ -2804,17 +2872,6 @@ def phase_model(card, peaks, seed, name, profile_dir=None):
     if vs_cpu["loss"] > MODEL_TOL["loss"] or vs_cpu["grad"] > MODEL_TOL["grad"]:
         raise AssertionError(f"{name} train step card vs CPU outside {MODEL_TOL}: {vs_cpu}")
 
-    # the CLI on the bf16 demo config, for its epochs
-    with tempfile.TemporaryDirectory(prefix=f"hgn_{name}_cli_") as root:
-        cli = [sys.executable, "-m", "hyper_graph_nets_tpu_torch.main", MODEL_CLI[name], "--data-dir", root]
-        t0 = time.perf_counter()
-        out = subprocess.run(cli, cwd=HERE, capture_output=True, text=True, timeout=600)
-        timings["cli_s"] = time.perf_counter() - t0
-        if out.returncode != 0:
-            raise AssertionError(f"CLI {MODEL_CLI[name]} exited {out.returncode}:\n{out.stdout[-4000:]}\n"
-                                 f"{out.stderr[-4000:]}")
-        log(f"CLI {MODEL_CLI[name]}: exit 0 in {timings['cli_s']:.1f} s; "
-            + ", ".join(out.stdout.strip().splitlines()[-4:]))
     launches = {k: serve[k] + train[k] for k in serve}
     return launches, timings
 
@@ -2935,9 +2992,8 @@ def phase_hgn(card, peaks, seed, profile_dir=None):
     train steps from one state bit for bit, train-step times, the launches
     counted in advance (5 K1 a forward and 5 K2 a train step on the mesh set;
     with fused_tiers 20 of each: mesh, up, down, inter), the card against the
-    CPU with the planted controls, and the CLI on plateCluster_demo (bf16)."""
-    import tempfile
-
+    CPU with the planted controls (the CLI on plateCluster_demo is in
+    ``phase_cli``)."""
     import numpy as np
     import torch
 
@@ -3066,17 +3122,6 @@ def phase_hgn(card, peaks, seed, profile_dir=None):
         if key.endswith("tier_drop") and not errs["tier_grad"] > HGN_TOL["tier_grad"]:
             raise AssertionError(f"HGN plate {key}: the dropped tier edge passed the cluster tier's limit: {errs}")
 
-    # the CLI on the bf16 demo config, for its epochs
-    with tempfile.TemporaryDirectory(prefix="hgn_plate_cli_") as root:
-        cli = [sys.executable, "-m", "hyper_graph_nets_tpu_torch.main", HGN_CLI_CONFIG, "--data-dir", root]
-        t0 = time.perf_counter()
-        out = subprocess.run(cli, cwd=HERE, capture_output=True, text=True, timeout=600)
-        timings["cli_s"] = time.perf_counter() - t0
-        if out.returncode != 0:
-            raise AssertionError(f"CLI {HGN_CLI_CONFIG} exited {out.returncode}:\n{out.stdout[-4000:]}\n"
-                                 f"{out.stderr[-4000:]}")
-        log(f"CLI {HGN_CLI_CONFIG}: exit 0 in {timings['cli_s']:.1f} s; "
-            + ", ".join(out.stdout.strip().splitlines()[-4:]))
     return launches, timings
 
 
@@ -3154,6 +3199,382 @@ def hgn_vs_cpu(traj, small, cstate, normal, seed):
                 f"(limits {HGN_TOL})")
             (vs_cpu if where == "card" else faults)[f"{tag} {where}"] = out
     return vs_cpu, faults
+
+
+# -- the CLI on every family, all runs started together -------------------------
+
+# (config, runs): a config's runs go one after another in one data directory,
+# the second resuming from the first's checkpoint; the configs run side by
+# side, each in a process of its own (each is host-bound).  flag_full_scale
+# (RMP) runs once: the resume is checked on flag_fused_demo.
+CLI_RUNS = ((CLI_CONFIG, 2), (RMP_CLI_CONFIG, 1), (MODEL_CLI["cylinder"], 1), (MODEL_CLI["plate"], 1),
+            (HGN_CLI_CONFIG, 1))
+
+
+def phase_cli(card):
+    """``python -m hyper_graph_nets_tpu_torch.main <config>`` for each of
+    ``CLI_RUNS`` on the card: every run exits 0 and prints its scalars,
+    flag_fused_demo's second run resumes from epoch 1, flag_full_scale's
+    cluster images are listed.  Times are of runs that share the card and
+    the host's cores."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    def runs(root, name, n):
+        out = []
+        for _ in range(n):
+            cli = [sys.executable, "-m", "hyper_graph_nets_tpu_torch.main", name, "--data-dir", root]
+            t0 = time.perf_counter()
+            out.append((subprocess.run(cli, cwd=HERE, capture_output=True, text=True, timeout=600),
+                        time.perf_counter() - t0))
+        return out
+
+    timings = {}
+    with tempfile.TemporaryDirectory(prefix="hgn_cli_") as root:
+        dirs = {name: os.path.join(root, name) for name, _ in CLI_RUNS}
+        with ThreadPoolExecutor(len(CLI_RUNS)) as pool:
+            done = {name: pool.submit(runs, dirs[name], name, n) for name, n in CLI_RUNS}
+            results = {name: f.result() for name, f in done.items()}
+        for name, outs in results.items():
+            for run, (out, seconds) in enumerate(outs):
+                if out.returncode != 0:
+                    raise AssertionError(f"CLI {name} run {run} exited {out.returncode}:\n{out.stdout[-4000:]}\n"
+                                         f"{out.stderr[-4000:]}")
+                log(f"CLI {name} run {run}: exit 0 in {seconds:.1f} s; "
+                    + ", ".join(out.stdout.strip().splitlines()[-4:]))
+            timings[name] = [seconds for _, seconds in outs]
+        with open(os.path.join(dirs[CLI_CONFIG], "flag_simple", "output", "run.metrics.jsonl")) as f:
+            if '"resumed_from_epoch": 1.0' not in f.read():
+                raise AssertionError(f"the second CLI run of {CLI_CONFIG} did not resume from epoch 1")
+        out_dir = os.path.join(dirs[RMP_CLI_CONFIG], "flag_simple", "output")
+        images = [n for n in os.listdir(out_dir) if n.startswith("cluster_epoch")]
+        log(f"CLI {RMP_CLI_CONFIG}: cluster images {images or 'none (no matplotlib)'} [{card}]")
+    return timings
+
+
+# -- int8 (W8A8) serving: model.inference_quant int8 on every model family ------
+
+# The int8 paths served (config, agg_vjp, B, rollout steps): flag_full_scale
+# with RMP off as shipped (fused: every set unfused under int8, no K1) and
+# with sorted (K4f), flag_full_scale as shipped (RMP, 16 clusters, bf16) and
+# plateCluster as shipped (float32, world edges, RMP).  The RMP paths roll
+# out 20 steps: each step re-expands through the unfused tiers on the host.
+INT8_PATHS = (
+    ("flat fused", ONE_STEP_FRAMES, ROLLOUT_STEPS),
+    ("flat sorted", ONE_STEP_FRAMES, ROLLOUT_STEPS),
+    ("rmp", ONE_STEP_FRAMES, 20),
+    ("hgn plate", MODEL_FRAMES, 20),
+)
+# Card against CPU (the port's int8 on both, 2 frames).  Whole-model
+# closeness cannot hold int8 to much: a one-ulp change of the input
+# positions moves the CPU's own int8 update by as much as int8 moves it from
+# float (relative L2 1.6% on plateCluster), since every activation is
+# requantized per row in every layer and a rounding on the other side of a
+# code boundary is carried on (PERF.md, int8 findings).  So the check is layer by
+# layer: the card's int8 state equals the CPU's (codes, scales, biases),
+# and every dense layer of the card's one_step, fed the card's own input,
+# equals the CPU's dense layer (with the CPU state's weights) on that input
+# bit for bit; one weight code of the card's state flipped
+# (``_flip_one_code``) must break it.  End to end, the update's relative L2
+# against the CPU's must stay within INT8_TOL["l2"] times int8's own error
+# on the card (int8 against float, same state and frames): two independent
+# draws of the quantization noise read up to sqrt(2) times it.  Read on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md): 0.40, 0.46, 0.86 and 0.95 times
+# it on the four paths; every 64th row of each int8 product lost
+# (``lost_product_rows``), the planted fault this limit must catch, 4.4-8.5
+# times; the flipped code 0.77-1.40 times, under the limit: one code moves
+# the update less than int8 itself does, so only the layer check sees it.
+INT8_TOL = {"l2": 2.0}
+
+
+def int8_config(path):
+    if path == "flat fused":
+        return main_config()
+    if path == "flat sorted":
+        return main_config(agg_vjp="sorted")
+    if path == "rmp":
+        return rmp_config()
+    return hgn_config()
+
+
+def int8_errors(got, want, start):
+    """An update against another: the largest error over the largest move
+    (``move``) and the relative L2 error of the update (``l2``), the move
+    taken from ``start`` (2 x - prev on flag, x on plate)."""
+    import numpy as np
+
+    err = np.abs(got.astype(np.float64) - want)
+    move = np.abs(want.astype(np.float64) - start)
+    return {"move": float(err.max() / move.max()), "l2": float(np.linalg.norm(err) / np.linalg.norm(move))}
+
+
+@contextlib.contextmanager
+def dense_int8_replaced(fn):
+    """Within the block every int8 dense layer of the port calls
+    ``fn(x, w_q, wscale)``; yields the ``dense_int8`` it replaced, which
+    ``fn`` may call."""
+    from hyper_graph_nets_tpu_torch.nn import quant
+
+    kept = quant.dense_int8
+    quant.dense_int8 = fn
+    try:
+        yield kept
+    finally:
+        quant.dense_int8 = kept
+
+
+def int8_layers(predictor, cpu, frames):
+    """The card's one_step on ``frames`` layer by layer against the CPU:
+    ``(dense layers, of them not bit for bit with the CPU's dense layer on
+    the card's input, state tensors that differ from the CPU's)``.  The
+    CPU's one_step runs first and records its layers' weights in call order;
+    the card's then feeds each layer's input to the CPU layer of its rank."""
+    import torch
+
+    from hyper_graph_nets_tpu_torch.nn import quant
+
+    dense, weights, mismatched = quant.dense_int8, [], []
+
+    def recording(x, w_q, wscale):
+        weights.append((w_q, wscale))
+        return dense(x, w_q, wscale)
+
+    def checking(x, w_q, wscale):
+        y = dense(x, w_q, wscale)
+        i = len(mismatched)
+        mismatched.append(i >= len(weights) or not torch.equal(y.cpu(), dense(x.cpu(), *weights[i])))
+        return y
+
+    for device_run, fn in ((cpu, recording), (predictor, checking)):
+        with dense_int8_replaced(fn):
+            device_run.one_step(frames)
+    card, host = dict(predictor.state.params.named_parameters()), dict(cpu.state.params.named_parameters())
+    states = sum(not torch.equal(t.cpu(), host[n]) for n, t in card.items()) + (card.keys() != host.keys())
+    return len(mismatched), sum(mismatched) + abs(len(mismatched) - len(weights)), states
+
+
+def lost_product_rows(dense):
+    """``dense`` with every 64th row of each int8 product's output left at
+    zero (a work group not written): the planted fault the end-to-end limit
+    must catch."""
+    def lost(x, w_q, wscale):
+        y = dense(x, w_q, wscale).clone()
+        y.reshape(-1, y.shape[-1])[::64] = 0
+        return y
+    return lost
+
+
+def int8_ok(errs):
+    return errs["l2"] <= INT8_TOL["l2"] * errs["quant_l2"]
+
+
+# kernel groups of an int8 forward's trace, first match wins: the int8
+# products (torch._int_mm's CUTLASS / cuBLAS s8 kernels), the per-row
+# quantize passes, the aggregations, the port's K1, float products
+INT8_KERNEL_GROUPS = (
+    ("int8 product", ("gemm_s8", "i8i32")),
+    ("quantize (abs, round, clamp)", ("AbsFunctor", "round_kernel", "clamp")),
+    ("aggregation (gathers, scatters, K4f)", ("scatter", "gather", "index", "pna_fwd_kernel")),
+    ("K1", ("fused_block_fwd",)),
+    ("float products", ("gemm", "nvjet", "xmma")),
+)
+
+
+def kernel_groups(profile):
+    """``device_profile``'s kernels summed by ``INT8_KERNEL_GROUPS``:
+    {group: (ms, launches)}; the rest under "other"."""
+    out = {}
+    for k in profile["kernels"]:
+        group = next((g for g, keys in INT8_KERNEL_GROUPS if any(key in k["name"] for key in keys)), "other")
+        ms, n = out.get(group, (0.0, 0))
+        out[group] = (ms + k["ms"], n + k["count"])
+    return out
+
+
+def _flip_one_code(predictor, frames):
+    """``predictor``'s int8 state with one weight code negated: in the
+    middle block's node model's last layer, the largest code that reads the
+    hidden unit most active on ``frames`` (so the fault reaches the output
+    whatever the ReLUs do).  The planted fault of the card-vs-CPU layer
+    check, and of the task's int8 evaluators."""
+    import copy
+
+    import torch
+
+    from hyper_graph_nets_tpu_torch.nn.quant import dense_int8
+
+    mid = len(predictor.state.params.blocks) // 2
+    node_model = predictor.state.params.blocks[mid].node_model
+    seen = []
+    hook = node_model.register_forward_hook(lambda m, args, out: seen.append(args[0]))
+    try:
+        predictor.one_step(frames)
+    finally:
+        hook.remove()
+    h = seen[0]
+    with torch.no_grad():
+        for i in range(node_model.num_layers - 1):
+            h = torch.relu(dense_int8(h, node_model.weights[i], node_model.wscales[i]) + node_model.biases[i])
+        j = int(h.float().reshape(-1, h.shape[-1]).mean(0).argmax())
+        net = copy.deepcopy(predictor.state.params)
+        w = net.blocks[mid].node_model.weights[-1]
+        c = int(w[:, j].abs().argmax())
+        w[c, j] = -w[c, j]
+    return predictor.state.replace(params=net)
+
+
+def phase_int8(card, seed, profile_dir=None):
+    """Int8 (W8A8) serving through ``Predictor(quantize="int8")``: the dense
+    layer on the card bit for bit with the CPU at every shape the main paths
+    give it (real activations, and the same rows in bf16); for each of
+    ``INT8_PATHS`` one_step and a rollout with the launches counted (no K1,
+    15 K4f a forward under sorted, one int8 product a dense layer), the
+    card against the CPU at 2 frames layer by layer and end to end with a
+    planted control (``INT8_TOL``), the int8 update against the float one
+    on the same state (context), and int8 and float times in the same
+    call."""
+    import numpy as np
+    import torch
+
+    from hyper_graph_nets_tpu_torch.data.preprocessing import add_targets
+    from hyper_graph_nets_tpu_torch.data.synthetic import flag_trajectory
+    from hyper_graph_nets_tpu_torch.models.get_model import get_model
+    from hyper_graph_nets_tpu_torch.nn import quant
+    from hyper_graph_nets_tpu_torch.serving import Predictor
+
+    flag = add_targets(flag_trajectory(num_steps=ROLLOUT_STEPS + 3, nx=40, ny=40, seed=seed), "world_pos",
+                       history=True)
+    plate = model_trajectory("plate", seed, ROLLOUT_STEPS + 3)
+    launches, timings, dense = {}, {}, {}
+    for path, B, steps in INT8_PATHS:
+        config = int8_config(path)
+        traj = plate if path == "hgn plate" else flag
+        model = get_model(config)
+        state = rmp_state(config, traj, seed) if path in ("rmp", "hgn plate") else model_state(model, traj, seed)
+        predictor = Predictor(config, state=state, quantize="int8")
+        floats = Predictor(config, state=state)
+        cfg = predictor.model.gnn_config
+        batch = {k: v[:B] for k, v in traj.items()}
+        small = {k: v[:CPU_FRAMES] for k, v in traj.items()}
+        start = lambda b: 2 * b["world_pos"] - b["prev|world_pos"] if "prev|world_pos" in b else b["world_pos"]
+        log(f"int8 ({path}): {config['params']['model'].get('compute_dtype') or 'float32'}, "
+            f"{cfg.message_passing_steps} blocks, {cfg.architecture}, agg_vjp {cfg.agg_vjp}; one_step B={B}, "
+            f"rollout {steps}")
+
+        # every dense input the card sees in one_step and the rollout's first
+        # step, first of each (rows, in, out), kept for the dense check
+        record = {}
+
+        def recording(x, w_q, wscale, kept=quant.dense_int8):
+            key = (int(np.prod(x.shape[:-1])), x.shape[-1], w_q.shape[0])
+            if key not in record:
+                record[key] = (x.detach().clone(), w_q, wscale)
+            return kept(x, w_q, wscale)
+
+        # the main path: counts set to 0 just before, read just after
+        with dense_int8_replaced(recording):
+            reset_counts()
+            quant.int8_matmul.calls = 0
+            pred = predictor.one_step(batch)
+            one = dict(read_counts(), int8=quant.int8_matmul.calls)
+            predictor.rollout(traj, num_steps=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = predictor.rollout(traj, num_steps=steps)
+        torch.cuda.synchronize()
+        rollout_ms = 1e3 * (time.perf_counter() - t0) / steps
+        serve = read_counts()
+        per_forward = 15 if path == "flat sorted" else 0
+        want = dict.fromkeys(serve, 0)
+        want["K4f"] = per_forward * (2 + steps)
+        if one["K1"] or one["K4f"] != per_forward or serve != want:
+            raise AssertionError(f"int8 ({path}) launches {one} in one_step, {serve} in all; want {want}")
+        if pred.shape != batch["world_pos"].shape or not np.isfinite(pred).all() \
+                or not np.isfinite(result["mse"]).all():
+            raise AssertionError(f"int8 ({path}) output not finite/shaped")
+        dense.update({(path,) + k: v for k, v in record.items() if (path,) + k not in dense})
+
+        # the card against the CPU at 2 frames (each prepares its own
+        # expansion on the same first frame), then the planted controls
+        cpu = Predictor(config, state=state, device="cpu", quantize="int8")
+        layers, bad, states = int8_layers(predictor, cpu, small)
+        want_small, floats_small = cpu.one_step(small), floats.one_step(small)
+        got_small = predictor.one_step(small)
+        quant_l2 = int8_errors(got_small, floats_small, start(small))["l2"]
+        errs = dict(int8_errors(got_small, want_small, start(small)), quant_l2=quant_l2)
+        kept = predictor.state
+        predictor.state = _flip_one_code(predictor, small)
+        flipped = int8_layers(predictor, cpu, small)
+        flipped_errs = dict(int8_errors(predictor.one_step(small), want_small, start(small)), quant_l2=quant_l2)
+        predictor.state = kept
+        with dense_int8_replaced(lost_product_rows(quant.dense_int8)):
+            lost_errs = dict(int8_errors(predictor.one_step(small), want_small, start(small)), quant_l2=quant_l2)
+        quant_err = int8_errors(pred, floats.one_step(batch), start(batch))
+        log(f"int8 ({path}) launches: {one} in one_step, {serve} in all; {layers} dense layers a forward, each "
+            f"bit for bit with the CPU's on the card's input (the flipped code: {flipped[1]} layer(s) and "
+            f"{flipped[2]} state tensor(s) differ); card vs CPU update (B={CPU_FRAMES}): {errs} (limit l2 "
+            f"{INT8_TOL['l2']} x quant_l2); with the flipped code {flipped_errs}; with lost product rows "
+            f"{lost_errs}; int8 vs float at B={B} (context): {quant_err}")
+        if one["int8"] != layers or bad or states:
+            raise AssertionError(f"int8 ({path}): {one['int8']} int8 products a forward at B={B}, {layers} at "
+                                 f"B={CPU_FRAMES}; {bad} of them not bit for bit with the CPU's, {states} "
+                                 f"state tensors not the CPU's")
+        if not flipped[1]:
+            raise AssertionError(f"int8 ({path}): the flipped code passed the layer check: {flipped}")
+        if not int8_ok(errs):
+            raise AssertionError(f"int8 ({path}) card vs CPU outside {INT8_TOL}: {errs}")
+        if int8_ok(lost_errs):
+            raise AssertionError(f"int8 ({path}): lost product rows passed {INT8_TOL}: {lost_errs}")
+
+        # int8 and float times, same state, same call
+        t = dict(int8_one_step_ms=_host_ms(lambda: predictor.one_step(batch), 5),
+                 float_one_step_ms=_host_ms(lambda: floats.one_step(batch), 5),
+                 int8_rollout_ms_per_step=rollout_ms, vs_cpu=errs, int8_vs_float=quant_err,
+                 flipped_code_layers=flipped[1], flipped_code_vs_cpu=flipped_errs, lost_rows_vs_cpu=lost_errs,
+                 int8_products_per_forward=one["int8"])
+        floats.rollout(traj, num_steps=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float_result = floats.rollout(traj, num_steps=steps)
+        torch.cuda.synchronize()
+        t["float_rollout_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / steps
+        # context: the JAX package's tests hold the int8 rollout's MSE to 10x the float one's
+        t["rollout_mse"] = {"int8": float(np.mean(result["mse"])), "float": float(np.mean(float_result["mse"]))}
+        log(f"int8 ({path}) one_step B={B}: {t['int8_one_step_ms']:.2f} ms (float {t['float_one_step_ms']:.2f}); "
+            f"rollout {rollout_ms:.2f} ms/step (float {t['float_rollout_ms_per_step']:.2f}); rollout MSE "
+            f"{t['rollout_mse']['int8']:.4g} (float {t['rollout_mse']['float']:.4g}) [{card}]")
+        if profile_dir:
+            tag = path.replace(" ", "_")
+            t["profile"] = {
+                "int8_one_step": device_profile(lambda: predictor.one_step(batch), card, profile_dir,
+                                                f"one_step_int8_{tag}", top=12),
+                "float_one_step": device_profile(lambda: floats.one_step(batch), card, profile_dir,
+                                                 f"one_step_float_{tag}", top=12),
+            }
+            for which, prof in t["profile"].items():
+                groups = kernel_groups(prof)
+                prof["groups"] = groups
+                log(f"{which} ({path}) kernel groups: " + "; ".join(
+                    f"{g} {ms:.3f} ms x{n}" for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]))
+                    + f" [{card}]")
+        timings[path] = t
+        launches = {k: launches.get(k, 0) + serve[k] for k in serve}
+
+    # the dense layer: card against CPU bit for bit at every recorded shape,
+    # on the recorded activations and on the same rows in bf16
+    padded = 0
+    for (path, M, K, N), (x, w_q, ws) in sorted(dense.items()):
+        for xx in (x, x.to(torch.bfloat16)):
+            got = quant.dense_int8(xx, w_q, ws).cpu()
+            want = quant.dense_int8(xx.cpu(), w_q.cpu(), ws.cpu())
+            if not torch.equal(got, want):
+                raise AssertionError(f"dense_int8 card vs CPU differs at {path} M={M} K={K} N={N} {xx.dtype}")
+        padded += bool(M < quant.MIN_ROWS or K % quant.WIDTH_MULTIPLE or N % quant.WIDTH_MULTIPLE)
+    shapes = sorted({k[1:] for k in dense})
+    log(f"int8 dense: card equals CPU bit for bit at {len(shapes)} shapes (float32 and bf16 inputs), {padded} "
+        f"of them padded for _int_mm: {shapes}")
+    timings["dense_shapes"] = [list(s) for s in shapes]
+    return launches, timings
 
 
 def timed(phase, *args):
@@ -3278,9 +3699,11 @@ def main(argv=None) -> int:
         name: timed(phase_model, card, peaks, args.seed, name, args.profile) for name in ("cylinder", "plate")
     }
     hgn_launches, hgn_timings = timed(phase_hgn, card, peaks, args.seed, args.profile)
+    int8_launches, int8_timings = timed(phase_int8, card, args.seed, args.profile)
+    cli_timings = timed(phase_cli, card)
     launches = {
         k: serve_launches[k] + halo_launches[k] + train_launches[k] + task_launches[k] + rmp_launches[k]
-        + sum(run[0][k] for run in model_runs.values()) + hgn_launches[k]
+        + sum(run[0][k] for run in model_runs.values()) + hgn_launches[k] + int8_launches[k]
         for k in serve_launches
     }
 
@@ -3364,6 +3787,8 @@ def main(argv=None) -> int:
                     **{name: {"launches": run[0], "timings": run[1], "kernels": model_kernels[name]}
                        for name, run in model_runs.items()},
                     "hgn_plate": {"launches": hgn_launches, "timings": hgn_timings, "kernels": hgn_kernels},
+                    "int8": {"launches": int8_launches, "timings": int8_timings},
+                    "cli_s": cli_timings,
                     "kernels": kernels,
                 },
                 f, indent=1,

@@ -27,6 +27,7 @@ from hyper_graph_nets_tpu_torch.nn.meshgraphnet import (
     network_apply,
     network_init,
 )
+from hyper_graph_nets_tpu_torch.nn.quant import quantize_network
 from hyper_graph_nets_tpu_torch.ops import reorder
 from hyper_graph_nets_tpu_torch.ops.fused_block import SegmentPlan, plan_segments
 from hyper_graph_nets_tpu_torch.ops.segment_pna import SortedPlan, sorted_plan
@@ -307,13 +308,13 @@ class SystemModel:
         return self.update(state, frame, self.forward(state, graph)), aux
 
     def inference_state(self, state: ModelState) -> ModelState:
-        """State for inference; int8 serving is a later slice of the port."""
-        if self.params["model"].get("inference_quant") == "int8":
-            raise NotImplementedError(
-                "inference_quant 'int8' comes with the int8 serving slice "
-                "(ROADMAP slice 9)"
-            )
-        return state
+        """State for inference, honouring ``model.inference_quant``: with
+        ``int8`` a new state whose every MLP weight is per-channel int8
+        (``nn/quant.py``; the forward then runs W8A8 products), ``state``
+        itself left float; anything else returns ``state`` unchanged."""
+        if self.params["model"].get("inference_quant") != "int8":
+            return state
+        return state.replace(params=quantize_network(state.params))
 
     # -- shared helpers ----------------------------------------------------
     def _normalize(

@@ -76,6 +76,7 @@ from hyper_graph_nets_tpu_torch.core.segment_ops import (
     pna_gather,
 )
 from hyper_graph_nets_tpu_torch.nn.mlp import MLP, dense
+from hyper_graph_nets_tpu_torch.nn import quant
 from hyper_graph_nets_tpu_torch.ops.segment_pna import MAX_EDGE_BLOCK_BYTES, pna_sorted
 
 CANONICAL_EDGE_ORDER: Tuple[str, ...] = (
@@ -255,9 +256,17 @@ def _update_edge_features(
     L = all_nodes.shape[-1]
     ws, wr, we = _first_layer_parts(eparams, L)
     latent = ws.shape[0]
-    node_part = dense(all_nodes, torch.cat([ws, wr], dim=0), cfg.cd)
+    if eparams.quantized:
+        # int8 inference: the row split keeps the whole first layer's
+        # per-channel scales; activations are quantized per node row (over L)
+        # and per edge row (over the edge features), as in the JAX package
+        scale = eparams.wscales[0]
+        node_part = quant.dense_int8(all_nodes, torch.cat([ws, wr], dim=0), torch.cat([scale, scale]))
+        e_part = quant.dense_int8(es.features, we, scale)
+    else:
+        node_part = dense(all_nodes, torch.cat([ws, wr], dim=0), cfg.cd)
+        e_part = dense(es.features, we, cfg.cd)
     s_part, r_part = node_part[..., :latent], node_part[..., latent:]
-    e_part = dense(es.features, we, cfg.cd)
     b1 = eparams.biases[0]
     if cfg.cd is not None:
         b1 = b1.to(cfg.cd)
@@ -292,11 +301,13 @@ def _gather_dense_ok(es: EdgeSet, idx: Optional[torch.Tensor] = None) -> bool:
 
 
 def _fused_mlp_shape_ok(eparams: MLP, es: EdgeSet, cfg: GNNConfig) -> bool:
-    """The ``[3L -> L -> L -> L]`` + LayerNorm structure the kernel hard-codes."""
+    """The ``[3L -> L -> L -> L]`` + LayerNorm float structure the kernel
+    hard-codes (an int8 edge model stays unfused, as in the JAX package)."""
     L = cfg.latent_size
     w = eparams.weights
     return (
-        eparams.num_layers == 3
+        not eparams.quantized
+        and eparams.num_layers == 3
         and eparams.layer_norm
         and tuple(w[0].shape) == (L, 3 * L)
         and tuple(w[1].shape) == (L, L)

@@ -11,6 +11,12 @@ compute dtype the matmul inputs are cast to it, products accumulate in
 float32 and the output is rounded once to the compute dtype; the bias add
 runs in the compute dtype; LayerNorm statistics are float32 with eps 1e-5
 and the result is cast back to the input dtype.
+
+An MLP built with ``wscales`` holds int8 codes in ``weights`` (the int8
+inference form, ``nn/quant.py``): each layer is then ``dense_int8(x) + b``,
+the bias cast to the compute dtype and the sum promoted as PyTorch (and the
+JAX package) promote it, so under bf16 a float32 product plus a bf16 bias
+is float32, as in ``mlp_apply_tail``.
 """
 from __future__ import annotations
 
@@ -19,6 +25,8 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+
+from hyper_graph_nets_tpu_torch.nn import quant
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, compute_dtype: Optional[torch.dtype]):
@@ -56,9 +64,15 @@ class MLP(nn.Module):
         biases: Sequence[torch.Tensor],
         ln_scale: Optional[torch.Tensor] = None,
         ln_bias: Optional[torch.Tensor] = None,
+        wscales: Optional[Sequence[torch.Tensor]] = None,
     ):
         super().__init__()
-        self.weights = nn.ParameterList([nn.Parameter(w) for w in weights])
+        # int8 codes carry no gradient
+        grad = wscales is None
+        self.weights = nn.ParameterList([nn.Parameter(w, requires_grad=grad) for w in weights])
+        self.wscales = None if grad else nn.ParameterList(
+            [nn.Parameter(s, requires_grad=False) for s in wscales]
+        )
         self.biases = nn.ParameterList([nn.Parameter(b) for b in biases])
         self.layer_norm = ln_scale is not None
         if self.layer_norm:
@@ -93,6 +107,10 @@ class MLP(nn.Module):
     def num_layers(self) -> int:
         return len(self.weights)
 
+    @property
+    def quantized(self) -> bool:
+        return self.wscales is not None
+
     def forward(
         self,
         x: torch.Tensor,
@@ -111,7 +129,10 @@ class MLP(nn.Module):
             b = self.biases[i]
             if compute_dtype is not None:
                 b = b.to(compute_dtype)
-            x = dense(x, self.weights[i], compute_dtype) + b
+            if self.quantized:
+                x = quant.dense_int8(x, self.weights[i], self.wscales[i]) + b
+            else:
+                x = dense(x, self.weights[i], compute_dtype) + b
             if i < n - 1:
                 x = torch.relu(x)
         if self.layer_norm:

@@ -9,13 +9,17 @@ edge-block kernel (``ops/fused_block.py``).  With ``model.graph_balancer``
 set, each call resets the expansion and runs its ``prepare`` (SDRF, whose
 curvature runs K5, ``ops/maxprod.py``), as the JAX package's
 ``_prepare_expansion`` does, unless the caller passes a prepared ``static``;
-every graph is then expanded after ``make_graph``.
+every graph is then expanded after ``make_graph``.  With
+``model.inference_quant: int8`` (or ``quantize="int8"``) it serves W8A8
+int8 weights (``nn/quant.py``): every dense layer an int8 product on the
+card, no set through the fused kernels.
 
 Example::
 
     from hyper_graph_nets_tpu_torch.serving import Predictor
     p = Predictor.from_config("flag_full_scale")   # on the card
     p = Predictor.from_config("flag_fused_demo", checkpoint="data/flag_simple/output")
+    p = Predictor.from_config("plateCluster", checkpoint=out_dir, quantize="int8")
     preds = p.one_step(trajectory)                 # [B, N, 3] next positions
     result = p.rollout(trajectory, num_steps=50)   # pred_pos, gt_pos, mse, ...
 """
@@ -42,7 +46,9 @@ class Predictor:
 
     ``device`` defaults to the card and raises when there is none; pass
     ``device="cpu"`` to run the plain PyTorch path on the CPU.  ``state``
-    defaults to a random init from seed 0.
+    defaults to a random init from seed 0.  ``quantize`` overrides the
+    config's ``model.inference_quant`` (``"int8"``); the state served is
+    ``model.inference_state`` of ``state``, which stays as it was.
     """
 
     def __init__(
@@ -50,12 +56,15 @@ class Predictor:
         config: dict,
         state: Optional[ModelState] = None,
         device=None,
+        quantize: Optional[str] = None,
     ):
         self.device = resolve_device(device)
         # own the config: nothing below may mutate the caller's dict
         config = copy.deepcopy(config)
         self.config = config
         self.params = config.get("params", config)
+        if quantize is not None:
+            self.params["model"]["inference_quant"] = quantize
         self.model = get_model(config)
         # the graph balancer or remote message passing, or None
         self.expansion = build_expansion(self.model, config)
@@ -70,6 +79,7 @@ class Predictor:
         config_or_name,
         checkpoint: Optional[str] = None,
         device=None,
+        quantize: Optional[str] = None,
     ) -> "Predictor":
         """Build from a config name under ``configs/`` or a config dict,
         with the state of ``checkpoint`` when given: a checkpoint file (the
@@ -83,7 +93,7 @@ class Predictor:
         state = None
         if checkpoint is not None:
             state = ckpt.load_model_state(ckpt.find(checkpoint, config), get_model(config))
-        return cls(config, state=state, device=device)
+        return cls(config, state=state, device=device, quantize=quantize)
 
     def _topology(self, trajectory: Dict[str, np.ndarray]) -> Topology:
         key = mesh_fingerprint(

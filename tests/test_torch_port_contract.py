@@ -177,9 +177,10 @@ def _with(**model):
         # HDBSCAN needs scikit-learn's algorithms, which the port does not copy
         _with(rmp={"clustering": "hdbscan", "connector": "hyper"}),
         _with(graph_balancer={"algorithm": "forman"}),  # no such balancer
-        _with(inference_quant="int8"),
+        # k-means needs scikit-learn's KMeans and StandardScaler (ROADMAP queue 1, item 3)
+        _with(rmp={"clustering": "kmeans", "connector": "hyper"}),
     ],
-    ids=["rmp", "balancer", "int8"],
+    ids=["rmp", "balancer", "kmeans"],
 )
 def test_later_slices_raise(config):
     with pytest.raises(NotImplementedError):

@@ -64,6 +64,14 @@ plate train step (2 hierarchical blocks, fused tiers off and on) twice bit
 for bit and against the CPU: loss rtol 1e-4, gradients within relative L2
 1e-3 (1e-2 for the cluster tier, whose few rows carry the cluster means'
 float32 rounding).
+
+Int8 serving (``nn/quant.py``): ``dense_int8`` on the card bit for bit with
+the CPU on shapes that ``torch._int_mm`` refuses unpadded (few rows, inner
+or output widths not multiples of 8); int8 ``one_step`` of a small flag and
+of HGN plate on the card against the CPU from one float state, with no K1
+launch, within the int8 limits of tests/test_torch_port_int8.py (95% of
+the elements within rtol 1e-5, atol 1e-6; all within 1% of the largest
+move).
 """
 import numpy as np
 import pytest
@@ -1336,3 +1344,114 @@ def test_hgn_plate_train_step_on_card(fused_tiers):
     for k, g in gc.items():
         limit = 1e-2 if any(t in k for t in tier) else 1e-3
         assert float((gg[k] - g).norm()) <= limit * float(g.norm()), k
+
+
+# -- int8 (W8A8) serving ------------------------------------------------------------
+
+
+INT8_SHAPES = [
+    (5, 4, 128),  # under _int_mm's 17 rows, K under 8: the world-edge encoder on few edges
+    (16, 640, 128),  # 16 hyper rows
+    (2000, 12, 128),  # K not a multiple of 8
+    (2000, 128, 3),  # the decoder's last layer
+    (2000, 7, 2),
+    (3200, 128, 256),  # a node part: [ws; wr]
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("M, K, N", INT8_SHAPES, ids=[f"M{m}-K{k}-N{n}" for m, k, n in INT8_SHAPES])
+def test_dense_int8_on_card_equals_cpu_bit_for_bit(M, K, N, dtype):
+    """``dense_int8`` on the card (operands zero-padded to ``_int_mm``'s
+    rules) against the CPU on the same inputs: bit for bit (the int32
+    product is exact; the quantization and the epilogue are the same
+    float32 operations in the same order), one ``_int_mm`` launch."""
+    from hyper_graph_nets_tpu_torch.nn import quant
+
+    _need_card()
+    gen = torch.Generator().manual_seed(M + K + N)
+    x = (torch.randn(M, K, generator=gen) * 4 * torch.rand(M, 1, generator=gen)).to(dtype)
+    x[min(3, M - 1)] = 0.0
+    w_q, ws = quant.quantize_weight(0.3 * torch.randn(N, K, generator=gen))
+    want = quant.dense_int8(x, w_q, ws)
+    before = quant.int8_matmul.calls
+    got = quant.dense_int8(x.cuda(), w_q.cuda(), ws.cuda())
+    assert quant.int8_matmul.calls == before + 1
+    assert got.dtype == dtype and torch.equal(got.cpu(), want)
+
+
+def _int8_layers_against_cpu(card, cpu, batch, monkeypatch):
+    """The card's int8 one_step on ``batch`` layer by layer against the
+    CPU's: the CPU's one_step records its dense layers' weights in call
+    order, then the card's feeds each layer's input to the CPU layer of its
+    rank.  Returns ``(dense layers, of them not bit for bit with the CPU's,
+    the card's output)``.  Whole models are not compared: an activation one
+    rounding from a code boundary may take the other code on the other
+    device, and the next layers carry it on (tests/test_torch_port_int8.py)."""
+    from hyper_graph_nets_tpu_torch.nn import quant
+
+    dense, weights, mismatched = quant.dense_int8, [], []
+
+    def recording(x, w_q, wscale):
+        weights.append((w_q, wscale))
+        return dense(x, w_q, wscale)
+
+    def checking(x, w_q, wscale):
+        y = dense(x, w_q, wscale)
+        i = len(mismatched)
+        mismatched.append(i >= len(weights) or not torch.equal(y.cpu(), dense(x.cpu(), *weights[i])))
+        return y
+
+    with monkeypatch.context() as mp:
+        mp.setattr(quant, "dense_int8", recording)
+        cpu.one_step(batch)
+        mp.setattr(quant, "dense_int8", checking)
+        got = card.one_step(batch)
+    return len(mismatched), sum(mismatched) + abs(len(mismatched) - len(weights)), got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agg_vjp", ["fused", "sorted"])
+def test_int8_flag_one_step_on_card_matches_cpu(agg_vjp, monkeypatch):
+    """``Predictor(quantize="int8")`` on a 2-block bf16 flag, on the card
+    against the CPU from one float state: no K1 launch (an int8 set never
+    fuses), 2 K4f with ``sorted``, 23 int8 products (the encoders' 3 + 3,
+    each block's edge update 4 and node model 3, the decoder's 3), each bit
+    for bit with the CPU's dense layer on the card's input."""
+    from hyper_graph_nets_tpu_torch.nn import quant
+
+    _need_card()
+    config = flag_config("bfloat16", agg_vjp=agg_vjp)
+    traj = add_targets(flag_trajectory(num_steps=5, nx=10, ny=10), "world_pos", True)
+    state = get_model(config).init_state()
+    card = Predictor(config, state=state, quantize="int8")
+    cpu = Predictor(config, state=state, device="cpu", quantize="int8")
+    before = (fused_edge_block.launches, pna_sorted.launches, quant.int8_matmul.calls)
+    got = card.one_step(traj)
+    launched = tuple(n - b for n, b in zip(
+        (fused_edge_block.launches, pna_sorted.launches, quant.int8_matmul.calls), before))
+    assert launched == (0, 2 if agg_vjp == "sorted" else 0, 23)
+    assert np.isfinite(got).all()
+    assert _int8_layers_against_cpu(card, cpu, traj, monkeypatch)[:2] == (23, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_tiers", [False, True], ids=["tiers_off", "tiers_on"])
+def test_int8_hgn_plate_one_step_on_card_matches_cpu(fused_tiers, monkeypatch):
+    """HGN plate (plateCluster cut to 2 hierarchical blocks, latent 32, 4
+    clusters, float32) served int8 on the card against the CPU from one
+    float state, each call reclustering its first frame on the host: no K1
+    launch with the tiers off or on, and every dense layer bit for bit with
+    the CPU's on the card's input."""
+    _need_card()
+    traj = _model_trajectory("plate")
+    batch = {k: v[8:12] for k, v in traj.items()}
+    config = _hgn_config(fused_tiers)
+    state = get_model(config).init_state()
+    card = Predictor(config, state=state, quantize="int8")
+    cpu = Predictor(config, state=state, device="cpu", quantize="int8")
+    before = fused_edge_block.launches
+    layers, bad, got = _int8_layers_against_cpu(card, cpu, batch, monkeypatch)
+    assert fused_edge_block.launches == before and np.isfinite(got).all()
+    assert layers > 0 and bad == 0
