@@ -67,7 +67,21 @@ Phases (any failure exits non-zero; nothing is caught and dropped):
    (K6) and ``fused`` with overlap (K7): the launch counts of one forward
    (15 per rank), the same forward again bit for bit on every rank, every
    rank against the single-device forward on the card and against the CPU,
-   ms per forward (50 calls) beside the single-device forward;
+   ms per forward (20 calls) beside the single-device forward; then the
+   sharded train step (``phase_spmd``, under a watchdog): the same
+   configuration trained through ``parallel.sharding.make_spmd_train_step``
+   on a 2 x 2 rank group (B = 16, K1 raw + the plain all-reduce, K2) and a
+   1 x 4 group with overlap bands (B = 8, batched K7, K2), all ranks on the
+   card, with 60 K1 or K7 and 60 K2 a step counted in advance, loss and
+   gradients against the single-device step on the card (``SPMD_TOL``),
+   twice bit for bit, step ms and edges/s; on the bf16 2 x 2 run a lost
+   shard's K2 output must miss the limit (the local-degree control's
+   reading logged); a float32 run of each group (on 1 x 4 the local-degree
+   control must miss the float32 limit; on 2 x 2, where no receiver's
+   edges are split, its reading is logged);
+   K1 raw at B = 8, K2 at the global degree on both
+   layouts, batched K7 and K6/K7 on sub-rings against their plain versions;
+   the halo forward on a 2 x 2 group (ring: K6, overlap: K7);
 5. training: ``Trainer.train_step`` on the same configuration, B = 21, Adam
    at lr 1e-4, noise 0.003, gamma 0.9, with ``fused_bwd: remat``, then
    ``stream``, then ``agg_vjp: sorted``, then remat with the balancer; the
@@ -1050,7 +1064,7 @@ def phase_sdrf(card, topo_np):
 HALO_RANKS = 4  # the halo forward's rank group, all on cuda:0
 HALO_BANDS = 4  # K7's node-row bands
 HALO_CHUNK = 256  # the round-robin layout's chunk (the JAX package's default_chunk())
-HALO_TIMED = 50  # halo forwards timed per path
+HALO_TIMED = 20  # halo forwards timed per path
 RING_CALLS = 100  # K6 calls in a row (the epochs)
 
 
@@ -1467,6 +1481,416 @@ def phase_halo(card, seed):
             f"of max {scale:.3g} [{card}]"
         )
     return launches, timings
+
+
+# The sharded train step (phase_spmd): flag MGN-15MP trained over a data x
+# graph rank group on the one card, each group with the frames the contract
+# names: (data, graph), K7's overlap bands (None: K1 raw + the plain
+# all-reduce), frames per step.
+SPMD_GROUPS = (((2, 2), None, 16), ((1, 4), HALO_BANDS, 8))
+SPMD_STEPS = (1, 3)  # warm-up and timed sharded steps per group
+# The sharded step against the single-device step on the card, same state
+# and noise, both on the card (the aggregates sum the ranks' partials in
+# another order; in bf16 a rounding may go the other way and pass through 15
+# blocks): loss relative error and each gradient's relative L2.  bf16: set
+# from this phase's own readings on an H100 (loss 1.05e-5 and 4.08e-6,
+# worst gradient 3.16e-3 on 2 x 2 and 6.25e-3 on 1 x 4), about 3x the
+# larger; the bf16 2 x 2 run also holds two planted faults: one graph rank's
+# shard losing its K2 output (dsp, drp, de and its weight gradients), which
+# must miss the limit, and the local-degree control (each shard's own
+# in-degree in the mean cotangent, the JAX package's sharded backward),
+# whose reading is logged.  float32: TRAIN_TOL's (reading 1.46e-4 on 1 x 4);
+# both groups run it.  On 1 x 4 the local-degree control must miss it: with
+# 256-edge chunks dealt round-robin every chunk boundary splits a receiver's
+# edges over two ranks.  On 2 x 2 the two contiguous slices of the 40x40
+# flag's 9,282 receiver-sorted edges meet between receivers 799 and 800, so
+# no receiver's edges are split and the control's gradients are the sound
+# run's (9.5e-5 on an H100): its reading is logged, and the lost shard
+# above is that layout's planted fault.
+SPMD_TOL = {"float32": TRAIN_TOL["float32"], "bfloat16": (1e-4, 2e-2)}
+SPMD_WATCHDOG_S = 300  # the phase fails (traceback of every thread, exit 1) past this
+
+
+@contextlib.contextmanager
+def lost_shard_grads(graph):
+    """A planted fault for the sharded step: the K2 outputs of every data
+    row's last graph rank's shard (``de``, ``dsp``, ``drp`` and its weight
+    gradients) come back as zeros, as if that shard's backward were lost."""
+    from hyper_graph_nets_tpu_torch.ops import fused_block as fb
+
+    kept, calls = fb._edge_block_grads, [0]
+
+    def lost(*args, **kwargs):
+        out = kept(*args, **kwargs)
+        calls[0] += 1
+        return tuple(t.new_zeros(t.shape) for t in out) if calls[0] % graph == 0 else out
+
+    fb._edge_block_grads = lost
+    try:
+        yield
+    finally:
+        fb._edge_block_grads = kept
+
+
+def phase_spmd(card, peaks, seed, profile_dir=None):
+    """Train flag MGN-15MP (configs/flag_full_scale.yaml, RMP off) through
+    ``parallel.sharding.make_spmd_train_step`` on a 2 x 2 group (K1 raw +
+    the plain all-reduce forward, K2 backward) and a 1 x 4 group with
+    overlap bands (batched K7 forward, K2 backward), all ranks on the one
+    card; the launches counted in advance; loss and gradients against the
+    single-device step on the card; two runs bit for bit; step ms and
+    edges/s; planted faults that must miss the limits (a lost shard's K2
+    output in bf16 on 2 x 2, the local-degree control in float32 on 1 x 4;
+    the control's readings on the other runs logged).  Each new kernel mode against its plain version: K1 raw at
+    B = 8 per shard, K2 at the global degree on both layouts, batched K7,
+    K6 and K7 on the sub-rings of a 2 x 2 group; the 2-D halo forward (ring:
+    K6, overlap: K7) on every rank against the single-device forward.  A
+    watchdog ends the run (exit 1, every thread's traceback) if the phase
+    hangs.  With ``profile_dir``, one traced sharded step (loss and
+    backward) of each group and the single-device step beside it."""
+    import dataclasses
+    import faulthandler
+
+    import numpy as np
+    import torch
+
+    from hyper_graph_nets_tpu_torch.data.preprocessing import add_targets
+    from hyper_graph_nets_tpu_torch.data.synthetic import flag_trajectory
+    from hyper_graph_nets_tpu_torch.models.get_model import get_model
+    from hyper_graph_nets_tpu_torch.ops import fused_block as fb
+    from hyper_graph_nets_tpu_torch.ops.fused_overlap import (
+        fused_edge_block_overlap,
+        fused_edge_block_overlap_reference,
+    )
+    from hyper_graph_nets_tpu_torch.ops.ring import (
+        ring_all_reduce_segments,
+        ring_all_reduce_segments_reference,
+    )
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+    from hyper_graph_nets_tpu_torch.parallel.halo import make_halo_forward, shard_graph, split_graph
+    from hyper_graph_nets_tpu_torch.parallel.sharding import (
+        RankPlans,
+        make_spmd_train_step,
+        shard_frames,
+        shard_topology,
+    )
+    from hyper_graph_nets_tpu_torch.training.trainer import Trainer
+
+    faulthandler.dump_traceback_later(SPMD_WATCHDOG_S, exit=True)
+    log(f"spmd: watchdog armed ({SPMD_WATCHDOG_S} s)")
+    t_phase = time.perf_counter()
+    B_max = max(b for _, _, b in SPMD_GROUPS)
+    traj = add_targets(flag_trajectory(num_steps=B_max + 2, nx=40, ny=40, seed=seed), "world_pos", history=True)
+    every = {k: torch.as_tensor(v) for k, v in traj.items() if k != "cells"}
+    group_of = lambda shape: RankGroup(*shape, devices=["cuda:0"] * (shape[0] * shape[1]))
+
+    def setup(**model_cfg):
+        config = main_config(**model_cfg)
+        config["params"]["model"].update(noise=0.003, gamma=0.9, learning_rate=1e-4)
+        model = get_model(config)
+        trainer = Trainer(model, config)
+        state = model.init_state(torch.Generator().manual_seed(seed))
+        with torch.no_grad():  # normalizers over the trajectory, as a run's would be
+            topo_cpu = model.topology_from_trajectory(traj, device="cpu")
+            _, _, state = model.make_graph(state, topo_cpu, every, True)
+            _, state = model.get_target(state, every, True)
+        return model, trainer, state, model.topology_from_trajectory(traj, device="cuda")
+
+    def grads_of(params):
+        return {n: p.grad.detach().clone() for n, p in params.named_parameters()}
+
+    def compare(tag, dtype_name, loss, grads, ref_loss, ref_grads):
+        loss_tol, grad_tol = SPMD_TOL[dtype_name]
+        loss_err = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        worst = max((rel_l2(grads[n], ref_grads[n]), n) for n in ref_grads)
+        ok = loss_err <= loss_tol and worst[0] <= grad_tol
+        return ok, loss_err, worst
+
+    def local_degree(st):  # the control: every shard's plan without the global degree
+        return st._replace(plan=RankPlans(tuple(dataclasses.replace(p, degree=None) for p in st.plan.plans)))
+
+    def readings(found):
+        return {k: dict(passed=v[0], loss_rel_err=v[1], worst_grad_rel_l2=v[2][0], worst_grad=v[2][1])
+                for k, v in found.items()}
+
+    launches, timings, rows = dict.fromkeys(read_counts(), 0), {}, {}
+    model, trainer, state, topo = setup()
+    cfg = model.gnn_config
+    check_mgn15(cfg)
+    blocks, N, L = cfg.message_passing_steps, 1600, L_MAIN
+    E = int(topo.senders.shape[0])
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+
+    for shape, bands, B in SPMD_GROUPS:
+        group = group_of(shape)
+        tag = f"{shape[0]}x{shape[1]}" + (f" overlap {bands}" if bands else "")
+        kernel = "K7" if bands else "K1"
+        frames = {k: v[:B].cuda() for k, v in every.items()}
+        normal = torch.randn(frames["world_pos"].shape, generator=gen, device="cuda")
+        stopo = shard_topology(topo, group, overlap_bands=bands)
+        E_pad = int(stopo.senders.shape[0])
+        ts = trainer.init_train_state(state=state)
+        ref_loss, _ = trainer.loss_and_grads(ts, topo, frames, normal=normal)
+        ref_grads = grads_of(ts.model.params)
+        step = make_spmd_train_step(trainer, stopo, group)
+
+        # the main path: every count set to 0 just before, read just after
+        reset_counts()
+        loss, norms = step.loss_and_grads(ts, frames, normal=normal)
+        group.check()
+        counts = read_counts()
+        want = dict.fromkeys(counts, 0)
+        want[kernel] = want["K2"] = blocks * group.n
+        if counts != want:
+            raise AssertionError(f"sharded step {tag}: launches {counts}, want {want}")
+        for k in launches:
+            launches[k] += counts[k]
+        grads = grads_of(ts.model.params)
+        ok, loss_err, worst = compare(tag, "bfloat16", loss, grads, ref_loss, ref_grads)
+        if not ok or not np.isfinite(float(loss)):
+            raise AssertionError(f"sharded step {tag} vs single-device: loss rel {loss_err:.3g}, worst "
+                                 f"gradient {worst}, limits {SPMD_TOL['bfloat16']}")
+        loss2, norms2 = step.loss_and_grads(ts, frames, normal=normal)
+        grads2 = grads_of(ts.model.params)
+        if not (torch.equal(loss, loss2) and all(torch.equal(grads[n], grads2[n]) for n in grads)
+                and all(torch.equal(getattr(norms[k], f), getattr(norms2[k], f)) for k in norms
+                        for f in ("acc_count", "acc_sum", "acc_sum_squared"))):
+            raise AssertionError(f"sharded step {tag}: a second run differs from the first")
+        if not bands:  # the planted faults, against the bf16 limit
+            planted = {}
+            for fault, st, ctx in (("lost shard", stopo, lost_shard_grads(shape[1])),
+                                   ("local degree", local_degree(stopo), contextlib.nullcontext())):
+                with ctx:
+                    floss, _ = make_spmd_train_step(trainer, st, group).loss_and_grads(ts, frames, normal=normal)
+                planted[fault] = compare(fault, "bfloat16", floss, grads_of(ts.model.params), ref_loss, ref_grads)
+            group.check()
+            if planted["lost shard"][0]:
+                raise AssertionError(f"sharded step {tag}: a lost shard's K2 output passed the bf16 limits "
+                                     f"{SPMD_TOL['bfloat16']}: {planted['lost shard']}")
+            timings[f"{tag} planted (bf16)"] = readings(planted)
+            log(f"sharded step {tag} bf16 planted faults vs single-device: a lost shard's K2 output worst "
+                f"gradient rel L2 {planted['lost shard'][2][0]:.3g} ({planted['lost shard'][2][1]}) misses the "
+                f"limit {SPMD_TOL['bfloat16'][1]}; the local-degree control "
+                f"{planted['local degree'][2][0]:.3g} ({planted['local degree'][2][1]}) [{card}]")
+
+        # step time: the full step (Adam included) on a state of its own
+        tst = trainer.init_train_state(state=state)
+        for _ in range(SPMD_STEPS[0]):
+            tst, _ = step(tst, frames, normal=normal)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SPMD_STEPS[1]):
+            tst, last = step(tst, frames, normal=normal)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / SPMD_STEPS[1]
+        group.check()
+        tsd = trainer.init_train_state(state=state)
+        for _ in range(SPMD_STEPS[0]):
+            tsd, _ = trainer.train_step(tsd, topo, frames, normal=normal)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SPMD_STEPS[1]):
+            tsd, _ = trainer.train_step(tsd, topo, frames, normal=normal)
+        torch.cuda.synchronize()
+        single_ms = 1e3 * (time.perf_counter() - t0) / SPMD_STEPS[1]
+        if not np.isfinite(float(last)):
+            raise AssertionError(f"sharded step {tag}: loss {float(last)} after {sum(SPMD_STEPS)} steps")
+        if profile_dir:
+            device_profile(lambda: step.loss_and_grads(ts, frames, normal=normal), card, profile_dir,
+                           f"spmd_{shape[0]}x{shape[1]}")
+            device_profile(lambda: trainer.loss_and_grads(ts, topo, frames, normal=normal), card, profile_dir,
+                           f"single_device_B{B}")
+        timings[tag] = dict(
+            B=B, ranks=group.n, edges=E, edges_padded=E_pad, edges_per_rank=E_pad // shape[1],
+            step_ms=ms, edges_per_s=B * E / (ms / 1e3), padded_edges_per_s=B * E_pad / (ms / 1e3),
+            single_device_step_ms=single_ms, loss_rel_err=loss_err, worst_grad_rel_l2=worst[0],
+            worst_grad=worst[1], launches=counts,
+        )
+        log(
+            f"sharded step {tag} (flag MGN-15MP bf16, 40x40, B={B}, {group.n} ranks on one card, "
+            f"{E_pad // shape[1]} edges per graph rank): {counts[kernel]} {kernel} + {counts['K2']} K2 "
+            f"({blocks} blocks x {group.n} ranks); vs single-device step: loss rel {loss_err:.3g}, worst "
+            f"gradient rel L2 {worst[0]:.3g} ({worst[1]}); a second run bit for bit; {ms:.1f} ms per step "
+            f"(host clock, Adam included; single-device step at B={B} {single_ms:.1f} ms), "
+            f"{B * E / (ms / 1e3):.4g} edges/s ({B * E_pad / (ms / 1e3):.4g} padded) [{card}]"
+        )
+
+        # the kernels' new modes at this group's shapes, against their plain versions
+        with torch.no_grad():
+            graph, _, _ = model.make_graph(ts.model, stopo, shard_frames(frames, group)[0], False)
+        g0 = shard_graph(graph, group, 0)
+        es = g0.edge_sets["mesh_edges"]
+        Bk, E_shard = B // shape[0], es.num_edges
+        x = k1_inputs(torch.bfloat16, Bk, es.senders.cpu().numpy(), es.receivers.cpu().numpy(), N, L,
+                      torch.Generator().manual_seed(seed + 12), "cuda", mask=es.mask.cpu().numpy())
+        topo_args = (x["senders"], x["receivers"], x["mask"], N)
+        plan = es.plan
+        k1b = k1_bound_ms("bfloat16", Bk, E_shard, N, L, peaks)
+        k2b = bwd_bound_ms("bfloat16", Bk, E_shard, N, L, peaks, False)
+        if not bands:
+            run1 = lambda: fb.fused_edge_block_fwd(x["e"], x["sp"], x["rp"], x["weights"], *topo_args, plan, raw=True)
+            got = run1()
+            want1 = fb.fused_edge_block_reference(x["e"], x["sp"], x["rp"], x["weights"], *topo_args, raw=True)
+            err = max(check_close(f"K1 raw B={Bk} shard e2", got[0], want1[0], *TOL["bfloat16"]["e2"]),
+                      check_close(f"K1 raw B={Bk} shard agg", got[1], want1[1], *TOL["bfloat16"]["agg"]))
+            rows["K1 raw"] = dict(
+                max_abs_err=err, ms=kernel_device_ms(run1, iters=20, names="fused_block_fwd_kernel"),
+                plain_ms=cuda_time_ms(lambda: fb.fused_edge_block_reference(
+                    x["e"], x["sp"], x["rp"], x["weights"], *topo_args, raw=True), iters=5),
+                bound_ms=k1b[0], bound_by=k1b[1], shape=f"bf16 B={Bk} E={E_shard} N={N} (2 x 2 shard)",
+            )
+        # K2 at the global degree on this layout: drhs from the kernel's own forward
+        e2, agg = fb.fused_edge_block_fwd(x["e"], x["sp"], x["rp"], x["weights"], *topo_args, plan)
+        dagg = torch.randn(agg.shape, generator=gen, device="cuda")
+        de2 = torch.randn(x["e"].shape, generator=gen, device="cuda").to(torch.bfloat16)
+        drhs = fb.agg_cotangent_rhs(agg, dagg, x["receivers"], x["mask"], N, plan.degree)
+        run2 = lambda: fb.fused_edge_block_bwd(x["e"], x["sp"], x["rp"], x["weights"], de2, drhs, *topo_args, plan=plan)
+        got2 = run2()
+        fwd_vals = fb.fused_edge_block_fwd(x["e"], x["sp"], x["rp"], x["weights"], *topo_args, plan, save_streams=True)
+        want2 = fb.fused_edge_block_bwd_reference(x["e"], x["sp"], x["rp"], x["weights"], de2, drhs, *topo_args,
+                                                  forward=(fwd_vals[0], fwd_vals[2], fwd_vals[3]))
+        order = lambda o: (o[0], o[1], o[2], o[3], o[6], o[7], o[8])
+        err2 = compare_bwd(f"K2 global degree {tag}", "bfloat16", order(got2), order(want2))
+        if torch.equal(plan.degree.cuda(), torch.bincount(x["receivers"][x["mask"] > 0].long(), minlength=N).float()):
+            raise AssertionError(f"K2 global degree {tag}: the shard's degree equals the global one: no test")
+        rows[f"K2 {tag}"] = dict(
+            max_abs_err=err2, ms=kernel_device_ms(run2, iters=10, names=BWD_KERNELS),
+            plain_ms=cuda_time_ms(lambda: fb.fused_edge_block_bwd_reference(
+                x["e"], x["sp"], x["rp"], x["weights"], de2, drhs, *topo_args), iters=3),
+            bound_ms=k2b[0], bound_by=k2b[1],
+            shape=f"bf16 B={Bk} E={E_shard} N={N} ({tag} shard, global degree)",
+        )
+        if bands:  # batched K7 on every rank's shard of this group
+            shards = []
+            for r in range(group.n):
+                er = shard_graph(graph, group, r).edge_sets["mesh_edges"]
+                shards.append(dict(
+                    e=torch.randn(Bk, er.num_edges, L, generator=gen, device="cuda").to(torch.bfloat16),
+                    sp=x["sp"], rp=x["rp"], weights=x["weights"], senders=er.senders, receivers=er.receivers,
+                    mask=er.mask, plan=er.plan,
+                ))
+            run7 = lambda: fused_edge_block_overlap(shards, N, group, bands)
+            got7 = run7()
+            group.check()
+            want7 = fused_edge_block_overlap_reference(shards, N, group)
+            err7 = 0.0
+            for r in range(group.n):
+                solo = fb.fused_edge_block_fwd(shards[r]["e"], x["sp"], x["rp"], x["weights"], shards[r]["senders"],
+                                               shards[r]["receivers"], shards[r]["mask"], N, shards[r]["plan"])
+                if not torch.equal(got7[r][0], solo[0]):
+                    raise AssertionError(f"batched K7 rank {r}: e2 differs from K1's on the same shard")
+                err7 = max(err7, check_close(f"batched K7 rank {r} agg", got7[r][1], want7[r][1],
+                                             *TOL["bfloat16"]["agg"]))
+            rows["K7 batched"] = dict(
+                max_abs_err=err7, ms=group_time_ms(group, run7, iters=20),
+                plain_ms=cuda_time_ms(lambda: fused_edge_block_overlap_reference(shards, N, group), iters=3),
+                bound_ms=group.n * k1b[0], bound_by=k1b[1],
+                shape=f"bf16 B={Bk} {group.n} ranks of E={E_shard}, {bands} bands, one ring pass a frame",
+            )
+
+    # float32 on both groups, each with the local-degree control
+    fmodel, ftrainer, fstate, ftopo = setup(compute_dtype=None)
+    for shape, bands, B in SPMD_GROUPS:
+        group = group_of(shape)
+        tag = f"{shape[0]}x{shape[1]}" + (f" overlap {bands}" if bands else "")
+        frames = {k: v[:B].cuda() for k, v in every.items()}
+        normal = torch.randn(frames["world_pos"].shape, generator=gen, device="cuda")
+        fts = ftrainer.init_train_state(state=fstate)
+        ref_loss, _ = ftrainer.loss_and_grads(fts, ftopo, frames, normal=normal)
+        ref_grads = grads_of(fts.model.params)
+        stopo = shard_topology(ftopo, group, overlap_bands=bands)
+        found = {}
+        for name, st in (("global degree", stopo), ("local degree (control)", local_degree(stopo))):
+            loss, _ = make_spmd_train_step(ftrainer, st, group).loss_and_grads(fts, frames, normal=normal)
+            found[name] = compare(name, "float32", loss, grads_of(fts.model.params), ref_loss, ref_grads)
+        group.check()
+        if not found["global degree"][0]:
+            raise AssertionError(f"float32 sharded step {tag} vs single-device: {found['global degree']}, "
+                                 f"limits {SPMD_TOL['float32']}")
+        if bands and found["local degree (control)"][0]:
+            raise AssertionError(f"float32 sharded step {tag}: the local-degree control passed the limits: "
+                                 f"{found['local degree (control)']}")
+        timings[f"{tag} float32 degree"] = readings(found)
+        log(f"float32 sharded step {tag} vs single-device: loss rel {found['global degree'][1]:.3g}, worst "
+            f"gradient rel L2 {found['global degree'][2][0]:.3g}; the local-degree control "
+            f"{found['local degree (control)'][2][0]:.3g} ({found['local degree (control)'][2][1]}) "
+            f"{'misses' if not found['local degree (control)'][0] else 'within'} the limit "
+            f"{SPMD_TOL['float32'][1]} [{card}]")
+
+    # the 2-D halo forward and K6/K7 on the sub-rings of a 2 x 2 group
+    group = group_of((2, 2))
+    frame = {k: v[0].cuda() for k, v in every.items()}
+    for path, agg_vjp, ring, overlap, kernel in (("ring", "xla", True, False, "K6"),
+                                                 ("overlap", "fused", False, True, "K7")):
+        hmodel = get_model(main_config(agg_vjp=agg_vjp))
+        hstate = state.to("cuda")
+        htopo = hmodel.topology_from_trajectory(traj, device="cuda")
+        hst = shard_topology(htopo, group, overlap_bands=HALO_BANDS if overlap else None)
+        with torch.no_grad():
+            graph, _, _ = hmodel.make_graph(hstate, hst, frame, False)
+            single_graph, _, _ = hmodel.make_graph(hstate, htopo, frame, False)
+            single = hmodel.forward(hstate, single_graph)
+        rank_graphs = split_graph(graph, group)
+        fwd = make_halo_forward(hmodel, group, ring=ring, overlap=overlap)
+        reset_counts()
+        outs = fwd(hstate, rank_graphs, all_ranks=True)
+        counts = read_counts()
+        want = dict.fromkeys(counts, 0)
+        want[kernel] = blocks * group.n
+        if counts != want:
+            raise AssertionError(f"2-D halo forward ({path}): launches {counts}, want {want}")
+        for k in launches:
+            launches[k] += counts[k]
+        scale = float(single.abs().max())
+        err = max(float((o - single).abs().max()) for o in outs)
+        if err > SERVE_TOL["net_out"] * scale or not all(bool(torch.isfinite(o).all()) for o in outs):
+            raise AssertionError(f"2-D halo forward ({path}): max err {err} of max {scale}")
+        timings[f"halo 2x2 {path}"] = dict(launches=counts[kernel], max_err_vs_single=err, out_scale=scale)
+        log(f"2-D halo forward ({path}) 2 x 2 ranks: {counts[kernel]} {kernel}; every rank vs single-device "
+            f"max err {err:.3g} of max {scale:.3g} [{card}]")
+        es = [g.edge_sets["mesh_edges"] for g in rank_graphs]
+        if overlap:  # K7 on the sub-rings: each data row's two graph ranks ring on their own
+            xs = k1_inputs(torch.bfloat16, 1, es[0].senders.cpu().numpy(), es[0].receivers.cpu().numpy(), N, L,
+                           torch.Generator().manual_seed(seed + 13), "cuda")
+            shards = [dict(e=torch.randn(e.num_edges, L, generator=gen, device="cuda").to(torch.bfloat16),
+                           sp=xs["sp"][0], rp=xs["rp"][0], weights=xs["weights"], senders=e.senders,
+                           receivers=e.receivers, mask=e.mask, plan=e.plan) for e in es]
+            run = lambda: fused_edge_block_overlap(shards, N, group, HALO_BANDS)
+            got = run()
+            group.check()
+            want7 = fused_edge_block_overlap_reference(shards, N, group)
+            err7 = max(check_close(f"K7 sub-ring rank {r}", got[r][1], want7[r][1], *TOL["bfloat16"]["agg"])
+                       for r in range(group.n))
+            k1b = k1_bound_ms("bfloat16", 1, es[0].num_edges, N, L, peaks)
+            rows["K7 sub-ring"] = dict(
+                max_abs_err=err7, ms=group_time_ms(group, run, iters=20),
+                plain_ms=cuda_time_ms(lambda: fused_edge_block_overlap_reference(shards, N, group), iters=3),
+                bound_ms=group.n * k1b[0], bound_by=k1b[1],
+                shape=f"bf16 B=1, 2 x 2 ranks of E={es[0].num_edges}, rings along graph",
+            )
+        else:  # K6 on the sub-rings, bit for bit
+            segments = [(0, N, "sum"), (N, 2 * N, "sum"), (2 * N, 3 * N, "max"), (3 * N, 4 * N, "min")]
+            xs = [torch.randn(4 * N, L, generator=gen, device="cuda") for _ in range(group.n)]
+            run = lambda: ring_all_reduce_segments(xs, segments, group)
+            got = run()
+            group.check()
+            want6 = ring_all_reduce_segments_reference(xs, segments, group)
+            for r in range(group.n):
+                if not torch.equal(got[r], want6[r]):
+                    raise AssertionError(f"K6 sub-ring rank {r}: differs from its plain version")
+            rows["K6 sub-ring"] = dict(
+                max_abs_err=0.0, ms=group_time_ms(group, run, iters=50),
+                plain_ms=cuda_time_ms(lambda: ring_all_reduce_segments_reference(xs, segments, group), iters=5),
+                **{k: v for k, v in ring_bounds_ms(group.n, 4 * N * L * 4, peaks).items()
+                   if k in ("bound_ms", "bound_by")},
+                shape=f"float32 [{4 * N}, {L}] per rank, 2 x 2 ranks, sub-rings of 2 along graph",
+            )
+    for name, r in rows.items():
+        log(f"{name} ({r['shape']}): {r['ms'] * 1e3:.1f} us, bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}), "
+            f"plain {r['plain_ms']:.3f} ms, max abs err {r['max_abs_err']:.3g} [{card}]")
+    faulthandler.cancel_dump_traceback_later()
+    log(f"spmd: {time.perf_counter() - t_phase:.1f} s, watchdog disarmed")
+    return launches, timings, rows
 
 
 def phase_slice(card, seed, rollout_steps, profile_dir=None, agg_vjp="fused", balancer=False):
@@ -3577,12 +4001,17 @@ def phase_int8(card, seed, profile_dir=None):
     return launches, timings
 
 
+PHASE_SECONDS = []  # (phase, seconds) in run order, for --out
+
+
 def timed(phase, *args):
     """``phase(*args)`` with its wall time logged: where the script's own
     time limit goes."""
     t0 = time.perf_counter()
     out = phase(*args)
-    log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    seconds = time.perf_counter() - t0
+    PHASE_SECONDS.append((phase.__name__, seconds))
+    log(f"{phase.__name__}: {seconds:.1f} s")
     return out
 
 
@@ -3692,6 +4121,7 @@ def main(argv=None) -> int:
         n, serve_timings[name] = timed(phase_slice, card, args.seed, ROLLOUT_STEPS, args.profile, agg_vjp, balancer)
         serve_launches = {k: serve_launches.get(k, 0) + v for k, v in n.items()}
     halo_launches, halo_timings = timed(phase_halo, card, args.seed)
+    spmd_launches, spmd_timings, spmd_rows = timed(phase_spmd, card, peaks, args.seed, args.profile)
     train_launches, train_timings = timed(phase_train, card, args.seed, args.profile)
     task_launches, task_timings = timed(phase_task, card)
     rmp_launches, rmp_timings, rmp_kernels = timed(phase_rmp, card, peaks, args.seed, args.profile)
@@ -3702,7 +4132,8 @@ def main(argv=None) -> int:
     int8_launches, int8_timings = timed(phase_int8, card, args.seed, args.profile)
     cli_timings = timed(phase_cli, card)
     launches = {
-        k: serve_launches[k] + halo_launches[k] + train_launches[k] + task_launches[k] + rmp_launches[k]
+        k: serve_launches[k] + halo_launches[k] + spmd_launches[k] + train_launches[k] + task_launches[k]
+        + rmp_launches[k]
         + sum(run[0][k] for run in model_runs.values()) + hgn_launches[k] + int8_launches[k]
         for k in serve_launches
     }
@@ -3755,6 +4186,28 @@ def main(argv=None) -> int:
                    k7[("K7", "bfloat16")]),
              ring_bound_ms=k7[("K7", "bfloat16")]["ring_bound_ms"], gated_ms=k7[("K7", "bfloat16")]["gated_ms"]),
     ]
+    # the sharded step's modes: launches from phase_spmd's main paths only
+    spmd_k = lambda tag, k: spmd_timings[tag]["launches"][k]
+    kernels += [
+        dict(entry("fused_edge_block_fwd raw, sharded step (K1)", "fused_block_fwd.cu", "fused_block.py:393",
+                   spmd_k("2x2", "K1"), spmd_rows["K1 raw"]), shape=spmd_rows["K1 raw"]["shape"]),
+        dict(entry("fused_edge_block_bwd remat at the global degree, sharded step (K2)", "fused_block_bwd.cu",
+                   "fused_block.py:1008", spmd_k("2x2", "K2"), spmd_rows["K2 2x2"]),
+             shape=spmd_rows["K2 2x2"]["shape"]),
+        dict(entry("fused_edge_block_bwd remat on the overlap layout, sharded step (K2)", "fused_block_bwd.cu",
+                   "fused_block.py:1008", spmd_k(f"1x4 overlap {HALO_BANDS}", "K2"),
+                   spmd_rows[f"K2 1x4 overlap {HALO_BANDS}"]),
+             shape=spmd_rows[f"K2 1x4 overlap {HALO_BANDS}"]["shape"]),
+        dict(entry("fused_edge_block_overlap batched, sharded step (K7)", "fused_overlap.cu", "fused_overlap.py:171",
+                   spmd_k(f"1x4 overlap {HALO_BANDS}", "K7"), spmd_rows["K7 batched"]),
+             shape=spmd_rows["K7 batched"]["shape"]),
+        dict(entry("ring_all_reduce_segments on a sub-ring (K6)", "ring.cu", "ring.py:60",
+                   spmd_timings["halo 2x2 ring"]["launches"], spmd_rows["K6 sub-ring"]),
+             shape=spmd_rows["K6 sub-ring"]["shape"]),
+        dict(entry("fused_edge_block_overlap on a sub-ring (K7)", "fused_overlap.cu", "fused_overlap.py:171",
+                   spmd_timings["halo 2x2 overlap"]["launches"], spmd_rows["K7 sub-ring"]),
+             shape=spmd_rows["K7 sub-ring"]["shape"]),
+    ]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -3775,6 +4228,7 @@ def main(argv=None) -> int:
                     "overlap": {" ".join(k): v for k, v in k7.items()},
                     "halo": halo_timings,
                     "halo_launches": halo_launches,
+                    "spmd": {"launches": spmd_launches, "timings": spmd_timings, "kernels": spmd_rows},
                     "serving": serve_timings,
                     "serving_launches": serve_launches,
                     "training": train_timings,
@@ -3789,6 +4243,7 @@ def main(argv=None) -> int:
                     "hgn_plate": {"launches": hgn_launches, "timings": hgn_timings, "kernels": hgn_kernels},
                     "int8": {"launches": int8_launches, "timings": int8_timings},
                     "cli_s": cli_timings,
+                    "phase_seconds": PHASE_SECONDS,
                     "kernels": kernels,
                 },
                 f, indent=1,

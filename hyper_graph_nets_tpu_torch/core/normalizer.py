@@ -6,13 +6,36 @@ standardizes with ``(x - mean) / max(std, eps)``.  Every function returns a
 new state and never updates one in place: the model's ``make_graph``
 accumulates ``node_dynamic`` on every call, and serving discards that state,
 exactly as the JAX package does.
+
+Under the sharded train step each data rank sees its own frames only; there
+the statistics of a batch are those of the global batch, as the JAX
+package's one GSPMD program computes them: inside :func:`reduce_partials`
+(per thread: a rank's) every accumulation hands its partial count, sums and
+sums of squares to the given all-reduce before it folds them in.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Optional
+import threading
+from typing import Callable, Optional
 
 import torch
+
+_REDUCE = threading.local()
+
+
+@contextlib.contextmanager
+def reduce_partials(fn: Callable[[torch.Tensor], torch.Tensor]):
+    """Within the block, in this thread, :func:`accumulate` passes the
+    batch's ``[count, sum..., sum of squares...]`` through ``fn`` (the
+    sharded step's all-reduce over the ``data`` ranks) before folding it."""
+    prev = getattr(_REDUCE, "fn", None)
+    _REDUCE.fn = fn
+    try:
+        yield
+    finally:
+        _REDUCE.fn = prev
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,14 +99,20 @@ def accumulate(
         count = m.sum()
     else:
         count = torch.tensor(float(flat.shape[0]), device=flat.device)
+    total, squares = flat.sum(dim=0), (flat * flat).sum(dim=0)
+    reduce = getattr(_REDUCE, "fn", None)
+    if reduce is not None:
+        F = flat.shape[-1]
+        packed = reduce(torch.cat([count.reshape(1), total, squares]))
+        count, total, squares = packed[0], packed[1 : 1 + F], packed[1 + F :]
     # the accumulation cap gates every field, as in the JAX package
     do = (state.num_accumulations < state.max_accumulations).to(torch.float32)
     return dataclasses.replace(
         state,
         acc_count=state.acc_count + do * count,
         num_accumulations=state.num_accumulations + do,
-        acc_sum=state.acc_sum + do * flat.sum(dim=0),
-        acc_sum_squared=state.acc_sum_squared + do * (flat * flat).sum(dim=0),
+        acc_sum=state.acc_sum + do * total,
+        acc_sum_squared=state.acc_sum_squared + do * squares,
     )
 
 

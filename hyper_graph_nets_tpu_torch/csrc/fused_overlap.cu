@@ -4,12 +4,17 @@
 // Replaces hyper_graph_nets_tpu/ops/pallas/fused_overlap.py::_overlap_kernel
 // (pallas_call at :390).  One kernel per rank of a group, each on the
 // rank's stream and card, all launched by one C call, over the rank's edge
-// shard (one frame): it computes the shard's e2 as K1 does (the same
+// shard of B frames: it computes the shard's e2 as K1 does (the same
 // fwd_teams and fwd_tile, fused_block_fwd.cuh), its raw pna partials, and
 // combines them over the ranks band by band while later work items still
 // compute, then finalizes: agg = [sum | sum / max(cnt, 1) | max | min], 0
-// where no rank has a valid edge.  e2 equals K1's on the same shard bit for
-// bit; agg equals K1 raw + the plain all-reduce + finalize up to the
+// where no rank has a valid edge.  Each frame (batch row) rings on its own,
+// one pass after another with an epoch each, as the JAX kernel's grid
+// (B, G) runs one ring pass per batch row; the compute teams walk the
+// frames in order, so frame b's bands ring while frame b+1 computes.  On a
+// 2-D group every sub-ring (the ranks that share a data coordinate) rings
+// on its own, all launched by the one call.  e2 equals K1's on the same
+// shard bit for bit; agg equals K1 raw + the plain all-reduce + finalize up to the
 // float32 sum order of the raw partials (the ring folds the ranks in the
 // JAX order).
 //
@@ -61,15 +66,15 @@ constexpr int NTEAM = 2;      // compute CTAs: K1's teams
 constexpr int CHUNK = HGN_RING_CHUNK;  // ring chunk: floats at most (64 KB)
 
 struct OvArgs {
-  int nb, rb;          // bands, rows per band
+  int nb, rb;          // bands, rows per band (per frame)
   u64* flags_mine;     // [nb][FLAG_WORDS]
   u64* flags_left;
   u64* flags_right;
   float* slot_mine;    // [2][N * 4L]
   float* slot_right;
-  unsigned* counters;  // [nb] groups finished per band
-  int n, rank;
-  u64 epoch;
+  unsigned* counters;  // [B][nb] groups finished per frame and band
+  int n, rank;         // ranks on my sub-ring; my rank in the group (for the error word)
+  u64 epoch;           // frame b's pass rings with epoch + b
   int* err;
   bool sys;  // the ranks span several cards
 };
@@ -103,18 +108,16 @@ struct Finalize {
 };
 
 template <typename T, int L>
-__device__ void band_ring(const FwdArgs& args, const OvArgs& ov, unsigned char* smem) {
-  const int b = blockIdx.x;
-  const int lo = b * ov.rb, hi = min(args.N, lo + ov.rb);
-  const size_t off = (size_t)b * FLAG_WORDS;
+__device__ void band_ring_row(const FwdArgs& args, const OvArgs& ov, unsigned char* smem, int b, int lo, int hi,
+                              size_t off, int row, unsigned want) {
   const Ring R{ov.flags_mine + off, ov.flags_left + off, ov.flags_right + off, ov.slot_mine,
-               ov.slot_right, (size_t)args.N * 4 * L, ov.n, ov.rank, b, ov.epoch, ov.err, ov.sys};
-  // the band's compute: every group that touches its rows has counted
+               ov.slot_right, (size_t)args.N * 4 * L, ov.n, ov.rank, b, ov.epoch + row, ov.err, ov.sys};
+  unsigned* counter = ov.counters + (size_t)row * ov.nb + b;
+  float* agg = args.agg + (size_t)row * args.N * 4 * L;
+  // the band's compute in this frame: every group that touches its rows has counted
   auto wait_band = [&](RingClock& clk) {
-    unsigned want = 0;
-    for (int g = 0; g < args.G; ++g) want += args.groups[g] < hi && args.groups[g + 1] > lo;
-    wait_ge<unsigned>(ov.counters + b, want, R, W_BAND, -1);
-    *reinterpret_cast<volatile unsigned*>(ov.counters + b) = 0u;  // every increment is in
+    wait_ge<unsigned>(counter, want, R, W_BAND, -1);
+    *reinterpret_cast<volatile unsigned*>(counter) = 0u;  // every increment is in
     clk.mark(P_BAND);
   };
   // chunks of whole rows: at most CHUNK floats, and NSTAGE stages and one
@@ -126,12 +129,29 @@ __device__ void band_ring(const FwdArgs& args, const OvArgs& ov, unsigned char* 
   constexpr int CAP = CHUNK < ROW ? ROW : CHUNK / ROW * ROW;
   constexpr int MAX_CHUNK = CAP < FIT ? CAP : FIT;
   const size_t e0 = (size_t)lo * ROW, e1 = (size_t)max(lo, hi) * ROW;
-  ring_run<4>(R, smem, SMEM, args.agg, args.agg, e0, e1, ROW, MAX_CHUNK,
+  ring_run<4>(R, smem, SMEM, agg, agg, e0, e1, ROW, MAX_CHUNK,
               [](size_t e) {
                 const int c = (int)(e % ROW);
                 return c < 2 * L ? (int)SUM : (c < 3 * L ? (int)MAX : (int)MIN);
               },
               Finalize<L>{}, wait_band);
+}
+
+template <typename T, int L>
+__device__ void band_ring(const FwdArgs& args, const OvArgs& ov, unsigned char* smem) {
+  const int b = blockIdx.x;
+  const int lo = b * ov.rb, hi = min(args.N, lo + ov.rb);
+  const size_t off = (size_t)b * FLAG_WORDS;
+  unsigned want = 0;  // the groups that touch the band's rows, the same in every frame
+  for (int g = 0; g < args.G; ++g) want += args.groups[g] < hi && args.groups[g + 1] > lo;
+  for (int row = 0; row < args.B; ++row) {
+    if (row > 0 && lo < hi) {  // the last pass's mbarriers, invalidated before ring_run initializes them again
+      __syncthreads();
+      if (threadIdx.x == 0) ring_smem_release(smem);
+      __syncthreads();
+    }
+    band_ring_row<T, L>(args, ov, smem, b, lo, hi, off, row, want);
+  }
 }
 
 template <typename T, int L>
@@ -151,7 +171,8 @@ __global__ void __launch_bounds__(NTEAM * THREADS, 1) fused_overlap_kernel(const
     __threadfence();             // this team's e2 and partials, before the count
     team_sync();
     if (team_tid() == 0)
-      for (int b = it.n0 / ov.rb; b <= (it.n1 - 1) / ov.rb && b < ov.nb; ++b) atomicAdd(ov.counters + b, 1u);
+      for (int b = it.n0 / ov.rb; b <= (it.n1 - 1) / ov.rb && b < ov.nb; ++b)
+        atomicAdd(ov.counters + (size_t)it.b * ov.nb + b, 1u);
   });
   if (team_tid() == 0) compute_done(t0, items);
 }
@@ -195,7 +216,8 @@ struct OvRank {
 namespace {
 
 template <typename T, int L>
-int launch_group(int n, const OvRank* ranks, int N, int nb, int rb, unsigned long long epoch, int* err) {
+int launch_group(int n, int ring_n, int B, const OvRank* ranks, int N, int nb, int rb, unsigned long long epoch,
+                 int* err) {
   bool sys = FORCE_SYS;  // the ranks span several cards
   for (int r = 0; r < n; ++r) sys |= ranks[r].device != ranks[0].device;
   int rc = 0;
@@ -206,13 +228,13 @@ int launch_group(int n, const OvRank* ranks, int N, int nb, int rb, unsigned lon
     const int cap = fwd_grid_cap<T, L, NTEAM>(fused_overlap_kernel<T, L>);
     if (cap < 0) return -cap;
     if (k.grid <= nb || k.grid > cap) return -1;
-    // one frame, raw partials, no streams
+    // B frames, raw partials, no streams
     const FwdArgs a{k.e, k.sp, k.rp, k.we, k.w2, k.w3, k.b1, k.b2, k.b3, k.lns, k.lnb, k.senders,
                     k.receivers, k.mask, k.row_ptr, k.groups, k.e2, k.agg, nullptr, nullptr, nullptr,
-                    nullptr, 1, k.E, N, k.G, 1, k.group_edges};
+                    nullptr, B, k.E, N, k.G, 1, k.group_edges};
     const OvArgs ov{nb, rb, static_cast<u64*>(k.flags_mine), static_cast<u64*>(k.flags_left),
-                    static_cast<u64*>(k.flags_right), k.slot_mine, k.slot_right, k.counters, n, r, epoch, err,
-                    sys};
+                    static_cast<u64*>(k.flags_right), k.slot_mine, k.slot_right, k.counters, ring_n, r, epoch,
+                    err, sys};
     fused_overlap_kernel<T, L>
         <<<k.grid, NTEAM * THREADS, FwdLayout<T, L, NTEAM>::total, static_cast<cudaStream_t>(k.stream)>>>(a, ov);
     rc = (int)cudaGetLastError();
@@ -221,10 +243,11 @@ int launch_group(int n, const OvRank* ranks, int N, int nb, int rb, unsigned lon
 }
 
 template <typename T>
-int dispatch_width(int L, int n, const OvRank* ranks, int N, int nb, int rb, unsigned long long epoch, int* err) {
+int dispatch_width(int L, int n, int ring_n, int B, const OvRank* ranks, int N, int nb, int rb,
+                   unsigned long long epoch, int* err) {
   switch (L) {
-    case 32: return launch_group<T, 32>(n, ranks, N, nb, rb, epoch, err);
-    case 128: return launch_group<T, 128>(n, ranks, N, nb, rb, epoch, err);
+    case 32: return launch_group<T, 32>(n, ring_n, B, ranks, N, nb, rb, epoch, err);
+    case 128: return launch_group<T, 128>(n, ring_n, B, ranks, N, nb, rb, epoch, err);
     default: return -1;
   }
 }
@@ -233,20 +256,22 @@ int dispatch_width(int L, int n, const OvRank* ranks, int N, int nb, int rb, uns
 
 extern "C" {
 
-// Launch every rank's K7 (one frame, B = 1), rank 0 first, each on its
-// device and stream; dtype 0 = float32, 1 = bfloat16.  A rank's grid = nb
-// band CTAs + its compute CTAs.  Returns 0, a cudaError_t code, or -1 for
-// arguments the kernel does not take.  A failed launch stops the loop: the
-// ranks launched before it then fail through the error word.
-int hgn_fused_overlap_group(int dtype, int L, int n, const OvRank* ranks, int N, int nb, int rb,
-                            unsigned long long epoch, int* err) {
-  if (nb < 1 || rb < 1 || (long long)nb * rb < N || n < 1) return -1;
+// Launch every rank's K7 (B frames, [B][E][L]), rank 0 first, each on its
+// device and stream; n ranks in all, on sub-rings of ring_n (each entry
+// names its sub-ring neighbours); dtype 0 = float32, 1 = bfloat16.  A
+// rank's grid = nb band CTAs + its compute CTAs; its counters hold B * nb
+// zeros; frame b rings with epoch + b.  Returns 0, a cudaError_t code, or
+// -1 for arguments the kernel does not take.  A failed launch stops the
+// loop: the ranks launched before it then fail through the error word.
+int hgn_fused_overlap_group(int dtype, int L, int n, int ring_n, int B, const OvRank* ranks, int N, int nb,
+                            int rb, unsigned long long epoch, int* err) {
+  if (nb < 1 || rb < 1 || (long long)nb * rb < N || n < 1 || ring_n < 1 || n % ring_n || B < 1) return -1;
   int prev = 0;
   cudaError_t e = cudaGetDevice(&prev);
   if (e != cudaSuccess) return (int)e;
   int rc = -1;
-  if (dtype == 0) rc = dispatch_width<float>(L, n, ranks, N, nb, rb, epoch, err);
-  if (dtype == 1) rc = dispatch_width<bf16>(L, n, ranks, N, nb, rb, epoch, err);
+  if (dtype == 0) rc = dispatch_width<float>(L, n, ring_n, B, ranks, N, nb, rb, epoch, err);
+  if (dtype == 1) rc = dispatch_width<bf16>(L, n, ring_n, B, ranks, N, nb, rb, epoch, err);
   cudaSetDevice(prev);
   return rc;
 }

@@ -10,6 +10,12 @@
 // x_{r-n+1} in that order, as the JAX ring does, so the result equals the
 // plain version (ops/ring.py) bit for bit.
 //
+// Along one axis of a 2-D group (the JAX package's mesh_axes): the call
+// launches every rank of the group, and each rank's entry names its
+// neighbours on its sub-ring (the ranks that share the other coordinate,
+// ring_n of them); the sub-rings run side by side, each with its own flag
+// rows, and each is the 1-D protocol over its ranks.
+//
 // What bounds it.  At the halo forward's payload ([4N, L] = [6,400, 128],
 // P = 3.28 MB per rank) the work is data movement: the function reads n
 // partials and writes n results (2nP over the group); the hop schedule
@@ -64,7 +70,7 @@ struct RingArgs {
   float* slot_mine;  // [2][P]
   float* slot_right;
   size_t P;  // floats per slot: R * C rounded up to 4
-  int n, rank;
+  int n, rank;  // ranks on my sub-ring; my rank in the group (for the error word)
   u64 epoch;
   int* err;
   bool sys;  // the ranks span several cards
@@ -119,15 +125,18 @@ struct RingRank {
   void* stream;
 };
 
-// Launch every rank's K6, rank 0 first, each on its device and stream.
+// Launch every rank's K6, rank 0 first, each on its device and stream; n
+// ranks in all, on sub-rings of ring_n (n a multiple of ring_n; each entry
+// names its sub-ring neighbours).
 // seg: nseg (lo, hi, op) triples on the host, op 0 sum, 1 max, 2 min;
 // P: floats per payload, a multiple of 4 (R * C rounded up).  Returns 0, a
 // cudaError_t code, or -1 for arguments the kernel does not take.  A failed
 // launch stops the loop: the ranks launched before it then fail through the
 // error word.
-int hgn_ring_all_reduce_group(int n, const RingRank* ranks, int R, int C, unsigned long long P, int nseg,
-                              const int* seg, unsigned long long epoch, int* err, int grid) {
-  if (nseg < 0 || nseg > MAX_SEGMENTS || grid < 1 || n < 1 || P % 4 || P < (unsigned long long)R * C)
+int hgn_ring_all_reduce_group(int n, int ring_n, const RingRank* ranks, int R, int C, unsigned long long P,
+                              int nseg, const int* seg, unsigned long long epoch, int* err, int grid) {
+  if (nseg < 0 || nseg > MAX_SEGMENTS || grid < 1 || n < 1 || ring_n < 1 || n % ring_n || P % 4 ||
+      P < (unsigned long long)R * C)
     return -1;
   RingArgs a{};
   a.R = R;
@@ -139,7 +148,7 @@ int hgn_ring_all_reduce_group(int n, const RingRank* ranks, int R, int C, unsign
     a.seg_op[k] = seg[3 * k + 2];
   }
   a.P = P;
-  a.n = n;
+  a.n = ring_n;
   a.epoch = epoch;
   a.err = err;
   a.sys = FORCE_SYS;

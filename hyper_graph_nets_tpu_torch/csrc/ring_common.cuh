@@ -220,6 +220,10 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(u64* bar, unsigned bytes) 
                : "memory");
 }
 
+__device__ __forceinline__ void mbar_inval(u64* bar) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
 // Has the barrier completed the phase of this parity?
 __device__ __forceinline__ bool mbar_test(u64* bar, unsigned parity) {
   uint32_t done;
@@ -314,6 +318,14 @@ __device__ __forceinline__ int chunk_floats(size_t len, int unit, int max_chunk)
   const size_t units = len / unit, per = max_chunk / unit;
   const size_t chunks = (units + per - 1) / per;
   return (int)((units + chunks - 1) / chunks) * unit;
+}
+
+// Invalidate ring_run's mbarriers (by one thread, after every thread of the
+// CTA has left ring_run), so that a later ring_run on the same shared
+// memory may initialize them again (K7's next frame).
+__device__ __forceinline__ void ring_smem_release(unsigned char* smem) {
+  u64* bars = reinterpret_cast<u64*>(smem);
+  for (int j = 0; j < 2 * NSTAGE + 1; ++j) mbar_inval(bars + j);
 }
 
 // The sub-ring of floats [e0, e1) (multiples of `unit`, itself a multiple

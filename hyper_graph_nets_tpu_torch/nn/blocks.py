@@ -48,15 +48,18 @@ same bit for bit on every run.  A set that forms anew in every frame
 path with per-frame gathers and sums (``core.segment_ops.FrameSum``, built
 on the frames' device).
 
-Under the halo forward (``parallel/halo.py``) ``GNNConfig.axis_name`` holds
-the rank group the edges are split over, and each rank runs the blocks on
-its edge shard with every node row: a ``fused`` set runs K1 unfinalized and
-the group's plain all-reduce (``ops.fused_block.fused_edge_block_collective``)
-or, with ``halo_overlap`` and a plan that carries bands, K7
-(``ops/fused_overlap.py``); every other set aggregates its local partials
-and combines them across the ranks (``core.segment_ops.collective_aggregate``:
-the plain all-reduce, or K6 with ``halo_ring``), before the sorted and gather
-branches, as in the JAX package.
+Under the halo forward (``parallel/halo.py``) and the sharded train step
+(``parallel/sharding.py``) ``GNNConfig.axis_name`` holds the rank group the
+edges are split over, and each rank runs the blocks on its (data rank's
+frames and) graph rank's edge shard with every node row: a ``fused`` set
+runs ``ops.fused_block.fused_edge_block_spmd`` (K1 unfinalized and the
+group's plain all-reduce along ``graph``, or, with ``halo_overlap`` and a
+plan that carries bands, K7; under autograd one node per data row whose
+backward runs K2 on every shard); every other set aggregates its local
+partials and combines them across the ranks
+(``core.segment_ops.collective_aggregate``: the plain all-reduce, or K6 with
+``halo_ring``), before the sorted and gather branches, as in the JAX
+package.  Only fused sets train over edge shards.
 """
 from __future__ import annotations
 
@@ -130,10 +133,12 @@ class GNNConfig:
     # which the port does not have: it raises on the fused path.  Any other
     # value, and 'xla' on another path, runs as 'kernel', as in the JAX package.
     fused_fwd: str = "kernel"
-    # set by the halo forward (parallel/halo.py): the rank group
-    # (parallel.group.RankGroup) whose ranks each hold an edge shard; the
-    # aggregations combine the ranks' partials.  The group is 1-D, so the
-    # JAX package's halo_mesh_axes has no counterpart.
+    # set by the halo forward (parallel/halo.py) and the sharded train step
+    # and forward (parallel/sharding.py): the rank group
+    # (parallel.group.RankGroup) whose 'graph' ranks each hold an edge
+    # shard; the aggregations combine the ranks' partials along 'graph' (the
+    # JAX package's axis_name with halo_mesh_axes, and its spmd_mesh with
+    # spmd_axis 'graph': the group knows its axes)
     axis_name: Optional[object] = None
     # with axis_name: combine the partials of unfused sets through K6 (the
     # ring all-reduce) instead of the plain all-reduce
@@ -317,23 +322,12 @@ def _fused_mlp_shape_ok(eparams: MLP, es: EdgeSet, cfg: GNNConfig) -> bool:
 
 
 def _fused_eligible(eparams: MLP, es: EdgeSet, cfg: GNNConfig) -> bool:
+    """The fused path, on one device or on a rank's edge shard
+    (``cfg.axis_name``)."""
     return (
         cfg.agg_vjp == "fused"
         and cfg.aggregation == "pna"
-        and cfg.axis_name is None
         and es.plan is not None
-        and _fused_mlp_shape_ok(eparams, es, cfg)
-    )
-
-
-def _fused_collective_eligible(eparams: MLP, es: EdgeSet, cfg: GNNConfig) -> bool:
-    """The fused path on one rank's unbatched edge shard (halo forward)."""
-    return (
-        cfg.agg_vjp == "fused"
-        and cfg.aggregation == "pna"
-        and cfg.axis_name is not None
-        and es.plan is not None
-        and es.features.dim() == 2
         and _fused_mlp_shape_ok(eparams, es, cfg)
     )
 
@@ -344,12 +338,8 @@ def _fused_update_and_agg(
     """Edge update + pna aggregate in one fused call: on one device K1
     forward, and K2 or K3 backward as ``cfg.fused_bwd`` says; on a rank's
     edge shard (``cfg.axis_name``) K1 unfinalized with the plain all-reduce,
-    or K7 (forward only)."""
-    from hyper_graph_nets_tpu_torch.ops.fused_block import (
-        fused_edge_block,
-        fused_edge_block_collective,
-    )
-    from hyper_graph_nets_tpu_torch.ops.fused_overlap import fused_edge_block_collective_overlap
+    or K7 (``cfg.halo_overlap``), and K2 backward at the global degree."""
+    from hyper_graph_nets_tpu_torch.ops.fused_block import fused_edge_block, fused_edge_block_spmd
 
     L = all_nodes.shape[-1]
     ws, wr, we = _first_layer_parts(eparams, L)
@@ -371,13 +361,9 @@ def _fused_update_and_agg(
     topology = (es.senders, es.receivers, es.mask, num_total)
     if cfg.axis_name is None:
         e2, agg = fused_edge_block(feats, sp, rp, weights, *topology, plan=es.plan, bwd=cfg.fused_bwd)
-    elif cfg.halo_overlap and es.plan.overlap_bands:
-        e2, agg = fused_edge_block_collective_overlap(
-            feats, sp, rp, weights, *topology, es.plan, cfg.axis_name
-        )
     else:
-        e2, agg = fused_edge_block_collective(
-            feats, sp, rp, weights, *topology, es.plan, cfg.axis_name
+        e2, agg = fused_edge_block_spmd(
+            feats, sp, rp, weights, *topology, es.plan, cfg.axis_name, overlap=cfg.halo_overlap
         )
     if cfg.cd is not None:
         agg = agg.to(cfg.cd)
@@ -414,6 +400,11 @@ def _aggregate_sets(
         es = graph.edge_sets[name]
         f = edge_feats[name]
         if cfg.axis_name is not None:
+            if torch.is_grad_enabled():  # the all-reduce has no backward here
+                raise NotImplementedError(
+                    f"{name}: training over edge shards runs fused edge sets only (a set without a "
+                    "kernel plan under the sharded step is ROADMAP queue 1, item 7)"
+                )
             # an edge shard: local partials combined across the rank group
             parts.append(
                 collective_aggregate(
@@ -461,7 +452,7 @@ def _update_sets(
     for name in names:
         es = graph.edge_sets[name]
         eparams = block.edge_models[name]
-        if _fused_eligible(eparams, es, cfg) or _fused_collective_eligible(eparams, es, cfg):
+        if _fused_eligible(eparams, es, cfg):
             new_feats[name], fused_aggs[name] = _fused_update_and_agg(
                 eparams, all_nodes, es, cfg, num_total
             )

@@ -25,6 +25,7 @@ Weights follow the port's ``[out, in]`` layout: ``we``, ``w2``, ``w3`` are
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 from typing import Dict, Optional, Tuple
@@ -80,6 +81,11 @@ class SegmentPlan:
     # K7's work list for the shard (ops.fused_overlap.OverlapWork, built by
     # ops.fused_overlap.overlap_plan), or None
     overlap: Optional[object] = None
+    # [N] float32: the valid in-degree of every receiver over the whole
+    # edge set an edge shard belongs to (parallel.sharding.shard_topology);
+    # the sharded backward divides the mean cotangent by it.  None: the
+    # receivers of the call are the whole set.
+    degree: Optional[torch.Tensor] = None
 
     @property
     def num_groups(self) -> int:
@@ -95,6 +101,7 @@ class SegmentPlan:
             snd_ptr=move(self.snd_ptr),
             group_edges=move(self.group_edges),
             overlap=None if self.overlap is None else self.overlap.to(device),
+            degree=move(self.degree),
         )
 
 
@@ -586,14 +593,21 @@ def fused_edge_block_fwd(
         )
 
 
-def agg_cotangent_rhs(agg, dagg, receivers, mask, num_nodes) -> torch.Tensor:
+def agg_cotangent_rhs(agg, dagg, receivers, mask, num_nodes, degree=None) -> torch.Tensor:
     """``drhs = [g_sum + g_mean/deg | max | g_max | min | g_min]``, float32
     ``[..., N, 5L]``, from the finalized aggregate and its cotangent
-    (``_bwd_core``, ``fused_block.py:1556-1569``); ``deg`` counts each
-    receiver's valid edges."""
+    (``_bwd_core``, ``fused_block.py:1556-1569``).  ``deg`` is ``degree``
+    when given (an edge shard's: the valid in-degree over every shard, the
+    count the forward's mean divided by), else each receiver's valid edges
+    among ``receivers``.  The JAX package's sharded backward counts the
+    shard's own edges (``_plan_degrees`` of the shard's plan), which is not
+    the forward's count: the port takes the global one."""
     L = agg.shape[-1] // 4
-    counts = torch.ones(receivers.shape, device=agg.device) if mask is None else (mask > 0).float()
-    deg = torch.zeros(num_nodes, device=agg.device).index_add_(0, receivers.long(), counts)
+    if degree is None:
+        counts = torch.ones(receivers.shape, device=agg.device) if mask is None else (mask > 0).float()
+        deg = torch.zeros(num_nodes, device=agg.device).index_add_(0, receivers.long(), counts)
+    else:
+        deg = degree.to(device=agg.device, dtype=torch.float32)
     d = dagg.float()
     g1 = d[..., :L] + d[..., L : 2 * L] * (1.0 / deg.clamp(min=1.0))[:, None]
     parts = [g1, agg[..., 2 * L : 3 * L], d[..., 2 * L : 3 * L], agg[..., 3 * L :], d[..., 3 * L :]]
@@ -625,27 +639,33 @@ class FusedEdgeBlock(torch.autograd.Function):
     @staticmethod
     def backward(ctx, de2, dagg):
         e, sp, rp, *rest = ctx.saved_tensors
-        w_in = rest[:8]
-        weights = dict(zip(EDGE_WEIGHT_KEYS, w_in))
-        agg, streams = rest[8], rest[9:]
-        edges: _Edges = ctx.edges
-        L = e.shape[-1]
-        de2 = torch.where(torch.isnan(de2), 0.0, de2).to(e.dtype).contiguous()
-        drhs = agg_cotangent_rhs(agg, dagg, edges.receivers, edges.mask, edges.num_nodes)
-        if streams:
-            a1, a2 = streams[0], streams[1]
-            de, dh, dz2, dz3, dsp, drp, dpar = fused_edge_block_bwd_stream(
-                e, *streams, weights, de2, drhs, *edges.topology, plan=edges.plan
-            )
-        else:
-            de, dh, dz2, dz3, a1, a2, dsp, drp, dpar = fused_edge_block_bwd(
-                e, sp, rp, weights, de2, drhs, *edges.topology, plan=edges.plan
-            )
-        flat = lambda x: x.reshape(-1, L).float()
-        dw = [flat(dh).T @ flat(e), flat(dz2).T @ flat(a1), flat(dz3).T @ flat(a2)]
-        dw += list(dpar)
-        dw = [g.to(w.dtype) for g, w in zip(dw, w_in)]
-        return (de, dsp.to(sp.dtype), drp.to(rp.dtype), *dw, None)
+        return (*_edge_block_grads(e, sp, rp, rest[:8], rest[8], de2, dagg, ctx.edges, rest[9:]), None)
+
+
+def _edge_block_grads(e, sp, rp, w_in, agg, de2, dagg, edges: _Edges, streams=(), degree=None):
+    """``(de, dsp, drp, *dweights)`` of one fused call: ``drhs`` from the
+    finalized ``agg`` and its cotangent, K2 (or K3 on K1's ``streams``), and
+    the weight gradients as float32 products over the streams (``e^T dh``,
+    ``a1^T dz2``, ``a2^T dz3``), as the JAX package leaves them to XLA."""
+    weights = dict(zip(EDGE_WEIGHT_KEYS, w_in))
+    L = e.shape[-1]
+    de2 = torch.zeros_like(e) if de2 is None else de2
+    de2 = torch.where(torch.isnan(de2), 0.0, de2).to(e.dtype).contiguous()
+    drhs = agg_cotangent_rhs(agg, dagg, edges.receivers, edges.mask, edges.num_nodes, degree)
+    if streams:
+        a1, a2 = streams[0], streams[1]
+        de, dh, dz2, dz3, dsp, drp, dpar = fused_edge_block_bwd_stream(
+            e, *streams, weights, de2, drhs, *edges.topology, plan=edges.plan
+        )
+    else:
+        de, dh, dz2, dz3, a1, a2, dsp, drp, dpar = fused_edge_block_bwd(
+            e, sp, rp, weights, de2, drhs, *edges.topology, plan=edges.plan
+        )
+    flat = lambda x: x.reshape(-1, L).float()
+    dw = [flat(dh).T @ flat(e), flat(dz2).T @ flat(a1), flat(dz3).T @ flat(a2)]
+    dw += list(dpar)
+    dw = [g.to(w.dtype) for g, w in zip(dw, w_in)]
+    return (de, dsp.to(sp.dtype), drp.to(rp.dtype), *dw)
 
 
 def fused_edge_block(
@@ -690,10 +710,80 @@ def fused_edge_block(
 fused_edge_block.launches = 0  # K1 launches since the count was last reset
 
 
-# -- the edge-sharded forward (halo forward) ----------------------------------
+# -- the edge-sharded block (halo forward and sharded training step) ----------
 
 
-def fused_edge_block_collective(
+def _combine_raw(group, raws, L):
+    """Every rank's raw pna partials combined along ``graph`` (sum and
+    count summed, max and min folded, in rank order) and finalized: one
+    tensor per rank, on its device and stream."""
+    parts = [
+        group.reduce_plain([x[..., lo:hi] for x in raws], op)
+        for lo, hi, op in ((0, 2 * L, "sum"), (2 * L, 3 * L, "max"), (3 * L, 4 * L, "min"))
+    ]
+    outs = []
+    for r, p in enumerate(zip(*parts)):
+        with group.context(r):
+            outs.append(segment_ops.finalize_partials(torch.cat(p, dim=-1)))
+    return outs
+
+
+class ShardedFusedBlock(torch.autograd.Function):
+    """The fused block over the edge shards of one ``data`` row of a rank
+    group, as one autograd node over every shard (the JAX package's
+    ``_spmd_vjp``, whose custom VJP sits at the global level around its
+    ``shard_map``).
+
+    The forward is computed before (K1 raw on each shard and the all-reduce,
+    or K7); this node takes each rank's ``e, sp, rp`` and eight weights and
+    returns each rank's ``(e2, agg)``.  Its backward sums the ranks'
+    aggregate cotangents in rank order (the transpose of handing every rank
+    the all-reduced aggregate), then runs K2 on each shard against the
+    global aggregate, with the mean cotangent divided by the global degree,
+    and returns each shard's ``de`` and its partial ``dsp``, ``drp`` and
+    weight gradients: a rank's node rows and weights are its own copy, and
+    the partials of every copy add up to the gradient.
+
+    Being one node, its backward waits for no other rank: the autograd
+    engine runs it when every rank's cotangent is in, on whichever thread it
+    runs the device's nodes (one per card, shared by every rank there), so
+    no collective ever waits inside the engine.
+    """
+
+    @staticmethod
+    def forward(ctx, spec, *flat):
+        # flat: per rank e, sp, rp, the 8 weights; spec: per rank
+        # (edges, degree, e2, agg), the forward's results
+        ctx.spec = [(edges, degree) for edges, degree, _, _ in spec]
+        outs = [t for _, _, e2, agg in spec for t in (e2, agg)]
+        ctx.save_for_backward(*flat, *outs[1::2])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        n = len(ctx.spec)
+        saved = ctx.saved_tensors
+        inputs, aggs = saved[: 11 * n], saved[11 * n :]
+        home = aggs[0]
+        dagg = None
+        for g in range(n):  # the ranks' aggregate cotangents, in rank order
+            d = grads[2 * g + 1]
+            if d is not None:
+                d = d.float().to(home.device)
+                dagg = d if dagg is None else dagg + d
+        if dagg is None:
+            dagg = torch.zeros_like(home)
+        out = [None]
+        for g, (edges, degree) in enumerate(ctx.spec):
+            e, sp, rp, *w_in = inputs[11 * g : 11 * g + 11]
+            with torch.cuda.device(e.device) if e.is_cuda else contextlib.nullcontext():
+                out += _edge_block_grads(
+                    e, sp, rp, w_in, aggs[g], grads[2 * g], dagg.to(e.device), edges, degree=degree
+                )
+        return tuple(out)
+
+
+def fused_edge_block_spmd(
     e: torch.Tensor,
     sp: torch.Tensor,
     rp: torch.Tensor,
@@ -704,24 +794,65 @@ def fused_edge_block_collective(
     num_nodes: int,
     plan: Optional[SegmentPlan],
     group,
+    overlap: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One rank's edge shard of the fused block over a rank group (called
-    inside ``group.run``): K1 unfinalized on the shard, the partials combined
-    by the group's plain all-reduce (sum and count summed, max and min
-    folded, in rank order), then finalized.  ``(e2 [E, L], agg [N, 4L]
-    float32)``.  Forward only, as the JAX package's
-    ``fused_edge_block_collective`` (``fused_block.py:1884-1924``)."""
-    e2, raw = fused_edge_block_fwd(
-        e[None], sp[None], rp[None], weights, senders, receivers, mask, num_nodes, plan, raw=True
-    )
-    L = e.shape[-1]
+    inside ``group.run``; the JAX package's ``fused_edge_block_spmd``,
+    ``fused_block.py:1942-2124``, and, without autograd, its
+    ``fused_edge_block_collective``): ``(e2 [..., E, L], agg [..., N, 4L]
+    float32)`` for ``e`` of ``[E, L]`` or ``[B, E, L]``.
 
-    def combine(raws):  # one rendezvous: [sum | count] summed, max and min folded
-        parts = [
-            group.reduce_plain([x[:, lo:hi] for x in raws], op)
-            for lo, hi, op in ((0, 2 * L, "sum"), (2 * L, 3 * L, "max"), (3 * L, 4 * L, "min"))
-        ]
-        return list(zip(*parts))
+    Forward: K1 unfinalized on the shard, then the group's plain all-reduce
+    along ``graph`` and the finalize; or, with ``overlap`` and a plan that
+    carries overlap bands, K7, which rings along ``graph`` while later
+    groups compute (one launch for every rank).  Under autograd every
+    ``data`` row's shards meet in one :class:`ShardedFusedBlock` node, whose
+    backward runs K2 on each shard at the global degree (``plan.degree``; a
+    plan without one divides by the shard's own, the JAX package's
+    behaviour).  The backward is remat (K2) whatever ``fused_bwd`` says, as
+    in the JAX package."""
+    weights = {k: weights[k] for k in EDGE_WEIGHT_KEYS}
+    squeeze = e.dim() == 2
+    if squeeze:
+        e, sp, rp = e[None], sp[None], rp[None]
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (e, sp, rp, *weights.values()))
+    bands = plan.overlap_bands if overlap and plan is not None else None
+    entry = dict(e=e, sp=sp, rp=rp, weights=weights, senders=senders, receivers=receivers, mask=mask,
+                 plan=plan, grad=grad, bands=bands)
+    if not bands:
+        with torch.no_grad():
+            entry["out"] = fused_edge_block_fwd(
+                e, sp, rp, weights, senders, receivers, mask, num_nodes, plan, raw=True
+            )
+    e2, agg = group.exchange(entry, lambda entries: _spmd_combine(entries, num_nodes, group))
+    return (e2[0], agg[0]) if squeeze else (e2, agg)
 
-    combined = group.exchange(raw[0], combine)
-    return e2[0], segment_ops.finalize_partials(torch.cat(combined, dim=-1))
+
+def _spmd_combine(entries, num_nodes: int, group):
+    """The rendezvous of :func:`fused_edge_block_spmd`: every rank's forward
+    finished, then one autograd node per ``data`` row."""
+    with torch.no_grad():
+        if entries[0]["bands"]:
+            from hyper_graph_nets_tpu_torch.ops.fused_overlap import fused_edge_block_overlap
+
+            shards = [{k: x[k] for k in ("e", "sp", "rp", "weights", "senders", "receivers", "mask", "plan")}
+                      for x in entries]
+            outs = fused_edge_block_overlap(shards, num_nodes, group, entries[0]["bands"])
+        else:
+            L = entries[0]["e"].shape[-1]
+            e2s = [x["out"][0] for x in entries]
+            outs = list(zip(e2s, _combine_raw(group, [x["out"][1] for x in entries], L)))
+    if not entries[0]["grad"]:
+        return outs
+    results: list = [None] * group.n
+    for ranks in group.subgroups("graph"):
+        spec, flat = [], []
+        for r in ranks:
+            x = entries[r]
+            edges = _Edges(x["senders"], x["receivers"], x["mask"], num_nodes, x["plan"], "remat")
+            spec.append((edges, None if x["plan"] is None else x["plan"].degree, *outs[r]))
+            flat += [x["e"], x["sp"], x["rp"], *x["weights"].values()]
+        got = ShardedFusedBlock.apply(spec, *flat)
+        for i, r in enumerate(ranks):
+            results[r] = (got[2 * i], got[2 * i + 1])
+    return results

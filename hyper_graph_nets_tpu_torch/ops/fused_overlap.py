@@ -1,13 +1,15 @@
 """Fused edge block with a compute-overlapped banded ring (K7).
 
 Counterpart of ``hyper_graph_nets_tpu/ops/pallas/fused_overlap.py``
-(``fused_edge_block_collective_overlap`` over ``_overlap_kernel``).  Each
-rank of a ``parallel.group.RankGroup`` holds one edge shard of a frame; one
-kernel per rank computes the shard's ``e2`` (K1's) and its raw pna
-partials, and combines the partials over the ranks band by band while later
-receiver groups still compute; the result is finalized:
-``agg = [sum | mean | max | min]`` float32 ``[N, 4L]``, 0 where no rank has
-a valid edge.
+(``fused_edge_block_collective_overlap`` over ``_overlap_kernel``, and its
+batched core ``_overlap_fwd_call``).  Each rank of a
+``parallel.group.RankGroup`` holds one edge shard of ``[E, L]`` (one frame)
+or ``[B, E, L]`` (B frames) features; one kernel per rank computes the
+shard's ``e2`` (K1's) and its raw pna partials, and combines the partials
+over the ranks of its sub-ring along ``graph`` band by band while later
+receiver groups still compute, one ring pass per frame; the result is
+finalized: ``agg = [sum | mean | max | min]`` float32 ``[..., N, 4L]``, 0
+where no rank has a valid edge.
 
 The node rows split into ``plan.overlap_bands`` bands, each split again so
 that about half of a rank's CTAs ring (``ring_ctas``, ``band_rows``); with
@@ -32,7 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -62,7 +64,7 @@ class OvRank(ctypes.Structure):
 
 
 _SIGNATURES = {
-    "hgn_fused_overlap_group": [_ci, _ci, _ci, _vp, _ci, _ci, _ci, ctypes.c_ulonglong, _vp],
+    "hgn_fused_overlap_group": [_ci, _ci, _ci, _ci, _ci, _vp, _ci, _ci, _ci, ctypes.c_ulonglong, _vp],
     "hgn_cuda_error_string": [_ci],
 }
 
@@ -171,10 +173,12 @@ def _column_segments(L: int) -> List[Tuple[int, int, str]]:
     return [(0, 2 * L, "sum"), (2 * L, 3 * L, "max"), (3 * L, 4 * L, "min")]
 
 
-def fused_edge_block_overlap_reference(shards: Sequence[dict], num_nodes: int):
+def fused_edge_block_overlap_reference(shards: Sequence[dict], num_nodes: int, group=None):
     """Plain K7 over every rank's shard: ``[(e2, agg), ...]``.  A shard is
-    the keyword arguments of one rank: ``e [E, L]``, ``sp``, ``rp``
-    ``[N, L]``, ``weights``, ``senders``, ``receivers``, ``mask``."""
+    the keyword arguments of one rank: ``e [E, L]`` or ``[B, E, L]``,
+    ``sp``, ``rp`` ``[..., N, L]``, ``weights``, ``senders``, ``receivers``,
+    ``mask``.  The ranks ring along ``graph`` of ``group`` (without one,
+    every shard on one ring); each frame folds on its own."""
     raws, e2s = [], []
     for x in shards:
         e2, raw = fb.fused_edge_block_reference(
@@ -184,43 +188,53 @@ def fused_edge_block_overlap_reference(shards: Sequence[dict], num_nodes: int):
         e2s.append(e2)
         raws.append(raw)
     L = shards[0]["e"].shape[-1]
-    # the column segments of [N, 4L] are the row segments of its transpose
-    folded = ring.ring_all_reduce_segments_reference([r.T.contiguous() for r in raws], _column_segments(L))
-    return [(e2, segment_ops.finalize_partials(f.T)) for e2, f in zip(e2s, folded)]
+    frames = [r.reshape(-1, num_nodes, 4 * L) for r in raws]  # [B or 1, N, 4L]
+    aggs = [[None] * f.shape[0] for f in frames]
+    for b in range(frames[0].shape[0]):
+        # the column segments of [N, 4L] are the row segments of its transpose
+        folded = ring.ring_all_reduce_segments_reference(
+            [f[b].T.contiguous() for f in frames], _column_segments(L), group
+        )
+        for r, f in enumerate(folded):
+            aggs[r][b] = segment_ops.finalize_partials(f.T)
+    return [(e2, torch.stack(a).reshape(raw.shape)) for e2, a, raw in zip(e2s, aggs, raws)]
 
 
 def fused_edge_block_overlap(shards: Sequence[dict], num_nodes: int, group, bands: int, lib=None):
     """K7 over every rank's shard (the list of the ranks' keyword arguments,
     see :func:`fused_edge_block_overlap_reference`; ``plan`` also, on the
     card), each ready on its rank's stream: ``[(e2, agg), ...]``, each on
-    its rank's stream (``lib``: a probe build of K7)."""
+    its rank's stream; the ranks ring along ``graph`` (``lib``: a probe
+    build of K7)."""
     if len(shards) != group.n:
         raise ValueError(f"{len(shards)} shards for a group of {group.n}")
     if shards[0]["e"].device.type == "cpu":
-        return fused_edge_block_overlap_reference(shards, num_nodes)
+        return fused_edge_block_overlap_reference(shards, num_nodes, group)
     lib = lib or _lib()
     L = shards[0]["e"].shape[-1]
+    batched = shards[0]["e"].dim() == 3
+    B = shards[0]["e"].shape[0] if batched else 1
     grid = min(group.ctas_per_rank(r) for r in range(group.n))
     nb = ring_ctas(bands, grid)
     rb = band_rows(num_nodes, nb)
-    state = group.ring_state("k7", num_nodes * 4 * L)
+    state = group.ring_state("k7", num_nodes * 4 * L, counters=B * nb)
     err = ring.device_error_word(group)
     ranks, outs, alive = ring.rank_table(group, state, OvRank), [], []
     for r, x in enumerate(shards):  # every check and output first: nothing between the launches
         e = x["e"]
         dev = group.device(r)
-        fb._check(e.dim() == 2 and e.device == dev, f"rank {r}: e must be [E, L] on {dev}")
+        fb._check(e.dim() == shards[0]["e"].dim() and (not batched or e.shape[0] == B) and e.device == dev,
+                  f"rank {r}: e must be [E, L] or [{B}, E, L], as rank 0's, on {dev}")
+        e3 = e if batched else e[None]
+        nodes = {k: x[k] if batched else x[k][None] for k in ("sp", "rp")}
         with torch.cuda.device(dev), torch.cuda.stream(group.stream(r)):
             plan = fb._resolve_plan(x.get("plan"), x["senders"], x["receivers"], num_nodes, dev)
-            fb._validate(
-                e[None], {"sp": x["sp"][None], "rp": x["rp"][None]}, x["senders"], x["receivers"],
-                x["mask"], num_nodes, plan,
-            )
+            fb._validate(e3, nodes, x["senders"], x["receivers"], x["mask"], num_nodes, plan)
             # a plan without K7's work list (not from overlap_plan): built here, reading the shard back
             work = plan.overlap or overlap_work(x["receivers"], x["mask"], num_nodes).to(dev)
             w, p = fb._kernel_weights(x["weights"], e.dtype, L, dev)
             e2 = torch.empty_like(e)
-            agg = torch.empty((num_nodes, 4 * L), dtype=torch.float32, device=dev)
+            agg = torch.empty(e.shape[:-2] + (num_nodes, 4 * L), dtype=torch.float32, device=dev)
         tensors = dict(e=e, sp=x["sp"], rp=x["rp"], senders=x["senders"], receivers=x["receivers"],
                        mask=x["mask"], row_ptr=work.row_ptr, groups=work.groups,
                        group_edges=work.group_edges, e2=e2, agg=agg, **w, **p)
@@ -228,12 +242,13 @@ def fused_edge_block_overlap(shards: Sequence[dict], num_nodes: int, group, band
         for k in _POINTERS:
             setattr(entry, k, fb._ptr(tensors[k]))
         # nb band rings and, as K1 does, a compute CTA for every two work items
-        entry.E, entry.G = e.shape[0], work.num_items
-        entry.grid = nb + min(grid - nb, -(-work.num_items // 2))
+        entry.E, entry.G = e.shape[-2], work.num_items
+        entry.grid = nb + min(grid - nb, -(-B * work.num_items // 2))
         alive.append(tensors)  # the weights in the kernel's types, until the launch
         outs.append((e2, agg))
     rc = lib.hgn_fused_overlap_group(
-        fb._DTYPES[shards[0]["e"].dtype], L, group.n, ranks, num_nodes, nb, rb, group.next_epoch(), err
+        fb._DTYPES[shards[0]["e"].dtype], L, group.n, group.shape["graph"], B, ranks, num_nodes, nb, rb,
+        group.next_epoch(B), err,
     )
     ring.raise_on(rc, lib, "fused_edge_block_overlap")
     fused_edge_block_overlap.launches += group.n
@@ -241,26 +256,3 @@ def fused_edge_block_overlap(shards: Sequence[dict], num_nodes: int, group, band
 
 
 fused_edge_block_overlap.launches = 0  # K7 launches (one per rank) since the last reset
-
-
-def fused_edge_block_collective_overlap(
-    e: torch.Tensor,
-    sp: torch.Tensor,
-    rp: torch.Tensor,
-    weights: Dict[str, torch.Tensor],
-    senders: torch.Tensor,
-    receivers: torch.Tensor,
-    mask: Optional[torch.Tensor],
-    num_nodes: int,
-    plan: fb.SegmentPlan,
-    group,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One rank's shard (called inside ``group.run``): ``(e2 [E, L], agg
-    [N, 4L] float32)`` through K7, with ``plan.overlap_bands`` bands.  The
-    drop-in for ``ops.fused_block.fused_edge_block_collective`` when the
-    plan carries bands; forward only, as in the JAX package."""
-    shard = dict(e=e, sp=sp, rp=rp, weights=weights, senders=senders, receivers=receivers,
-                 mask=mask, plan=plan)
-    return group.exchange(
-        shard, lambda shards: fused_edge_block_overlap(shards, num_nodes, group, plan.overlap_bands)
-    )

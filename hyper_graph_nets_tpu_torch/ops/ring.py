@@ -4,10 +4,14 @@ Counterpart of ``hyper_graph_nets_tpu/ops/pallas/ring.py``
 (``ring_all_reduce_segments``, ``ring_psum``).  Each rank of a
 ``parallel.group.RankGroup`` holds a float32 partial ``x_r`` of one shape
 ``[R, C]``; ``segments`` are ``(lo, hi, op)`` row ranges with op in sum,
-max, min; rows outside every segment keep ``x_r``.  Rank r's result folds
-``x_r, x_{r-1}, ..., x_{r-n+1}`` in that order, the JAX ring's order on
-that device, so results may differ between ranks in the last place of a
-float32 sum, and the kernel equals its plain version bit for bit.
+max, min; rows outside every segment keep ``x_r``.  The ranks combine
+along the group's ``graph`` axis: on a 2-D group each sub-ring of the ranks
+that share a ``data`` coordinate rings on its own, all of them in one
+launch (the JAX package's ``mesh_axes``).  Rank r's result folds ``x_r,
+x_{r-1}, ..., x_{r-n+1}`` (its sub-ring's ranks, n of them) in that order,
+the JAX ring's order on that device, so results may differ between ranks in
+the last place of a float32 sum, and the kernel equals its plain version
+bit for bit.
 
 On CUDA tensors :func:`ring_all_reduce_segments` checks and allocates
 everything first, then launches K6 (``csrc/ring.cu``) on every rank by one
@@ -41,7 +45,7 @@ class RingRank(ctypes.Structure):
 
 
 _SIGNATURES = {
-    "hgn_ring_all_reduce_group": [_ci, _vp, _ci, _ci, _cu, _ci, _vp, _cu, _vp, _ci],
+    "hgn_ring_all_reduce_group": [_ci, _ci, _vp, _ci, _ci, _cu, _ci, _vp, _cu, _vp, _ci],
     "hgn_enable_peer_access": [_ci, _ci],
     "hgn_host_device_pointer": [_vp, ctypes.POINTER(ctypes.c_void_p)],
     "hgn_cuda_error_string": [_ci],
@@ -113,8 +117,9 @@ def device_error_word(group) -> int:
 def rank_state(group, state) -> List[dict]:
     """Per rank, in rank order, what a group launch takes besides its
     payload: its own flag row, slots and band counters, its left
-    neighbour's flag row, its right neighbour's flag row and slots, its
-    device ordinal and stream handle (-1 and 0 on the CPU)."""
+    neighbour's flag row, its right neighbour's flag row and slots (the
+    neighbours along ``graph``), its device ordinal and stream handle (-1
+    and 0 on the CPU)."""
     rows = []
     for r in range(group.n):
         slots, flags, counters = state[r]
@@ -165,19 +170,23 @@ def check_segments(segments: Sequence[Tuple[int, int, str]], rows: int) -> None:
 
 
 def ring_all_reduce_segments_reference(
-    xs: Sequence[torch.Tensor], segments: Sequence[Tuple[int, int, str]]
+    xs: Sequence[torch.Tensor], segments: Sequence[Tuple[int, int, str]], group=None
 ) -> List[torch.Tensor]:
     """Plain K6: for each rank r, ``out = x_r`` and at hop s = 1 .. n-1 each
-    segment folds ``x_{r-s}`` into ``out`` with its op."""
-    n = len(xs)
-    outs = []
-    for r in range(n):
-        out = xs[r].clone()
-        for s in range(1, n):
-            x = xs[(r - s) % n].to(out.device)
-            for lo, hi, op in segments:
-                out[lo:hi] = _COMBINE[op](out[lo:hi], x[lo:hi])
-        outs.append(out)
+    segment folds ``x_{r-s}`` into ``out`` with its op (``r-s``: the s-th
+    rank before r on its sub-ring along ``graph`` of ``group``; without a
+    group, one ring over ``xs``)."""
+    rings = [list(range(len(xs)))] if group is None else group.subgroups("graph")
+    outs: List[torch.Tensor] = [None] * len(xs)
+    for ranks in rings:
+        n = len(ranks)
+        for i, r in enumerate(ranks):
+            out = xs[r].clone()
+            for s in range(1, n):
+                x = xs[ranks[(i - s) % n]].to(out.device)
+                for lo, hi, op in segments:
+                    out[lo:hi] = _COMBINE[op](out[lo:hi], x[lo:hi])
+            outs[r] = out
     return outs
 
 
@@ -185,9 +194,9 @@ def ring_all_reduce_segments(
     xs: Sequence[torch.Tensor], segments: Sequence[Tuple[int, int, str]], group, lib=None
 ) -> List[torch.Tensor]:
     """All-reduce the ranks' float32 ``[R, C]`` partials ``xs`` (one per
-    rank, on its device) with per-row-segment ops; returns one result per
-    rank.  CPU tensors run the plain version; CUDA tensors launch K6
-    (``lib``: a probe build of it)."""
+    rank of the group, on its device) with per-row-segment ops along
+    ``graph``; returns one result per rank.  CPU tensors run the plain
+    version; CUDA tensors launch K6 (``lib``: a probe build of it)."""
     if len(xs) != group.n:
         raise ValueError(f"{len(xs)} partials for a group of {group.n}")
     R, C = xs[0].shape
@@ -198,7 +207,7 @@ def ring_all_reduce_segments(
         if x.device != group.device(r) or not x.is_contiguous():
             raise ValueError(f"rank {r}: the payload must be contiguous on {group.device(r)}")
     if xs[0].device.type == "cpu":
-        return ring_all_reduce_segments_reference(xs, segments)
+        return ring_all_reduce_segments_reference(xs, segments, group)
     lib = lib or _lib()
     P = -(-R * C // 4) * 4  # floats per payload: the kernel moves float4s
     state = group.ring_state("k6", P)
@@ -218,7 +227,9 @@ def ring_all_reduce_segments(
                 out = torch.empty(P, dtype=torch.float32, device=x.device)
         ranks[r].x, ranks[r].out = x.data_ptr(), out.data_ptr()
         outs.append(out[: R * C].view(R, C) if out.dim() == 1 else out)
-    rc = lib.hgn_ring_all_reduce_group(group.n, ranks, R, C, P, len(segments), seg, group.next_epoch(), err, grid)
+    rc = lib.hgn_ring_all_reduce_group(
+        group.n, group.shape["graph"], ranks, R, C, P, len(segments), seg, group.next_epoch(), err, grid
+    )
     raise_on(rc, lib, "ring_all_reduce_segments")
     ring_all_reduce_segments.launches += group.n
     return outs

@@ -1,17 +1,25 @@
-"""A group of ranks in one process: the port's counterpart of a 1-D device
-mesh (the JAX package's ``parallel/sharding.make_mesh`` with one ``graph``
-axis).
+"""A group of ranks in one process: the port's counterpart of a device mesh
+(the JAX package's ``parallel/sharding.make_mesh``, axes ``('data',
+'graph')``).
+
+``RankGroup(n)`` has one axis, ``graph``, of n ranks (the halo forward's);
+``RankGroup(data, graph)`` has two: rank ``r = d * graph + g`` sits at
+``(d, g)``, the row-major order of JAX's ``devices.reshape(data, graph)``.
+Collectives run along one axis (``graph`` unless told otherwise): each
+sub-group of ranks that share the other coordinate combines on its own, in
+rank order.  Ring kernels ring along ``graph``, each rank's neighbours
+keeping its ``data`` coordinate (the JAX package's ``_mesh_neighbors``).
 
 The JAX package drives every device of its mesh from one process
 (``shard_map``).  Here each rank has its own ``torch.device`` and its own
 CUDA stream, and :meth:`RankGroup.run` runs one function per rank, each in
 its own thread under the rank's device and stream, so every rank runs the
 same network code in lockstep, taking turns.  A collective
-(:meth:`exchange`, :meth:`all_reduce_plain`) is a rendezvous: every rank
-hands in its tensor, the last runs the combine for all of them (the
-hand-written ring kernels launch there: one C call launches every rank's
-kernel, each on its rank's card and stream, with no host synchronization
-between them), and each rank gets its own result back.
+(:meth:`exchange`, :meth:`all_reduce_plain`) is a rendezvous of every rank
+of the group: every rank hands in its tensor, the last runs the combine for
+all of them (the hand-written ring kernels launch there: one C call
+launches every rank's kernel, each on its rank's card and stream, with no
+host synchronization between them), and each rank gets its own result back.
 
 On the card, rank r sits on ``cuda:(r % device_count)``: on a node with n
 cards every rank has its own card (peer access is turned on between them,
@@ -21,15 +29,16 @@ puts every rank on the CPU, where the kernels' plain versions run (the
 tests).  Without a card and without ``device="cpu"`` it raises.
 
 The ring kernels need state that outlives a call: each rank's comm slots and
-flags (allocated once and kept, never reset: each call passes the next
-epoch) and a page-locked error word their bounded spins write before they
-trap; :meth:`check` synchronizes every rank and raises on it.
+flags (allocated once per ring kind and kept, never reset: each
+call passes the next epoch) and a page-locked error word their bounded
+spins write before they trap; :meth:`check` synchronizes every rank and
+raises on it.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Callable, Dict, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -41,6 +50,13 @@ from hyper_graph_nets_tpu_torch.runtime import resolve_device
 RING_FLAG_ROWS = 256
 MAX_BANDS = 64
 WAIT_KINDS = {1: "barrier", 2: "credit", 3: "ready", 4: "band completion"}
+AXES = ("data", "graph")
+
+
+def _axis(axis: str) -> str:
+    if axis not in AXES:
+        raise ValueError(f"axis must be one of {AXES}, got {axis!r}")
+    return axis
 
 
 class _Aborted(RuntimeError):
@@ -48,7 +64,8 @@ class _Aborted(RuntimeError):
 
 
 class RankGroup:
-    """``n`` ranks, each with a device and (on the card) a stream.
+    """``n`` ranks on one ``graph`` axis, or ``n x graph`` ranks on the axes
+    ``(data, graph)``; each rank has a device and (on the card) a stream.
 
     ``devices``: one device per rank (default ``cuda:(r % device_count)``);
     ``device="cpu"``: every rank on the CPU.
@@ -57,11 +74,15 @@ class RankGroup:
     def __init__(
         self,
         n: int,
+        graph: Optional[int] = None,
         devices: Optional[Sequence[Union[str, torch.device]]] = None,
         device: Optional[Union[str, torch.device]] = None,
     ):
-        if n < 1:
-            raise ValueError(f"a rank group needs at least one rank, got {n}")
+        data, graph = (1, n) if graph is None else (n, graph)
+        if data < 1 or graph < 1:
+            raise ValueError(f"a rank group needs at least one rank on each axis, got {data} x {graph}")
+        self.shape = {"data": data, "graph": graph}
+        n = data * graph
         if device is not None and devices is not None:
             raise ValueError("pass devices or device, not both")
         if devices is None:
@@ -103,11 +124,34 @@ class RankGroup:
     def stream(self, rank: int):
         return self.streams[rank]
 
+    def coords(self, rank: int) -> Tuple[int, int]:
+        """``(data, graph)`` coordinates of ``rank``."""
+        return divmod(rank, self.shape["graph"])
+
+    def rank_at(self, data: int, graph: int) -> int:
+        return data * self.shape["graph"] + graph
+
+    def axis_index(self, rank: int, axis: str = "graph") -> int:
+        """The rank's coordinate on ``axis`` (JAX's ``axis_index``)."""
+        return self.coords(rank)[AXES.index(_axis(axis))]
+
+    def subgroups(self, axis: str = "graph") -> List[List[int]]:
+        """The ranks that collectives along ``axis`` combine: one list per
+        value of the other coordinate, each in order along ``axis``."""
+        D, G = self.shape["data"], self.shape["graph"]
+        if _axis(axis) == "graph":
+            return [[self.rank_at(d, g) for g in range(G)] for d in range(D)]
+        return [[self.rank_at(d, g) for d in range(D)] for g in range(G)]
+
     def left(self, rank: int) -> int:
-        return (rank - 1) % self.n
+        """The ring neighbour before ``rank`` along ``graph``, its ``data``
+        coordinate fixed (the JAX package's ``_mesh_neighbors``)."""
+        d, g = self.coords(rank)
+        return self.rank_at(d, (g - 1) % self.shape["graph"])
 
     def right(self, rank: int) -> int:
-        return (rank + 1) % self.n
+        d, g = self.coords(rank)
+        return self.rank_at(d, (g + 1) % self.shape["graph"])
 
     def ranks_on_device(self, rank: int) -> int:
         return sum(d == self.devices[rank] for d in self.devices)
@@ -214,61 +258,73 @@ class RankGroup:
         which returns one result per rank (a ring kernel's wrapper)."""
         return self._rendezvous(value, combine)
 
-    def all_reduce_plain(self, x: torch.Tensor, op: str) -> torch.Tensor:
-        """Sum, max or min over the ranks' tensors, in rank order 0 .. n-1,
-        the same result for every rank: the counterpart of XLA's
-        ``psum``/``pmax``/``pmin`` (plain PyTorch, as the JAX package left
-        them to XLA)."""
-        return self._rendezvous(x, lambda xs: self.reduce_plain(xs, op))
+    def all_reduce_plain(self, x: torch.Tensor, op: str, axis: str = "graph") -> torch.Tensor:
+        """Sum, max or min over the ranks' tensors along ``axis``, in rank
+        order, the same result for every rank of a sub-group: the
+        counterpart of XLA's ``psum``/``pmax``/``pmin`` (plain PyTorch, as
+        the JAX package left them to XLA)."""
+        return self._rendezvous(x, lambda xs: self.reduce_plain(xs, op, axis))
 
-    def reduce_plain(self, xs: Sequence[torch.Tensor], op: str) -> list:
+    def reduce_plain(self, xs: Sequence[torch.Tensor], op: str, axis: str = "graph") -> list:
         """:meth:`all_reduce_plain` on the list of every rank's tensor (each
         ready on its rank's stream); one result per rank, on its device."""
+        outs: List[object] = [None] * self.n
+        for ranks in self.subgroups(axis):
+            for r, out in zip(ranks, self._fold([xs[r] for r in ranks], op, ranks)):
+                outs[r] = out
+        return outs
+
+    def _fold(self, xs: Sequence[torch.Tensor], op: str, ranks: Sequence[int]) -> list:
         fold = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}[op]
         if not self.is_cuda:
             acc = xs[0]
             for x in xs[1:]:
                 acc = fold(acc, x)
-            return [acc] * self.n
-        s0, d0 = self.streams[0], self.devices[0]
+            return [acc] * len(ranks)
+        s0, d0 = self.streams[ranks[0]], self.devices[ranks[0]]
         with torch.cuda.device(d0), torch.cuda.stream(s0):
-            for s in self.streams[1:]:
-                s0.wait_stream(s)
+            for r in ranks[1:]:
+                s0.wait_stream(self.streams[r])
             acc = xs[0]
             for x in xs[1:]:
                 acc = fold(acc, x.to(d0))
         outs = []
-        for r, (d, s) in enumerate(zip(self.devices, self.streams)):
+        for i, r in enumerate(ranks):
+            d, s = self.devices[r], self.streams[r]
             with torch.cuda.device(d), torch.cuda.stream(s):
                 s.wait_stream(s0)
-                if r:
+                if i:
                     acc.record_stream(s)
                 outs.append(acc if d == d0 else acc.to(d))
         return outs
 
     # -- ring kernel state ----------------------------------------------------
-    def next_epoch(self) -> int:
-        self.epoch += 1
-        return self.epoch
+    def next_epoch(self, count: int = 1) -> int:
+        """The first of ``count`` new epochs (a batched K7 call rings once
+        per batch row, each pass with an epoch of its own)."""
+        self.epoch += count
+        return self.epoch - count + 1
 
-    def ring_state(self, kind: str, floats: int) -> list:
+    def ring_state(self, kind: str, floats: int, counters: int = MAX_BANDS) -> list:
         """Per rank ``(slots [2 * floats] float32, flags [RING_FLAG_ROWS, 8]
-        int64, counters [MAX_BANDS] int32)`` of ring kind ``kind`` (each kind
-        its own slots), allocated once and kept; slots grow (after a
-        synchronization of every rank, before any launch) when a payload
-        outgrows them."""
+        int64, counters [>= counters] int32)`` of ring kind ``kind`` (each
+        kind its own), allocated once and kept; slots and counters grow
+        (after a synchronization of every rank, before any launch) when a
+        call outgrows them.  Counters are zero between calls (each K7 band
+        ring resets its own)."""
         state = self._ring.get(kind)
-        if state is not None and state[0][0].numel() >= 2 * floats:
+        if state is not None and state[0][0].numel() >= 2 * floats and state[0][2].numel() >= counters:
             return state
         self.synchronize()
         if state is None:
             flags = [torch.zeros(RING_FLAG_ROWS, 8, dtype=torch.int64, device=d) for d in self.devices]
-            counters = [torch.zeros(MAX_BANDS, dtype=torch.int32, device=d) for d in self.devices]
         else:
-            flags, counters = [s[1] for s in state], [s[2] for s in state]
+            flags = [s[1] for s in state]
+        size = max(counters, MAX_BANDS, 0 if state is None else state[0][2].numel())
         slots = [torch.zeros(2 * floats, dtype=torch.float32, device=d) for d in self.devices]
+        counts = [torch.zeros(size, dtype=torch.int32, device=d) for d in self.devices]
         self.synchronize()
-        self._ring[kind] = list(zip(slots, flags, counters))
+        self._ring[kind] = list(zip(slots, flags, counts))
         return self._ring[kind]
 
     def error_word(self):

@@ -1,24 +1,27 @@
 """Edge-parallel halo forward over a rank group.
 
 Counterpart of ``hyper_graph_nets_tpu/parallel/halo.py``: the edges of a
-graph are split over the ranks of a ``parallel.group.RankGroup``, every
-rank keeps every node row, and each aggregation combines the ranks' partial
-sums, maxima and minima (the owner-computes halo exchange).  Each rank runs
-the network on its shard in its own thread, block by block in lockstep with
-the others (``RankGroup.run``); the aggregations meet in the group's
-collectives:
+graph are split over the ``graph`` ranks of a ``parallel.group.RankGroup``,
+every rank keeps every node row, and each aggregation combines the ranks'
+partial sums, maxima and minima along ``graph`` (the owner-computes halo
+exchange).  On a 2-D group ``(data, graph)`` every data row does the same
+(the JAX package's replicated node spec over ``data``), and the ring
+kernels ring along ``graph`` only (the JAX package's ``halo_mesh_axes``).
+Each rank runs the network on its shard in its own thread, block by block
+in lockstep with the others (``RankGroup.run``); the aggregations meet in
+the group's collectives:
 
-- ``agg_vjp: fused`` (a plan per rank): K1 unfinalized on each shard, then
-  the plain all-reduce (``ops.fused_block.fused_edge_block_collective``);
-  with ``overlap=True`` and plans built with ``overlap_bands``, K7, which
-  rings the node-row bands while later groups compute
+- ``agg_vjp: fused`` (a plan per rank; ``ops.fused_block.fused_edge_block_spmd``
+  under no autograd): K1 unfinalized on each shard, then the plain
+  all-reduce; with ``overlap=True`` and plans built with ``overlap_bands``,
+  K7, which rings the node-row bands while later groups compute
   (``ops/fused_overlap.py``);
 - any other set: its local partials, combined by the plain all-reduce, or
   with ``ring=True`` by one K6 pass carrying all pna partials
   (``ops/ring.py``).
 
-Forward only, as in the JAX package: training over edge shards is the GSPMD
-step of a later slice.  Use::
+Forward only, as in the JAX package: training over edge shards is
+``parallel.sharding.make_spmd_train_step``.  Use::
 
     group = RankGroup(4)                          # on the card(s)
     stopo = shard_topology(topo, group, overlap_bands=4)
@@ -53,47 +56,84 @@ def strip_gather(graph: Graph) -> Graph:
     )
 
 
-def split_graph(graph: Graph, group) -> List[Graph]:
-    """One unbatched graph (made on ``parallel.sharding.shard_topology``'s
-    topology) into one graph per rank, on the rank's device: rank r gets the
-    r-th contiguous slice of every edge array and the plan and fixed-order
-    sums of its slice;
-    node rows are copied to every rank (the counterpart of the JAX package's
-    ``graph_partition_specs``)."""
+def shard_graph(graph: Graph, group, r: int) -> Graph:
+    """Rank r's view of a graph made on ``parallel.sharding.shard_topology``'s
+    topology: every edge array cut to its ``graph`` coordinate's slice (the
+    edge axis is the one before the features; the index arrays copied into
+    storage of their own, which the kernels need 16-byte aligned), with its
+    plan and fixed-order sums; node rows and frames as they are, on the
+    graph's device."""
     graph = strip_gather(graph)
-    if graph.node_features.dim() != 2:
-        raise ValueError("the halo forward takes one unbatched frame")
+    G, k = group.shape["graph"], group.axis_index(r, "graph")
+    sets = {}
+    for name, es in graph.edge_sets.items():
+        E = es.num_edges
+        if E % G:
+            raise ValueError(f"{name}: {E} edges do not split over {G} ranks (shard_topology pads them)")
+        per = E // G
+        edge = lambda t, axis: t.narrow(axis, k * per, per)
+        sets[name] = es.replace(
+            features=edge(es.features, es.features.dim() - 2),
+            senders=edge(es.senders, 0).clone(),
+            receivers=edge(es.receivers, 0).clone(),
+            mask=None if es.mask is None else edge(es.mask, 0).clone(),
+            plan=es.plan.plans[r] if isinstance(es.plan, RankPlans) else None,
+            sums=es.sums.sums[r] if isinstance(es.sums, RankSums) else None,
+        )
+    return graph.replace(edge_sets=sets)
+
+
+def split_graph(graph: Graph, group) -> List[Graph]:
+    """One graph (made on ``parallel.sharding.shard_topology``'s topology)
+    into one graph per rank, on the rank's device: rank r gets the slice of
+    every edge array of its ``graph`` coordinate, with its plan and
+    fixed-order sums, and every node row (the counterpart of the JAX
+    package's ``graph_partition_specs``); a batched graph's ``[B, ...]``
+    frames split over the ``data`` ranks as ``sharding.shard_frames`` splits
+    them, an unbatched one goes to every rank."""
+    batched = graph.node_features.dim() == 3
+    D = group.shape["data"]
+    if batched and graph.node_features.shape[0] % D:
+        raise ValueError(f"{graph.node_features.shape[0]} frames do not split over {D} data ranks")
     out = []
     for r in range(group.n):
         dev = group.device(r)
-        sets = {}
-        for name, es in graph.edge_sets.items():
-            E = es.num_edges
-            if E % group.n:
-                raise ValueError(f"{name}: {E} edges do not split over {group.n} ranks (shard_topology pads them)")
-            per = E // group.n
-            # own storage for each slice: the kernels take 16-byte aligned data
-            cut = lambda t: None if t is None else t[r * per : (r + 1) * per].to(dev).clone()
-            sets[name] = es.replace(
-                features=cut(es.features),
-                senders=cut(es.senders),
-                receivers=cut(es.receivers),
-                mask=cut(es.mask),
-                plan=es.plan.plans[r] if isinstance(es.plan, RankPlans) else None,
-                sums=es.sums.sums[r] if isinstance(es.sums, RankSums) else None,
+        part = shard_graph(graph, group, r)
+        if batched:
+            b = graph.node_features.shape[0] // D
+            d = group.axis_index(r, "data")
+            frames = lambda t: None if t is None else t[d * b : (d + 1) * b]
+            part = part.replace(
+                node_features=frames(part.node_features),
+                hyper_features=frames(part.hyper_features),
+                edge_sets={n: es.replace(features=frames(es.features)) for n, es in part.edge_sets.items()},
             )
-        out.append(Graph(node_features=graph.node_features.to(dev), edge_sets=sets))
+        # own storage for each slice of features (shard_graph copied the
+        # index arrays): the kernels take 16-byte aligned data
+        move = lambda t: None if t is None else t.to(dev)
+        part = part.replace(
+            node_features=move(part.node_features),
+            hyper_features=move(part.hyper_features),
+            edge_sets={
+                n: es.replace(features=es.features.to(dev).clone(), senders=move(es.senders),
+                              receivers=move(es.receivers), mask=move(es.mask))
+                for n, es in part.edge_sets.items()
+            },
+        )
+        out.append(part)
     return out
 
 
 def make_halo_forward(model: SystemModel, group, ring: bool = False, overlap: bool = False):
     """``fn(state_or_params, rank_graphs, all_ranks=False) -> [N, out]``.
 
-    ``rank_graphs`` is :func:`split_graph`'s list (or one graph, which is
-    split here).  The parameters go to each rank's device (ranks on the
-    same device share them).  Returns rank 0's output, or with
-    ``all_ranks`` every rank's.  Synchronizes every rank at the end and
-    raises if a ring kernel timed out.
+    ``rank_graphs`` is :func:`split_graph`'s list of one unbatched frame
+    (or the frame's graph, which is split here).  The parameters go to each
+    rank's device (ranks on the same device share them).  The aggregations
+    combine along ``graph``: on a 2-D group each data row computes the same
+    output.  Returns rank 0's output, or with ``all_ranks`` every rank's.
+    Synchronizes every rank at the end and raises if a ring kernel timed
+    out.
     """
     cfg = dataclasses.replace(
         model.gnn_config, axis_name=group, halo_ring=ring, halo_overlap=overlap

@@ -72,6 +72,15 @@ of HGN plate on the card against the CPU from one float state, with no K1
 launch, within the int8 limits of tests/test_torch_port_int8.py (95% of
 the elements within rtol 1e-5, atol 1e-6; all within 1% of the largest
 move).
+
+The sharded train step (``parallel.sharding.make_spmd_train_step``) over 4
+ranks on the one card, 2 x 2 (K1 raw + the plain all-reduce) and 1 x 4 with
+overlap bands (batched K7), K2 backward on both, against the single-device
+step on the card from one state and noise: the training step's card-vs-CPU
+limits above (float32 loss rtol 1e-4, gradients relative L2 1e-3; bf16
+2**-5 and 2**-3); two runs bit for bit; each run under a time limit of its
+own, past which the process ends with every thread's traceback, so that a
+deadlock fails and does not hang.
 """
 import numpy as np
 import pytest
@@ -1455,3 +1464,65 @@ def test_int8_hgn_plate_one_step_on_card_matches_cpu(fused_tiers, monkeypatch):
     layers, bad, got = _int8_layers_against_cpu(card, cpu, batch, monkeypatch)
     assert fused_edge_block.launches == before and np.isfinite(got).all()
     assert layers > 0 and bad == 0
+
+
+# -- the sharded train step (parallel/sharding.py) -----------------------------
+
+SPMD_STEP_LIMIT_S = 120  # a step that outlasts this ends the process (every thread's traceback)
+
+
+def _sharded_vs_single(shape, bands, dtype_name):
+    """The sharded step's loss and gradients and the single-device step's,
+    on the card, from one state and one noise draw (a 2-block flag, B = 4,
+    10x10 mesh; the overlap layout with 32-edge chunks)."""
+    import faulthandler
+
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+    from hyper_graph_nets_tpu_torch.parallel.sharding import make_spmd_train_step, shard_topology
+
+    config = flag_config(None if dtype_name == "float32" else dtype_name, agg_vjp="fused")
+    config["params"]["model"].update(noise=0.003, gamma=0.9)
+    model = get_model(config)
+    trainer = Trainer(model, config)
+    traj = add_targets(flag_trajectory(num_steps=6, nx=10, ny=10), "world_pos", True)
+    topo = model.topology_from_trajectory(traj, device=trainer.device)
+    frames = trainer.frames({k: np.array(v[:4]) for k, v in traj.items() if k != "cells"})
+    normal = torch.randn(frames["world_pos"].shape, generator=torch.Generator().manual_seed(1)).cuda()
+    state = model.init_state(torch.Generator().manual_seed(0))
+    ts = trainer.init_train_state(state=state)
+    ref_loss, _ = trainer.loss_and_grads(ts, topo, frames, normal=normal)
+    ref = {n: p.grad.clone() for n, p in ts.model.params.named_parameters()}
+    group = RankGroup(*shape, devices=["cuda:0"] * (shape[0] * shape[1]))
+    step = make_spmd_train_step(trainer, shard_topology(topo, group, overlap_bands=bands, chunk=32), group)
+    runs = []
+    faulthandler.dump_traceback_later(SPMD_STEP_LIMIT_S, exit=True)  # a deadlock fails, never hangs
+    try:
+        for _ in range(2):
+            loss, _ = step.loss_and_grads(ts, frames, normal=normal)
+            group.check()
+            runs.append((loss, {n: p.grad.clone() for n, p in ts.model.params.named_parameters()}))
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    return runs, ref_loss, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["2x2", "1x4_overlap"])
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_sharded_step_on_card_matches_single_device(case, dtype_name):
+    """The sharded step over 4 ranks on one card (2 x 2: K1 raw + the plain
+    all-reduce; 1 x 4 with bands: batched K7; K2 backward on both) against
+    the single-device step on the card, same state and noise: the train
+    step's card-vs-CPU limits (float32 loss rtol 1e-4, gradients relative L2
+    1e-3; bf16 2**-5 and 2**-3); two runs bit for bit; each run under its
+    own time limit."""
+    _need_card()
+    shape, bands = {"2x2": ((2, 2), None), "1x4_overlap": ((1, 4), 4)}[case]
+    runs, ref_loss, ref = _sharded_vs_single(shape, bands, dtype_name)
+    loss_tol, grad_tol = (1e-4, 1e-3) if dtype_name == "float32" else (2.0**-5, 2.0**-3)
+    (loss, grads), (loss2, grads2) = runs
+    assert torch.equal(loss, loss2) and all(torch.equal(grads[n], grads2[n]) for n in grads)
+    assert abs(float(loss) - float(ref_loss)) <= loss_tol * abs(float(ref_loss))
+    for name, want in ref.items():
+        err = float((grads[name] - want).norm() / want.norm().clamp(min=1e-30))
+        assert err <= grad_tol, (name, err)

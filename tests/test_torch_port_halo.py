@@ -323,7 +323,7 @@ def test_k7_plain_matches_jax_overlap_kernel(S):
 def test_k7_plain_ranks_agree_and_match_the_separate_pass():
     """K7's plain version: every rank's aggregate equals K1 raw + the plain
     all-reduce + finalize within 1e-6 (float32 sums in the ring's order)."""
-    from hyper_graph_nets_tpu_torch.ops.fused_block import fused_edge_block_collective
+    from hyper_graph_nets_tpu_torch.ops.fused_block import fused_edge_block_spmd
 
     S = 3
     _, e, sp, rp, w, N, snd, rcv, mask = _overlap_problem(S, seed=2)
@@ -331,7 +331,7 @@ def test_k7_plain_ranks_agree_and_match_the_separate_pass():
     group = RankGroup(S, device="cpu")
     shards = [_torch_rank_shards(a, S) for a in (e, snd, rcv, mask)]
     sep = group.run(
-        lambda r: fused_edge_block_collective(
+        lambda r: fused_edge_block_spmd(
             shards[0][r], torch.tensor(sp), torch.tensor(rp), tw, shards[1][r], shards[2][r],
             shards[3][r], N, None, group,
         )
