@@ -81,7 +81,21 @@ Phases (any failure exits non-zero; nothing is caught and dropped):
    edges are split, its reading is logged);
    K1 raw at B = 8, K2 at the global degree on both
    layouts, batched K7 and K6/K7 on sub-rings against their plain versions;
-   the halo forward on a 2 x 2 group (ring: K6, overlap: K7);
+   the halo forward on a 2 x 2 group (ring: K6, overlap: K7); then the
+   sharded step with an expansion (``phase_spmd_rmp``, under its own
+   watchdog): configs/flag_full_scale.yaml as shipped (RMP) on the same two
+   groups (60 K1 raw or K7 and 60 K2 a step over the 1,616 rows, the tier
+   sets unfused), against the single-device RMP step on the card
+   (``SPMD_RMP_TOL``), twice bit for bit, graph rank 1's up-set partials
+   lost as a planted fault that must miss the limit, step ms and edges/s;
+   the same file with the Ricci balancer on 2 x 2 (the trainer's prepare:
+   2 K5 per SDRF loop; the unmasked topology's degree as a control that
+   must miss, over two noise draws); the sorted path cut to
+   ``SPMD_SORTED_BLOCKS`` blocks (K4f on each data row's joined mesh shards,
+   K4b in its backward: 10 each); ``make_sharded_forward`` with RMP (60
+   K1); K1 raw and K2 over 1,616 rows with interior masks, K7 over 1,616
+   rows with them, and K4f/K4b on joined shards against their plain
+   versions;
 5. training: ``Trainer.train_step`` on the same configuration, B = 21, Adam
    at lr 1e-4, noise 0.003, gamma 0.9, with ``fused_bwd: remat``, then
    ``stream``, then ``agg_vjp: sorted``, then remat with the balancer; the
@@ -1721,45 +1735,15 @@ def phase_spmd(card, peaks, seed, profile_dir=None):
         g0 = shard_graph(graph, group, 0)
         es = g0.edge_sets["mesh_edges"]
         Bk, E_shard = B // shape[0], es.num_edges
-        x = k1_inputs(torch.bfloat16, Bk, es.senders.cpu().numpy(), es.receivers.cpu().numpy(), N, L,
-                      torch.Generator().manual_seed(seed + 12), "cuda", mask=es.mask.cpu().numpy())
-        topo_args = (x["senders"], x["receivers"], x["mask"], N)
         plan = es.plan
-        k1b = k1_bound_ms("bfloat16", Bk, E_shard, N, L, peaks)
-        k2b = bwd_bound_ms("bfloat16", Bk, E_shard, N, L, peaks, False)
-        if not bands:
-            run1 = lambda: fb.fused_edge_block_fwd(x["e"], x["sp"], x["rp"], x["weights"], *topo_args, plan, raw=True)
-            got = run1()
-            want1 = fb.fused_edge_block_reference(x["e"], x["sp"], x["rp"], x["weights"], *topo_args, raw=True)
-            err = max(check_close(f"K1 raw B={Bk} shard e2", got[0], want1[0], *TOL["bfloat16"]["e2"]),
-                      check_close(f"K1 raw B={Bk} shard agg", got[1], want1[1], *TOL["bfloat16"]["agg"]))
-            rows["K1 raw"] = dict(
-                max_abs_err=err, ms=kernel_device_ms(run1, iters=20, names="fused_block_fwd_kernel"),
-                plain_ms=cuda_time_ms(lambda: fb.fused_edge_block_reference(
-                    x["e"], x["sp"], x["rp"], x["weights"], *topo_args, raw=True), iters=5),
-                bound_ms=k1b[0], bound_by=k1b[1], shape=f"bf16 B={Bk} E={E_shard} N={N} (2 x 2 shard)",
-            )
-        # K2 at the global degree on this layout: drhs from the kernel's own forward
-        e2, agg = fb.fused_edge_block_fwd(x["e"], x["sp"], x["rp"], x["weights"], *topo_args, plan)
-        dagg = torch.randn(agg.shape, generator=gen, device="cuda")
-        de2 = torch.randn(x["e"].shape, generator=gen, device="cuda").to(torch.bfloat16)
-        drhs = fb.agg_cotangent_rhs(agg, dagg, x["receivers"], x["mask"], N, plan.degree)
-        run2 = lambda: fb.fused_edge_block_bwd(x["e"], x["sp"], x["rp"], x["weights"], de2, drhs, *topo_args, plan=plan)
-        got2 = run2()
-        fwd_vals = fb.fused_edge_block_fwd(x["e"], x["sp"], x["rp"], x["weights"], *topo_args, plan, save_streams=True)
-        want2 = fb.fused_edge_block_bwd_reference(x["e"], x["sp"], x["rp"], x["weights"], de2, drhs, *topo_args,
-                                                  forward=(fwd_vals[0], fwd_vals[2], fwd_vals[3]))
-        order = lambda o: (o[0], o[1], o[2], o[3], o[6], o[7], o[8])
-        err2 = compare_bwd(f"K2 global degree {tag}", "bfloat16", order(got2), order(want2))
+        found, x = shard_kernel_rows(f"{tag} shard", peaks, gen, es.senders.cpu().numpy(), es.receivers.cpu().numpy(),
+                                     es.mask.cpu().numpy(), plan, N, Bk, seed + 12)
         if torch.equal(plan.degree.cuda(), torch.bincount(x["receivers"][x["mask"] > 0].long(), minlength=N).float()):
             raise AssertionError(f"K2 global degree {tag}: the shard's degree equals the global one: no test")
-        rows[f"K2 {tag}"] = dict(
-            max_abs_err=err2, ms=kernel_device_ms(run2, iters=10, names=BWD_KERNELS),
-            plain_ms=cuda_time_ms(lambda: fb.fused_edge_block_bwd_reference(
-                x["e"], x["sp"], x["rp"], x["weights"], de2, drhs, *topo_args), iters=3),
-            bound_ms=k2b[0], bound_by=k2b[1],
-            shape=f"bf16 B={Bk} E={E_shard} N={N} ({tag} shard, global degree)",
-        )
+        rows[f"K2 {tag}"] = found["K2"]
+        if not bands:
+            rows["K1 raw"] = found["K1 raw"]
+        k1b = k1_bound_ms("bfloat16", Bk, E_shard, N, L, peaks)
         if bands:  # batched K7 on every rank's shard of this group
             shards = []
             for r in range(group.n):
@@ -1891,6 +1875,539 @@ def phase_spmd(card, peaks, seed, profile_dir=None):
     faulthandler.cancel_dump_traceback_later()
     log(f"spmd: {time.perf_counter() - t_phase:.1f} s, watchdog disarmed")
     return launches, timings, rows
+
+
+# The sharded step with an expansion (phase_spmd_rmp): configs/flag_full_scale.yaml
+# as shipped (RMP: spectral into 16 clusters, connector hyper, 15
+# hierarchical blocks, hyper noise 0.005, bf16, fused remat) over the groups
+# of SPMD_GROUPS, the same file with the Ricci balancer on the 2 x 2 group
+# (bf16, and float32 with the degree control), the sorted path at reduced
+# depth, and the sharded forward.  The sharded step against the
+# single-device step on the card, same state, static and noise: loss
+# relative error and each gradient's relative L2, by group: ``grad`` the
+# mesh tier (encoders, decoder, mesh node and edge models), ``tier_grad``
+# RMP_TIER's cluster-tier tensors (fed by the B x 16 hyper rows),
+# ``balance_grad`` the balance set's encoder and edge models (fed by its up
+# to 300 edges).  Set from this phase's readings on an NVIDIA H100 80GB HBM3
+# at 700 W (PERF.md section 6, the sharded step with an expansion; the steps
+# are bit for bit, so a reading repeats on every run of this code with the
+# same draws): bf16 about 3x the worst over every run and draw, loss 1.55e-5
+# (the sorted path), mesh tier 9.1e-3, cluster tier 2.9e-2, balance set
+# 6.8e-2.  Float32 (the balancer run, over two noise draws) between the
+# sound runs' largest reading and the degree control's smallest: loss
+# 1.2e-7 (the control 1.2e-7: its forward is the same), mesh tier 1.1e-4
+# against 6.4e-4, cluster tier 2.6e-4, balance set 1.0e-3 against 8.8e-3:
+# the control (every mesh plan's in-degree from the unmasked topology) must
+# miss on both draws.  The bf16 2 x 2 RMP run carries the lost up-set
+# partials (loss 3.0e-2), which must miss too.
+SPMD_RMP_TOL = {
+    "bfloat16": {"loss": 5e-5, "grad": 2.5e-2, "tier_grad": 0.09, "balance_grad": 0.2},
+    "float32": {"loss": 1e-6, "grad": 3.5e-4, "tier_grad": 1e-3, "balance_grad": 6e-3},
+}
+SPMD_RMP_STEPS = 2  # timed sharded and single-device steps per group, after the checked runs
+SPMD_SORTED_BLOCKS = 5  # the sorted path's depth: cut from 15 for the script's time limit
+
+
+@contextlib.contextmanager
+def lost_up_partials(group, num_nodes, up_edges):
+    """A planted fault for the sharded RMP step: graph rank 1's local
+    partials of the up set (intra_cluster_to_cluster: its ``up_edges /
+    graph`` edges per rank all name hyper rows) come back empty in the
+    forward (no sum, no count, no max or min), as if that shard's messages
+    to the cluster tier were lost."""
+    import torch
+
+    from hyper_graph_nets_tpu_torch.core import segment_ops
+
+    kept, per = segment_ops.pna_partials, up_edges // group.shape["graph"]
+
+    def lost(data, ids, n, mask=None, sums=None):
+        raw = kept(data, ids, n, mask, sums)
+        if (group.axis_index(group.rank(), "graph") == 1 and ids.numel() == per
+                and int(ids.min()) >= num_nodes):
+            F = data.shape[-1]
+            raw = torch.cat([torch.zeros_like(raw[..., : 2 * F]), torch.full_like(raw[..., 2 * F : 3 * F], -1e30),
+                             torch.full_like(raw[..., 3 * F :], 1e30)], dim=-1)
+        return raw
+
+    segment_ops.pna_partials = lost
+    try:
+        yield
+    finally:
+        segment_ops.pna_partials = kept
+
+
+def tiered_errors(loss, grads, ref_loss, ref_grads):
+    """Loss relative error and the worst gradient relative L2 of the mesh
+    tier, the cluster tier (RMP_TIER) and the balance set, each with its
+    tensor's name."""
+    loss_err = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    group = lambda n: ("tier_grad" if any(p in n for p in RMP_TIER) else
+                       "balance_grad" if "balance" in n else "grad")
+    out = dict(loss=loss_err)
+    for g in ("grad", "tier_grad", "balance_grad"):
+        out[g] = max(((rel_l2(grads[n], ref_grads[n]), n) for n in ref_grads if group(n) == g), default=(0.0, None))
+    return out
+
+
+def tiered_ok(errs, dtype_name="bfloat16"):
+    tol = SPMD_RMP_TOL[dtype_name]
+    return errs["loss"] <= tol["loss"] and all(errs[g][0] <= tol[g] for g in ("grad", "tier_grad", "balance_grad"))
+
+
+def tiered_text(errs):
+    text = (f"loss rel {errs['loss']:.3g}, worst mesh-tier gradient rel L2 {errs['grad'][0]:.3g} "
+            f"({errs['grad'][1]}), worst cluster-tier {errs['tier_grad'][0]:.3g} ({errs['tier_grad'][1]})")
+    if errs["balance_grad"][1] is not None:
+        text += f", worst balance-set {errs['balance_grad'][0]:.3g} ({errs['balance_grad'][1]})"
+    return text
+
+
+def shard_kernel_rows(tag, peaks, gen, snd, rcv, mask, plan, rows, Bk, seed):
+    """K1 raw and K2 (at the plan's degree) on one rank's shard over
+    ``rows`` node rows, with ``mask`` (padding and interior masks), against
+    their plain versions: ``{"K1 raw": row, "K2": row}``."""
+    import torch
+
+    from hyper_graph_nets_tpu_torch.ops import fused_block as fb
+
+    L = L_MAIN
+    x = k1_inputs(torch.bfloat16, Bk, snd, rcv, rows, L, torch.Generator().manual_seed(seed), "cuda", mask=mask)
+    topo_args = (x["senders"], x["receivers"], x["mask"], rows)
+    E = len(snd)
+    run1 = lambda: fb.fused_edge_block_fwd(x["e"], x["sp"], x["rp"], x["weights"], *topo_args, plan, raw=True)
+    got = run1()
+    want = fb.fused_edge_block_reference(x["e"], x["sp"], x["rp"], x["weights"], *topo_args, raw=True)
+    err = max(check_close(f"K1 raw {tag} e2", got[0], want[0], *TOL["bfloat16"]["e2"]),
+              check_close(f"K1 raw {tag} agg", got[1], want[1], *TOL["bfloat16"]["agg"]))
+    k1b = k1_bound_ms("bfloat16", Bk, E, rows, L, peaks)
+    out = {"K1 raw": dict(
+        max_abs_err=err, ms=kernel_device_ms(run1, iters=20, names="fused_block_fwd_kernel"),
+        plain_ms=cuda_time_ms(lambda: fb.fused_edge_block_reference(
+            x["e"], x["sp"], x["rp"], x["weights"], *topo_args, raw=True), iters=5),
+        bound_ms=k1b[0], bound_by=k1b[1],
+        shape=f"bf16 B={Bk} E={E} rows={rows}, {int((mask == 0).sum())} edges masked ({tag})")}
+    e2, agg = fb.fused_edge_block_fwd(x["e"], x["sp"], x["rp"], x["weights"], *topo_args, plan)
+    dagg = torch.randn(agg.shape, generator=gen, device="cuda")
+    de2 = torch.randn(x["e"].shape, generator=gen, device="cuda").to(torch.bfloat16)
+    drhs = fb.agg_cotangent_rhs(agg, dagg, x["receivers"], x["mask"], rows, plan.degree)
+    run2 = lambda: fb.fused_edge_block_bwd(x["e"], x["sp"], x["rp"], x["weights"], de2, drhs, *topo_args, plan=plan)
+    got2 = run2()
+    fwd_vals = fb.fused_edge_block_fwd(x["e"], x["sp"], x["rp"], x["weights"], *topo_args, plan, save_streams=True)
+    want2 = fb.fused_edge_block_bwd_reference(x["e"], x["sp"], x["rp"], x["weights"], de2, drhs, *topo_args,
+                                              forward=(fwd_vals[0], fwd_vals[2], fwd_vals[3]))
+    order = lambda o: (o[0], o[1], o[2], o[3], o[6], o[7], o[8])
+    err2 = compare_bwd(f"K2 {tag}", "bfloat16", order(got2), order(want2))
+    k2b = bwd_bound_ms("bfloat16", Bk, E, rows, L, peaks, False)
+    out["K2"] = dict(
+        max_abs_err=err2, ms=kernel_device_ms(run2, iters=10, names=BWD_KERNELS),
+        plain_ms=cuda_time_ms(lambda: fb.fused_edge_block_bwd_reference(
+            x["e"], x["sp"], x["rp"], x["weights"], de2, drhs, *topo_args), iters=3),
+        bound_ms=k2b[0], bound_by=k2b[1], shape=out["K1 raw"]["shape"] + ", global degree")
+    return out, x
+
+
+def sorted_joined_rows(peaks, gen, stopo, Bk):
+    """K4f and K4b on one data row's joined shards as the sharded sorted
+    step gives them (bf16 ``[Bk, E, L]`` over the laid-out mesh edges, the
+    padding masked at the tail, interior masks as the balancer's removals
+    lie) against their plain versions: ``{"K4f joined": row, "K4b joined":
+    row}``."""
+    import torch
+
+    from hyper_graph_nets_tpu_torch.ops.segment_pna import (
+        pna_sorted,
+        pna_sorted_bwd,
+        pna_sorted_bwd_reference,
+        pna_sorted_reference,
+    )
+
+    L, N, plan = L_MAIN, stopo.num_nodes, stopo.plan
+    rcv = stopo.receivers
+    mask = torch.as_tensor(stopo.mask.cpu().numpy() * interior_mask(rcv.cpu().numpy())).cuda()
+    E = int(rcv.shape[0])
+    data = torch.randn(Bk, E, L, generator=gen, device="cuda").to(torch.bfloat16)
+    fwd = lambda: pna_sorted(data, rcv, mask, N, plan=plan)
+    out = fwd()
+    want = pna_sorted_reference(data, rcv, mask, N)
+    err = check_close("K4f joined shards sum/mean", out[..., : 2 * L], want[..., : 2 * L], SORTED_TOL["bfloat16"], 1e-5)
+    if not torch.equal(out[..., 2 * L :], want[..., 2 * L :]):
+        raise AssertionError("K4f joined shards: max/min differ from the plain version")
+    g = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    bwd = lambda: pna_sorted_bwd(g, out, data, rcv, mask, N, plan=plan)
+    if not torch.equal(bwd(), pna_sorted_bwd_reference(g, out, data, rcv, mask, N)):
+        raise AssertionError("K4b joined shards: differs from the plain version on K4f's output")
+    shape = f"bf16 B={Bk} E={E} (2 shards joined, padding and {int((mask == 0).sum())} edges masked) N={N}"
+    rows = {}
+    for name, run, plain, kname, backward in (
+        ("K4f joined", fwd, lambda: pna_sorted_reference(data, rcv, mask, N), "pna_fwd_kernel", False),
+        ("K4b joined", bwd, lambda: pna_sorted_bwd_reference(g, out, data, rcv, mask, N), "pna_bwd_kernel", True),
+    ):
+        bound, bound_by = sorted_bound_ms("bfloat16", Bk, E, N, L, peaks, backward)
+        rows[name] = dict(max_abs_err=err if not backward else 0.0, ms=kernel_device_ms(run, iters=20, names=kname),
+                          plain_ms=cuda_time_ms(plain, iters=5), bound_ms=bound, bound_by=bound_by, shape=shape)
+    return rows
+
+
+def phase_spmd_rmp(card, peaks, seed, profile_dir=None):
+    """Train configs/flag_full_scale.yaml as shipped (RMP) through
+    ``parallel.sharding.make_spmd_train_step`` with its expansion on a 2 x 2
+    group (K1 raw over the 1,616 rows + the plain all-reduce forward, K2
+    backward; the tier sets unfused through the sharded aggregate) and a
+    1 x 4 group with overlap bands (K7 over 1,616 rows, K2), all ranks on
+    the one card: launches counted in advance, loss and gradients against
+    the single-device RMP step on the card (SPMD_RMP_TOL), two runs bit for
+    bit, a planted fault (graph rank 1's up-set partials lost) that must
+    miss the limit, step ms and edges/s.  Then the same file with the Ricci
+    balancer on 2 x 2 (SDRF with K5 in the trainer's prepare; the removed
+    mesh edges interior masks on every shard; the plans' degree counting
+    the kept edges, and the unmasked topology's degree as a control that
+    must miss in float32, after which the laid-out static must give the
+    first run's gradients bit for bit, and a second noise draw, the
+    control first, within and past the limits again), the sorted path at
+    SPMD_SORTED_BLOCKS blocks (K4f on each data row's joined mesh shards,
+    K4b in its backward; held against their plain versions at that shape),
+    and
+    ``make_sharded_forward`` with RMP on 2 x 2 against the single-device
+    forward.  K1 raw and K2 over 1,616 rows with interior masks, and K7
+    over 1,616 rows with them, against their plain versions.  A watchdog
+    ends the run if the phase hangs."""
+    import faulthandler
+
+    import numpy as np
+    import torch
+
+    from hyper_graph_nets_tpu_torch.balancer.ricci import sdrf
+    from hyper_graph_nets_tpu_torch.data.preprocessing import add_targets
+    from hyper_graph_nets_tpu_torch.data.synthetic import flag_trajectory
+    from hyper_graph_nets_tpu_torch.models.get_model import get_model
+    from hyper_graph_nets_tpu_torch.ops.fused_overlap import (
+        fused_edge_block_overlap,
+        fused_edge_block_overlap_reference,
+    )
+    from hyper_graph_nets_tpu_torch.ops import fused_block as fb
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+    from hyper_graph_nets_tpu_torch.parallel.sharding import (
+        ShardedStatic,
+        make_sharded_forward,
+        make_spmd_train_step,
+        shard_topology,
+        with_degree,
+    )
+    from hyper_graph_nets_tpu_torch.training.trainer import Trainer
+
+    faulthandler.dump_traceback_later(SPMD_WATCHDOG_S, exit=True)
+    log(f"spmd rmp: watchdog armed ({SPMD_WATCHDOG_S} s)")
+    t_phase = time.perf_counter()
+    B_max = max(b for _, _, b in SPMD_GROUPS)
+    traj = add_targets(flag_trajectory(num_steps=B_max + 2, nx=40, ny=40, seed=seed), "world_pos", history=True)
+    every = {k: torch.as_tensor(v) for k, v in traj.items() if k != "cells"}
+    frame0 = {k: v[0] for k, v in traj.items()}
+    group_of = lambda shape: RankGroup(*shape, devices=["cuda:0"] * (shape[0] * shape[1]))
+    grads_of = lambda params: {n: p.grad.detach().clone() for n, p in params.named_parameters()}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+
+    config = rmp_config()
+    model = get_model(config)
+    check_rmp(model.gnn_config)
+    blocks, N, L = model.gnn_config.message_passing_steps, 1600, L_MAIN
+    state = rmp_state(config, traj, seed)
+    trainer = Trainer(model, config)
+    topo = model.topology_from_trajectory(traj, device="cuda")
+    static = trainer.expansion.prepare(model, frame0, topo)
+    rows = N + static[0].num_clusters
+    if rows != N + RMP_CLUSTERS:
+        raise AssertionError(f"rmp static: {rows - N} clusters, want {RMP_CLUSTERS}")
+    E = int(topo.senders.shape[0])
+    launches, timings, kernel_rows = dict.fromkeys(read_counts(), 0), {}, {}
+
+    def draws(B):
+        frames = {k: v[:B].cuda() for k, v in every.items()}
+        normal = torch.randn(frames["world_pos"].shape, generator=gen, device="cuda")
+        hyper = torch.randn(trainer.expansion.hyper_noise_shape(model, frames, static), generator=gen, device="cuda")
+        return frames, normal, hyper
+
+    def counted(tag, fn, want):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        full = dict.fromkeys(counts, 0)
+        full.update(want)
+        if counts != full:
+            raise AssertionError(f"{tag}: launches {counts}, want {full}")
+        for k in launches:
+            launches[k] += counts[k]
+        return out, counts
+
+    for shape, bands, B in SPMD_GROUPS:
+        group = group_of(shape)
+        tag = f"rmp {shape[0]}x{shape[1]}" + (f" overlap {bands}" if bands else "")
+        kernel = "K7" if bands else "K1"
+        frames, normal, hyper = draws(B)
+        ts = trainer.init_train_state(state=state)
+        ref_loss, _ = trainer.loss_and_grads(ts, topo, frames, normal=normal, static=static, hyper_normal=hyper)
+        ref_grads = grads_of(ts.model.params)
+        stopo = shard_topology(topo, group, overlap_bands=bands)
+        step = make_spmd_train_step(trainer, stopo, group)
+        t0 = time.perf_counter()
+        sstatic = step.laid_out(static)
+        layout_s = time.perf_counter() - t0
+        run = lambda: step.loss_and_grads(ts, frames, normal=normal, static=static, hyper_normal=hyper)
+
+        # the main path: every count set to 0 just before, read just after
+        (loss, norms), counts = counted(f"sharded step {tag}", run, {kernel: blocks * group.n, "K2": blocks * group.n})
+        group.check()
+        grads = grads_of(ts.model.params)
+        errs = tiered_errors(loss, grads, ref_loss, ref_grads)
+        if not tiered_ok(errs) or not np.isfinite(float(loss)):
+            raise AssertionError(f"sharded step {tag} vs single-device: {tiered_text(errs)}; limits "
+                                 f"{SPMD_RMP_TOL['bfloat16']}")
+        loss2, norms2 = run()
+        grads2 = grads_of(ts.model.params)
+        if not (torch.equal(loss, loss2) and all(torch.equal(grads[n], grads2[n]) for n in grads)
+                and all(torch.equal(getattr(norms[k], f), getattr(norms2[k], f)) for k in norms
+                        for f in ("acc_count", "acc_sum", "acc_sum_squared"))):
+            raise AssertionError(f"sharded step {tag}: a second run differs from the first")
+        planted = None
+        if not bands:  # one graph rank's up-set partials lost: must miss the limits
+            with lost_up_partials(group, N, int(sstatic.members[0].up_senders.shape[0])):
+                floss, _ = run()
+            planted = tiered_errors(floss, grads_of(ts.model.params), ref_loss, ref_grads)
+            if tiered_ok(planted):
+                raise AssertionError(f"sharded step {tag}: lost up-set partials passed the limits: "
+                                     f"{tiered_text(planted)}")
+            log(f"sharded step {tag} planted fault (graph rank 1's up-set partials lost): {tiered_text(planted)}, "
+                f"misses the limits {SPMD_RMP_TOL['bfloat16']} [{card}]")
+        group.check()
+
+        # step time: the full step (Adam included) beside the single-device step, each warm
+        tst = trainer.init_train_state(state=state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SPMD_RMP_STEPS):
+            tst, last = step(tst, frames, normal=normal, static=static, hyper_normal=hyper)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / SPMD_RMP_STEPS
+        group.check()
+        tsd = trainer.init_train_state(state=state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SPMD_RMP_STEPS):
+            tsd, _ = trainer.train_step(tsd, topo, frames, normal=normal, static=static, hyper_normal=hyper)
+        torch.cuda.synchronize()
+        single_ms = 1e3 * (time.perf_counter() - t0) / SPMD_RMP_STEPS
+        if not np.isfinite(float(last)):
+            raise AssertionError(f"sharded step {tag}: loss {float(last)} after the timed steps")
+        if profile_dir:
+            device_profile(run, card, profile_dir, f"spmd_rmp_{shape[0]}x{shape[1]}")
+        E_pad = int(stopo.senders.shape[0])
+        timings[tag] = dict(
+            B=B, ranks=group.n, edges=E, edges_padded=E_pad, rows=rows, step_ms=ms,
+            edges_per_s=B * E / (ms / 1e3), single_device_step_ms=single_ms, layout_s=layout_s,
+            errors=errs, planted=planted, launches=counts,
+        )
+        log(f"sharded step {tag} (flag HGN-15MP bf16 as shipped, 40x40, B={B}, {group.n} ranks on one card, "
+            f"{E_pad // shape[1]} mesh edges per graph rank over {rows} rows): {counts[kernel]} {kernel} + "
+            f"{counts['K2']} K2; vs single-device step: {tiered_text(errs)}; a second run bit for bit; "
+            f"{ms:.1f} ms per step (host clock, Adam included; single-device step {single_ms:.1f} ms), "
+            f"{B * E / (ms / 1e3):.4g} edges/s; static laid out in {layout_s:.3f} s [{card}]")
+
+        # the kernels at this group's shapes, with interior masks (the balancer's removals' pattern)
+        Bk = B // shape[0]
+        per = stopo.layout.per
+        plan = sstatic.members[0].mesh_plan.plans[0]
+        shard_arr = lambda t, k: t[k * per : (k + 1) * per].cpu().numpy()
+        masks = [shard_arr(stopo.mask, k) * interior_mask(shard_arr(stopo.receivers, k)) for k in range(shape[1])]
+        found, x = shard_kernel_rows(tag, peaks, gen, shard_arr(stopo.senders, 0), shard_arr(stopo.receivers, 0),
+                                     masks[0], plan, rows, Bk, seed + 22)
+        kernel_rows[f"K2 {tag}"] = found["K2"]
+        if not bands:
+            kernel_rows[f"K1 raw {tag}"] = found["K1 raw"]
+        else:  # K7 over every rank's shard of this group, interior masks on each
+            shards = []
+            for k in range(group.n):
+                shards.append(dict(
+                    e=torch.randn(Bk, per, L, generator=gen, device="cuda").to(torch.bfloat16),
+                    sp=x["sp"], rp=x["rp"], weights=x["weights"],
+                    senders=torch.as_tensor(shard_arr(stopo.senders, k)).cuda(),
+                    receivers=torch.as_tensor(shard_arr(stopo.receivers, k)).cuda(),
+                    mask=torch.as_tensor(masks[k]).cuda(), plan=sstatic.members[0].mesh_plan.plans[k],
+                ))
+            run7 = lambda: fused_edge_block_overlap(shards, rows, group, bands)
+            got7 = run7()
+            group.check()
+            want7 = fused_edge_block_overlap_reference(shards, rows, group)
+            err7 = 0.0
+            for k in range(group.n):
+                solo = fb.fused_edge_block_fwd(shards[k]["e"], x["sp"], x["rp"], x["weights"], shards[k]["senders"],
+                                               shards[k]["receivers"], shards[k]["mask"], rows, shards[k]["plan"])
+                if not torch.equal(got7[k][0], solo[0]):
+                    raise AssertionError(f"K7 {tag} rank {k}: e2 differs from K1's on the same shard")
+                err7 = max(err7, check_close(f"K7 {tag} rank {k} agg", got7[k][1], want7[k][1],
+                                             *TOL["bfloat16"]["agg"]))
+            k1b = k1_bound_ms("bfloat16", Bk, per, rows, L, peaks)
+            kernel_rows[f"K7 {tag}"] = dict(
+                max_abs_err=err7, ms=group_time_ms(group, run7, iters=20),
+                plain_ms=cuda_time_ms(lambda: fused_edge_block_overlap_reference(shards, rows, group), iters=3),
+                bound_ms=group.n * k1b[0], bound_by=k1b[1],
+                shape=f"bf16 B={Bk} {group.n} ranks of E={per} over {rows} rows, {bands} bands, interior masks",
+            )
+
+    # the Ricci balancer before RMP on 2 x 2: SDRF with K5 in the trainer's
+    # prepare (once: the static does not depend on the compute type), bf16 as
+    # shipped, then float32 with the degree control
+    group = group_of((2, 2))
+    frames, normal, _ = draws(16)
+    bstatic = bstate = None
+    for dtype_name in ("bfloat16", "float32"):
+        bconfig = rmp_config(**({} if dtype_name == "bfloat16" else {"compute_dtype": None}))
+        bal = bconfig["params"]["model"]["graph_balancer"]
+        bal["algorithm"] = "ricci"
+        if (bal["ricci"]["loops"], bal["ricci"]["tau"], bal["remove_edges"], bal["frequency"]) != (150, 150, True, 1):
+            raise AssertionError(f"flag_full_scale's graph_balancer changed: {bal}")
+        bmodel = get_model(bconfig)
+        btrainer = Trainer(bmodel, bconfig)
+        btopo = bmodel.topology_from_trajectory(traj, device="cuda")
+        if bstatic is None:
+            reset_counts()  # the trainer's prepare is on the main path: 2 K5 per SDRF loop
+            t0 = time.perf_counter()
+            bstatic = btrainer.expansion.prepare(bmodel, frame0, btopo)
+            torch.cuda.synchronize()
+            prepare_s = time.perf_counter() - t0
+            counts = read_counts()
+            if counts != {**dict.fromkeys(counts, 0), "K5": 2 * sdrf.loops_run}:
+                raise AssertionError(f"balancer prepare: launches {counts}, want {2 * sdrf.loops_run} K5")
+            launches["K5"] += counts["K5"]
+            loops = sdrf.loops_run
+            bhyper = torch.randn(btrainer.expansion.hyper_noise_shape(bmodel, frames, bstatic), generator=gen,
+                                 device="cuda")
+            bstate = bmodel.init_state(torch.Generator().manual_seed(seed)).to("cuda")
+            with torch.no_grad():  # normalizers over the trajectory, the expansion's included
+                ev = {k: v.cuda() for k, v in every.items()}
+                graph, _, bstate = bmodel.make_graph(bstate, btopo, ev, True)
+                _, bstate = btrainer.expansion.expand(bstate, graph, ev, bmodel, True, static=bstatic,
+                                                      generator=torch.Generator(device="cuda").manual_seed(seed + 3))
+                _, bstate = bmodel.get_target(bstate, ev, True)
+        ts = btrainer.init_train_state(state=bstate)
+        ref_loss, _ = btrainer.loss_and_grads(ts, btopo, frames, normal=normal, static=bstatic, hyper_normal=bhyper)
+        ref_grads = grads_of(ts.model.params)
+        bstopo = shard_topology(btopo, group)
+        bstep = make_spmd_train_step(btrainer, bstopo, group)
+        run = lambda st: bstep.loss_and_grads(ts, frames, normal=normal, static=st, hyper_normal=bhyper)
+        t0 = time.perf_counter()
+        (loss, _), counts = counted(f"sharded balancer step {dtype_name}", lambda: run(bstatic),
+                                    {"K1": blocks * 4, "K2": blocks * 4})
+        bal_ms = 1e3 * (time.perf_counter() - t0)
+        sound = grads_of(ts.model.params)
+        errs = tiered_errors(loss, sound, ref_loss, ref_grads)
+        if not tiered_ok(errs, dtype_name):
+            raise AssertionError(f"sharded balancer step {dtype_name} vs single-device: {tiered_text(errs)}; "
+                                 f"limits {SPMD_RMP_TOL[dtype_name]}")
+        sstatic = bstep.laid_out(bstatic)
+        keep = sstatic.members[0].mesh_keep.cpu().numpy()
+        control_errs = None
+        if dtype_name == "float32":  # every mesh plan's degree from the unmasked topology: must miss
+            unmasked = torch.from_numpy(np.bincount(bstopo.receivers.cpu().numpy()[bstopo.mask.cpu().numpy() > 0],
+                                                    minlength=rows).astype(np.float32))
+            control = ShardedStatic(
+                topo=sstatic.topo._replace(plan=with_degree(sstatic.topo.plan, unmasked[:N])),
+                members=(sstatic.members[0],
+                         sstatic.members[1]._replace(mesh_plan=with_degree(sstatic.members[1].mesh_plan, unmasked))))
+            closs, _ = run(control)
+            control_errs = tiered_errors(closs, grads_of(ts.model.params), ref_loss, ref_grads)
+            if tiered_ok(control_errs, dtype_name):
+                raise AssertionError(f"sharded balancer step: the unmasked topology's degree passed the float32 "
+                                     f"limits: {tiered_text(control_errs)}")
+            # the laid-out static again after another one: the same gradients bit for bit (each
+            # backward reads every rank's forward tensors on one stream: used_on_this_stream)
+            run(bstatic)
+            again = grads_of(ts.model.params)
+            if not all(torch.equal(sound[n], again[n]) for n in sound):
+                raise AssertionError("sharded balancer step: a run after the control's differs from the first")
+            # a second draw of both noises, the control first this time: each against the
+            # single-device step on that draw (the limits must hold over draws, not one)
+            normal2 = torch.randn(normal.shape, generator=gen, device="cuda")
+            bhyper2 = torch.randn(bhyper.shape, generator=gen, device="cuda")
+            ref2_loss, _ = btrainer.loss_and_grads(ts, btopo, frames, normal=normal2, static=bstatic,
+                                                   hyper_normal=bhyper2)
+            ref2 = grads_of(ts.model.params)
+            run2 = lambda st: bstep.loss_and_grads(ts, frames, normal=normal2, static=st, hyper_normal=bhyper2)
+            closs2, _ = run2(control)
+            second = dict(degree_control=tiered_errors(closs2, grads_of(ts.model.params), ref2_loss, ref2))
+            sloss2, _ = run2(bstatic)
+            second["errors"] = tiered_errors(sloss2, grads_of(ts.model.params), ref2_loss, ref2)
+            if not tiered_ok(second["errors"], dtype_name):
+                raise AssertionError(f"sharded balancer step {dtype_name}, second draw, vs single-device: "
+                                     f"{tiered_text(second['errors'])}; limits {SPMD_RMP_TOL[dtype_name]}")
+            if tiered_ok(second["degree_control"], dtype_name):
+                raise AssertionError(f"sharded balancer step, second draw: the unmasked topology's degree passed "
+                                     f"the float32 limits: {tiered_text(second['degree_control'])}")
+        group.check()
+        timings[f"rmp+balancer 2x2 {dtype_name}"] = dict(
+            B=16, prepare_s=prepare_s, sdrf_loops=loops, removed_edges=int((keep == 0).sum()),
+            step_ms=bal_ms, errors=errs, degree_control=control_errs, launches=counts)
+        log(f"sharded step rmp+balancer 2x2 {dtype_name} (B=16; prepare {prepare_s:.3f} s, {loops} SDRF loops, "
+            f"{int((keep == 0).sum())} mesh edges removed): {counts['K1']} K1 + {counts['K2']} K2; vs "
+            f"single-device: {tiered_text(errs)}; {bal_ms:.1f} ms checked run [{card}]")
+        if control_errs is not None:
+            timings[f"rmp+balancer 2x2 {dtype_name}"]["second_draw"] = second
+            log(f"  the unmasked topology's degree (control): {tiered_text(control_errs)}, misses the float32 "
+                f"limits {SPMD_RMP_TOL['float32']} [{card}]")
+            log(f"  second draw: sound {tiered_text(second['errors'])}; control "
+                f"{tiered_text(second['degree_control'])}, misses [{card}]")
+
+    # the sorted path, cut in depth: the mesh set's K4f on each data row's
+    # joined shards and K4b in one node per data row; the tier sets unfused
+    sconfig = rmp_config(agg_vjp="sorted", message_passing_steps=SPMD_SORTED_BLOCKS)
+    smodel = get_model(sconfig)
+    strainer = Trainer(smodel, sconfig)
+    stopo_s = smodel.topology_from_trajectory(traj, device="cuda")
+    sstatic_s = strainer.expansion.prepare(smodel, frame0, stopo_s)
+    sts = strainer.init_train_state(state=rmp_state(sconfig, traj, seed))
+    frames, normal, hyper = draws(8)
+    ref_loss, _ = strainer.loss_and_grads(sts, stopo_s, frames, normal=normal, static=sstatic_s, hyper_normal=hyper)
+    ref_grads = grads_of(sts.model.params)
+    sharded_s = shard_topology(stopo_s, group)
+    sstep = make_spmd_train_step(strainer, sharded_s, group)
+    rows_per = SPMD_SORTED_BLOCKS * group.shape["data"]
+    t0 = time.perf_counter()
+    (loss, _), counts = counted("sharded sorted step", lambda: sstep.loss_and_grads(
+        sts, frames, normal=normal, static=sstatic_s, hyper_normal=hyper), {"K4f": rows_per, "K4b": rows_per})
+    sorted_ms = 1e3 * (time.perf_counter() - t0)
+    errs = tiered_errors(loss, grads_of(sts.model.params), ref_loss, ref_grads)
+    if not tiered_ok(errs):
+        raise AssertionError(f"sharded sorted step vs single-device: {tiered_text(errs)}; limits "
+                             f"{SPMD_RMP_TOL['bfloat16']}")
+    timings["rmp sorted 2x2"] = dict(B=8, blocks=SPMD_SORTED_BLOCKS, step_ms=sorted_ms, errors=errs, launches=counts)
+    log(f"sharded step rmp sorted 2x2 (cut to {SPMD_SORTED_BLOCKS} of 15 blocks for the time limit, B=8): "
+        f"{counts['K4f']} K4f + {counts['K4b']} K4b on the joined shards; vs single-device (K4f/K4b): "
+        f"{tiered_text(errs)}; {sorted_ms:.1f} ms checked run [{card}]")
+    kernel_rows.update(sorted_joined_rows(peaks, gen, sharded_s, 8 // group.shape["data"]))
+
+    # the sharded forward with RMP on 2 x 2 against the single-device forward
+    frames = {k: v[:8].cuda() for k, v in every.items()}
+    mstate = state.to("cuda")
+    fwd = make_sharded_forward(model, shard_topology(topo, group), group, expansion=trainer.expansion)
+    out, counts = counted("sharded forward rmp 2x2", lambda: fwd(mstate, frames, static=static), {"K1": blocks * 4})
+    with torch.no_grad():
+        graph, _, _ = model.make_graph(mstate, topo, frames, False)
+        graph, _ = trainer.expansion.expand(mstate, graph, frames, model, is_training=False, static=static)
+        single = model.forward(mstate, graph)
+    scale = float(single.abs().max())
+    err = float((out - single).abs().max())
+    if err > SERVE_TOL["net_out"] * scale or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"sharded forward rmp 2x2: max err {err} of max {scale}")
+    timings["rmp forward 2x2"] = dict(B=8, launches=counts, max_err_vs_single=err, out_scale=scale)
+    log(f"sharded forward rmp 2x2 (B=8): {counts['K1']} K1; vs single-device max err {err:.3g} of max "
+        f"{scale:.3g} [{card}]")
+
+    for name, r in kernel_rows.items():
+        log(f"{name} ({r['shape']}): {r['ms'] * 1e3:.1f} us, bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}), "
+            f"plain {r['plain_ms']:.3f} ms, max abs err {r['max_abs_err']:.3g} [{card}]")
+    faulthandler.cancel_dump_traceback_later()
+    log(f"spmd rmp: {time.perf_counter() - t_phase:.1f} s, watchdog disarmed")
+    return launches, timings, kernel_rows
 
 
 def phase_slice(card, seed, rollout_steps, profile_dir=None, agg_vjp="fused", balancer=False):
@@ -4122,6 +4639,7 @@ def main(argv=None) -> int:
         serve_launches = {k: serve_launches.get(k, 0) + v for k, v in n.items()}
     halo_launches, halo_timings = timed(phase_halo, card, args.seed)
     spmd_launches, spmd_timings, spmd_rows = timed(phase_spmd, card, peaks, args.seed, args.profile)
+    spmd_rmp_launches, spmd_rmp_timings, spmd_rmp_rows = timed(phase_spmd_rmp, card, peaks, args.seed, args.profile)
     train_launches, train_timings = timed(phase_train, card, args.seed, args.profile)
     task_launches, task_timings = timed(phase_task, card)
     rmp_launches, rmp_timings, rmp_kernels = timed(phase_rmp, card, peaks, args.seed, args.profile)
@@ -4132,8 +4650,8 @@ def main(argv=None) -> int:
     int8_launches, int8_timings = timed(phase_int8, card, args.seed, args.profile)
     cli_timings = timed(phase_cli, card)
     launches = {
-        k: serve_launches[k] + halo_launches[k] + spmd_launches[k] + train_launches[k] + task_launches[k]
-        + rmp_launches[k]
+        k: serve_launches[k] + halo_launches[k] + spmd_launches[k] + spmd_rmp_launches[k] + train_launches[k]
+        + task_launches[k] + rmp_launches[k]
         + sum(run[0][k] for run in model_runs.values()) + hgn_launches[k] + int8_launches[k]
         for k in serve_launches
     }
@@ -4208,6 +4726,30 @@ def main(argv=None) -> int:
                    spmd_timings["halo 2x2 overlap"]["launches"], spmd_rows["K7 sub-ring"]),
              shape=spmd_rows["K7 sub-ring"]["shape"]),
     ]
+    # the sharded step with RMP: launches from phase_spmd_rmp's main paths only
+    rmp_k = lambda tag, k: spmd_rmp_timings[tag]["launches"][k]
+    kernels += [
+        dict(entry("fused_edge_block_fwd raw over N + K rows with masks, sharded RMP step (K1)", "fused_block_fwd.cu",
+                   "fused_block.py:393", rmp_k("rmp 2x2", "K1"), spmd_rmp_rows["K1 raw rmp 2x2"]),
+             shape=spmd_rmp_rows["K1 raw rmp 2x2"]["shape"]),
+        dict(entry("fused_edge_block_bwd remat over N + K rows with masks, sharded RMP step (K2)", "fused_block_bwd.cu",
+                   "fused_block.py:1008", rmp_k("rmp 2x2", "K2"), spmd_rmp_rows["K2 rmp 2x2"]),
+             shape=spmd_rmp_rows["K2 rmp 2x2"]["shape"]),
+        dict(entry("fused_edge_block_bwd remat over N + K rows on the overlap layout, sharded RMP step (K2)",
+                   "fused_block_bwd.cu", "fused_block.py:1008", rmp_k(f"rmp 1x4 overlap {HALO_BANDS}", "K2"),
+                   spmd_rmp_rows[f"K2 rmp 1x4 overlap {HALO_BANDS}"]),
+             shape=spmd_rmp_rows[f"K2 rmp 1x4 overlap {HALO_BANDS}"]["shape"]),
+        dict(entry("fused_edge_block_overlap over N + K rows with masks, sharded RMP step (K7)", "fused_overlap.cu",
+                   "fused_overlap.py:171", rmp_k(f"rmp 1x4 overlap {HALO_BANDS}", "K7"),
+                   spmd_rmp_rows[f"K7 rmp 1x4 overlap {HALO_BANDS}"]),
+             shape=spmd_rmp_rows[f"K7 rmp 1x4 overlap {HALO_BANDS}"]["shape"]),
+        dict(entry("pna_sorted on a data row's joined shards, sharded RMP step (K4f)", "segment_pna.cu",
+                   "segment_pna.py:81", rmp_k("rmp sorted 2x2", "K4f"), spmd_rmp_rows["K4f joined"]),
+             shape=spmd_rmp_rows["K4f joined"]["shape"]),
+        dict(entry("pna_sorted_bwd on a data row's joined shards, sharded RMP step (K4b)", "segment_pna.cu",
+                   "segment_pna.py:183", rmp_k("rmp sorted 2x2", "K4b"), spmd_rmp_rows["K4b joined"]),
+             shape=spmd_rmp_rows["K4b joined"]["shape"]),
+    ]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -4229,6 +4771,8 @@ def main(argv=None) -> int:
                     "halo": halo_timings,
                     "halo_launches": halo_launches,
                     "spmd": {"launches": spmd_launches, "timings": spmd_timings, "kernels": spmd_rows},
+                    "spmd_rmp": {"launches": spmd_rmp_launches, "timings": spmd_rmp_timings,
+                                 "kernels": spmd_rmp_rows},
                     "serving": serve_timings,
                     "serving_launches": serve_launches,
                     "training": train_timings,

@@ -50,7 +50,9 @@ class EdgeSet:
     gather backwards run through them, in the same order on every run.  A
     set formed per frame has ``[B, E]`` senders, receivers and mask, no plan
     and no neighbour matrices, and per-frame sums
-    (``EdgeSums.per_frame``).
+    (``EdgeSums.per_frame``).  ``ties`` is set on a set split over edge
+    shards (``nn.blocks.edge_shard_ties``): how its aggregate routes a
+    max/min cotangent to tied edges, as its one-device path would.
     """
 
     features: torch.Tensor  # [..., E, F]
@@ -63,6 +65,7 @@ class EdgeSet:
     snd_gather_idx: Optional[torch.Tensor] = None
     snd_gather_valid: Optional[torch.Tensor] = None
     sums: Optional[object] = None
+    ties: Optional[str] = None  # 'full' or 'split' (core.segment_ops.ShardedAggregate)
 
     @property
     def num_edges(self) -> int:

@@ -434,6 +434,24 @@ def finalize_partials(raw: torch.Tensor) -> torch.Tensor:
     )
 
 
+def combine_partials(group, raws, F: int):
+    """Every rank's raw pna partials ``[..., N, 4F]`` combined along
+    ``graph`` by the group's plain all-reduce (sum and count summed, max and
+    min folded, in rank order), then finalized: ``(aggs, counts)``, one
+    finalized float32 aggregate and one combined ``[..., N, 1]`` count per
+    rank, each on its device and stream."""
+    parts = [
+        group.reduce_plain([x[..., lo:hi] for x in raws], op)
+        for lo, hi, op in ((0, 2 * F, "sum"), (2 * F, 3 * F, "max"), (3 * F, 4 * F, "min"))
+    ]
+    aggs, counts = [], []
+    for r, p in enumerate(zip(*parts)):
+        with group.context(r):
+            aggs.append(finalize_partials(torch.cat(p, dim=-1)))
+            counts.append(p[0][..., F : F + 1])
+    return aggs, counts
+
+
 # -- edge-parallel aggregation over a rank group (the halo forward) ----------
 
 
@@ -455,59 +473,195 @@ def collective_aggregate(
     the local partials and counts in a fixed order, so a halo forward is the
     same bit for bit on every run; without it they add with ``index_add_``.
 
-    Without ``ring`` the partials combine by the group's plain all-reduce in
-    the data's dtype (sums, then counts, maxima and minima; the counterpart
-    of ``psum``/``pmax``/``pmin``).  With ``ring`` every pna partial travels
-    in ONE float32 payload ``[sum; count; max; min]`` (``[4N, F]``) through
-    K6 (``ops.ring.ring_all_reduce_segments``) and the result is cast back to
-    the data's dtype.  Unbatched ``[E, F]`` data only, as in JAX.
+    Without ``ring`` the partials combine by the group's plain all-reduce
+    (the counterpart of ``psum``/``pmax``/``pmin``): :func:`sharded_aggregate`.
+    With ``ring`` every pna partial travels in ONE float32 payload ``[sum;
+    count; max; min]`` (``[4N, F]``) through K6
+    (``ops.ring.ring_all_reduce_segments``), unbatched ``[E, F]`` data only,
+    as in JAX, and the result is cast back to the data's dtype.
     """
+    if not ring:
+        return sharded_aggregate(data, segment_ids, num_segments, aggregation, mask, group, sums=sums)
     if data.dim() != 2:
-        raise ValueError("collective aggregation supports unbatched [E, F] data only")
+        raise ValueError("the ring's collective aggregation supports unbatched [E, F] data only")
     if aggregation not in ("sum", "mean", "max", "min", "pna"):
         raise ValueError(f"invalid collective aggregation {aggregation!r}")
-    n = num_segments
-    if ring:
-        from hyper_graph_nets_tpu_torch.ops.ring import ring_all_reduce_segments
+    from hyper_graph_nets_tpu_torch.ops.ring import ring_all_reduce_segments
 
-        if aggregation == "sum":
-            total = group.exchange(
-                _sum32(data, segment_ids, n, mask, sums),
-                lambda xs: ring_all_reduce_segments(xs, [(0, n, "sum")], group),
-            )
-            return total.to(data.dtype)
-        raw = pna_partials(data, segment_ids, n, mask, sums)  # [N, 4F]
-        F = data.shape[-1]
-        payload = torch.cat(raw.split(F, dim=-1), dim=0).contiguous()  # [4N, F]
-        segments = [(0, n, "sum"), (n, 2 * n, "sum"), (2 * n, 3 * n, "max"), (3 * n, 4 * n, "min")]
-        combined = group.exchange(
-            payload, lambda xs: ring_all_reduce_segments(xs, segments, group)
+    n = num_segments
+    if aggregation == "sum":
+        total = group.exchange(
+            _sum32(data, segment_ids, n, mask, sums),
+            lambda xs: ring_all_reduce_segments(xs, [(0, n, "sum")], group),
         )
-        out = finalize_partials(torch.cat(combined.split(n, dim=0), dim=-1))
-    else:
-        dt = data.dtype
-        total = group.all_reduce_plain(_sum32(data, segment_ids, n, mask, sums).to(dt), "sum")
-        if aggregation == "sum":
-            return total
-        counts = group.all_reduce_plain(_count32(data, segment_ids, n, mask, sums).to(dt), "sum")
-        mean = total / torch.clamp(counts, min=1.0)
-        if aggregation == "mean":
-            return mean
-        mx = group.all_reduce_plain(_extremum_raw32(data, segment_ids, n, mask, "amax").to(dt), "max")
-        mx = _empty_to_zero(mx, "amax")
-        if aggregation == "max":
-            return mx
-        mn = group.all_reduce_plain(_extremum_raw32(data, segment_ids, n, mask, "amin").to(dt), "min")
-        mn = _empty_to_zero(mn, "amin")
-        if aggregation == "min":
-            return mn
-        return torch.cat([total, mean, mx, mn], dim=-1)
+        return total.to(data.dtype)
+    raw = pna_partials(data, segment_ids, n, mask, sums)  # [N, 4F]
     F = data.shape[-1]
+    payload = torch.cat(raw.split(F, dim=-1), dim=0).contiguous()  # [4N, F]
+    segments = [(0, n, "sum"), (n, 2 * n, "sum"), (2 * n, 3 * n, "max"), (3 * n, 4 * n, "min")]
+    combined = group.exchange(payload, lambda xs: ring_all_reduce_segments(xs, segments, group))
+    out = finalize_partials(torch.cat(combined.split(n, dim=0), dim=-1))
+    return _pna_part(out, aggregation, F).to(data.dtype)
+
+
+def _pna_part(out: torch.Tensor, aggregation: str, F: int) -> torch.Tensor:
+    """The ``aggregation`` columns of a pna result (all of it for pna)."""
     parts = {"mean": 1, "max": 2, "min": 3}
     if aggregation in parts:
         k = parts[aggregation]
-        out = out[..., k * F : (k + 1) * F]
-    return out.to(data.dtype)
+        return out[..., k * F : (k + 1) * F]
+    return out[..., :F] if aggregation == "sum" else out
+
+
+# -- an unfused edge set over edge shards, under autograd ----------------------
+
+TIE_RULES = ("full", "split")
+
+
+def used_on_this_stream(*tensors) -> None:
+    """Mark CUDA tensors as read on the current stream (``record_stream``).
+    A rank-group node's backward runs on one stream and reads what every
+    rank's stream made in the forward (the shards' features, indices and
+    aggregates); once the node is released, the caching allocator would
+    hand that memory back to the rank's stream before this stream's kernels
+    have read it, and a later kernel on the rank's stream could overwrite
+    it."""
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and t.is_cuda:
+            t.record_stream(torch.cuda.current_stream(t.device))
+
+
+class ShardedAggregate(torch.autograd.Function):
+    """The pna aggregate of an edge set without a kernel plan over the edge
+    shards of one ``data`` row of a rank group, as one autograd node over
+    every shard (the unfused counterpart of
+    ``ops.fused_block.ShardedFusedBlock``; the JAX package leaves it to
+    GSPMD, which partitions one global program).
+
+    The forward is computed before (each rank's local partials, combined by
+    :func:`combine_partials`); this node takes each rank's edge features
+    ``[..., E/G, F]`` and returns each rank's aggregate over every node row.
+    Its backward sums the ranks' aggregate cotangents in rank order (the
+    transpose of handing every rank the all-reduced aggregate), then routes
+    the sum to each shard's valid edges against the global aggregate: the
+    sum part in full, the mean part over the global count, and the max
+    (min) part to every edge equal to the global max (min), by the set's tie
+    rule: ``full`` sends the whole cotangent to every tied edge (the
+    ``gather`` path's ``pna_gather``), ``split``
+    divides it by the number of tied edges over every shard (autograd
+    through an amax, the ``xla`` path's).  Being one node, its backward
+    waits for no other rank (see ``ShardedFusedBlock``).
+    """
+
+    @staticmethod
+    def forward(ctx, spec, *xs):
+        # spec: (per rank (receivers, mask, sums), tie rule, aggregates, count)
+        shards, ties, aggs, count = spec
+        ctx.shards, ctx.ties, ctx.count = shards, ties, count
+        ctx.save_for_backward(*xs, aggs[0])
+        return tuple(aggs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        *xs, agg = ctx.saved_tensors
+        used_on_this_stream(*xs, agg, ctx.count, *grads, *(t for shard in ctx.shards for t in shard[:2]))
+        count = ctx.count.to(agg.device)
+        dagg = None
+        for d in grads:  # the ranks' aggregate cotangents, in rank order
+            if d is not None:
+                d = d.float().to(agg.device)
+                dagg = d if dagg is None else dagg + d
+        if dagg is None:
+            return (None,) + tuple(torch.zeros_like(x) for x in xs)
+        F = agg.shape[-1] // 4
+        g_sum, g_mean, g_max, g_min = dagg.split(F, dim=-1)
+        _, _, mx, mn = agg.split(F, dim=-1)
+        node = g_sum + g_mean / count.clamp(min=1.0)
+        if ctx.ties == "split":
+            ties_max, ties_min = _tie_counts(xs, ctx.shards, mx, mn)
+            g_max, g_min = g_max / ties_max.clamp(min=1.0), g_min / ties_min.clamp(min=1.0)
+        out = [None]
+        for x, (rcv, mask, _) in zip(xs, ctx.shards):
+            take = lambda t: t.to(x.device).index_select(t.dim() - 2, rcv.long())
+            xf = x.float()
+            ge = take(node)
+            ge = ge + torch.where(xf == take(mx), take(g_max), 0.0)
+            ge = ge + torch.where(xf == take(mn), take(g_min), 0.0)
+            if mask is not None:
+                ge = ge * (mask > 0)[..., None]
+            out.append(ge.to(x.dtype))
+        return tuple(out)
+
+
+def _tie_counts(xs, shards, mx, mn):
+    """The number of valid edges over every shard equal to each receiver's
+    global max and min, ``[..., N, F]`` each: each shard's counts (exact
+    small integers, so their order does not matter), summed in rank
+    order."""
+    n = mx.shape[-2]
+    total_max = total_min = 0.0
+    for x, (rcv, mask, sums) in zip(xs, shards):
+        take = lambda t: t.to(x.device).index_select(t.dim() - 2, rcv.long())
+        xf = x.float()
+        for ext, which in ((mx, "max"), (mn, "min")):
+            hits = _sum32((xf == take(ext)).float(), rcv, n, mask, sums).to(mx.device)
+            if which == "max":
+                total_max = total_max + hits
+            else:
+                total_min = total_min + hits
+    return total_max, total_min
+
+
+def sharded_aggregate(
+    data: torch.Tensor,
+    receivers: torch.Tensor,
+    num_segments: int,
+    aggregation: str,
+    mask: Optional[torch.Tensor],
+    group,
+    sums: Optional[FixedSum] = None,
+    ties: str = "split",
+) -> torch.Tensor:
+    """One rank's edge shard ``[..., E, F]`` of a set without a kernel plan,
+    aggregated over every graph rank's edges (called inside ``group.run``):
+    ``[..., num_segments, F']``, every node row.
+
+    Each rank sums its local partials in the fixed order of ``sums`` (the
+    shard's receiver :class:`FixedSum`, ``parallel.sharding.RankSums``;
+    ``index_add_`` without one) and takes its local max and min, in float32;
+    the partials meet in :func:`combine_partials` (the group's plain
+    all-reduce along ``graph``).  Under autograd each ``data`` row's shards
+    meet in one :class:`ShardedAggregate` node, whose backward routes the
+    max and min cotangents to tied edges by ``ties`` (``full`` or
+    ``split``).  Batched ``[B, E, F]`` data and ``[E, F]`` alike; the result
+    in the data's dtype."""
+    if aggregation not in ("sum", "mean", "max", "min", "pna"):
+        raise ValueError(f"invalid collective aggregation {aggregation!r}")
+    if ties not in TIE_RULES:
+        raise ValueError(f"ties must be one of {TIE_RULES}, got {ties!r}")
+    grad = torch.is_grad_enabled() and data.requires_grad
+    with torch.no_grad():
+        raw = pna_partials(data, receivers, num_segments, mask, sums)
+    entry = dict(data=data, shard=(receivers, mask, sums), raw=raw, grad=grad)
+    out = group.exchange(entry, lambda entries: _sharded_combine(entries, group, ties))
+    return _pna_part(out, aggregation, data.shape[-1]).to(data.dtype)
+
+
+def _sharded_combine(entries, group, ties: str):
+    """The rendezvous of :func:`sharded_aggregate`: every rank's partials
+    combined, then one autograd node per ``data`` row."""
+    F = entries[0]["data"].shape[-1]
+    with torch.no_grad():
+        aggs, counts = combine_partials(group, [x["raw"] for x in entries], F)
+    if not entries[0]["grad"]:
+        return aggs
+    results: list = [None] * group.n
+    for ranks in group.subgroups("graph"):
+        spec = ([entries[r]["shard"] for r in ranks], ties, [aggs[r] for r in ranks], counts[ranks[0]])
+        got = ShardedAggregate.apply(spec, *(entries[r]["data"] for r in ranks))
+        for r, out in zip(ranks, got):
+            results[r] = out
+    return results
 
 
 # -- the gather path (agg_vjp: gather) ----------------------------------------

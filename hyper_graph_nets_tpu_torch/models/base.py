@@ -64,7 +64,10 @@ class Topology(NamedTuple):
     402-416``), and so are the fixed-order sums (``sums``) of the unfused
     paths.  ``aux`` holds a model's own per-trajectory arrays (plate's
     obstacle indices) and ``world_cap`` plate's world-edge capacity under
-    ``max_world_edges: auto``, as in the JAX package.
+    ``max_world_edges: auto``, as in the JAX package.  ``layout`` is set on
+    a topology split over a rank group's edge shards
+    (``parallel.sharding.shard_topology``): how its edges lie there
+    (``parallel.sharding.EdgeLayout``).
     """
 
     senders: torch.Tensor  # [E] int32, sorted by receiver
@@ -79,6 +82,7 @@ class Topology(NamedTuple):
     sums: Optional[EdgeSums] = None
     aux: Optional[Dict[str, torch.Tensor]] = None
     world_cap: Optional[int] = None
+    layout: Optional[object] = None
 
 
 def mesh_edge_set(topo: Topology, features: torch.Tensor) -> EdgeSet:

@@ -55,11 +55,17 @@ frames and) graph rank's edge shard with every node row: a ``fused`` set
 runs ``ops.fused_block.fused_edge_block_spmd`` (K1 unfinalized and the
 group's plain all-reduce along ``graph``, or, with ``halo_overlap`` and a
 plan that carries bands, K7; under autograd one node per data row whose
-backward runs K2 on every shard); every other set aggregates its local
+backward runs K2 on every shard); a ``sorted`` set that K4f takes joins
+its data row's shards and runs K4f once on them, and under autograd K4b
+once in one node per data row (``ops.segment_pna.pna_sorted_sharded``:
+the JAX package's sorted kernel is not edge-partitioned, GSPMD gathers its
+operands); every other set aggregates its local
 partials and combines them across the ranks
-(``core.segment_ops.collective_aggregate``: the plain all-reduce, or K6 with
-``halo_ring``), before the sorted and gather branches, as in the JAX
-package.  Only fused sets train over edge shards.
+(``core.segment_ops.sharded_aggregate``: the plain all-reduce, under
+autograd one node per data row whose backward routes the max/min
+cotangents by the set's one-device tie rule, ``edge_shard_ties``; or, in the
+halo forward with ``halo_ring``, K6 through ``collective_aggregate``, the
+sorted sets' too).
 """
 from __future__ import annotations
 
@@ -77,10 +83,16 @@ from hyper_graph_nets_tpu_torch.core.segment_ops import (
     gather_fixed,
     gather_rows,
     pna_gather,
+    sharded_aggregate,
 )
 from hyper_graph_nets_tpu_torch.nn.mlp import MLP, dense
 from hyper_graph_nets_tpu_torch.nn import quant
-from hyper_graph_nets_tpu_torch.ops.segment_pna import MAX_EDGE_BLOCK_BYTES, pna_sorted
+from hyper_graph_nets_tpu_torch.ops.segment_pna import (
+    MAX_EDGE_BLOCK_BYTES,
+    SortedPlan,
+    pna_sorted,
+    pna_sorted_sharded,
+)
 
 CANONICAL_EDGE_ORDER: Tuple[str, ...] = (
     "mesh_edges",
@@ -400,28 +412,26 @@ def _aggregate_sets(
         es = graph.edge_sets[name]
         f = edge_feats[name]
         if cfg.axis_name is not None:
-            if torch.is_grad_enabled():  # the all-reduce has no backward here
-                raise NotImplementedError(
-                    f"{name}: training over edge shards runs fused edge sets only (a set without a "
-                    "kernel plan under the sharded step is ROADMAP queue 1, item 7)"
-                )
+            if not cfg.halo_ring and _sorted_kernel_takes(
+                    name, f.shape[-2] * cfg.axis_name.shape["graph"], f.shape[-1], cfg):
+                # K4f on the data row's shards joined, and K4b under autograd
+                plan = es.plan if isinstance(es.plan, SortedPlan) else None
+                parts.append(pna_sorted_sharded(f, es.receivers, es.mask, hi, plan, cfg.axis_name))
+                continue
             # an edge shard: local partials combined across the rank group
-            parts.append(
-                collective_aggregate(
-                    f, es.receivers, num_total, cfg.aggregation, es.mask, cfg.axis_name,
-                    ring=cfg.halo_ring, sums=None if es.sums is None else es.sums.receivers,
-                )[..., :hi, :]
-            )
+            sums = None if es.sums is None else es.sums.receivers
+            if cfg.halo_ring:  # K6, the halo forward's ring: no backward
+                if torch.is_grad_enabled() and f.requires_grad:
+                    raise NotImplementedError(f"{name}: the ring all-reduce (halo_ring) has no backward")
+                agg = collective_aggregate(f, es.receivers, num_total, cfg.aggregation, es.mask,
+                                           cfg.axis_name, ring=True, sums=sums)
+            else:
+                agg = sharded_aggregate(f, es.receivers, num_total, cfg.aggregation, es.mask,
+                                        cfg.axis_name, sums=sums, ties=es.ties or "split")
+            parts.append(agg[..., :hi, :])
             continue
-        if (
-            cfg.agg_vjp == "sorted"
-            and cfg.aggregation == "pna"
-            and name in SORTED_EDGE_SETS
-            and f.shape[-2] * f.shape[-1] * 4 <= MAX_EDGE_BLOCK_BYTES
-        ):
-            # K4f, and K4b under autograd.  The card has no VMEM, so the byte
-            # gate means nothing there; it is kept so that both packages take
-            # the same path, with the same tie rule, on every mesh.
+        if _sorted_kernel_takes(name, f.shape[-2], f.shape[-1], cfg):
+            # K4f, and K4b under autograd
             parts.append(pna_sorted(f, es.receivers, es.mask, hi, plan=es.plan))
             continue
         if es.gather_idx is not None and _gather_dense_ok(es):
@@ -434,6 +444,42 @@ def _aggregate_sets(
         sums = None if es.sums is None else es.sums.receivers
         parts.append(aggregate(f, es.receivers, hi, cfg.aggregation, es.mask, sums=sums))
     return torch.cat(parts, dim=-1)
+
+
+def _sorted_kernel_takes(name: str, num_edges: int, width: int, cfg: GNNConfig) -> bool:
+    """Whether ``agg_vjp: sorted`` aggregates the set through K4f/K4b.  The
+    card has no VMEM, so the byte gate means nothing there; it is kept so
+    that both packages take the same path, with the same tie rule, on
+    every mesh."""
+    return (
+        cfg.agg_vjp == "sorted"
+        and cfg.aggregation == "pna"
+        and name in SORTED_EDGE_SETS
+        and num_edges * width * 4 <= MAX_EDGE_BLOCK_BYTES
+    )
+
+
+def edge_shard_ties(graph: Graph, cfg: GNNConfig) -> Graph:
+    """The graph with each edge set's tie rule (``EdgeSet.ties``) for its
+    aggregation over edge shards (``core.segment_ops.sharded_aggregate``):
+    what the one-device dispatch of :func:`_aggregate_sets` does with a
+    max/min cotangent.  ``pna_gather`` (``gather``, over a neighbour matrix
+    that passes ``_gather_dense_ok``) sends all of it to every tied edge
+    (``full``); autograd through ``gather_aggregate`` or the scatter
+    (``xla``, a set that ``sorted`` leaves to them, and a set the fused
+    kernels leave) splits it (``split``).  The sets that K4f/K4b take run
+    them on the joined shards.  Read on the whole graph, before
+    ``parallel.halo.shard_graph`` drops the neighbour matrices."""
+    sets = {}
+    for name, es in graph.edge_sets.items():
+        full = (
+            cfg.agg_vjp == "gather"
+            and cfg.aggregation == "pna"
+            and es.gather_idx is not None
+            and _gather_dense_ok(es)
+        )
+        sets[name] = es.replace(ties="full" if full else "split")
+    return graph.replace(edge_sets=sets)
 
 
 def _update_sets(

@@ -713,21 +713,6 @@ fused_edge_block.launches = 0  # K1 launches since the count was last reset
 # -- the edge-sharded block (halo forward and sharded training step) ----------
 
 
-def _combine_raw(group, raws, L):
-    """Every rank's raw pna partials combined along ``graph`` (sum and
-    count summed, max and min folded, in rank order) and finalized: one
-    tensor per rank, on its device and stream."""
-    parts = [
-        group.reduce_plain([x[..., lo:hi] for x in raws], op)
-        for lo, hi, op in ((0, 2 * L, "sum"), (2 * L, 3 * L, "max"), (3 * L, 4 * L, "min"))
-    ]
-    outs = []
-    for r, p in enumerate(zip(*parts)):
-        with group.context(r):
-            outs.append(segment_ops.finalize_partials(torch.cat(p, dim=-1)))
-    return outs
-
-
 class ShardedFusedBlock(torch.autograd.Function):
     """The fused block over the edge shards of one ``data`` row of a rank
     group, as one autograd node over every shard (the JAX package's
@@ -763,6 +748,8 @@ class ShardedFusedBlock(torch.autograd.Function):
     def backward(ctx, *grads):
         n = len(ctx.spec)
         saved = ctx.saved_tensors
+        segment_ops.used_on_this_stream(*saved, *grads, *(t for edges, _ in ctx.spec
+                                                          for t in (edges.senders, edges.receivers, edges.mask)))
         inputs, aggs = saved[: 11 * n], saved[11 * n :]
         home = aggs[0]
         dagg = None
@@ -841,7 +828,7 @@ def _spmd_combine(entries, num_nodes: int, group):
         else:
             L = entries[0]["e"].shape[-1]
             e2s = [x["out"][0] for x in entries]
-            outs = list(zip(e2s, _combine_raw(group, [x["out"][1] for x in entries], L)))
+            outs = list(zip(e2s, segment_ops.combine_partials(group, [x["out"][1] for x in entries], L)[0]))
     if not entries[0]["grad"]:
         return outs
     results: list = [None] * group.n

@@ -299,6 +299,108 @@ def pna_sorted(
     return out[0] if squeeze else out
 
 
+# -- over the edge shards of a rank group ---------------------------------------
+
+
+class ShardedPnaSorted(torch.autograd.Function):
+    """The sorted pna of one ``data`` row of a rank group, whose ``graph``
+    ranks each hold an edge shard, as one autograd node over every shard.
+    The JAX package's sharded step runs its sorted kernel on the whole set
+    (GSPMD gathers the kernel's operands); so does this node.
+
+    The forward is computed before (:func:`_sorted_combine`: the shards
+    joined in rank order, K4f once); the node takes each rank's edge
+    features ``[B, E/G, L]`` and returns each rank's copy of the aggregate.
+    Its backward sums the ranks' cotangents in rank order (the transpose of
+    handing every rank a copy), runs K4b once on the joined edges and hands
+    each rank its slice.  Being one node, its backward waits for no other
+    rank (see ``ops.fused_block.ShardedFusedBlock``)."""
+
+    @staticmethod
+    def forward(ctx, spec, *xs):
+        # spec: (the joined edges, their receivers and mask, num_nodes, plan, each rank's copy)
+        joined, receivers, mask, num_nodes, plan, outs = spec
+        ctx.topology = (receivers, mask, num_nodes, plan)
+        ctx.devices = [x.device for x in xs]
+        ctx.save_for_backward(joined, outs[0])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        joined, out = ctx.saved_tensors
+        receivers, mask = ctx.topology[:2]
+        segment_ops.used_on_this_stream(joined, out, receivers, mask, *grads)
+        dagg = None
+        for d in grads:  # the ranks' cotangents, in rank order
+            if d is not None:
+                d = d.float().to(out.device)
+                dagg = d if dagg is None else dagg + d
+        if dagg is None:
+            dagg = torch.zeros_like(out, dtype=torch.float32)
+        ge = pna_sorted_bwd(dagg.to(out.dtype).contiguous(), out, joined, *ctx.topology)
+        per = ge.shape[-2] // len(ctx.devices)
+        return (None,) + tuple(ge[..., k * per : (k + 1) * per, :].to(dev) for k, dev in enumerate(ctx.devices))
+
+
+def pna_sorted_sharded(
+    data: torch.Tensor,
+    receivers: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    num_nodes: int,
+    plan: Optional[SortedPlan],
+    group,
+) -> torch.Tensor:
+    """One rank's edge shard ``[..., E/G, L]`` of a receiver-sorted set,
+    aggregated over every ``graph`` rank's shard (called inside
+    ``group.run``): ``[..., num_nodes, 4L]`` in the data's dtype, the same
+    on every rank of a ``data`` row.
+
+    The shards of each ``data`` row, joined in rank order, are the set's
+    edges as ``parallel.sharding.shard_topology`` lays them out (padding
+    masked at the tail), and ``plan`` is their :class:`SortedPlan`; K4f runs
+    once on them, and under autograd K4b once in the backward
+    (:class:`ShardedPnaSorted`).  On the CPU the plain versions run."""
+    squeeze = data.dim() == 2
+    data3 = data[None] if squeeze else data
+    grad = torch.is_grad_enabled() and data3.requires_grad
+    entry = dict(data=data3, receivers=receivers, mask=mask, grad=grad)
+    out = group.exchange(entry, lambda entries: _sorted_combine(entries, num_nodes, plan, group))
+    return out[0] if squeeze else out
+
+
+def _sorted_combine(entries, num_nodes: int, plan: Optional[SortedPlan], group):
+    """The rendezvous of :func:`pna_sorted_sharded`: per ``data`` row, the
+    shards joined on the first rank's device and stream once every rank's
+    stream has made its shard, K4f there, a copy for each other rank on its
+    own stream; under autograd one :class:`ShardedPnaSorted` node."""
+    results: list = [None] * group.n
+    for ranks in group.subgroups("graph"):
+        first, dev = ranks[0], group.device(ranks[0])
+        parts = [entries[r] for r in ranks]
+        with torch.no_grad(), group.context(first):
+            if group.is_cuda:
+                for r in ranks[1:]:
+                    group.stream(first).wait_stream(group.stream(r))
+                segment_ops.used_on_this_stream(*(x[k] for x in parts for k in ("data", "receivers", "mask")))
+            join = lambda key, axis: torch.cat([x[key].to(dev) for x in parts], dim=axis)
+            joined, rcv = join("data", -2), join("receivers", 0)
+            mask = None if parts[0]["mask"] is None else join("mask", 0)
+            row_plan = None if plan is None else plan.to(dev)
+            out = _forward(joined, rcv, mask, num_nodes, row_plan)
+        outs = [out]
+        for r in ranks[1:]:
+            with torch.no_grad(), group.context(r):
+                if group.is_cuda:
+                    group.stream(r).wait_stream(group.stream(first))
+                    segment_ops.used_on_this_stream(out)
+                outs.append(out.to(group.device(r), copy=True))
+        if parts[0]["grad"]:
+            outs = ShardedPnaSorted.apply((joined, rcv, mask, num_nodes, row_plan, outs), *(x["data"] for x in parts))
+        for r, o in zip(ranks, outs):
+            results[r] = o
+    return results
+
+
 # kernel launches since the count was last reset
 pna_sorted.launches = 0  # K4f
 pna_sorted_bwd.launches = 0  # K4b

@@ -40,6 +40,7 @@ import torch
 from hyper_graph_nets_tpu_torch.core.graph import Graph
 from hyper_graph_nets_tpu_torch.models.base import ModelState, SystemModel
 from hyper_graph_nets_tpu_torch.nn.meshgraphnet import MeshGraphNet, network_apply
+from hyper_graph_nets_tpu_torch.ops.segment_pna import SortedPlan
 from hyper_graph_nets_tpu_torch.parallel.sharding import RankPlans, RankSums
 
 
@@ -61,8 +62,9 @@ def shard_graph(graph: Graph, group, r: int) -> Graph:
     topology: every edge array cut to its ``graph`` coordinate's slice (the
     edge axis is the one before the features; the index arrays copied into
     storage of their own, which the kernels need 16-byte aligned), with its
-    plan and fixed-order sums; node rows and frames as they are, on the
-    graph's device."""
+    plan and fixed-order sums (a :class:`SortedPlan` is the whole set's,
+    kept as it is: ``ops.segment_pna.pna_sorted_sharded`` joins the shards);
+    node rows and frames as they are, on the graph's device."""
     graph = strip_gather(graph)
     G, k = group.shape["graph"], group.axis_index(r, "graph")
     sets = {}
@@ -77,7 +79,8 @@ def shard_graph(graph: Graph, group, r: int) -> Graph:
             senders=edge(es.senders, 0).clone(),
             receivers=edge(es.receivers, 0).clone(),
             mask=None if es.mask is None else edge(es.mask, 0).clone(),
-            plan=es.plan.plans[r] if isinstance(es.plan, RankPlans) else None,
+            plan=es.plan.plans[r] if isinstance(es.plan, RankPlans) else (
+                es.plan if isinstance(es.plan, SortedPlan) else None),
             sums=es.sums.sums[r] if isinstance(es.sums, RankSums) else None,
         )
     return graph.replace(edge_sets=sets)

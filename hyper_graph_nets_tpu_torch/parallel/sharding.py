@@ -5,23 +5,41 @@ Counterpart of ``hyper_graph_nets_tpu/parallel/sharding.py``.  A
 ``('data', 'graph')`` mesh (``make_mesh``): frames split over ``data``, each
 graph's edges over ``graph`` (:func:`shard_topology`: padded to a multiple
 of the axis and cut into contiguous slices, or dealt round-robin by chunks
-for K7), node rows on every rank.
+for K7; :class:`EdgeLayout` lays out any per-edge array the same way),
+node rows on every rank.
 
-:func:`make_spmd_train_step` is the JAX package's ``make_spmd_train_step``
-with ``agg_vjp: fused``: the single-device step's noise, loss and Adam
-update over the global batch, each rank running the network on its data
-rank's frames and its graph rank's edges in its own thread
-(``RankGroup.run``).  Where the JAX package lets XLA partition one global
-program, the port places each collective itself:
+:func:`make_spmd_train_step` is the JAX package's ``make_spmd_train_step``:
+the single-device step's noise, loss and Adam update over the global batch,
+each rank running the network on its data rank's frames and its graph
+rank's edges in its own thread (``RankGroup.run``).  Where the JAX package
+lets XLA partition one global program, the port places each collective
+itself:
 
 - the normalizers accumulate the global batch: every accumulation's partial
   sums are all-reduced over the ``data`` ranks, in rank order
   (``core.normalizer.reduce_partials``; each rank computes its frames'
-  features over every edge, so no ``graph`` reduction is needed);
+  features over every edge, and the expansion over every node row, so no
+  ``graph`` reduction is needed);
+- with an expansion (the graph balancer, remote message passing), its
+  static (``expansion.prepare`` on the unsharded topology) is laid out for
+  the group (:func:`shard_static`, on each step unless the caller passes
+  its result): the mesh set's keep
+  mask as the mesh edges lie, the balance and cluster-tier sets padded to a
+  multiple of ``graph``, each rank's fixed-order sums and kernel plans
+  (RMP's mesh set over ``N + K`` rows), every plan's in-degree counting the
+  kept edges only; each rank expands its frames' graph over every node row
+  before the sets are cut;
 - each fused block runs K1 unfinalized on the shard and the plain
   all-reduce along ``graph``, or K7 (``ops.fused_block.fused_edge_block_spmd``);
   under autograd each data row's shards meet in one node, whose backward
   runs K2 on every shard against the global aggregate at the global degree;
+  a ``sorted`` mesh set joins its data row's shards and runs K4f on them,
+  and K4b in one node per data row (``ops.segment_pna.pna_sorted_sharded``,
+  as the JAX package's sharded step runs its sorted kernel on the gathered
+  set); every other set (the balance and tier sets, and every set under
+  ``gather`` or ``xla``) aggregates its local partials and the plain
+  all-reduce, its shards meeting in one node per data row as well
+  (``core.segment_ops.sharded_aggregate``);
 - the loss divides by the global mask sum; only each data row's first graph
   rank's loss is differentiated, and every rank's parameter gradients (its
   own copy of the node side, its shard of the edge side) add up to the
@@ -37,11 +55,13 @@ Use::
 
     group = RankGroup(2, 2)                               # data 2 x graph 2
     stopo = shard_topology(topo, group)                   # overlap_bands=4: K7
-    step = make_spmd_train_step(trainer, stopo, group)
-    tstate, loss = step(tstate, frames)                   # frames [B, ...], B % 2 == 0
+    step = make_spmd_train_step(trainer, stopo, group, expansion=trainer.expansion)
+    static = trainer.expansion.prepare(model, frame0, topo)   # with an expansion
+    static = shard_static(trainer.expansion, static, stopo, group)  # optional: laid out once
+    tstate, loss = step(tstate, frames, static=static)    # frames [B, ...], B % 2 == 0
 
-An expansion (remote message passing, the graph balancer), an ``agg_vjp``
-other than ``fused``, a group over several devices and
+Flag only: cylinder and plate (plate's per-frame world edges), connectors
+other than ``hyper``, a group over several devices and
 ``parallel/multihost.py``'s processes are not ported yet (ROADMAP queue 1,
 item 7).
 """
@@ -54,12 +74,18 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from hyper_graph_nets_tpu_torch.balancer.base import BalancerStatic, GraphBalancer
 from hyper_graph_nets_tpu_torch.core import normalizer
 from hyper_graph_nets_tpu_torch.core.segment_ops import EdgeSums
 from hyper_graph_nets_tpu_torch.models.base import ModelState, Topology
+from hyper_graph_nets_tpu_torch.models.flag import FlagModel
+from hyper_graph_nets_tpu_torch.nn.blocks import edge_shard_ties
 from hyper_graph_nets_tpu_torch.nn.meshgraphnet import network_apply
 from hyper_graph_nets_tpu_torch.ops.fused_block import SegmentPlan, plan_segments
 from hyper_graph_nets_tpu_torch.ops.fused_overlap import chunk_roundrobin_permutation, overlap_plan
+from hyper_graph_nets_tpu_torch.ops.segment_pna import SortedPlan, sorted_plan
+from hyper_graph_nets_tpu_torch.rmp.connector import HierarchicalConnector, RMPStatic
+from hyper_graph_nets_tpu_torch.rmp.remote_message_passing import RemoteMessagePassing
 from hyper_graph_nets_tpu_torch.training.trainer import TrainState, add_noise
 
 # edges per chunk of the round-robin layout: the JAX package's
@@ -75,9 +101,13 @@ class RankPlans:
     :class:`SegmentPlan` over its graph rank's slice, on its device (the
     JAX package's stacked per-shard band plan), with the set's global
     in-degree (``SegmentPlan.degree``).  Ranks that share a graph
-    coordinate and a device share one plan."""
+    coordinate and a device share one plan.  The plans stay on their ranks'
+    devices: ``to`` leaves them there."""
 
     plans: Tuple[SegmentPlan, ...]
+
+    def to(self, device) -> "RankPlans":
+        return self
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,9 +115,76 @@ class RankSums:
     """The fixed-order sums of an edge-sharded set: ``sums[r]`` is rank r's
     :class:`EdgeSums` over its graph rank's slice (indices local to the
     slice), on its device; the unfused sets' local partials sum through
-    them."""
+    them.  ``to`` leaves them on their ranks' devices."""
 
     sums: Tuple[EdgeSums, ...]
+
+    def to(self, device) -> "RankSums":
+        return self
+
+    def with_rows(self, num_nodes: int) -> "RankSums":
+        """Every rank's sums into more node rows (a hyper tier's after the
+        mesh rows), the added ones empty."""
+        return RankSums(tuple(s.with_rows(num_nodes) for s in self.sums))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class EdgeLayout:
+    """How one edge set's ``num_edges`` edges lie over a group's ``graph``
+    ranks (the JAX package's ``shard_topology``): padded to ``padded``
+    edges, a multiple of the axis (or of ``chunk * graph`` for the
+    round-robin layout), then reordered by ``perm`` (laid-out position ->
+    padded position; None: in order), which deals the chunks round-robin
+    (``ops.fused_overlap.chunk_roundrobin_permutation``).  Graph rank k
+    holds positions :meth:`shard` ``(k)``.  :meth:`relay` lays out any
+    per-edge array of the set the same way (its mask, the balancer's keep
+    mask), :meth:`relay_ids` re-points arrays of edge ids (neighbour
+    matrices)."""
+
+    num_edges: int
+    padded: int
+    graph: int
+    perm: Optional[np.ndarray] = None
+
+    @classmethod
+    def build(cls, num_edges: int, graph: int, chunk: Optional[int] = None) -> "EdgeLayout":
+        multiple = chunk * graph if chunk else graph
+        padded = -(-num_edges // multiple) * multiple
+        perm = chunk_roundrobin_permutation(padded, graph, chunk) if chunk else None
+        return cls(int(num_edges), int(padded), int(graph), perm)
+
+    @property
+    def per(self) -> int:
+        return self.padded // self.graph
+
+    def shard(self, k: int) -> slice:
+        return slice(k * self.per, (k + 1) * self.per)
+
+    def relay(self, x, pad_value=0, axis: int = 0):
+        """``x`` (numpy or torch, ``num_edges`` long on ``axis``) padded
+        with ``pad_value`` and reordered as the edges lie."""
+        if x.shape[axis] != self.num_edges:
+            raise ValueError(f"{x.shape[axis]} edges on axis {axis}, the layout has {self.num_edges}")
+        pad_shape = list(x.shape)
+        pad_shape[axis] = self.padded - self.num_edges
+        if isinstance(x, torch.Tensor):
+            y = torch.cat([x, x.new_full(pad_shape, pad_value)], dim=axis)
+            if self.perm is not None:
+                y = y.index_select(axis, torch.from_numpy(self.perm).to(y.device))
+            return y
+        y = np.concatenate([x, np.full(pad_shape, pad_value, x.dtype)], axis=axis)
+        return y if self.perm is None else np.take(y, self.perm, axis=axis)
+
+    def relay_ids(self, ids):
+        """Edge ids (a neighbour matrix's, numpy or torch) re-pointed to
+        where their edges lie."""
+        if self.perm is None:
+            return ids
+        where = np.empty(self.padded, np.int64)
+        where[self.perm] = np.arange(self.padded)
+        if isinstance(ids, torch.Tensor):
+            return torch.from_numpy(where).to(ids.device)[ids.long()].to(ids.dtype)
+        return where[np.asarray(ids, np.int64)].astype(np.asarray(ids).dtype)
 
 
 def pad_to_multiple(arr: np.ndarray, multiple: int, pad_value=0) -> np.ndarray:
@@ -114,73 +211,218 @@ def _per_rank(group, build):
     return tuple(out)
 
 
+def _host(t) -> np.ndarray:
+    return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def rank_sums(group, layout: EdgeLayout, senders, receivers, num_nodes: int) -> RankSums:
+    """Each rank's fixed-order sums over its slice of laid-out (host)
+    senders and receivers, into ``num_nodes`` rows."""
+    return RankSums(_per_rank(group, lambda k: EdgeSums.build(
+        senders[layout.shard(k)], receivers[layout.shard(k)], num_nodes)))
+
+
+def _degree(receivers, valid, num_nodes: int) -> torch.Tensor:
+    """Each receiver's count of edges with ``valid > 0`` (host arrays)."""
+    return torch.from_numpy(np.bincount(receivers[valid > 0], minlength=num_nodes).astype(np.float32))
+
+
+def rank_plans(group, layout: EdgeLayout, senders, receivers, mask, num_nodes: int,
+               bands: Optional[int] = None, degree: Optional[torch.Tensor] = None) -> RankPlans:
+    """Each rank's kernel plan over its slice of the laid-out (host) edges
+    into ``num_nodes`` rows (with ``bands``, K7's, on the round-robin
+    layout, its work list from ``mask``), each carrying the set's in-degree:
+    ``degree``, or the count of the edges with ``mask > 0``."""
+    degree = _degree(receivers, mask, num_nodes) if degree is None else degree
+
+    def plan_of(k):
+        sl = layout.shard(k)
+        if bands:
+            plan = overlap_plan(receivers[sl], mask[sl], num_nodes, bands, senders=senders[sl])
+        else:
+            plan = plan_segments(receivers[sl], num_nodes, senders=senders[sl])
+        return dataclasses.replace(plan, degree=degree)
+
+    return RankPlans(_per_rank(group, plan_of))
+
+
+def with_degree(plans: RankPlans, degree: torch.Tensor) -> RankPlans:
+    """The same plans with another in-degree (the balancer's kept edges')."""
+    new = {}
+    return RankPlans(tuple(
+        new.setdefault(id(p), dataclasses.replace(p, degree=degree.to(p.row_ptr.device)))
+        for p in plans.plans))
+
+
 def shard_topology(
     topo: Topology,
     group,
     overlap_bands: Optional[int] = None,
     chunk: int = DEFAULT_CHUNK,
 ) -> Topology:
-    """Pad the edges to a multiple of the group's ``graph`` axis and plan
-    each graph rank's slice.
+    """Lay the edges out over the group's ``graph`` ranks
+    (:class:`EdgeLayout`) and plan each graph rank's slice.
 
     Padding edges have receiver ``num_nodes - 1`` (receivers stay sorted),
-    sender 0 and mask 0.  With a fused topology (its plan a
-    :class:`SegmentPlan`) the result's plan is a :class:`RankPlans`, each
+    sender 0 and mask 0; the topology's own mask goes with its edges, and
+    the in-degree counts valid edges only.  With a fused topology (its plan
+    a :class:`SegmentPlan`) the result's plan is a :class:`RankPlans`, each
     plan carrying the set's global in-degree.  ``overlap_bands`` (fused
-    only) pads to ``chunk * graph`` and deals the chunks round-robin
-    (``ops.fused_overlap.chunk_roundrobin_permutation``), so every rank's
-    slice spans all receivers, and its plans carry that many bands and K7's
-    work list (``ops.fused_overlap.overlap_plan``).
-    The result lies on rank 0's device and has no neighbour matrices (they
-    index global edge ids); its ``sums`` are a :class:`RankSums`, each
-    rank's fixed-order sums over its slice, built here on the host once per
-    topology; ``halo.split_graph`` gives each rank its slice.  A topology
-    with masked edges raises.
+    only) pads to ``chunk * graph`` and deals the chunks round-robin, so
+    every rank's slice spans all receivers, and its plans carry that many
+    bands and K7's work list (``ops.fused_overlap.overlap_plan``).  With a
+    sorted topology (a :class:`SortedPlan`) the result's plan is the
+    :class:`SortedPlan` of the laid-out edges, which K4f reads on the
+    joined shards.  The result lies on rank 0's device; its neighbour matrices point at
+    the laid-out edges; its ``sums`` are a :class:`RankSums`, each rank's
+    fixed-order sums over its slice, built here on the host once per
+    topology; its ``layout`` is the :class:`EdgeLayout`;
+    ``halo.split_graph`` gives each rank its slice.
     """
-    g = group.shape["graph"]
-    snd = np.asarray(topo.senders.cpu(), np.int32)
-    rcv = np.asarray(topo.receivers.cpu(), np.int32)
-    n_valid = len(snd)
-    if topo.mask is not None and not bool((topo.mask > 0).all()):
-        raise ValueError("shard_topology takes a topology whose edges are all valid")
+    N = topo.num_nodes
     plans = isinstance(topo.plan, SegmentPlan)
     use_overlap = bool(overlap_bands and plans)
-    multiple = chunk * g if use_overlap else g
-    snd = pad_to_multiple(snd, multiple, pad_value=0)
-    rcv = pad_to_multiple(rcv, multiple, pad_value=topo.num_nodes - 1)
-    mask = np.zeros(len(snd), np.float32)
-    mask[:n_valid] = 1.0
-    degree = torch.from_numpy(
-        np.bincount(rcv[:n_valid], minlength=topo.num_nodes).astype(np.float32)
-    )
-    if use_overlap:
-        perm = chunk_roundrobin_permutation(len(snd), g, chunk)
-        snd, rcv, mask = snd[perm], rcv[perm], mask[perm]
-    per = len(snd) // g
-    shard = lambda k: slice(k * per, (k + 1) * per)
-    rank_sums = RankSums(
-        _per_rank(group, lambda k: EdgeSums.build(snd[shard(k)], rcv[shard(k)], topo.num_nodes))
-    )
-
-    def plan_of(k):
-        if use_overlap:
-            plan = overlap_plan(rcv[shard(k)], mask[shard(k)], topo.num_nodes, overlap_bands,
-                                senders=snd[shard(k)])
-        else:
-            plan = plan_segments(rcv[shard(k)], topo.num_nodes, senders=snd[shard(k)])
-        return dataclasses.replace(plan, degree=degree)
-
+    layout = EdgeLayout.build(len(topo.senders), group.shape["graph"], chunk if use_overlap else None)
+    snd = layout.relay(_host(topo.senders).astype(np.int32), 0)
+    rcv = layout.relay(_host(topo.receivers).astype(np.int32), N - 1)
+    mask = np.ones(layout.num_edges, np.float32) if topo.mask is None else _host(topo.mask).astype(np.float32)
+    mask = layout.relay(mask, 0.0)
     dev = group.device(0)
+    ids = lambda t: None if t is None else layout.relay_ids(t).to(dev)
+    plan = None
+    if plans:
+        plan = rank_plans(group, layout, snd, rcv, mask, N, overlap_bands if use_overlap else None)
+    elif isinstance(topo.plan, SortedPlan):
+        plan = sorted_plan(rcv, N, mask).to(dev)
     return Topology(
         senders=torch.from_numpy(snd).to(dev),
         receivers=torch.from_numpy(rcv).to(dev),
-        num_nodes=topo.num_nodes,
+        num_nodes=N,
         mask=torch.from_numpy(mask).to(dev),
-        plan=RankPlans(_per_rank(group, plan_of)) if plans else None,
-        sums=rank_sums,
+        plan=plan,
+        gather_idx=ids(topo.gather_idx),
+        gather_valid=None if topo.gather_valid is None else topo.gather_valid.to(dev),
+        snd_gather_idx=ids(topo.snd_gather_idx),
+        snd_gather_valid=None if topo.snd_gather_valid is None else topo.snd_gather_valid.to(dev),
+        sums=rank_sums(group, layout, snd, rcv, N),
         aux=topo.aux,
         world_cap=topo.world_cap,
+        layout=layout,
     )
+
+
+# -- an expansion's static over the rank group ---------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedStatic:
+    """An expansion's static laid out for a rank group (:func:`shard_static`):
+    ``topo``, the sharded topology whose plans carry the mesh set's
+    in-degree over the kept edges, and ``members``, each member's static
+    with its edge sets laid out, per-rank sums and plans."""
+
+    topo: Topology
+    members: Tuple
+
+
+def _shard_balancer(st: BalancerStatic, topo: Topology, group) -> BalancerStatic:
+    """The balancer's static on the group: the keep mask laid out as the
+    mesh edges lie, the balance set padded to a multiple of ``graph`` with
+    each rank's sums over the mesh rows."""
+    bal = EdgeLayout.build(int(st.bal_senders.shape[0]), group.shape["graph"])
+    snd, rcv = bal.relay(st.bal_senders, 0), bal.relay(st.bal_receivers, topo.num_nodes - 1)
+    return BalancerStatic(
+        bal_senders=snd,
+        bal_receivers=rcv,
+        bal_mask=bal.relay(st.bal_mask, 0.0),
+        bal_gather_idx=st.bal_gather_idx,  # padding at the end: the ids stand
+        bal_gather_valid=st.bal_gather_valid,
+        mesh_keep=topo.layout.relay(st.mesh_keep, 0.0),
+        bal_sums=rank_sums(group, bal, _host(snd), _host(rcv), topo.num_nodes),
+    )
+
+
+# the cluster-tier sets of an RMPStatic: (prefix, its per-edge fields and
+# their padding: a sender, a receiver (the last row), a mask, a node order)
+_TIER_SETS = (
+    ("up", ("senders", "receivers", "mask", "perm")),
+    ("down", ("senders", "receivers", "mask", "perm")),
+    ("inter", ("senders", "receivers", "mask")),
+    ("inter_world", ("senders", "receivers", "mask")),
+)
+
+
+def _shard_rmp(st: RMPStatic, topo: Topology, group, valid: np.ndarray) -> RMPStatic:
+    """RMP's static on the group: each cluster-tier set padded to a
+    multiple of ``graph`` (unfused: no plans, as the JAX package un-fuses
+    them under sharding), each rank's sums over ``N + K`` rows; the mesh
+    set's per-rank plans over ``N + K`` rows with the in-degree over
+    ``valid`` edges (the kept ones)."""
+    rows = topo.num_nodes + st.num_clusters
+    pads = {"senders": 0, "receivers": rows - 1, "mask": 0.0, "perm": 0}
+    changes = {}
+    for prefix, fields in _TIER_SETS:
+        if getattr(st, f"{prefix}_senders") is None:
+            continue
+        layout = EdgeLayout.build(int(getattr(st, f"{prefix}_senders").shape[0]), group.shape["graph"])
+        for f in fields:
+            changes[f"{prefix}_{f}"] = layout.relay(getattr(st, f"{prefix}_{f}"), pads[f])
+        changes[f"{prefix}_sums"] = rank_sums(group, layout, _host(changes[f"{prefix}_senders"]),
+                                              _host(changes[f"{prefix}_receivers"]), rows)
+        changes[f"{prefix}_plan"] = None
+    mesh_plan = None
+    if isinstance(topo.plan, RankPlans):
+        rcv = _host(topo.receivers)
+        mesh_plan = rank_plans(group, topo.layout, _host(topo.senders), rcv, _host(topo.mask), rows,
+                               topo.plan.plans[0].overlap_bands or None, degree=_degree(rcv, valid, rows))
+    return st._replace(mesh_plan=mesh_plan, **changes)
+
+
+def shard_static(expansion, static: Tuple, topo: Topology, group) -> ShardedStatic:
+    """Lay ``static`` (``expansion.prepare``'s, made on the unsharded
+    topology) out for ``topo`` (:func:`shard_topology`'s on ``group``), on
+    the host: the balancer's keep mask as the mesh edges lie and its
+    balance set padded, RMP's cluster-tier sets padded, each rank's sums
+    and plans; every mesh plan's in-degree counts the edges the topology's
+    mask and the keep mask leave (a removed edge reaches no aggregate, so
+    the mean divides by the kept count, as on one device)."""
+    valid = _host(topo.mask).astype(np.float32)
+    members = []
+    for member, st in zip(expansion.members, static):
+        if isinstance(member, GraphBalancer):
+            st = _shard_balancer(st, topo, group)
+            valid = valid * _host(st.mesh_keep)
+        elif isinstance(member, RemoteMessagePassing):
+            st = _shard_rmp(st, topo, group, valid)
+        members.append(st)
+    stopo = topo
+    if isinstance(topo.plan, RankPlans):
+        stopo = topo._replace(plan=with_degree(topo.plan, _degree(_host(topo.receivers), valid, topo.num_nodes)))
+    return ShardedStatic(topo=stopo, members=tuple(members))
+
+
+def check_supported(model, expansion) -> None:
+    """Raise on what the sharded step and forward do not run: a model other
+    than flag, an expansion member other than the graph balancer and RMP
+    with the ``hyper`` connector and architecture, and a model configured
+    with an expansion that is not given."""
+    if not isinstance(model, FlagModel):
+        raise NotImplementedError(f"the sharded step on {type(model).__name__} {NOT_PORTED}")
+    if expansion is None:
+        if model.use_rmp or model.use_balancer:
+            raise ValueError("the model is configured with an expansion: pass "
+                             "expansion=training.expansion.build_expansion(model, config)")
+        return
+    for member in expansion.members:
+        if isinstance(member, RemoteMessagePassing):
+            if type(member.connector) is not HierarchicalConnector or model.gnn_config.architecture != "hyper":
+                raise NotImplementedError(
+                    f"remote message passing with architecture {model.gnn_config.architecture!r} {NOT_PORTED}")
+        elif not isinstance(member, GraphBalancer):
+            raise NotImplementedError(f"the expansion member {type(member).__name__} {NOT_PORTED}")
+
+
+# -- the step -------------------------------------------------------------------
 
 
 def shard_frames(frames: Dict[str, torch.Tensor], group) -> List[Dict[str, torch.Tensor]]:
@@ -211,20 +453,14 @@ def replicate(state: ModelState, group) -> Dict[torch.device, ModelState]:
 
 
 def spmd_gnn_config(model, topo: Topology, group):
-    """The model's network config with the sharded fused path on (the JAX
+    """The model's network config with the sharded path on (the JAX
     package's ``spmd_gnn_config``): the group as ``axis_name``, K7 where the
-    plans carry overlap bands.  The sharded step runs every edge set fused:
-    an ``agg_vjp`` other than ``fused``, or a topology without plans, raises
-    ``NotImplementedError``.  ``fused_bwd`` other than ``remat`` is
-    ignored with a warning, as in the JAX package."""
+    plans carry overlap bands.  Sets with a plan run the fused kernels over
+    their shards, every other set the sharded unfused aggregate.
+    ``fused_bwd`` other than ``remat`` is ignored with a warning, as in the
+    JAX package."""
     cfg = model.gnn_config
-    if cfg.agg_vjp != "fused":
-        raise NotImplementedError(f"agg_vjp {cfg.agg_vjp!r} {NOT_PORTED}")
-    if not isinstance(topo.plan, RankPlans):
-        raise NotImplementedError(
-            f"a sharded topology without kernel plans (no band plan for this mesh) {NOT_PORTED}"
-        )
-    if cfg.fused_bwd != "remat":
+    if cfg.agg_vjp == "fused" and cfg.fused_bwd != "remat":
         warnings.warn(
             "fused_bwd applies only to the single-device path; the sharded step runs the remat "
             "backward (K2)",
@@ -233,48 +469,97 @@ def spmd_gnn_config(model, topo: Topology, group):
     return dataclasses.replace(cfg, axis_name=group, halo_overlap=True)
 
 
-def _check_no_expansion(model, expansion) -> None:
-    if expansion is not None or model.use_rmp or model.use_balancer:
-        raise NotImplementedError(f"an expansion (remote message passing, the graph balancer) {NOT_PORTED}")
-
-
 def _device_topologies(topo: Topology, group) -> Dict[torch.device, Topology]:
-    return {
-        d: topo._replace(senders=topo.senders.to(d), receivers=topo.receivers.to(d), mask=topo.mask.to(d))
-        for d in set(group.devices)
-    }
+    move = lambda t: None if t is None else t.to(d)
+    out = {}
+    for d in set(group.devices):
+        out[d] = topo._replace(**{f: move(getattr(topo, f)) for f in (
+            "senders", "receivers", "mask", "gather_idx", "gather_valid", "snd_gather_idx", "snd_gather_valid")})
+    return out
 
 
-def _rank_forward(model, mstate: ModelState, topo: Topology, frames, cfg, group, r: int, is_training: bool):
+def _rank_forward(model, mstate: ModelState, topo: Topology, frames, cfg, group, r: int, is_training: bool,
+                  expansion=None, members=None, hyper_normal=None):
     """One rank's graph and output: the features of its frames over every
-    edge (the normalizers accumulating the global batch), cut to its edge
-    shard, and the network on it.  ``(out, target or None, normalizers)``."""
+    edge and, with an expansion, its expansion over every node row (the
+    normalizers accumulating the global batch), cut to its edge shard, and
+    the network on it.  ``(out, target or None, normalizers)``."""
     from hyper_graph_nets_tpu_torch.parallel.halo import shard_graph
 
     with normalizer.reduce_partials(lambda x: group.all_reduce_plain(x, "sum", axis="data")):
         graph, _, mstate = model.make_graph(mstate, topo, frames, is_training)
+        if expansion is not None:
+            graph, mstate = expansion.expand(mstate, graph, frames, model, is_training=is_training,
+                                             static=members, hyper_normal=hyper_normal)
         target = None
         if is_training:
             target, mstate = model.get_target(mstate, frames, is_training=True)
-    out = network_apply(mstate.params, shard_graph(graph, group, r), cfg)
+    out = network_apply(mstate.params, shard_graph(edge_shard_ties(graph, cfg), group, r), cfg)
     return out, target, mstate.normalizers
 
 
-class SpmdTrainStep:
-    """The sharded train step of :func:`make_spmd_train_step`:
-    ``step(tstate, frames, normal=None, generator=None) -> (tstate, loss)``,
-    and :meth:`loss_and_grads`, its loss and backward without the update.
-    ``frames`` is the global ``[B, ...]`` batch on any device; ``normal``
-    the global standard-normal draw ``[B, N, D]`` (drawn from ``generator``
-    on the trainer's device when omitted), sliced per data rank, so the
-    step sees the single-device step's noise.  Each step joins every rank's
-    thread and raises the first error of any rank."""
+class _Sharded:
+    """What the sharded step and forward share: the group, the config and
+    the topology."""
 
-    def __init__(self, trainer, topo: Topology, group):
+    def __init__(self, model, topo: Topology, group, expansion):
+        check_supported(model, expansion)
+        if topo.layout is None:
+            raise ValueError("topo must come from parallel.sharding.shard_topology")
+        self.model, self.group, self.expansion, self.topo = model, group, expansion, topo
+        self.cfg = spmd_gnn_config(model, topo, group)
+
+    def laid_out(self, static) -> Optional[ShardedStatic]:
+        """``static`` (the expansion's prepared one when None) laid out for
+        the group, or a :class:`ShardedStatic` (:func:`shard_static`'s, made
+        once per prepare by a caller that keeps it) as it is."""
+        if self.expansion is None:
+            return None
+        if isinstance(static, ShardedStatic):
+            return static
+        static = self.expansion.static if static is None else static
+        if any(s is None for s in static):
+            raise RuntimeError("the expansion has no static: run expansion.prepare(model, frame0, topo) first")
+        return shard_static(self.expansion, static, self.topo, self.group)
+
+    def hyper_normals(self, frames, sstatic, hyper_normal, generator, rank_frames) -> List[Optional[torch.Tensor]]:
+        """Each rank's slice of RMP's cluster-mean noise: the global
+        ``[B, K, D]`` draw (drawn from ``generator`` after the field's, as
+        the single-device step draws it, when not given), sliced as the
+        frames are."""
+        if self.expansion is None:
+            return [None] * self.group.n
+        shape = self.expansion.hyper_noise_shape(self.model, frames, sstatic.members)
+        if shape is None:
+            return [None] * self.group.n
+        x = frames[self.model.field]
+        if hyper_normal is None:
+            hyper_normal = torch.randn(shape, generator=generator, device=x.device, dtype=torch.float32)
+        b = x.shape[0] // self.group.shape["data"]
+        return [hyper_normal[d * b : (d + 1) * b].to(fr[self.model.field].device)
+                for d, fr in ((self.group.axis_index(r, "data"), rank_frames[r]) for r in range(self.group.n))]
+
+
+class SpmdTrainStep(_Sharded):
+    """The sharded train step of :func:`make_spmd_train_step`:
+    ``step(tstate, frames, normal=None, generator=None, static=None,
+    hyper_normal=None) -> (tstate, loss)``, and :meth:`loss_and_grads`, its
+    loss and backward without the update (``Trainer.train_step``'s
+    arguments).  ``frames`` is the global ``[B, ...]`` batch on any device;
+    ``normal`` the global standard-normal draw ``[B, N, D]`` and
+    ``hyper_normal`` RMP's ``[B, K, D]`` (each drawn from ``generator`` on
+    the trainer's device when omitted, the field's first), sliced per data
+    rank, so the step sees the single-device step's noise; ``static`` the
+    expansion's prepared static (its cached one when omitted), laid out for
+    the group on each call, or :func:`shard_static`'s :class:`ShardedStatic`
+    of it, laid out once by the caller.  Each step
+    joins every rank's thread and raises the first error of any rank."""
+
+    def __init__(self, trainer, topo: Topology, group, expansion=None):
         if len(set(group.devices)) > 1:
             raise NotImplementedError(f"a sharded step over several devices {NOT_PORTED}")
-        self.trainer, self.model, self.group = trainer, trainer.model, group
-        self.cfg = spmd_gnn_config(self.model, topo, group)
+        super().__init__(trainer.model, topo, group, expansion)
+        self.trainer = trainer
         self.topo = _device_topologies(topo, group)[group.device(0)]
 
     def _noisy_frames(self, frames, normal, generator):
@@ -286,19 +571,25 @@ class SpmdTrainStep:
             normal = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
         return add_noise(frames, model.field, model.noise_scale, model.noise_gamma, normal.to(x.device))
 
-    def loss_and_grads(self, tstate, frames, normal=None, generator=None):
+    def loss_and_grads(self, tstate, frames, normal=None, generator=None, static=None, hyper_normal=None):
         """Noise, loss and backward of one step: returns the loss and the new
         normalizer states, and leaves each parameter's gradient (summed over
         every rank) in its ``.grad``."""
         group, model = self.group, self.model
         params = tstate.model.params
         params.zero_grad(set_to_none=True)
-        rank_frames = shard_frames(self._noisy_frames(frames, normal, generator), group)
+        frames = self._noisy_frames(frames, normal, generator)
+        rank_frames = shard_frames(frames, group)
+        sstatic = self.laid_out(static)
+        topo = self.topo if sstatic is None else sstatic.topo
+        members = None if sstatic is None else sstatic.members
+        hyper = self.hyper_normals(frames, sstatic, hyper_normal, generator, rank_frames)
 
         def rank_fn(r):
             mstate = ModelState(params=params, normalizers=tstate.model.normalizers)
             fr = rank_frames[r]
-            out, target, norms = _rank_forward(model, mstate, self.topo, fr, self.cfg, group, r, True)
+            out, target, norms = _rank_forward(model, mstate, topo, fr, self.cfg, group, r, True,
+                                               self.expansion, members, hyper[r])
             mask = model.loss_mask(fr["node_type"]).to(out.dtype)[..., None]
             count = group.all_reduce_plain((mask.sum() * out.shape[-1]).reshape(1), "sum", axis="data")
             return ((target - out).square() * mask).sum() / count[0], norms
@@ -311,8 +602,8 @@ class SpmdTrainStep:
             loss = loss + x.detach()
         return loss, results[0][1]
 
-    def __call__(self, tstate, frames, normal=None, generator=None):
-        loss, normalizers = self.loss_and_grads(tstate, frames, normal, generator)
+    def __call__(self, tstate, frames, normal=None, generator=None, static=None, hyper_normal=None):
+        loss, normalizers = self.loss_and_grads(tstate, frames, normal, generator, static, hyper_normal)
         for grp in tstate.opt_state.param_groups:
             grp["lr"] = self.trainer.learning_rate(tstate.step)
         tstate.opt_state.step()
@@ -324,31 +615,36 @@ def make_spmd_train_step(trainer, topo: Topology, group, expansion=None) -> Spmd
     """A sharded train step: frames over ``data``, each graph's edges over
     ``graph``, one global loss (the JAX package's ``make_spmd_train_step``,
     ``sharding.py:236-315``).  ``topo`` comes from :func:`shard_topology`
-    on the same group; the trainer's device is rank 0's.  Runs on the card
-    unless the group was built with ``device="cpu"``.  ``expansion`` (and a
-    model configured with one) raises ``NotImplementedError``."""
-    _check_no_expansion(trainer.model, expansion)
-    return SpmdTrainStep(trainer, topo, group)
+    on the same group; the trainer's device is rank 0's.  ``expansion``
+    defaults to the trainer's (``trainer.expansion``: the configured graph
+    balancer and RMP).  Runs on the card unless the group was built with
+    ``device="cpu"``."""
+    return SpmdTrainStep(trainer, topo, group, trainer.expansion if expansion is None else expansion)
 
 
 def make_sharded_forward(model, topo: Topology, group, expansion=None):
-    """``fn(mstate, frames) -> [B, N, out]``: the edge-sharded forward of a
-    ``[B, ...]`` batch (the JAX package's ``make_sharded_forward``), each
-    data rank's frames over its graph ranks' edge shards; the outputs of
-    every data row's first graph rank, concatenated in data order, on the
-    state's device."""
-    _check_no_expansion(model, expansion)
-    cfg = spmd_gnn_config(model, topo, group)
+    """``fn(mstate, frames, static=None) -> [B, N, out]``: the edge-sharded
+    forward of a ``[B, ...]`` batch (the JAX package's
+    ``make_sharded_forward``), each data rank's frames over its graph
+    ranks' edge shards, with the expansion (a model configured with one
+    needs it) and its static as the step takes them; the outputs of every
+    data row's first graph rank, concatenated in data order, on the state's
+    device."""
+    sharded = _Sharded(model, topo, group, expansion)
     topos = _device_topologies(topo, group)
 
-    def fwd(mstate: ModelState, frames: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def fwd(mstate: ModelState, frames: Dict[str, torch.Tensor], static=None) -> torch.Tensor:
         states = replicate(mstate, group)
         rank_frames = shard_frames(frames, group)
+        sstatic = sharded.laid_out(static)
+        members = None if sstatic is None else sstatic.members
+        rank_topos = topos if sstatic is None else _device_topologies(sstatic.topo, group)
 
         def rank_fn(r):
             with torch.no_grad():  # grad mode is per thread
                 dev = group.device(r)
-                return _rank_forward(model, states[dev], topos[dev], rank_frames[r], cfg, group, r, False)[0]
+                return _rank_forward(model, states[dev], rank_topos[dev], rank_frames[r], sharded.cfg, group, r,
+                                     False, expansion, members)[0]
 
         outs = group.run(rank_fn)
         group.check()

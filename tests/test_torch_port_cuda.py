@@ -509,6 +509,46 @@ def test_pna_sorted_under_grad_runs_k4f_and_k4b():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["masked", "ties", "interior"])
+def test_pna_sorted_sharded_runs_k4f_and_k4b_once_per_data_row_on_the_joined_shards(case):
+    """On a 2 x 2 group on one card, each data row's two shards of a case's
+    edges (padded to an even count, the padding masked) run one K4f on the
+    joined edges, equal on every rank to K4f on the whole set bit for bit,
+    and under autograd one K4b, whose slices are each shard's cotangent: K4b
+    on the whole set from the ranks' cotangents summed in rank order."""
+    from hyper_graph_nets_tpu_torch.ops.segment_pna import pna_sorted_sharded
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+    from hyper_graph_nets_tpu_torch.parallel.sharding import EdgeLayout
+
+    _need_card()
+    data, rcv, mask, N, _, _ = _sorted_inputs(case, torch.bfloat16, 128, B=2)
+    layout = EdgeLayout.build(int(rcv.shape[0]), 2)
+    data, rcv, mask = layout.relay(data, 0.0, axis=1), layout.relay(rcv, N - 1), layout.relay(mask, 0.0)
+    plan = sorted_plan(rcv.cpu().numpy(), N, mask.cpu().numpy()).to("cuda")
+    group = RankGroup(2, 2, devices=["cuda:0"] * 4)
+    rows = [data, (data.float() * 0.5).to(torch.bfloat16)]  # each data row's frames
+    shard = lambda t, k: t.narrow(t.dim() - 2 if t.dim() == 3 else 0, k * layout.per, layout.per).contiguous()
+    xs = [shard(rows[group.axis_index(r, "data")], group.axis_index(r, "graph")).requires_grad_()
+          for r in range(group.n)]
+    before = (pna_sorted.launches, pna_sorted_bwd.launches)
+    outs = group.run(lambda r: pna_sorted_sharded(xs[r], shard(rcv, group.axis_index(r, "graph")),
+                                                  shard(mask, group.axis_index(r, "graph")), N, plan, group))
+    gen = torch.Generator().manual_seed(6)
+    gs = [torch.randn(outs[0].shape, generator=gen).to(torch.bfloat16).cuda() for _ in range(group.n)]
+    torch.autograd.backward(outs, gs)
+    torch.cuda.synchronize()
+    assert (pna_sorted.launches, pna_sorted_bwd.launches) == (before[0] + 2, before[1] + 2)
+    for d in range(2):
+        ranks = [group.rank_at(d, g) for g in range(2)]
+        want = pna_sorted(rows[d], rcv, mask, N, plan=plan)
+        g = (gs[ranks[0]].float() + gs[ranks[1]].float()).to(torch.bfloat16)
+        want_ge = pna_sorted_bwd(g, want, rows[d], rcv, mask, N, plan=plan)
+        for k, r in enumerate(ranks):
+            assert torch.equal(outs[r].detach(), want)
+            assert torch.equal(xs[r].grad, shard(want_ge, k))
+
+
+@pytest.mark.cuda
 def test_sorted_predictor_on_card_matches_cpu():
     _need_card()
     config = flag_config("bfloat16", agg_vjp="sorted")
@@ -1086,6 +1126,98 @@ def test_k1_k2_over_rmp_rows_match_plain(dtype):
     assert bool((got[6][:, N:] == 0).all()) and bool((got[7][:, N:] == 0).all())
 
 
+def _rmp_shard_layout(G, chunk, nx=12, hyper=16, bands=None, group=None):
+    """An nx x nx grid's edges laid out over G graph ranks as the sharded
+    RMP step lays its mesh set out (``parallel.sharding.EdgeLayout``: padded,
+    with ``chunk`` dealt round-robin), with interior masks (every seventh
+    edge, and receiver 10's every edge, as the balancer's removals), and
+    each rank's plan over N + ``hyper`` rows carrying the valid in-degree."""
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+    from hyper_graph_nets_tpu_torch.parallel.sharding import EdgeLayout, rank_plans
+
+    snd, rcv, N = grid_edges(nx, nx)
+    rows = N + hyper
+    layout = EdgeLayout.build(len(snd), G, chunk)
+    inner = np.ones(len(snd), np.float32)
+    inner[3::7] = 0.0
+    inner[rcv == 10] = 0.0
+    snd, rcv = layout.relay(snd, 0), layout.relay(rcv, N - 1)
+    mask = layout.relay(inner, 0.0)
+    group = group or RankGroup(G, device="cpu")
+    plans = rank_plans(group, layout, snd, rcv, mask, rows, bands)
+    return layout, snd, rcv, mask, rows, plans
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("chunk", [None, 32], ids=["contiguous", "round_robin"])
+def test_k1_raw_and_k2_on_an_rmp_shard_with_masks_match_plain(chunk, dtype):
+    """The sharded RMP step's mesh-set modes on every rank's shard: K1 raw
+    (unfinalized partials) and K2 at the global in-degree, each plan over
+    N + 16 rows, interior masks inside receivers' segments, against their
+    plain versions (K1's and K2's tolerances); the hyper rows get no
+    partials and no node cotangents."""
+    _need_card()
+    G = 2 if chunk is None else 4
+    layout, snd, rcv, mask, rows, plans = _rmp_shard_layout(G, chunk)
+    N, L, B = rows - 16, 128, 2
+    rng = np.random.default_rng(9)
+    gen = torch.Generator().manual_seed(10)
+    for k in range(G):
+        sl = layout.shard(k)
+        arrays, weights = _k1_arrays(rng, B, layout.per, rows, L)
+        x = {a: torch.tensor(v).to(dtype).cuda() for a, v in arrays.items()}
+        w = {a: torch.tensor(v.T.copy() if v.ndim == 2 else v).cuda() for a, v in weights.items()}
+        topo = (torch.tensor(snd[sl]).cuda(), torch.tensor(rcv[sl]).cuda(), torch.tensor(mask[sl]).cuda(), rows)
+        plan = plans.plans[k].to("cuda")
+        e2, raw = fused_edge_block_fwd(x["e"], x["sp"], x["rp"], w, *topo, plan=plan, raw=True)
+        re2, rraw = fused_edge_block_reference(x["e"], x["sp"], x["rp"], w, *topo, raw=True)
+        (rt, at), (rta, ata) = TOLS[dtype]["e2"], TOLS[dtype]["agg"]
+        torch.testing.assert_close(e2.float(), re2.float(), rtol=rt, atol=at)
+        torch.testing.assert_close(raw, rraw, rtol=rta, atol=ata)
+        assert bool((raw[:, N:, : 2 * L] == 0).all())
+        e2, agg, a1, a2, _, _ = fused_edge_block_fwd(x["e"], x["sp"], x["rp"], w, *topo, plan=plan,
+                                                     save_streams=True)
+        de2 = torch.randn(B, layout.per, L, generator=gen).to(dtype).cuda()
+        drhs = agg_cotangent_rhs(agg, torch.randn(B, rows, 4 * L, generator=gen).cuda(), topo[1], topo[2], rows,
+                                 plan.degree)
+        got = fused_edge_block_bwd(x["e"], x["sp"], x["rp"], w, de2, drhs, *topo, plan=plan)
+        want = fused_edge_block_bwd_reference(x["e"], x["sp"], x["rp"], w, de2, drhs, *topo, forward=(e2, a1, a2))
+        tol = 1e-4 if dtype == torch.float32 else 2.0**-6
+        for name, g, h in zip(("de", "dh", "dz2", "dz3", "dsp", "drp"), got[:4] + got[6:8], want[:4] + want[6:8]):
+            err = float((g.float() - h.float()).abs().max())
+            assert err <= tol * (1 + float(h.float().abs().max())), (k, name)
+        assert bool((got[7][:, N:] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_k7_over_rmp_rows_with_masks_matches_plain(dtype):
+    """K7 on the sharded RMP step's overlap layout: 4 ranks' round-robin
+    shards (32-edge chunks) of a 12 x 12 grid with interior masks, the
+    bands over N + 16 rows; e2 K1's bit for bit, the aggregate K1 raw's
+    with the plain all-reduce and the finalize."""
+    _need_card()
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+
+    group = RankGroup(4)
+    layout, snd, rcv, mask, rows, plans = _rmp_shard_layout(4, 32, bands=4, group=group)
+    rng = np.random.default_rng(11)
+    L = 128
+    arrays, weights = _k1_arrays(rng, 1, layout.per, rows, L)
+    sp, rp = (torch.tensor(arrays[a][0]).to(dtype) for a in ("sp", "rp"))
+    w = {a: torch.tensor(v.T.copy() if v.ndim == 2 else v) for a, v in weights.items()}
+    shards = []
+    for k in range(4):
+        sl = layout.shard(k)
+        shards.append(_on(dict(
+            e=torch.tensor(rng.normal(size=(layout.per, L)).astype(np.float32)).to(dtype), sp=sp, rp=rp,
+            weights=w, senders=torch.tensor(snd[sl]), receivers=torch.tensor(rcv[sl]),
+            mask=torch.tensor(mask[sl])), group.device(k)))
+        shards[k]["plan"] = plans.plans[k]
+    _check_k7(shards, rows, group, dtype)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("path", ["rmp", "balancer"])
 def test_train_step_repeats_bit_for_bit(path):
@@ -1526,3 +1658,72 @@ def test_sharded_step_on_card_matches_single_device(case, dtype_name):
     for name, want in ref.items():
         err = float((grads[name] - want).norm() / want.norm().clamp(min=1e-30))
         assert err <= grad_tol, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["2x2", "1x4_overlap"])
+def test_sharded_expansion_step_on_card_matches_single_device_and_repeats_after_another_static(case):
+    """The sharded step with RMP and the Ricci balancer (a 2-block float32
+    flag, 10x10, K = 4, B = 4) on 4 ranks of one card against the
+    single-device step on the card (loss rtol 1e-4, gradients relative L2
+    1e-3, the train step's card-vs-CPU limits); then the same step with a
+    second static (every mesh plan's degree from the unmasked topology,
+    which must move the gradients) and the first static again, whose
+    gradients must equal the first run's bit for bit: each sharded backward
+    reads every rank's forward tensors on one stream, and a rank's stream
+    must not get their memory back before it has (``used_on_this_stream``)."""
+    import faulthandler
+
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+    from hyper_graph_nets_tpu_torch.parallel.sharding import (
+        ShardedStatic,
+        make_spmd_train_step,
+        shard_topology,
+        with_degree,
+    )
+
+    _need_card()
+    shape, bands = {"2x2": ((2, 2), None), "1x4_overlap": ((1, 4), 4)}[case]
+    config = flag_config(None, agg_vjp="fused")
+    model_cfg = config["params"]["model"]
+    model_cfg.update(noise=0.003, gamma=0.9)
+    model_cfg["rmp"] = {"clustering": "spectral", "connector": "hyper", "num_clusters": 4, "hyper_noise": 0.005}
+    model_cfg["graph_balancer"] = {"algorithm": "ricci", "remove_edges": True, "ricci": {"loops": 10, "tau": 150}}
+    model = get_model(config)
+    trainer = Trainer(model, config)
+    traj = add_targets(flag_trajectory(num_steps=6, nx=10, ny=10), "world_pos", True)
+    topo = model.topology_from_trajectory(traj, device=trainer.device)
+    static = trainer.expansion.prepare(model, {k: v[0] for k, v in traj.items()}, topo)
+    frames = trainer.frames({k: np.array(v[:4]) for k, v in traj.items() if k != "cells"})
+    gen = torch.Generator().manual_seed(1)
+    normal = torch.randn(frames["world_pos"].shape, generator=gen).cuda()
+    hyper = torch.randn(trainer.expansion.hyper_noise_shape(model, frames, static), generator=gen).cuda()
+    ts = trainer.init_train_state(state=model.init_state(torch.Generator().manual_seed(0)))
+    grads = lambda: {n: p.grad.clone() for n, p in ts.model.params.named_parameters()}
+    ref_loss, _ = trainer.loss_and_grads(ts, topo, frames, normal=normal, static=static, hyper_normal=hyper)
+    ref = grads()
+    group = RankGroup(*shape, devices=["cuda:0"] * 4)
+    stopo = shard_topology(topo, group, overlap_bands=bands, chunk=32)
+    step = make_spmd_train_step(trainer, stopo, group)
+    laid = step.laid_out(static)
+    rows = laid.members[1].mesh_plan.plans[0].num_nodes
+    unmasked = torch.from_numpy(np.bincount(stopo.receivers.cpu().numpy()[stopo.mask.cpu().numpy() > 0],
+                                            minlength=rows).astype(np.float32))
+    control = ShardedStatic(
+        topo=laid.topo._replace(plan=with_degree(laid.topo.plan, unmasked[: topo.num_nodes])),
+        members=(laid.members[0], laid.members[1]._replace(mesh_plan=with_degree(laid.members[1].mesh_plan, unmasked))))
+    runs = []
+    faulthandler.dump_traceback_later(SPMD_STEP_LIMIT_S, exit=True)  # a deadlock fails, never hangs
+    try:
+        for st in (laid, control, laid):
+            loss, _ = step.loss_and_grads(ts, frames, normal=normal, static=st, hyper_normal=hyper)
+            group.check()
+            runs.append((loss, grads()))
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    (loss, got), (_, planted), (loss3, again) = runs
+    assert torch.equal(loss, loss3) and all(torch.equal(got[n], again[n]) for n in got)
+    assert abs(float(loss) - float(ref_loss)) <= 1e-4 * abs(float(ref_loss))
+    rel = lambda a, n: float((a[n] - ref[n]).norm() / ref[n].norm().clamp(min=1e-30))
+    assert max(rel(got, n) for n in ref) <= 1e-3
+    assert max(rel(planted, n) for n in ref) > max(rel(got, n) for n in ref)

@@ -374,23 +374,42 @@ def test_sharded_steps_repeat_bit_for_bit_and_update_every_device():
 
 
 def test_sharded_step_raises_on_what_it_does_not_run():
+    """What raised before the expansions were ported now runs (an
+    expansion, the Ricci balancer, ``agg_vjp: xla``, a masked topology),
+    each step's loss the single-device step's; a group over several
+    devices and a batch that does not split over the data ranks still
+    raise.  tests/test_torch_port_spmd_expansion.py holds the gradients."""
+    from hyper_graph_nets_tpu_torch.training.expansion import build_expansion
+
     s = _setup()
     group = RankGroup(2, 2, device="cpu")
-    stopo = shard_topology(s["topo"], group)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_spmd_train_step(s["trainer"], stopo, group, expansion=object())
+    frame0 = {k: v[0] for k, v in s["traj"].items()}
+
+    def runs(config, topo=None):
+        model = get_model(config)
+        trainer = Trainer(model, config, device="cpu")
+        topo = model.topology_from_trajectory(s["traj"], device="cpu") if topo is None else topo
+        exp = build_expansion(model, config)
+        static = None if exp is None else exp.prepare(model, frame0, topo)
+        ts = _port_state(s) if exp is None else trainer.init_train_state()
+        gen = lambda: torch.Generator().manual_seed(3)
+        want, _ = trainer.loss_and_grads(ts, topo, s["frames"], generator=gen(), static=static)
+        step = make_spmd_train_step(trainer, shard_topology(topo, group), group, expansion=exp)
+        loss, _ = step.loss_and_grads(ts, s["frames"], generator=gen(), static=static)
+        np.testing.assert_allclose(float(loss), float(want), rtol=1e-5)
+        assert all(p.grad is not None for p in ts.model.params.parameters() if p.requires_grad)
+
+    rmp = _config()
+    rmp["params"]["model"]["rmp"] = {"clustering": "spectral", "connector": "hyper", "num_clusters": 4,
+                                     "hyper_noise": 0.005, "frequency": 1}
+    runs(rmp)
     balanced = _config()
-    balanced["params"]["model"]["graph_balancer"]["algorithm"] = "ricci"
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_spmd_train_step(Trainer(get_model(balanced), balanced, device="cpu"), stopo, group)
-    model = get_model(_config(agg_vjp="xla"))
-    trainer = Trainer(model, _config(agg_vjp="xla"), device="cpu")
-    topo = shard_topology(model.topology_from_trajectory(s["traj"], device="cpu"), group)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_spmd_train_step(trainer, topo, group)
+    balanced["params"]["model"]["graph_balancer"].update(algorithm="ricci", ricci={"loops": 5, "tau": 150})
+    runs(balanced)
+    runs(_config(agg_vjp="xla"))
     masked = s["topo"]._replace(mask=torch.ones(len(s["topo"].senders)).index_fill_(0, torch.tensor([3]), 0.0))
-    with pytest.raises(ValueError, match="all valid"):
-        shard_topology(masked, group)
+    runs(_config(), topo=masked)
+    stopo = shard_topology(s["topo"], group)
     spread = RankGroup(2, 2, device="cpu")  # as a group over two cards would lie
     spread.devices = [torch.device("cpu", d) for d in (0, 0, 1, 1)]
     with pytest.raises(NotImplementedError, match="item 7"):
