@@ -346,7 +346,8 @@ def kernel_device_ms(fn, iters: int, names) -> float:
     window's kernel records (0 to 19 of 20 seen), whatever the kernel: each
     kernel's time is then the mean over the launches the trace did record.
     A window in which some kernel has no record is traced again, up to
-    TRACE_ATTEMPTS times, and then the call fails."""
+    TRACE_ATTEMPTS times; then the time is the calls' own on CUDA events
+    (``cuda_time_ms``: the launches included), and the log says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -365,7 +366,10 @@ def kernel_device_ms(fn, iters: int, names) -> float:
                 f"launches recorded of {iters} each")
         if all(times.values()):
             return sum(sum(t) / len(t) for t in times.values()) / 1e3
-    raise RuntimeError(f"no trace of {names} recorded every kernel in {TRACE_ATTEMPTS} attempts")
+    ms = cuda_time_ms(fn, iters)
+    log(f"no trace of {names} recorded every kernel in {TRACE_ATTEMPTS} attempts: {ms * 1e3:.1f} us a call on CUDA "
+        "events, the launches included")
+    return ms
 
 
 def k1_inputs(dtype, B, snd, rcv, N, L, gen, device, mask=None):
@@ -1963,33 +1967,35 @@ def tiered_text(errs):
     return text
 
 
-def shard_kernel_rows(tag, peaks, gen, snd, rcv, mask, plan, rows, Bk, seed):
+def shard_kernel_rows(tag, peaks, gen, snd, rcv, mask, plan, rows, Bk, seed, dtype_name="bfloat16"):
     """K1 raw and K2 (at the plan's degree) on one rank's shard over
-    ``rows`` node rows, with ``mask`` (padding and interior masks), against
-    their plain versions: ``{"K1 raw": row, "K2": row}``."""
+    ``rows`` node rows, with ``mask`` (padding and interior masks), in
+    ``dtype_name``, against their plain versions: ``{"K1 raw": row, "K2":
+    row}``."""
     import torch
 
     from hyper_graph_nets_tpu_torch.ops import fused_block as fb
 
-    L = L_MAIN
-    x = k1_inputs(torch.bfloat16, Bk, snd, rcv, rows, L, torch.Generator().manual_seed(seed), "cuda", mask=mask)
+    L, dtype = L_MAIN, getattr(torch, dtype_name)
+    label = "bf16" if dtype_name == "bfloat16" else dtype_name
+    x = k1_inputs(dtype, Bk, snd, rcv, rows, L, torch.Generator().manual_seed(seed), "cuda", mask=mask)
     topo_args = (x["senders"], x["receivers"], x["mask"], rows)
     E = len(snd)
     run1 = lambda: fb.fused_edge_block_fwd(x["e"], x["sp"], x["rp"], x["weights"], *topo_args, plan, raw=True)
     got = run1()
     want = fb.fused_edge_block_reference(x["e"], x["sp"], x["rp"], x["weights"], *topo_args, raw=True)
-    err = max(check_close(f"K1 raw {tag} e2", got[0], want[0], *TOL["bfloat16"]["e2"]),
-              check_close(f"K1 raw {tag} agg", got[1], want[1], *TOL["bfloat16"]["agg"]))
-    k1b = k1_bound_ms("bfloat16", Bk, E, rows, L, peaks)
+    err = max(check_close(f"K1 raw {tag} e2", got[0], want[0], *TOL[dtype_name]["e2"]),
+              check_close(f"K1 raw {tag} agg", got[1], want[1], *TOL[dtype_name]["agg"]))
+    k1b = k1_bound_ms(dtype_name, Bk, E, rows, L, peaks)
     out = {"K1 raw": dict(
         max_abs_err=err, ms=kernel_device_ms(run1, iters=20, names="fused_block_fwd_kernel"),
         plain_ms=cuda_time_ms(lambda: fb.fused_edge_block_reference(
             x["e"], x["sp"], x["rp"], x["weights"], *topo_args, raw=True), iters=5),
         bound_ms=k1b[0], bound_by=k1b[1],
-        shape=f"bf16 B={Bk} E={E} rows={rows}, {int((mask == 0).sum())} edges masked ({tag})")}
+        shape=f"{label} B={Bk} E={E} rows={rows}, {int((mask == 0).sum())} edges masked ({tag})")}
     e2, agg = fb.fused_edge_block_fwd(x["e"], x["sp"], x["rp"], x["weights"], *topo_args, plan)
     dagg = torch.randn(agg.shape, generator=gen, device="cuda")
-    de2 = torch.randn(x["e"].shape, generator=gen, device="cuda").to(torch.bfloat16)
+    de2 = torch.randn(x["e"].shape, generator=gen, device="cuda").to(dtype)
     drhs = fb.agg_cotangent_rhs(agg, dagg, x["receivers"], x["mask"], rows, plan.degree)
     run2 = lambda: fb.fused_edge_block_bwd(x["e"], x["sp"], x["rp"], x["weights"], de2, drhs, *topo_args, plan=plan)
     got2 = run2()
@@ -1997,14 +2003,55 @@ def shard_kernel_rows(tag, peaks, gen, snd, rcv, mask, plan, rows, Bk, seed):
     want2 = fb.fused_edge_block_bwd_reference(x["e"], x["sp"], x["rp"], x["weights"], de2, drhs, *topo_args,
                                               forward=(fwd_vals[0], fwd_vals[2], fwd_vals[3]))
     order = lambda o: (o[0], o[1], o[2], o[3], o[6], o[7], o[8])
-    err2 = compare_bwd(f"K2 {tag}", "bfloat16", order(got2), order(want2))
-    k2b = bwd_bound_ms("bfloat16", Bk, E, rows, L, peaks, False)
+    err2 = compare_bwd(f"K2 {tag}", dtype_name, order(got2), order(want2))
+    k2b = bwd_bound_ms(dtype_name, Bk, E, rows, L, peaks, False)
     out["K2"] = dict(
         max_abs_err=err2, ms=kernel_device_ms(run2, iters=10, names=BWD_KERNELS),
         plain_ms=cuda_time_ms(lambda: fb.fused_edge_block_bwd_reference(
             x["e"], x["sp"], x["rp"], x["weights"], de2, drhs, *topo_args), iters=3),
         bound_ms=k2b[0], bound_by=k2b[1], shape=out["K1 raw"]["shape"] + ", global degree")
     return out, x
+
+
+def k7_group_row(tag, peaks, gen, group, stopo, plans, masks, rows, Bk, bands, x, dtype_name="bfloat16"):
+    """K7 over every rank's round-robin shard of ``stopo`` (``masks[k]``
+    each, ``plans[k]`` each, over ``rows`` rows, ``Bk`` frames; the node
+    rows and weights of ``x``) against its plain version: each rank's e2
+    K1's bit for bit on the same shard, the aggregate K1 raw's with the
+    plain all-reduce and the finalize.  Timed per call of every rank."""
+    import torch
+
+    from hyper_graph_nets_tpu_torch.ops import fused_block as fb
+    from hyper_graph_nets_tpu_torch.ops.fused_overlap import (
+        fused_edge_block_overlap,
+        fused_edge_block_overlap_reference,
+    )
+
+    L, per, dtype = L_MAIN, stopo.layout.per, getattr(torch, dtype_name)
+    shard_arr = lambda t, k: torch.as_tensor(t[k * per : (k + 1) * per].cpu().numpy()).cuda()
+    shards = [dict(e=torch.randn(Bk, per, L, generator=gen, device="cuda").to(dtype), sp=x["sp"], rp=x["rp"],
+                   weights=x["weights"], senders=shard_arr(stopo.senders, k), receivers=shard_arr(stopo.receivers, k),
+                   mask=torch.as_tensor(masks[k]).cuda(), plan=plans[k])
+              for k in range(group.n)]
+    run7 = lambda: fused_edge_block_overlap(shards, rows, group, bands)
+    got7 = run7()
+    group.check()
+    want7 = fused_edge_block_overlap_reference(shards, rows, group)
+    err7 = 0.0
+    for k, sh in enumerate(shards):
+        solo = fb.fused_edge_block_fwd(sh["e"], x["sp"], x["rp"], x["weights"], sh["senders"], sh["receivers"],
+                                       sh["mask"], rows, sh["plan"])
+        if not torch.equal(got7[k][0], solo[0]):
+            raise AssertionError(f"K7 {tag} rank {k}: e2 differs from K1's on the same shard")
+        err7 = max(err7, check_close(f"K7 {tag} rank {k} agg", got7[k][1], want7[k][1], *TOL[dtype_name]["agg"]))
+    k1b = k1_bound_ms(dtype_name, Bk, per, rows, L, peaks)
+    label = "bf16" if dtype_name == "bfloat16" else dtype_name
+    masked = sum(int((m == 0).sum()) for m in masks)
+    return dict(max_abs_err=err7, ms=group_time_ms(group, run7, iters=20),
+                plain_ms=cuda_time_ms(lambda: fused_edge_block_overlap_reference(shards, rows, group), iters=3),
+                bound_ms=group.n * k1b[0], bound_by=k1b[1],
+                shape=f"{label} B={Bk} {group.n} ranks of E={per} over {rows} rows, {bands} bands, {masked} edges "
+                      f"masked")
 
 
 def sorted_joined_rows(peaks, gen, stopo, Bk):
@@ -2081,11 +2128,6 @@ def phase_spmd_rmp(card, peaks, seed, profile_dir=None):
     from hyper_graph_nets_tpu_torch.data.preprocessing import add_targets
     from hyper_graph_nets_tpu_torch.data.synthetic import flag_trajectory
     from hyper_graph_nets_tpu_torch.models.get_model import get_model
-    from hyper_graph_nets_tpu_torch.ops.fused_overlap import (
-        fused_edge_block_overlap,
-        fused_edge_block_overlap_reference,
-    )
-    from hyper_graph_nets_tpu_torch.ops import fused_block as fb
     from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
     from hyper_graph_nets_tpu_torch.parallel.sharding import (
         ShardedStatic,
@@ -2225,34 +2267,8 @@ def phase_spmd_rmp(card, peaks, seed, profile_dir=None):
         if not bands:
             kernel_rows[f"K1 raw {tag}"] = found["K1 raw"]
         else:  # K7 over every rank's shard of this group, interior masks on each
-            shards = []
-            for k in range(group.n):
-                shards.append(dict(
-                    e=torch.randn(Bk, per, L, generator=gen, device="cuda").to(torch.bfloat16),
-                    sp=x["sp"], rp=x["rp"], weights=x["weights"],
-                    senders=torch.as_tensor(shard_arr(stopo.senders, k)).cuda(),
-                    receivers=torch.as_tensor(shard_arr(stopo.receivers, k)).cuda(),
-                    mask=torch.as_tensor(masks[k]).cuda(), plan=sstatic.members[0].mesh_plan.plans[k],
-                ))
-            run7 = lambda: fused_edge_block_overlap(shards, rows, group, bands)
-            got7 = run7()
-            group.check()
-            want7 = fused_edge_block_overlap_reference(shards, rows, group)
-            err7 = 0.0
-            for k in range(group.n):
-                solo = fb.fused_edge_block_fwd(shards[k]["e"], x["sp"], x["rp"], x["weights"], shards[k]["senders"],
-                                               shards[k]["receivers"], shards[k]["mask"], rows, shards[k]["plan"])
-                if not torch.equal(got7[k][0], solo[0]):
-                    raise AssertionError(f"K7 {tag} rank {k}: e2 differs from K1's on the same shard")
-                err7 = max(err7, check_close(f"K7 {tag} rank {k} agg", got7[k][1], want7[k][1],
-                                             *TOL["bfloat16"]["agg"]))
-            k1b = k1_bound_ms("bfloat16", Bk, per, rows, L, peaks)
-            kernel_rows[f"K7 {tag}"] = dict(
-                max_abs_err=err7, ms=group_time_ms(group, run7, iters=20),
-                plain_ms=cuda_time_ms(lambda: fused_edge_block_overlap_reference(shards, rows, group), iters=3),
-                bound_ms=group.n * k1b[0], bound_by=k1b[1],
-                shape=f"bf16 B={Bk} {group.n} ranks of E={per} over {rows} rows, {bands} bands, interior masks",
-            )
+            kernel_rows[f"K7 {tag}"] = k7_group_row(tag, peaks, gen, group, stopo, sstatic.members[0].mesh_plan.plans,
+                                                    masks, rows, Bk, bands, x)
 
     # the Ricci balancer before RMP on 2 x 2: SDRF with K5 in the trainer's
     # prepare (once: the static does not depend on the compute type), bf16 as
@@ -2407,6 +2423,314 @@ def phase_spmd_rmp(card, peaks, seed, profile_dir=None):
             f"plain {r['plain_ms']:.3f} ms, max abs err {r['max_abs_err']:.3g} [{card}]")
     faulthandler.cancel_dump_traceback_later()
     log(f"spmd rmp: {time.perf_counter() - t_phase:.1f} s, watchdog disarmed")
+    return launches, timings, kernel_rows
+
+
+SPMD_MODELS = ("cylinder", "plate", "hgn_plate")
+SPMD_MODELS_FRAMES = (4, 20)  # the 16 frames trained: plate's stamp touches the plate in every one
+SPMD_MODELS_STEPS = (1, 1)  # warm-up and timed steps, sharded and single-device, per family (cut for the time limit)
+SPMD_MODELS_DRAWS = 2  # noise draws the limits hold over
+# The sharded step against the single-device step on the card, float32, 5
+# blocks, B = 16 (1 x 4: 8), same state and noise draws, the state's
+# normalizers at their accumulation cap (capped: on the 36x36 plate every
+# mesh edge has one length, and a batch accumulated into the mesh_edge
+# normalizer standardizes float32 rounding; the normalizers' accumulation is
+# held on its own, from the uncapped state): loss relative error, the worst
+# gradient relative L2 of the mesh tier and of the cluster tier, the worst
+# normalizer field's relative error, the sharded forward's largest error
+# over its largest output.  Set from this phase's readings on an NVIDIA H100
+# 80GB HBM3 at 700 W over two noise draws (PERF.md section 6, PR 16): sound
+# loss 0-1.02e-7, mesh tier 2.7e-7 (plate) to 1.82e-4 (HGN plate), cluster
+# tier 9.6e-5-1.94e-4, normalizers 6.5e-8-1.9e-7, the forward 1.1e-6-2.2e-6;
+# the planted faults: loss 1.16e-4 (HGN plate's zeroed world partials; a lost
+# cylinder shard leaves the loss as it is), mesh tier 1.07 and more, cluster
+# tier 5.29e-2.  Each limit sits 10x or more above the largest sound reading
+# (HGN plate's gradients jump at near ties in float32: a 1e-7 move of the
+# input moves them by up to 2.1e-3 on the CPU) and 10x or more below the
+# smallest planted reading; the normalizers and the forward have no control.
+SPMD_MODELS_TOL = {"loss": 1e-6, "grad": 2e-3, "tier_grad": 5e-3, "balance_grad": 2e-3, "normalizers": 2e-6,
+                   "forward": 2e-5}
+
+
+@contextlib.contextmanager
+def zeroed_world_partials():
+    """A planted fault for the sharded plate step: graph rank 0's partials
+    of the world set (the set with per-frame receivers; its valid edges come
+    first, so graph rank 0 holds them) zeroed before they combine, in the
+    forward, as if that rank's world-edge messages were lost."""
+    import torch
+
+    from hyper_graph_nets_tpu_torch.core import segment_ops
+
+    kept = segment_ops._sharded_combine
+
+    def zeroed(entries, group, ties):
+        if entries[0]["shard"][0].dim() == 2:
+            entries = [dict(e, raw=torch.zeros_like(e["raw"])) if group.axis_index(r, "graph") == 0 else e
+                       for r, e in enumerate(entries)]
+        return kept(entries, group, ties)
+
+    segment_ops._sharded_combine = zeroed
+    try:
+        yield
+    finally:
+        segment_ops._sharded_combine = kept
+
+
+def models_ok(errs):
+    tol = SPMD_MODELS_TOL
+    return errs["loss"] <= tol["loss"] and all(errs[g][0] <= tol[g] for g in ("grad", "tier_grad", "balance_grad"))
+
+
+def normalizer_error(got, want):
+    """The worst relative error of any normalizer field (count, sums, sums
+    of squares) over its largest element, and its name."""
+    errs = []
+    for name, ns in want.items():
+        for f in ("acc_count", "num_accumulations", "acc_sum", "acc_sum_squared"):
+            w, g = getattr(ns, f).float(), getattr(got[name], f).float()
+            errs.append((float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30), f"{name}.{f}"))
+    return max(errs)
+
+
+def phase_spmd_models(card, peaks, seed, profile_dir=None):
+    """Train configs/cylinder.yaml, plate.yaml and plateCluster.yaml (HGN
+    plate) as shipped (float32, 5 blocks, fused remat, latent 128) through
+    ``parallel.sharding.make_spmd_train_step`` on a 2 x 2 group at B = 16, all
+    ranks on the one card: K1 raw + K2 per mesh shard (over N + K rows on
+    HGN plate, its tier sets unfused), plate's world set built whole by
+    every graph rank of a data row and cut into per-rank slices with their
+    own fixed-order sums.  Launches counted in advance; loss and gradients
+    against the single-device step on the card over SPMD_MODELS_DRAWS noise
+    draws, and the normalizer states from an uncapped state
+    (SPMD_MODELS_TOL); two runs bit for bit; planted faults that must miss
+    the limits (plate and HGN plate: graph rank 0's world-set partials
+    zeroed; cylinder: a lost shard's K2 output); step ms beside the
+    single-device step; ``make_sharded_forward`` on 2 x 2 at B = 8 against
+    the single-device forward; cylinder on a 1 x 4 group with overlap bands
+    at B = 8 (K7, then K2).  K1 raw and K2 in float32 at each family's shard
+    shapes, and K7 at cylinder's, against their plain versions.  A watchdog
+    ends the run if the phase hangs."""
+    import faulthandler
+
+    import numpy as np
+    import torch
+
+    from hyper_graph_nets_tpu_torch.models.get_model import get_model
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+    from hyper_graph_nets_tpu_torch.parallel.sharding import (
+        make_sharded_forward,
+        make_spmd_train_step,
+        shard_topology,
+    )
+    from hyper_graph_nets_tpu_torch.training.trainer import Trainer
+
+    faulthandler.dump_traceback_later(SPMD_WATCHDOG_S, exit=True)
+    log(f"spmd models: watchdog armed ({SPMD_WATCHDOG_S} s)")
+    t_phase = time.perf_counter()
+    group_of = lambda shape: RankGroup(*shape, devices=["cuda:0"] * (shape[0] * shape[1]))
+    grads_of = lambda params: {n: p.grad.detach().clone() for n, p in params.named_parameters()}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 31)
+    launches, timings, kernel_rows = dict.fromkeys(read_counts(), 0), {}, {}
+    lo, hi = SPMD_MODELS_FRAMES
+    B = hi - lo
+
+    def counted(tag, fn, want):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        full = dict.fromkeys(counts, 0)
+        full.update(want)
+        if counts != full:
+            raise AssertionError(f"{tag}: launches {counts}, want {full}")
+        for k in launches:
+            launches[k] += counts[k]
+        return out, counts
+
+    for name in SPMD_MODELS:
+        family = "cylinder" if name == "cylinder" else "plate"
+        config = hgn_config() if name == "hgn_plate" else model_config(name)
+        model = get_model(config)
+        blocks = model.gnn_config.message_passing_steps
+        traj = model_trajectory(family, seed, hi + 3)
+        state = rmp_state(config, traj, seed) if name == "hgn_plate" else model_state(model, traj, seed)
+        trainer = Trainer(model, config)
+        topo = model.topology_from_trajectory(traj, device="cuda")
+        static = None
+        if trainer.expansion is not None:
+            static = trainer.expansion.prepare(model, {k: v[0] for k, v in traj.items()}, topo)
+        N, E = topo.num_nodes, int(topo.senders.shape[0])
+        rows = N + (static[0].num_clusters if static is not None else 0)
+        if (N, E) != MODEL_SIZES[family]:
+            raise AssertionError(f"spmd {name}: {N} nodes, {E} mesh edges, want {MODEL_SIZES[family]}")
+        frames = {k: torch.as_tensor(v[lo:hi]).cuda() for k, v in traj.items() if k != "cells"}
+        field = MODEL_FIELDS[family]
+
+        def draw(b):
+            normal = torch.randn(frames[field][:b].shape, generator=gen, device="cuda")
+            hyper = None
+            if static is not None:
+                sub = {k: v[:b] for k, v in frames.items()}
+                hyper = torch.randn(trainer.expansion.hyper_noise_shape(model, sub, static), generator=gen,
+                                    device="cuda")
+            return normal, hyper
+
+        group = group_of((2, 2))
+        stopo = shard_topology(topo, group)
+        step = make_spmd_train_step(trainer, stopo, group)
+        cstate = capped(state)
+        ts = trainer.init_train_state(state=cstate)
+
+        def single(tstate, fr, normal, hyper):
+            loss, norms = trainer.loss_and_grads(tstate, topo, fr, normal=normal, static=static, hyper_normal=hyper)
+            return loss, grads_of(tstate.model.params), norms
+
+        def sharded(tstate, fr, normal, hyper, s=step):
+            loss, norms = s.loss_and_grads(tstate, fr, normal=normal, static=static, hyper_normal=hyper)
+            return loss, grads_of(tstate.model.params), norms
+
+        want = {"K1": blocks * group.n, "K2": blocks * group.n}
+        sound, first = [], None
+        for d in range(SPMD_MODELS_DRAWS):
+            normal, hyper = draw(B)
+            ref_loss, ref_grads, _ = single(ts, frames, normal, hyper)
+            # the main path: every count set to 0 just before, read just after
+            (loss, grads, _), counts = counted(f"sharded {name} 2x2 draw {d}",
+                                               lambda: sharded(ts, frames, normal, hyper), want)
+            group.check()
+            errs = tiered_errors(loss, grads, ref_loss, ref_grads)
+            sound.append(errs)
+            if first is None:
+                first = (loss, grads, normal, hyper, ref_loss, ref_grads, counts)
+            log(f"sharded {name} 2x2 draw {d}: {tiered_text(errs)} [{card}]")
+            if not models_ok(errs) or not np.isfinite(float(loss)):
+                raise AssertionError(f"sharded {name} 2x2 draw {d} vs single-device: {tiered_text(errs)}; limits "
+                                     f"{SPMD_MODELS_TOL}")
+        loss, grads, normal, hyper, ref_loss, ref_grads, counts = first
+        loss2, grads2, _ = sharded(ts, frames, normal, hyper)
+        if not (torch.equal(loss, loss2) and all(torch.equal(grads[n], grads2[n]) for n in grads)):
+            raise AssertionError(f"sharded {name} 2x2: a second run differs from the first")
+        # the planted fault: must miss the limits
+        fault = "lost shard's K2 output" if name == "cylinder" else "graph rank 0's world-set partials zeroed"
+        with (lost_shard_grads(group.shape["graph"]) if name == "cylinder" else zeroed_world_partials()):
+            floss, fgrads, _ = sharded(ts, frames, normal, hyper)
+        planted = tiered_errors(floss, fgrads, ref_loss, ref_grads)
+        if models_ok(planted):
+            raise AssertionError(f"sharded {name} 2x2: the planted fault ({fault}) passed the limits: "
+                                 f"{tiered_text(planted)}")
+        log(f"sharded {name} 2x2 planted fault ({fault}): {tiered_text(planted)}, misses [{card}]")
+        # the normalizers' accumulation over the data ranks, from the uncapped state
+        tsu = trainer.init_train_state(state=state)
+        _, _, norms_ref = single(tsu, frames, normal, hyper)
+        nloss, _, norms = sharded(tsu, frames, normal, hyper)
+        norm_err = normalizer_error(norms, norms_ref)
+        if not norm_err[0] <= SPMD_MODELS_TOL["normalizers"]:
+            raise AssertionError(f"sharded {name} 2x2 normalizer states vs single-device: {norm_err}")
+        group.check()
+
+        # step time: the full step (Adam included) beside the single-device step, each after a warm-up step
+        warm, timed_steps = SPMD_MODELS_STEPS
+
+        def step_ms(fn, tstate):
+            for _ in range(warm):
+                tstate, _ = fn(tstate)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(timed_steps):
+                tstate, out = fn(tstate)
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0) / timed_steps, out
+
+        ms, last = step_ms(lambda t: step(t, frames, normal=normal, static=static, hyper_normal=hyper),
+                           trainer.init_train_state(state=cstate))
+        group.check()
+        single_ms, _ = step_ms(lambda t: trainer.train_step(t, topo, frames, normal=normal, static=static,
+                                                            hyper_normal=hyper), trainer.init_train_state(state=cstate))
+        if not np.isfinite(float(last)):
+            raise AssertionError(f"sharded {name} 2x2: loss {float(last)} after the timed steps")
+        if profile_dir:
+            device_profile(lambda: sharded(ts, frames, normal, hyper), card, profile_dir, f"spmd_{name}_2x2")
+        world = None
+        if family == "plate":
+            with torch.no_grad():
+                wm = model.frame_features(topo, frames)["world_mask"]
+            world = dict(slots=int(wm.shape[-1]), hits_min=int(wm.sum(-1).min()), hits_max=int(wm.sum(-1).max()))
+        E_pad = int(stopo.senders.shape[0])
+        timings[f"{name} 2x2"] = dict(
+            B=B, ranks=group.n, nodes=N, rows=rows, edges=E, edges_padded=E_pad, step_ms=ms,
+            edges_per_s=B * E / (ms / 1e3), single_device_step_ms=single_ms, draws=sound, planted=planted,
+            planted_fault=fault, normalizers=norm_err, launches=counts, world_edges=world)
+        log(f"sharded step {name} 2x2 (configs/{HGN_CONFIG if name == 'hgn_plate' else name}.yaml float32 as "
+            f"shipped, B={B}, 4 ranks on one card, "
+            f"{E_pad // 2} mesh edges per graph rank over {rows} rows"
+            + (f", world set {world['slots']} slots a frame ({world['hits_min']}-{world['hits_max']} valid), "
+               f"{world['slots'] // 2} per graph rank" if world else "")
+            + f"): {counts['K1']} K1 raw + {counts['K2']} K2; vs single-device over {SPMD_MODELS_DRAWS} draws: "
+            + "; ".join(tiered_text(e) for e in sound)
+            + f"; normalizers {norm_err[0]:.3g} ({norm_err[1]}); a second run bit for bit; {ms:.1f} ms per step "
+            f"(host clock, Adam included, {timed_steps} after {warm} warm-up; single-device step "
+            f"{single_ms:.1f} ms), {B * E / (ms / 1e3):.4g} mesh edges/s [{card}]")
+
+        # the sharded forward on 2 x 2 at B = 8 against the single-device forward
+        half = {k: v[:8] for k, v in frames.items()}
+        mstate = state.to("cuda")
+        fwd = make_sharded_forward(model, stopo, group, expansion=trainer.expansion)
+        out, fcounts = counted(f"sharded forward {name} 2x2", lambda: fwd(mstate, half, static=static),
+                               {"K1": blocks * group.n})
+        with torch.no_grad():
+            graph, _, _ = model.make_graph(mstate, topo, half, False)
+            if trainer.expansion is not None:
+                graph, _ = trainer.expansion.expand(mstate, graph, half, model, is_training=False, static=static)
+            ref = model.forward(mstate, graph)
+        scale = float(ref.abs().max())
+        ferr = float((out - ref).abs().max()) / scale
+        if not ferr <= SPMD_MODELS_TOL["forward"] or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"sharded forward {name} 2x2: max err {ferr} of the largest output {scale}")
+        timings[f"{name} forward 2x2"] = dict(B=8, launches=fcounts, max_err_vs_single=ferr, out_scale=scale)
+        log(f"sharded forward {name} 2x2 (B=8): {fcounts['K1']} K1 raw; vs single-device max err {ferr:.3g} of the "
+            f"largest output {scale:.3g} [{card}]")
+
+        # K1 raw and K2 in float32 at this family's shard shape
+        per, plan = stopo.layout.per, stopo.plan.plans[0]
+        if static is not None:
+            plan = step.laid_out(static).members[0].mesh_plan.plans[0]
+        host = lambda t, k: t[k * per : (k + 1) * per].cpu().numpy()
+        found, x = shard_kernel_rows(f"{name} 2x2", peaks, gen, host(stopo.senders, 0), host(stopo.receivers, 0),
+                                     host(stopo.mask, 0), plan, rows, B // 2, seed + 32, "float32")
+        kernel_rows[f"K1 raw {name} 2x2"], kernel_rows[f"K2 {name} 2x2"] = found["K1 raw"], found["K2"]
+
+        if name == "cylinder":  # the 1 x 4 overlap group at B = 8: K7, then K2
+            group4 = group_of((1, 4))
+            stopo4 = shard_topology(topo, group4, overlap_bands=HALO_BANDS)
+            step4 = make_spmd_train_step(trainer, stopo4, group4)
+            normal8, _ = draw(8)
+            ref_loss, ref_grads, _ = single(ts, half, normal8, None)
+            (loss, grads, _), counts4 = counted("sharded cylinder 1x4 overlap", lambda: sharded(
+                ts, half, normal8, None, step4), {"K7": blocks * group4.n, "K2": blocks * group4.n})
+            group4.check()
+            errs4 = tiered_errors(loss, grads, ref_loss, ref_grads)
+            if not models_ok(errs4):
+                raise AssertionError(f"sharded cylinder 1x4 overlap vs single-device: {tiered_text(errs4)}")
+            timings["cylinder 1x4 overlap"] = dict(B=8, errors=errs4, launches=counts4,
+                                                   edges_padded=int(stopo4.senders.shape[0]))
+            log(f"sharded step cylinder 1x4 overlap {HALO_BANDS} (B=8): {counts4['K7']} K7 + {counts4['K2']} K2; "
+                f"vs single-device: {tiered_text(errs4)} [{card}]")
+            per4 = stopo4.layout.per
+            masks = [stopo4.mask[k * per4 : (k + 1) * per4].cpu().numpy() for k in range(group4.n)]
+            found4, x4 = shard_kernel_rows("cylinder 1x4 overlap", peaks, gen,
+                                           stopo4.senders[:per4].cpu().numpy(), stopo4.receivers[:per4].cpu().numpy(),
+                                           masks[0], stopo4.plan.plans[0], N, 8, seed + 33, "float32")
+            kernel_rows["K2 cylinder 1x4 overlap"] = found4["K2"]
+            kernel_rows["K7 cylinder 1x4 overlap"] = k7_group_row("cylinder 1x4 overlap", peaks, gen, group4, stopo4,
+                                                                  stopo4.plan.plans, masks, N, 8, HALO_BANDS, x4,
+                                                                  "float32")
+
+    for tag, r in kernel_rows.items():
+        log(f"{tag} ({r['shape']}): {r['ms'] * 1e3:.1f} us, bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}), "
+            f"plain {r['plain_ms']:.3f} ms, max abs err {r['max_abs_err']:.3g} [{card}]")
+    faulthandler.cancel_dump_traceback_later()
+    log(f"spmd models: {time.perf_counter() - t_phase:.1f} s, watchdog disarmed")
     return launches, timings, kernel_rows
 
 
@@ -4161,6 +4485,16 @@ def phase_cli(card):
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
+    import torch
+
+    # the CLI processes share the card with this one: hand back what its
+    # caching allocator holds unused (each rank group's streams keep pools
+    # of their own, which no later phase's default-stream allocation reuses)
+    reserved = torch.cuda.memory_reserved() / 2**30
+    torch.cuda.empty_cache()
+    log(f"CLI: this process held {reserved:.2f} GiB of the card, {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+        "after handing back its cache")
+
     def runs(root, name, n):
         out = []
         for _ in range(n):
@@ -4640,6 +4974,8 @@ def main(argv=None) -> int:
     halo_launches, halo_timings = timed(phase_halo, card, args.seed)
     spmd_launches, spmd_timings, spmd_rows = timed(phase_spmd, card, peaks, args.seed, args.profile)
     spmd_rmp_launches, spmd_rmp_timings, spmd_rmp_rows = timed(phase_spmd_rmp, card, peaks, args.seed, args.profile)
+    spmd_models_launches, spmd_models_timings, spmd_models_rows = timed(
+        phase_spmd_models, card, peaks, args.seed, args.profile)
     train_launches, train_timings = timed(phase_train, card, args.seed, args.profile)
     task_launches, task_timings = timed(phase_task, card)
     rmp_launches, rmp_timings, rmp_kernels = timed(phase_rmp, card, peaks, args.seed, args.profile)
@@ -4650,7 +4986,8 @@ def main(argv=None) -> int:
     int8_launches, int8_timings = timed(phase_int8, card, args.seed, args.profile)
     cli_timings = timed(phase_cli, card)
     launches = {
-        k: serve_launches[k] + halo_launches[k] + spmd_launches[k] + spmd_rmp_launches[k] + train_launches[k]
+        k: serve_launches[k] + halo_launches[k] + spmd_launches[k] + spmd_rmp_launches[k] + spmd_models_launches[k]
+        + train_launches[k]
         + task_launches[k] + rmp_launches[k]
         + sum(run[0][k] for run in model_runs.values()) + hgn_launches[k] + int8_launches[k]
         for k in serve_launches
@@ -4670,6 +5007,8 @@ def main(argv=None) -> int:
            + (", fused_tiers)" if n in HGN_TIER_PLANS else ", fused_tiers off and on)"): row(hk[k])
            for n, hk in hgn_kernels.items()},
     }
+    sharded_rows = lambda k: {f"sharded step shard, {r['shape']}": row(r)
+                              for tag, r in spmd_models_rows.items() if tag.startswith(k + " ")}
     entry = lambda name, src, pallas, n, r: {
         "name": name,
         "route": "cuda",
@@ -4685,10 +5024,11 @@ def main(argv=None) -> int:
     }
     kernels = [
         dict(entry("fused_edge_block_fwd (K1)", "fused_block_fwd.cu", "fused_block.py:393", launches["K1"], main_k1),
-             shapes={**shapes(k1_shapes), **path_rows("K1")}),
+             shapes={**shapes(k1_shapes), **path_rows("K1"), **sharded_rows("K1 raw")}),
         dict(entry("fused_edge_block_bwd remat (K2)", "fused_block_bwd.cu", "fused_block.py:1008",
                    launches["K2"], bwd[("K2", "bfloat16")]),
-             main_kernel_ms=bwd[("K2", "bfloat16")]["main_kernel_ms"], shapes=path_rows("K2")),
+             main_kernel_ms=bwd[("K2", "bfloat16")]["main_kernel_ms"],
+             shapes={**path_rows("K2"), **sharded_rows("K2")}),
         dict(entry("fused_edge_block_bwd stream (K3)", "fused_block_bwd.cu", "fused_block.py:1284",
                    launches["K3"], bwd[("K3", "bfloat16")]),
              main_kernel_ms=bwd[("K3", "bfloat16")]["main_kernel_ms"]),
@@ -4702,7 +5042,8 @@ def main(argv=None) -> int:
              ring_bound_ms=k6[HALO_RANKS]["ring_bound_ms"], gated_ms=k6[HALO_RANKS]["gated_ms"]),
         dict(entry("fused_edge_block_overlap (K7)", "fused_overlap.cu", "fused_overlap.py:171", launches["K7"],
                    k7[("K7", "bfloat16")]),
-             ring_bound_ms=k7[("K7", "bfloat16")]["ring_bound_ms"], gated_ms=k7[("K7", "bfloat16")]["gated_ms"]),
+             ring_bound_ms=k7[("K7", "bfloat16")]["ring_bound_ms"], gated_ms=k7[("K7", "bfloat16")]["gated_ms"],
+             shapes=sharded_rows("K7")),
     ]
     # the sharded step's modes: launches from phase_spmd's main paths only
     spmd_k = lambda tag, k: spmd_timings[tag]["launches"][k]
@@ -4750,6 +5091,28 @@ def main(argv=None) -> int:
                    "segment_pna.py:183", rmp_k("rmp sorted 2x2", "K4b"), spmd_rmp_rows["K4b joined"]),
              shape=spmd_rmp_rows["K4b joined"]["shape"]),
     ]
+    # the sharded step on cylinder, plate and HGN plate: launches from phase_spmd_models' main paths only
+    models_k = lambda tag, k: spmd_models_timings[tag]["launches"][k]
+    for name, label in (("cylinder", "cylinder"), ("plate", "plate"), ("hgn_plate", "HGN plate")):
+        kernels += [
+            dict(entry(f"fused_edge_block_fwd raw float32, sharded {label} step (K1)", "fused_block_fwd.cu",
+                       "fused_block.py:393", models_k(f"{name} 2x2", "K1"), spmd_models_rows[f"K1 raw {name} 2x2"]),
+                 shape=spmd_models_rows[f"K1 raw {name} 2x2"]["shape"]),
+            dict(entry(f"fused_edge_block_bwd remat float32 at the global degree, sharded {label} step (K2)",
+                       "fused_block_bwd.cu", "fused_block.py:1008", models_k(f"{name} 2x2", "K2"),
+                       spmd_models_rows[f"K2 {name} 2x2"]),
+                 shape=spmd_models_rows[f"K2 {name} 2x2"]["shape"]),
+        ]
+    kernels += [
+        dict(entry("fused_edge_block_bwd remat float32 on the overlap layout, sharded cylinder step (K2)",
+                   "fused_block_bwd.cu", "fused_block.py:1008", models_k("cylinder 1x4 overlap", "K2"),
+                   spmd_models_rows["K2 cylinder 1x4 overlap"]),
+             shape=spmd_models_rows["K2 cylinder 1x4 overlap"]["shape"]),
+        dict(entry("fused_edge_block_overlap batched float32, sharded cylinder step (K7)", "fused_overlap.cu",
+                   "fused_overlap.py:171", models_k("cylinder 1x4 overlap", "K7"),
+                   spmd_models_rows["K7 cylinder 1x4 overlap"]),
+             shape=spmd_models_rows["K7 cylinder 1x4 overlap"]["shape"]),
+    ]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -4773,6 +5136,8 @@ def main(argv=None) -> int:
                     "spmd": {"launches": spmd_launches, "timings": spmd_timings, "kernels": spmd_rows},
                     "spmd_rmp": {"launches": spmd_rmp_launches, "timings": spmd_rmp_timings,
                                  "kernels": spmd_rmp_rows},
+                    "spmd_models": {"launches": spmd_models_launches, "timings": spmd_models_timings,
+                                    "kernels": spmd_models_rows},
                     "serving": serve_timings,
                     "serving_launches": serve_launches,
                     "training": train_timings,

@@ -543,7 +543,8 @@ class ShardedAggregate(torch.autograd.Function):
     ``[..., E/G, F]`` and returns each rank's aggregate over every node row.
     Its backward sums the ranks' aggregate cotangents in rank order (the
     transpose of handing every rank the all-reduced aggregate), then routes
-    the sum to each shard's valid edges against the global aggregate: the
+    the sum to each shard's valid edges (by ``[E]`` receivers, or per frame
+    by ``[B, E]`` ones) against the global aggregate: the
     sum part in full, the mean part over the global count, and the max
     (min) part to every edge equal to the global max (min), by the set's tie
     rule: ``full`` sends the whole cotangent to every tied edge (the
@@ -582,7 +583,7 @@ class ShardedAggregate(torch.autograd.Function):
             g_max, g_min = g_max / ties_max.clamp(min=1.0), g_min / ties_min.clamp(min=1.0)
         out = [None]
         for x, (rcv, mask, _) in zip(xs, ctx.shards):
-            take = lambda t: t.to(x.device).index_select(t.dim() - 2, rcv.long())
+            take = lambda t: _receiver_rows(t.to(x.device), rcv)
             xf = x.float()
             ge = take(node)
             ge = ge + torch.where(xf == take(mx), take(g_max), 0.0)
@@ -593,6 +594,15 @@ class ShardedAggregate(torch.autograd.Function):
         return tuple(out)
 
 
+def _receiver_rows(t: torch.Tensor, rcv: torch.Tensor) -> torch.Tensor:
+    """Each edge's receiver row of ``t`` ``[..., N, F]``: by ``[E]``
+    receivers, or per frame by ``[..., E]`` ones (a set that forms anew in
+    every frame)."""
+    if rcv.dim() == 1:
+        return t.index_select(t.dim() - 2, rcv.long())
+    return frame_rows(t, rcv.long())
+
+
 def _tie_counts(xs, shards, mx, mn):
     """The number of valid edges over every shard equal to each receiver's
     global max and min, ``[..., N, F]`` each: each shard's counts (exact
@@ -601,7 +611,7 @@ def _tie_counts(xs, shards, mx, mn):
     n = mx.shape[-2]
     total_max = total_min = 0.0
     for x, (rcv, mask, sums) in zip(xs, shards):
-        take = lambda t: t.to(x.device).index_select(t.dim() - 2, rcv.long())
+        take = lambda t: _receiver_rows(t.to(x.device), rcv)
         xf = x.float()
         for ext, which in ((mx, "max"), (mn, "min")):
             hits = _sum32((xf == take(ext)).float(), rcv, n, mask, sums).to(mx.device)
@@ -633,8 +643,11 @@ def sharded_aggregate(
     all-reduce along ``graph``).  Under autograd each ``data`` row's shards
     meet in one :class:`ShardedAggregate` node, whose backward routes the
     max and min cotangents to tied edges by ``ties`` (``full`` or
-    ``split``).  Batched ``[B, E, F]`` data and ``[E, F]`` alike; the result
-    in the data's dtype."""
+    ``split``).  Batched ``[B, E, F]`` data and ``[E, F]`` alike; a set that
+    forms anew in every frame (plate's world edges) takes ``[B, E]``
+    receivers and mask and its shard's :class:`FrameSum` as ``sums``, and
+    its counts (the mean's and the ties') are per frame.  The result in the
+    data's dtype."""
     if aggregation not in ("sum", "mean", "max", "min", "pna"):
         raise ValueError(f"invalid collective aggregation {aggregation!r}")
     if ties not in TIE_RULES:

@@ -37,6 +37,7 @@ raises on it.
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -182,6 +183,18 @@ class RankGroup:
         stack.enter_context(torch.cuda.stream(self.streams[rank]))
         return stack
 
+    def _sanitized(self):
+        """Under PyTorch's CUDA sanitizer (``TORCH_CUDA_SANITIZER=1``), its
+        dispatch mode in this thread too: the mode is per thread, and a
+        rank's thread would otherwise run its operations unseen.  The module
+        is looked up, never imported: importing it turns on PyTorch's GPU
+        trace callbacks for the whole process (every allocation, event and
+        sync then calls into Python)."""
+        sanitizer = sys.modules.get("torch.cuda._sanitizer")
+        if not self.is_cuda or sanitizer is None or not sanitizer.cuda_sanitizer.enabled:
+            return contextlib.nullcontext()
+        return sanitizer.cuda_sanitizer.dispatch
+
     def run(self, fn: Callable[[int], object]) -> list:
         """``[fn(0), ..., fn(n-1)]``, each rank in its own thread under its
         device and stream.
@@ -207,7 +220,7 @@ class RankGroup:
             self._local.rank = r
             try:
                 self._wait_turn(r)
-                with self.context(r):
+                with self.context(r), self._sanitized():
                     results[r] = fn(r)
             except BaseException as exc:  # re-raised below, in the caller's thread
                 errors.append(exc)

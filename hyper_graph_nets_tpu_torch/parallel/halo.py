@@ -41,7 +41,7 @@ from hyper_graph_nets_tpu_torch.core.graph import Graph
 from hyper_graph_nets_tpu_torch.models.base import ModelState, SystemModel
 from hyper_graph_nets_tpu_torch.nn.meshgraphnet import MeshGraphNet, network_apply
 from hyper_graph_nets_tpu_torch.ops.segment_pna import SortedPlan
-from hyper_graph_nets_tpu_torch.parallel.sharding import RankPlans, RankSums
+from hyper_graph_nets_tpu_torch.parallel.sharding import RankPlans, RankSums, cut_frame_set, per_frame
 
 
 def strip_gather(graph: Graph) -> Graph:
@@ -64,11 +64,18 @@ def shard_graph(graph: Graph, group, r: int) -> Graph:
     storage of their own, which the kernels need 16-byte aligned), with its
     plan and fixed-order sums (a :class:`SortedPlan` is the whole set's,
     kept as it is: ``ops.segment_pna.pna_sorted_sharded`` joins the shards);
-    node rows and frames as they are, on the graph's device."""
-    graph = strip_gather(graph)
+    a set that forms anew in every frame (plate's world edges, ``[..., W]``
+    index arrays) padded and cut on its last axis, its sums built on the
+    slice (``parallel.sharding.cut_frame_set``); node rows and frames as
+    they are, on the graph's device."""
     G, k = group.shape["graph"], group.axis_index(r, "graph")
+    frame_sets = {name: cut_frame_set(es, G, k) for name, es in graph.edge_sets.items() if per_frame(es)}
+    graph = strip_gather(graph)
     sets = {}
     for name, es in graph.edge_sets.items():
+        if name in frame_sets:
+            sets[name] = frame_sets[name]
+            continue
         E = es.num_edges
         if E % G:
             raise ValueError(f"{name}: {E} edges do not split over {G} ranks (shard_topology pads them)")
@@ -93,7 +100,8 @@ def split_graph(graph: Graph, group) -> List[Graph]:
     fixed-order sums, and every node row (the counterpart of the JAX
     package's ``graph_partition_specs``); a batched graph's ``[B, ...]``
     frames split over the ``data`` ranks as ``sharding.shard_frames`` splits
-    them, an unbatched one goes to every rank."""
+    them (a per-frame set's index arrays too, before its slice is cut), an
+    unbatched one goes to every rank."""
     batched = graph.node_features.dim() == 3
     D = group.shape["data"]
     if batched and graph.node_features.shape[0] % D:
@@ -101,16 +109,25 @@ def split_graph(graph: Graph, group) -> List[Graph]:
     out = []
     for r in range(group.n):
         dev = group.device(r)
-        part = shard_graph(graph, group, r)
+        part = graph
         if batched:
             b = graph.node_features.shape[0] // D
             d = group.axis_index(r, "data")
             frames = lambda t: None if t is None else t[d * b : (d + 1) * b]
+            frame_ids = lambda es, t: frames(t) if per_frame(es) else t
             part = part.replace(
                 node_features=frames(part.node_features),
                 hyper_features=frames(part.hyper_features),
-                edge_sets={n: es.replace(features=frames(es.features)) for n, es in part.edge_sets.items()},
+                edge_sets={n: es.replace(features=frames(es.features), senders=frame_ids(es, es.senders),
+                                         receivers=frame_ids(es, es.receivers), mask=frame_ids(es, es.mask))
+                           for n, es in part.edge_sets.items()},
             )
+        # a per-frame set's sums are built where its slice lies
+        part = part.replace(edge_sets={
+            n: es.replace(features=es.features.to(dev), senders=es.senders.to(dev), receivers=es.receivers.to(dev),
+                          mask=es.mask.to(dev)) if per_frame(es) else es
+            for n, es in part.edge_sets.items()})
+        part = shard_graph(part, group, r)
         # own storage for each slice of features (shard_graph copied the
         # index arrays): the kernels take 16-byte aligned data
         move = lambda t: None if t is None else t.to(dev)

@@ -60,10 +60,16 @@ Use::
     static = shard_static(trainer.expansion, static, stopo, group)  # optional: laid out once
     tstate, loss = step(tstate, frames, static=static)    # frames [B, ...], B % 2 == 0
 
-Flag only: cylinder and plate (plate's per-frame world edges), connectors
-other than ``hyper``, a group over several devices and
-``parallel/multihost.py``'s processes are not ported yet (ROADMAP queue 1,
-item 7).
+Flag, cylinder and plate, with or without RMP ``hyper`` (HGN plate is
+plate with it).  Plate's world edges form anew in every frame: each graph
+rank of a data row builds the whole world set of its frames (the radius
+query, the slots, the receiver sort) and ``halo.shard_graph`` cuts it on
+its edge axis, padded to a multiple of ``graph`` with the set's invalid
+slot (:class:`EdgeLayout` along the last axis), each rank's fixed-order
+sums built on its slice (``EdgeSums.per_frame``, over the set's node rows:
+``N``, or ``N + K`` after RMP).  Connectors and architectures other than
+``hyper``, a group over several devices and ``parallel/multihost.py``'s
+processes are not ported yet (ROADMAP queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -76,9 +82,12 @@ import torch
 
 from hyper_graph_nets_tpu_torch.balancer.base import BalancerStatic, GraphBalancer
 from hyper_graph_nets_tpu_torch.core import normalizer
-from hyper_graph_nets_tpu_torch.core.segment_ops import EdgeSums
+from hyper_graph_nets_tpu_torch.core.graph import EdgeSet
+from hyper_graph_nets_tpu_torch.core.segment_ops import EdgeSums, FrameSum
 from hyper_graph_nets_tpu_torch.models.base import ModelState, Topology
+from hyper_graph_nets_tpu_torch.models.cylinder import CylinderModel
 from hyper_graph_nets_tpu_torch.models.flag import FlagModel
+from hyper_graph_nets_tpu_torch.models.plate import PlateModel
 from hyper_graph_nets_tpu_torch.nn.blocks import edge_shard_ties
 from hyper_graph_nets_tpu_torch.nn.meshgraphnet import network_apply
 from hyper_graph_nets_tpu_torch.ops.fused_block import SegmentPlan, plan_segments
@@ -185,6 +194,44 @@ class EdgeLayout:
         if isinstance(ids, torch.Tensor):
             return torch.from_numpy(where).to(ids.device)[ids.long()].to(ids.dtype)
         return where[np.asarray(ids, np.int64)].astype(np.asarray(ids).dtype)
+
+
+def per_frame(es: EdgeSet) -> bool:
+    """Whether ``es`` forms anew in every frame (plate's world edges): its
+    sums are per-frame plans (``EdgeSums.per_frame``)."""
+    return isinstance(es.sums, EdgeSums) and isinstance(es.sums.receivers, FrameSum)
+
+
+def cut_frame_set(es: EdgeSet, graph: int, k: int) -> EdgeSet:
+    """Graph rank k's slice of a set that forms anew in every frame
+    (:func:`per_frame`; ``[..., W]`` senders, receivers and mask): the
+    arrays padded on their edge axis (the last; the features' the one before
+    their width) to a multiple of ``graph`` with the set's invalid slot
+    (sender 0, receiver 0, mask 0, features 0), as :class:`EdgeLayout` lays
+    them out, and cut to the rank's contiguous slice; its fixed-order sums
+    built on the slice, where it lies, over the set's node rows (``N``, or
+    ``N + K`` after RMP re-rows it)."""
+    layout = EdgeLayout.build(es.num_edges, graph)
+    sl = layout.shard(k)
+
+    def cut(t, axis, pad):
+        if layout.padded > layout.num_edges:  # no empty pad tensor per step when W divides
+            t = layout.relay(t, pad, axis=axis)
+        return t.narrow(axis % t.dim(), sl.start, layout.per).contiguous()
+
+    snd, rcv, mask = cut(es.senders, -1, 0), cut(es.receivers, -1, 0), cut(es.mask, -1, 0.0)
+    return es.replace(
+        features=cut(es.features, -2, 0.0),
+        senders=snd,
+        receivers=rcv,
+        mask=mask,
+        plan=None,
+        gather_idx=None,
+        gather_valid=None,
+        snd_gather_idx=None,
+        snd_gather_valid=None,
+        sums=EdgeSums.per_frame(snd, rcv, mask, es.sums.receivers.num_segments),
+    )
 
 
 def pad_to_multiple(arr: np.ndarray, multiple: int, pad_value=0) -> np.ndarray:
@@ -403,10 +450,10 @@ def shard_static(expansion, static: Tuple, topo: Topology, group) -> ShardedStat
 
 def check_supported(model, expansion) -> None:
     """Raise on what the sharded step and forward do not run: a model other
-    than flag, an expansion member other than the graph balancer and RMP
-    with the ``hyper`` connector and architecture, and a model configured
-    with an expansion that is not given."""
-    if not isinstance(model, FlagModel):
+    than flag, cylinder and plate, an expansion member other than RMP with
+    the ``hyper`` connector and architecture and (on flag) the graph
+    balancer, and a model configured with an expansion that is not given."""
+    if not isinstance(model, (FlagModel, CylinderModel, PlateModel)):
         raise NotImplementedError(f"the sharded step on {type(model).__name__} {NOT_PORTED}")
     if expansion is None:
         if model.use_rmp or model.use_balancer:
@@ -418,8 +465,9 @@ def check_supported(model, expansion) -> None:
             if type(member.connector) is not HierarchicalConnector or model.gnn_config.architecture != "hyper":
                 raise NotImplementedError(
                     f"remote message passing with architecture {model.gnn_config.architecture!r} {NOT_PORTED}")
-        elif not isinstance(member, GraphBalancer):
-            raise NotImplementedError(f"the expansion member {type(member).__name__} {NOT_PORTED}")
+        elif not isinstance(member, GraphBalancer) or not isinstance(model, FlagModel):
+            raise NotImplementedError(
+                f"the expansion member {type(member).__name__} on {type(model).__name__} {NOT_PORTED}")
 
 
 # -- the step -------------------------------------------------------------------

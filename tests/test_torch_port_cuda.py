@@ -1727,3 +1727,187 @@ def test_sharded_expansion_step_on_card_matches_single_device_and_repeats_after_
     rel = lambda a, n: float((a[n] - ref[n]).norm() / ref[n].norm().clamp(min=1e-30))
     assert max(rel(got, n) for n in ref) <= 1e-3
     assert max(rel(planted, n) for n in ref) > max(rel(got, n) for n in ref)
+
+
+# -- the sharded step on cylinder, plate and HGN plate -------------------------
+
+
+@pytest.mark.cuda
+def test_k1_raw_and_k2_on_an_hgn_plate_shard_in_float32_match_plain():
+    """K1 raw and K2 at the global in-degree in float32 on each graph rank's
+    shard of the 36x36 plate's mesh set (5,040 edges over 2 graph ranks),
+    each plan over the 1,312 mesh rows and 16 hyper rows, as the sharded HGN
+    plate step lays it out (``parallel.sharding.EdgeLayout``, ``rank_plans``),
+    against their plain versions (float32 tolerances: K1 1e-5, K2 1e-4); the
+    hyper rows and the stamp's rows, which receive no mesh edge, get no
+    partials and no receiver cotangents."""
+    from hyper_graph_nets_tpu_torch.data import synthetic
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+    from hyper_graph_nets_tpu_torch.parallel.sharding import EdgeLayout, rank_plans
+
+    _need_card()
+    traj = add_targets(synthetic.plate_trajectory(num_steps=3, nx=36, ny=36), "world_pos", False)
+    topo = get_model(_model_config("plate")).topology_from_trajectory(traj)
+    N, G, L, B = topo.num_nodes, 2, 128, 2
+    rows = N + 16
+    snd, rcv = topo.senders.numpy(), topo.receivers.numpy()
+    assert (N, len(snd), rows) == (1312, 5040, 1328)
+    layout = EdgeLayout.build(len(snd), G)
+    snd, rcv = layout.relay(snd, 0), layout.relay(rcv, N - 1)
+    mask = layout.relay(np.ones(len(topo.senders), np.float32), 0.0)
+    plans = rank_plans(RankGroup(G, device="cpu"), layout, snd, rcv, mask, rows)
+    empty = torch.as_tensor(np.bincount(rcv[mask > 0], minlength=rows) == 0).cuda()
+    assert bool(empty[N:].all()) and int(empty.sum()) > 16  # the hyper rows and the stamp's
+    rng = np.random.default_rng(11)
+    gen = torch.Generator().manual_seed(12)
+    for k in range(G):
+        sl = layout.shard(k)
+        arrays, weights = _k1_arrays(rng, B, layout.per, rows, L)
+        x = {a: torch.tensor(v).cuda() for a, v in arrays.items()}
+        w = {a: torch.tensor(v.T.copy() if v.ndim == 2 else v).cuda() for a, v in weights.items()}
+        topo_k = (torch.tensor(snd[sl]).cuda(), torch.tensor(rcv[sl]).cuda(), torch.tensor(mask[sl]).cuda(), rows)
+        plan = plans.plans[k].to("cuda")
+        e2, raw = fused_edge_block_fwd(x["e"], x["sp"], x["rp"], w, *topo_k, plan=plan, raw=True)
+        re2, rraw = fused_edge_block_reference(x["e"], x["sp"], x["rp"], w, *topo_k, raw=True)
+        torch.testing.assert_close(e2, re2, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(raw, rraw, rtol=1e-5, atol=1e-5)
+        assert bool((raw[:, empty, : 2 * L] == 0).all())
+        e2, agg, a1, a2, _, _ = fused_edge_block_fwd(x["e"], x["sp"], x["rp"], w, *topo_k, plan=plan,
+                                                     save_streams=True)
+        de2 = torch.randn(B, layout.per, L, generator=gen).cuda()
+        drhs = agg_cotangent_rhs(agg, torch.randn(B, rows, 4 * L, generator=gen).cuda(), topo_k[1], topo_k[2], rows,
+                                 plan.degree)
+        got = fused_edge_block_bwd(x["e"], x["sp"], x["rp"], w, de2, drhs, *topo_k, plan=plan)
+        want = fused_edge_block_bwd_reference(x["e"], x["sp"], x["rp"], w, de2, drhs, *topo_k, forward=(e2, a1, a2))
+        for name, g, h in zip(("de", "dh", "dz2", "dz3", "dsp", "drp"), got[:4] + got[6:8], want[:4] + want[6:8]):
+            err = float((g - h).abs().max())
+            assert err <= 1e-4 * (1 + float(h.abs().max())), (k, name)
+        assert bool((got[7][:, empty] == 0).all())
+
+
+def _per_frame_shards(group, B, W, rows, F, seed=0):
+    """A per-frame edge set like plate's world edges (``[B, W]`` receivers
+    sorted, the valid slots first, ``W`` not a multiple of the graph axis),
+    cut per rank as the sharded step cuts it (``cut_frame_set``) on the
+    group's devices, each data rank's frames: ``(xs, sets)``, each rank's
+    edge features (requiring grad) and its slice of the set."""
+    from hyper_graph_nets_tpu_torch.core.graph import EdgeSet
+    from hyper_graph_nets_tpu_torch.core.segment_ops import EdgeSums
+    from hyper_graph_nets_tpu_torch.parallel.sharding import cut_frame_set
+
+    rng = np.random.default_rng(seed)
+    hits = rng.integers(W // 3, W, B)
+    rcv = np.zeros((B, W), np.int32)
+    snd = np.zeros((B, W), np.int32)
+    mask = np.zeros((B, W), np.float32)
+    for b, h in enumerate(hits):
+        rcv[b, :h] = np.sort(rng.integers(0, rows - 16, h))
+        snd[b, :h] = rng.integers(0, rows - 16, h)
+        mask[b, :h] = 1.0
+    x = (np.round(rng.normal(size=(B, W, F)) * 4) / 4).astype(np.float32) * mask[..., None]
+    D, G = group.shape["data"], group.shape["graph"]
+    b = B // D
+    xs, sets = [], []
+    for r in range(group.n):
+        d, g, dev = group.axis_index(r, "data"), group.axis_index(r, "graph"), group.device(r)
+        fr = lambda a: torch.tensor(a[d * b : (d + 1) * b]).to(dev)
+        s, rv, m = fr(snd), fr(rcv), fr(mask)
+        whole = EdgeSet(features=fr(x), senders=s, receivers=rv, mask=m, sums=EdgeSums.per_frame(s, rv, m, rows))
+        es = cut_frame_set(whole, G, g)
+        xs.append(es.features.clone().requires_grad_())
+        sets.append(es)
+    return xs, sets
+
+
+def _sharded_per_frame_aggregate(group, B, W, rows, F):
+    from hyper_graph_nets_tpu_torch.core.segment_ops import sharded_aggregate
+
+    xs, sets = _per_frame_shards(group, B, W, rows, F)
+    outs = group.run(lambda r: sharded_aggregate(xs[r], sets[r].receivers, rows, "pna", sets[r].mask, group,
+                                                 sums=sets[r].sums.receivers, ties="split"))
+    group.check()
+    gen = torch.Generator().manual_seed(4)
+    ws = [torch.randn(o.shape, generator=gen).to(o.device) for o in outs]
+    torch.autograd.backward([(o * w).sum() for o, w in zip(outs, ws)])
+    return [o.detach().cpu() for o in outs], [x.grad.cpu() for x in xs]
+
+
+@pytest.mark.cuda
+def test_sharded_aggregate_on_per_frame_receivers_on_card_matches_cpu():
+    """The sharded aggregate of a per-frame set (plate's world edges: 4
+    frames of 127 slots, padded to 128 over 2 graph ranks, into 1,328 rows,
+    tied values) on a 2 x 2 group on the card against the same on the CPU:
+    each rank's aggregate and each shard's edge cotangent (every rank's
+    cotangent summed, the mean's count and the tie counts per frame over
+    every shard) within rtol = atol = 1e-6 (float32; the fixed-order sums
+    take the same steps on both)."""
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+
+    _need_card()
+    args = (4, 127, 1328, 128)
+    card = _sharded_per_frame_aggregate(RankGroup(2, 2, devices=["cuda:0"] * 4), *args)
+    cpu = _sharded_per_frame_aggregate(RankGroup(2, 2, device="cpu"), *args)
+    for got, want in zip(card[0] + card[1], cpu[0] + cpu[1]):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["plate", "plateCluster"])
+def test_sharded_plate_step_on_card_matches_single_device(name):
+    """The sharded step of plate and HGN plate (2 blocks, latent 32, float32,
+    a 9x8 plate whose stamp and inner nodes share a 0.05-wide cube in every
+    frame, so each frame forms tens of world edges; HGN plate with K = 4) on
+    a 2 x 2 group of one card against the single-device step on the card,
+    same state and noise: the train step's card-vs-CPU float32 limits (loss
+    rtol 1e-4, gradients relative L2 1e-3); two runs bit for bit; each run
+    under its own time limit."""
+    import faulthandler
+
+    from hyper_graph_nets_tpu_torch.core.graph import NodeType
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+    from hyper_graph_nets_tpu_torch.parallel.sharding import make_spmd_train_step, shard_topology
+
+    _need_card()
+    config = _model_config(name)
+    config["params"]["model"].update(compute_dtype=None)
+    if name == "plateCluster":
+        config["params"]["model"]["rmp"]["num_clusters"] = 4
+    model = get_model(config)
+    trainer = Trainer(model, config)
+    traj = _model_trajectory("plate", num_steps=8)
+    nt = traj["node_type"][0][:, 0]
+    close = (nt == NodeType.NORMAL) | (nt == NodeType.OBSTACLE)
+    rng = np.random.RandomState(0)
+    for key in ("world_pos", "target|world_pos"):
+        traj[key][:, close] = (0.05 * rng.rand(traj[key].shape[0], int(close.sum()), 3)).astype(np.float32)
+    topo = model.topology_from_trajectory(traj, device=trainer.device)
+    static = None
+    if trainer.expansion is not None:
+        static = trainer.expansion.prepare(model, {k: v[0] for k, v in traj.items()}, topo)
+    frames = trainer.frames({k: np.array(v[2:6]) for k, v in traj.items() if k != "cells"})
+    gen = torch.Generator().manual_seed(1)
+    normal = torch.randn(frames["world_pos"].shape, generator=gen).cuda()
+    hyper = None
+    if static is not None:
+        hyper = torch.randn(trainer.expansion.hyper_noise_shape(model, frames, static), generator=gen).cuda()
+    ts = trainer.init_train_state(state=model.init_state(torch.Generator().manual_seed(0)))
+    grads = lambda: {n: p.grad.clone() for n, p in ts.model.params.named_parameters()}
+    ref_loss, _ = trainer.loss_and_grads(ts, topo, frames, normal=normal, static=static, hyper_normal=hyper)
+    ref = grads()
+    group = RankGroup(2, 2, devices=["cuda:0"] * 4)
+    step = make_spmd_train_step(trainer, shard_topology(topo, group), group)
+    runs = []
+    faulthandler.dump_traceback_later(SPMD_STEP_LIMIT_S, exit=True)  # a deadlock fails, never hangs
+    try:
+        for _ in range(2):
+            loss, _ = step.loss_and_grads(ts, frames, normal=normal, static=static, hyper_normal=hyper)
+            group.check()
+            runs.append((loss, grads()))
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    (loss, got), (loss2, again) = runs
+    assert torch.equal(loss, loss2) and all(torch.equal(got[n], again[n]) for n in got)
+    assert abs(float(loss) - float(ref_loss)) <= 1e-4 * abs(float(ref_loss))
+    for n, want in ref.items():
+        err = float((got[n] - want).norm() / want.norm().clamp(min=1e-30))
+        assert err <= 1e-3, (n, err)

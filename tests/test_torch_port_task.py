@@ -28,6 +28,7 @@ gradient -3.25e-8, off by 2.1e-6 = 0.021 lr); such elements are held to
 0.1 lr.  The checkpoint round trip and the served state are bit
 for bit.
 """
+import contextlib
 import os
 import pickletools
 import subprocess
@@ -436,15 +437,32 @@ def test_predictor_serves_a_jax_checkpoint(fitted, tmp_path):
     assert np.array_equal(served, Predictor(fitted.config, state=state, device="cpu").one_step(traj))
 
 
+@contextlib.contextmanager
+def _one_cpu_thread():
+    """PyTorch's CPU operations on one thread inside the block.  The CLI's
+    epoch is thousands of small operations; on a machine whose cores other
+    test processes keep busy, each multi-threaded one waits at its barrier
+    for threads that are not running (this test took 14.5 s alone and 413 s
+    in a run of the suite on 6 workers; with 5 other busy processes, 147 s
+    on 8 threads and 67 s on one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 def test_cli_runs_flag_fused_demo_and_resumes(tmp_path, capsys):
     """``python -m hyper_graph_nets_tpu_torch.main flag_fused_demo --cpu``:
     exit 0 with the four finite test scalars, then a second run resumes."""
     args = ["flag_fused_demo", "--cpu", "--data-dir", str(tmp_path)]
-    assert port_main.main(args) == 0
-    lines = dict(line.split(": ") for line in capsys.readouterr().out.strip().splitlines()[-4:])
-    assert set(lines) == {"test_loss", "test_position_error", "test_rollout_loss", "test_n_step_loss"}
-    assert all(np.isfinite(float(v)) for v in lines.values())
-    assert port_main.main(args) == 0
+    with _one_cpu_thread():
+        assert port_main.main(args) == 0
+        lines = dict(line.split(": ") for line in capsys.readouterr().out.strip().splitlines()[-4:])
+        assert set(lines) == {"test_loss", "test_position_error", "test_rollout_loss", "test_n_step_loss"}
+        assert all(np.isfinite(float(v)) for v in lines.values())
+        assert port_main.main(args) == 0
     out = os.path.join(tmp_path, "flag_simple", "output")
     assert '"resumed_from_epoch": 1.0' in open(os.path.join(out, "run.metrics.jsonl")).read()
     assert read_yaml("flag_fused_demo")["params"]["task"]["dataset"] == "flag_simple"
