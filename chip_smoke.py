@@ -95,7 +95,23 @@ Phases (any failure exits non-zero; nothing is caught and dropped):
    K4b in its backward: 10 each); ``make_sharded_forward`` with RMP (60
    K1); K1 raw and K2 over 1,616 rows with interior masks, K7 over 1,616
    rows with them, and K4f/K4b on joined shards against their plain
-   versions;
+   versions; then the sharded step on the other RMP architectures
+   (``phase_spmd_arch``, under its own watchdog): the same file with
+   ``rmp.connector`` multiscale, hetero, multi and repeated (clustering
+   none), cut to ``SPMD_ARCH_BLOCKS`` blocks, on 2 x 2 at B = 16 (K1 raw +
+   K2 per fused mesh call and rank; multi's merged set unfused, no kernel),
+   and configs/cylinder.yaml and plate.yaml with the Ricci balancer (2 K5
+   per SDRF loop in the trainer's prepare; K1 raw + K2; cylinder also on 1 x
+   4 with overlap bands, K7 + K2), each against the single-device step with
+   a planted fault (a graph rank's partials zeroed; on 1 x 4 the keep mask
+   in the unsharded order), twice bit for bit, and the sharded forward;
+   then the hybrid (``phase_hybrid``, ``model.fused_fwd: xla``) on the flag
+   file (bf16, B = 21) and configs/cylinder.yaml (float32, B = 16): K2 with
+   the tie tolerance against its plain version on the hybrid forward's drhs,
+   the near ties it routes and the extrema that tie_tol 0 leaves unwon
+   counted, a train step (15 or 5 K2 with the tolerance, no K1) and, on
+   flag, a one_step (no kernel) counted, against the CPU and the fused
+   K1/K2 step, step times in turns;
 5. training: ``Trainer.train_step`` on the same configuration, B = 21, Adam
    at lr 1e-4, noise 0.003, gamma 0.9, with ``fused_bwd: remat``, then
    ``stream``, then ``agg_vjp: sorted``, then remat with the balancer; the
@@ -128,7 +144,7 @@ Phases (any failure exits non-zero; nothing is caught and dropped):
 7. remote message passing (``phase_rmp``): configs/flag_full_scale.yaml as
    shipped (spectral clustering into 16 clusters on the host, scipy only;
    ``connector: hyper``; 15 hierarchical blocks, bf16, fused remat) served
-   (``one_step`` B = 21 and a 50-step ``rollout``, each call reclustering
+   (``one_step`` B = 21 and a 20-step ``rollout``, each call reclustering
    in its prepare, timed on a line of its own) and trained (B = 21, the
    loss after 30 steps below the first step's) with 15 K1 per forward and
    15 K2 per train step, the mesh set planned over the 1,616 rows; K1 and
@@ -1908,7 +1924,7 @@ SPMD_RMP_TOL = {
     "bfloat16": {"loss": 5e-5, "grad": 2.5e-2, "tier_grad": 0.09, "balance_grad": 0.2},
     "float32": {"loss": 1e-6, "grad": 3.5e-4, "tier_grad": 1e-3, "balance_grad": 6e-3},
 }
-SPMD_RMP_STEPS = 2  # timed sharded and single-device steps per group, after the checked runs
+SPMD_RMP_STEPS = 1  # timed sharded and single-device steps per group, after the checked runs (cut from 2 for the time limit)
 SPMD_SORTED_BLOCKS = 5  # the sorted path's depth: cut from 15 for the script's time limit
 
 
@@ -2734,6 +2750,507 @@ def phase_spmd_models(card, peaks, seed, profile_dir=None):
     return launches, timings, kernel_rows
 
 
+# The hybrid fused block (model.fused_fwd: xla, phase_hybrid): the unfused
+# forward in PyTorch (the JAX package computes it outside any Pallas kernel;
+# no kernel on the card), then K2 with a tie tolerance
+# (ops.fused_block.HYBRID_TIE_TOL: 2**-8 in bf16, 1e-5 in float32).  Its
+# train step against the fused K1/K2 step's on the same state and noise: the
+# loss within HYBRID_FUSED_LOSS_TOL * max(1, |loss|): float32 1e-4, as the JAX
+# package's test_hybrid_fwd_matches_xla holds its float32 hybrid
+# (tests/test_fused_block.py:455-464); bf16 2**-5, TRAIN_TOL's bf16 loss limit
+# (the two forwards round e2 at other points, as card and CPU do).  Against
+# the CPU's at B = CPU_FRAMES within TRAIN_TOL: flag in bf16 as shipped,
+# cylinder in float32 (flag's float32 run cut for the script's time limit).
+# K2 with the tolerance against its plain version on K1's forward
+# values (BWD_TOL), its drhs the hybrid forward's aggregate, as the main path
+# builds it; its routed max/min mass equal to the count of tolerant winners
+# of K1's e2 (exact: counts).
+HYBRID_FUSED_LOSS_TOL = {"float32": 1e-4, "bfloat16": 2.0**-5}
+HYBRID_STEPS = 3  # timed steps of the hybrid and the fused step each, in turns, after a warm-up of each
+
+
+def winner_counts(e2, drhs, receivers, num_nodes, tie_tol):
+    """For K2's tie compare of ``e2`` (K1's, which K2 recomputes bit for
+    bit) against the extrema in ``drhs`` (rounded to e2's type, as K2 reads
+    them): the count of (edge, column) winners of the max and min over
+    every frame, ``[L]`` per column, and the number of (frame, receiver,
+    column) extrema that no edge wins (``[sum, ...]`` over max and min)."""
+    import torch
+
+    from hyper_graph_nets_tpu_torch.ops import fused_block as fb
+
+    L = e2.shape[-1]
+    r = receivers.long()
+    got = drhs.to(e2.dtype).float()[:, r]
+    v = e2.float()
+    wins, lost = 0, 0
+    has = torch.zeros(num_nodes, device=e2.device).index_add_(0, r, torch.ones_like(r, dtype=torch.float32)) > 0
+    for k in (1, 3):  # max, min
+        win = fb.ties(v, got[..., k * L : (k + 1) * L], tie_tol).float()
+        wins = wins + win.sum(dim=(0, 1))
+        per = torch.zeros(e2.shape[0], num_nodes, L, device=e2.device).index_add_(1, r, win)
+        lost += int(((per == 0) & has[None, :, None]).sum())
+    return wins, lost
+
+
+def phase_hybrid(card, peaks, seed):
+    """The hybrid (``model.fused_fwd: xla``) on configs/flag_full_scale.yaml
+    with RMP off (bf16, 15 blocks, B = 21) and on configs/cylinder.yaml
+    (float32, 5 blocks, B = 16): K2 with the tie tolerance against its plain
+    version at both shapes, on drhs from the hybrid forward's aggregate,
+    with the near ties that forward leaves (K1's e2 within the tolerance of
+    the extremum but not equal) counted, and its routed max/min mass equal
+    to the tolerant winners of K1's e2; the planted control: the exact
+    compare (tie_tol 0) on the same inputs leaves extrema that no edge wins,
+    which the tolerance routes, and the bf16 train step with tie_tol 0
+    differs from the tolerant one.  The main paths: a train step of each
+    (15, then 5, K2 with the tolerance; no K1, K3 or K7) and a one_step at
+    B = 21 (no kernel: the forward is PyTorch's, as the JAX package's
+    forward runs no Pallas kernel), launches counted; the train step
+    against the CPU's and its loss against the fused K1/K2 step's; step
+    times of both in turns (no claim)."""
+    import numpy as np
+    import torch
+
+    from hyper_graph_nets_tpu_torch.core.mesh import receivers_to_gather
+    from hyper_graph_nets_tpu_torch.data.preprocessing import add_targets
+    from hyper_graph_nets_tpu_torch.data.synthetic import flag_trajectory
+    from hyper_graph_nets_tpu_torch.models.get_model import get_model
+    from hyper_graph_nets_tpu_torch.ops import fused_block as fb
+    from hyper_graph_nets_tpu_torch.serving import Predictor
+    from hyper_graph_nets_tpu_torch.training.trainer import Trainer
+
+    launches, timings, rows = dict.fromkeys(read_counts(), 0), {}, {}
+    L = L_MAIN
+    gen = torch.Generator().manual_seed(seed + 41)
+    grads_of = lambda params: {n: p.grad.detach().clone() for n, p in params.named_parameters()}
+    flag_traj = add_targets(flag_trajectory(num_steps=TRAIN_FRAMES + 2, nx=40, ny=40, seed=seed), "world_pos",
+                            history=True)
+
+    def cylinder_config(**model):
+        config = model_config("cylinder")
+        config["params"]["model"].update(model)
+        return config
+
+    cases = {
+        "flag": dict(config=main_config, traj=flag_traj, B=TRAIN_FRAMES, dtype="bfloat16", blocks=15),
+        "cylinder": dict(config=cylinder_config, traj=model_trajectory("cylinder", seed, MODEL_FRAMES + 3),
+                         B=MODEL_FRAMES, dtype="float32", blocks=5),
+    }
+    for name, c in cases.items():
+        config = c["config"](fused_fwd="xla")
+        model = get_model(config)
+        cfg = model.gnn_config
+        if (cfg.fused_fwd, cfg.agg_vjp, cfg.message_passing_steps, cfg.compute_dtype) != (
+                "xla", "fused", c["blocks"], None if c["dtype"] == "float32" else c["dtype"]):
+            raise AssertionError(f"hybrid {name} config: {cfg}")
+        trainer = Trainer(model, config)
+        topo = model.topology_from_trajectory(c["traj"], device="cuda")
+        if name == "flag":
+            state = model.init_state(torch.Generator().manual_seed(seed))
+            ctopo = model.topology_from_trajectory(c["traj"], device="cpu")
+            every = {k: torch.as_tensor(v) for k, v in c["traj"].items() if k != "cells"}
+            with torch.no_grad():
+                _, _, state = model.make_graph(state, ctopo, every, True)
+                _, state = model.get_target(state, every, True)
+        else:
+            state = model_state(model, c["traj"], seed)
+        B, dtype_name = c["B"], c["dtype"]
+        dtype = getattr(torch, dtype_name)
+        tol = fb.HYBRID_TIE_TOL[dtype]
+        N, E = topo.num_nodes, int(topo.senders.shape[0])
+        snd, rcv = topo.senders.cpu().numpy(), topo.receivers.cpu().numpy()
+        tag = f"{dtype_name} B={B} N={N} E={E} ({name})"
+
+        # 1. K2 with the tolerance against its plain version, drhs from the hybrid forward
+        x = k1_inputs(dtype, B, snd, rcv, N, L, gen, "cuda")
+        targs = (x["senders"], x["receivers"], x["mask"], N)
+        plan = topo.plan
+        gidx, gval = (torch.as_tensor(a).cuda() for a in receivers_to_gather(rcv, N))
+        _, agg = fb.hybrid_forward(x["e"], x["sp"], x["rp"], x["weights"], x["senders"], x["receivers"], gidx, gval)
+        e2, _, a1, a2, _, _ = fb.fused_edge_block_fwd(x["e"], x["sp"], x["rp"], x["weights"], *targs, plan,
+                                                      save_streams=True)
+        dagg = torch.randn(agg.shape, generator=gen).cuda()
+        de2 = torch.randn(x["e"].shape, generator=gen).to(dtype).cuda()
+        drhs = fb.agg_cotangent_rhs(agg, dagg, x["receivers"], x["mask"], N)
+        run = lambda d=de2, r=drhs, t=tol: fb.fused_edge_block_bwd(x["e"], x["sp"], x["rp"], x["weights"], d, r,
+                                                                  *targs, plan=plan, tie_tol=t)
+        got = run()
+        want = fb.fused_edge_block_bwd_reference(x["e"], x["sp"], x["rp"], x["weights"], de2, drhs, *targs,
+                                                 forward=(e2, a1, a2), tie_tol=tol)
+        order = lambda o: (o[0], o[1], o[2], o[3], o[6], o[7], o[8])
+        err = compare_bwd(f"K2 tie {tag}", dtype_name, order(got), order(want))
+        # the routed mass (de2 0, only g_max = g_min = 1) against the tolerant winners of K1's e2
+        zero = torch.zeros_like(de2)
+        rdagg = torch.zeros_like(dagg)
+        rdagg[..., 2 * L :] = 1.0
+        rdrhs = fb.agg_cotangent_rhs(agg, rdagg, x["receivers"], x["mask"], N)
+        wins, lost = winner_counts(e2, rdrhs, x["receivers"], N, tol)
+        exact_wins, exact_lost = winner_counts(e2, rdrhs, x["receivers"], N, 0.0)
+        mass = run(zero, rdrhs)[-1][4]
+        if not torch.equal(mass, wins):
+            raise AssertionError(f"K2 tie {tag}: routed mass differs from the tolerant winner count in "
+                                 f"{int((mass != wins).sum())} columns")
+        exact_mass = run(zero, rdrhs, 0.0)[-1][4]
+        if not torch.equal(exact_mass, exact_wins):
+            raise AssertionError(f"K2 {tag} (tie_tol 0): routed mass differs from the exact winner count")
+        near = int((wins - exact_wins).sum())
+        if exact_lost == 0:
+            log(f"K2 tie {tag}: the hybrid forward's extrema all equal K1's e2 exactly: no near tie to route")
+        elif not lost < exact_lost:
+            raise AssertionError(f"K2 tie {tag}: the tolerance left {lost} extrema unwon, the exact compare "
+                                 f"{exact_lost}")
+        k2b = bwd_bound_ms(dtype_name, B, E, N, L, peaks, False)
+        rows[name] = dict(
+            max_abs_err=err, ms=kernel_device_ms(run, iters=10, names=BWD_KERNELS),
+            plain_ms=cuda_time_ms(lambda: fb.fused_edge_block_bwd_reference(
+                x["e"], x["sp"], x["rp"], x["weights"], de2, drhs, *targs, tie_tol=tol), iters=3),
+            bound_ms=k2b[0], bound_by=k2b[1], tie_tol=tol, near_ties=near, unwon_extrema=lost,
+            unwon_extrema_exact=exact_lost, shape=f"{tag}, tie_tol {tol:g}")
+        r = rows[name]
+        log(f"K2 tie {tag}, tie_tol {tol:g}: {r['ms'] * 1e3:.1f} us, bound {r['bound_ms'] * 1e3:.2f} us "
+            f"({r['bound_by']}), plain {r['plain_ms']:.3f} ms, max abs err {err:.3g}; {near} (edge, column) "
+            f"near ties routed beyond the exact compare; extrema no edge wins: {lost} with the tolerance, "
+            f"{exact_lost} with tie_tol 0 (the planted control) [{card}]")
+
+        # 2. the main path: a train step (and, on flag, a one_step), every count set to 0 just before
+        frames = trainer.frames({k: v[:B] for k, v in c["traj"].items()})
+        field = model.field
+        normal = torch.randn(frames[field].shape, generator=torch.Generator().manual_seed(seed + 42)).cuda()
+        reset_counts()
+        ts, loss = trainer.train_step(trainer.init_train_state(state=state), topo, frames, normal=normal)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        wantc = {**dict.fromkeys(counts, 0), "K2": c["blocks"], "K2 tie": c["blocks"]}
+        if counts != wantc or not np.isfinite(float(loss)):
+            raise AssertionError(f"hybrid {name} train step: launches {counts}, want {wantc}; loss {float(loss)}")
+        for k in launches:
+            launches[k] += counts[k]
+        timings[name] = dict(B=B, train_launches=counts)
+        if name == "flag":
+            predictor = Predictor.from_config(config)
+            predictor.state = state.to(predictor.device)
+            reset_counts()
+            pred = predictor.one_step({k: v[:ONE_STEP_FRAMES] for k, v in c["traj"].items()})
+            torch.cuda.synchronize()
+            one = read_counts()
+            if any(one.values()) or pred.shape != (ONE_STEP_FRAMES, N, 3) or not np.isfinite(pred).all():
+                raise AssertionError(f"hybrid one_step: launches {one} (want none), output {pred.shape}")
+            timings[name]["one_step_launches"] = one
+            log(f"hybrid one_step (flag MGN-15MP bf16, B={ONE_STEP_FRAMES}): no kernel launched, as the JAX "
+                f"package's hybrid forward runs no Pallas kernel: the forward is PyTorch's [{card}]")
+
+        # 3. the loss against the fused K1/K2 step's, same state and noise; the tie_tol 0 step (control)
+        fconfig = c["config"]()
+        fmodel = get_model(fconfig)
+        ftrainer = Trainer(fmodel, fconfig)
+        hts, fts = trainer.init_train_state(state=state), ftrainer.init_train_state(state=state)
+        hloss, _ = trainer.loss_and_grads(hts, topo, frames, normal=normal)
+        hgrads = grads_of(hts.model.params)
+        floss, _ = ftrainer.loss_and_grads(fts, topo, frames, normal=normal)
+        gap = abs(float(hloss) - float(floss))
+        if not gap < HYBRID_FUSED_LOSS_TOL[dtype_name] * max(1.0, abs(float(floss))):
+            raise AssertionError(f"hybrid {name}: loss {float(hloss)} vs the fused step's {float(floss)}")
+        worst_fused = max((rel_l2(hgrads[n], p.grad), n) for n, p in fts.model.params.named_parameters())
+        saved = fb.HYBRID_TIE_TOL[dtype]
+        fb.HYBRID_TIE_TOL[dtype] = 0.0
+        try:
+            zloss, _ = trainer.loss_and_grads(hts, topo, frames, normal=normal)
+        finally:
+            fb.HYBRID_TIE_TOL[dtype] = saved
+        control = max((rel_l2(p.grad, hgrads[n]), n) for n, p in hts.model.params.named_parameters())
+        timings[name].update(loss=float(hloss), fused_loss=float(floss), loss_gap=gap,
+                             worst_grad_vs_fused=worst_fused, tie_tol_0_grad_change=control)
+        log(f"hybrid {name} train step ({dtype_name}, B={B}): {counts['K2 tie']} K2 with tie_tol {tol:g}, no K1; "
+            f"loss {float(hloss):.6f} vs the fused K1/K2 step's {float(floss):.6f} (gap {gap:.3g}, limit "
+            f"{HYBRID_FUSED_LOSS_TOL[dtype_name]} x max(1, |loss|)); worst gradient vs fused rel L2 {worst_fused[0]:.3g} "
+            f"({worst_fused[1]}); with tie_tol 0 (control) the gradients move by up to {control[0]:.3g} "
+            f"({control[1]}) [{card}]")
+
+        # 4. the card against the CPU at B = CPU_FRAMES, same state and noise
+        with fixed_scatter_order():
+            for cmp_dtype in ((("bfloat16",) if name == "flag" else ("float32",))):
+                cconfig = c["config"](fused_fwd="xla", compute_dtype=None if cmp_dtype == "float32" else cmp_dtype)
+                cmodel = get_model(cconfig)
+                small = {k: v[:CPU_FRAMES] for k, v in c["traj"].items()}
+                cnormal = torch.randn(small[field].shape, generator=torch.Generator().manual_seed(seed + 43))
+                out = {}
+                for where in ("cuda", "cpu"):
+                    tr = Trainer(cmodel, cconfig, device=where)
+                    tss = tr.init_train_state(state=state)
+                    closs, _ = tr.loss_and_grads(tss, cmodel.topology_from_trajectory(small, device=where),
+                                                 tr.frames(small), normal=cnormal.to(where))
+                    out[where] = (float(closs), {n: p.grad.cpu() for n, p in tss.model.params.named_parameters()})
+                loss_tol, grad_tol = TRAIN_TOL[cmp_dtype]
+                lerr = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+                worst = max((rel_l2(out["cuda"][1][n], g), n) for n, g in out["cpu"][1].items())
+                if lerr > loss_tol or worst[0] > grad_tol:
+                    raise AssertionError(f"hybrid {name} {cmp_dtype} card vs CPU outside {TRAIN_TOL[cmp_dtype]}: "
+                                         f"loss {lerr:.3g}, worst gradient {worst}")
+                timings[name][f"vs_cpu_{cmp_dtype}"] = dict(loss_rel=lerr, worst_grad_rel_l2=worst[0])
+                log(f"hybrid {name} train step {cmp_dtype} card vs CPU, B={CPU_FRAMES}: loss rel {lerr:.3g}, worst "
+                    f"gradient rel L2 {worst[0]:.3g} ({worst[1]}) [{card}]")
+
+        # 5. step times of the hybrid and the fused step, in turns (context: no claim)
+        steps = {"hybrid": (trainer, trainer.init_train_state(state=state)),
+                 "fused": (ftrainer, ftrainer.init_train_state(state=state))}
+        times = {k: [] for k in steps}
+        for k in ("hybrid", "fused"):
+            tr, tst = steps[k]
+            steps[k] = (tr, tr.train_step(tst, topo, frames, normal=normal)[0])
+        for i in range(2 * HYBRID_STEPS):
+            k = ("hybrid", "fused", "fused", "hybrid")[i % 4]
+            tr, tst = steps[k]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tst, l = tr.train_step(tst, topo, frames, normal=normal)
+            float(l)
+            times[k].append(1e3 * (time.perf_counter() - t0))
+            steps[k] = (tr, tst)
+        ms = {k: float(np.median(v)) for k, v in times.items()}
+        timings[name].update(step_ms=ms["hybrid"], fused_step_ms=ms["fused"])
+        log(f"hybrid {name} train step {ms['hybrid']:.2f} ms, fused K1/K2 step {ms['fused']:.2f} ms (median of "
+            f"{HYBRID_STEPS} each, in turns, host clock, Adam included; no claim) [{card}]")
+    return launches, timings, rows
+
+
+# The sharded step on the other RMP architectures (phase_spmd_arch):
+# configs/flag_full_scale.yaml as shipped with rmp.connector set to
+# multiscale, hetero or multi (spectral, 16 clusters), and with
+# rmp.clustering none and rmp.connector repeated, cut to SPMD_ARCH_BLOCKS of
+# its 15 blocks at full width (for the script's time limit, as
+# phase_spmd_rmp's sorted case), bf16, 2 x 2 at B = 16, held to SPMD_RMP_TOL;
+# configs/cylinder.yaml and plate.yaml as shipped with
+# graph_balancer.algorithm ricci (the files' loops 150, tau 150, removal,
+# frequency 1), float32, 2 x 2 at B = 16, held to SPMD_MODELS_TOL on a
+# capped state as phase_spmd_models holds them; cylinder again on a 1 x 4
+# group with overlap bands at B = 8.
+SPMD_ARCH_BLOCKS = 5
+SPMD_ARCHS = {"repeated": ("none", "repeated", 2), "multiscale": ("spectral", "multiscale", 2),
+              "hetero": ("spectral", "hetero", 1), "multi": ("spectral", "multi", 0)}  # + fused mesh calls a block
+
+
+@contextlib.contextmanager
+def zeroed_partials(graph_rank=1):
+    """A planted fault for the sharded step: one graph rank's aggregate
+    partials zeroed before they combine, on every set (fused sets' K1 raw
+    partials and unfused sets' local partials alike; on ``multi`` the merged
+    set is the only set, unfused), as if its messages were lost."""
+    import torch
+
+    from hyper_graph_nets_tpu_torch.core import segment_ops
+
+    kept = segment_ops.combine_partials
+
+    def zeroed(group, raws, F):
+        return kept(group, [torch.zeros_like(x) if group.axis_index(r, "graph") == graph_rank else x
+                            for r, x in enumerate(raws)], F)
+
+    segment_ops.combine_partials = zeroed
+    try:
+        yield
+    finally:
+        segment_ops.combine_partials = kept
+
+
+def unsharded_keep(sstatic):
+    """A planted fault for the sharded balancer step: the balancer's keep
+    mask in the unsharded edge order (padded at the end), the JAX package's
+    sharded balancer (ROADMAP section 3): on the round-robin layout it masks
+    other edges than the ones the balancer removed."""
+    import torch
+
+    from hyper_graph_nets_tpu_torch.parallel.sharding import ShardedStatic
+
+    bal = sstatic.members[0]
+    keep = torch.empty_like(bal.mesh_keep)
+    keep[torch.from_numpy(sstatic.topo.layout.perm).to(keep.device)] = bal.mesh_keep
+    return ShardedStatic(topo=sstatic.topo, members=(bal._replace(mesh_keep=keep),) + sstatic.members[1:])
+
+
+def phase_spmd_arch(card, peaks, seed):
+    """The sharded step and forward (``parallel.sharding``) on the RMP
+    architectures other than ``hyper`` and with the Ricci balancer on
+    cylinder and plate, all ranks on the one card: for each, launches
+    counted in advance (K1 raw + K2 per fused mesh call and rank; ``multi``'s
+    merged set is unfused: none; the balancer's prepare 2 K5 per SDRF loop),
+    loss and gradients against the single-device step on the card, a second
+    run bit for bit, a planted fault that must miss the limits (one graph
+    rank's partials zeroed; on cylinder's 1 x 4 overlap group the keep mask
+    in the unsharded order), and ``make_sharded_forward`` at B = 8 against
+    the single-device forward.  A watchdog ends the run if the phase hangs."""
+    import faulthandler
+
+    import numpy as np
+    import torch
+
+    from hyper_graph_nets_tpu_torch.balancer.ricci import sdrf
+    from hyper_graph_nets_tpu_torch.data.preprocessing import add_targets
+    from hyper_graph_nets_tpu_torch.data.synthetic import flag_trajectory
+    from hyper_graph_nets_tpu_torch.models.get_model import get_model
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+    from hyper_graph_nets_tpu_torch.parallel.sharding import make_sharded_forward, make_spmd_train_step, shard_topology
+    from hyper_graph_nets_tpu_torch.training.trainer import Trainer
+
+    faulthandler.dump_traceback_later(SPMD_WATCHDOG_S, exit=True)
+    log(f"spmd arch: watchdog armed ({SPMD_WATCHDOG_S} s)")
+    t_phase = time.perf_counter()
+    group_of = lambda shape: RankGroup(*shape, devices=["cuda:0"] * (shape[0] * shape[1]))
+    grads_of = lambda params: {n: p.grad.detach().clone() for n, p in params.named_parameters() if p.grad is not None}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 51)
+    launches, timings = dict.fromkeys(read_counts(), 0), {}
+
+    def counted(tag, fn, want):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        full = {**dict.fromkeys(counts, 0), **want}
+        if counts != full:
+            raise AssertionError(f"{tag}: launches {counts}, want {full}")
+        for k in launches:
+            launches[k] += counts[k]
+        return out, counts
+
+    def errors(loss, grads, ref_loss, ref_grads):
+        return tiered_errors(loss, {n: grads.get(n, torch.zeros_like(g)) for n, g in ref_grads.items()},
+                             ref_loss, ref_grads)
+
+    def check_case(tag, trainer, model, topo, static, state, frames, normal, hyper, shape, bands, ok, text, fault,
+                   fault_static=None, want_step=None, want_fwd=None):
+        """One case: the main path counted, against the single-device step, a
+        second run bit for bit, the planted fault, the sharded forward."""
+        group = group_of(shape)
+        stopo = shard_topology(topo, group, overlap_bands=bands)
+        step = make_spmd_train_step(trainer, stopo, group)
+        ts = trainer.init_train_state(state=state)
+        ref_loss, _ = trainer.loss_and_grads(ts, topo, frames, normal=normal, static=static, hyper_normal=hyper)
+        ref_grads = grads_of(ts.model.params)
+        run = lambda st=static: step.loss_and_grads(ts, frames, normal=normal, static=st, hyper_normal=hyper)
+        t0 = time.perf_counter()
+        (loss, _), counts = counted(f"sharded {tag}", run, want_step)
+        ms = 1e3 * (time.perf_counter() - t0)
+        group.check()
+        grads = grads_of(ts.model.params)
+        errs = errors(loss, grads, ref_loss, ref_grads)
+        if not ok(errs) or not np.isfinite(float(loss)):
+            raise AssertionError(f"sharded {tag} vs single-device: {tiered_text(errs)}")
+        loss2, _ = run()
+        grads2 = grads_of(ts.model.params)
+        if not (torch.equal(loss, loss2) and grads.keys() == grads2.keys()
+                and all(torch.equal(grads[n], grads2[n]) for n in grads)):
+            raise AssertionError(f"sharded {tag}: a second run differs from the first")
+        if fault_static is not None:
+            floss, _ = run(fault_static(step.laid_out(static)))
+        else:
+            with zeroed_partials():
+                floss, _ = run()
+        planted = errors(floss, grads_of(ts.model.params), ref_loss, ref_grads)
+        if ok(planted):
+            raise AssertionError(f"sharded {tag}: the planted fault ({fault}) passed the limits: {tiered_text(planted)}")
+        group.check()
+        out = dict(B=frames[model.field].shape[0], ranks=group.n, step_ms=ms, errors=errs, planted=planted,
+                   planted_fault=fault, launches=counts, edges_padded=int(stopo.senders.shape[0]))
+        log(f"sharded {tag} (B={out['B']}, {group.n} ranks on one card): {text(counts)}; vs single-device: "
+            f"{tiered_text(errs)}; a second run bit for bit; planted fault ({fault}): {tiered_text(planted)}, "
+            f"misses; {ms:.1f} ms checked run (host clock) [{card}]")
+        if want_fwd is not None:  # the sharded forward at B = 8 against the single-device forward
+            half = {k: v[:8] for k, v in frames.items()}
+            mstate = state.to("cuda")
+            fwd = make_sharded_forward(model, stopo, group, expansion=trainer.expansion)
+            fout, fcounts = counted(f"sharded forward {tag}", lambda: fwd(mstate, half, static=static), want_fwd)
+            with torch.no_grad():
+                graph, _, _ = model.make_graph(mstate, topo, half, False)
+                if trainer.expansion is not None:
+                    graph, _ = trainer.expansion.expand(mstate, graph, half, model, is_training=False, static=static)
+                ref = model.forward(mstate, graph)
+            scale = float(ref.abs().max())
+            ferr = float((fout - ref).abs().max()) / scale
+            limit = SPMD_MODELS_TOL["forward"] if model.gnn_config.compute_dtype is None else SERVE_TOL["net_out"]
+            if not ferr <= limit or not bool(torch.isfinite(fout).all()):
+                raise AssertionError(f"sharded forward {tag}: max err {ferr} of the largest output {scale}")
+            out["forward"] = dict(B=8, launches=fcounts, max_err_vs_single=ferr, out_scale=scale)
+            log(f"sharded forward {tag} (B=8): {text(fcounts)}; vs single-device max err {ferr:.3g} of the largest "
+                f"output {scale:.3g} [{card}]")
+        return out
+
+    # the four architectures on flag HGN at full width, cut to SPMD_ARCH_BLOCKS blocks
+    B = 16
+    traj = add_targets(flag_trajectory(num_steps=B + 2, nx=40, ny=40, seed=seed), "world_pos", history=True)
+    for arch, (clustering, connector, mesh_calls) in SPMD_ARCHS.items():
+        config = rmp_config(message_passing_steps=SPMD_ARCH_BLOCKS)
+        config["params"]["model"]["rmp"].update(clustering=clustering, connector=connector)
+        model = get_model(config)
+        cfg = model.gnn_config
+        if (cfg.architecture, cfg.latent_size, cfg.compute_dtype, cfg.agg_vjp) != (arch, 128, "bfloat16", "fused"):
+            raise AssertionError(f"spmd arch {arch}: {cfg}")
+        trainer = Trainer(model, config)
+        topo = model.topology_from_trajectory(traj, device="cuda")
+        static = None
+        if trainer.expansion is not None:
+            static = trainer.expansion.prepare(model, {k: v[0] for k, v in traj.items()}, topo)
+            state = rmp_state(config, traj, seed)
+        else:
+            state = model_state(model, traj, seed)
+        frames = {k: torch.as_tensor(v[:B]).cuda() for k, v in traj.items() if k != "cells"}
+        normal = torch.randn(frames["world_pos"].shape, generator=gen, device="cuda")
+        hyper = None if static is None else torch.randn(
+            trainer.expansion.hyper_noise_shape(model, frames, static), generator=gen, device="cuda")
+        n = mesh_calls * SPMD_ARCH_BLOCKS * 4
+        want = {"K1": n, "K2": n} if n else {}
+        text = lambda c, n=n: (f"{c['K1']} K1 raw + {c['K2']} K2" if n else
+                               "no kernel: the merged mesh_edges set is unfused, as in the JAX package")
+        timings[arch] = check_case(
+            f"{arch} 2x2", trainer, model, topo, static, state, frames, normal, hyper, (2, 2), None, tiered_ok, text,
+            "graph rank 1's partials zeroed", want_step=want, want_fwd={"K1": n} if n else {})
+
+    # the Ricci balancer on cylinder and plate as shipped, float32
+    lo, hi = SPMD_MODELS_FRAMES
+    for name in ("cylinder", "plate"):
+        config = model_config(name)
+        bal = config["params"]["model"]["graph_balancer"]
+        bal["algorithm"] = "ricci"
+        if (bal["ricci"]["loops"], bal["ricci"]["tau"], bal["remove_edges"], bal["frequency"]) != (150, 150, True, 1):
+            raise AssertionError(f"configs/{name}.yaml's graph_balancer changed: {bal}")
+        model = get_model(config)
+        trainer = Trainer(model, config)
+        traj = model_trajectory(name, seed, hi + 3)
+        topo = model.topology_from_trajectory(traj, device="cuda")
+        reset_counts()  # the trainer's prepare is on the main path: 2 K5 per SDRF loop
+        t0 = time.perf_counter()
+        static = trainer.expansion.prepare(model, {k: v[0] for k, v in traj.items()}, topo)
+        torch.cuda.synchronize()
+        prepare_s = time.perf_counter() - t0
+        counts = read_counts()
+        if counts != {**dict.fromkeys(counts, 0), "K5": 2 * sdrf.loops_run}:
+            raise AssertionError(f"{name} balancer prepare: launches {counts}, want {2 * sdrf.loops_run} K5")
+        launches["K5"] += counts["K5"]
+        loops, removed = sdrf.loops_run, int((static[0].mesh_keep == 0).sum())
+        state = capped(model_state(model, traj, seed))
+        frames = {k: torch.as_tensor(v[lo:hi]).cuda() for k, v in traj.items() if k != "cells"}
+        normal = torch.randn(frames[MODEL_FIELDS[name]].shape, generator=gen, device="cuda")
+        blocks = model.gnn_config.message_passing_steps
+        ok = models_ok
+        text = lambda c: ", ".join(f"{c[k]} {k}" for k in ("K1", "K7", "K2") if c[k])
+        timings[f"{name}+ricci 2x2"] = check_case(
+            f"{name}+ricci 2x2", trainer, model, topo, static, state, frames, normal, None, (2, 2), None, ok, text,
+            "graph rank 1's partials zeroed", want_step={"K1": blocks * 4, "K2": blocks * 4},
+            want_fwd={"K1": blocks * 4})
+        timings[f"{name}+ricci 2x2"].update(prepare_s=prepare_s, sdrf_loops=loops, removed_edges=removed,
+                                            balance_edges=int(static[0].bal_mask.sum()))
+        log(f"{name}+ricci: prepare {prepare_s:.3f} s, {loops} SDRF loops ({2 * loops} K5), {removed} mesh edges "
+            f"removed, {int(static[0].bal_mask.sum())} balance edges [{card}]")
+        if name == "cylinder":  # the round-robin layout: the keep mask laid out as the mesh edges lie
+            half = {k: v[:8] for k, v in frames.items()}
+            timings["cylinder+ricci 1x4 overlap"] = check_case(
+                "cylinder+ricci 1x4 overlap", trainer, model, topo, static, state, half, normal[:8], None, (1, 4),
+                HALO_BANDS, ok, text, "the keep mask in the unsharded order", fault_static=unsharded_keep,
+                want_step={"K7": blocks * 4, "K2": blocks * 4})
+    faulthandler.cancel_dump_traceback_later()
+    log(f"spmd arch: {time.perf_counter() - t_phase:.1f} s, watchdog disarmed")
+    return launches, timings
+
+
 def phase_slice(card, seed, rollout_steps, profile_dir=None, agg_vjp="fused", balancer=False):
     """Serve MGN-15MP through the port's Predictor; returns timings and counts.
     With ``balancer`` the configuration's Ricci balancer is on: each call
@@ -2939,12 +3456,19 @@ def _counters():
 
 
 def reset_counts():
+    from hyper_graph_nets_tpu_torch.ops import fused_block as fb
+
     for fn in _counters().values():
         fn.launches = 0
+    fb.fused_edge_block_bwd.tie_launches = 0
 
 
 def read_counts():
-    return {k: fn.launches for k, fn in _counters().items()}
+    """Each kernel's launches since the last reset, and ``K2 tie``: K2's
+    with a tie tolerance (the hybrid's), counted in ``K2`` too."""
+    from hyper_graph_nets_tpu_torch.ops import fused_block as fb
+
+    return {**{k: fn.launches for k, fn in _counters().items()}, "K2 tie": fb.fused_edge_block_bwd.tie_launches}
 
 
 def phase_train(card, seed, profile_dir=None):
@@ -3411,6 +3935,9 @@ def phase_task(card):
 # -- remote message passing: configs/flag_full_scale.yaml as shipped ----------
 
 RMP_CLUSTERS = 16  # and so 1,616 rows on the 40x40 flag: 1,600 mesh rows, 16 hyper rows
+# the RMP rollout's steps: cut from ROLLOUT_STEPS (50) for the script's time
+# limit; its ms per step is a mean over them
+RMP_ROLLOUT_STEPS = 20
 # The RMP train step's loss and gradients and its one_step output on the
 # card against the CPU (same converted state, noise and static, B = 2
 # frames, 15 hierarchical blocks): loss relative error, each gradient's
@@ -3773,16 +4300,16 @@ def phase_rmp(card, peaks, seed, profile_dir=None):
     B = ONE_STEP_FRAMES
     batch = {k: v[:B] for k, v in traj.items()}
     log(f"rmp serving: flag HGN-15MP as shipped (spectral, {RMP_CLUSTERS} clusters, connector hyper, latent 128, "
-        f"bf16, fused remat), one_step B={B}, rollout {ROLLOUT_STEPS}")
+        f"bf16, fused remat), one_step B={B}, rollout {RMP_ROLLOUT_STEPS}")
 
     # serving, the main path: counts set to 0 just before, read just after
     reset_counts()
     pred = predictor.one_step(batch)
     one = read_counts()
-    result = predictor.rollout(traj, num_steps=ROLLOUT_STEPS)
+    result = predictor.rollout(traj, num_steps=RMP_ROLLOUT_STEPS)
     serve = read_counts()
     want = dict.fromkeys(serve, 0)
-    want["K1"] = blocks * (1 + ROLLOUT_STEPS)
+    want["K1"] = blocks * (1 + RMP_ROLLOUT_STEPS)
     if one["K1"] != blocks or serve != want:
         raise AssertionError(f"rmp serving launches {one} in one_step, {serve} in all; want {want}")
     static = predictor.expansion.static
@@ -3792,7 +4319,7 @@ def phase_rmp(card, peaks, seed, profile_dir=None):
     N = predictor._topology(traj).num_nodes
     if pred.shape != (B, N, 3) or not np.isfinite(pred).all():
         raise AssertionError(f"rmp one_step output {pred.shape} not finite/shaped")
-    if result["pred_pos"].shape != (ROLLOUT_STEPS, N, 3) or not np.isfinite(result["mse"]).all():
+    if result["pred_pos"].shape != (RMP_ROLLOUT_STEPS, N, 3) or not np.isfinite(result["mse"]).all():
         raise AssertionError("rmp rollout output not finite/shaped")
     log(f"rmp serving launches: {one['K1']} K1 per one_step, {serve} in all; {int(rstat.inter_mask.sum())} "
         f"inter-cluster edges, cluster sizes {sorted(int(s) for s in rstat.sizes.tolist())}")
@@ -3810,8 +4337,8 @@ def phase_rmp(card, peaks, seed, profile_dir=None):
     )
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    predictor.rollout(traj, num_steps=ROLLOUT_STEPS)
-    timings["rollout_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / ROLLOUT_STEPS
+    predictor.rollout(traj, num_steps=RMP_ROLLOUT_STEPS)
+    timings["rollout_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / RMP_ROLLOUT_STEPS
     timings["one_step_edges_per_s"] = B * E / (timings["one_step_static_ms"] / 1e3)
     log(f"rmp one_step B={B}: {timings['one_step_ms']:.2f} ms with its prepare, {timings['one_step_static_ms']:.2f} "
         f"ms with a prepared static ({timings['one_step_edges_per_s']:.4g} edges/s) [{card}]")
@@ -4976,6 +5503,8 @@ def main(argv=None) -> int:
     spmd_rmp_launches, spmd_rmp_timings, spmd_rmp_rows = timed(phase_spmd_rmp, card, peaks, args.seed, args.profile)
     spmd_models_launches, spmd_models_timings, spmd_models_rows = timed(
         phase_spmd_models, card, peaks, args.seed, args.profile)
+    spmd_arch_launches, spmd_arch_timings = timed(phase_spmd_arch, card, peaks, args.seed)
+    hybrid_launches, hybrid_timings, hybrid_rows = timed(phase_hybrid, card, peaks, args.seed)
     train_launches, train_timings = timed(phase_train, card, args.seed, args.profile)
     task_launches, task_timings = timed(phase_task, card)
     rmp_launches, rmp_timings, rmp_kernels = timed(phase_rmp, card, peaks, args.seed, args.profile)
@@ -4987,7 +5516,7 @@ def main(argv=None) -> int:
     cli_timings = timed(phase_cli, card)
     launches = {
         k: serve_launches[k] + halo_launches[k] + spmd_launches[k] + spmd_rmp_launches[k] + spmd_models_launches[k]
-        + train_launches[k]
+        + spmd_arch_launches[k] + hybrid_launches[k] + train_launches[k]
         + task_launches[k] + rmp_launches[k]
         + sum(run[0][k] for run in model_runs.values()) + hgn_launches[k] + int8_launches[k]
         for k in serve_launches
@@ -5113,6 +5642,16 @@ def main(argv=None) -> int:
                    spmd_models_rows["K7 cylinder 1x4 overlap"]),
              shape=spmd_models_rows["K7 cylinder 1x4 overlap"]["shape"]),
     ]
+    # K2 with the hybrid's tie tolerance: launches from phase_hybrid's main paths only
+    kernels += [
+        dict(entry(f"fused_edge_block_bwd remat with the tie tolerance {hybrid_rows[name]['tie_tol']:g}, "
+                   f"hybrid {label} step (K2)", "fused_block_bwd.cu", "fused_block.py:1008",
+                   hybrid_timings[name]["train_launches"]["K2 tie"], hybrid_rows[name]),
+             shape=hybrid_rows[name]["shape"], near_ties=hybrid_rows[name]["near_ties"],
+             unwon_extrema=hybrid_rows[name]["unwon_extrema"],
+             unwon_extrema_tie_tol_0=hybrid_rows[name]["unwon_extrema_exact"])
+        for name, label in (("flag", "flag bf16"), ("cylinder", "cylinder float32"))
+    ]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -5138,6 +5677,8 @@ def main(argv=None) -> int:
                                  "kernels": spmd_rmp_rows},
                     "spmd_models": {"launches": spmd_models_launches, "timings": spmd_models_timings,
                                     "kernels": spmd_models_rows},
+                    "spmd_arch": {"launches": spmd_arch_launches, "timings": spmd_arch_timings},
+                    "hybrid": {"launches": hybrid_launches, "timings": hybrid_timings, "kernels": hybrid_rows},
                     "serving": serve_timings,
                     "serving_launches": serve_launches,
                     "training": train_timings,

@@ -12,8 +12,12 @@
 //   K2 recomputes h, a1, a2, z3 and the LayerNorm statistics with K1's own
 //   code (fused_block_common.cuh), so e2 is bit for bit K1's; K3 reads K1's
 //   saved a1, a2, mu, isg and recomputes only z3 = a2 @ W3 + b3.  Then
-//   route = g1 + (e2 == max ? g_max : 0) + (e2 == min ? g_min : 0)
-//           on valid edges (every tied edge gets the full cotangent), else 0
+//   route = g1 + (e2 ~ max ? g_max : 0) + (e2 ~ min ? g_min : 0)
+//           on valid edges (every tied edge gets the full cotangent), else 0,
+//           where a ~ m is a == m or |a - m| <= tie_tol * |m| + tie_tol
+//           (_route_agg_cotangent): tie_tol 0, the exact compare, after K1;
+//           above 0 after a forward that was not this recompute (the
+//           hybrid's unfused forward, whose e2 differs in the last ulps)
 //   do    = de2 + route                                   (float32)
 //   dz3   = ((do*s - mean(do*s) - xhat*mean(do*s*xhat)) * isg)  -> compute type
 //   dz2   = [a2 > 0] * rnd(dz3 @ W3)                      (W in [out][in])
@@ -140,7 +144,15 @@ struct BwdArgs {
   float* dpar;           // [5][L]
   float* dpar_part;      // [grid][5][L] scratch
   int B, E, N, G;
+  float tie_tol;         // max/min winners within tie_tol * |m| + tie_tol of m
 };
+
+// Whether e2 value a wins the extremum m: equal, or within the tolerance,
+// each operation rounded on its own (no contraction), as the plain version
+// computes it.
+__device__ __forceinline__ bool ties(float a, float m, float tol) {
+  return a == m || fabsf(__fsub_rn(a, m)) <= __fadd_rn(__fmul_rn(tol, fabsf(m)), tol);
+}
 
 // Phase probe (HGN_BWD_PHASES, never set by the main path's build): thread 0
 // of each team reads clock64 at the team barriers that end a half tile's
@@ -748,8 +760,8 @@ __global__ void __launch_bounds__(NTEAM * THREADS, 1) fused_block_bwd_kernel(con
             float route = 0.f;
             if (valid) {
               route = rnd<T>(gv[0].v[q]);
-              route += e2v == rnd<T>(gv[1].v[q]) ? rnd<T>(gv[2].v[q]) : 0.f;
-              route += e2v == rnd<T>(gv[3].v[q]) ? rnd<T>(gv[4].v[q]) : 0.f;
+              route += ties(e2v, rnd<T>(gv[1].v[q]), args.tie_tol) ? rnd<T>(gv[2].v[q]) : 0.f;
+              route += ties(e2v, rnd<T>(gv[3].v[q]), args.tie_tol) ? rnd<T>(gv[4].v[q]) : 0.f;
             }
             dov[q] = d2[u][q] + route;
             dx[q] = dov[q] * prm[3 * L + c];
@@ -1049,12 +1061,13 @@ int hgn_fused_block_bwd(int dtype, int L, int stream_mode, const void* e, const 
                         const int* row_ptr, const int* group_edges, const int* snd_perm,
                         const int* snd_ptr, void* de, void* dh, void* dz2, void* dz3,
                         void* a1_out, void* a2_out, float* dsp, float* drp, float* dpar,
-                        float* dpar_part, int B, int E, int N, int G, void* stream) {
+                        float* dpar_part, int B, int E, int N, int G, float tie_tol,
+                        void* stream) {
   BwdArgs a{e,         sp,      rp,          a1_in,    a2_in,   mu_in, isg_in, we,   w2,
             w3,        b1,      b2,          b3,       lns,     lnb,   de2,    drhs, senders,
             receivers, mask,    row_ptr,     group_edges, snd_perm, snd_ptr, de,  dh,   dz2,
             dz3,       a1_out,  a2_out,      dsp,      drp,     dpar,  dpar_part, B, E,
-            N,         G};
+            N,         G,       tie_tol};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return stream_mode ? dispatch<true>(dtype, L, a, s) : dispatch<false>(dtype, L, a, s);
 }

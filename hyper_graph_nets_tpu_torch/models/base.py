@@ -217,6 +217,8 @@ class SystemModel:
             agg_vjp=self.params["model"].get("agg_vjp", "xla"),
             fused_bwd=self.params["model"].get("fused_bwd", "remat"),
             fused_fwd=self.params["model"].get("fused_fwd", "kernel"),
+            fused_pb=int(self.params["model"].get("fused_pb", 1)),
+            fused_pb_bwd=int(self.params["model"].get("fused_pb_bwd", 1)),
         )
 
     def init_state(self, generator: Optional[torch.Generator] = None) -> ModelState:

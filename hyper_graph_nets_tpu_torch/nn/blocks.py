@@ -22,7 +22,11 @@ package (same forward math on every path):
 - ``fused``: an eligible set (pna, ``[3L -> L -> L -> L]`` + LayerNorm, a
   segment plan) runs the fused kernels (``ops/fused_block.py``): K1 forward
   and, under autograd, K2 (``fused_bwd: remat``) or K3 (``stream``)
-  backward; other sets take the ``xla`` form.  In a hierarchical block the
+  backward; other sets take the ``xla`` form.  With ``fused_fwd: xla`` a
+  set that also has a neighbour matrix passing ``_gather_dense_ok`` takes
+  the JAX package's hybrid instead (``ops.fused_block.
+  fused_edge_block_hybrid``: the unfused forward and the pna over the
+  matrix, no kernel, then K2 with a tie tolerance), on one device only.  In a hierarchical block the
   mesh set's plan covers all ``N + K`` rows (``rmp.connector``), so its
   aggregate is computed over every row and cut to the mesh window.
 - ``sorted``: the unfused edge update, and the pna of the sets in
@@ -70,6 +74,7 @@ sorted sets' too).
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -140,11 +145,16 @@ class GNNConfig:
     # backward of the fused path: 'remat' (K2 recomputes the forward chain)
     # or 'stream' (K1 saves a1/a2 and the LayerNorm statistics, K3 reads them)
     fused_bwd: str = "remat"
-    # forward of the fused path: 'kernel' (K1).  'xla' selects the JAX
-    # package's hybrid (an unfused forward, then K2 with a tie tolerance),
-    # which the port does not have: it raises on the fused path.  Any other
-    # value, and 'xla' on another path, runs as 'kernel', as in the JAX package.
+    # forward of the fused path: 'kernel' (K1), or 'xla', the JAX package's
+    # hybrid (an unfused forward, then K2 with a tie tolerance) on a set with
+    # a dense enough neighbour matrix, on one device.  Any other value runs
+    # as 'kernel', as in the JAX package.
     fused_fwd: str = "kernel"
+    # the JAX package's TPU grid amortization (config model.fused_pb,
+    # fused_pb_bwd): the same results whatever their values; read only to
+    # warn where a branch ignores them, as the JAX package warns
+    fused_pb: int = 1
+    fused_pb_bwd: int = 1
     # set by the halo forward (parallel/halo.py) and the sharded train step
     # and forward (parallel/sharding.py): the rank group
     # (parallel.group.RankGroup) whose 'graph' ranks each hold an edge
@@ -165,12 +175,6 @@ class GNNConfig:
         if self.fused_bwd not in FUSED_BWD:
             raise ValueError(
                 f"fused_bwd must be 'remat' or 'stream', got {self.fused_bwd!r}"
-            )
-        if self.fused_fwd == "xla" and self.agg_vjp == "fused":
-            raise NotImplementedError(
-                "fused_fwd 'xla' (the JAX package's hybrid: an unfused forward, "
-                "then K2 with a tie tolerance) is not ported; ROADMAP section 2, "
-                "first row ('K2 with a tie tolerance') is the work that would lift this"
             )
         if self.architecture not in ARCHITECTURES:
             raise ValueError(f"architecture must be one of {ARCHITECTURES}, got {self.architecture!r}")
@@ -344,14 +348,35 @@ def _fused_eligible(eparams: MLP, es: EdgeSet, cfg: GNNConfig) -> bool:
     )
 
 
+def _takes_hybrid(es: EdgeSet, cfg: GNNConfig) -> bool:
+    """Whether a fused set takes the hybrid (the JAX package's
+    ``_fused_update_and_agg`` branch order, ``nn/blocks.py:369-412``): one
+    device (the sharded step and the halo forward ignore ``fused_fwd``),
+    ``fused_fwd: xla`` and a 2-D neighbour matrix that passes
+    ``_gather_dense_ok``."""
+    return (
+        cfg.axis_name is None
+        and cfg.fused_fwd == "xla"
+        and es.gather_idx is not None
+        and es.gather_idx.dim() == 2
+        and _gather_dense_ok(es)
+    )
+
+
 def _fused_update_and_agg(
     eparams: MLP, all_nodes: torch.Tensor, es: EdgeSet, cfg: GNNConfig, num_total: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Edge update + pna aggregate in one fused call: on one device K1
-    forward, and K2 or K3 backward as ``cfg.fused_bwd`` says; on a rank's
-    edge shard (``cfg.axis_name``) K1 unfinalized with the plain all-reduce,
-    or K7 (``cfg.halo_overlap``), and K2 backward at the global degree."""
-    from hyper_graph_nets_tpu_torch.ops.fused_block import fused_edge_block, fused_edge_block_spmd
+    forward, and K2 or K3 backward as ``cfg.fused_bwd`` says, or the hybrid
+    (:func:`_takes_hybrid`: the unfused forward, K2 with a tie tolerance);
+    on a rank's edge shard (``cfg.axis_name``) K1 unfinalized with the
+    plain all-reduce, or K7 (``cfg.halo_overlap``), and K2 backward at the
+    global degree."""
+    from hyper_graph_nets_tpu_torch.ops.fused_block import (
+        fused_edge_block,
+        fused_edge_block_hybrid,
+        fused_edge_block_spmd,
+    )
 
     L = all_nodes.shape[-1]
     ws, wr, we = _first_layer_parts(eparams, L)
@@ -371,7 +396,19 @@ def _fused_update_and_agg(
         "lnb": eparams.ln_bias,
     }
     topology = (es.senders, es.receivers, es.mask, num_total)
-    if cfg.axis_name is None:
+    if (cfg.fused_bwd != "remat" or cfg.fused_pb > 1 or cfg.fused_pb_bwd > 1) and (
+        cfg.axis_name is not None or cfg.fused_fwd == "xla"
+    ):
+        warnings.warn(
+            "fused_bwd/fused_pb/fused_pb_bwd apply only to the single-device full-kernel path; the "
+            "spmd/collective/hybrid branch selected here ignores them (remat backward, pb=1).",
+            stacklevel=2,
+        )
+    if _takes_hybrid(es, cfg):
+        e2, agg = fused_edge_block_hybrid(
+            feats, sp, rp, weights, *topology, es.gather_idx, es.gather_valid, plan=es.plan
+        )
+    elif cfg.axis_name is None:
         e2, agg = fused_edge_block(feats, sp, rp, weights, *topology, plan=es.plan, bwd=cfg.fused_bwd)
     else:
         e2, agg = fused_edge_block_spmd(

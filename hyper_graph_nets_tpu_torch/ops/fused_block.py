@@ -15,6 +15,14 @@ in full to every edge whose ``e2`` equals the extremum exactly, as in the
 JAX package (``tie_tol = 0``); autograd through the plain forward would
 split it among tied edges instead.
 
+:class:`HybridEdgeBlock` is the JAX package's hybrid (``fused_fwd: xla``,
+``fused_edge_block_hybrid``): the unfused forward chain and the pna over
+the neighbour matrix in plain PyTorch, as the JAX package computes them
+outside any Pallas kernel, then K2 with a tie tolerance (``HYBRID_TIE_TOL``):
+K2's recomputed ``e2`` differs from that forward's in the last ulps, so a
+max/min cotangent goes to every edge within ``tie_tol * |m| + tie_tol`` of
+the extremum ``m``.
+
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/fused_block_fwd.cu``, ``csrc/fused_block_bwd.cu``); on a CPU tensor
 it runs its plain PyTorch version, the same function with the same rounding
@@ -245,15 +253,25 @@ def fused_edge_block_reference(
     return e2, agg
 
 
+def ties(e2: torch.Tensor, m: torch.Tensor, tie_tol: float) -> torch.Tensor:
+    """Where ``e2`` wins the extremum ``m`` (float32): equal, or within
+    ``tie_tol * |m| + tie_tol`` of it (``_route_agg_cotangent``,
+    ``fused_block.py:900-923``; K2's ``ties``, each operation rounded on its
+    own).  ``tie_tol`` 0 is the exact compare."""
+    return (e2 == m) | ((e2 - m).abs() <= tie_tol * m.abs() + tie_tol)
+
+
 def _backward_reference(
-    e, a1, a2, z3, mu, isg, weights, de2, drhs, senders, receivers, mask, num_nodes, e2
+    e, a1, a2, z3, mu, isg, weights, de2, drhs, senders, receivers, mask, num_nodes, e2,
+    tie_tol=0.0,
 ):
     """The shared math of ``_bwd_kernel`` and ``_bwd_stream_kernel``
     (``_route_agg_cotangent``, ``_ln_mlp_backward``, the node sums and the
     column sums), written out step by step.  ``mu``/``isg`` are
     ``[..., E, 1]``; ``e2``, when given, is the forward's output, used for
     the tie compare in place of the value recomputed here (the two are
-    equal bit for bit when the forward ran this same code)."""
+    equal bit for bit when the forward ran this same code); ``tie_tol``
+    widens the compare (:func:`ties`)."""
     cdt = e.dtype
     cd = None if cdt == torch.float32 else cdt
     L = e.shape[-1]
@@ -262,8 +280,8 @@ def _backward_reference(
     # the kernel reads drhs in the compute type; each edge its receiver's row
     got = drhs.to(cdt).float()[..., receivers.long(), :]
     g1, mx, gmx, mn, gmn = got.split(L, dim=-1)
-    route = g1 + torch.where(e2v == mx, gmx, 0.0)  # every tied edge: all of it
-    route = route + torch.where(e2v == mn, gmn, 0.0)
+    route = g1 + torch.where(ties(e2v, mx, tie_tol), gmx, 0.0)  # every tied edge: all of it
+    route = route + torch.where(ties(e2v, mn, tie_tol), gmn, 0.0)
     valid = None if mask is None else (mask > 0)[:, None]
     if valid is not None:
         route = torch.where(valid, route, 0.0)
@@ -287,7 +305,7 @@ def _backward_reference(
 
 
 def fused_edge_block_bwd_reference(
-    e, sp, rp, weights, de2, drhs, senders, receivers, mask, num_nodes, forward=None
+    e, sp, rp, weights, de2, drhs, senders, receivers, mask, num_nodes, forward=None, tie_tol=0.0
 ):
     """Plain K2: recompute the forward chain as K1 does, then the backward.
 
@@ -302,7 +320,9 @@ def fused_edge_block_bwd_reference(
     (``z3`` and the statistics are still recomputed): a kernel is held
     against this plain version on the kernel forward's values, because a
     product summed in another order may move an ``h`` within one rounding
-    of 0 to the other side, or break a tie."""
+    of 0 to the other side, or break a tie.
+
+    ``tie_tol`` widens the tie compare (:func:`ties`; the hybrid's)."""
     if forward is None:
         a1, a2, z3 = _edge_mlp_reference(e, sp, rp, weights, senders, receivers)
         e2 = None
@@ -312,7 +332,7 @@ def fused_edge_block_bwd_reference(
     mu, isg = _ln_stats(z3)
     de, dh, dz2, dz3, dsp, drp, dpar = _backward_reference(
         e, a1, a2, z3, mu, isg, weights, de2, drhs, senders, receivers, mask,
-        num_nodes, e2,
+        num_nodes, e2, tie_tol,
     )
     return de, dh, dz2, dz3, a1, a2, dsp, drp, dpar
 
@@ -338,7 +358,7 @@ _vp, _ci = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     FWD_SOURCE: {"hgn_fused_block_fwd": [_ci, _ci] + [_vp] * 23 + [_ci] * 5 + [_vp]},
     BWD_SOURCE: {
-        "hgn_fused_block_bwd": [_ci, _ci, _ci] + [_vp] * 34 + [_ci] * 4 + [_vp],
+        "hgn_fused_block_bwd": [_ci, _ci, _ci] + [_vp] * 34 + [_ci] * 4 + [ctypes.c_float, _vp],
         "hgn_fused_block_bwd_ctas": [_ci, _ci, _ci],
     },
 }
@@ -453,12 +473,12 @@ def _k1_launch(e, sp, rp, weights, senders, receivers, mask, num_nodes, plan, sa
 
 def _bwd_launch(
     stream_mode, e, sp, rp, streams, weights, de2, drhs, senders, receivers, mask,
-    num_nodes, plan, lib=None,
+    num_nodes, plan, lib=None, tie_tol=0.0,
 ):
     """One launch of K2 (``stream_mode`` 0) or K3 (1): the main kernel, the
     sender sums and the column-sum reduction, on the current stream.
     ``lib``: another build of the source (the phase probe), else the main
-    path's."""
+    path's; ``tie_tol``: the tie compare's tolerance (0: exact)."""
     plan = _resolve_plan(plan, senders, receivers, num_nodes, e.device)
     nodes = {} if stream_mode else {"sp": sp, "rp": rp}
     B, E, L = _validate(e, nodes, senders, receivers, mask, num_nodes, plan)
@@ -503,7 +523,7 @@ def _bwd_launch(
         _ptr(plan.snd_perm), _ptr(plan.snd_ptr),
         _ptr(de), _ptr(dh), _ptr(dz2), _ptr(dz3), _ptr(a1_out), _ptr(a2_out),
         _ptr(dsp), _ptr(drp), _ptr(dpar), _ptr(part),
-        B, E, num_nodes, plan.num_groups,
+        B, E, num_nodes, plan.num_groups, float(tie_tol),
         torch.cuda.current_stream(e.device).cuda_stream,
     )
     _raise_on(rc, lib, "fused_edge_block backward")
@@ -513,20 +533,24 @@ def _bwd_launch(
 
 
 def fused_edge_block_bwd(
-    e, sp, rp, weights, de2, drhs, senders, receivers, mask, num_nodes, plan=None
+    e, sp, rp, weights, de2, drhs, senders, receivers, mask, num_nodes, plan=None, tie_tol=0.0
 ):
     """K2, the remat backward, on ``[B, E, L]`` inputs: see
     :func:`fused_edge_block_bwd_reference` for the arguments and results.
-    A CUDA tensor launches the kernel; a CPU tensor runs the plain version."""
+    A CUDA tensor launches the kernel (counted on ``launches``, and on
+    ``tie_launches`` too with ``tie_tol`` above 0); a CPU tensor runs the
+    plain version."""
     if e.device.type == "cpu":
         return fused_edge_block_bwd_reference(
-            e, sp, rp, weights, de2, drhs, senders, receivers, mask, num_nodes
+            e, sp, rp, weights, de2, drhs, senders, receivers, mask, num_nodes, tie_tol=tie_tol
         )
     with torch.cuda.device(e.device):
         outs = _bwd_launch(
-            0, e, sp, rp, None, weights, de2, drhs, senders, receivers, mask, num_nodes, plan
+            0, e, sp, rp, None, weights, de2, drhs, senders, receivers, mask, num_nodes, plan,
+            tie_tol=tie_tol,
         )
     fused_edge_block_bwd.launches += 1
+    fused_edge_block_bwd.tie_launches += int(tie_tol > 0)
     return outs
 
 
@@ -549,8 +573,10 @@ def fused_edge_block_bwd_stream(
     return outs
 
 
-# kernel launches since the count was last reset
+# kernel launches since the count was last reset (tie_launches: K2's with
+# a tie tolerance, the hybrid's; each is in launches too)
 fused_edge_block_bwd.launches = 0
+fused_edge_block_bwd.tie_launches = 0
 fused_edge_block_bwd_stream.launches = 0
 
 
@@ -567,6 +593,7 @@ class _Edges:
     num_nodes: int
     plan: Optional[SegmentPlan]
     bwd: str
+    tie_tol: float = 0.0  # K2's tie compare (the hybrid's HYBRID_TIE_TOL)
 
     @property
     def topology(self):
@@ -659,7 +686,7 @@ def _edge_block_grads(e, sp, rp, w_in, agg, de2, dagg, edges: _Edges, streams=()
         )
     else:
         de, dh, dz2, dz3, a1, a2, dsp, drp, dpar = fused_edge_block_bwd(
-            e, sp, rp, weights, de2, drhs, *edges.topology, plan=edges.plan
+            e, sp, rp, weights, de2, drhs, *edges.topology, plan=edges.plan, tie_tol=edges.tie_tol
         )
     flat = lambda x: x.reshape(-1, L).float()
     dw = [flat(dh).T @ flat(e), flat(dz2).T @ flat(a1), flat(dz3).T @ flat(a2)]
@@ -708,6 +735,97 @@ def fused_edge_block(
 
 
 fused_edge_block.launches = 0  # K1 launches since the count was last reset
+
+
+# -- the hybrid: an unfused forward, then K2 with a tie tolerance ---------------
+
+# K2's tie tolerance after the hybrid's forward (_hybrid_bwd, fused_block.py:
+# 1680): the forward's e2 and K2's recompute differ by reassociation in
+# float32 (about 1e-6 relative) and by up to one bf16 rounding (2**-8)
+HYBRID_TIE_TOL = {torch.bfloat16: 2.0**-8, torch.float32: 1e-5}
+
+
+def hybrid_forward(e, sp, rp, weights, senders, receivers, gather_idx, gather_valid):
+    """The hybrid's forward (``_xla_fwd_math``, ``fused_block.py:1628-1650``)
+    in plain PyTorch: the unfused chain with K1's rounding points (the
+    factored first layer, relu, the second and third products, LayerNorm
+    with float32 statistics, the residual), then the pna over the neighbour
+    matrix (``core.segment_ops.gather_aggregate``): ``(e2, agg)``, ``agg``
+    float32 over ``gather_idx``'s rows."""
+    _, _, z3 = _edge_mlp_reference(e, sp, rp, weights, senders, receivers)
+    mu, isg = _ln_stats(z3)
+    _, e2 = _xhat_e2(e, z3, mu, isg, weights)
+    return e2, segment_ops.gather_aggregate(e2, gather_idx, gather_valid, "pna").float()
+
+
+def _rows_to(agg: torch.Tensor, rows: int) -> torch.Tensor:
+    """``agg`` cut, or padded with zero rows, to ``rows`` node rows."""
+    have = agg.shape[-2]
+    if have >= rows:
+        return agg[..., :rows, :]
+    return torch.cat([agg, agg.new_zeros(agg.shape[:-2] + (rows - have, agg.shape[-1]))], dim=-2)
+
+
+class HybridEdgeBlock(torch.autograd.Function):
+    """The hybrid's autograd node (``_hybrid_vjp``): :func:`hybrid_forward`,
+    then K2 with ``edges.tie_tol``.
+
+    The forward saves what ``_hybrid_fwd`` saves: the inputs, the weights,
+    ``agg`` over the plan's rows (cut, or padded with zero rows as
+    ``_hybrid_bwd`` pads it) and the plan (in ``edges``).  K2 needs no other
+    padding: the port's plan covers the set's own edges and rows.  The
+    backward is :class:`FusedEdgeBlock`'s remat one: ``drhs`` from the
+    saved ``agg``, K2, the float32 weight-gradient products."""
+
+    @staticmethod
+    def forward(ctx, e, sp, rp, we, w2, w3, b1, b2, b3, lns, lnb, edges: _Edges, gather_idx, gather_valid):
+        weights = dict(zip(EDGE_WEIGHT_KEYS, (we, w2, w3, b1, b2, b3, lns, lnb)))
+        e2, agg = hybrid_forward(e, sp, rp, weights, edges.senders, edges.receivers, gather_idx, gather_valid)
+        agg = _rows_to(agg, edges.num_nodes)
+        ctx.edges = edges
+        ctx.save_for_backward(e, sp, rp, we, w2, w3, b1, b2, b3, lns, lnb, agg)
+        return e2, agg
+
+    @staticmethod
+    def backward(ctx, de2, dagg):
+        e, sp, rp, *rest = ctx.saved_tensors
+        return (*_edge_block_grads(e, sp, rp, rest[:8], rest[8], de2, dagg, ctx.edges), None, None, None)
+
+
+def fused_edge_block_hybrid(
+    e: torch.Tensor,
+    sp: torch.Tensor,
+    rp: torch.Tensor,
+    weights: Dict[str, torch.Tensor],
+    senders: torch.Tensor,
+    receivers: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    num_nodes: int,
+    gather_idx: torch.Tensor,
+    gather_valid: torch.Tensor,
+    plan: Optional[SegmentPlan] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's ``fused_edge_block_hybrid``: ``(e2, agg)`` as
+    :func:`fused_edge_block` returns them, from an unfused forward
+    (:func:`hybrid_forward`, no kernel) and, under autograd, K2 with the
+    dtype's ``HYBRID_TIE_TOL`` in :class:`HybridEdgeBlock`.
+    ``gather_idx``/``gather_valid`` are the set's ``[N, d]`` neighbour
+    matrix (the forward's aggregate), ``plan`` K2's (built from the indices
+    when omitted, on the card)."""
+    if e.device.type == "cuda":
+        plan = _resolve_plan(plan, senders, receivers, num_nodes, e.device)
+    squeeze = e.dim() == 2
+    e3, sp3, rp3 = (e[None], sp[None], rp[None]) if squeeze else (e, sp, rp)
+    wts = [weights[k] for k in EDGE_WEIGHT_KEYS]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (e3, sp3, rp3, *wts)):
+        edges = _Edges(senders, receivers, mask, num_nodes, plan, "remat", HYBRID_TIE_TOL[e.dtype])
+        e2, agg = HybridEdgeBlock.apply(e3, sp3, rp3, *wts, edges, gather_idx, gather_valid)
+    else:
+        e2, agg = hybrid_forward(e3, sp3, rp3, weights, senders, receivers, gather_idx, gather_valid)
+        agg = _rows_to(agg, num_nodes)
+    if squeeze:
+        e2, agg = e2[0], agg[0]
+    return e2, agg
 
 
 # -- the edge-sharded block (halo forward and sharded training step) ----------

@@ -60,21 +60,26 @@ Use::
     static = shard_static(trainer.expansion, static, stopo, group)  # optional: laid out once
     tstate, loss = step(tstate, frames, static=static)    # frames [B, ...], B % 2 == 0
 
-Flag, cylinder and plate, with or without RMP ``hyper`` (HGN plate is
-plate with it).  Plate's world edges form anew in every frame: each graph
+Flag, cylinder and plate, with remote message passing on any connector
+and architecture (``hyper``, ``multiscale``, ``hetero``, ``multi``;
+``repeated``, which has no expansion; HGN plate is plate with ``hyper``)
+and with the graph balancer, alone or before RMP.  ``multi``'s merged
+``mesh_edges`` (the laid-out mesh, inter, up and down sets one after
+another) is cut into contiguous slices as any unfused set, with per-rank
+sums over each slice (:func:`_shard_rmp`).  Plate's world edges form anew in every frame: each graph
 rank of a data row builds the whole world set of its frames (the radius
 query, the slots, the receiver sort) and ``halo.shard_graph`` cuts it on
 its edge axis, padded to a multiple of ``graph`` with the set's invalid
 slot (:class:`EdgeLayout` along the last axis), each rank's fixed-order
 sums built on its slice (``EdgeSums.per_frame``, over the set's node rows:
-``N``, or ``N + K`` after RMP).  Connectors and architectures other than
-``hyper``, a group over several devices and ``parallel/multihost.py``'s
-processes are not ported yet (ROADMAP queue 1, item 7).
+``N``, or ``N + K`` after RMP); the balancer's ``balance`` set beside it
+is padded to a multiple of ``graph`` as on flag.  A group over several
+devices (entry 7.3) and ``parallel/multihost.py``'s processes (7.4) are not
+ported yet (ROADMAP queue 1, item 7).
 """
 from __future__ import annotations
 
 import dataclasses
-import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -93,7 +98,7 @@ from hyper_graph_nets_tpu_torch.nn.meshgraphnet import network_apply
 from hyper_graph_nets_tpu_torch.ops.fused_block import SegmentPlan, plan_segments
 from hyper_graph_nets_tpu_torch.ops.fused_overlap import chunk_roundrobin_permutation, overlap_plan
 from hyper_graph_nets_tpu_torch.ops.segment_pna import SortedPlan, sorted_plan
-from hyper_graph_nets_tpu_torch.rmp.connector import HierarchicalConnector, RMPStatic
+from hyper_graph_nets_tpu_torch.rmp.connector import RMPStatic
 from hyper_graph_nets_tpu_torch.rmp.remote_message_passing import RemoteMessagePassing
 from hyper_graph_nets_tpu_torch.training.trainer import TrainState, add_noise
 
@@ -402,9 +407,10 @@ _TIER_SETS = (
 def _shard_rmp(st: RMPStatic, topo: Topology, group, valid: np.ndarray) -> RMPStatic:
     """RMP's static on the group: each cluster-tier set padded to a
     multiple of ``graph`` (unfused: no plans, as the JAX package un-fuses
-    them under sharding), each rank's sums over ``N + K`` rows; the mesh
-    set's per-rank plans over ``N + K`` rows with the in-degree over
-    ``valid`` edges (the kept ones)."""
+    them under sharding), each rank's sums over ``N + K`` rows (and, for
+    ``multi``, over each rank's slice of the merged set); the mesh set's
+    per-rank plans over ``N + K`` rows with the in-degree over ``valid``
+    edges (the kept ones)."""
     rows = topo.num_nodes + st.num_clusters
     pads = {"senders": 0, "receivers": rows - 1, "mask": 0.0, "perm": 0}
     changes = {}
@@ -417,6 +423,14 @@ def _shard_rmp(st: RMPStatic, topo: Topology, group, valid: np.ndarray) -> RMPSt
         changes[f"{prefix}_sums"] = rank_sums(group, layout, _host(changes[f"{prefix}_senders"]),
                                               _host(changes[f"{prefix}_receivers"]), rows)
         changes[f"{prefix}_plan"] = None
+    if st.merged_sums is not None:
+        # MultigraphConnector's mesh_edges: the laid-out mesh, inter, up and
+        # down sets one after another (each a multiple of graph long), cut
+        # into contiguous slices as any unfused set
+        cat = lambda f: np.concatenate([_host(getattr(topo, f))] + [
+            _host(changes[f"{p}_{f}"]) for p in ("inter", "up", "down")]).astype(np.int64)
+        snd, rcv = cat("senders"), cat("receivers")
+        changes["merged_sums"] = rank_sums(group, EdgeLayout.build(len(snd), group.shape["graph"]), snd, rcv, rows)
     mesh_plan = None
     if isinstance(topo.plan, RankPlans):
         rcv = _host(topo.receivers)
@@ -450,24 +464,15 @@ def shard_static(expansion, static: Tuple, topo: Topology, group) -> ShardedStat
 
 def check_supported(model, expansion) -> None:
     """Raise on what the sharded step and forward do not run: a model other
-    than flag, cylinder and plate, an expansion member other than RMP with
-    the ``hyper`` connector and architecture and (on flag) the graph
-    balancer, and a model configured with an expansion that is not given."""
+    than flag, cylinder and plate, and a model configured with an expansion
+    that is not given.  Every connector and architecture of remote message
+    passing (``hyper``, ``multiscale``, ``hetero``, ``multi``; ``repeated``
+    has no expansion) and the graph balancer run on every model."""
     if not isinstance(model, (FlagModel, CylinderModel, PlateModel)):
         raise NotImplementedError(f"the sharded step on {type(model).__name__} {NOT_PORTED}")
-    if expansion is None:
-        if model.use_rmp or model.use_balancer:
-            raise ValueError("the model is configured with an expansion: pass "
-                             "expansion=training.expansion.build_expansion(model, config)")
-        return
-    for member in expansion.members:
-        if isinstance(member, RemoteMessagePassing):
-            if type(member.connector) is not HierarchicalConnector or model.gnn_config.architecture != "hyper":
-                raise NotImplementedError(
-                    f"remote message passing with architecture {model.gnn_config.architecture!r} {NOT_PORTED}")
-        elif not isinstance(member, GraphBalancer) or not isinstance(model, FlagModel):
-            raise NotImplementedError(
-                f"the expansion member {type(member).__name__} on {type(model).__name__} {NOT_PORTED}")
+    if expansion is None and (model.use_rmp or model.use_balancer):
+        raise ValueError("the model is configured with an expansion: pass "
+                         "expansion=training.expansion.build_expansion(model, config)")
 
 
 # -- the step -------------------------------------------------------------------
@@ -505,16 +510,10 @@ def spmd_gnn_config(model, topo: Topology, group):
     package's ``spmd_gnn_config``): the group as ``axis_name``, K7 where the
     plans carry overlap bands.  Sets with a plan run the fused kernels over
     their shards, every other set the sharded unfused aggregate.
-    ``fused_bwd`` other than ``remat`` is ignored with a warning, as in the
-    JAX package."""
-    cfg = model.gnn_config
-    if cfg.agg_vjp == "fused" and cfg.fused_bwd != "remat":
-        warnings.warn(
-            "fused_bwd applies only to the single-device path; the sharded step runs the remat "
-            "backward (K2)",
-            stacklevel=3,
-        )
-    return dataclasses.replace(cfg, axis_name=group, halo_overlap=True)
+    ``fused_bwd`` other than ``remat``, ``fused_pb`` and ``fused_fwd: xla``
+    are ignored, ``fused_bwd`` and ``fused_pb`` with a warning from each
+    fused call, as in the JAX package."""
+    return dataclasses.replace(model.gnn_config, axis_name=group, halo_overlap=True)
 
 
 def _device_topologies(topo: Topology, group) -> Dict[torch.device, Topology]:

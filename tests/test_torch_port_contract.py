@@ -140,8 +140,8 @@ def test_full_scale_config_loads_as_shipped():
 def test_rmp_fused_tiers_raises_naming_the_roadmap():
     """``rmp.fused_tiers: true`` with ``agg_vjp: fused`` serves: ``prepare``
     gives the up, down and inter sets K1/K2 plans over their valid
-    prefixes.  What still raises with it names the ROADMAP: the hybrid
-    forward ``fused_fwd: xla`` (section 2, first row)."""
+    prefixes.  With the hybrid forward ``fused_fwd: xla`` (ROADMAP section
+    2's first row, which raised until it was ported) it serves as well."""
     config = _with(agg_vjp="fused", rmp={"clustering": "spectral", "connector": "hyper", "num_clusters": 4,
                                          "fused_tiers": True})
     p = Predictor(config, device="cpu")
@@ -150,8 +150,7 @@ def test_rmp_fused_tiers_raises_naming_the_roadmap():
     (static,) = p.expansion.static
     assert all(plan is not None for plan in (static.up_plan, static.down_plan, static.inter_plan))
     config["params"]["model"]["fused_fwd"] = "xla"
-    with pytest.raises(NotImplementedError, match="ROADMAP section 2"):
-        Predictor(config, device="cpu")
+    assert np.isfinite(Predictor(config, device="cpu").one_step(traj)).all()
 
 
 def test_full_scale_config_loads_with_rmp_off():
@@ -188,16 +187,30 @@ def test_later_slices_raise(config):
 
 
 def test_fused_fwd_xla_on_the_fused_path_raises():
-    """``fused_fwd: xla`` selects the JAX package's hybrid on the fused path
-    (an unfused forward, then K2 with a tie tolerance), which the port does
-    not have: building the network config refuses it."""
-    from hyper_graph_nets_tpu_torch.models.get_model import get_model
+    """``fused_fwd: xla`` on the fused path selects the JAX package's hybrid
+    (an unfused forward, then K2 with a tie tolerance).  It raised until the
+    hybrid was ported; now the same config builds, and its one-step forward
+    sends the mesh set through ``ops.fused_block.fused_edge_block_hybrid``
+    (tests/test_torch_port_hybrid.py holds it against JAX)."""
+    from hyper_graph_nets_tpu_torch.ops import fused_block as fb
 
-    model = get_model(_with(agg_vjp="fused", fused_fwd="xla"))
-    with pytest.raises(NotImplementedError, match="tie tolerance"):
-        model.gnn_config
-    with pytest.raises(NotImplementedError, match="ROADMAP section 2"):
-        Predictor(_with(agg_vjp="fused", fused_fwd="xla"), device="cpu")
+    config = _with(agg_vjp="fused", fused_fwd="xla")
+    p = Predictor(config, device="cpu")
+    assert p.model.gnn_config.fused_fwd == "xla" and p.model.gnn_config.agg_vjp == "fused"
+    traj = add_targets(flag_trajectory(num_steps=3, nx=4, ny=4), "world_pos", True)
+    calls, real = [], fb.fused_edge_block_hybrid
+
+    def spy(*args, **kw):
+        calls.append(args[0].shape)
+        return real(*args, **kw)
+
+    fb.fused_edge_block_hybrid = spy
+    try:
+        out = p.one_step(traj)
+    finally:
+        fb.fused_edge_block_hybrid = real
+    assert len(calls) == p.model.message_passing_steps
+    assert np.isfinite(np.asarray(out)).all()
 
 
 @pytest.mark.parametrize(

@@ -80,7 +80,14 @@ step on the card from one state and noise: the training step's card-vs-CPU
 limits above (float32 loss rtol 1e-4, gradients relative L2 1e-3; bf16
 2**-5 and 2**-3); two runs bit for bit; each run under a time limit of its
 own, past which the process ends with every thread's traceback, so that a
-deadlock fails and does not hang.
+deadlock fails and does not hang.  The same on RMP ``multiscale`` and
+``multi`` (float32).
+
+The hybrid (``fused_fwd: xla``): K2 with the tie tolerance against its
+plain version with K2's tolerances above, on drhs from the hybrid's forward
+on the card; its routed max/min mass equals the count of K1's e2 within the
+tolerance of each extremum; a hybrid training step against the CPU with the
+train step's limits.
 """
 import numpy as np
 import pytest
@@ -1905,6 +1912,152 @@ def test_sharded_plate_step_on_card_matches_single_device(name):
             runs.append((loss, grads()))
     finally:
         faulthandler.cancel_dump_traceback_later()
+    (loss, got), (loss2, again) = runs
+    assert torch.equal(loss, loss2) and all(torch.equal(got[n], again[n]) for n in got)
+    assert abs(float(loss) - float(ref_loss)) <= 1e-4 * abs(float(ref_loss))
+    for n, want in ref.items():
+        err = float((got[n] - want).norm() / want.norm().clamp(min=1e-30))
+        assert err <= 1e-3, (n, err)
+
+
+# -- the hybrid (fused_fwd: xla): K2 with a tie tolerance ------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_k2_with_the_tie_tolerance_matches_plain(dtype):
+    """K2 with the hybrid's tie tolerance against its plain version on K1's
+    forward values, its drhs from the hybrid's own forward on the card (the
+    unfused chain and the pna over the neighbour matrix, whose extrema sit a
+    rounding away from K1's e2): K2's tolerances above; the routed max/min
+    mass equals the count of K1's e2 within the tolerance of each extremum,
+    and the tolerance leaves no more extrema without a winner than the exact
+    compare does."""
+    from hyper_graph_nets_tpu_torch.core.mesh import receivers_to_gather
+    from hyper_graph_nets_tpu_torch.ops import fused_block as fb
+
+    _need_card()
+    t, w, topo, plan, fwd, de2, _ = _bwd_inputs("masked", dtype, 128)
+    e2, _, a1, a2, _, _ = fwd
+    _, rcv, mask, N = topo
+    gidx, gval = (torch.as_tensor(a).cuda() for a in receivers_to_gather(rcv.cpu().numpy(), N,
+                                                                           mask=mask.cpu().numpy()))
+    _, agg = fb.hybrid_forward(t["e"], t["sp"], t["rp"], w, topo[0], rcv, gidx, gval)
+    tol = fb.HYBRID_TIE_TOL[dtype]
+    L = e2.shape[-1]
+    dagg = torch.randn(agg.shape, generator=torch.Generator().manual_seed(6)).cuda()
+    drhs = agg_cotangent_rhs(agg, dagg, rcv, mask, N)
+    before = (fused_edge_block_bwd.launches, fused_edge_block_bwd.tie_launches)
+    got = fused_edge_block_bwd(t["e"], t["sp"], t["rp"], w, de2, drhs, *topo, plan=plan, tie_tol=tol)
+    torch.cuda.synchronize()
+    assert (fused_edge_block_bwd.launches, fused_edge_block_bwd.tie_launches) == (before[0] + 1, before[1] + 1)
+    want = fused_edge_block_bwd_reference(t["e"], t["sp"], t["rp"], w, de2, drhs, *topo, forward=(e2, a1, a2),
+                                          tie_tol=tol)
+    _assert_bwd_close(got[:4] + got[6:], want[:4] + want[6:], dtype)
+    # only g_max = g_min = 1: the routed mass counts the tolerant winners of K1's e2
+    route = torch.zeros_like(dagg)
+    route[..., 2 * L :] = 1.0
+    rdrhs = agg_cotangent_rhs(agg, route, rcv, mask, N)
+    got_rhs = rdrhs.to(dtype).float()[:, rcv.long()]
+    valid = (mask > 0)[None, :, None]
+    lost = {}
+    for t_tol in (tol, 0.0):
+        wins = sum(((fb.ties(e2.float(), got_rhs[..., k * L : (k + 1) * L], t_tol)) & valid).float().sum(dim=(0, 1))
+                   for k in (1, 3))
+        out = fused_edge_block_bwd(t["e"], t["sp"], t["rp"], w, torch.zeros_like(de2), rdrhs, *topo, plan=plan,
+                                   tie_tol=t_tol)
+        assert torch.equal(out[-1][4], wins), t_tol
+        per = torch.zeros(e2.shape[0], N, L, device="cuda").index_add_(
+            1, rcv.long(), (fb.ties(e2.float(), got_rhs[..., L : 2 * L], t_tol) & valid).float())
+        has = torch.zeros(N, device="cuda").index_add_(0, rcv.long(), (mask > 0).float()) > 0
+        lost[t_tol] = int(((per == 0) & has[None, :, None]).sum())
+    assert lost[tol] <= lost[0.0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hybrid_train_step_on_card_matches_cpu(dtype):
+    """A 2-block flag training step with ``fused_fwd: xla`` on the card
+    (the unfused forward, then one K2 with the tie tolerance a block, no K1)
+    against the CPU, same state and noise: the train step's card-vs-CPU
+    limits above."""
+    from hyper_graph_nets_tpu_torch.ops import fused_block as fb
+
+    _need_card()
+    config = flag_config(None if dtype == "float32" else dtype, agg_vjp="fused")
+    config["params"]["model"].update(noise=0.003, gamma=0.9, fused_fwd="xla")
+    traj = add_targets(flag_trajectory(num_steps=4, nx=10, ny=10), "world_pos", True)
+    model = get_model(config)
+    state = model.init_state(torch.Generator().manual_seed(1))
+    normal = torch.randn(traj["world_pos"].shape, generator=torch.Generator().manual_seed(2))
+    results = {}
+    for device in ("cuda", "cpu"):
+        trainer = Trainer(model, config, device=device)
+        tstate = trainer.init_train_state(state=state)
+        topo = model.topology_from_trajectory(traj, device=device)
+        before = (fused_edge_block.launches, fused_edge_block_bwd.launches, fb.fused_edge_block_bwd.tie_launches)
+        loss, _ = trainer.loss_and_grads(tstate, topo, trainer.frames(traj), normal=normal.to(device))
+        after = (fused_edge_block.launches, fused_edge_block_bwd.launches, fb.fused_edge_block_bwd.tie_launches)
+        assert [a - b for a, b in zip(after, before)] == ([0, 2, 2] if device == "cuda" else [0, 0, 0])
+        results[device] = (float(loss), {n: p.grad.cpu() for n, p in tstate.model.params.named_parameters()})
+    (lc, gc), (lh, gh) = results["cuda"], results["cpu"]
+    loss_tol, grad_tol = (1e-4, 1e-3) if dtype == "float32" else (2.0**-5, 2.0**-3)
+    assert abs(lc - lh) <= loss_tol * abs(lh)
+    for name, g in gh.items():
+        assert float((gc[name] - g).norm()) <= grad_tol * float(g.norm()), name
+
+
+# -- the sharded step on the other RMP architectures ---------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["multiscale", "multi"])
+def test_sharded_arch_step_on_card_matches_single_device(arch):
+    """The sharded step with RMP ``multiscale`` (the mesh set fused twice a
+    block: K1 raw + K2 per shard) and ``multi`` (the merged mesh set,
+    unfused: no kernel) on a 2 x 2 group of one card (a 2-block float32
+    flag, 10x10, K = 4, B = 4) against the single-device step on the card,
+    same state and noise: loss rtol 1e-4, gradients relative L2 1e-3 (the
+    train step's card-vs-CPU float32 limits); two runs bit for bit; each run
+    under its own time limit."""
+    import faulthandler
+
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+    from hyper_graph_nets_tpu_torch.parallel.sharding import make_spmd_train_step, shard_topology
+
+    _need_card()
+    config = flag_config(None, agg_vjp="fused")
+    config["params"]["model"].update(noise=0.003, gamma=0.9)
+    config["params"]["model"]["rmp"] = {"clustering": "spectral", "connector": arch, "num_clusters": 4,
+                                        "hyper_noise": 0.005}
+    model = get_model(config)
+    trainer = Trainer(model, config)
+    traj = add_targets(flag_trajectory(num_steps=6, nx=10, ny=10), "world_pos", True)
+    topo = model.topology_from_trajectory(traj, device=trainer.device)
+    static = trainer.expansion.prepare(model, {k: v[0] for k, v in traj.items()}, topo)
+    frames = trainer.frames({k: np.array(v[:4]) for k, v in traj.items() if k != "cells"})
+    gen = torch.Generator().manual_seed(1)
+    normal = torch.randn(frames["world_pos"].shape, generator=gen).cuda()
+    hyper = torch.randn(trainer.expansion.hyper_noise_shape(model, frames, static), generator=gen).cuda()
+    ts = trainer.init_train_state(state=model.init_state(torch.Generator().manual_seed(0)))
+    grads = lambda: {n: p.grad.clone() for n, p in ts.model.params.named_parameters() if p.grad is not None}
+    ref_loss, _ = trainer.loss_and_grads(ts, topo, frames, normal=normal, static=static, hyper_normal=hyper)
+    ref = grads()
+    group = RankGroup(2, 2, devices=["cuda:0"] * 4)
+    step = make_spmd_train_step(trainer, shard_topology(topo, group), group)
+    runs = []
+    count = lambda: (fused_edge_block.launches, fused_edge_block_bwd.launches)
+    before = count()
+    faulthandler.dump_traceback_later(SPMD_STEP_LIMIT_S, exit=True)  # a deadlock fails, never hangs
+    try:
+        for _ in range(2):
+            loss, _ = step.loss_and_grads(ts, frames, normal=normal, static=static, hyper_normal=hyper)
+            group.check()
+            runs.append((loss, grads()))
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    per_step = 2 * 2 * 4 if arch == "multiscale" else 0  # mesh sub-steps x blocks x ranks
+    assert [a - b for a, b in zip(count(), before)] == [2 * per_step, 2 * per_step]
     (loss, got), (loss2, again) = runs
     assert torch.equal(loss, loss2) and all(torch.equal(got[n], again[n]) for n in got)
     assert abs(float(loss) - float(ref_loss)) <= 1e-4 * abs(float(ref_loss))

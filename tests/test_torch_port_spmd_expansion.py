@@ -345,29 +345,31 @@ def test_the_static_is_laid_out_once_per_prepare():
 
 
 def test_what_the_sharded_step_does_not_run_raises_naming_the_item():
-    """Architectures other than ``hyper`` with RMP and the graph balancer on
-    a model family other than flag raise ``NotImplementedError`` naming
-    ROADMAP queue 1, item 7; a model configured with an expansion needs it
-    given to the forward.  (Cylinder and plate themselves run:
-    tests/test_torch_port_spmd_models.py.)"""
+    """A group over several devices raises ``NotImplementedError`` naming
+    ROADMAP queue 1, item 7 (parameters kept identical across cards, entry
+    7.3); a model configured with an expansion needs it given to the
+    forward.  Every connector and architecture of RMP and the graph
+    balancer on every family build (they run in
+    tests/test_torch_port_spmd_arch.py)."""
     from hyper_graph_nets_tpu_torch.training.expansion import build_expansion
 
     group = RankGroup(2, 2, device="cpu")
-    _, _, topo, _, _ = _port()
+    _, trainer, topo, _, _ = _port()
     stopo = shard_topology(topo, group)
+    two = RankGroup(2, devices=["cpu:0", "cpu:1"])
+    with pytest.raises(NotImplementedError, match="item 7"):
+        make_spmd_train_step(trainer, shard_topology(topo, two), two)
+    with pytest.raises(ValueError, match="build_expansion"):
+        make_sharded_forward(get_model(_config()), stopo, group)
     config = _config()
     config["params"]["model"]["rmp"]["connector"] = "multiscale"
     model = get_model(config)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_spmd_train_step(Trainer(model, config, device="cpu"), stopo, group)
-    with pytest.raises(ValueError, match="build_expansion"):
-        make_sharded_forward(get_model(_config()), stopo, group)
+    make_spmd_train_step(Trainer(model, config, device="cpu"), stopo, group)
     cylinder = {"params": {"task": {"dataset": "cylinder_flow"},
                            "model": {**flag_config(None)["params"]["model"], "field": "velocity", "history": False,
                                      "size": 2, "noise": 0.02, "gamma": 1.0, "graph_balancer": dict(RICCI)}}}
     cmodel = get_model(cylinder)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_sharded_forward(cmodel, stopo, group, expansion=build_expansion(cmodel, cylinder))
+    make_sharded_forward(cmodel, stopo, group, expansion=build_expansion(cmodel, cylinder))
 
 
 # -- the balancer -------------------------------------------------------------------
