@@ -6,9 +6,10 @@ the Ricci graph balancer, serve and train flag HyperGraphNets (remote
 message passing) as configs/flag_full_scale.yaml ships it, serve and train
 cylinder and plate MeshGraphNets as configs/cylinder.yaml and
 configs/plate.yaml ship them, and plate HyperGraphNets as
-configs/plateCluster.yaml ships it, with and without rmp.fused_tiers, and
+configs/plateCluster.yaml ships it, with and without rmp.fused_tiers,
 serve flag, flag HyperGraphNets and plate HyperGraphNets with int8 (W8A8)
-weights.
+weights, serve and train flag HyperGraphNets with HDBSCAN, k-means and a
+Gaussian mixture, and train flag in a pod of two processes.
 
     python3 chip_smoke.py [--seed 0] [--out FILE.json] [--profile DIR]
 
@@ -157,7 +158,7 @@ Phases (any failure exits non-zero; nothing is caught and dropped):
    cluster's), one of which must break the cluster tier's own limit
    (RMP_TIER_CONTROL); in float32 also the card fed the CPU's expand outputs
    (a bisection of the cluster tier's spread; held to the same limits);
-   whether scikit-learn imports (information only);
+   whether scikit-learn is installed (information only);
 8. cylinder and plate (``phase_model``): configs/cylinder.yaml and
    configs/plate.yaml as shipped (latent 128, 5 blocks, float32, fused
    remat, batch 16), seeded weights, normalizers accumulated over a 53-frame
@@ -197,11 +198,33 @@ Phases (any failure exits non-zero; nothing is caught and dropped):
    (INT8_TOL; every 64th row of each int8 product lost must break it);
    int8 against float on the same state (context) and both paths' one_step
    and rollout times;
-11. the CLI (``phase_cli``): ``python -m hyper_graph_nets_tpu_torch.main``
+11. clustering with a variable cluster count (``phase_cluster``): the same
+   file with ``rmp.clustering: hdbscan`` and its ``hdbscan:`` block at 15
+   blocks, reclustered at two frames (CLUSTER_FRAMES) whose padded cluster
+   counts Kp differ (logged when the trajectory gives one Kp), each
+   followed by ``one_step`` B = 21, a 10-step rollout and 3 train steps
+   (15 K1 a forward, 15 K1 + 15 K2 a step, counted), the mesh plan over
+   N + Kp rows after each, K1 and K2 at those rows against their plain
+   versions, the card against the CPU at B = 2 in float32 (RMP_TOL) and
+   bf16 (RMP_TOL, the cluster tier CLUSTER_TIER_TOL, again with the CPU's
+   expand outputs fed in, and a planted tier fault that must break a
+   limit);
+   then ``kmeans`` and
+   ``gmm`` (16 clusters) at CLUSTER_BLOCKS blocks, one_step and one train
+   step each, held the same way; K, Kp and each recluster's host seconds
+   logged; the pod (``phase_pod``): two processes started with
+   ``--pod-worker``, sharing the card, each a 1 x 2 group joined over
+   ``gloo`` (a 2 x 2 pod), flag_full_scale with RMP off at a global B = 8:
+   one train step each (30 K1 raw + 30 K2), bit for bit between the
+   processes and against the in-process 2 x 2 step (SPMD_TOL; the summed
+   gradients POD_GRAD_TOL), host ms
+   beside it, K1 raw and K2 at a process's shard against their plain
+   versions;
+12. the CLI (``phase_cli``): ``python -m hyper_graph_nets_tpu_torch.main``
    on flag_fused_demo (twice, the second run resuming), flag_full_scale,
    cylinder_demo, plate_demo and plateCluster_demo (bf16 demos, RMP as
    shipped), each config in a process of its own, all started together;
-12. timings, each with the card (with --profile also the device's busy share
+13. timings, each with the card (with --profile also the device's busy share
    and kernel time by name), the kernels' JSON line, then the device JSON
    line last.
 
@@ -4156,6 +4179,57 @@ def _bit_for_bit(tag, runs):
                              "gradients differ)")
 
 
+def rmp_runs(config, state, small, static, normal, hyper, wheres, card_device="cuda"):
+    """The RMP train step's loss and gradients and one_step's accelerations
+    on ``small``'s frames from one state, noise draw and static: ``{where:
+    (loss, gradients, accelerations)}`` on the CPU and at each of ``wheres``
+    on the card: ``card``; ``card cpu_expand``, fed the CPU's expand outputs
+    (a bisection step); ``card tier_drop``, one intra_cluster_to_mesh edge
+    (RMP_TIER_FAULT_EDGE) dropped; ``card tier_cluster_drop``, every such
+    edge of that edge's cluster dropped; ``card <fault>``, a K1 fault of
+    TASK_FAULTS planted."""
+    import torch
+
+    from hyper_graph_nets_tpu_torch.models.get_model import get_model
+    from hyper_graph_nets_tpu_torch.ops import fused_block as fb
+    from hyper_graph_nets_tpu_torch.serving import Predictor
+    from hyper_graph_nets_tpu_torch.training.trainer import Trainer
+
+    model = get_model(config)
+    base = 2 * small["world_pos"] - small["prev|world_pos"]
+    tier_sets = ("intra_cluster_to_cluster", "intra_cluster_to_mesh", "inter_cluster")
+    runs, expanded = {}, {}
+    k1 = fb.fused_edge_block_fwd
+    for where in ("cpu", *wheres):
+        device = "cpu" if where == "cpu" else card_device
+        tr = Trainer(model, config, device=device)
+        topo = model.topology_from_trajectory(small, device=device)
+        st = tuple(x.to(device) for x in static)
+        expand = tr.expansion.expand
+        if where == "cpu":
+            tr.expansion.expand = lambda *a, **kw: _recorded(expand(*a, **kw), expanded, tier_sets)
+        elif where == "card cpu_expand":
+            tr.expansion.expand = lambda *a, **kw: _fed(expand(*a, **kw), expanded, device)
+        elif where == "card tier_drop":
+            st = st[:-1] + (_drop_down_edges(st[-1], [RMP_TIER_FAULT_EDGE]),)
+        elif where == "card tier_cluster_drop":
+            cluster = st[-1].down_senders == st[-1].down_senders[RMP_TIER_FAULT_EDGE]
+            st = st[:-1] + (_drop_down_edges(st[-1], torch.nonzero(cluster).flatten().tolist()),)
+        elif where != "card":
+            plant = TASK_FAULTS[where.split()[1]]
+            fb.fused_edge_block_fwd = lambda *a, plant=plant, **kw: plant(*k1(*a, **kw))
+        try:
+            ts = tr.init_train_state(state=state)
+            loss, _ = tr.loss_and_grads(ts, topo, tr.frames(small), normal=normal.to(device), static=st,
+                                        hyper_normal=hyper.to(device))
+            grads = {n: p.grad.cpu() for n, p in ts.model.params.named_parameters()}
+            pred = Predictor(config, state=state, device=device).one_step(small, static=st)
+        finally:
+            fb.fused_edge_block_fwd = k1
+        runs[where] = (float(loss), grads, pred - base)
+    return runs
+
+
 def rmp_vs_cpu(traj, small, normal, hyper, seed, card_device):
     """The RMP train step's loss and gradients and one_step's accelerations
     on the card against the CPU (``small``: B = CPU_FRAMES frames; the same
@@ -4164,57 +4238,23 @@ def rmp_vs_cpu(traj, small, normal, hyper, seed, card_device):
     (``tier_drop``; in bf16 ``tier_cluster_drop``).  Returns ``(sound,
     faulted)``: ``{"<dtype> <where>": {limit: reading}}``."""
     import numpy as np
-    import torch
 
     from hyper_graph_nets_tpu_torch.models.get_model import get_model
-    from hyper_graph_nets_tpu_torch.ops import fused_block as fb
-    from hyper_graph_nets_tpu_torch.serving import Predictor
     from hyper_graph_nets_tpu_torch.training.trainer import Trainer
 
     frame0 = {k: v[0] for k, v in traj.items()}
-    base = 2 * small["world_pos"] - small["prev|world_pos"]
     in_tier = lambda n: any(tag in n for tag in RMP_TIER)
-    tier_sets = ("intra_cluster_to_cluster", "intra_cluster_to_mesh", "inter_cluster")
     vs_cpu, faults = {}, {}
-    k1 = fb.fused_edge_block_fwd
     for dtype_name in ("bfloat16", "float32"):
         cfg = rmp_config(compute_dtype=None if dtype_name == "float32" else dtype_name)
         cmodel = get_model(cfg)
         check_rmp(cmodel.gnn_config, None if dtype_name == "float32" else dtype_name)
         cstate = rmp_state(cfg, traj, seed + 1)
-        static = None
-        runs = {}
-        expanded = {}  # the CPU's expand outputs
+        topo = cmodel.topology_from_trajectory(small, device="cpu")
+        static = Trainer(cmodel, cfg, device="cpu").expansion.prepare(cmodel, frame0, topo)
         tier_runs = ("card tier_drop", "card cpu_expand" if dtype_name == "float32" else "card tier_cluster_drop")
-        for where in ("cpu", "card", *(f"card {f}" for f in RMP_FAULTS[dtype_name]), *tier_runs):
-            device = "cpu" if where == "cpu" else card_device
-            tr = Trainer(cmodel, cfg, device=device)
-            t = cmodel.topology_from_trajectory(small, device=device)
-            if static is None:
-                static = tr.expansion.prepare(cmodel, frame0, t)
-            st = tuple(s.to(device) for s in static)
-            expand = tr.expansion.expand
-            if where == "cpu":
-                tr.expansion.expand = lambda *a, **kw: _recorded(expand(*a, **kw), expanded, tier_sets)
-            elif where == "card cpu_expand":
-                tr.expansion.expand = lambda *a, **kw: _fed(expand(*a, **kw), expanded, device)
-            elif where == "card tier_drop":
-                st = (_drop_down_edges(st[0], [RMP_TIER_FAULT_EDGE]),) + st[1:]
-            elif where == "card tier_cluster_drop":
-                cluster = st[0].down_senders == st[0].down_senders[RMP_TIER_FAULT_EDGE]
-                st = (_drop_down_edges(st[0], torch.nonzero(cluster).flatten().tolist()),) + st[1:]
-            elif " " in where:
-                plant = TASK_FAULTS[where.split()[1]]
-                fb.fused_edge_block_fwd = lambda *a, plant=plant, **kw: plant(*k1(*a, **kw))
-            try:
-                ts = tr.init_train_state(state=cstate)
-                loss, _ = tr.loss_and_grads(ts, t, tr.frames(small), normal=normal.to(device), static=st,
-                                            hyper_normal=hyper.to(device))
-                grads = {n: p.grad.cpu() for n, p in ts.model.params.named_parameters()}
-                pred = Predictor(cfg, state=cstate, device=device).one_step(small, static=st)
-            finally:
-                fb.fused_edge_block_fwd = k1
-            runs[where] = (float(loss), grads, pred - base)
+        runs = rmp_runs(cfg, cstate, small, static, normal, hyper,
+                        ("card", *(f"card {f}" for f in RMP_FAULTS[dtype_name]), *tier_runs), card_device)
         lc, gc, ac = runs["cpu"]
         for where, (l, g, a) in runs.items():
             if where == "cpu":
@@ -4279,12 +4319,10 @@ def phase_rmp(card, peaks, seed, profile_dir=None):
     from hyper_graph_nets_tpu_torch.serving import Predictor
     from hyper_graph_nets_tpu_torch.training.trainer import Trainer
 
-    try:
-        import sklearn
+    import importlib.util
 
-        log(f"rmp: scikit-learn {sklearn.__version__} imports on this machine; the port does not use it")
-    except ImportError:
-        log("rmp: scikit-learn does not import on this machine; the port does not use it")
+    found = importlib.util.find_spec("sklearn") is not None
+    log(f"rmp: scikit-learn is {'' if found else 'not '}installed on this machine; the port does not use it")
     if torch.are_deterministic_algorithms_enabled():
         raise AssertionError("deterministic algorithms are on before the RMP phase")
 
@@ -5379,6 +5417,474 @@ def phase_int8(card, seed, profile_dir=None):
     return launches, timings
 
 
+# -- clustering with a variable cluster count ------------------------------------------
+
+# The frames the two HDBSCAN reclusterings take on the 40x40 flag: frame 0
+# (flat: K = 10, Kp 16 at seed 0) and frame 5 (K = 40, Kp 64 at seed 0).
+CLUSTER_FRAMES = (0, 5)
+CLUSTER_ROLLOUT_STEPS = 10
+CLUSTER_TRAIN_STEPS = 3
+CLUSTER_BLOCKS = 5  # k-means and the mixture: cut from 15 for the script's time limit
+CLUSTER_K = 16  # k-means' and the mixture's clusters, as the file ships num_clusters
+# The bf16 cluster tier's limit here, card against CPU (RMP_TOL's other
+# limits hold as they are): 0.2.  HDBSCAN's tier reads 0.150 at frame 0 (K
+# 10, 1,232 of 1,600 nodes noise, so 368 members feed the hyper rows) and
+# 0.098 at frame 5, k-means 0.078, the mixture 0.083, past RMP_TOL's 0.12
+# (set by spectral clustering's 0.073 and its cluster fault's 0.182).  The
+# bisection run, the card fed the CPU's expand outputs, reads as much
+# (0.156, 0.104, 0.078, 0.093), so the spread arises in the bf16 network,
+# and it is bf16 rounding's own size: each bf16 side reads 0.079-0.144
+# from the float32 CPU run.  The planted tier fault (``tier_cluster_drop``)
+# reads 0.34 on the tier at HDBSCAN's frame 0 but 0.107-0.176 elsewhere,
+# inside the sound runs' range, so no tier limit separates it; it breaks the
+# accelerations' limit in every case (0.030-0.048 against 0.02; sound
+# 0.0015-0.0034), and the check requires a planted fault to break one
+# limit.  Readings on an NVIDIA H100 80GB HBM3 at 700 W, the same on every
+# run of this code (the train step is bit for bit; PERF.md section 6).
+CLUSTER_TIER_TOL = 0.2
+
+
+def cluster_config(name, blocks=None):
+    """configs/flag_full_scale.yaml with ``rmp.clustering: name`` and every
+    other RMP key (the ``hdbscan:`` block included) as the file ships them;
+    ``blocks`` cuts the depth."""
+    config = rmp_config()
+    rmp = config["params"]["model"]["rmp"]
+    hb = rmp["hdbscan"]
+    if (hb["min_cluster_size"], hb["max_cluster_size"], hb["min_samples"], rmp["num_clusters"]) != (20, 50, 1,
+                                                                                                   CLUSTER_K):
+        raise AssertionError(f"flag_full_scale's rmp block changed: {rmp}")
+    rmp["clustering"] = name
+    if blocks is not None:
+        config["params"]["model"]["message_passing_steps"] = blocks
+    return config
+
+
+def run_errors(run, ref):
+    """``{loss, grad, tier_grad, acceleration, worst}`` of one run of
+    ``rmp_runs`` against another, as ``rmp_vs_cpu`` reads them."""
+    import numpy as np
+
+    (lg, gg, ag), (lc, gc, ac) = run, ref
+    in_tier = lambda n: any(tag in n for tag in RMP_TIER)
+    errs = sorted(((rel_l2(gg[n], gc[n]), n) for n in gc), reverse=True)
+    return dict(loss=abs(lg - lc) / abs(lc), grad=max(e for e, n in errs if not in_tier(n)),
+                tier_grad=max(e for e, n in errs if in_tier(n)),
+                acceleration=float(np.abs(ag - ac).max() / np.abs(ac).max()),
+                worst=[f"{e:.3g} {n}" for e, n in errs[:3]])
+
+
+def phase_cluster(card, peaks, seed):
+    """Remote message passing with the clusterings that copy scikit-learn
+    (``rmp.sk_numpy``) and the JAX package's HDBSCAN (``rmp.hdbscan_tree``)
+    on configs/flag_full_scale.yaml (latent 128, bf16, fused remat): with
+    HDBSCAN and the file's ``hdbscan:`` block at its 15 blocks, two
+    reclusterings (CLUSTER_FRAMES) whose padded cluster counts Kp differ,
+    each followed by ``Predictor.one_step`` on 21 frames, a 10-step
+    rollout and 3 train steps at B = 21 (15 K1 per forward, 15 K1 + 15 K2 a
+    step, counted around each call), the mesh set's plan over N + Kp rows
+    after each, K1 and K2 over those rows against their plain versions, and
+    the card against the CPU at B = 2 from the same state, noise and static
+    (``RMP_TOL``; the bf16 cluster tier ``CLUSTER_TIER_TOL``), again with
+    the CPU's expand outputs fed in, and with a planted tier fault that must
+    break a limit; then k-means and the Gaussian
+    mixture (K = 16) cut to CLUSTER_BLOCKS blocks: one_step and one train
+    step each, held the same way.  K, Kp and the host seconds of each
+    recluster are logged."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from hyper_graph_nets_tpu_torch.data.preprocessing import add_targets
+    from hyper_graph_nets_tpu_torch.data.synthetic import flag_trajectory
+    from hyper_graph_nets_tpu_torch.models.get_model import get_model
+    from hyper_graph_nets_tpu_torch.serving import Predictor
+    from hyper_graph_nets_tpu_torch.training.trainer import Trainer
+
+    traj = add_targets(flag_trajectory(num_steps=max(CLUSTER_FRAMES) + ONE_STEP_FRAMES + 3, nx=40, ny=40, seed=seed),
+                       "world_pos", history=True)
+    window = lambda f, n: {k: v[f : f + n] for k, v in traj.items()}
+    N = 1600
+    launches, timings, rows = dict.fromkeys(read_counts(), 0), {}, {}
+    gen = torch.Generator().manual_seed(seed + 21)
+    readings = {}  # "<case> <dtype> <where>": errors against the CPU
+
+    def counted(tag, fn, want):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expect = dict.fromkeys(counts, 0)
+        expect.update(want)
+        if counts != expect:
+            raise AssertionError(f"cluster {tag}: launches {counts}, want {expect}")
+        for k in launches:
+            launches[k] += counts[k]
+        return out
+
+    def held(tag, config, state, frame, static):
+        """The card against the CPU at B = CPU_FRAMES in float32 and in bf16
+        (the path's type), and in bf16 the bisection and tier-fault runs of
+        ``rmp_runs`` and each bf16 side against the float32 CPU run (the
+        rounding's own size, logged); every reading goes to ``readings``."""
+        small = window(frame, CPU_FRAMES)
+        shape = (CPU_FRAMES, static[-1].num_clusters, small["world_pos"].shape[-1] + small["mesh_pos"].shape[-1])
+        normal, hyper = torch.randn(small["world_pos"].shape, generator=gen), torch.randn(shape, generator=gen)
+        out = {}
+        for dtype_name in ("float32", "bfloat16"):
+            cfg = copy.deepcopy(config)
+            cfg["params"]["model"]["compute_dtype"] = None if dtype_name == "float32" else dtype_name
+            wheres = ("card",) if dtype_name == "float32" else ("card", "card cpu_expand", "card tier_cluster_drop")
+            runs = rmp_runs(cfg, state, small, static, normal, hyper, wheres)
+            pairs = [(where, "cpu") for where in wheres]
+            if dtype_name == "bfloat16":
+                pairs += [("cpu", "float32 cpu"), ("card", "float32 cpu")]
+                runs["float32 cpu"] = float32_cpu
+            else:
+                float32_cpu = runs["cpu"]
+            for where, ref in pairs:
+                errs = run_errors(runs[where], runs[ref])
+                log(f"cluster {tag} {dtype_name} {where} vs {ref}, B={CPU_FRAMES}: loss rel {errs['loss']:.3g}, "
+                    f"gradients {errs['grad']:.3g}, cluster tier {errs['tier_grad']:.3g}, accelerations "
+                    f"{errs['acceleration']:.3g} (worst {errs['worst']})")
+                key = f"{dtype_name} {where}" if ref == "cpu" else f"{dtype_name} {where} vs float32 cpu"
+                out[key] = readings[f"{tag} {key}"] = errs
+        return out
+
+    def run(name, blocks, frames, train_steps, rollout_steps):
+        config = cluster_config(name, blocks)
+        model = get_model(config)
+        cfg = model.gnn_config
+        if (cfg.latent_size, cfg.message_passing_steps, cfg.agg_vjp, cfg.compute_dtype) != (
+                L_MAIN, blocks, "fused", "bfloat16"):
+            raise AssertionError(f"{name}: not latent 128, {blocks} blocks, fused, bf16: {cfg}")
+        state = rmp_state(config, traj, seed + 1)
+        predictor = Predictor(config, state=state)
+        trainer = Trainer(predictor.model, config)
+        exp = predictor.expansion
+        rmp = exp.members[-1]
+        out = {}
+        for f in frames:
+            sub = window(f, ONE_STEP_FRAMES)
+            topo = predictor._topology(sub)
+            t0 = time.perf_counter()
+            exp.reset(0, ONE_STEP_FRAMES)
+            static = exp.prepare(predictor.model, {k: v[0] for k, v in sub.items()}, topo)
+            torch.cuda.synchronize()
+            host_s = time.perf_counter() - t0
+            K, Kp = rmp._last_clustering.num_clusters, static[-1].num_clusters
+            plan = static[-1].mesh_plan
+            if plan is None or plan.num_nodes != N + Kp:
+                raise AssertionError(f"{name} frame {f}: the mesh plan covers "
+                                     f"{None if plan is None else plan.num_nodes} rows, want {N + Kp}")
+            noise = int((rmp._last_clustering.labels < 0).sum())
+            log(f"cluster {name} frame {f}: K = {K}, Kp = {Kp}, {noise} noise nodes; recluster (prepare) "
+                f"{host_s:.3f} s on the host")
+            tag = f"{name} frame {f}"
+            pred = counted(f"{tag} one_step", lambda: predictor.one_step(sub, static=static), {"K1": blocks})
+            if not np.isfinite(pred).all() or pred.shape != sub["world_pos"].shape:
+                raise AssertionError(f"{tag}: one_step {pred.shape}, finite {np.isfinite(pred).all()}")
+            if rollout_steps:
+                roll = counted(f"{tag} rollout", lambda: predictor.rollout(sub, num_steps=rollout_steps,
+                                                                           static=static),
+                               {"K1": blocks * rollout_steps})
+                if not np.isfinite(roll["pred_pos"]).all():
+                    raise AssertionError(f"{tag}: the rollout is not finite")
+            tstate = trainer.init_train_state(state=state)
+            frames_b = trainer.frames(sub)
+            losses = []
+            step_ms = []
+            for _ in range(train_steps):
+                t0 = time.perf_counter()
+                tstate, loss = counted(f"{tag} train step", lambda: trainer.train_step(
+                    tstate, topo, frames_b, generator=torch.Generator("cuda").manual_seed(seed), static=static),
+                    {"K1": blocks, "K2": blocks})
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+                losses.append(float(loss))
+            if not np.isfinite(losses).all():
+                raise AssertionError(f"{tag}: train losses {losses}")
+            log(f"cluster {tag}: one_step, {rollout_steps}-step rollout and {train_steps} train steps at "
+                f"B={ONE_STEP_FRAMES} (losses {', '.join(f'{x:.5f}' for x in losses)}; host ms a step "
+                f"{', '.join(f'{x:.1f}' for x in step_ms)}) [{card}]")
+            errs = held(tag, config, state, f, static)
+            out[f] = dict(K=K, Kp=Kp, noise_nodes=noise, recluster_host_s=host_s, train_losses=losses,
+                          train_step_host_ms=step_ms, vs_cpu=errs, static=static, topo=topo)
+        return out
+
+    hdb = run("hdbscan", 15, CLUSTER_FRAMES, CLUSTER_TRAIN_STEPS, CLUSTER_ROLLOUT_STEPS)
+    kps = [hdb[f]["Kp"] for f in CLUSTER_FRAMES]
+    if len(set(kps)) == 1:
+        log(f"cluster hdbscan: the trajectory gave one Kp ({kps[0]}) at frames {CLUSTER_FRAMES}; no change of Kp "
+            "between the reclusterings was driven")
+    snd, rcv = (hdb[CLUSTER_FRAMES[0]]["topo"].senders.cpu().numpy(),
+                hdb[CLUSTER_FRAMES[0]]["topo"].receivers.cpu().numpy())
+    for f in CLUSTER_FRAMES:
+        Kp = hdb[f]["Kp"]
+        if f"rows={N + Kp}" in rows:
+            continue
+        rows[f"rows={N + Kp}"] = planned_kernels(card, peaks, hdb[f]["static"][-1].mesh_plan, snd, rcv, N + Kp,
+                                                 TRAIN_FRAMES, "bfloat16", seed + 31 + f, f"HDBSCAN Kp={Kp}")
+    for f in CLUSTER_FRAMES:
+        hdb[f].pop("static")
+        hdb[f].pop("topo")
+    timings["hdbscan"] = hdb
+    for name in ("kmeans", "gmm"):
+        res = run(name, CLUSTER_BLOCKS, CLUSTER_FRAMES[:1], 1, 0)
+        for r in res.values():
+            r.pop("static")
+            r.pop("topo")
+        timings[name] = res
+
+    # the limits, after every reading is logged: sound runs within RMP_TOL
+    # (in bf16 the cluster tier within CLUSTER_TIER_TOL), the planted tier
+    # fault past one of them
+    failed = []
+    for key, errs in readings.items():
+        if key.endswith("vs float32 cpu"):
+            continue
+        tol = dict(RMP_TOL[key.split()[3]])
+        if key.split()[3] == "bfloat16":
+            tol["tier_grad"] = CLUSTER_TIER_TOL
+        if key.endswith("tier_cluster_drop"):
+            if not any(errs[k] > tol[k] for k in tol):
+                failed.append(f"{key}: the planted tier fault passed the card-vs-CPU check {tol}: {errs}")
+        elif any(errs[k] > tol[k] for k in tol):
+            failed.append(f"{key}: card vs CPU {errs} past {tol}")
+    if failed:
+        raise AssertionError("cluster: " + "; ".join(failed))
+    timings["readings"] = readings
+    return launches, timings, rows
+
+
+# -- the pod: two processes on one card --------------------------------------------------
+
+POD_PROCESSES = 2
+POD_GRAPH = 2  # each process a 1 x 2 group: the pod is 2 x 2
+POD_FRAMES = 8  # the global batch
+POD_TIMEOUT_S = 240  # each worker's limit
+# Each parameter's gradient, summed over the pod before Adam, against the
+# in-process step's: relative L2.  Adam's first update is about lr x the
+# gradient's sign, so the updates (read 3.29e-6, NVIDIA H100 80GB HBM3,
+# 700 W; PERF.md section 6) would not see gradients off by a common factor
+# (one process's part lost); the gradients are held as well.  The same
+# partials summed in another order: float32 rounding (the CPU test reads
+# 6.9e-8 and holds 1e-6), so 1e-5.
+POD_GRAD_TOL = 1e-5
+
+
+def pod_case(seed):
+    """What the pod and the in-process step start from: the config
+    (flag_full_scale, RMP off, noise 0.003, gamma 0.9, lr 1e-4), a seeded
+    state whose normalizers have seen the trajectory, the trajectory, the
+    POD_FRAMES frames and a global noise draw (CPU tensors)."""
+    import torch
+
+    from hyper_graph_nets_tpu_torch.data.preprocessing import add_targets
+    from hyper_graph_nets_tpu_torch.data.synthetic import flag_trajectory
+    from hyper_graph_nets_tpu_torch.models.get_model import get_model
+
+    config = main_config(noise=0.003, gamma=0.9, learning_rate=1e-4)
+    traj = add_targets(flag_trajectory(num_steps=POD_FRAMES + 2, nx=40, ny=40, seed=seed), "world_pos",
+                       history=True)
+    model = get_model(config)
+    state = model.init_state(torch.Generator().manual_seed(seed))
+    every = {k: torch.as_tensor(v) for k, v in traj.items() if k != "cells"}
+    with torch.no_grad():
+        topo = model.topology_from_trajectory(traj, device="cpu")
+        _, _, state = model.make_graph(state, topo, every, True)
+        _, state = model.get_target(state, every, True)
+    frames = {k: v[:POD_FRAMES].numpy() for k, v in every.items()}
+    normal = torch.randn(frames["world_pos"].shape, generator=torch.Generator().manual_seed(seed + 41))
+    return dict(config=config, traj=traj, frames=frames, normal=normal,
+                params={n: p.detach().clone() for n, p in state.params.named_parameters()},
+                normalizers=state.normalizers)
+
+
+def _pod_state(trainer, case):
+    """A train state of ``case``'s parameters and normalizers."""
+    import torch
+
+    model = trainer.model
+    state = model.init_state(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for n, p in state.params.named_parameters():
+            p.copy_(case["params"][n])
+    return trainer.init_train_state(state=state.replace(normalizers=case["normalizers"]))
+
+
+def pod_worker(rank, world, port, src, dst):
+    """One process of the pod (``--pod-worker``): a ``gloo`` group over TCP,
+    a ``1 x POD_GRAPH`` share of the pod on the card, its half of the
+    global batch, one counted train step (K1 raw + K2 per shard) and one
+    timed step; saves its loss, parameters, launches and step ms."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from hyper_graph_nets_tpu_torch.models.get_model import get_model
+    from hyper_graph_nets_tpu_torch.parallel import multihost
+    from hyper_graph_nets_tpu_torch.parallel.sharding import make_spmd_train_step, shard_topology
+    from hyper_graph_nets_tpu_torch.runtime import configure_numerics
+    from hyper_graph_nets_tpu_torch.training.trainer import Trainer
+
+    configure_numerics()
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank,
+                            timeout=timedelta(seconds=POD_TIMEOUT_S))
+    try:
+        case = torch.load(src, weights_only=False)
+        model = get_model(case["config"])
+        trainer = Trainer(model, case["config"])
+        group = multihost.make_pod_group(graph_per_host=POD_GRAPH)
+        if (group.shape, group.data_size, group.process) != ({"data": 1, "graph": POD_GRAPH}, world, rank):
+            raise AssertionError(f"pod group {group.shape}, data {group.data_size}, process {group.process}")
+        topo = model.topology_from_trajectory(case["traj"], device="cuda")
+        step = make_spmd_train_step(trainer, shard_topology(topo, group), group)
+        b = POD_FRAMES // world
+        batch = multihost.host_local_batch_to_global(
+            {k: v[rank * b : (rank + 1) * b] for k, v in case["frames"].items()}, group)
+        tstate = _pod_state(trainer, case)
+        reset_counts()
+        tstate, loss = step(tstate, batch, normal=case["normal"])
+        group.check()
+        counts = read_counts()
+        params = {n: p.detach().cpu() for n, p in tstate.model.params.named_parameters()}
+        grads = {n: p.grad.cpu() for n, p in tstate.model.params.named_parameters()}
+        tstate = _pod_state(trainer, case)
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(tstate, batch, normal=case["normal"])
+        group.check()
+        ms = 1e3 * (time.perf_counter() - t0)
+        torch.save(dict(loss=loss.cpu(), params=params, grads=grads, counts=counts, ms=ms), dst)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_pod(card, peaks, seed):
+    """The pod step (``parallel.multihost``) in POD_PROCESSES processes that
+    share the card, each a ``1 x POD_GRAPH`` group joined over ``gloo``
+    (the pod is 2 x 2): flag_full_scale with RMP off (fused bf16, 15
+    blocks, latent 128) at a global B = POD_FRAMES, each process running K1
+    raw and K2 per shard (15 x 2 of each a step, counted in each process).
+    One step against the in-process ``RankGroup(2, 2)`` step on the card on
+    the same global frames, noise and state (loss and every parameter's
+    Adam update within ``SPMD_TOL``, every summed gradient within
+    ``POD_GRAD_TOL``), the two processes' gradients and parameters equal
+    bit for bit, and the pod step's host ms beside the in-process step's.
+    K1 raw and K2 at a process's shard against their plain versions."""
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+    from hyper_graph_nets_tpu_torch.parallel.sharding import make_spmd_train_step, shard_topology
+    from hyper_graph_nets_tpu_torch.models.get_model import get_model
+    from hyper_graph_nets_tpu_torch.training.trainer import Trainer
+
+    case = pod_case(seed)
+    model = get_model(case["config"])
+    check_mgn15(model.gnn_config)
+    blocks = model.gnn_config.message_passing_steps
+    trainer = Trainer(model, case["config"])
+    topo = model.topology_from_trajectory(case["traj"], device="cuda")
+    group = RankGroup(POD_PROCESSES, POD_GRAPH, devices=["cuda:0"] * (POD_PROCESSES * POD_GRAPH))
+    stopo = shard_topology(topo, group)
+    step = make_spmd_train_step(trainer, stopo, group)
+    frames = trainer.frames(case["frames"])
+    tstate = _pod_state(trainer, case)
+    before = {n: p.detach().clone() for n, p in tstate.model.params.named_parameters()}
+    tstate, ref_loss = step(tstate, frames, normal=case["normal"])
+    group.check()
+    ref = {n: p.detach().clone() for n, p in tstate.model.params.named_parameters()}
+    ref_grads = {n: p.grad.cpu() for n, p in tstate.model.params.named_parameters()}
+    tstate = _pod_state(trainer, case)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(tstate, frames, normal=case["normal"])
+    group.check()
+    ref_ms = 1e3 * (time.perf_counter() - t0)
+
+    # the workers share the card with this process: hand back its unused cache first
+    del group, stopo, step
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "case.pt")
+        torch.save(case, src)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        outs = [os.path.join(tmp, f"out{r}.pt") for r in range(POD_PROCESSES)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--pod-worker", str(r),
+                                   str(POD_PROCESSES), str(port), src, outs[r]],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(POD_PROCESSES)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=POD_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall_s = time.perf_counter() - t0
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"pod worker {r} exited {p.returncode}:\n{text[-4000:]}")
+        results = [torch.load(o, weights_only=False) for o in outs]
+
+    want = dict.fromkeys(read_counts(), 0)
+    want.update(K1=blocks * POD_GRAPH, K2=blocks * POD_GRAPH)
+    launches = dict.fromkeys(want, 0)
+    for r, res in enumerate(results):
+        if res["counts"] != want:
+            raise AssertionError(f"pod process {r}: launches {res['counts']}, want {want}")
+        for k in launches:
+            launches[k] += res["counts"][k]
+    p0, p1 = results
+    same = torch.equal(p0["loss"], p1["loss"]) and all(torch.equal(p0[k][n], p1[k][n])
+                                                       for k in ("params", "grads") for n in p0[k])
+    if not same:
+        raise AssertionError("pod: the two processes' loss, gradients or parameters differ")
+    loss_tol, grad_tol = SPMD_TOL["bfloat16"]
+    loss_err = abs(float(p0["loss"]) - float(ref_loss)) / abs(float(ref_loss))
+    update = lambda params, n: params[n].float().cpu() - before[n].float().cpu()
+    worst = max((rel_l2(update(p0["params"], n), update(ref, n)), n) for n in ref)
+    worst_grad = max((rel_l2(p0["grads"][n], ref_grads[n]), n) for n in ref_grads)
+    log(f"pod {POD_PROCESSES} x (1 x {POD_GRAPH}) vs in-process {POD_PROCESSES} x {POD_GRAPH}, global B={POD_FRAMES}: "
+        f"loss {float(p0['loss']):.6f} / {float(ref_loss):.6f} (rel {loss_err:.3g}); worst Adam update rel L2 "
+        f"{worst[0]:.3g} ({worst[1]}); limits {SPMD_TOL['bfloat16']}; worst summed gradient rel L2 "
+        f"{worst_grad[0]:.3g} ({worst_grad[1]}; limit {POD_GRAD_TOL}); the processes' gradients and parameters "
+        f"bit for bit; "
+        f"step host ms {p0['ms']:.1f} / {p1['ms']:.1f} (processes) vs {ref_ms:.1f} (in-process); workers "
+        f"{wall_s:.1f} s from start to exit [{card}]")
+    if not (np.isfinite(float(p0["loss"])) and loss_err <= loss_tol and worst[0] <= grad_tol
+            and worst_grad[0] <= POD_GRAD_TOL):
+        raise AssertionError(f"pod vs in-process: loss rel {loss_err:.3g}, worst update {worst}, worst gradient "
+                             f"{worst_grad}, limits {SPMD_TOL['bfloat16']}, gradients {POD_GRAD_TOL}")
+    # one process's shard: B = POD_FRAMES / POD_PROCESSES frames on a 1 x POD_GRAPH layout
+    one = RankGroup(1, POD_GRAPH, devices=["cuda:0"] * POD_GRAPH)
+    ptopo = shard_topology(topo, one)
+    sl = ptopo.layout.shard(0)
+    snd, rcv = ptopo.senders.cpu().numpy()[sl], ptopo.receivers.cpu().numpy()[sl]
+    mask = ptopo.mask.cpu().numpy()[sl]
+    rows, _ = shard_kernel_rows("pod shard", peaks, torch.Generator(device="cuda").manual_seed(seed + 43),
+                                snd, rcv, mask, ptopo.plan.plans[0], 1600, POD_FRAMES // POD_PROCESSES,
+                                seed + 43)
+    timings = dict(loss=float(p0["loss"]), ref_loss=float(ref_loss), loss_rel_err=loss_err,
+                   worst_update_rel_l2=worst[0], worst_update=worst[1], worst_grad_rel_l2=worst_grad[0],
+                   worst_grad=worst_grad[1], pod_step_host_ms=[p0["ms"], p1["ms"]],
+                   in_process_step_host_ms=ref_ms, workers_wall_s=wall_s)
+    return launches, timings, rows
+
+
 PHASE_SECONDS = []  # (phase, seconds) in run order, for --out
 
 
@@ -5442,6 +5948,8 @@ def main(argv=None) -> int:
         "backward with torch.profiler (device busy share, kernel time by name; "
         "Chrome traces into DIR)",
     )
+    ap.add_argument("--pod-worker", nargs=5, metavar=("RANK", "WORLD", "PORT", "IN", "OUT"),
+                    help=argparse.SUPPRESS)  # one process of phase_pod's pod (started by the script)
     args = ap.parse_args(argv)
 
     import torch
@@ -5453,6 +5961,10 @@ def main(argv=None) -> int:
         print("chip_smoke: the port's package is not beside this file", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if args.pod_worker:
+        rank, world, port, src, dst = args.pod_worker
+        pod_worker(int(rank), int(world), int(port), src, dst)
+        return 0
     from hyper_graph_nets_tpu_torch.core.mesh import cells_to_edges
     from hyper_graph_nets_tpu_torch.data.synthetic import _grid_triangulation
     from hyper_graph_nets_tpu_torch.ops import build
@@ -5513,12 +6025,15 @@ def main(argv=None) -> int:
     }
     hgn_launches, hgn_timings = timed(phase_hgn, card, peaks, args.seed, args.profile)
     int8_launches, int8_timings = timed(phase_int8, card, args.seed, args.profile)
+    cluster_launches, cluster_timings, cluster_rows = timed(phase_cluster, card, peaks, args.seed)
+    pod_launches, pod_timings, pod_rows = timed(phase_pod, card, peaks, args.seed)
     cli_timings = timed(phase_cli, card)
     launches = {
         k: serve_launches[k] + halo_launches[k] + spmd_launches[k] + spmd_rmp_launches[k] + spmd_models_launches[k]
         + spmd_arch_launches[k] + hybrid_launches[k] + train_launches[k]
         + task_launches[k] + rmp_launches[k]
         + sum(run[0][k] for run in model_runs.values()) + hgn_launches[k] + int8_launches[k]
+        + cluster_launches[k] + pod_launches[k]
         for k in serve_launches
     }
 
@@ -5652,6 +6167,25 @@ def main(argv=None) -> int:
              unwon_extrema_tie_tol_0=hybrid_rows[name]["unwon_extrema_exact"])
         for name, label in (("flag", "flag bf16"), ("cylinder", "cylinder float32"))
     ]
+    # RMP with HDBSCAN's padded cluster count: launches from phase_cluster's main paths only
+    kp_rows = sorted(cluster_rows, key=lambda t: int(t.split("=")[1]))
+    kernels += [
+        dict(entry(f"{name} over N + Kp rows, HDBSCAN ({k})", src, pallas, cluster_launches[k],
+                   cluster_rows[kp_rows[-1]][k]),
+             shape=f"bf16 B={TRAIN_FRAMES} E=9282 {kp_rows[-1]}",
+             shapes={f"bf16 B={TRAIN_FRAMES} E=9282 {t}": row(cluster_rows[t][k]) for t in kp_rows})
+        for name, src, pallas, k in (("fused_edge_block_fwd", "fused_block_fwd.cu", "fused_block.py:393", "K1"),
+                                     ("fused_edge_block_bwd remat", "fused_block_bwd.cu", "fused_block.py:1008",
+                                      "K2"))
+    ]
+    # the pod step: launches from the pod's processes' main paths only
+    kernels += [
+        dict(entry("fused_edge_block_fwd raw, pod step in two processes (K1)", "fused_block_fwd.cu",
+                   "fused_block.py:393", pod_launches["K1"], pod_rows["K1 raw"]), shape=pod_rows["K1 raw"]["shape"]),
+        dict(entry("fused_edge_block_bwd remat at the global degree, pod step in two processes (K2)",
+                   "fused_block_bwd.cu", "fused_block.py:1008", pod_launches["K2"], pod_rows["K2"]),
+             shape=pod_rows["K2"]["shape"]),
+    ]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -5692,6 +6226,8 @@ def main(argv=None) -> int:
                        for name, run in model_runs.items()},
                     "hgn_plate": {"launches": hgn_launches, "timings": hgn_timings, "kernels": hgn_kernels},
                     "int8": {"launches": int8_launches, "timings": int8_timings},
+                    "cluster": {"launches": cluster_launches, "timings": cluster_timings, "kernels": cluster_rows},
+                    "pod": {"launches": pod_launches, "timings": pod_timings, "kernels": pod_rows},
                     "cli_s": cli_timings,
                     "phase_seconds": PHASE_SECONDS,
                     "kernels": kernels,

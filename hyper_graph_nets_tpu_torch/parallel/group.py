@@ -28,6 +28,17 @@ it, and a ring's "remote" writes land in the same memory.  ``device="cpu"``
 puts every rank on the CPU, where the kernels' plain versions run (the
 tests).  Without a card and without ``device="cpu"`` it raises.
 
+A pod (``parallel.multihost.make_pod_group``) is a rank group in each of
+several processes joined by a ``torch.distributed`` process group: the
+``data`` axis continues across the processes (process p holds global data
+rows ``p * data .. (p + 1) * data - 1``), the ``graph`` axis stays inside
+each one, as the JAX package keeps ``graph`` on each host's own chips.  An
+all-reduce along ``data`` first combines the process's own ranks in rank
+order, then the processes' results through the host: CPU tensors gathered
+over the process group and combined in process order, so that every
+process holds the same bits.  Collectives along ``graph`` and the ring
+kernels never leave the process.
+
 The ring kernels need state that outlives a call: each rank's comm slots and
 flags (allocated once per ring kind and kept, never reset: each
 call passes the next epoch) and a page-locked error word their bounded
@@ -78,6 +89,7 @@ class RankGroup:
         graph: Optional[int] = None,
         devices: Optional[Sequence[Union[str, torch.device]]] = None,
         device: Optional[Union[str, torch.device]] = None,
+        process_group=None,
     ):
         data, graph = (1, n) if graph is None else (n, graph)
         if data < 1 or graph < 1:
@@ -108,6 +120,14 @@ class RankGroup:
         self.is_cuda = self.devices[0].type == "cuda"
         self.streams = [torch.cuda.Stream(d) for d in self.devices] if self.is_cuda else [None] * n
         self.epoch = 0
+        # the pod's processes (1 and 0 outside a pod)
+        self.process_group = process_group
+        self.processes, self.process = 1, 0
+        if process_group is not None:
+            import torch.distributed as dist
+
+            self.processes = dist.get_world_size(process_group)
+            self.process = dist.get_rank(process_group)
         self._local = threading.local()
         self._cv = threading.Condition()
         self._turn, self._failed = 0, False
@@ -131,6 +151,11 @@ class RankGroup:
 
     def rank_at(self, data: int, graph: int) -> int:
         return data * self.shape["graph"] + graph
+
+    @property
+    def data_size(self) -> int:
+        """The ``data`` axis over every process of the pod."""
+        return self.processes * self.shape["data"]
 
     def axis_index(self, rank: int, axis: str = "graph") -> int:
         """The rank's coordinate on ``axis`` (JAX's ``axis_index``)."""
@@ -280,12 +305,50 @@ class RankGroup:
 
     def reduce_plain(self, xs: Sequence[torch.Tensor], op: str, axis: str = "graph") -> list:
         """:meth:`all_reduce_plain` on the list of every rank's tensor (each
-        ready on its rank's stream); one result per rank, on its device."""
+        ready on its rank's stream); one result per rank, on its device.
+        Along ``data`` in a pod, the processes' results are combined next
+        (:meth:`fold_processes`; no gradient flows through that step)."""
+        groups = self.subgroups(axis)
+        folded = [self._fold([xs[r] for r in ranks], op, ranks) for ranks in groups]
+        if axis == "data" and self.processes > 1:
+            total = self.fold_processes(torch.stack([self._to_host(f[0], ranks[0])
+                                                     for f, ranks in zip(folded, groups)]), op)
+            folded = [[self._to_rank(total[i], r) for r in ranks] for i, ranks in enumerate(groups)]
         outs: List[object] = [None] * self.n
-        for ranks in self.subgroups(axis):
-            for r, out in zip(ranks, self._fold([xs[r] for r in ranks], op, ranks)):
+        for ranks, results in zip(groups, folded):
+            for r, out in zip(ranks, results):
                 outs[r] = out
         return outs
+
+    def fold_processes(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """Sum, max or min of a CPU tensor over the pod's processes: each
+        process's ``x`` gathered over the process group and folded in
+        process order, the same bits in every process (``x`` itself
+        outside a pod)."""
+        if self.processes == 1:
+            return x
+        import torch.distributed as dist
+
+        parts = [torch.empty_like(x) for _ in range(self.processes)]
+        dist.all_gather(parts, x.contiguous(), group=self.process_group)
+        fold = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}[op]
+        acc = parts[0]
+        for part in parts[1:]:
+            acc = fold(acc, part)
+        return acc
+
+    def _to_host(self, x: torch.Tensor, rank: int) -> torch.Tensor:
+        """``x`` (ready on ``rank``'s stream) on the CPU."""
+        if not self.is_cuda:
+            return x.detach()
+        with torch.cuda.device(self.devices[rank]), torch.cuda.stream(self.streams[rank]):
+            return x.detach().cpu()
+
+    def _to_rank(self, x: torch.Tensor, rank: int) -> torch.Tensor:
+        if not self.is_cuda:
+            return x
+        with torch.cuda.device(self.devices[rank]), torch.cuda.stream(self.streams[rank]):
+            return x.to(self.devices[rank])
 
     def _fold(self, xs: Sequence[torch.Tensor], op: str, ranks: Sequence[int]) -> list:
         fold = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}[op]

@@ -74,8 +74,19 @@ slot (:class:`EdgeLayout` along the last axis), each rank's fixed-order
 sums built on its slice (``EdgeSums.per_frame``, over the set's node rows:
 ``N``, or ``N + K`` after RMP); the balancer's ``balance`` set beside it
 is padded to a multiple of ``graph`` as on flag.  A group over several
-devices (entry 7.3) and ``parallel/multihost.py``'s processes (7.4) are not
-ported yet (ROADMAP queue 1, item 7).
+devices (entry 7.3) is not ported yet (ROADMAP queue 1, item 7).
+
+In a pod (``parallel.multihost``: one group in each of several processes,
+``data`` across them) each process hands the step its own ``[B_local,
+...]`` frames, rows ``B_local * group.process ..`` of the global batch of
+``B_local * group.processes``: the step slices the global noise draws
+(drawn whole in every process from a generator seeded alike) at those rows,
+sums the normalizers' partials and the loss
+mask's count over the pod's whole ``data`` axis (``RankGroup.
+all_reduce_plain``), and sums each parameter's gradient over the processes
+in process order before Adam (``RankGroup.fold_processes``), so every
+process holds the same parameters bit for bit; the loss is the global
+loss.  :func:`make_sharded_forward` returns the process's rows.
 """
 from __future__ import annotations
 
@@ -569,11 +580,13 @@ class _Sharded:
             raise RuntimeError("the expansion has no static: run expansion.prepare(model, frame0, topo) first")
         return shard_static(self.expansion, static, self.topo, self.group)
 
-    def hyper_normals(self, frames, sstatic, hyper_normal, generator, rank_frames) -> List[Optional[torch.Tensor]]:
+    def hyper_normals(self, frames, sstatic, hyper_normal, generator, rank_frames, global_size,
+                      offset) -> List[Optional[torch.Tensor]]:
         """Each rank's slice of RMP's cluster-mean noise: the global
         ``[B, K, D]`` draw (drawn from ``generator`` after the field's, as
-        the single-device step draws it, when not given), sliced as the
-        frames are."""
+        the single-device step draws it, when not given), cut to this
+        process's rows ``offset ..`` of the ``global_size`` (a pod's) and
+        sliced as the frames are."""
         if self.expansion is None:
             return [None] * self.group.n
         shape = self.expansion.hyper_noise_shape(self.model, frames, sstatic.members)
@@ -581,7 +594,9 @@ class _Sharded:
             return [None] * self.group.n
         x = frames[self.model.field]
         if hyper_normal is None:
+            shape = (global_size,) + tuple(shape[1:])
             hyper_normal = torch.randn(shape, generator=generator, device=x.device, dtype=torch.float32)
+        hyper_normal = hyper_normal[offset : offset + x.shape[0]]
         b = x.shape[0] // self.group.shape["data"]
         return [hyper_normal[d * b : (d + 1) * b].to(fr[self.model.field].device)
                 for d, fr in ((self.group.axis_index(r, "data"), rank_frames[r]) for r in range(self.group.n))]
@@ -592,7 +607,9 @@ class SpmdTrainStep(_Sharded):
     ``step(tstate, frames, normal=None, generator=None, static=None,
     hyper_normal=None) -> (tstate, loss)``, and :meth:`loss_and_grads`, its
     loss and backward without the update (``Trainer.train_step``'s
-    arguments).  ``frames`` is the global ``[B, ...]`` batch on any device;
+    arguments).  ``frames`` is the global ``[B, ...]`` batch on any device
+    (in a pod: this process's ``[B_local, ...]`` rows, ``B_local *
+    group.process ..`` of the global batch);
     ``normal`` the global standard-normal draw ``[B, N, D]`` and
     ``hyper_normal`` RMP's ``[B, K, D]`` (each drawn from ``generator`` on
     the trainer's device when omitted, the field's first), sliced per data
@@ -609,14 +626,18 @@ class SpmdTrainStep(_Sharded):
         self.trainer = trainer
         self.topo = _device_topologies(topo, group)[group.device(0)]
 
-    def _noisy_frames(self, frames, normal, generator):
+    def _noisy_frames(self, frames, normal, generator, global_size, offset):
+        """The field's training noise: the global ``[B, N, D]`` draw (from
+        ``generator`` when not given) at this process's rows."""
         model = self.model
         if model.noise_scale is None:
             return frames
         x = frames[model.field]
         if normal is None:
-            normal = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
-        return add_noise(frames, model.field, model.noise_scale, model.noise_gamma, normal.to(x.device))
+            shape = (global_size,) + tuple(x.shape[1:])
+            normal = torch.randn(shape, generator=generator, device=x.device, dtype=x.dtype)
+        normal = normal[offset : offset + x.shape[0]].to(x.device)
+        return add_noise(frames, model.field, model.noise_scale, model.noise_gamma, normal)
 
     def loss_and_grads(self, tstate, frames, normal=None, generator=None, static=None, hyper_normal=None):
         """Noise, loss and backward of one step: returns the loss and the new
@@ -625,12 +646,14 @@ class SpmdTrainStep(_Sharded):
         group, model = self.group, self.model
         params = tstate.model.params
         params.zero_grad(set_to_none=True)
-        frames = self._noisy_frames(frames, normal, generator)
+        b = frames[model.field].shape[0]
+        global_size, offset = b * group.processes, b * group.process
+        frames = self._noisy_frames(frames, normal, generator, global_size, offset)
         rank_frames = shard_frames(frames, group)
         sstatic = self.laid_out(static)
         topo = self.topo if sstatic is None else sstatic.topo
         members = None if sstatic is None else sstatic.members
-        hyper = self.hyper_normals(frames, sstatic, hyper_normal, generator, rank_frames)
+        hyper = self.hyper_normals(frames, sstatic, hyper_normal, generator, rank_frames, global_size, offset)
 
         def rank_fn(r):
             mstate = ModelState(params=params, normalizers=tstate.model.normalizers)
@@ -647,7 +670,22 @@ class SpmdTrainStep(_Sharded):
         loss = firsts[0].detach()
         for x in firsts[1:]:
             loss = loss + x.detach()
+        if group.processes > 1:
+            loss = self._sum_over_processes(params, loss)
         return loss, results[0][1]
+
+    def _sum_over_processes(self, params, loss):
+        """Each gradient (and the loss) summed over the pod's processes in
+        process order, through the host, and put back in place."""
+        group = self.group
+        grads = [p.grad for p in params.parameters() if p.grad is not None]
+        flat = torch.cat([loss.reshape(1).cpu()] + [g.reshape(-1).cpu() for g in grads])
+        flat = group.fold_processes(flat, "sum")
+        at = 1
+        for g in grads:
+            g.copy_(flat[at : at + g.numel()].view_as(g))
+            at += g.numel()
+        return flat[0].to(loss.device)
 
     def __call__(self, tstate, frames, normal=None, generator=None, static=None, hyper_normal=None):
         loss, normalizers = self.loss_and_grads(tstate, frames, normal, generator, static, hyper_normal)
@@ -676,7 +714,7 @@ def make_sharded_forward(model, topo: Topology, group, expansion=None):
     ranks' edge shards, with the expansion (a model configured with one
     needs it) and its static as the step takes them; the outputs of every
     data row's first graph rank, concatenated in data order, on the state's
-    device."""
+    device (in a pod, given this process's rows: their outputs)."""
     sharded = _Sharded(model, topo, group, expansion)
     topos = _device_topologies(topo, group)
 

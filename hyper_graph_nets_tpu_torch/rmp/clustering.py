@@ -16,11 +16,16 @@ Counterpart of ``hyper_graph_nets_tpu/rmp/clustering.py``:
   unit diagonal, ARPACK in shift-invert mode at sigma = -1e-5 from a
   ``RandomState(0)`` start vector, division by the degree roots, the sign
   flip, then a pivoted QR and an SVD), in float64, so it gives the same
-  labels node for node without scikit-learn installed.
-
-k-means, the Gaussian mixture and HDBSCAN need copies of scikit-learn's
-algorithms (and HDBSCAN the JAX package's condensed tree); no shipped
-configuration uses them, and they raise here.
+  labels node for node without scikit-learn installed;
+- :class:`KMeansClustering` on the standardized mesh coordinates and
+  :class:`GaussianMixtureClustering` on the standardized world stream,
+  through ``rmp.sk_numpy``'s copies of scikit-learn 1.9's
+  ``StandardScaler``, ``KMeans(random_state=0, n_init=10)`` and
+  ``GaussianMixture(random_state=0, init_params="k-means++")``;
+- :class:`HDBSCANClustering` through ``rmp.hdbscan_tree``, with a cluster
+  count that follows the data (one cluster of every node when all are
+  noise) and, with sampling, spotters chosen by the gap between a node's
+  two largest soft memberships.
 
 Clustering runs on the host at each reset of the expansion; its result
 becomes the static incidence of ``rmp.connector``.
@@ -31,6 +36,8 @@ import random as pyrandom
 from typing import List, NamedTuple, Optional
 
 import numpy as np
+
+from hyper_graph_nets_tpu_torch.rmp import hdbscan_tree, sk_numpy
 
 
 class HostGraph(NamedTuple):
@@ -284,11 +291,98 @@ class SpectralClustering(ClusteringAlgorithm):
         return coo_matrix((w, (snd, rcv)), shape=(n, n)).tocsr()
 
 
-_WAITING = (
-    "clustering {name!r} is not ported: it needs a numpy copy of scikit-learn's "
-    "{what}, which the port cannot import on the card's machine; ROADMAP queue 1, "
-    "item 3 (HDBSCAN, k-means and GMM clustering)"
-)
+class KMeansClustering(ClusteringAlgorithm):
+    """k-means on the standardized mesh coordinates (``mesh_features[:, :2]``)."""
+
+    def _cluster(self, graph: HostGraph) -> np.ndarray:
+        X = sk_numpy.standard_scale(graph.mesh_features[:, :2])
+        return sk_numpy.kmeans(X, self.num_clusters, random_state=0, n_init=10)
+
+
+class GaussianMixtureClustering(ClusteringAlgorithm):
+    """A Gaussian mixture (full covariances) on the standardized world stream."""
+
+    def _cluster(self, graph: HostGraph) -> np.ndarray:
+        X = sk_numpy.standard_scale(graph.target_feature)
+        return sk_numpy.gaussian_mixture_labels(X, self.num_clusters, random_state=0)
+
+
+class HDBSCANClustering(ClusteringAlgorithm):
+    """HDBSCAN on the standardized world stream: the cluster count follows
+    the data (``num_clusters`` is set by each :meth:`run`); noise nodes keep
+    label -1.  With sampling, each cluster's members are its spotters (the
+    nodes whose two largest soft memberships lie close,
+    :meth:`_soft_spotter`), its exemplars (``hdbscan_tree``'s leaf points
+    at the largest lambda) and its nodes of highest dynamics."""
+
+    def __init__(
+        self,
+        sampling: bool,
+        max_cluster_size: int,
+        min_cluster_size: int,
+        min_samples: int,
+        spotter_threshold: float,
+        alpha: float = 0.5,
+        seed: int = 0,
+    ):
+        super().__init__(10, sampling, alpha, 0, seed)
+        self.max_cluster_size = max_cluster_size
+        self.min_cluster_size = min_cluster_size
+        self.min_samples = min_samples
+        self.spotter_threshold = spotter_threshold
+
+    def _standardize(self, graph: HostGraph) -> np.ndarray:
+        return sk_numpy.standard_scale(graph.target_feature)
+
+    def _fit(self, graph: HostGraph):
+        return hdbscan_tree.hdbscan_fit(
+            self._standardize(graph),
+            min_cluster_size=self.min_cluster_size,
+            min_samples=self.min_samples,
+            max_cluster_size=self.max_cluster_size,
+        )
+
+    def run(self, graph: HostGraph) -> Clustering:
+        result = self._fit(graph)
+        labels = np.asarray(result.labels)
+        self.num_clusters = int(labels.max()) + 1 if (labels >= 0).any() else 0
+        if self.num_clusters == 0:
+            # every node is noise: one cluster of all of them
+            labels = np.zeros(len(labels), int)
+            self.num_clusters = 1
+            result = result._replace(exemplars=[list(range(len(labels)))])
+        neighbors = get_neighbors(graph, labels)
+        if not self.sampling:
+            clusters = _labels_to_indices(list(labels))
+        else:
+            spotter = self._soft_spotter(graph, result)
+            exemplars = [list(e) for e in result.exemplars]
+            top_k = self.highest_dynamics(graph, labels)
+            clusters = [
+                np.asarray(sorted(set(s) | set(e) | set(t)), np.int64)
+                for s, e, t in zip(spotter, exemplars, top_k)
+            ]
+        return Clustering(labels=labels, clusters=clusters, neighbors=neighbors,
+                          num_clusters=self.num_clusters)
+
+    def _soft_spotter(self, graph: HostGraph, result) -> List[List[int]]:
+        """The nodes whose metric ``1 - (p1 - p2) / (p1 + p2)`` on their two
+        largest soft memberships exceeds ``spotter_threshold``, each in the
+        cluster of its largest."""
+        out: List[List[int]] = [[] for _ in range(self.num_clusters)]
+        if self.num_clusters < 2:
+            return out
+        probs = hdbscan_tree.membership_vectors(result, self._standardize(graph))
+        if probs.shape[1] < 2:
+            return out
+        order = np.argsort(-probs, axis=1)
+        rows = np.arange(len(probs))
+        p1 = probs[rows, order[:, 0]]
+        p2 = probs[rows, order[:, 1]]
+        metric = 1.0 - (p1 - p2) / np.maximum(p1 + p2, 1e-12)
+        for i in np.nonzero(metric > self.spotter_threshold)[0]:
+            out[order[i, 0]].append(int(i))
+        return out
 
 
 def get_clustering_algorithm(name: str, rmp_config: dict) -> Optional[ClusteringAlgorithm]:
@@ -303,14 +397,20 @@ def get_clustering_algorithm(name: str, rmp_config: dict) -> Optional[Clustering
     threshold = ics.get("spotter_threshold", 0)
     if name == "random":
         return RandomClustering(num_clusters, sampling, alpha, threshold)
+    if name in ("kmeans", "k-means"):
+        return KMeansClustering(num_clusters, sampling, alpha, threshold)
+    if name == "gmm":
+        return GaussianMixtureClustering(num_clusters, sampling, alpha, threshold)
     if name == "spectral":
         return SpectralClustering(num_clusters, sampling, alpha, threshold)
-    waiting = {
-        "kmeans": "KMeans and StandardScaler",
-        "k-means": "KMeans and StandardScaler",
-        "gmm": "GaussianMixture and StandardScaler",
-        "hdbscan": "StandardScaler (and the JAX package's HDBSCAN condensed tree)",
-    }
-    if name in waiting:
-        raise NotImplementedError(_WAITING.format(name=name, what=waiting[name]))
+    if name == "hdbscan":
+        h = rmp_config.get("hdbscan", {})
+        return HDBSCANClustering(
+            sampling,
+            h.get("max_cluster_size", 50),
+            h.get("min_cluster_size", 20),
+            h.get("min_samples", 1),
+            h.get("spotter_threshold", 0.9),
+            alpha=alpha,
+        )
     raise NotImplementedError(f"unknown clustering algorithm {name!r}")

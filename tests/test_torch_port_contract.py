@@ -1,8 +1,8 @@
 """The port's contract: what it imports, where it runs, what it refuses,
 and its host-side pieces against the JAX package's.
 
-- The port imports neither ``jax`` nor ``hyper_graph_nets_tpu`` (checked in
-  a fresh interpreter and by a scan of the sources).
+- The port imports neither ``jax``, ``sklearn`` nor ``hyper_graph_nets_tpu``
+  (checked in a fresh interpreter and by a scan of the sources).
 - Entry points default to the card and raise without one; CPU runs never
   launch the kernel.
 - Configurations of later slices (and an unknown balancer) raise
@@ -46,7 +46,7 @@ from torch_port_cases import flag_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "hyper_graph_nets_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "hyper_graph_nets_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sklearn", "hyper_graph_nets_tpu")
 
 
 # -- (d) imports ------------------------------------------------------------
@@ -63,7 +63,8 @@ def test_port_and_chip_smoke_import_no_jax():
         "import hyper_graph_nets_tpu_torch.parallel.group, hyper_graph_nets_tpu_torch.parallel.sharding\n"
         "import hyper_graph_nets_tpu_torch.parallel.halo\n"
         "import hyper_graph_nets_tpu_torch.rmp.remote_message_passing, hyper_graph_nets_tpu_torch.rmp.connector\n"
-        "import hyper_graph_nets_tpu_torch.rmp.clustering\n"
+        "import hyper_graph_nets_tpu_torch.rmp.clustering, hyper_graph_nets_tpu_torch.rmp.sk_numpy\n"
+        "import hyper_graph_nets_tpu_torch.rmp.hdbscan_tree, hyper_graph_nets_tpu_torch.parallel.multihost\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -93,7 +94,8 @@ def test_port_sources_name_no_jax_import():
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
     names = {os.path.relpath(f, PORT) for f in files}
-    assert {"parallel/halo.py", "parallel/group.py", "ops/ring.py", "ops/fused_overlap.py"} <= names
+    assert {"parallel/halo.py", "parallel/group.py", "ops/ring.py", "ops/fused_overlap.py",
+            "parallel/multihost.py", "rmp/sk_numpy.py", "rmp/hdbscan_tree.py"} <= names
     for path in files:
         bad = set(_imported_roots(path)) & set(FORBIDDEN)
         assert not bad, f"{path} imports {bad}"
@@ -173,11 +175,11 @@ def _with(**model):
 @pytest.mark.parametrize(
     "config",
     [
-        # HDBSCAN needs scikit-learn's algorithms, which the port does not copy
-        _with(rmp={"clustering": "hdbscan", "connector": "hyper"}),
+        _with(rmp={"clustering": "optics", "connector": "hyper"}),  # no such clustering
         _with(graph_balancer={"algorithm": "forman"}),  # no such balancer
-        # k-means needs scikit-learn's KMeans and StandardScaler (ROADMAP queue 1, item 3)
-        _with(rmp={"clustering": "kmeans", "connector": "hyper"}),
+        # k-medoids, which neither package has (k-means, the mixture and
+        # HDBSCAN run: tests/test_torch_port_cluster.py)
+        _with(rmp={"clustering": "kmedoids", "connector": "hyper"}),
     ],
     ids=["rmp", "balancer", "kmeans"],
 )
@@ -295,23 +297,43 @@ def _train_spread():
     return mod
 
 
-def test_train_check_holds_the_scatter_order_fixed():
+def test_train_check_holds_the_scatter_order_fixed(monkeypatch):
     """``chip_smoke.fixed_scatter_order`` turns PyTorch's deterministic
     algorithms on for its block only.  ``tools/torch_port/train_spread.py``
     (the train-step check repeated), with the CPU on both sides at 8x8, 2
-    blocks, latent 16, float32 with the balancer: in a fixed order every run
+    blocks, latent 16, float32 with the balancer: each run goes through the
+    order it names (the reference and the fixed runs with deterministic
+    algorithms on, the others with them off); in a fixed order every run
     reads exactly 0 (the same operations in the same order); as they come,
-    every run stays within ``TRAIN_TOL``."""
+    every run stays within ``TRAIN_TOL``.  On the CPU the runs as they come
+    read 0 as well, at 1, 4 and 8 threads alike (PyTorch's CPU scatters keep
+    their order), so the orders' readings part only on the card
+    (``phase_train``); the spread runs on one thread."""
     spread = _train_spread()
     cs = spread.cs
     assert not torch.are_deterministic_algorithms_enabled()
     with cs.fixed_scatter_order():
         assert torch.are_deterministic_algorithms_enabled()
     assert not torch.are_deterministic_algorithms_enabled()
-    res = spread.spread(seconds=60, fixed_seconds=60, device="cpu", nx=8,
-                        model=dict(message_passing_steps=2, latent_size=16), max_runs=2)
+    from hyper_graph_nets_tpu_torch.training.trainer import Trainer
+
+    orders, loss_and_grads = [], Trainer.loss_and_grads
+
+    def recorded(self, *args, **kwargs):
+        orders.append(torch.are_deterministic_algorithms_enabled())
+        return loss_and_grads(self, *args, **kwargs)
+
+    monkeypatch.setattr(Trainer, "loss_and_grads", recorded)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # small operations on busy cores: see test_torch_port_task._one_cpu_thread
+    try:
+        res = spread.spread(seconds=60, fixed_seconds=60, device="cpu", nx=8,
+                            model=dict(message_passing_steps=2, latent_size=16), max_runs=2)
+    finally:
+        torch.set_num_threads(threads)
     assert not torch.are_deterministic_algorithms_enabled()
     assert res["fixed"]["runs"] == res["atomic"]["runs"] == 2
+    assert orders == [True, False, False, True, True]  # the reference, 2 as they come, 2 in a fixed order
     assert dict(res["fixed"]["worst"]) == {"0": 2} and dict(res["fixed"]["loss"]) == {"0": 2}
     assert all(float(w) <= cs.TRAIN_TOL["float32"][1] for w in res["atomic"]["worst"])
     assert any(".balance." in name for name in res["names"])

@@ -116,6 +116,7 @@ from hyper_graph_nets_tpu_torch.ops.segment_pna import (
 )
 from hyper_graph_nets_tpu_torch.runtime import configure_numerics
 from hyper_graph_nets_tpu_torch.serving import Predictor
+from hyper_graph_nets_tpu_torch.training.expansion import build_expansion
 from hyper_graph_nets_tpu_torch.training.trainer import Trainer
 from torch_port_cases import (
     BF16_ULP,
@@ -1098,22 +1099,16 @@ def _rmp_config(dtype=None, balancer=False):
     return config
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
-def test_k1_k2_over_rmp_rows_match_plain(dtype):
-    """The RMP path's mesh set: K1 and K2 with a plan over N + K rows (a
-    12 x 12 grid and 16 hyper rows that receive no edge) against their plain
-    versions, K1's tolerances and K2's; the hyper rows' aggregates and node
-    cotangents are 0."""
-    _need_card()
-    snd, rcv, N = grid_edges(12, 12)
-    rows, L, B = N + 16, 128, 3
-    rng = np.random.default_rng(5)
+def _check_k1_k2_over_rows(snd, rcv, N, rows, plan, dtype, seed=5):
+    """K1 and K2 with ``plan`` over ``rows`` node rows (rows N.. receive no
+    edge) against their plain versions, K1's tolerances and K2's; those
+    rows' aggregates and node cotangents are 0."""
+    L, B = 128, 3
+    rng = np.random.default_rng(seed)
     arrays, weights = _k1_arrays(rng, B, len(snd), rows, L)
     x = {k: torch.tensor(v).to(dtype).cuda() for k, v in arrays.items()}
     w = {k: torch.tensor(v.T.copy() if v.ndim == 2 else v).cuda() for k, v in weights.items()}
     s, r = torch.tensor(snd).cuda(), torch.tensor(rcv).cuda()
-    plan = plan_segments(rcv, rows, senders=snd).to("cuda")
     topo = (s, r, None, rows)
     e2, agg, a1, a2, _, _ = fused_edge_block_fwd(x["e"], x["sp"], x["rp"], w, *topo, plan=plan, save_streams=True)
     re2, ragg = fused_edge_block_reference(x["e"], x["sp"], x["rp"], w, *topo)
@@ -1121,7 +1116,7 @@ def test_k1_k2_over_rmp_rows_match_plain(dtype):
     torch.testing.assert_close(e2.float(), re2.float(), rtol=rt, atol=at)
     torch.testing.assert_close(agg, ragg, rtol=rta, atol=ata)
     assert bool((agg[:, N:] == 0).all())
-    gen = torch.Generator().manual_seed(6)
+    gen = torch.Generator().manual_seed(seed + 1)
     de2 = torch.randn(B, len(snd), L, generator=gen).to(dtype).cuda()
     drhs = agg_cotangent_rhs(agg, torch.randn(B, rows, 4 * L, generator=gen).cuda(), r, None, rows)
     got = fused_edge_block_bwd(x["e"], x["sp"], x["rp"], w, de2, drhs, *topo, plan=plan)
@@ -1131,6 +1126,51 @@ def test_k1_k2_over_rmp_rows_match_plain(dtype):
         err = float((g.float() - h.float()).abs().max())
         assert err <= tol * (1 + float(h.float().abs().max())), name
     assert bool((got[6][:, N:] == 0).all()) and bool((got[7][:, N:] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_k1_k2_over_rmp_rows_match_plain(dtype):
+    """The RMP path's mesh set: K1 and K2 with a plan over N + K rows (a
+    12 x 12 grid and 16 hyper rows that receive no edge) against their plain
+    versions, K1's tolerances and K2's; the hyper rows' aggregates and node
+    cotangents are 0."""
+    _need_card()
+    snd, rcv, N = grid_edges(12, 12)
+    rows = N + 16
+    _check_k1_k2_over_rows(snd, rcv, N, rows, plan_segments(rcv, rows, senders=snd).to("cuda"), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("frame, K, Kp", [(0, 10, 16), (2, 8, 8)], ids=["K10-Kp16", "K8-Kp8"])
+def test_k1_k2_over_hdbscan_rows_match_plain(frame, K, Kp, dtype):
+    """The mesh set's plan from HDBSCAN's clustering of a 10x10 flag
+    (``min_cluster_size`` 5, ``max_cluster_size`` 30, with noise nodes):
+    K = 10 padded to Kp = 16 at frame 0, K = Kp = 8 at frame 2, one
+    expansion reclustered in turn; K1 and K2 over its N + Kp rows against
+    their plain versions."""
+    _need_card()
+    config = _rmp_config(dtype=None)
+    config["params"]["model"]["rmp"].update(
+        clustering="hdbscan", hdbscan={"min_cluster_size": 5, "max_cluster_size": 30, "min_samples": 1})
+    model = get_model(config)
+    exp = build_expansion(model, config)
+    traj = add_targets(flag_trajectory(num_steps=6, nx=10, ny=10), "world_pos", True)
+    topo = model.topology_from_trajectory(traj, device="cpu")
+    for f in (0, 2):  # the other frame first when frame is 2: a change of Kp before the plan checked
+        if f > frame:
+            break
+        exp.reset(0, 1)
+        static = exp.prepare(model, {k: v[f] for k, v in traj.items()}, topo)[-1]
+    rmp = exp.members[-1]
+    assert (rmp._last_clustering.num_clusters, static.num_clusters) == (K, Kp)
+    assert (rmp._last_clustering.labels < 0).any()
+    N = topo.num_nodes
+    plan = static.mesh_plan
+    assert plan.num_nodes == N + Kp
+    snd, rcv = topo.senders.numpy(), topo.receivers.numpy()
+    _check_k1_k2_over_rows(snd, rcv, N, N + Kp, plan.to("cuda"), dtype)
 
 
 def _rmp_shard_layout(G, chunk, nx=12, hyper=16, bands=None, group=None):

@@ -230,12 +230,6 @@ def test_clustering_and_sampling_equal_jax(name, sampling):
             np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("name", ["kmeans", "gmm", "hdbscan"])
-def test_sklearn_clusterings_raise_naming_the_roadmap(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        clustering.get_clustering_algorithm(name, {})
-
-
 def _static_pair(num_clusters, **kwargs):
     jhost, host = _small_host()
     cfg = {"num_clusters": num_clusters}

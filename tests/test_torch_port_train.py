@@ -263,9 +263,10 @@ def test_frames_to_batches_matches_jax():
 
 
 def test_rmp_trainer_raises():
-    """RMP runs in the port, but not every clustering: HDBSCAN needs
-    scikit-learn's algorithms, and the Trainer refuses it when built."""
+    """RMP runs in the port with every clustering the JAX package has
+    (spectral, random, k-means, the mixture, HDBSCAN); a name neither
+    package knows is refused when the Trainer is built."""
     config = _config("bfloat16", "fused")
-    config["params"]["model"]["rmp"] = {"clustering": "hdbscan", "connector": "hyper"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    config["params"]["model"]["rmp"] = {"clustering": "optics", "connector": "hyper"}
+    with pytest.raises(NotImplementedError, match="unknown clustering algorithm 'optics'"):
         Trainer(get_model(config), config, device="cpu")
