@@ -9,7 +9,8 @@ configs/plate.yaml ship them, and plate HyperGraphNets as
 configs/plateCluster.yaml ships it, with and without rmp.fused_tiers,
 serve flag, flag HyperGraphNets and plate HyperGraphNets with int8 (W8A8)
 weights, serve and train flag HyperGraphNets with HDBSCAN, k-means and a
-Gaussian mixture, and train flag in a pod of two processes.
+Gaussian mixture, train flag in a pod of two processes, and run the task
+loop of cylinder and plate over meshes of different sizes.
 
     python3 chip_smoke.py [--seed 0] [--out FILE.json] [--profile DIR]
 
@@ -122,7 +123,10 @@ Phases (any failure exits non-zero; nothing is caught and dropped):
    the same state, noise and static on the CPU (B = 2, bf16 and float32);
    the loss after 30 steps on one batch below the first step's (remat,
    sorted, balancer); train-step ms (median of 10 after 3 warm-up steps)
-   and edges/s;
+   and edges/s; then the balancer on ``agg_vjp: sorted`` (15 K4f + 15 K4b
+   and the prepare's K5) and ``gather`` (K5 only), and the random balancer
+   (``graph_balancer.algorithm: random``, fused: 15 K1 + 15 K2), each cut
+   to 14 steps and held against the CPU in float32 only;
 6. the task loop: ``get_task`` on the same configuration with the file's
    own task settings (2 training trajectories of 60 frames on the 40x40
    flag, 57 frames each, B = 21, 1 epoch, 10-step n-step windows), written
@@ -158,7 +162,10 @@ Phases (any failure exits non-zero; nothing is caught and dropped):
    cluster's), one of which must break the cluster tier's own limit
    (RMP_TIER_CONTROL); in float32 also the card fed the CPU's expand outputs
    (a bisection of the cluster tier's spread; held to the same limits);
-   whether scikit-learn is installed (information only);
+   whether scikit-learn is installed (information only); the same file on
+   ``agg_vjp: gather`` and ``xla`` (``rmp_unfused_paths``): one_step
+   B = 21, a 5-step rollout and a train step at full depth with no kernel
+   launched (counted), the card against the CPU in float32 (RMP_TOL);
 8. cylinder and plate (``phase_model``): configs/cylinder.yaml and
    configs/plate.yaml as shipped (latent 128, 5 blocks, float32, fused
    remat, batch 16), seeded weights, normalizers accumulated over a 53-frame
@@ -220,11 +227,23 @@ Phases (any failure exits non-zero; nothing is caught and dropped):
    gradients POD_GRAD_TOL), host ms
    beside it, K1 raw and K2 at a process's shard against their plain
    versions;
-12. the CLI (``phase_cli``): ``python -m hyper_graph_nets_tpu_torch.main``
+12. meshes of different sizes (``phase_bucketed``): configs/cylinder.yaml
+   and plate.yaml as shipped through ``get_task`` over datasets written in
+   the real schema whose meshes differ in size (``BUCKET_MESHES``: cylinder
+   1,824-1,900 nodes, plate 1,234-1,312), padded to one capacity:
+   ``run_iterations`` and ``get_scalars`` with K1 and K2 counted
+   (``bucket_launches``), every topology at the capacity with a plan and a
+   masked tail (plate's at the bucket's obstacle and world capacities),
+   K1/K2 on the smallest mesh's padded topology against their plain
+   versions, the test mesh padded against unpadded on the card (one-step
+   scalars equal, rollout and n-step losses n / C of the unpadded ones,
+   the padded rows 0; BUCKET_TOL), the epoch's seconds and (cylinder) busy
+   share;
+13. the CLI (``phase_cli``): ``python -m hyper_graph_nets_tpu_torch.main``
    on flag_fused_demo (twice, the second run resuming), flag_full_scale,
    cylinder_demo, plate_demo and plateCluster_demo (bf16 demos, RMP as
    shipped), each config in a process of its own, all started together;
-13. timings, each with the card (with --profile also the device's busy share
+14. timings, each with the card (with --profile also the device's busy share
    and kernel time by name), the kernels' JSON line, then the device JSON
    line last.
 
@@ -3494,10 +3513,29 @@ def read_counts():
     return {**{k: fn.launches for k, fn in _counters().items()}, "K2 tie": fb.fused_edge_block_bwd.tie_launches}
 
 
+# The balancer on the other paths and the random balancer, each at full
+# width: cut to 1 + WARMUP_STEPS + TIMED_STEPS steps (no 30-step loss check)
+# and held against the CPU in float32 only, for the script's time limit.
+TRAIN_EXTRA_MODES = ("balancer_sorted", "balancer_gather", "random_balancer")
+
+
+def random_balancer_config(**model):
+    """``main_config`` with ``graph_balancer.algorithm: random`` (the file's
+    100 pairs added and 100 removed, frequency 1)."""
+    config = main_config(**model)
+    bal = config["params"]["model"]["graph_balancer"]
+    bal["algorithm"] = "random"
+    if (bal["random"]["edge_amount"], bal["remove_edges"], bal["frequency"]) != (100, True, 1):
+        raise AssertionError(f"flag_full_scale's graph_balancer changed: {bal}")
+    return config
+
+
 def phase_train(card, seed, profile_dir=None):
     """Train MGN-15MP through the port's Trainer with each backward: the
-    fused path's remat (K2) and stream (K3), the sorted path (K4b), and the
-    fused remat path with the Ricci balancer (its prepare runs SDRF, K5)."""
+    fused path's remat (K2) and stream (K3), the sorted path (K4b), the
+    fused remat path with the Ricci balancer (its prepare runs SDRF, K5),
+    the balancer on the sorted (K4f/K4b) and gather (no kernel but K5) paths,
+    and the random balancer (fused: K1/K2, no K5)."""
     import numpy as np
     import torch
 
@@ -3513,17 +3551,18 @@ def phase_train(card, seed, profile_dir=None):
     launches = dict.fromkeys(read_counts(), 0)
     timings, cpu_grads = {}, {}
     frame0 = {k: v[0] for k, v in traj.items()}
-    for mode in ("remat", "stream", "sorted", "balancer"):
-        agg_vjp = "sorted" if mode == "sorted" else "fused"
-        balancer = mode == "balancer"
+    for mode in ("remat", "stream", "sorted", "balancer") + TRAIN_EXTRA_MODES:
+        agg_vjp = {"sorted": "sorted", "balancer_sorted": "sorted", "balancer_gather": "gather"}.get(mode, "fused")
+        balancer = "balancer" in mode
+        ricci = mode.startswith("balancer")
         bwd = "remat" if balancer else mode
-        path = dict(agg_vjp=agg_vjp) if mode == "sorted" else dict(fused_bwd=bwd)
-        make_config = balancer_config if balancer else main_config
+        path = dict(agg_vjp=agg_vjp) if agg_vjp != "fused" else dict(fused_bwd=bwd)
+        make_config = (balancer_config if ricci else random_balancer_config) if balancer else main_config
         config = make_config(**path)
         model = get_model(config)
         cfg = model.gnn_config
         check_mgn15(cfg, agg_vjp, balancer)
-        if (mode != "sorted" and cfg.fused_bwd != bwd) or model.noise_scale != 0.003 or model.noise_gamma != 0.9:
+        if (agg_vjp == "fused" and cfg.fused_bwd != bwd) or model.noise_scale != 0.003 or model.noise_gamma != 0.9:
             raise AssertionError(f"train config: {cfg}, noise {model.noise_scale}/{model.noise_gamma}")
         blocks = cfg.message_passing_steps
         trainer = Trainer(model, config)
@@ -3545,9 +3584,10 @@ def phase_train(card, seed, profile_dir=None):
         counts = read_counts()
         want = dict.fromkeys(launches, 0)
         for k in {"remat": ("K1", "K2"), "stream": ("K1", "K3"), "sorted": ("K4f", "K4b"),
-                  "balancer": ("K1", "K2")}[mode]:
+                  "balancer": ("K1", "K2"), "balancer_sorted": ("K4f", "K4b"), "balancer_gather": (),
+                  "random_balancer": ("K1", "K2")}[mode]:
             want[k] = blocks
-        if balancer:
+        if ricci:
             want["K5"] = 2 * sdrf.loops_run
         if counts != want:
             raise AssertionError(f"train step ({mode}) launches {counts}, want {want}")
@@ -3556,6 +3596,10 @@ def phase_train(card, seed, profile_dir=None):
         log(f"train step ({mode}) launches: {counts}")
 
         # loss curve on one fixed batch, and the step's time
+        if balancer:
+            bstat = static[0]
+            log(f"train step ({mode}): {int(bstat.bal_mask.sum())} balance edges, "
+                f"{int((bstat.mesh_keep == 0).sum())} mesh edges removed")
         losses, step_s = [float(loss)], []
         n = LOSS_STEPS if mode in ("remat", "sorted", "balancer") else 1 + WARMUP_STEPS + TIMED_STEPS
         for _ in range(n - 1):
@@ -3588,7 +3632,7 @@ def phase_train(card, seed, profile_dir=None):
         # balancer) static, B = CPU_FRAMES, PyTorch's scatter-adds in a fixed
         # order on both sides (see TRAIN_TOL)
         with fixed_scatter_order():
-            for dtype_name in ("bfloat16", "float32"):
+            for dtype_name in ("float32",) if mode in TRAIN_EXTRA_MODES else ("bfloat16", "float32"):
                 cmp_config = make_config(**path, compute_dtype=None if dtype_name == "float32" else dtype_name)
                 cmp_model = get_model(cmp_config)
                 state = cmp_model.init_state(torch.Generator().manual_seed(seed + 1))
@@ -3596,7 +3640,7 @@ def phase_train(card, seed, profile_dir=None):
                 normal = torch.randn(small["world_pos"].shape, generator=torch.Generator().manual_seed(seed + 2),
                                      dtype=torch.float64)
                 grads, losses_cmp = {}, {}
-                cpu_key = (agg_vjp, balancer, dtype_name)
+                cpu_key = (agg_vjp, mode if balancer else None, dtype_name)
                 for where in ("cuda", "cpu"):
                     if where == "cpu" and cpu_key in cpu_grads:
                         losses_cmp["cpu"], grads["cpu"] = cpu_grads[cpu_key]
@@ -4462,8 +4506,84 @@ def phase_rmp(card, peaks, seed, profile_dir=None):
         if key.endswith(RMP_TIER_CONTROL[key.split()[0]]) and not errs["tier_grad"] > tol["tier_grad"]:
             raise AssertionError(f"rmp {key}: the tier fault passed the cluster tier's limit: {errs}")
 
+    timings["unfused_paths"] = rmp_unfused_paths(card, seed, config, traj, state, normal, hyper)
     launches = {k: serve[k] + train[k] for k in serve}
     return launches, timings, kernels
+
+
+# The same file's RMP on the paths without a kernel, at full depth: the
+# rollout cut to RMP_UNFUSED_ROLLOUT_STEPS steps and one train step each, for
+# the script's time limit; the card against the CPU in float32 (RMP_TOL).
+RMP_UNFUSED_PATHS = ("gather", "xla")
+RMP_UNFUSED_ROLLOUT_STEPS = 5
+
+
+def rmp_unfused_paths(card, seed, config, traj, state, normal, hyper):
+    """configs/flag_full_scale.yaml as shipped (RMP) with ``agg_vjp: gather``
+    and ``xla`` through ``Predictor`` (one_step B = 21, a short rollout) and
+    a single-device ``Trainer`` step at full depth (15 hierarchical blocks,
+    bf16), no kernel launched (counted); then the train step's loss and
+    gradients and one_step's accelerations on the card against the CPU in
+    float32 at B = 2 (RMP_TOL, ``rmp_runs``)."""
+    import numpy as np
+    import torch
+
+    from hyper_graph_nets_tpu_torch.models.get_model import get_model
+    from hyper_graph_nets_tpu_torch.serving import Predictor
+    from hyper_graph_nets_tpu_torch.training.trainer import Trainer
+
+    frame0 = {k: v[0] for k, v in traj.items()}
+    small = {k: v[:CPU_FRAMES] for k, v in traj.items()}
+    out = {}
+    for agg_vjp in RMP_UNFUSED_PATHS:
+        cfg = rmp_config(agg_vjp=agg_vjp)
+        predictor = Predictor(cfg, state=state)
+        model = predictor.model
+        blocks = model.gnn_config.message_passing_steps
+        if (blocks, model.gnn_config.architecture, model.gnn_config.agg_vjp) != (15, "hyper", agg_vjp):
+            raise AssertionError(f"rmp {agg_vjp}: {model.gnn_config}")
+        trainer = Trainer(model, cfg)
+        topo = model.topology_from_trajectory(traj, device=trainer.device)
+        frames = trainer.frames({k: v[:TRAIN_FRAMES] for k, v in traj.items()})
+        gen = torch.Generator(device=trainer.device).manual_seed(seed)
+        # the main path: counts set to 0 just before, read just after
+        reset_counts()
+        pred = predictor.one_step({k: v[:ONE_STEP_FRAMES] for k, v in traj.items()})
+        result = predictor.rollout(traj, num_steps=RMP_UNFUSED_ROLLOUT_STEPS)
+        tstatic = trainer.expansion.prepare(model, frame0, topo)
+        tstate, loss = trainer.train_step(trainer.init_train_state(state=state), topo, frames, generator=gen,
+                                          static=tstatic)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if any(counts.values()):
+            raise AssertionError(f"rmp {agg_vjp}: kernels launched on a path without one: {counts}")
+        if not (np.isfinite(pred).all() and np.isfinite(result["mse"]).all() and np.isfinite(float(loss))):
+            raise AssertionError(f"rmp {agg_vjp}: outputs not finite")
+        timings = dict(one_step_ms=_host_ms(lambda: predictor.one_step(
+            {k: v[:ONE_STEP_FRAMES] for k, v in traj.items()}, static=predictor.expansion.static), 3),
+            train_step_ms=_host_ms(lambda: trainer.train_step(tstate, topo, frames, generator=gen,
+                                                              static=tstatic), 3))
+        # the card against the CPU, float32, B = 2, one state, noise and static
+        cfg32 = rmp_config(agg_vjp=agg_vjp, compute_dtype=None)
+        cmodel = get_model(cfg32)
+        cstate = rmp_state(cfg32, traj, seed + 1)
+        ctopo = cmodel.topology_from_trajectory(small, device="cpu")
+        static = Trainer(cmodel, cfg32, device="cpu").expansion.prepare(cmodel, frame0, ctopo)
+        runs = rmp_runs(cfg32, cstate, small, static, normal, hyper, ("card",))
+        (lc, gc, ac), (lg, gg, ag) = runs["cpu"], runs["card"]
+        in_tier = lambda n: any(tag in n for tag in RMP_TIER)
+        errs = {n: rel_l2(gg[n], g) for n, g in gc.items()}
+        vs_cpu = dict(loss=abs(lg - lc) / abs(lc), grad=max(e for n, e in errs.items() if not in_tier(n)),
+                      tier_grad=max(e for n, e in errs.items() if in_tier(n)),
+                      acceleration=float(np.abs(ag - ac).max() / np.abs(ac).max()))
+        out[agg_vjp] = dict(timings, launches=counts, vs_cpu_float32=vs_cpu)
+        log(f"rmp {agg_vjp} (no kernel on this path): one_step B={ONE_STEP_FRAMES} {timings['one_step_ms']:.2f} ms "
+            f"with a prepared static, train step B={TRAIN_FRAMES} {timings['train_step_ms']:.2f} ms, "
+            f"{RMP_UNFUSED_ROLLOUT_STEPS}-step rollout MSE {result['mse'][-1]:.4g}; float32 card vs CPU "
+            f"B={CPU_FRAMES}: {vs_cpu} (limits {RMP_TOL['float32']}) [{card}]")
+        if any(vs_cpu[k] > RMP_TOL["float32"][k] for k in vs_cpu):
+            raise AssertionError(f"rmp {agg_vjp} float32 card vs CPU outside {RMP_TOL['float32']}: {vs_cpu}")
+    return out
 
 
 # cylinder and plate MeshGraphNets as configs/cylinder.yaml and plate.yaml ship
@@ -4730,6 +4850,210 @@ def phase_model_kernels(card, peaks, seed):
         out[name] = planned_kernels(card, peaks, topo.plan, snd, rcv, N, MODEL_FRAMES, "float32", seed + 7,
                                     f"{name} mesh")
     return out
+
+
+# Meshes of different sizes in one dataset (cross-trajectory bucketing, the
+# real cylinder_flow, deforming_plate and flag_simple property): written in
+# the real schema (meta.json with -1 node dimensions) from the synthetic
+# generators, then the task loop of configs/cylinder.yaml and plate.yaml as
+# shipped over them.  Cylinder: training meshes of 1,824, 1,888 and 1,900
+# nodes (the span of real cylinder_flow meshes; Pfaff et al., ICLR 2021:
+# about 1,885 on average), validation 1,872, test 1,848; plate: 1,312 and
+# 1,269 nodes for training (the 36 x 36 plate of phase_model and a 35 x 36
+# one with a 9-node stamp), 1,276 and 1,234 for validation and test.
+# Trajectories cut to BUCKET_STEPS frames (19 after the target window, 18
+# trained and evaluated: 400 and 300 in the real data), the n-step windows
+# to BUCKET_N_STEP steps (60 in the files), for the script's time limit.
+BUCKET_MESHES = {
+    "cylinder": {"train": ((48, 38), (59, 32), (50, 38)), "valid": ((52, 36),), "test": ((56, 33),)},
+    "plate": {"train": ((36, 36), (35, 36)), "valid": ((36, 35),), "test": ((35, 35),)},
+}
+BUCKET_DATASETS = {"cylinder": "cylinder_flow", "plate": "deforming_plate"}
+BUCKET_STEPS = 20
+BUCKET_TIMESTEPS = 18
+BUCKET_N_STEP = 4
+# one-step scalars of a padded trajectory against its unpadded run, both on
+# the card (masked means: the same up to summation order, float32), and the
+# padded rollout and n-step losses against the unpadded ones times n / C
+BUCKET_TOL = 1e-5
+
+
+def bucket_config(name):
+    """configs/<name>.yaml as shipped (checked by ``model_config``) with the
+    task settings of the bucketed dataset above."""
+    config = model_config(name)
+    task = config["params"]["task"]
+    if task["dataset"] != BUCKET_DATASETS[name]:
+        raise AssertionError(f"configs/{name}.yaml reads {task['dataset']}")
+    task.update(
+        epochs=1, trajectories=len(BUCKET_MESHES[name]["train"]), n_timesteps=BUCKET_TIMESTEPS,
+        validation={"trajectories": 1, "rollouts": 1, "n_viz": 1},
+        test={"trajectories": 1, "rollouts": 1, "n_step_rollouts": 1, "n_steps": BUCKET_N_STEP},
+    )
+    return config
+
+
+def write_bucket_dataset(root, name, seed):
+    """The meshes of ``BUCKET_MESHES[name]`` as TFRecords in the real schema
+    under ``root``; returns each split's node counts."""
+    from hyper_graph_nets_tpu_torch.data import synthetic, tfrecord
+    from hyper_graph_nets_tpu_torch.data.loader import get_directories
+
+    dataset = BUCKET_DATASETS[name]
+    in_dir, _ = get_directories(dataset, root)
+    os.makedirs(in_dir)
+    sizes = {}
+    for i, (split, meshes) in enumerate(BUCKET_MESHES[name].items()):
+        trajs = [synthetic.GENERATORS[dataset](num_steps=BUCKET_STEPS, nx=nx, ny=ny, seed=seed + 100 * i + j)
+                 for j, (nx, ny) in enumerate(meshes)]
+        tfrecord.write_trajectories(os.path.join(in_dir, f"{split}.tfrecord"), trajs)
+        sizes[split] = [int(t["node_type"].shape[1]) for t in trajs]
+    meta = synthetic.make_meta(dataset, trajs[0])
+    for spec in meta["features"].values():
+        spec["shape"][1] = -1  # the node (or cell) count varies between trajectories
+    with open(os.path.join(in_dir, "meta.json"), "w") as f:
+        json.dump(meta, f)
+    return sizes
+
+
+def bucket_launches(blocks, B, T, n_step, train_trajectories):
+    """The task's K1 and K2 launches over ``run_iterations`` and
+    ``get_scalars``: a fit batch is ``blocks`` K1 + K2; each evaluation
+    split runs the one-step evaluator (a forward a batch), a T-step rollout
+    and one chunk of ``T - n_step`` n-step windows (n_step + 1 forwards)."""
+    batches = -(-T // B)
+    fit = blocks * batches * train_trajectories
+    evaluation = blocks * (batches + T + n_step + 1)
+    return {"K1": fit + 2 * evaluation, "K2": fit}
+
+
+def phase_bucketed(card, peaks, seed, profile_dir=None):
+    """Cylinder and plate as configs/cylinder.yaml and plate.yaml ship them
+    (float32, B = 16, 5 blocks, latent 128, fused remat; plate's world edges
+    at ``max_world_edges: auto``) through the task loop on a dataset whose
+    meshes differ in size (``BUCKET_MESHES``): ``get_task`` finds the sizes
+    vary and pads every trajectory to one capacity, ``run_iterations`` and
+    ``get_scalars`` run with the counts set to 0 just before and read just
+    after (K1 and K2 on padded topologies only), K1 and K2 on the smallest
+    training mesh's padded topology against their plain versions, the
+    padded rows of a rollout 0, the one-step scalars of a padded test
+    trajectory those of its unpadded run on the card, its rollout and
+    n-step losses those times n / C, and the epoch's seconds and busy
+    share."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hyper_graph_nets_tpu_torch.data import bucketing
+    from hyper_graph_nets_tpu_torch.data.loader import get_data
+    from hyper_graph_nets_tpu_torch.models.base import Topology
+    from hyper_graph_nets_tpu_torch.ops.fused_block import SegmentPlan
+    from hyper_graph_nets_tpu_torch.training.simulator import MeshSimulator
+    from hyper_graph_nets_tpu_torch.training.task import get_task
+
+    launches, timings, rows = {}, {}, {}
+    for name in ("cylinder", "plate"):
+        config = bucket_config(name)
+        task_cfg = config["params"]["task"]
+        with tempfile.TemporaryDirectory(prefix=f"hgn_bucket_{name}_") as root:
+            sizes = write_bucket_dataset(root, name, seed)
+            splits = {s: list(get_data(config, s, data_dir=root)) for s in BUCKET_MESHES[name]}
+            want_cap = bucketing.trajectory_capacity([t for ts in splits.values() for t in ts])
+            t0 = time.perf_counter()
+            task = get_task(config, data_dir=root)
+            setup_s = time.perf_counter() - t0
+            sim = task.simulator
+            if sim.capacity != want_cap or not isinstance(sim._plan_dims, dict):
+                raise AssertionError(f"bucketed {name}: capacity {sim.capacity} (want {want_cap}), band decision "
+                                     f"{sim._plan_dims}")
+            C = want_cap[0]
+            blocks = sim.model.gnn_config.message_passing_steps
+            log(f"bucketed {name}: meshes of {sizes} nodes padded to {C} nodes and {want_cap[1]} edges; "
+                f"MGN-{blocks} latent {sim.model.latent_size} float32 fused remat, B={task_cfg['batch_size']}, "
+                f"{BUCKET_TIMESTEPS} frames a trajectory (cut), n-step windows of {BUCKET_N_STEP} (cut)")
+
+            # the main path: the epoch and the test split's scalars
+            reset_counts()
+            t0 = time.perf_counter()
+            task.run_iterations()
+            torch.cuda.synchronize()
+            epoch_s = time.perf_counter() - t0
+            scalars = task.get_scalars()
+            counts = read_counts()
+            want = dict.fromkeys(counts, 0)
+            want.update(bucket_launches(blocks, task_cfg["batch_size"], BUCKET_TIMESTEPS, BUCKET_N_STEP,
+                                        len(splits["train"])))
+            if counts != want:
+                raise AssertionError(f"bucketed {name} launches {counts}, want {want}")
+            if not all(np.isfinite(v) for v in scalars.values()) or (
+                    name == "plate") != ("test_world_edge_truncated" in scalars):
+                raise AssertionError(f"bucketed {name} scalars: {scalars}")
+            topos = [t for t in sim._topo_cache.values() if isinstance(t, Topology)]
+            if len(topos) != sum(len(ts) for ts in splits.values()) or not all(
+                    t.num_nodes == C and isinstance(t.plan, SegmentPlan) and t.mask is not None for t in topos):
+                raise AssertionError(f"bucketed {name}: {len(topos)} topologies, not all at {C} rows with a "
+                                     "K1/K2 plan and a mask")
+            if name == "plate":
+                extras = sim._topo_extras
+                bad = [(t.world_cap, tuple(t.aux["obstacle_idx"].shape)) for t in topos
+                       if t.world_cap < extras["world_floor"] or t.aux["obstacle_idx"].shape[0] != extras["obstacle_cap"]]
+                if bad:
+                    raise AssertionError(f"bucketed plate: topologies off the bucket's dims {extras}: {bad}")
+            log(f"bucketed {name} launches over run_iterations + get_scalars: {counts}; epoch {epoch_s:.2f} s, "
+                f"setup (scan, capacity.json, band decision) {setup_s:.2f} s; scalars {scalars} [{card}]")
+
+            # K1 and K2 on the smallest training mesh's padded topology
+            small = min(splits["train"], key=lambda t: t["node_type"].shape[1])
+            ptraj = sim._prepare(small)
+            ptopo = sim._topology(ptraj)
+            mask = ptopo.mask.cpu().numpy()
+            n = int(small["node_type"].shape[1])
+            rows[name] = planned_kernels(card, peaks, ptopo.plan, ptopo.senders.cpu().numpy(),
+                                         ptopo.receivers.cpu().numpy(), C, task_cfg["batch_size"], "float32",
+                                         seed + 11, f"bucketed {name}, {n} of {C} rows, "
+                                         f"{int(mask.sum())} of {mask.size} edges", mask=mask)
+
+            # the test trajectory padded against its own unpadded run on the card
+            test = splits["test"][0]
+            n = int(test["node_type"].shape[1])
+            plain = MeshSimulator(config, out_dir=os.path.join(root, "plain"))
+            padded = {}
+            for tag, s in (("padded", sim), ("unpadded", plain)):
+                padded[tag] = dict(
+                    one_step=s.one_step_evaluator(task.tstate, [test], logging=False),
+                    rollout=s.rollout_evaluator(task.tstate, [test], num_steps=BUCKET_TIMESTEPS, logging=False,
+                                                save=False),
+                    n_step=s.n_step_evaluator(task.tstate, [test], n_step=BUCKET_N_STEP,
+                                              num_timesteps=BUCKET_TIMESTEPS, logging=False),
+                )
+            p, u = padded["padded"], padded["unpadded"]
+            key = "pred_pos" if name == "plate" else "pred_velocity"
+            pred = p["rollout"]["rollouts"][0][key]
+            if pred.shape[1] != C or np.abs(pred[:, n:]).max() != 0:
+                raise AssertionError(f"bucketed {name}: the padded rows of the rollout are not 0")
+            errs = {
+                "validation_loss": abs(p["one_step"]["validation_loss"] / u["one_step"]["validation_loss"] - 1),
+                "position_error": abs(p["one_step"]["position_error"] / u["one_step"]["position_error"] - 1),
+                "rollout_loss n/C": abs(p["rollout"]["rollout_loss"] / (u["rollout"]["rollout_loss"] * n / C) - 1),
+                "n_step_loss n/C": abs(p["n_step"]["n_step_loss"] / (u["n_step"]["n_step_loss"] * n / C) - 1),
+                "rollout positions": float(np.abs(pred[:, :n] - u["rollout"]["rollouts"][0][key]).max()
+                                           / np.abs(u["rollout"]["rollouts"][0][key]).max()),
+            }
+            log(f"bucketed {name} test mesh ({n} of {C} rows) padded against unpadded on the card: rollout loss "
+                f"{p['rollout']['rollout_loss']:.6g} vs {u['rollout']['rollout_loss']:.6g} (n/C {n / C:.4f}); "
+                f"relative differences {errs} (limit {BUCKET_TOL})")
+            if max(errs.values()) > BUCKET_TOL:
+                raise AssertionError(f"bucketed {name}: padded against unpadded outside {BUCKET_TOL}: {errs}")
+
+            timings[name] = dict(epoch_s=epoch_s, setup_s=setup_s, capacity=list(want_cap), sizes=sizes,
+                                 scalars=scalars, vs_unpadded=errs, launches=counts)
+            if name == "cylinder":
+                timings[name]["profile"] = device_profile(task.run_iterations, card,
+                                                          profile_dir or os.path.join(root, "trace"),
+                                                          "bucketed_epoch_cylinder")
+            launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
+    return launches, timings, rows
 
 
 # HyperGraphNets on plate as configs/plateCluster.yaml ships it (spectral
@@ -6023,6 +6347,7 @@ def main(argv=None) -> int:
     model_runs = {
         name: timed(phase_model, card, peaks, args.seed, name, args.profile) for name in ("cylinder", "plate")
     }
+    bucketed_launches, bucket_timings, bucket_rows = timed(phase_bucketed, card, peaks, args.seed, args.profile)
     hgn_launches, hgn_timings = timed(phase_hgn, card, peaks, args.seed, args.profile)
     int8_launches, int8_timings = timed(phase_int8, card, args.seed, args.profile)
     cluster_launches, cluster_timings, cluster_rows = timed(phase_cluster, card, peaks, args.seed)
@@ -6032,7 +6357,7 @@ def main(argv=None) -> int:
         k: serve_launches[k] + halo_launches[k] + spmd_launches[k] + spmd_rmp_launches[k] + spmd_models_launches[k]
         + spmd_arch_launches[k] + hybrid_launches[k] + train_launches[k]
         + task_launches[k] + rmp_launches[k]
-        + sum(run[0][k] for run in model_runs.values()) + hgn_launches[k] + int8_launches[k]
+        + sum(run[0][k] for run in model_runs.values()) + bucketed_launches[k] + hgn_launches[k] + int8_launches[k]
         + cluster_launches[k] + pod_launches[k]
         for k in serve_launches
     }
@@ -6047,6 +6372,8 @@ def main(argv=None) -> int:
         f"B=21 rows={1600 + RMP_CLUSTERS} (RMP)": row(rmp_kernels[k]),
         **{f"float32 B={MODEL_FRAMES} N={MODEL_SIZES[n][0]} E={MODEL_SIZES[n][1]} ({n})": row(mk[k])
            for n, mk in model_kernels.items()},
+        **{f"float32 B={MODEL_FRAMES} rows={bucket_timings[n]['capacity'][0]} E={bucket_timings[n]['capacity'][1]} "
+           f"(bucketed {n}, padded)": row(br[k]) for n, br in bucket_rows.items()},
         **{f"float32 B={MODEL_FRAMES} rows={MODEL_SIZES['plate'][0] + HGN_CLUSTERS} (HGN plate {n}"
            + (", fused_tiers)" if n in HGN_TIER_PLANS else ", fused_tiers off and on)"): row(hk[k])
            for n, hk in hgn_kernels.items()},
@@ -6178,6 +6505,17 @@ def main(argv=None) -> int:
                                      ("fused_edge_block_bwd remat", "fused_block_bwd.cu", "fused_block.py:1008",
                                       "K2"))
     ]
+    # the bucketed task loops: launches from phase_bucketed's main paths only
+    kernels += [
+        dict(entry(f"{kname} float32 on padded topologies, bucketed task loop ({k})", src, pallas,
+                   bucketed_launches[k], bucket_rows["cylinder"][k]),
+             shape=f"float32 B={MODEL_FRAMES} rows={bucket_timings['cylinder']['capacity'][0]} "
+                   f"E={bucket_timings['cylinder']['capacity'][1]} (cylinder)",
+             launches_by_model={n: t["launches"][k] for n, t in bucket_timings.items()})
+        for kname, src, pallas, k in (("fused_edge_block_fwd", "fused_block_fwd.cu", "fused_block.py:393", "K1"),
+                                      ("fused_edge_block_bwd remat", "fused_block_bwd.cu", "fused_block.py:1008",
+                                       "K2"))
+    ]
     # the pod step: launches from the pod's processes' main paths only
     kernels += [
         dict(entry("fused_edge_block_fwd raw, pod step in two processes (K1)", "fused_block_fwd.cu",
@@ -6224,6 +6562,7 @@ def main(argv=None) -> int:
                     "rmp_kernels": rmp_kernels,
                     **{name: {"launches": run[0], "timings": run[1], "kernels": model_kernels[name]}
                        for name, run in model_runs.items()},
+                    "bucketed": {"launches": bucketed_launches, "timings": bucket_timings, "kernels": bucket_rows},
                     "hgn_plate": {"launches": hgn_launches, "timings": hgn_timings, "kernels": hgn_kernels},
                     "int8": {"launches": int8_launches, "timings": int8_timings},
                     "cluster": {"launches": cluster_launches, "timings": cluster_timings, "kernels": cluster_rows},

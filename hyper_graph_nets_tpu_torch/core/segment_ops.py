@@ -65,13 +65,18 @@ class FixedSum:
     Each level gathers its input rows into ``[R, C]`` slots (``idx``, with
     ``valid`` False for padding) and sums over the slots; ``place`` then
     picks each segment's row of the last level's output, or the zero row
-    appended after it for an empty segment.
+    appended after it for an empty segment.  ``rest`` (a plan of its own
+    over the same ``ids``) sums the elements a mask left out of the levels,
+    added after them: a masked element is 0 in a masked sum, so adding its
+    row changes no sum (and carries a NaN as an unmasked sum would), while
+    the order of the others is the one they have without it.
     """
 
     ids: torch.Tensor  # [E] int64
     levels: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]  # ([R, C] int64, [R, C] bool)
     place: torch.Tensor  # [num_segments] int64
     num_segments: int
+    rest: Optional["FixedSum"] = None
 
     def to(self, device) -> "FixedSum":
         return FixedSum(
@@ -79,6 +84,7 @@ class FixedSum:
             tuple((i.to(device), v.to(device)) for i, v in self.levels),
             self.place.to(device),
             self.num_segments,
+            None if self.rest is None else self.rest.to(device),
         )
 
     def with_rows(self, num_segments: int) -> "FixedSum":
@@ -89,7 +95,8 @@ class FixedSum:
         rows = int(self.levels[-1][0].shape[0]) if self.levels else int(self.ids.shape[0])
         pad = torch.full((extra,), rows, dtype=torch.int64, device=self.place.device)
         return dataclasses.replace(
-            self, place=torch.cat([self.place, pad]), num_segments=num_segments
+            self, place=torch.cat([self.place, pad]), num_segments=num_segments,
+            rest=None if self.rest is None else self.rest.with_rows(num_segments),
         )
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
@@ -97,14 +104,16 @@ class FixedSum:
         if x.shape[-2] != self.ids.shape[0]:
             raise ValueError(f"{x.shape[-2]} rows, the plan sums {self.ids.shape[0]}")
         axis = x.dim() - 2
+        out = x
         for idx, valid in self.levels:
-            g = x.index_select(axis, idx.reshape(-1)).reshape(
-                x.shape[:-2] + tuple(idx.shape) + (x.shape[-1],)
+            g = out.index_select(axis, idx.reshape(-1)).reshape(
+                out.shape[:-2] + tuple(idx.shape) + (out.shape[-1],)
             )
-            x = torch.where(valid[..., None], g, torch.zeros((), dtype=g.dtype, device=g.device))
-            x = x.sum(dim=-2)
-        x = torch.cat([x, x.new_zeros(x.shape[:-2] + (1, x.shape[-1]))], dim=axis)
-        return x.index_select(axis, self.place)
+            out = torch.where(valid[..., None], g, torch.zeros((), dtype=g.dtype, device=g.device))
+            out = out.sum(dim=-2)
+        out = torch.cat([out, out.new_zeros(out.shape[:-2] + (1, out.shape[-1]))], dim=axis)
+        out = out.index_select(axis, self.place)
+        return out if self.rest is None else out + self.rest(x)
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """``x[..., ids, :]``: each element's segment row, no autograd (also
@@ -114,13 +123,9 @@ class FixedSum:
     spread = gather
 
 
-def fixed_sum_plan(ids, num_segments: int) -> FixedSum:
-    """Host: the :class:`FixedSum` of ``ids`` (``[E]``, values in
-    ``[0, num_segments)``), on the CPU."""
-    ids = np.asarray(ids.cpu() if isinstance(ids, torch.Tensor) else ids, np.int64)
-    if ids.size and (ids.min() < 0 or ids.max() >= num_segments):
-        raise ValueError(f"ids must lie in [0, {num_segments})")
-    items = np.argsort(ids, kind="stable")  # each segment's elements in edge order
+def _sum_levels(ids: np.ndarray, items: np.ndarray, num_segments: int):
+    """The levels and ``place`` of the fixed-order sum of the elements
+    ``items`` (sorted by segment, each segment's in edge order)."""
     seg = ids[items]
     levels = []
     while seg.size:
@@ -142,11 +147,28 @@ def fixed_sum_plan(ids, num_segments: int) -> FixedSum:
         levels.append((torch.from_numpy(idx), torch.from_numpy(valid)))
         seg = np.repeat(uniq, chunks)
         items = np.arange(len(seg))
-    place = np.full(num_segments, len(items), np.int64)
+    place = np.full(num_segments, len(items) if levels else ids.size, np.int64)  # the zero row
     place[seg] = items
-    return FixedSum(
-        torch.from_numpy(ids), tuple(levels), torch.from_numpy(place), int(num_segments)
-    )
+    return tuple(levels), torch.from_numpy(place)
+
+
+def fixed_sum_plan(ids, num_segments: int, mask=None) -> FixedSum:
+    """Host: the :class:`FixedSum` of ``ids`` (``[E]``, values in
+    ``[0, num_segments)``), on the CPU.  With ``mask`` (``[E]``) the
+    elements with ``mask > 0`` are summed in the order they have without
+    the others, and the others (a bucketed topology's padded tail) after
+    them (``FixedSum.rest``)."""
+    ids = np.asarray(ids.cpu() if isinstance(ids, torch.Tensor) else ids, np.int64)
+    if ids.size and (ids.min() < 0 or ids.max() >= num_segments):
+        raise ValueError(f"ids must lie in [0, {num_segments})")
+    items = np.argsort(ids, kind="stable")  # each segment's elements in edge order
+    rest = None
+    if mask is not None:
+        keep = (np.asarray(mask) > 0)[items]
+        if not keep.all():
+            rest = FixedSum(torch.from_numpy(ids), *_sum_levels(ids, items[~keep], num_segments), int(num_segments))
+        items = items[keep]
+    return FixedSum(torch.from_numpy(ids), *_sum_levels(ids, items, num_segments), int(num_segments), rest)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -246,8 +268,10 @@ class EdgeSums:
     senders: FixedSum
 
     @classmethod
-    def build(cls, senders, receivers, num_nodes: int) -> "EdgeSums":
-        return cls(fixed_sum_plan(receivers, num_nodes), fixed_sum_plan(senders, num_nodes))
+    def build(cls, senders, receivers, num_nodes: int, mask=None) -> "EdgeSums":
+        """The sums of a static edge set; with ``mask`` the masked edges
+        reach neither."""
+        return cls(fixed_sum_plan(receivers, num_nodes, mask), fixed_sum_plan(senders, num_nodes, mask))
 
     @classmethod
     def per_frame(cls, senders, receivers, mask, num_nodes: int) -> "EdgeSums":
@@ -369,6 +393,16 @@ _OPS = {
 }
 
 
+def _std(square: torch.Tensor, mean: torch.Tensor) -> torch.Tensor:
+    """The JAX package's ``sqrt(max(E[x^2] - mean^2, 0))``.  Its gradient at
+    a segment with no spread (one edge, equal edges, or none) is the JAX
+    package's too: ``maximum`` splits the cotangent at the tie with 0 and
+    ``sqrt``'s is infinite at 0, so the segment's edges get NaN (inf - inf,
+    or 0 x inf for a zero cotangent), and so does every gradient that sums
+    them."""
+    return torch.sqrt(torch.maximum(square - mean * mean, torch.zeros((), dtype=mean.dtype, device=mean.device)))
+
+
 def aggregate(
     data: torch.Tensor,
     segment_ids: torch.Tensor,
@@ -380,7 +414,8 @@ def aggregate(
     """Aggregate edge features to receiver nodes.
 
     ``aggregation='pna'`` concatenates ``[sum | mean | max | min]``; any
-    other name selects the single segment op.  With ``sums`` (the
+    other name selects the single segment op (``std``: :func:`_std` of the
+    segment means of the data and of its square).  With ``sums`` (the
     :class:`FixedSum` of ``segment_ids`` over at least ``num_segments``
     rows) the sums and counts run in its fixed order; max and min do not
     depend on the order.
@@ -395,6 +430,11 @@ def aggregate(
             _extremum32(data, segment_ids, num_segments, mask, "amin"),
         ]
         return torch.cat(parts, dim=-1).to(data.dtype)
+    if aggregation == "std":
+        counts = torch.clamp(_count32(data, segment_ids, num_segments, mask, sums), min=1.0)
+        mean = _sum32(data, segment_ids, num_segments, mask, sums) / counts
+        square = _sum32(data * data, segment_ids, num_segments, mask, sums) / counts
+        return _std(square, mean).to(data.dtype)
     if aggregation not in _OPS:
         raise ValueError(f"invalid segment operation {aggregation!r}")
     if sums is not None and aggregation in ("sum", "mean"):
@@ -719,6 +759,8 @@ def gather_aggregate(
         return mn
     if aggregation == "pna":
         return torch.cat([total, total / safe_deg, mx, mn], dim=-1)
+    if aggregation == "std":
+        return _std((g * g * valid).sum(dim=-2) / safe_deg, total / safe_deg)
     raise ValueError(f"invalid aggregation {aggregation!r}")
 
 

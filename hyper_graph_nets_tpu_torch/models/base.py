@@ -150,6 +150,12 @@ class SystemModel:
         self.rmp_frequency = rmp_cfg.get("frequency", 1)
         self.balance_frequency = bal_cfg.get("frequency", 1)
         self.rmp_config = rmp_cfg
+        if model.get("agg_vjp") == "fused" and self.aggregation != "pna":
+            warnings.warn(
+                f"model.agg_vjp 'fused' needs aggregation 'pna'; with {self.aggregation!r} no "
+                "edge set runs the fused kernels (K1/K2): every set takes the unfused path",
+                stacklevel=2,
+            )
         # host-side eval counters that rollout and n-step computations add
         # to; the simulator's evaluators drain them (pop_eval_metrics)
         self.eval_metrics: Dict[str, float] = {}
@@ -219,6 +225,7 @@ class SystemModel:
             fused_fwd=self.params["model"].get("fused_fwd", "kernel"),
             fused_pb=int(self.params["model"].get("fused_pb", 1)),
             fused_pb_bwd=int(self.params["model"].get("fused_pb_bwd", 1)),
+            remat=bool(self.params["model"].get("remat", False)),
         )
 
     def init_state(self, generator: Optional[torch.Generator] = None) -> ModelState:
@@ -244,17 +251,34 @@ class SystemModel:
             num_nodes = int(np.asarray(cells).max()) + 1
         return self.topology_from_edges(edges.senders, edges.receivers, num_nodes, device=device)
 
-    def topology_from_edges(self, senders, receivers, num_nodes: int, device="cpu") -> Topology:
+    def topology_from_edges(
+        self, senders, receivers, num_nodes: int, device="cpu", mask=None, banded: Optional[bool] = None
+    ) -> Topology:
         """Host: a receiver-sorted edge list -> topology on ``device``, with
         the kernel plan of ``agg_vjp``, the neighbour matrices and the
-        fixed-order sums."""
+        fixed-order sums.
+
+        ``mask`` (``[E]``, a bucketed topology's, ``data.bucketing``) holds
+        the valid edges first and a masked tail after them: the K1/K2 plan
+        takes the tail as receiver-less work items (``num_valid``), and the
+        sorted plan, the neighbour matrices and the sums leave it out.
+        ``banded`` overrides the band criterion's decision for the fused
+        path (a bucket's, ``data.bucketing.pad_topology``)."""
         senders = np.asarray(senders, np.int32)
         receivers = np.asarray(receivers, np.int32)
+        num_valid = None
+        if mask is not None:
+            mask = np.asarray(mask, np.float32)
+            num_valid = int((mask > 0).sum())
+            if not (mask[:num_valid] > 0).all():
+                raise ValueError("a topology's mask must hold its valid edges first and the masked ones after")
         plan = None
         if self.gnn_config.agg_vjp == "fused":
-            chunk = self.params["model"].get("fused_chunk")
-            if reorder.check_banded(senders, receivers, chunk=chunk):
-                plan = plan_segments(receivers, num_nodes, senders=senders).to(device)
+            if banded is None:
+                chunk = self.params["model"].get("fused_chunk")
+                banded = reorder.check_banded(senders, receivers, num_valid=num_valid, chunk=chunk)
+            if banded:
+                plan = plan_segments(receivers, num_nodes, senders=senders, num_valid=num_valid).to(device)
             elif torch.device(device).type != "cpu":
                 warnings.warn(
                     "agg_vjp 'fused': the mesh numbering fails the band criterion "
@@ -263,20 +287,21 @@ class SystemModel:
                     stacklevel=2,
                 )
         elif self.gnn_config.agg_vjp == "sorted":
-            plan = sorted_plan(receivers, num_nodes).to(device)
-        gidx, gvalid = receivers_to_gather(receivers, num_nodes)
-        sidx, svalid = receivers_to_gather(senders, num_nodes)
+            plan = sorted_plan(receivers, num_nodes, mask=mask).to(device)
+        gidx, gvalid = receivers_to_gather(receivers, num_nodes, mask=mask)
+        sidx, svalid = receivers_to_gather(senders, num_nodes, mask=mask)
         dev = lambda a: torch.from_numpy(a).to(device)
         return Topology(
             senders=dev(senders),
             receivers=dev(receivers),
             num_nodes=num_nodes,
+            mask=None if mask is None else dev(mask),
             plan=plan,
             gather_idx=dev(gidx),
             gather_valid=dev(gvalid),
             snd_gather_idx=dev(sidx),
             snd_gather_valid=dev(svalid),
-            sums=EdgeSums.build(senders, receivers, num_nodes).to(device),
+            sums=EdgeSums.build(senders, receivers, num_nodes, mask=mask).to(device),
         )
 
     def topology_from_trajectory(

@@ -155,6 +155,10 @@ class GNNConfig:
     # warn where a branch ignores them, as the JAX package warns
     fused_pb: int = 1
     fused_pb_bwd: int = 1
+    # config model.remat: under autograd each processor block is
+    # recomputed in the backward (nn.meshgraphnet.processor_apply) instead
+    # of keeping its activations; the same results, less memory
+    remat: bool = False
     # set by the halo forward (parallel/halo.py) and the sharded train step
     # and forward (parallel/sharding.py): the rank group
     # (parallel.group.RankGroup) whose 'graph' ranks each hold an edge

@@ -3,7 +3,8 @@
 Counterpart of ``hyper_graph_nets_tpu/nn/meshgraphnet.py``.  The JAX package
 stacks the processor's block parameters on a leading axis and scans over
 them; here the blocks are an ``nn.ModuleList`` run by a Python loop
-(``convert.py`` unstacks the JAX layout).  With remote message passing the
+(``convert.py`` unstacks the JAX layout); ``model.remat`` recomputes
+each block in the backward (:func:`processor_apply`).  With remote message passing the
 hyper tier has an encoder of its own (``hyper_node_model``) in the
 hierarchical architectures, and in ``multi`` when its width differs from
 the mesh nodes'; otherwise it shares the node encoder.  The decoder reads
@@ -15,6 +16,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from hyper_graph_nets_tpu_torch.core.graph import Graph
 from hyper_graph_nets_tpu_torch.nn.blocks import GNNConfig, GraphNetBlock, block_apply
@@ -76,8 +78,18 @@ def encoder_apply(net: MeshGraphNet, graph: Graph, cfg: GNNConfig) -> Graph:
 
 
 def processor_apply(net: MeshGraphNet, graph: Graph, cfg: GNNConfig) -> Graph:
+    """The blocks in order.  With ``cfg.remat`` under autograd each block
+    runs through ``torch.utils.checkpoint`` (the JAX package's
+    ``jax.checkpoint`` of the scan body): its backward recomputes the
+    block's forward, kernels included, from the block's input, so the
+    results are those without it and only the memory held changes.
+    Without autograd it changes nothing."""
+    remat = cfg.remat and torch.is_grad_enabled()
     for block in net.blocks:
-        graph = block_apply(block, graph, cfg)
+        if remat:
+            graph = checkpoint(block_apply, block, graph, cfg, use_reentrant=False)
+        else:
+            graph = block_apply(block, graph, cfg)
     return graph
 
 

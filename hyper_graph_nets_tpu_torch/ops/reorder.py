@@ -126,18 +126,8 @@ def window_dims(
     """``(W, WR)``: the widest sender and receiver windows of the JAX band
     plan (``plan_dims``; ``sb`` sender subwindows a chunk, by default the
     narrowest choice), or None when the receivers are unsorted."""
-    snd = np.asarray(senders, np.int64)
-    rcv = np.asarray(receivers, np.int64)
-    ev = snd.shape[0] if num_valid is None else int(num_valid)
-    if ev and np.any(np.diff(rcv[:ev]) < 0):
-        return None
-    chunk = default_chunk() if chunk is None else chunk
-    sb = _best_sb(snd, rcv, ev, chunk) if sb is None else sb
-    W = _sender_W(snd, rcv, ev, chunk, sb)
-    WR = 128
-    for *_, wr_need in _chunk_windows(snd, rcv, ev, chunk):
-        WR = max(WR, wr_need)
-    return W, WR
+    d = plan_dims(senders, receivers, num_valid=num_valid, chunk=chunk, sb=sb)
+    return None if d is None else (d["W"], d["WR"])
 
 
 def check_banded(
@@ -151,3 +141,48 @@ def check_banded(
     this numbering without a relabel."""
     d = window_dims(senders, receivers, num_valid=num_valid, chunk=chunk)
     return d is not None and d[0] <= max_window and d[1] <= max_window
+
+
+def plan_dims(
+    senders: np.ndarray,
+    receivers: np.ndarray,
+    num_valid: Optional[int] = None,
+    chunk: Optional[int] = None,
+    sb: Optional[int] = None,
+) -> Optional[dict]:
+    """The JAX package's ``plan_dims``: the static dims of its band plan,
+    ``{"chunk", "sb", "W", "WR", "steps", "nr"}`` (scan steps over the
+    longest receiver run in a chunk, and the node rows the windows reach),
+    or None when the receivers are unsorted.  TPU grid sizes: read only to
+    make the bucket's band decision (``data.bucketing.bucket_plan_dims``)
+    the JAX package's."""
+    snd = np.asarray(senders, np.int64)
+    rcv = np.asarray(receivers, np.int64)
+    ev = snd.shape[0] if num_valid is None else int(num_valid)
+    if ev and np.any(np.diff(rcv[:ev]) < 0):
+        return None
+    chunk = default_chunk() if chunk is None else chunk
+    sb = _best_sb(snd, rcv, ev, chunk) if sb is None else sb
+    W = _sender_W(snd, rcv, ev, chunk, sb)
+    WR, seg_max, ws_max, rl_max = 128, 1, 0, 0
+    for _, sl, _, rl, _, wr_need in _chunk_windows(snd, rcv, ev, chunk):
+        WR = max(WR, wr_need)
+        rl_max = max(rl_max, rl)
+        runs = np.diff(np.flatnonzero(np.r_[True, np.diff(rcv[sl]) != 0, True]))
+        seg_max = max(seg_max, int(runs.max()))
+    for _, _, ws, _, _, _ in _chunk_windows(snd, rcv, ev, chunk // sb):
+        ws_max = max(ws_max, ws)
+    steps = 0
+    while (1 << steps) < min(seg_max, chunk):
+        steps += 1
+    return {"chunk": chunk, "sb": sb, "W": W, "WR": WR, "steps": steps, "nr": max(ws_max + W, rl_max + WR)}
+
+
+def upgrade_512_ok(senders, receivers, num_nodes: int, num_valid: Optional[int] = None,
+                   latent_size: int = 128, pb: int = 1) -> bool:
+    """The JAX package's ``models.base.upgrade_512_ok``: whether its band
+    plans take 512-edge chunks without a raised TPU scoped-memory limit."""
+    if latent_size > 128 or pb > 1:
+        return False
+    d = plan_dims(senders, receivers, num_valid=num_valid, chunk=512)
+    return d is not None and d["W"] <= 128 and d["WR"] <= 128 and max(d["nr"], num_nodes) <= 2048

@@ -91,6 +91,7 @@ loss.  :func:`make_sharded_forward` returns the process's rows.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -523,8 +524,14 @@ def spmd_gnn_config(model, topo: Topology, group):
     their shards, every other set the sharded unfused aggregate.
     ``fused_bwd`` other than ``remat``, ``fused_pb`` and ``fused_fwd: xla``
     are ignored, ``fused_bwd`` and ``fused_pb`` with a warning from each
-    fused call, as in the JAX package."""
-    return dataclasses.replace(model.gnn_config, axis_name=group, halo_overlap=True)
+    fused call, as in the JAX package.  ``model.remat`` is ignored with a
+    warning: a block's collectives cannot be run again from the backward,
+    and remat changes no result, only the memory held."""
+    cfg = model.gnn_config
+    if cfg.remat:
+        warnings.warn("model.remat: the sharded step keeps every block's activations (no recompute)",
+                      stacklevel=2)
+    return dataclasses.replace(cfg, axis_name=group, halo_overlap=True, remat=False)
 
 
 def _device_topologies(topo: Topology, group) -> Dict[torch.device, Topology]:

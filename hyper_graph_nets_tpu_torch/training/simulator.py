@@ -13,14 +13,15 @@ Counterpart of ``hyper_graph_nets_tpu/training/simulator.py``:
 - with ``agg_vjp: fused``, meshes the JAX fused kernel's band criterion
   rejects are relabelled in reverse Cuthill-McKee order (``ops/reorder.py``),
   as the JAX simulator does, so both packages' rollouts match node for node.
+- with a capacity (:meth:`MeshSimulator.set_capacity`, set by the task when
+  the dataset's meshes differ in size), every trajectory is relabelled, then
+  padded to the capacity, and its topology built at it
+  (``data/bucketing.py``), as in the JAX package: the rollout and n-step
+  losses are then means over the capacity's rows, as there.
 
-Left out by design: cross-trajectory bucketing (``set_capacity``,
-``data/bucketing.py``).  It pads meshes of different sizes to one shape so
-that XLA compiles one step; PyTorch does not recompile per shape, and the
-synthetic meshes have one size per dataset.  The model counters of the
-steps (plate's ``world_edge_truncated``) are summed per trajectory in
-training and per pass in the one-step evaluator, on the device until the
-one sync at the end.
+The model counters of the steps (plate's ``world_edge_truncated``) are
+summed per trajectory in training and per pass in the one-step evaluator, on
+the device until the one sync at the end.
 
 Runs on the card unless ``device="cpu"``.  The training noise is drawn by
 :meth:`MeshSimulator._normal` from a seeded generator on the device: the
@@ -37,6 +38,7 @@ import numpy as np
 import torch
 
 from hyper_graph_nets_tpu_torch.core.mesh import cells_to_edges, mesh_fingerprint
+from hyper_graph_nets_tpu_torch.data import bucketing
 from hyper_graph_nets_tpu_torch.models.base import Topology, reset_due
 from hyper_graph_nets_tpu_torch.models.get_model import get_model
 from hyper_graph_nets_tpu_torch.ops import reorder
@@ -65,6 +67,28 @@ class MeshSimulator:
         # the batch-order shuffle within a trajectory, seeded as the JAX
         # simulator's (simulator.py:66)
         self._shuffle_rng = np.random.RandomState(seed)
+        # the bucket's capacity, band decision and model dims (set_capacity)
+        self.capacity: Optional[Tuple[int, int]] = None
+        self._plan_dims = None
+        self._topo_extras: Optional[dict] = None
+
+    def set_capacity(self, num_nodes: int, num_edges: int, plan_dims=None,
+                     topo_extras: Optional[dict] = None) -> None:
+        """Pad every trajectory to ``num_nodes`` nodes and its topology to
+        ``num_edges`` edges.  ``plan_dims`` is the bucket's band decision
+        (``data.bucketing.bucket_plan_dims``) and ``topo_extras`` the
+        model's bucket dims (``bucket_topology_extras``)."""
+        self.capacity = (num_nodes, num_edges)
+        self._plan_dims = plan_dims
+        self._topo_extras = topo_extras
+
+    def _prepare(self, trajectory: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """The trajectory as the steps see it: relabelled, then padded to
+        the capacity when one is set."""
+        trajectory = self._maybe_reorder(trajectory)
+        if self.capacity is None:
+            return trajectory
+        return bucketing.pad_trajectory(trajectory, self.capacity[0])
 
     def initialize(self, logger: Optional[MetricsLogger] = None) -> TrainState:
         """A fresh train state (weights from the config's random seed)."""
@@ -99,9 +123,17 @@ class MeshSimulator:
         return trajectory if perm is None else reorder.reorder_trajectory(trajectory, perm)
 
     def _topology(self, trajectory: Dict[str, np.ndarray]) -> Topology:
+        """The topology of a prepared trajectory (at the capacity when one
+        is set), cached by mesh and model content."""
         key = self._mesh_key("topo", trajectory)
         if key not in self._topo_cache:
-            self._topo_cache[key] = self.model.topology_from_trajectory(trajectory, device=self.device)
+            if self.capacity is not None:
+                self._topo_cache[key] = bucketing.pad_topology(
+                    self.model, trajectory, *self.capacity, plan_dims=self._plan_dims,
+                    topo_extras=self._topo_extras, device=self.device,
+                )
+            else:
+                self._topo_cache[key] = self.model.topology_from_trajectory(trajectory, device=self.device)
         return self._topo_cache[key]
 
     def _prepare_expansion(self, trajectory, topo):
@@ -130,7 +162,7 @@ class MeshSimulator:
         a step, not the device's; the trajectory's wall time, taken after
         the one sync at the end, gives ``edges_per_s``.
         """
-        trajectory = self._maybe_reorder(trajectory)
+        trajectory = self._prepare(trajectory)
         topo = self._topology(trajectory)
         T = trajectory["cells"].shape[0]
         num_steps = min(T, self.time_steps or T)
@@ -207,7 +239,7 @@ class MeshSimulator:
         for idx, traj in enumerate(trajectories):
             if n_trajectories is not None and idx >= n_trajectories:
                 break
-            traj = self._maybe_reorder(traj)
+            traj = self._prepare(traj)
             topo = self._topology(traj)
             static = self._prepare_expansion(traj, topo)
             for frames in frames_to_batches(traj, self.batch_size, self.time_steps, device=self.device):
@@ -252,7 +284,7 @@ class MeshSimulator:
         for idx, traj in enumerate(trajectories):
             if n_rollouts is not None and idx >= n_rollouts:
                 break
-            traj = self._maybe_reorder(traj)
+            traj = self._prepare(traj)
             topo = self._topology(traj)
             freqs = self.expansion.frequencies if self.expansion else []
             if any(f > 1 for f in freqs):
@@ -334,7 +366,7 @@ class MeshSimulator:
         for idx, traj in enumerate(trajectories):
             if n_trajectories is not None and idx >= n_trajectories:
                 break
-            traj = self._maybe_reorder(traj)
+            traj = self._prepare(traj)
             topo = self._topology(traj)
             static = self._prepare_expansion(traj, topo)
             T = traj["cells"].shape[0]

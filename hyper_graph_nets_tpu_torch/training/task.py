@@ -4,8 +4,10 @@ Counterpart of ``hyper_graph_nets_tpu/training/task.py``: per epoch, fit
 every training trajectory, then the one-step, rollout and n-step evaluators
 on the validation split, the rollout GIF and a checkpoint; resume from the
 newest checkpoint (the port's or the JAX package's) unless ``retrain``;
-``get_scalars`` evaluates the test split.  No bucketing scan: the port does
-not bucket (``training/simulator.py``).
+``get_scalars`` evaluates the test split.  When the meshes of the dataset
+differ in size, every trajectory is padded to one capacity
+(:meth:`MeshTask._setup_bucketing`, ``data/bucketing.py``), as in the JAX
+package.
 
 Example::
 
@@ -17,10 +19,12 @@ Example::
 """
 from __future__ import annotations
 
+import json
 import os
 import time
 from typing import Dict, Optional
 
+from hyper_graph_nets_tpu_torch.data import bucketing
 from hyper_graph_nets_tpu_torch.data.loader import get_data, get_directories
 from hyper_graph_nets_tpu_torch.training import checkpoint
 from hyper_graph_nets_tpu_torch.training.get_algorithm import get_algorithm
@@ -61,12 +65,65 @@ class MeshTask(AbstractTask):
         self.logger = MetricsLogger(out_dir, config)
         self.tstate = self.simulator.initialize(self.logger)
         self.start_epoch = 0
+        self._setup_bucketing()
         if not params.get("retrain", False):
             found = checkpoint.latest(out_dir, config)
             if found is not None:
                 path, _ = found
                 self.tstate, self.start_epoch, _ = checkpoint.load(path, self.simulator.trainer)
                 self.logger.log({"resumed_from_epoch": self.start_epoch}, commit=False)
+
+    def _setup_bucketing(self) -> None:
+        """Pad every trajectory to one capacity when the meshes differ in
+        size, as the JAX package's task does (``training/task.py:70-161``).
+
+        The splits are scanned once, each up to its configured trajectory
+        count, and the result is cached as ``capacity.json`` beside the
+        dataset, with the JAX package's keys (``variable``, ``max_nodes``,
+        ``max_edges``): each package reads the file the other wrote.  With
+        sizes that vary, the relabelled scan gives the bucket's band
+        decision (``bucketing.bucket_plan_dims``) and the model's bucket
+        dims (``bucket_topology_extras``)."""
+        in_dir, _ = get_directories(self.dataset, self._data_dir)
+        cache = os.path.join(in_dir, "capacity.json")
+        limits = {
+            "train": self.trajectories,
+            "valid": max(self.valid_cfg.get("trajectories", 1), self.valid_cfg.get("rollouts", 1)),
+            "test": max(self.test_cfg.get("trajectories", 1), self.test_cfg.get("rollouts", 1)),
+        }
+
+        def scan():
+            for split, limit in limits.items():
+                for i, traj in enumerate(self._data(split)):
+                    if i >= limit:
+                        break
+                    yield traj
+
+        if os.path.exists(cache):
+            with open(cache) as f:
+                info = json.load(f)
+        else:
+            trajs = list(scan())
+            max_nodes, max_edges = bucketing.trajectory_capacity(trajs)
+            info = {
+                "variable": len({t["node_type"].shape[1] for t in trajs}) > 1,
+                "max_nodes": max_nodes,
+                "max_edges": max_edges,
+            }
+            try:
+                with open(cache, "w") as f:
+                    json.dump(info, f)
+            except OSError:
+                pass
+        if not info.get("variable"):
+            return
+        model = self.simulator.model
+        scanned = [self.simulator._maybe_reorder(t) for t in scan()]
+        self.simulator.set_capacity(
+            info["max_nodes"], info["max_edges"],
+            plan_dims=bucketing.bucket_plan_dims(model, scanned, info["max_nodes"], info["max_edges"]),
+            topo_extras=model.bucket_topology_extras(scanned),
+        )
 
     def _data(self, split: str):
         return get_data(self.config, split, data_dir=self._data_dir)
@@ -119,7 +176,7 @@ class MeshTask(AbstractTask):
 
     def get_scalars(self) -> Dict[str, float]:
         """The test split's one-step loss and error, rollout loss and n-step
-        loss."""
+        loss (plate: and ``test_world_edge_truncated``)."""
         one_step = self.simulator.one_step_evaluator(
             self.tstate, self._data("test"),
             n_trajectories=self.test_cfg.get("trajectories", 1), logging=False,
@@ -135,12 +192,18 @@ class MeshTask(AbstractTask):
             n_trajectories=self.test_cfg.get("n_step_rollouts", 1),
             num_timesteps=self.n_timesteps, logging=False,
         )
-        return {
+        scalars = {
             "test_loss": one_step["validation_loss"],
             "test_position_error": one_step["position_error"],
             "test_rollout_loss": rollout["rollout_loss"],
             "test_n_step_loss": n_step["n_step_loss"],
         }
+        # plate: the radius-query hits the world-edge capacity dropped over
+        # the three evaluations (nonzero: a capped query lost contact)
+        results = (one_step, rollout, n_step)
+        if any("world_edge_truncated" in r for r in results):
+            scalars["test_world_edge_truncated"] = float(sum(r.get("world_edge_truncated", 0) for r in results))
+        return scalars
 
 
 def get_task(config: dict, data_dir: Optional[str] = None, device=None) -> AbstractTask:

@@ -57,3 +57,58 @@ def get_from_nested_dict(
             return default_return
         current = current[key]
     return current
+
+
+def initialize_config(config: dict, repetition: int = 0) -> dict:
+    """The processed ``params`` of a cw2-style experiment config, as the JAX
+    package's ``initialize_config`` builds them: a ``_recording_structure``
+    from the experiment header, ``iterations`` moved in, the repetition's
+    random seeds (``default``: the repetition index; a ``tied`` pytorch
+    seed copies numpy's), every ``log_<key>: v`` as ``<key>: 2**v`` (an
+    int above 0 stays an int, one below -30 becomes 0), and integer-valued
+    floats as ints.  ``config`` is not changed."""
+    import copy
+
+    recording = {
+        "_groupname": config.get("_experiment_name"),
+        "_runname": f"{config.get('_experiment_name')}_{repetition}",
+        "_recording_dir": config.get("params", {}).get("_rep_log_path") or config.get("_rep_log_path"),
+        "_job_name": config.get("name"),
+    }
+    out = copy.deepcopy(config.get("params", {}))
+    if "_recording_structure" in out:
+        raise ValueError("may not use pre-defined '_recording_structure' subconfig")
+    if "iterations" in out:
+        raise ValueError("'iterations' must be defined outside of 'params'")
+    out["_recording_structure"] = recording
+    out["iterations"] = config.get("iterations")
+
+    seeds = dict(out.get("random_seeds") or {})
+    if seeds.get("numpy") == "default":
+        seeds["numpy"] = repetition
+    if seeds.get("pytorch") == "default":
+        seeds["pytorch"] = repetition
+    elif seeds.get("pytorch") == "tied":
+        seeds["pytorch"] = seeds.get("numpy")
+    out["random_seeds"] = seeds
+
+    def process(node: dict) -> dict:
+        parsed = {}
+        for key, value in node.items():
+            if isinstance(value, dict):
+                parsed[key] = process(value)
+            elif key.startswith("log_"):
+                name = key.replace("log_", "", 1)
+                if isinstance(value, int) and value > 0:
+                    parsed[name] = int(2**value)
+                elif isinstance(value, int) and value < -30:
+                    parsed[name] = 0
+                else:
+                    parsed[name] = 2**value
+            elif isinstance(value, float) and value.is_integer():
+                parsed[key] = int(value)
+            else:
+                parsed[key] = value
+        return parsed
+
+    return process(out)

@@ -436,6 +436,47 @@ def test_train_step_on_card_matches_cpu(dtype, bwd):
         assert float((gc[name] - g).norm()) <= grad_tol * float(g.norm()), name
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("agg_vjp", ["fused", "sorted"])
+def test_bucketed_train_step_on_card_matches_cpu(agg_vjp):
+    """A train step (float32, 2 blocks, B = 2) on the 8x8 flag padded to the
+    capacity of a bucket with a 10x9 flag (64 of 90 rows, a masked edge
+    tail ending at the top receiver) on the card against the CPU, with the
+    float32 limits of the step above: 2 K1 + 2 K2 (fused) or 2 K4f + 2 K4b
+    (sorted); the padded rows of a 2-step rollout stay 0 on both."""
+    from hyper_graph_nets_tpu_torch.data import bucketing
+
+    _need_card()
+    config = flag_config(None, agg_vjp=agg_vjp)
+    config["params"]["model"].update(noise=0.003, gamma=0.9)
+    small = add_targets(flag_trajectory(num_steps=4, nx=8, ny=8), "world_pos", True)
+    big = add_targets(flag_trajectory(num_steps=4, nx=10, ny=9, seed=1), "world_pos", True)
+    N, E = bucketing.trajectory_capacity([small, big])
+    traj = bucketing.pad_trajectory(small, N)
+    model = get_model(config)
+    state = model.init_state(torch.Generator().manual_seed(1))
+    normal = torch.randn(traj["world_pos"].shape, generator=torch.Generator().manual_seed(2))
+    fwd, bwd = (fused_edge_block, fused_edge_block_bwd) if agg_vjp == "fused" else (pna_sorted, pna_sorted_bwd)
+    results = {}
+    for device in ("cuda", "cpu"):
+        trainer = Trainer(model, config, device=device)
+        tstate = trainer.init_train_state(state=state)
+        topo = bucketing.pad_topology(model, traj, N, E, device=device)
+        assert topo.plan is not None and float(topo.mask.sum()) < E
+        before = (fwd.launches, bwd.launches)
+        loss, _ = trainer.loss_and_grads(tstate, topo, trainer.frames(traj), normal=normal.to(device))
+        assert (fwd.launches - before[0], bwd.launches - before[1]) == ((2, 2) if device == "cuda" else (0, 0))
+        grads = {n: p.grad.cpu() for n, p in tstate.model.params.named_parameters()}
+        with torch.no_grad():
+            ops, _ = model.rollout(tstate.model, topo, traj, num_steps=2)
+        assert not ops["pred_pos"][:, 64:].any()
+        results[device] = (float(loss), grads)
+    (lc, gc), (lh, gh) = results["cuda"], results["cpu"]
+    assert abs(lc - lh) <= 1e-4 * abs(lh)
+    for name, g in gh.items():
+        assert float((gc[name] - g).norm()) <= 1e-3 * float(g.norm()), name
+
+
 # -- K4f and K4b (agg_vjp: sorted) -------------------------------------------
 
 

@@ -553,7 +553,8 @@ def test_task_loop_on_the_demo_settings(tmp_path, monkeypatch):
     task = get_task(config, data_dir=str(tmp_path), device="cpu")
     task.run_iterations()
     scalars = task.get_scalars()
-    assert len(scalars) == 4 and all(np.isfinite(v) for v in scalars.values())
+    assert len(scalars) == 5 and "test_world_edge_truncated" in scalars  # plate's truncation count
+    assert all(np.isfinite(v) for v in scalars.values())
     assert calls and all(planned for _, planned in calls)
     # mesh (98 edges), up and down (39 each: one a node), inter (8 x 7): 4 a block
     assert {E for E, _ in calls} == {98, 39, 56} and len(calls) % 4 == 0
