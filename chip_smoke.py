@@ -226,7 +226,17 @@ Phases (any failure exits non-zero; nothing is caught and dropped):
    processes and against the in-process 2 x 2 step (SPMD_TOL; the summed
    gradients POD_GRAD_TOL), host ms
    beside it, K1 raw and K2 at a process's shard against their plain
-   versions;
+   versions; the sharded step over several cards (``phase_spmd_cards``,
+   only with two or more: with one it prints
+   ``{"phase": "spmd_cards", "ran": false, "cards": 1}`` and runs nothing):
+   the ``spmd`` configuration on 2 x 2 at B = 16 over ``min(4, cards)``
+   cards and on 1 x 4 with overlap bands at B = 8 (rank r on
+   ``cuda:(r % cards)``), its launches counted per card, loss and
+   gradients against the same group on one card (SPMD_TOL), a step with
+   the cross-card gradient sum left out that must miss the gradient
+   limit, every card's parameter copy bit for bit after three steps, two
+   runs of three steps bit for bit, host ms beside the one-card group's in
+   turns;
 12. meshes of different sizes (``phase_bucketed``): configs/cylinder.yaml
    and plate.yaml as shipped through ``get_task`` over datasets written in
    the real schema whose meshes differ in size (``BUCKET_MESHES``: cylinder
@@ -6061,7 +6071,7 @@ def pod_worker(rank, world, port, src, dst):
         case = torch.load(src, weights_only=False)
         model = get_model(case["config"])
         trainer = Trainer(model, case["config"])
-        group = multihost.make_pod_group(graph_per_host=POD_GRAPH)
+        group = multihost.make_pod_group(graph_per_host=POD_GRAPH, devices=[torch.device("cuda", 0)])
         if (group.shape, group.data_size, group.process) != ({"data": 1, "graph": POD_GRAPH}, world, rank):
             raise AssertionError(f"pod group {group.shape}, data {group.data_size}, process {group.process}")
         topo = model.topology_from_trajectory(case["traj"], device="cuda")
@@ -6209,6 +6219,203 @@ def phase_pod(card, peaks, seed):
     return launches, timings, rows
 
 
+# -- the sharded step over several cards ----------------------------------------------
+
+SPMD_CARDS_MAX = 4  # cards a group's 4 ranks spread over: rank r on cuda:(r % cards)
+SPMD_CARDS_STEPS = 3  # steps of each run before the copies are held bit for bit
+SPMD_CARDS_TIMED = 3  # timed steps of the spread group and of the one-card group, in turns
+
+
+@contextlib.contextmanager
+def launches_by_card():
+    """``{kernel: {card: launches}}`` of K1, K2 and K7 while the block runs,
+    tallied by the card of the tensors each launch is given (K7: every
+    rank's shard) around the launchers; their totals must equal
+    ``read_counts``'.  K7's wrapper takes over its count while it is in
+    place (the launcher adds to whatever its module's name points at)."""
+    from collections import Counter
+
+    from hyper_graph_nets_tpu_torch.ops import fused_block as fb
+    from hyper_graph_nets_tpu_torch.ops import fused_overlap as fo
+
+    tally = {k: Counter() for k in ("K1", "K2", "K7")}
+    k1, k2, k7 = fb._k1_launch, fb._bwd_launch, fo.fused_edge_block_overlap
+
+    def on_k1(e, *args, **kwargs):
+        out = k1(e, *args, **kwargs)
+        tally["K1"][e.device.index] += 1
+        return out
+
+    def on_k2(stream_mode, e, *args, **kwargs):
+        out = k2(stream_mode, e, *args, **kwargs)
+        tally["K2"][e.device.index] += int(not stream_mode)  # K3 shares the launcher
+        return out
+
+    def on_k7(shards, *args, **kwargs):
+        out = k7(shards, *args, **kwargs)
+        for x in shards:
+            tally["K7"][x["e"].device.index] += 1
+        return out
+
+    on_k7.launches = k7.launches
+    fb._k1_launch, fb._bwd_launch, fo.fused_edge_block_overlap = on_k1, on_k2, on_k7
+    try:
+        yield tally
+    finally:
+        fb._k1_launch, fb._bwd_launch, fo.fused_edge_block_overlap = k1, k2, k7
+        k7.launches = on_k7.launches
+
+
+def phase_spmd_cards(card, peaks, seed):
+    """The sharded step over several cards in one process: with fewer than
+    two cards one line ``{"phase": "spmd_cards", "ran": false, "cards":
+    N}`` and nothing else (not a pass).  With two or more,
+    flag_full_scale with RMP off (bf16, 15 blocks, latent 128, fused remat)
+    through ``make_spmd_train_step`` on the groups of SPMD_GROUPS spread
+    over ``min(SPMD_CARDS_MAX, cards)`` cards: one counted step (K1 raw or
+    K7 and K2, per card), its loss and gradients against the same group on
+    one card (SPMD_TOL bf16); a step with the cross-card gradient sum left
+    out, which must miss the gradient limit; two runs of SPMD_CARDS_STEPS
+    steps from one state, bit for bit, with every card's parameter copy
+    equal to the state's parameters bit for bit; the step's host ms beside
+    the one-card group's, in turns.  Under the sharded phases' watchdog."""
+    import faulthandler
+
+    import numpy as np
+    import torch
+
+    from hyper_graph_nets_tpu_torch.data.preprocessing import add_targets
+    from hyper_graph_nets_tpu_torch.data.synthetic import flag_trajectory
+    from hyper_graph_nets_tpu_torch.models.get_model import get_model
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+    from hyper_graph_nets_tpu_torch.parallel.sharding import make_spmd_train_step, shard_topology
+    from hyper_graph_nets_tpu_torch.training.trainer import Trainer
+
+    cards = torch.cuda.device_count()
+    launches = dict.fromkeys(read_counts(), 0)
+    if cards < 2:
+        print(json.dumps({"phase": "spmd_cards", "ran": False, "cards": cards}), flush=True)
+        log(f"spmd_cards: not run, {cards} card: the sharded step over several cards needs two or more")
+        return launches, {"ran": False, "cards": cards}
+    faulthandler.dump_traceback_later(SPMD_WATCHDOG_S, exit=True)
+    n = min(SPMD_CARDS_MAX, cards)
+    B_max = max(b for _, _, b in SPMD_GROUPS)
+    traj = add_targets(flag_trajectory(num_steps=B_max + 2, nx=40, ny=40, seed=seed), "world_pos", history=True)
+    every = {k: torch.as_tensor(v) for k, v in traj.items() if k != "cells"}
+    config = main_config()
+    config["params"]["model"].update(noise=0.003, gamma=0.9, learning_rate=1e-4)
+    model = get_model(config)
+    check_mgn15(model.gnn_config)
+    blocks = model.gnn_config.message_passing_steps
+    trainer = Trainer(model, config)
+    state = model.init_state(torch.Generator().manual_seed(seed))
+    with torch.no_grad():  # normalizers over the trajectory, as a run's would be
+        _, _, state = model.make_graph(state, model.topology_from_trajectory(traj, device="cpu"), every, True)
+        _, state = model.get_target(state, every, True)
+    topo = model.topology_from_trajectory(traj, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 51)
+    grads_of = lambda params: {k: p.grad.detach().clone() for k, p in params.named_parameters()}
+    loss_tol, grad_tol = SPMD_TOL["bfloat16"]
+    timings = {"ran": True, "cards": cards, "spread_over": n}
+
+    def errors(loss, grads, ref_loss, ref_grads):
+        loss_err = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        return loss_err, max((rel_l2(grads[k].to(ref_grads[k].device), ref_grads[k]), k) for k in ref_grads)
+
+    for shape, bands, B in SPMD_GROUPS:
+        ranks = shape[0] * shape[1]
+        tag = f"{shape[0]}x{shape[1]}" + (f" overlap {bands}" if bands else "")
+        kernel = "K7" if bands else "K1"
+        spread = RankGroup(*shape, devices=[f"cuda:{r % n}" for r in range(ranks)])
+        one = RankGroup(*shape, devices=["cuda:0"] * ranks)
+        frames = {k: v[:B].cuda() for k, v in every.items()}
+        normal = torch.randn(frames["world_pos"].shape, generator=gen, device="cuda")
+        stopo = {g: shard_topology(topo, grp, overlap_bands=bands) for g, grp in (("one", one), ("spread", spread))}
+        step = lambda g: make_spmd_train_step(trainer, stopo[g], spread if g == "spread" else one)
+        ts = trainer.init_train_state(state=state)
+        ref_loss, _ = step("one").loss_and_grads(ts, frames, normal=normal)
+        one.check()
+        ref_grads = grads_of(ts.model.params)
+
+        # the main path: every count set to 0 just before, read just after
+        sstep = step("spread")
+        reset_counts()
+        with launches_by_card() as per_card:
+            loss, _ = sstep.loss_and_grads(ts, frames, normal=normal)
+            spread.check()
+        counts = read_counts()
+        want = dict.fromkeys(counts, 0)
+        want[kernel] = want["K2"] = blocks * ranks
+        on_card = {c: sum(d.index == c for d in spread.devices) for c in range(n)}
+        by_card = {k: dict(sorted(per_card[k].items())) for k in (kernel, "K2")}
+        want_by_card = {c: blocks * on_card[c] for c in range(n)}
+        if counts != want or any(by_card[k] != want_by_card for k in by_card):
+            raise AssertionError(f"sharded step over {n} cards {tag}: launches {counts}, by card {by_card}; want "
+                                 f"{want}, {want_by_card} a card")
+        for k in launches:
+            launches[k] += counts[k]
+        loss_err, worst = errors(loss, grads_of(ts.model.params), ref_loss, ref_grads)
+        if not (np.isfinite(float(loss)) and loss_err <= loss_tol and worst[0] <= grad_tol):
+            raise AssertionError(f"sharded step over {n} cards {tag} vs one card: loss rel {loss_err:.3g}, worst "
+                                 f"gradient {worst}, limits {SPMD_TOL['bfloat16']}")
+
+        # the planted control: the cross-card gradient sum left out
+        planted = step("spread")
+        planted._sum_over_devices = lambda params, per_device: None
+        ploss, _ = planted.loss_and_grads(ts, frames, normal=normal)
+        spread.check()
+        p_loss_err, p_worst = errors(ploss, grads_of(ts.model.params), ref_loss, ref_grads)
+        if p_worst[0] <= grad_tol:
+            raise AssertionError(f"sharded step over {n} cards {tag}: without the cross-card sum the gradients "
+                                 f"passed the limit {grad_tol}: {p_worst}")
+
+        # two runs of SPMD_CARDS_STEPS steps from one state: the copies and the runs bit for bit
+        runs = []
+        for _ in range(2):
+            rstep, tst = step("spread"), trainer.init_train_state(state=state)
+            for _ in range(SPMD_CARDS_STEPS):
+                tst, last = rstep(tst, frames, normal=normal)
+            spread.check()
+            home = {k: p.detach().cpu() for k, p in tst.model.params.named_parameters()}
+            for d, kept in rstep.copies.items():
+                for k, p in kept.named_parameters():
+                    if not torch.equal(p.detach().cpu(), home[k]):
+                        raise AssertionError(f"sharded step over {n} cards {tag}: the copy on {d} differs from the "
+                                             f"state's {k} after {SPMD_CARDS_STEPS} steps")
+            runs.append((last.cpu(), home, sorted(str(d) for d in rstep.copies)))
+        if not (torch.equal(runs[0][0], runs[1][0]) and all(torch.equal(runs[0][1][k], runs[1][1][k])
+                                                             for k in runs[0][1])):
+            raise AssertionError(f"sharded step over {n} cards {tag}: two runs from one state differ")
+
+        # host ms a step, the spread group and the one-card group in turns
+        states = {g: trainer.init_train_state(state=state) for g in ("one", "spread")}
+        steps = {"one": step("one"), "spread": rstep}
+        ms = {g: [] for g in steps}
+        for i in range(1 + SPMD_CARDS_TIMED):
+            for g in steps:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                states[g], _ = steps[g](states[g], frames, normal=normal)
+                (spread if g == "spread" else one).check()
+                if i:  # the first of each is the warm-up
+                    ms[g].append(1e3 * (time.perf_counter() - t0))
+        timings[tag] = dict(
+            B=B, ranks=ranks, devices=[str(d) for d in spread.devices], launches=counts, launches_by_card=by_card,
+            loss_rel_err=loss_err, worst_grad_rel_l2=worst[0], worst_grad=worst[1],
+            planted_worst_grad_rel_l2=p_worst[0], planted_worst_grad=p_worst[1], copies=runs[0][2],
+            step_host_ms=ms["spread"], one_card_step_host_ms=ms["one"],
+        )
+        log(f"sharded step over {n} cards {tag} (flag MGN-15MP bf16, 40x40, B={B}, {ranks} ranks on "
+            f"{', '.join(str(d) for d in spread.devices)}): {kernel} by card {by_card[kernel]}, K2 by card "
+            f"{by_card['K2']}; vs the one-card group: loss rel {loss_err:.3g}, worst gradient rel L2 {worst[0]:.3g} "
+            f"({worst[1]}), limits {SPMD_TOL['bfloat16']}; without the cross-card sum {p_worst[0]:.3g} "
+            f"({p_worst[1]}) misses; copies on {runs[0][2]} bit for bit after {SPMD_CARDS_STEPS} steps, two runs bit "
+            f"for bit; host ms a step {', '.join(f'{t:.1f}' for t in ms['spread'])} against one card's "
+            f"{', '.join(f'{t:.1f}' for t in ms['one'])} (in turns) [{card}]")
+    faulthandler.cancel_dump_traceback_later()
+    return launches, timings
+
+
 PHASE_SECONDS = []  # (phase, seconds) in run order, for --out
 
 
@@ -6352,13 +6559,14 @@ def main(argv=None) -> int:
     int8_launches, int8_timings = timed(phase_int8, card, args.seed, args.profile)
     cluster_launches, cluster_timings, cluster_rows = timed(phase_cluster, card, peaks, args.seed)
     pod_launches, pod_timings, pod_rows = timed(phase_pod, card, peaks, args.seed)
+    cards_launches, cards_timings = timed(phase_spmd_cards, card, peaks, args.seed)
     cli_timings = timed(phase_cli, card)
     launches = {
         k: serve_launches[k] + halo_launches[k] + spmd_launches[k] + spmd_rmp_launches[k] + spmd_models_launches[k]
         + spmd_arch_launches[k] + hybrid_launches[k] + train_launches[k]
         + task_launches[k] + rmp_launches[k]
         + sum(run[0][k] for run in model_runs.values()) + bucketed_launches[k] + hgn_launches[k] + int8_launches[k]
-        + cluster_launches[k] + pod_launches[k]
+        + cluster_launches[k] + pod_launches[k] + cards_launches[k]
         for k in serve_launches
     }
 
@@ -6567,6 +6775,7 @@ def main(argv=None) -> int:
                     "int8": {"launches": int8_launches, "timings": int8_timings},
                     "cluster": {"launches": cluster_launches, "timings": cluster_timings, "kernels": cluster_rows},
                     "pod": {"launches": pod_launches, "timings": pod_timings, "kernels": pod_rows},
+                    "spmd_cards": {"launches": cards_launches, "timings": cards_timings},
                     "cli_s": cli_timings,
                     "phase_seconds": PHASE_SECONDS,
                     "kernels": kernels,

@@ -18,7 +18,9 @@ process runs the same program, as every host of a TPU pod slice does:
 With no process group initialized, the process is a pod of one: the same
 calls give the plain local group and batch.  Two processes may share one
 card: the ``gloo`` group combines through CPU tensors, where NCCL would
-refuse two ranks on one card.
+refuse two ranks on one card.  A process may hold several cards (the
+default: every local one): the step sums their gradients in the process,
+in device order, before the processes' sum.
 
 Use::
 
@@ -64,16 +66,24 @@ def process_index() -> int:
     return dist.get_rank()
 
 
-def make_pod_group(graph_per_host: int = 0, device=None) -> RankGroup:
+def make_pod_group(graph_per_host: int = 0, device=None, devices=None) -> RankGroup:
     """This process's ``data_local x graph`` ranks of the pod's ``(data,
     graph)`` group (the JAX package's ``make_pod_mesh``): one rank per local
-    card (on the CPU, one), and at least ``graph`` ranks, which then share
-    the cards round-robin; ``graph`` = ``graph_per_host`` (default: every
-    local rank), ``data_local`` = the local ranks // ``graph``, and the
-    pod's ``data`` axis ``process_count() * data_local`` long.  ``device``:
-    as ``RankGroup``'s."""
-    base = resolve_device(device)
-    cards = torch.cuda.device_count() if base.type == "cuda" else 1
+    device, and at least ``graph`` ranks, which then share the devices
+    round-robin; ``graph`` = ``graph_per_host`` (default: every local
+    device), ``data_local`` = the local ranks // ``graph``, and the pod's
+    ``data`` axis ``process_count() * data_local`` long.  The local devices
+    are ``devices`` (a list), or every card (``device`` None or a CUDA
+    device), or the one CPU (``device="cpu"``).  With several, the sharded
+    step keeps a parameter copy on each and sums their gradients before the
+    processes' sum."""
+    if devices is None:
+        base = resolve_device(device)
+        devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                   if base.type == "cuda" else [base])
+    elif device is not None:
+        raise ValueError("pass devices or device, not both")
+    cards = len(devices)
     graph = graph_per_host or cards
     local = max(cards, graph)
     if local % graph:
@@ -83,7 +93,7 @@ def make_pod_group(graph_per_host: int = 0, device=None) -> RankGroup:
         import torch.distributed as dist
 
         pg = dist.group.WORLD
-    return RankGroup(local // graph, graph, device=base, process_group=pg)
+    return RankGroup(local // graph, graph, devices=[devices[r % cards] for r in range(local)], process_group=pg)
 
 
 def host_local_batch_to_global(frames: Dict[str, np.ndarray], group: RankGroup) -> Dict[str, torch.Tensor]:

@@ -43,13 +43,23 @@ itself:
 - the loss divides by the global mask sum; only each data row's first graph
   rank's loss is differentiated, and every rank's parameter gradients (its
   own copy of the node side, its shard of the edge side) add up to the
-  single-device gradient; the ranks share the device's parameters, so
-  their gradients sum in place;
-- one Adam step on the summed gradients.
+  single-device gradient; the ranks on one device share that device's
+  parameters, so their gradients sum in place;
+- over several devices (the JAX package's replicated parameters on a mesh
+  of several chips), each device other than rank 0's holds a copy of the
+  parameters that the step keeps, refreshed from the state's own in place
+  at the start of every call and after Adam; after the backward each
+  copy's gradient is brought to rank 0's device and added to the state's,
+  the devices in the order they first appear in ``group.devices``, with
+  plain copies and adds, so the sum is the same bits on every run;
+- one Adam step on the summed gradients, on rank 0's device.
 
-Every rank of the step's group lies on one device (the one card, or the
-CPU): a group over several cards needs parameters kept identical across
-them, which is not ported yet (ROADMAP queue 1, item 7), and raises.
+A group over several cards (the default ``RankGroup`` on a node with
+several: rank r on ``cuda:(r % cards)``) runs each rank on its own card's
+copy, topology and plans; the cards must reach each other (peer access,
+which ``RankGroup`` turns on and without which it raises).  On the CPU,
+``torch.device("cpu", i)`` stands for card i: the ranks' tensors lie on the
+one CPU, but each logical device gets copies of its own.
 
 Use::
 
@@ -73,8 +83,7 @@ its edge axis, padded to a multiple of ``graph`` with the set's invalid
 slot (:class:`EdgeLayout` along the last axis), each rank's fixed-order
 sums built on its slice (``EdgeSums.per_frame``, over the set's node rows:
 ``N``, or ``N + K`` after RMP); the balancer's ``balance`` set beside it
-is padded to a multiple of ``graph`` as on flag.  A group over several
-devices (entry 7.3) is not ported yet (ROADMAP queue 1, item 7).
+is padded to a multiple of ``graph`` as on flag.
 
 In a pod (``parallel.multihost``: one group in each of several processes,
 ``data`` across them) each process hands the step its own ``[B_local,
@@ -84,12 +93,14 @@ In a pod (``parallel.multihost``: one group in each of several processes,
 sums the normalizers' partials and the loss
 mask's count over the pod's whole ``data`` axis (``RankGroup.
 all_reduce_plain``), and sums each parameter's gradient over the processes
-in process order before Adam (``RankGroup.fold_processes``), so every
-process holds the same parameters bit for bit; the loss is the global
-loss.  :func:`make_sharded_forward` returns the process's rows.
+in process order before Adam (``RankGroup.fold_processes``), after the sum
+over the process's own devices, so every process and every card holds the
+same parameters bit for bit; the loss is the global loss.
+:func:`make_sharded_forward` returns the process's rows.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import warnings
 from typing import Dict, List, Optional, Tuple
@@ -535,10 +546,14 @@ def spmd_gnn_config(model, topo: Topology, group):
 
 
 def _device_topologies(topo: Topology, group) -> Dict[torch.device, Topology]:
-    move = lambda t: None if t is None else t.to(d)
+    """The topology on every device of the group, once per device: its
+    index arrays, mask and ``aux`` moved (the per-rank plans and sums stay
+    where they lie, on their ranks' devices)."""
     out = {}
-    for d in set(group.devices):
-        out[d] = topo._replace(**{f: move(getattr(topo, f)) for f in (
+    for d in dict.fromkeys(group.devices):
+        move = lambda t: None if t is None else t.to(d)
+        aux = None if topo.aux is None else {k: move(v) for k, v in topo.aux.items()}
+        out[d] = topo._replace(aux=aux, **{f: move(getattr(topo, f)) for f in (
             "senders", "receivers", "mask", "gather_idx", "gather_valid", "snd_gather_idx", "snd_gather_valid")})
     return out
 
@@ -624,14 +639,20 @@ class SpmdTrainStep(_Sharded):
     expansion's prepared static (its cached one when omitted), laid out for
     the group on each call, or :func:`shard_static`'s :class:`ShardedStatic`
     of it, laid out once by the caller.  Each step
-    joins every rank's thread and raises the first error of any rank."""
+    joins every rank's thread and raises the first error of any rank.
+
+    ``copies`` maps each device of the group other than rank 0's to the
+    step's copy of the parameters there (empty on one device): the copies
+    are made at the first call, refreshed in place from the state's
+    parameters at the start of every call and after Adam, and hold their
+    device's gradient (before the sum) until the next call."""
 
     def __init__(self, trainer, topo: Topology, group, expansion=None):
-        if len(set(group.devices)) > 1:
-            raise NotImplementedError(f"a sharded step over several devices {NOT_PORTED}")
         super().__init__(trainer.model, topo, group, expansion)
         self.trainer = trainer
-        self.topo = _device_topologies(topo, group)[group.device(0)]
+        self.home = group.device(0)
+        self.topos = _device_topologies(topo, group)
+        self.copies: Dict[torch.device, torch.nn.Module] = {}
 
     def _noisy_frames(self, frames, normal, generator, global_size, offset):
         """The field's training noise: the global ``[B, N, D]`` draw (from
@@ -646,26 +667,62 @@ class SpmdTrainStep(_Sharded):
         normal = normal[offset : offset + x.shape[0]].to(x.device)
         return add_noise(frames, model.field, model.noise_scale, model.noise_gamma, normal)
 
+    def _params_per_device(self, params) -> Dict[torch.device, torch.nn.Module]:
+        """The parameters on every device of the group, rank 0's device
+        first, the others in the order they first appear: the state's own
+        on rank 0's, on every other the step's copy (made by copying at the
+        first call), refreshed from them, its gradients cleared."""
+        out = {self.home: params}
+        for d in dict.fromkeys(self.group.devices):
+            if d == self.home:
+                continue
+            if d in self.copies:
+                _refresh(self.copies[d], params)
+            else:
+                self.copies[d] = copy.deepcopy(params).to(d)
+            self.copies[d].zero_grad(set_to_none=True)
+            out[d] = self.copies[d]
+        return out
+
+    def _sum_over_devices(self, params, per_device) -> None:
+        """Each copy's gradient brought to rank 0's device and added to the
+        state's parameters' gradient, the devices in ``per_device``'s order
+        (rank 0's first): the same bits on every run."""
+        copies = [m for d, m in per_device.items() if d != self.home]
+        for p, *kept in zip(params.parameters(), *(m.parameters() for m in copies)):
+            for c in kept:
+                if c.grad is None:
+                    continue
+                if p.grad is None:
+                    p.grad = c.grad.to(p.device, copy=True)
+                else:
+                    p.grad.add_(c.grad.to(p.device))
+
     def loss_and_grads(self, tstate, frames, normal=None, generator=None, static=None, hyper_normal=None):
         """Noise, loss and backward of one step: returns the loss and the new
         normalizer states, and leaves each parameter's gradient (summed over
-        every rank) in its ``.grad``."""
+        every rank, every device and, in a pod, every process) in its
+        ``.grad``."""
         group, model = self.group, self.model
         params = tstate.model.params
         params.zero_grad(set_to_none=True)
+        per_device = self._params_per_device(params)
+        norms = tstate.model.normalizers
+        states = {d: ModelState(params=p, normalizers=norms if d == self.home else {
+            k: v.to(d) for k, v in norms.items()}) for d, p in per_device.items()}
         b = frames[model.field].shape[0]
         global_size, offset = b * group.processes, b * group.process
         frames = self._noisy_frames(frames, normal, generator, global_size, offset)
         rank_frames = shard_frames(frames, group)
         sstatic = self.laid_out(static)
-        topo = self.topo if sstatic is None else sstatic.topo
+        topos = self.topos if sstatic is None else _device_topologies(sstatic.topo, group)
         members = None if sstatic is None else sstatic.members
         hyper = self.hyper_normals(frames, sstatic, hyper_normal, generator, rank_frames, global_size, offset)
 
         def rank_fn(r):
-            mstate = ModelState(params=params, normalizers=tstate.model.normalizers)
+            dev = group.device(r)
             fr = rank_frames[r]
-            out, target, norms = _rank_forward(model, mstate, topo, fr, self.cfg, group, r, True,
+            out, target, norms = _rank_forward(model, states[dev], topos[dev], fr, self.cfg, group, r, True,
                                                self.expansion, members, hyper[r])
             mask = model.loss_mask(fr["node_type"]).to(out.dtype)[..., None]
             count = group.all_reduce_plain((mask.sum() * out.shape[-1]).reshape(1), "sum", axis="data")
@@ -676,7 +733,8 @@ class SpmdTrainStep(_Sharded):
         torch.autograd.backward(firsts)
         loss = firsts[0].detach()
         for x in firsts[1:]:
-            loss = loss + x.detach()
+            loss = loss + x.detach().to(loss.device)
+        self._sum_over_devices(params, per_device)
         if group.processes > 1:
             loss = self._sum_over_processes(params, loss)
         return loss, results[0][1]
@@ -699,8 +757,18 @@ class SpmdTrainStep(_Sharded):
         for grp in tstate.opt_state.param_groups:
             grp["lr"] = self.trainer.learning_rate(tstate.step)
         tstate.opt_state.step()
+        for kept in self.copies.values():  # the new parameters on every device
+            _refresh(kept, tstate.model.params)
         new_model = tstate.model.replace(normalizers=normalizers)
         return TrainState(model=new_model, opt_state=tstate.opt_state, step=tstate.step + 1), loss
+
+
+def _refresh(kept: torch.nn.Module, params: torch.nn.Module) -> None:
+    """``kept``'s parameters set in place to ``params``' (on their own
+    device)."""
+    with torch.no_grad():
+        for a, b in zip(kept.parameters(), params.parameters()):
+            a.copy_(b)
 
 
 def make_spmd_train_step(trainer, topo: Topology, group, expansion=None) -> SpmdTrainStep:

@@ -1727,6 +1727,77 @@ def _sharded_vs_single(shape, bands, dtype_name):
 
 
 @pytest.mark.cuda
+def test_sharded_step_over_several_cards():
+    """The sharded step over the default layout of several cards (rank r on
+    ``cuda:(r % cards)``, at most 4): 2 x 2 (K1 raw, the plain all-reduce
+    and K2 per shard, each on its card) and 1 x 4 with overlap bands (K7
+    ringing across the cards), a 2-block float32 flag, B = 4, 10x10 mesh,
+    against the same group on one card: loss rtol 1e-4 and gradients
+    relative L2 1e-3 (the sharded card tests' float32 limits); the step
+    with the cross-card gradient sum left out must miss the gradient limit;
+    after three steps every card's parameter copy equals the state's
+    parameters bit for bit, and two runs of three steps from one state are
+    bit for bit.  Each case under its own time limit."""
+    import faulthandler
+
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+    from hyper_graph_nets_tpu_torch.parallel.sharding import make_spmd_train_step, shard_topology
+
+    _need_card()
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two cards")
+    config = flag_config(None, agg_vjp="fused")
+    config["params"]["model"].update(noise=0.003, gamma=0.9)
+    model = get_model(config)
+    trainer = Trainer(model, config)
+    traj = add_targets(flag_trajectory(num_steps=6, nx=10, ny=10), "world_pos", True)
+    topo = model.topology_from_trajectory(traj, device=trainer.device)
+    frames = trainer.frames({k: np.array(v[:4]) for k, v in traj.items() if k != "cells"})
+    normal = torch.randn(frames["world_pos"].shape, generator=torch.Generator().manual_seed(1)).cuda()
+    state = model.init_state(torch.Generator().manual_seed(0))
+    grads_of = lambda ts: {n: p.grad.clone() for n, p in ts.model.params.named_parameters()}
+    rel = lambda a, b: float((a - b).norm() / b.norm().clamp(min=1e-30))
+    for shape, bands in (((2, 2), None), ((1, 4), 4)):
+        one = RankGroup(*shape, devices=["cuda:0"] * 4)
+        spread = RankGroup(*shape, devices=[f"cuda:{r % min(4, cards)}" for r in range(4)])
+        assert len(set(spread.devices)) == min(4, cards)
+        step = lambda group: make_spmd_train_step(
+            trainer, shard_topology(topo, group, overlap_bands=bands, chunk=32), group)
+        faulthandler.dump_traceback_later(SPMD_STEP_LIMIT_S, exit=True)  # a deadlock fails, never hangs
+        try:
+            ts = trainer.init_train_state(state=state)
+            ref_loss, _ = step(one).loss_and_grads(ts, frames, normal=normal)
+            one.check()
+            ref = grads_of(ts)
+            loss, _ = step(spread).loss_and_grads(ts, frames, normal=normal)
+            spread.check()
+            assert abs(float(loss) - float(ref_loss)) <= 1e-4 * abs(float(ref_loss)), shape
+            for name, got in grads_of(ts).items():
+                assert rel(got, ref[name]) <= 1e-3, (shape, name)
+            planted = step(spread)
+            planted._sum_over_devices = lambda params, per_device: None
+            planted.loss_and_grads(ts, frames, normal=normal)
+            spread.check()
+            assert max(rel(got, ref[name]) for name, got in grads_of(ts).items()) > 1e-3, shape
+            runs = []
+            for _ in range(2):
+                sstep, tst = step(spread), trainer.init_train_state(state=state)
+                for _ in range(3):
+                    tst, last = sstep(tst, frames, normal=normal)
+                spread.check()
+                home = {n: p.detach().cpu() for n, p in tst.model.params.named_parameters()}
+                assert len(sstep.copies) == min(4, cards) - 1
+                for kept in sstep.copies.values():
+                    assert all(torch.equal(p.detach().cpu(), home[n]) for n, p in kept.named_parameters()), shape
+                runs.append((last.cpu(), home))
+            assert torch.equal(runs[0][0], runs[1][0]), shape
+            assert all(torch.equal(runs[0][1][n], runs[1][1][n]) for n in runs[0][1]), shape
+        finally:
+            faulthandler.cancel_dump_traceback_later()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["2x2", "1x4_overlap"])
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
 def test_sharded_step_on_card_matches_single_device(case, dtype_name):

@@ -2,7 +2,10 @@
 processes, each a ``1 x 2`` rank group, run the sharded forward and one
 train step of a ``2 x 2`` pod, held against the JAX package's
 ``make_spmd_train_step`` on a ``2 x 2`` mesh of virtual CPU devices and
-against the port's in-process ``RankGroup(2, 2)`` forward and step; and the
+against the port's in-process ``RankGroup(2, 2)`` forward and step; the
+same pod with each process over two logical devices (``cpu:0``, ``cpu:1``:
+a parameter copy on the second, its gradient summed in before the
+processes' sum) against the in-process step over four; and the
 single-process fallback (the counterpart of tests/test_aux.py's
 ``TestMultihost``).
 
@@ -123,14 +126,14 @@ def _jax_pod_step(j):
     return float(loss), dict(state_from_jax_numpy(params, {}).params.named_parameters()), norms
 
 
-def _in_process_step(j):
+def _in_process_step(j, devices=None):
     """The port's in-process RankGroup(2, 2) forward and step on the same
-    inputs."""
+    inputs (on ``devices``, or every rank on the CPU)."""
     config = _config("fused")
     model = get_model(config)
     trainer = Trainer(model, config, device="cpu")
     topo = model.topology_from_trajectory(j["traj"], device="cpu")
-    group = RankGroup(2, 2, device="cpu")
+    group = RankGroup(2, 2, device=None if devices else "cpu", devices=devices)
     stopo = shard_topology(topo, group)
     start = lambda: trainer.init_train_state(state=state_from_jax_numpy(*j["start"]))
     tstate = start()
@@ -149,8 +152,9 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _start_pod(j, tmp_path):
-    """The two workers, started (each writes its results to its file)."""
+def _start_pod(j, tmp_path, spread=False):
+    """The two workers, started (each writes its results to its file;
+    ``spread``: each over two logical devices)."""
     src = str(tmp_path / "case.pt")
     torch.save(dict(config=_config("fused"), trajectory=j["traj"], frames=j["frames"], normal=j["normal"],
                     numpy_state=j["start"], noise_seed=NOISE_SEED), src)
@@ -158,7 +162,8 @@ def _start_pod(j, tmp_path):
     outs = [str(tmp_path / f"out{r}.pt") for r in range(PROCESSES)]
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["OMP_NUM_THREADS"] = "1"
-    procs = [subprocess.Popen([sys.executable, WORKER, str(r), str(PROCESSES), str(port), src, outs[r]],
+    procs = [subprocess.Popen([sys.executable, WORKER, str(r), str(PROCESSES), str(port), src, outs[r]]
+                              + (["spread"] if spread else []),
                               cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(PROCESSES)]
     return procs, outs
@@ -231,6 +236,40 @@ def test_two_process_pod_step_matches_jax_and_the_in_process_step(tmp_path):
             w = np.asarray(ns[f])
             np.testing.assert_allclose(p0["normalizers"][k][f].numpy(), w, rtol=1e-5,
                                        atol=1e-5 * float(np.abs(w).max()), err_msg=f"{k}.{f}")
+
+
+def test_two_process_pod_over_two_devices_each_is_bit_for_bit_across_processes(tmp_path):
+    """Each process's group over two logical devices (``cpu:0``, ``cpu:1``,
+    as a process with two cards holds it): the step keeps a parameter copy
+    on ``cpu:1`` and sums the two devices' gradients before the processes'
+    sum.  The processes equal bit for bit, each copy equals its process's
+    parameters bit for bit after the step, and the pod stays within the
+    module's limits (loss equal up to float32 rounding, rtol 1e-6;
+    parameters atol 1e-7; each gradient's relative L2 within GRAD_TOL) of
+    the in-process step over four logical devices, whose gradients sum in
+    another order."""
+    j = _jax_start()
+    procs, outs = _start_pod(j, tmp_path, spread=True)
+    try:
+        forward, loss, params, _, drawn = _in_process_step(j, devices=[torch.device("cpu", d) for d in range(4)])
+    finally:
+        results = _join_pod(procs, outs)
+    p0, p1 = results
+    for r, res in enumerate(results):
+        assert res["devices"] == ["cpu:0", "cpu:1"] and list(res["copies"]) == ["cpu:1"]
+        for n, c in res["copies"]["cpu:1"].items():  # the last step's parameters
+            assert torch.equal(c, res["params_drawn"][n]), n
+        assert torch.equal(res["forward"], forward[r * B // 2 : (r + 1) * B // 2]), r
+    assert torch.equal(p0["loss"], p1["loss"])
+    for key in ("params", "grads", "params_drawn", "grads_drawn"):
+        for n in p0[key]:
+            assert torch.equal(p0[key][n], p1[key][n]), (key, n)
+    np.testing.assert_allclose(float(p0["loss"]), loss, rtol=1e-6)
+    for n, p in params.items():
+        torch.testing.assert_close(p0["params"][n], p.detach(), rtol=0, atol=1e-7, msg=n)
+    for key, ps in (("grads", params), ("grads_drawn", drawn)):
+        for n, p in ps.items():
+            assert float((p0[key][n] - p.grad).norm()) <= GRAD_TOL * float(p.grad.norm()), (key, n)
 
 
 # -- a pod of one process ------------------------------------------------------------

@@ -376,9 +376,9 @@ def test_sharded_steps_repeat_bit_for_bit_and_update_every_device():
 def test_sharded_step_raises_on_what_it_does_not_run():
     """What raised before the expansions were ported now runs (an
     expansion, the Ricci balancer, ``agg_vjp: xla``, a masked topology),
-    each step's loss the single-device step's; a group over several
-    devices and a batch that does not split over the data ranks still
-    raise.  tests/test_torch_port_spmd_expansion.py holds the gradients."""
+    each step's loss the single-device step's, and so does a group over
+    several devices; a batch that does not split over the data ranks still
+    raises.  tests/test_torch_port_spmd_expansion.py holds the gradients."""
     from hyper_graph_nets_tpu_torch.training.expansion import build_expansion
 
     s = _setup()
@@ -409,11 +409,12 @@ def test_sharded_step_raises_on_what_it_does_not_run():
     runs(_config(agg_vjp="xla"))
     masked = s["topo"]._replace(mask=torch.ones(len(s["topo"].senders)).index_fill_(0, torch.tensor([3]), 0.0))
     runs(_config(), topo=masked)
-    stopo = shard_topology(s["topo"], group)
-    spread = RankGroup(2, 2, device="cpu")  # as a group over two cards would lie
-    spread.devices = [torch.device("cpu", d) for d in (0, 0, 1, 1)]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_spmd_train_step(s["trainer"], stopo, spread)
+    # a group over two devices, as over two cards, runs too (a parameter copy
+    # on the second; tests/test_torch_port_spmd_cards.py holds its gradients)
+    spread = RankGroup(2, 2, devices=[torch.device("cpu", d) for d in (0, 0, 1, 1)])
+    step = make_spmd_train_step(s["trainer"], shard_topology(s["topo"], spread), spread)
+    loss, _ = step.loss_and_grads(_port_state(s), s["frames"], normal=s["normal"])
+    np.testing.assert_allclose(float(loss), _single_device()[0], rtol=1e-5)
     with pytest.raises(ValueError, match="data ranks"):
         shard_frames({k: v[:3] for k, v in s["frames"].items()}, group)
 

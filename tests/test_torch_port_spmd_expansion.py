@@ -345,20 +345,24 @@ def test_the_static_is_laid_out_once_per_prepare():
 
 
 def test_what_the_sharded_step_does_not_run_raises_naming_the_item():
-    """A group over several devices raises ``NotImplementedError`` naming
-    ROADMAP queue 1, item 7 (parameters kept identical across cards, entry
-    7.3); a model configured with an expansion needs it given to the
-    forward.  Every connector and architecture of RMP and the graph
+    """A group over several devices (entry 7.3, once raising naming ROADMAP
+    queue 1, item 7) runs with an expansion, its loss the one-device
+    group's (rtol 1e-5); a model configured with an expansion needs it
+    given to the forward.  Every connector and architecture of RMP and the graph
     balancer on every family build (they run in
     tests/test_torch_port_spmd_arch.py)."""
     from hyper_graph_nets_tpu_torch.training.expansion import build_expansion
 
     group = RankGroup(2, 2, device="cpu")
-    _, trainer, topo, _, _ = _port()
+    _, trainer, topo, static, frames = _port()
     stopo = shard_topology(topo, group)
-    two = RankGroup(2, devices=["cpu:0", "cpu:1"])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_spmd_train_step(trainer, shard_topology(topo, two), two)
+    runs = []
+    for pair in (RankGroup(2, devices=["cpu:0", "cpu:1"]), RankGroup(2, device="cpu")):
+        step = make_spmd_train_step(trainer, shard_topology(topo, pair), pair)
+        loss, _ = step.loss_and_grads(trainer.init_train_state(), frames, generator=torch.Generator().manual_seed(3),
+                                      static=static)
+        runs.append(float(loss))
+    np.testing.assert_allclose(runs[0], runs[1], rtol=1e-5)
     with pytest.raises(ValueError, match="build_expansion"):
         make_sharded_forward(get_model(_config()), stopo, group)
     config = _config()

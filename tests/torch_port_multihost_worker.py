@@ -8,11 +8,16 @@ its half of the global batch (``host_local_batch_to_global``), runs the
 sharded forward on it, one sharded train step with the global noise draw
 handed in and one from the same state drawing it from a generator seeded
 alike in both processes, then saves its forward rows, its loss, its
-parameters after each step, its normalizer states, its group's layout and
-its ``host_trajectory_indices(10)``, and the gradients each step
-summed over the pod before Adam.
+parameters after each step, its normalizer states, its group's layout
+and devices, the step's parameter copies on its other devices, its
+``host_trajectory_indices(10)``, and the gradients each step summed over
+the pod before Adam.
 
-Run: torch_port_multihost_worker.py <rank> <world size> <port> <input.pt> <output.pt>
+With ``spread`` as a sixth argument, the process's group lies over two
+logical devices (``cpu:0`` and ``cpu:1``, as a process with two cards
+would hold it): the step keeps a parameter copy on the second.
+
+Run: torch_port_multihost_worker.py <rank> <world size> <port> <input.pt> <output.pt> [spread]
 """
 import os
 import sys
@@ -35,7 +40,7 @@ from hyper_graph_nets_tpu_torch.parallel.sharding import (  # noqa: E402
 from hyper_graph_nets_tpu_torch.training.trainer import Trainer  # noqa: E402
 
 
-def main(rank: int, world: int, port: int, src: str, dst: str) -> None:
+def main(rank: int, world: int, port: int, src: str, dst: str, spread: bool = False) -> None:
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank,
                             timeout=timedelta(seconds=60))
     try:
@@ -43,7 +48,10 @@ def main(rank: int, world: int, port: int, src: str, dst: str) -> None:
         model = get_model(case["config"])
         trainer = Trainer(model, case["config"], device="cpu")
         topo = model.topology_from_trajectory(case["trajectory"], device="cpu")
-        group = multihost.make_pod_group(graph_per_host=2, device="cpu")
+        if spread:
+            group = multihost.make_pod_group(devices=[torch.device("cpu", 0), torch.device("cpu", 1)])
+        else:
+            group = multihost.make_pod_group(graph_per_host=2, device="cpu")
         frames = trainer.frames(case["frames"])
         b = next(iter(frames.values())).shape[0] // world
         batch = multihost.host_local_batch_to_global(
@@ -67,6 +75,8 @@ def main(rank: int, world: int, port: int, src: str, dst: str) -> None:
             params_drawn={n: p.detach().clone() for n, p in drawn.model.params.named_parameters()},
             grads_drawn={n: p.grad.clone() for n, p in drawn.model.params.named_parameters()},
             layout=(group.shape, group.data_size, group.processes, group.process),
+            devices=[str(d) for d in group.devices],
+            copies={str(d): {n: p.detach().clone() for n, p in m.named_parameters()} for d, m in step.copies.items()},
             rows=next(iter(batch.values())).shape[0],
             processes=(multihost.process_count(), multihost.process_index()),
             trajectories=list(multihost.host_trajectory_indices(10)),
@@ -76,4 +86,4 @@ def main(rank: int, world: int, port: int, src: str, dst: str) -> None:
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+    main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6:] == ["spread"])

@@ -11,12 +11,12 @@ ms per step (host clock, Adam included, after warm-up), edges/s (frames x
 bench_scaling.py counts), ``devices_attached`` (the cards this process
 sees) and ``ranks_per_card``.
 
-Every rank sits on card 0: the sharded step over several cards is not
-ported yet (ROADMAP queue 1, item 7), so every rank of a group shares one
-card.  Such a row times the rank group's launch path and the kernels' ring
-protocol, not scaling, and its ``scaling_efficiency`` is null.  Only where
-every rank has a card of its own (``ranks_per_card`` 1) is the efficiency
-(edges/s at n ranks over n times edges/s at one rank) a scaling result.
+Rank r sits on ``cuda:(r % cards)`` (the default ``RankGroup``): on one
+card every rank of a group shares it, and such a row times the rank
+group's launch path and the kernels' ring protocol, not scaling; its
+``scaling_efficiency`` is null.  Only where every rank has a card of its
+own (``ranks_per_card`` 1) is the efficiency (edges/s at n ranks over n
+times edges/s at one rank) a scaling result.
 
     python tools/torch_port/scaling.py [--steps 5] [--warmup 2] [--seed 0]
 """
@@ -65,7 +65,7 @@ def measure(data: int, graph: int, bands, steps: int, warmup: int, seed: int) ->
     frames = trainer.frames({k: v[:batch] for k, v in traj.items() if k != "cells"})
     gen = torch.Generator(device=trainer.device).manual_seed(seed)
     tstate = trainer.init_train_state(generator=torch.Generator().manual_seed(seed))
-    group = RankGroup(data, graph, devices=["cuda:0"] * (data * graph))
+    group = RankGroup(data, graph)
     stopo = shard_topology(topo, group, overlap_bands=bands)
     step = make_spmd_train_step(trainer, stopo, group)
     for _ in range(warmup):
@@ -87,7 +87,7 @@ def measure(data: int, graph: int, bands, steps: int, warmup: int, seed: int) ->
         "padded_edges_per_s": batch * E_pad / dt,
         "loss": float(loss),
         "devices_attached": cards,
-        "ranks_per_card": data * graph,
+        "ranks_per_card": max(group.ranks_on_device(r) for r in range(group.n)),
     }
 
 
