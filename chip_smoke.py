@@ -9,7 +9,8 @@ configs/plate.yaml ship them, and plate HyperGraphNets as
 configs/plateCluster.yaml ships it, with and without rmp.fused_tiers,
 serve flag, flag HyperGraphNets and plate HyperGraphNets with int8 (W8A8)
 weights, serve and train flag HyperGraphNets with HDBSCAN, k-means and a
-Gaussian mixture, train flag in a pod of two processes, and run the task
+Gaussian mixture, train flag in pods of processes (a graph row across two
+processes sharing the card, and over NCCL where there are cards for it), and run the task
 loop of cylinder and plate over meshes of different sizes.
 
     python3 chip_smoke.py [--seed 0] [--out FILE.json] [--profile DIR]
@@ -220,13 +221,23 @@ Phases (any failure exits non-zero; nothing is caught and dropped):
    ``gmm`` (16 clusters) at CLUSTER_BLOCKS blocks, one_step and one train
    step each, held the same way; K, Kp and each recluster's host seconds
    logged; the pod (``phase_pod``): two processes started with
-   ``--pod-worker``, sharing the card, each a 1 x 2 group joined over
-   ``gloo`` (a 2 x 2 pod), flag_full_scale with RMP off at a global B = 8:
-   one train step each (30 K1 raw + 30 K2), bit for bit between the
-   processes and against the in-process 2 x 2 step (SPMD_TOL; the summed
-   gradients POD_GRAD_TOL), host ms
-   beside it, K1 raw and K2 at a process's shard against their plain
-   versions; the sharded step over several cards (``phase_spmd_cards``,
+   ``--pod-worker``, sharing the card, joined over ``gloo``,
+   flag_full_scale with RMP off at a global B = 8: first a 2 x 2 pod (each
+   process's two ranks name the card twice: a data row a process), one
+   train step each (30 K1 raw + 30 K2), bit for bit between the processes
+   and against the in-process 2 x 2 step (SPMD_TOL; the summed gradients
+   POD_GRAD_TOL), host ms beside it; then a 1 x 2 pod whose graph row spans
+   the two processes, fused (15 K1 raw + 15 K2 a process) and sorted (15
+   K4f + 15 K4b a process on the row's shards joined across them), bit for
+   bit with the in-process 1 x 2 step, a planted control (the other
+   process's cotangents dropped) past SPMD_TOL, host ms in turns with the
+   in-process step; K1 raw and K2 at both layouts' shards and K4f/K4b on
+   the joined row against their plain versions; the pod over NCCL
+   (``phase_pod_cards``, only with two or more cards: with one it prints
+   ``{"phase": "pod_cards", "ran": false, "cards": 1}``): a process on
+   cards of its own, 1 x 4 (2 processes x 2 cards) and 2 x 2 (4 x 1), bit
+   for bit with the in-process group over the same cards; the sharded step
+   over several cards (``phase_spmd_cards``,
    only with two or more: with one it prints
    ``{"phase": "spmd_cards", "ran": false, "cards": 1}`` and runs nothing):
    the ``spmd`` configuration on 2 x 2 at B = 16 over ``min(4, cards)``
@@ -5991,20 +6002,26 @@ def phase_cluster(card, peaks, seed):
     return launches, timings, rows
 
 
-# -- the pod: two processes on one card --------------------------------------------------
+# -- the pod: processes on one card, and over NCCL on cards of their own --------------
 
 POD_PROCESSES = 2
-POD_GRAPH = 2  # each process a 1 x 2 group: the pod is 2 x 2
+POD_GRAPH = 2  # graph_per_host: over two ranks a process, the pod is 2 x 2; over one, 1 x 2 (graph across)
 POD_FRAMES = 8  # the global batch
 POD_TIMEOUT_S = 240  # each worker's limit
+POD_TIMED = 2  # timed pod steps of the 1 x 2 fused pod, each beside an in-process step (in turns)
 # Each parameter's gradient, summed over the pod before Adam, against the
 # in-process step's: relative L2.  Adam's first update is about lr x the
 # gradient's sign, so the updates (read 3.29e-6, NVIDIA H100 80GB HBM3,
 # 700 W; PERF.md section 6) would not see gradients off by a common factor
 # (one process's part lost); the gradients are held as well.  The same
 # partials summed in another order: float32 rounding (the CPU test reads
-# 6.9e-8 and holds 1e-6), so 1e-5.
+# 6.9e-8 and holds 1e-6), so 1e-5.  The 2 x 2 pod only: the pods whose
+# graph row spans processes are held bit for bit.
 POD_GRAD_TOL = 1e-5
+# the pods over NCCL, a process on cards of its own: (processes, cards a
+# process, graph_per_host), their shapes, and the cards they need
+POD_CARDS_LAYOUTS = (((2, 2, 4), (1, 4)), ((4, 1, 2), (2, 2)))
+POD_CARDS_SMALL = ((2, 1, 2), (1, 2))  # on two or three cards
 
 
 def pod_case(seed):
@@ -6047,118 +6064,162 @@ def _pod_state(trainer, case):
     return trainer.init_train_state(state=state.replace(normalizers=case["normalizers"]))
 
 
+def _pod_model(case, agg_vjp, device):
+    """The case's model, trainer and topology with ``agg_vjp``, on ``device``."""
+    import copy
+
+    from hyper_graph_nets_tpu_torch.models.get_model import get_model
+    from hyper_graph_nets_tpu_torch.training.trainer import Trainer
+
+    config = copy.deepcopy(case["config"])
+    config["params"]["model"]["agg_vjp"] = agg_vjp
+    model = get_model(config)
+    check_mgn15(model.gnn_config, agg_vjp)
+    return model, Trainer(model, config, device=device), model.topology_from_trajectory(case["traj"], device=device)
+
+
+def in_process_pod_step(case, shape, devices, agg_vjp, timed=False):
+    """One step of the in-process ``RankGroup(*shape)`` over ``devices`` (a
+    rank each) on the case's global batch: loss, gradients and parameters
+    after Adam (CPU tensors); with ``timed``, a second step's host ms."""
+    import torch
+
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+    from hyper_graph_nets_tpu_torch.parallel.sharding import make_spmd_train_step, shard_topology
+
+    group = RankGroup(*shape, devices=devices)
+    model, trainer, topo = _pod_model(case, agg_vjp, group.device(0))
+    step = make_spmd_train_step(trainer, shard_topology(topo, group), group)
+    frames = trainer.frames(case["frames"])
+    tstate, loss = step(_pod_state(trainer, case), frames, normal=case["normal"])
+    group.check()
+    out = dict(loss=loss.cpu(), grads={n: p.grad.cpu() for n, p in tstate.model.params.named_parameters()},
+               params={n: p.detach().cpu() for n, p in tstate.model.params.named_parameters()})
+    if timed:
+        tstate = _pod_state(trainer, case)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(tstate, frames, normal=case["normal"])
+        group.check()
+        out["ms"] = 1e3 * (time.perf_counter() - t0)
+    return out
+
+
+def pod_run(rank, case, run):
+    """One run of a pod worker: ``make_pod_group(graph_per_host=run["graph"],
+    devices=run["devices"][rank])`` (its shape checked), the frames of the
+    process's data rows, one counted train step (every count set to 0 just
+    before, read just after), its loss, gradients and parameters; with
+    ``control``, the step's loss and gradients with the other processes'
+    aggregate cotangents dropped (``RankGroup.cotangents`` returning this
+    process's own); with ``timed``, that many pod steps timed on the host
+    clock, each followed (``turns``) by a step of the in-process group of
+    the same shape in process 0 (the others wait at a barrier)."""
+    import torch
+    import torch.distributed as dist
+
+    from hyper_graph_nets_tpu_torch.parallel import multihost
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+    from hyper_graph_nets_tpu_torch.parallel.sharding import make_spmd_train_step, shard_topology
+
+    group = multihost.make_pod_group(graph_per_host=run["graph"],
+                                     devices=[torch.device(d) for d in run["devices"][rank]])
+    if (group.shape["data"], group.shape["graph"]) != tuple(run["shape"]):
+        raise AssertionError(f"pod run {run['name']}: group {group.shape}, want {run['shape']}")
+    model, trainer, topo = _pod_model(case, run["agg_vjp"], group.device(0))
+    step = make_spmd_train_step(trainer, shard_topology(topo, group), group)
+    frames, rows = trainer.frames(case["frames"]), group.data_rows
+    b = POD_FRAMES // group.shape["data"]
+    batch = multihost.host_local_batch_to_global(
+        {k: v[rows[0] * b : (rows[-1] + 1) * b] for k, v in frames.items()}, group)
+    tstate = _pod_state(trainer, case)
+    reset_counts()
+    tstate, loss = step(tstate, batch, normal=case["normal"])
+    group.check()
+    out = dict(counts=read_counts(), loss=loss.cpu(), ranks=group.ranks,
+               grads={n: p.grad.cpu() for n, p in tstate.model.params.named_parameters()},
+               params={n: p.detach().cpu() for n, p in tstate.model.params.named_parameters()})
+    if run.get("control"):
+        group.cotangents = lambda parts, r: list(parts)
+        cstate = _pod_state(trainer, case)
+        closs, _ = step.loss_and_grads(cstate, batch, normal=case["normal"])
+        group.check()
+        out.update(control_loss=closs.cpu(),
+                   control_grads={n: p.grad.cpu() for n, p in cstate.model.params.named_parameters()})
+        del group.cotangents
+    pod_ms, in_process_ms = [], []
+    if run.get("timed"):
+        ref = None
+        if rank == 0 and run.get("turns"):
+            ref_group = RankGroup(*run["shape"], devices=[group.device(0)] * (run["shape"][0] * run["shape"][1]))
+            ref = (ref_group, make_spmd_train_step(trainer, shard_topology(topo, ref_group), ref_group))
+        for _ in range(run["timed"]):
+            tstate = _pod_state(trainer, case)
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(tstate, batch, normal=case["normal"])
+            group.check()
+            pod_ms.append(1e3 * (time.perf_counter() - t0))
+            if ref is not None:
+                rstate = _pod_state(trainer, case)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ref[1](rstate, frames, normal=case["normal"])
+                ref[0].check()
+                in_process_ms.append(1e3 * (time.perf_counter() - t0))
+            dist.barrier()
+    out.update(ms=pod_ms, in_process_ms=in_process_ms)
+    return out
+
+
 def pod_worker(rank, world, port, src, dst):
-    """One process of the pod (``--pod-worker``): a ``gloo`` group over TCP,
-    a ``1 x POD_GRAPH`` share of the pod on the card, its half of the
-    global batch, one counted train step (K1 raw + K2 per shard) and one
-    timed step; saves its loss, parameters, launches and step ms."""
+    """One process of a pod (``--pod-worker``): the job's process group
+    (``gloo``, or ``nccl`` with this process's first card as its current
+    one) over TCP on 127.0.0.1, then each of the job's runs
+    (:func:`pod_run`); saves their results."""
     from datetime import timedelta
 
     import torch
     import torch.distributed as dist
 
     sys.path.insert(0, HERE)
-    from hyper_graph_nets_tpu_torch.models.get_model import get_model
-    from hyper_graph_nets_tpu_torch.parallel import multihost
-    from hyper_graph_nets_tpu_torch.parallel.sharding import make_spmd_train_step, shard_topology
     from hyper_graph_nets_tpu_torch.runtime import configure_numerics
-    from hyper_graph_nets_tpu_torch.training.trainer import Trainer
 
     configure_numerics()
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank,
+    job = torch.load(src, weights_only=False)
+    if job["backend"] == "nccl":
+        torch.cuda.set_device(torch.device(job["runs"][0]["devices"][rank][0]))
+    dist.init_process_group(job["backend"], init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank,
                             timeout=timedelta(seconds=POD_TIMEOUT_S))
     try:
-        case = torch.load(src, weights_only=False)
-        model = get_model(case["config"])
-        trainer = Trainer(model, case["config"])
-        group = multihost.make_pod_group(graph_per_host=POD_GRAPH, devices=[torch.device("cuda", 0)])
-        if (group.shape, group.data_size, group.process) != ({"data": 1, "graph": POD_GRAPH}, world, rank):
-            raise AssertionError(f"pod group {group.shape}, data {group.data_size}, process {group.process}")
-        topo = model.topology_from_trajectory(case["traj"], device="cuda")
-        step = make_spmd_train_step(trainer, shard_topology(topo, group), group)
-        b = POD_FRAMES // world
-        batch = multihost.host_local_batch_to_global(
-            {k: v[rank * b : (rank + 1) * b] for k, v in case["frames"].items()}, group)
-        tstate = _pod_state(trainer, case)
-        reset_counts()
-        tstate, loss = step(tstate, batch, normal=case["normal"])
-        group.check()
-        counts = read_counts()
-        params = {n: p.detach().cpu() for n, p in tstate.model.params.named_parameters()}
-        grads = {n: p.grad.cpu() for n, p in tstate.model.params.named_parameters()}
-        tstate = _pod_state(trainer, case)
-        dist.barrier()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(tstate, batch, normal=case["normal"])
-        group.check()
-        ms = 1e3 * (time.perf_counter() - t0)
-        torch.save(dict(loss=loss.cpu(), params=params, grads=grads, counts=counts, ms=ms), dst)
+        out = {run["name"]: pod_run(rank, job["case"], run) for run in job["runs"]}
+        torch.save(out, dst)
     finally:
         dist.destroy_process_group()
 
 
-def phase_pod(card, peaks, seed):
-    """The pod step (``parallel.multihost``) in POD_PROCESSES processes that
-    share the card, each a ``1 x POD_GRAPH`` group joined over ``gloo``
-    (the pod is 2 x 2): flag_full_scale with RMP off (fused bf16, 15
-    blocks, latent 128) at a global B = POD_FRAMES, each process running K1
-    raw and K2 per shard (15 x 2 of each a step, counted in each process).
-    One step against the in-process ``RankGroup(2, 2)`` step on the card on
-    the same global frames, noise and state (loss and every parameter's
-    Adam update within ``SPMD_TOL``, every summed gradient within
-    ``POD_GRAD_TOL``), the two processes' gradients and parameters equal
-    bit for bit, and the pod step's host ms beside the in-process step's.
-    K1 raw and K2 at a process's shard against their plain versions."""
+def start_pod(job, processes):
+    """``processes`` workers of ``job`` (``python chip_smoke.py
+    --pod-worker``), run to their end within POD_TIMEOUT_S each (killed
+    past it): their results and the workers' wall seconds."""
     import socket
     import tempfile
 
-    import numpy as np
     import torch
 
-    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
-    from hyper_graph_nets_tpu_torch.parallel.sharding import make_spmd_train_step, shard_topology
-    from hyper_graph_nets_tpu_torch.models.get_model import get_model
-    from hyper_graph_nets_tpu_torch.training.trainer import Trainer
-
-    case = pod_case(seed)
-    model = get_model(case["config"])
-    check_mgn15(model.gnn_config)
-    blocks = model.gnn_config.message_passing_steps
-    trainer = Trainer(model, case["config"])
-    topo = model.topology_from_trajectory(case["traj"], device="cuda")
-    group = RankGroup(POD_PROCESSES, POD_GRAPH, devices=["cuda:0"] * (POD_PROCESSES * POD_GRAPH))
-    stopo = shard_topology(topo, group)
-    step = make_spmd_train_step(trainer, stopo, group)
-    frames = trainer.frames(case["frames"])
-    tstate = _pod_state(trainer, case)
-    before = {n: p.detach().clone() for n, p in tstate.model.params.named_parameters()}
-    tstate, ref_loss = step(tstate, frames, normal=case["normal"])
-    group.check()
-    ref = {n: p.detach().clone() for n, p in tstate.model.params.named_parameters()}
-    ref_grads = {n: p.grad.cpu() for n, p in tstate.model.params.named_parameters()}
-    tstate = _pod_state(trainer, case)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    step(tstate, frames, normal=case["normal"])
-    group.check()
-    ref_ms = 1e3 * (time.perf_counter() - t0)
-
-    # the workers share the card with this process: hand back its unused cache first
-    del group, stopo, step
-    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        src = os.path.join(tmp, "case.pt")
-        torch.save(case, src)
+        src = os.path.join(tmp, "job.pt")
+        torch.save(job, src)
         with socket.socket() as s:
             s.bind(("127.0.0.1", 0))
             port = s.getsockname()[1]
-        outs = [os.path.join(tmp, f"out{r}.pt") for r in range(POD_PROCESSES)]
+        outs = [os.path.join(tmp, f"out{r}.pt") for r in range(processes)]
         t0 = time.perf_counter()
         procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--pod-worker", str(r),
-                                   str(POD_PROCESSES), str(port), src, outs[r]],
+                                   str(processes), str(port), src, outs[r]],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                 for r in range(POD_PROCESSES)]
+                 for r in range(processes)]
         logs = []
         try:
             for p in procs:
@@ -6172,51 +6233,206 @@ def phase_pod(card, peaks, seed):
         for r, (p, text) in enumerate(zip(procs, logs)):
             if p.returncode != 0:
                 raise AssertionError(f"pod worker {r} exited {p.returncode}:\n{text[-4000:]}")
-        results = [torch.load(o, weights_only=False) for o in outs]
+        return [torch.load(o, weights_only=False) for o in outs], wall_s
 
-    want = dict.fromkeys(read_counts(), 0)
-    want.update(K1=blocks * POD_GRAPH, K2=blocks * POD_GRAPH)
-    launches = dict.fromkeys(want, 0)
-    for r, res in enumerate(results):
-        if res["counts"] != want:
-            raise AssertionError(f"pod process {r}: launches {res['counts']}, want {want}")
-        for k in launches:
-            launches[k] += res["counts"][k]
-    p0, p1 = results
-    same = torch.equal(p0["loss"], p1["loss"]) and all(torch.equal(p0[k][n], p1[k][n])
-                                                       for k in ("params", "grads") for n in p0[k])
-    if not same:
-        raise AssertionError("pod: the two processes' loss, gradients or parameters differ")
+
+def pod_same(results, name):
+    """Whether every process's loss, gradients and parameters of run
+    ``name`` equal process 0's bit for bit."""
+    import torch
+
+    p0 = results[0][name]
+    return all(torch.equal(p0["loss"], res[name]["loss"]) and all(
+        torch.equal(p0[k][n], res[name][k][n]) for k in ("params", "grads") for n in p0[k]) for res in results[1:])
+
+
+def pod_equal(got, ref):
+    """The names of the gradients and parameters (and ``loss``) where a pod
+    process's run differs from the in-process step's by a bit."""
+    import torch
+
+    bad = [] if torch.equal(got["loss"], ref["loss"]) else ["loss"]
+    return bad + [f"{k} {n}" for k in ("grads", "params") for n in ref[k] if not torch.equal(got[k][n], ref[k][n])]
+
+
+def phase_pod(card, peaks, seed):
+    """The pod (``parallel.multihost``) in POD_PROCESSES processes that share
+    the card over ``gloo``: flag_full_scale with RMP off (bf16, 15 blocks,
+    latent 128) at a global B = POD_FRAMES, in two layouts of one pair of
+    worker processes.
+
+    - 2 x 2 (``make_pod_group(graph_per_host=POD_GRAPH, devices=[cuda:0,
+      cuda:0])``: a data row each process, ``graph`` inside), fused: K1 raw
+      and K2 per shard (30 of each a process); against the in-process
+      ``RankGroup(2, 2)`` step on the card (loss and Adam updates within
+      ``SPMD_TOL``, every summed gradient within ``POD_GRAD_TOL``), the
+      processes bit for bit.
+    - 1 x 2 (``devices=[cuda:0]``: the one ``graph`` row across the two
+      processes), fused (15 K1 raw + 15 K2 a process, the aggregates and
+      their cotangents gathered across the processes) and sorted (15 K4f +
+      15 K4b a process on the row's shards joined across the processes):
+      loss, every gradient and the update bit for bit with the in-process
+      ``RankGroup(1, 2)`` on the card; the planted control (the other
+      process's cotangents dropped) must miss ``SPMD_TOL``; the fused pod
+      step's host ms in each process beside the in-process step's, in
+      turns.
+
+    K1 raw and K2 at each layout's shard, K4f and K4b on the joined row,
+    against their plain versions."""
+    import numpy as np
+    import torch
+
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+    from hyper_graph_nets_tpu_torch.parallel.sharding import shard_topology
+
+    case = pod_case(seed)
+    blocks = 15
+    refs = {"2x2": in_process_pod_step(case, (POD_PROCESSES, POD_GRAPH), ["cuda:0"] * 4, "fused", timed=True)}
+    for agg_vjp in ("fused", "sorted"):
+        refs[f"1x2 {agg_vjp}"] = in_process_pod_step(case, (1, POD_GRAPH), ["cuda:0"] * 2, agg_vjp)
+    # the workers share the card with this process: hand back its unused cache first
+    torch.cuda.empty_cache()
+    one, two = ["cuda:0"], ["cuda:0", "cuda:0"]
+    runs = [dict(name="2x2", graph=POD_GRAPH, devices=[two] * POD_PROCESSES, shape=(2, 2), agg_vjp="fused",
+                 timed=1),
+            dict(name="1x2 fused", graph=POD_GRAPH, devices=[one] * POD_PROCESSES, shape=(1, 2), agg_vjp="fused",
+                 control=True, timed=POD_TIMED, turns=True),
+            dict(name="1x2 sorted", graph=POD_GRAPH, devices=[one] * POD_PROCESSES, shape=(1, 2), agg_vjp="sorted")]
+    results, wall_s = start_pod(dict(backend="gloo", case=case, runs=runs), POD_PROCESSES)
+
+    wants = {"2x2": dict(K1=blocks * POD_GRAPH, K2=blocks * POD_GRAPH), "1x2 fused": dict(K1=blocks, K2=blocks),
+             "1x2 sorted": dict(K4f=blocks, K4b=blocks)}
+    launches = dict.fromkeys(read_counts(), 0)
+    by_run = {}
+    for name, counts in wants.items():
+        want = dict.fromkeys(read_counts(), 0)
+        want.update(counts)
+        by_run[name] = dict.fromkeys(want, 0)
+        for r, res in enumerate(results):
+            if res[name]["counts"] != want:
+                raise AssertionError(f"pod {name}, process {r}: launches {res[name]['counts']}, want {want}")
+            for k in launches:
+                launches[k] += res[name]["counts"][k]
+                by_run[name][k] += res[name]["counts"][k]
+        if not pod_same(results, name):
+            raise AssertionError(f"pod {name}: the processes' loss, gradients or parameters differ")
+
+    # 2 x 2: against the in-process step within the limits
+    p0, ref = results[0]["2x2"], refs["2x2"]
     loss_tol, grad_tol = SPMD_TOL["bfloat16"]
-    loss_err = abs(float(p0["loss"]) - float(ref_loss)) / abs(float(ref_loss))
-    update = lambda params, n: params[n].float().cpu() - before[n].float().cpu()
-    worst = max((rel_l2(update(p0["params"], n), update(ref, n)), n) for n in ref)
-    worst_grad = max((rel_l2(p0["grads"][n], ref_grads[n]), n) for n in ref_grads)
-    log(f"pod {POD_PROCESSES} x (1 x {POD_GRAPH}) vs in-process {POD_PROCESSES} x {POD_GRAPH}, global B={POD_FRAMES}: "
-        f"loss {float(p0['loss']):.6f} / {float(ref_loss):.6f} (rel {loss_err:.3g}); worst Adam update rel L2 "
+    loss_err = abs(float(p0["loss"]) - float(ref["loss"])) / abs(float(ref["loss"]))
+    before = case["params"]
+    update = lambda params, n: params[n].float() - before[n].float()
+    worst = max((rel_l2(update(p0["params"], n), update(ref["params"], n)), n) for n in ref["params"])
+    worst_grad = max((rel_l2(p0["grads"][n], ref["grads"][n]), n) for n in ref["grads"])
+    log(f"pod 2 x 2 ({POD_PROCESSES} processes, a data row each) vs in-process 2 x 2, global B={POD_FRAMES}: loss "
+        f"{float(p0['loss']):.6f} / {float(ref['loss']):.6f} (rel {loss_err:.3g}); worst Adam update rel L2 "
         f"{worst[0]:.3g} ({worst[1]}); limits {SPMD_TOL['bfloat16']}; worst summed gradient rel L2 "
-        f"{worst_grad[0]:.3g} ({worst_grad[1]}; limit {POD_GRAD_TOL}); the processes' gradients and parameters "
-        f"bit for bit; "
-        f"step host ms {p0['ms']:.1f} / {p1['ms']:.1f} (processes) vs {ref_ms:.1f} (in-process); workers "
-        f"{wall_s:.1f} s from start to exit [{card}]")
+        f"{worst_grad[0]:.3g} ({worst_grad[1]}; limit {POD_GRAD_TOL}); the processes bit for bit; step host ms "
+        f"{results[0]['2x2']['ms'][0]:.1f} / {results[1]['2x2']['ms'][0]:.1f} (processes) vs {ref['ms']:.1f} "
+        f"(in-process) [{card}]")
     if not (np.isfinite(float(p0["loss"])) and loss_err <= loss_tol and worst[0] <= grad_tol
             and worst_grad[0] <= POD_GRAD_TOL):
-        raise AssertionError(f"pod vs in-process: loss rel {loss_err:.3g}, worst update {worst}, worst gradient "
-                             f"{worst_grad}, limits {SPMD_TOL['bfloat16']}, gradients {POD_GRAD_TOL}")
-    # one process's shard: B = POD_FRAMES / POD_PROCESSES frames on a 1 x POD_GRAPH layout
-    one = RankGroup(1, POD_GRAPH, devices=["cuda:0"] * POD_GRAPH)
-    ptopo = shard_topology(topo, one)
-    sl = ptopo.layout.shard(0)
-    snd, rcv = ptopo.senders.cpu().numpy()[sl], ptopo.receivers.cpu().numpy()[sl]
-    mask = ptopo.mask.cpu().numpy()[sl]
-    rows, _ = shard_kernel_rows("pod shard", peaks, torch.Generator(device="cuda").manual_seed(seed + 43),
-                                snd, rcv, mask, ptopo.plan.plans[0], 1600, POD_FRAMES // POD_PROCESSES,
-                                seed + 43)
-    timings = dict(loss=float(p0["loss"]), ref_loss=float(ref_loss), loss_rel_err=loss_err,
+        raise AssertionError(f"pod 2 x 2 vs in-process: loss rel {loss_err:.3g}, worst update {worst}, worst "
+                             f"gradient {worst_grad}, limits {SPMD_TOL['bfloat16']}, gradients {POD_GRAD_TOL}")
+
+    # 1 x 2, graph across the processes: bit for bit with the in-process 1 x 2
+    timings = dict(loss=float(p0["loss"]), ref_loss=float(ref["loss"]), loss_rel_err=loss_err,
                    worst_update_rel_l2=worst[0], worst_update=worst[1], worst_grad_rel_l2=worst_grad[0],
-                   worst_grad=worst_grad[1], pod_step_host_ms=[p0["ms"], p1["ms"]],
-                   in_process_step_host_ms=ref_ms, workers_wall_s=wall_s)
+                   worst_grad=worst_grad[1], pod_2x2_step_host_ms=[res["2x2"]["ms"][0] for res in results],
+                   in_process_2x2_step_host_ms=ref["ms"], workers_wall_s=wall_s, launches_by_run=by_run)
+    for name in ("1x2 fused", "1x2 sorted"):
+        for r, res in enumerate(results):
+            bad = pod_equal(res[name], refs[name])
+            if bad:
+                raise AssertionError(f"pod {name}, process {r}: differs from the in-process 1 x 2 step in "
+                                     f"{len(bad)} of loss, gradients and parameters: {bad[:5]}")
+        timings[f"{name} loss"] = float(results[0][name]["loss"])
+    fused = [res["1x2 fused"] for res in results]
+    ref = refs["1x2 fused"]
+    control = max((rel_l2(fused[0]["control_grads"][n], ref["grads"][n]), n) for n in ref["grads"])
+    if control[0] <= grad_tol or not torch.equal(fused[0]["control_loss"], ref["loss"]):
+        raise AssertionError(f"pod 1 x 2: the control without the other process's cotangents read {control} "
+                             f"(limit {grad_tol} must be missed), loss {float(fused[0]['control_loss'])}")
+    timings.update(control_worst_grad_rel_l2=control[0], control_worst_grad=control[1],
+                   pod_step_host_ms=[res["ms"] for res in fused], in_process_1x2_step_host_ms=fused[0]["in_process_ms"])
+    log(f"pod 1 x 2 (the graph row across {POD_PROCESSES} processes on one card, gloo), global B={POD_FRAMES}: fused "
+        f"(15 K1 raw + 15 K2 a process) and sorted (15 K4f + 15 K4b a process) bit for bit with the in-process "
+        f"RankGroup(1, 2) on the card (loss {timings['1x2 fused loss']:.6f}, {timings['1x2 sorted loss']:.6f}); "
+        f"without the other process's cotangents the worst gradient rel L2 {control[0]:.3g} ({control[1]}) misses "
+        f"{grad_tol}; fused step host ms {', '.join(f'{t:.1f}' for t in fused[0]['ms'])} (process 0), "
+        f"{', '.join(f'{t:.1f}' for t in fused[1]['ms'])} (process 1) against the in-process step's "
+        f"{', '.join(f'{t:.1f}' for t in fused[0]['in_process_ms'])} in turns; workers {wall_s:.1f} s [{card}]")
+
+    # the kernels at the processes' shapes against their plain versions
+    gen = torch.Generator(device="cuda").manual_seed(seed + 43)
+    rows = {}
+    for tag, shape, Bk in (("pod shard", (POD_PROCESSES, POD_GRAPH), POD_FRAMES // POD_PROCESSES),
+                           ("pod row shard", (1, POD_GRAPH), POD_FRAMES)):
+        _, _, topo = _pod_model(case, "fused", "cuda")
+        ptopo = shard_topology(topo, RankGroup(*shape, devices=["cuda:0"] * (shape[0] * shape[1])))
+        sl = ptopo.layout.shard(0)
+        snd, rcv = ptopo.senders.cpu().numpy()[sl], ptopo.receivers.cpu().numpy()[sl]
+        mask = ptopo.mask.cpu().numpy()[sl]
+        got, _ = shard_kernel_rows(tag, peaks, gen, snd, rcv, mask, ptopo.plan.plans[0], 1600, Bk, seed + 43)
+        rows.update({k if tag == "pod shard" else f"{k} row": v for k, v in got.items()})
+    _, _, stopo = _pod_model(case, "sorted", "cuda")
+    stopo = shard_topology(stopo, RankGroup(1, POD_GRAPH, devices=["cuda:0"] * POD_GRAPH))
+    rows.update({f"{k} row": v for k, v in sorted_joined_rows(peaks, gen, stopo, POD_FRAMES).items()})
     return launches, timings, rows
+
+
+def phase_pod_cards(card, peaks, seed):
+    """The pod over ``nccl``, each process on cards of its own: with fewer
+    than two cards one line ``{"phase": "pod_cards", "ran": false,
+    "cards": N}`` and nothing else (not a pass).  On four or more cards the
+    layouts of POD_CARDS_LAYOUTS: 2 processes x 2 cards with
+    ``graph_per_host`` 4 (a 1 x 4 pod, the row across both) and 4 x 1 with
+    2 (2 x 2: each row across two processes, each ``data`` column across
+    two); on two or three, 2 x 1 with 2 (1 x 2).  flag_full_scale with RMP
+    off (bf16, 15 blocks, latent 128, fused) at a global B = POD_FRAMES:
+    each process's launches (15 K1 raw + 15 K2 a rank), its loss, every
+    gradient and its parameters after Adam bit for bit with the in-process
+    group of the same shape over the same cards (a rank a card), the
+    processes bit for bit, and the pod step's host ms in each process."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    launches = dict.fromkeys(read_counts(), 0)
+    if cards < 2:
+        print(json.dumps({"phase": "pod_cards", "ran": False, "cards": cards}), flush=True)
+        log(f"pod_cards: not run, {cards} card: NCCL takes one card a process, so the pod over nccl needs two or more")
+        return launches, {"ran": False, "cards": cards}
+    case = pod_case(seed)
+    layouts = POD_CARDS_LAYOUTS if cards >= 4 else (POD_CARDS_SMALL,)
+    timings = {"ran": True, "cards": cards}
+    for (processes, per, graph), shape in layouts:
+        name = f"{shape[0]}x{shape[1]} ({processes} processes x {per} cards)"
+        devices = [[f"cuda:{p * per + i}" for i in range(per)] for p in range(processes)]
+        ref = in_process_pod_step(case, shape, [d for ds in devices for d in ds], "fused")
+        torch.cuda.empty_cache()
+        run = dict(name=name, graph=graph, devices=devices, shape=shape, agg_vjp="fused", timed=2)
+        results, wall_s = start_pod(dict(backend="nccl", case=case, runs=[run]), processes)
+        want = dict.fromkeys(read_counts(), 0)
+        want.update(K1=15 * per, K2=15 * per)
+        for r, res in enumerate(results):
+            got = res[name]
+            if got["counts"] != want:
+                raise AssertionError(f"pod over nccl {name}, process {r}: launches {got['counts']}, want {want}")
+            bad = pod_equal(got, ref)
+            if bad:
+                raise AssertionError(f"pod over nccl {name}, process {r}: differs from the in-process group over the "
+                                     f"same cards in {len(bad)} of loss, gradients and parameters: {bad[:5]}")
+            for k in launches:
+                launches[k] += got["counts"][k]
+        timings[name] = dict(launches_per_process=want, loss=float(results[0][name]["loss"]),
+                             step_host_ms=[res[name]["ms"] for res in results], workers_wall_s=wall_s)
+        log(f"pod over nccl {name}: {shape[0]} x {shape[1]} on {', '.join(sum(devices, []))}, global B={POD_FRAMES}; "
+            f"15 K1 raw + 15 K2 a rank in each process; loss, gradients and parameters bit for bit with the "
+            f"in-process group over the same cards and across the processes; step host ms "
+            f"{'; '.join(', '.join(f'{t:.1f}' for t in res[name]['ms']) for res in results)} (by process); "
+            f"workers {wall_s:.1f} s [{card}]")
+    return launches, timings
 
 
 # -- the sharded step over several cards ----------------------------------------------
@@ -6559,6 +6775,7 @@ def main(argv=None) -> int:
     int8_launches, int8_timings = timed(phase_int8, card, args.seed, args.profile)
     cluster_launches, cluster_timings, cluster_rows = timed(phase_cluster, card, peaks, args.seed)
     pod_launches, pod_timings, pod_rows = timed(phase_pod, card, peaks, args.seed)
+    pod_cards_launches, pod_cards_timings = timed(phase_pod_cards, card, peaks, args.seed)
     cards_launches, cards_timings = timed(phase_spmd_cards, card, peaks, args.seed)
     cli_timings = timed(phase_cli, card)
     launches = {
@@ -6566,7 +6783,7 @@ def main(argv=None) -> int:
         + spmd_arch_launches[k] + hybrid_launches[k] + train_launches[k]
         + task_launches[k] + rmp_launches[k]
         + sum(run[0][k] for run in model_runs.values()) + bucketed_launches[k] + hgn_launches[k] + int8_launches[k]
-        + cluster_launches[k] + pod_launches[k] + cards_launches[k]
+        + cluster_launches[k] + pod_launches[k] + pod_cards_launches[k] + cards_launches[k]
         for k in serve_launches
     }
 
@@ -6724,13 +6941,26 @@ def main(argv=None) -> int:
                                       ("fused_edge_block_bwd remat", "fused_block_bwd.cu", "fused_block.py:1008",
                                        "K2"))
     ]
-    # the pod step: launches from the pod's processes' main paths only
+    # the pod steps: launches from the pod's processes' main paths only
+    pod_k = lambda run, k: pod_timings["launches_by_run"][run][k]
     kernels += [
         dict(entry("fused_edge_block_fwd raw, pod step in two processes (K1)", "fused_block_fwd.cu",
-                   "fused_block.py:393", pod_launches["K1"], pod_rows["K1 raw"]), shape=pod_rows["K1 raw"]["shape"]),
+                   "fused_block.py:393", pod_k("2x2", "K1"), pod_rows["K1 raw"]), shape=pod_rows["K1 raw"]["shape"]),
         dict(entry("fused_edge_block_bwd remat at the global degree, pod step in two processes (K2)",
-                   "fused_block_bwd.cu", "fused_block.py:1008", pod_launches["K2"], pod_rows["K2"]),
+                   "fused_block_bwd.cu", "fused_block.py:1008", pod_k("2x2", "K2"), pod_rows["K2"]),
              shape=pod_rows["K2"]["shape"]),
+        dict(entry("fused_edge_block_fwd raw, pod step with the graph row across two processes (K1)",
+                   "fused_block_fwd.cu", "fused_block.py:393", pod_k("1x2 fused", "K1"), pod_rows["K1 raw row"]),
+             shape=pod_rows["K1 raw row"]["shape"]),
+        dict(entry("fused_edge_block_bwd remat at the global degree, pod step with the graph row across two processes "
+                   "(K2)", "fused_block_bwd.cu", "fused_block.py:1008", pod_k("1x2 fused", "K2"), pod_rows["K2 row"]),
+             shape=pod_rows["K2 row"]["shape"]),
+        dict(entry("pna_sorted on the graph row's shards joined across two processes, pod step (K4f)",
+                   "segment_pna.cu", "segment_pna.py:81", pod_k("1x2 sorted", "K4f"), pod_rows["K4f joined row"]),
+             shape=pod_rows["K4f joined row"]["shape"]),
+        dict(entry("pna_sorted_bwd on the graph row's shards joined across two processes, pod step (K4b)",
+                   "segment_pna.cu", "segment_pna.py:183", pod_k("1x2 sorted", "K4b"), pod_rows["K4b joined row"]),
+             shape=pod_rows["K4b joined row"]["shape"]),
     ]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -6775,6 +7005,7 @@ def main(argv=None) -> int:
                     "int8": {"launches": int8_launches, "timings": int8_timings},
                     "cluster": {"launches": cluster_launches, "timings": cluster_timings, "kernels": cluster_rows},
                     "pod": {"launches": pod_launches, "timings": pod_timings, "kernels": pod_rows},
+                    "pod_cards": {"launches": pod_cards_launches, "timings": pod_cards_timings},
                     "spmd_cards": {"launches": cards_launches, "timings": cards_timings},
                     "cli_s": cli_timings,
                     "phase_seconds": PHASE_SECONDS,

@@ -522,6 +522,7 @@ def collective_aggregate(
     """
     if not ring:
         return sharded_aggregate(data, segment_ids, num_segments, aggregation, mask, group, sums=sums)
+    group.check_ring("the ring all-reduce (K6)")
     if data.dim() != 2:
         raise ValueError("the ring's collective aggregation supports unbatched [E, F] data only")
     if aggregation not in ("sum", "mean", "max", "min", "pna"):
@@ -571,6 +572,41 @@ def used_on_this_stream(*tensors) -> None:
             t.record_stream(torch.cuda.current_stream(t.device))
 
 
+def join_streams(devices) -> None:
+    """The current stream of ``devices[0]`` (a sharded node's own, in its
+    backward) after the current stream of every other CUDA device in
+    ``devices`` (where the node ran its ranks' parts).  The autograd engine
+    hands each of the node's gradients on by an event on the node's own
+    stream, also a gradient that lies on another card: without the join a
+    consumer there could read it before it is written (seen over several
+    cards a process, where NCCL leaves the host far ahead of the cards)."""
+    devs = list(dict.fromkeys(d for d in devices if d.type == "cuda"))
+    if len(devs) > 1:
+        own = torch.cuda.current_stream(devs[0])
+        for d in devs[1:]:
+            own.wait_stream(torch.cuda.current_stream(d))
+
+
+def sum_cotangents(grads, like: torch.Tensor, row=None) -> torch.Tensor:
+    """A sharded node's backward: its ranks' aggregate cotangents (None:
+    none) summed in rank order, float32 on ``like``'s device (zeros of
+    ``like``'s shape when none came): the transpose of handing every rank
+    the all-reduced aggregate.  On a ``graph`` row that spans processes
+    (``row``: the group and one of the row's ranks) every rank's of the row,
+    gathered from the other processes (``RankGroup.cotangents``), in global
+    rank order."""
+    parts = [None if d is None else d.float().to(like.device) for d in grads]
+    if row is not None:
+        group, rank = row
+        parts = [d.to(like.device) for d in group.cotangents(
+            [torch.zeros_like(like, dtype=torch.float32) if d is None else d for d in parts], rank)]
+    total = None
+    for d in parts:
+        if d is not None:
+            total = d if total is None else total + d
+    return torch.zeros_like(like, dtype=torch.float32) if total is None else total
+
+
 class ShardedAggregate(torch.autograd.Function):
     """The pna aggregate of an edge set without a kernel plan over the edge
     shards of one ``data`` row of a rank group, as one autograd node over
@@ -591,35 +627,38 @@ class ShardedAggregate(torch.autograd.Function):
     ``gather`` path's ``pna_gather``), ``split``
     divides it by the number of tied edges over every shard (autograd
     through an amax, the ``xla`` path's).  Being one node, its backward
-    waits for no other rank (see ``ShardedFusedBlock``).
+    waits for no other rank (see ``ShardedFusedBlock``; on a row that spans
+    processes it gathers the other processes' cotangents and tie counts,
+    and takes and returns a token, as that node does).
     """
 
     @staticmethod
     def forward(ctx, spec, *xs):
-        # spec: (per rank (receivers, mask, sums), tie rule, aggregates, count)
-        shards, ties, aggs, count = spec
+        # spec: (per rank (receivers, mask, sums), tie rule, aggregates,
+        # count, the row or None); xs: per rank edge features (then the
+        # token on a row that spans processes)
+        shards, ties, aggs, count, ctx.row = spec
         ctx.shards, ctx.ties, ctx.count = shards, ties, count
-        ctx.save_for_backward(*xs, aggs[0])
-        return tuple(aggs)
+        ctx.save_for_backward(*xs[: len(shards)], aggs[0])
+        return tuple(aggs) + ((torch.zeros(()),) if ctx.row else ())
 
     @staticmethod
     def backward(ctx, *grads):
         *xs, agg = ctx.saved_tensors
+        grads = grads[: len(xs)]
         used_on_this_stream(*xs, agg, ctx.count, *grads, *(t for shard in ctx.shards for t in shard[:2]))
         count = ctx.count.to(agg.device)
-        dagg = None
-        for d in grads:  # the ranks' aggregate cotangents, in rank order
-            if d is not None:
-                d = d.float().to(agg.device)
-                dagg = d if dagg is None else dagg + d
-        if dagg is None:
-            return (None,) + tuple(torch.zeros_like(x) for x in xs)
+        dagg = sum_cotangents(grads, agg, ctx.row)
+        token = (torch.zeros(()),) if ctx.row else ()
         F = agg.shape[-1] // 4
         g_sum, g_mean, g_max, g_min = dagg.split(F, dim=-1)
         _, _, mx, mn = agg.split(F, dim=-1)
         node = g_sum + g_mean / count.clamp(min=1.0)
         if ctx.ties == "split":
             ties_max, ties_min = _tie_counts(xs, ctx.shards, mx, mn)
+            if ctx.row is not None:  # and the other processes' shards' (exact counts: any order)
+                group, rank = ctx.row
+                ties_max, ties_min = (group.sum_processes(t, rank) for t in (ties_max, ties_min))
             g_max, g_min = g_max / ties_max.clamp(min=1.0), g_min / ties_min.clamp(min=1.0)
         out = [None]
         for x, (rcv, mask, _) in zip(xs, ctx.shards):
@@ -631,7 +670,8 @@ class ShardedAggregate(torch.autograd.Function):
             if mask is not None:
                 ge = ge * (mask > 0)[..., None]
             out.append(ge.to(x.dtype))
-        return tuple(out)
+        join_streams([agg.device] + [x.device for x in xs])
+        return tuple(out) + token
 
 
 def _receiver_rows(t: torch.Tensor, rcv: torch.Tensor) -> torch.Tensor:
@@ -710,8 +750,11 @@ def _sharded_combine(entries, group, ties: str):
         return aggs
     results: list = [None] * group.n
     for ranks in group.subgroups("graph"):
-        spec = ([entries[r]["shard"] for r in ranks], ties, [aggs[r] for r in ranks], counts[ranks[0]])
-        got = ShardedAggregate.apply(spec, *(entries[r]["data"] for r in ranks))
+        row = (group, ranks[0]) if group.crosses(ranks[0]) else None
+        spec = ([entries[r]["shard"] for r in ranks], ties, [aggs[r] for r in ranks], counts[ranks[0]], row)
+        got = ShardedAggregate.apply(spec, *(entries[r]["data"] for r in ranks), *([group.token()] if row else []))
+        if row:
+            group.chain(got[-1])
         for r, out in zip(ranks, got):
             results[r] = out
     return results

@@ -851,33 +851,37 @@ class ShardedFusedBlock(torch.autograd.Function):
     engine runs it when every rank's cotangent is in, on whichever thread it
     runs the device's nodes (one per card, shared by every rank there), so
     no collective ever waits inside the engine.
+
+    In a pod whose ``graph`` row spans processes (``row``: the group and
+    one of the row's ranks) each process's node holds its own shards of the
+    row, and its backward gathers the other processes' aggregate cotangents
+    (``RankGroup.cotangents``) and sums every rank's in global rank order
+    before K2: a collective inside the engine, which every process reaches
+    in one order, since each such node takes the previous one's token as
+    its last input and returns the next token as its last output
+    (``RankGroup.token``/``chain``).
     """
 
     @staticmethod
     def forward(ctx, spec, *flat):
-        # flat: per rank e, sp, rp, the 8 weights; spec: per rank
-        # (edges, degree, e2, agg), the forward's results
-        ctx.spec = [(edges, degree) for edges, degree, _, _ in spec]
-        outs = [t for _, _, e2, agg in spec for t in (e2, agg)]
-        ctx.save_for_backward(*flat, *outs[1::2])
-        return tuple(outs)
+        # flat: per rank e, sp, rp, the 8 weights (then the token on a row
+        # that spans processes); spec: (per rank (edges, degree, e2, agg),
+        # the forward's results, and the row or None)
+        shards, ctx.row = spec
+        ctx.spec = [(edges, degree) for edges, degree, _, _ in shards]
+        outs = [t for _, _, e2, agg in shards for t in (e2, agg)]
+        ctx.save_for_backward(*flat[: 11 * len(shards)], *outs[1::2])
+        return tuple(outs) + ((torch.zeros(()),) if ctx.row else ())
 
     @staticmethod
     def backward(ctx, *grads):
         n = len(ctx.spec)
         saved = ctx.saved_tensors
-        segment_ops.used_on_this_stream(*saved, *grads, *(t for edges, _ in ctx.spec
-                                                          for t in (edges.senders, edges.receivers, edges.mask)))
+        segment_ops.used_on_this_stream(*saved, *grads[: 2 * n], *(
+            t for edges, _ in ctx.spec for t in (edges.senders, edges.receivers, edges.mask)))
         inputs, aggs = saved[: 11 * n], saved[11 * n :]
         home = aggs[0]
-        dagg = None
-        for g in range(n):  # the ranks' aggregate cotangents, in rank order
-            d = grads[2 * g + 1]
-            if d is not None:
-                d = d.float().to(home.device)
-                dagg = d if dagg is None else dagg + d
-        if dagg is None:
-            dagg = torch.zeros_like(home)
+        dagg = segment_ops.sum_cotangents([grads[2 * g + 1] for g in range(n)], home, ctx.row)
         out = [None]
         for g, (edges, degree) in enumerate(ctx.spec):
             e, sp, rp, *w_in = inputs[11 * g : 11 * g + 11]
@@ -885,7 +889,8 @@ class ShardedFusedBlock(torch.autograd.Function):
                 out += _edge_block_grads(
                     e, sp, rp, w_in, aggs[g], grads[2 * g], dagg.to(e.device), edges, degree=degree
                 )
-        return tuple(out)
+        segment_ops.join_streams([home.device] + [inputs[11 * g].device for g in range(n)])
+        return tuple(out) + ((torch.zeros(()),) if ctx.row else ())
 
 
 def fused_edge_block_spmd(
@@ -957,7 +962,10 @@ def _spmd_combine(entries, num_nodes: int, group):
             edges = _Edges(x["senders"], x["receivers"], x["mask"], num_nodes, x["plan"], "remat")
             spec.append((edges, None if x["plan"] is None else x["plan"].degree, *outs[r]))
             flat += [x["e"], x["sp"], x["rp"], *x["weights"].values()]
-        got = ShardedFusedBlock.apply(spec, *flat)
+        row = (group, ranks[0]) if group.crosses(ranks[0]) else None
+        got = ShardedFusedBlock.apply((spec, row), *flat, *([group.token()] if row else []))
+        if row:
+            group.chain(got[-1])
         for i, r in enumerate(ranks):
             results[r] = (got[2 * i], got[2 * i + 1])
     return results

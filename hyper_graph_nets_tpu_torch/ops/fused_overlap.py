@@ -205,7 +205,9 @@ def fused_edge_block_overlap(shards: Sequence[dict], num_nodes: int, group, band
     see :func:`fused_edge_block_overlap_reference`; ``plan`` also, on the
     card), each ready on its rank's stream: ``[(e2, agg), ...]``, each on
     its rank's stream; the ranks ring along ``graph`` (``lib``: a probe
-    build of K7)."""
+    build of K7).  On a ``graph`` row that spans processes it raises
+    (ROADMAP entry 7.4c)."""
+    group.check_ring("the overlapped block (K7)")
     if len(shards) != group.n:
         raise ValueError(f"{len(shards)} shards for a group of {group.n}")
     if shards[0]["e"].device.type == "cpu":

@@ -176,6 +176,8 @@ def ring_all_reduce_segments_reference(
     segment folds ``x_{r-s}`` into ``out`` with its op (``r-s``: the s-th
     rank before r on its sub-ring along ``graph`` of ``group``; without a
     group, one ring over ``xs``)."""
+    if group is not None:
+        group.check_ring("the ring all-reduce (K6)")
     rings = [list(range(len(xs)))] if group is None else group.subgroups("graph")
     outs: List[torch.Tensor] = [None] * len(xs)
     for ranks in rings:
@@ -196,7 +198,9 @@ def ring_all_reduce_segments(
     """All-reduce the ranks' float32 ``[R, C]`` partials ``xs`` (one per
     rank of the group, on its device) with per-row-segment ops along
     ``graph``; returns one result per rank.  CPU tensors run the plain
-    version; CUDA tensors launch K6 (``lib``: a probe build of it)."""
+    version; CUDA tensors launch K6 (``lib``: a probe build of it).  On a
+    ``graph`` row that spans processes it raises (ROADMAP entry 7.4c)."""
+    group.check_ring("the ring all-reduce (K6)")
     if len(xs) != group.n:
         raise ValueError(f"{len(xs)} partials for a group of {group.n}")
     R, C = xs[0].shape

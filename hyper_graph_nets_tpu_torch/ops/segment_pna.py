@@ -314,32 +314,36 @@ class ShardedPnaSorted(torch.autograd.Function):
     Its backward sums the ranks' cotangents in rank order (the transpose of
     handing every rank a copy), runs K4b once on the joined edges and hands
     each rank its slice.  Being one node, its backward waits for no other
-    rank (see ``ops.fused_block.ShardedFusedBlock``)."""
+    rank (see ``ops.fused_block.ShardedFusedBlock``).  On a row that spans
+    processes the join takes the other processes' shards (gathered), each
+    process runs K4f and K4b on the whole row, the backward gathers the
+    other processes' cotangents, and the node takes and returns a token,
+    as ``ShardedFusedBlock`` does."""
 
     @staticmethod
     def forward(ctx, spec, *xs):
-        # spec: (the joined edges, their receivers and mask, num_nodes, plan, each rank's copy)
-        joined, receivers, mask, num_nodes, plan, outs = spec
+        # spec: (the joined edges, their receivers and mask, num_nodes, plan,
+        # each rank's copy, each rank's graph coordinate and the row's
+        # length, the row or None); xs: each rank's shard (then the token)
+        joined, receivers, mask, num_nodes, plan, outs, slots, ctx.row = spec
         ctx.topology = (receivers, mask, num_nodes, plan)
-        ctx.devices = [x.device for x in xs]
+        ctx.slots = slots
+        ctx.devices = [x.device for x in xs[: len(outs)]]
         ctx.save_for_backward(joined, outs[0])
-        return tuple(outs)
+        return tuple(outs) + ((torch.zeros(()),) if ctx.row else ())
 
     @staticmethod
     def backward(ctx, *grads):
         joined, out = ctx.saved_tensors
         receivers, mask = ctx.topology[:2]
+        grads = grads[: len(ctx.devices)]
         segment_ops.used_on_this_stream(joined, out, receivers, mask, *grads)
-        dagg = None
-        for d in grads:  # the ranks' cotangents, in rank order
-            if d is not None:
-                d = d.float().to(out.device)
-                dagg = d if dagg is None else dagg + d
-        if dagg is None:
-            dagg = torch.zeros_like(out, dtype=torch.float32)
+        dagg = segment_ops.sum_cotangents(grads, out, ctx.row)
         ge = pna_sorted_bwd(dagg.to(out.dtype).contiguous(), out, joined, *ctx.topology)
-        per = ge.shape[-2] // len(ctx.devices)
-        return (None,) + tuple(ge[..., k * per : (k + 1) * per, :].to(dev) for k, dev in enumerate(ctx.devices))
+        ks, G = ctx.slots
+        per = ge.shape[-2] // G
+        return (None,) + tuple(ge[..., k * per : (k + 1) * per, :].to(dev) for k, dev in zip(ks, ctx.devices)) + (
+            (torch.zeros(()),) if ctx.row else ())
 
 
 def pna_sorted_sharded(
@@ -370,32 +374,50 @@ def pna_sorted_sharded(
 
 def _sorted_combine(entries, num_nodes: int, plan: Optional[SortedPlan], group):
     """The rendezvous of :func:`pna_sorted_sharded`: per ``data`` row, the
-    shards joined on the first rank's device and stream once every rank's
-    stream has made its shard, K4f there, a copy for each other rank on its
-    own stream; under autograd one :class:`ShardedPnaSorted` node."""
+    shards joined on the first rank's device and stream (on a row that
+    spans processes: rank 0's, with the other processes' shards gathered)
+    once every rank's stream has made its shard, K4f there, a copy for each
+    other rank on its own stream; under autograd one
+    :class:`ShardedPnaSorted` node."""
     results: list = [None] * group.n
     for ranks in group.subgroups("graph"):
-        first, dev = ranks[0], group.device(ranks[0])
+        cross = group.crosses(ranks[0])
+        lead = 0 if cross else ranks[0]
+        dev = group.device(lead)
         parts = [entries[r] for r in ranks]
-        with torch.no_grad(), group.context(first):
+        with torch.no_grad(), group.context(lead):
             if group.is_cuda:
-                for r in ranks[1:]:
-                    group.stream(first).wait_stream(group.stream(r))
+                for r in ranks:
+                    if r != lead:
+                        group.stream(lead).wait_stream(group.stream(r))
                 segment_ops.used_on_this_stream(*(x[k] for x in parts for k in ("data", "receivers", "mask")))
-            join = lambda key, axis: torch.cat([x[key].to(dev) for x in parts], dim=axis)
+
+            def join(key, axis):
+                pieces = [x[key].to(dev) for x in parts]
+                return torch.cat(group.gather(pieces, ranks[0]) if cross else pieces, dim=axis)
+
             joined, rcv = join("data", -2), join("receivers", 0)
             mask = None if parts[0]["mask"] is None else join("mask", 0)
             row_plan = None if plan is None else plan.to(dev)
             out = _forward(joined, rcv, mask, num_nodes, row_plan)
-        outs = [out]
-        for r in ranks[1:]:
+        outs = []
+        for r in ranks:
+            if r == lead:
+                outs.append(out)
+                continue
             with torch.no_grad(), group.context(r):
                 if group.is_cuda:
-                    group.stream(r).wait_stream(group.stream(first))
+                    group.stream(r).wait_stream(group.stream(lead))
                     segment_ops.used_on_this_stream(out)
                 outs.append(out.to(group.device(r), copy=True))
         if parts[0]["grad"]:
-            outs = ShardedPnaSorted.apply((joined, rcv, mask, num_nodes, row_plan, outs), *(x["data"] for x in parts))
+            row = (group, ranks[0]) if cross else None
+            slots = ([group.axis_index(r, "graph") for r in ranks], group.shape["graph"])
+            outs = ShardedPnaSorted.apply((joined, rcv, mask, num_nodes, row_plan, outs, slots, row),
+                                          *(x["data"] for x in parts), *([group.token()] if row else []))
+            if row:
+                group.chain(outs[-1])
+                outs = outs[:-1]
         for r, o in zip(ranks, outs):
             results[r] = o
     return results

@@ -28,16 +28,27 @@ it, and a ring's "remote" writes land in the same memory.  ``device="cpu"``
 puts every rank on the CPU, where the kernels' plain versions run (the
 tests).  Without a card and without ``device="cpu"`` it raises.
 
-A pod (``parallel.multihost.make_pod_group``) is a rank group in each of
-several processes joined by a ``torch.distributed`` process group: the
-``data`` axis continues across the processes (process p holds global data
-rows ``p * data .. (p + 1) * data - 1``), the ``graph`` axis stays inside
-each one, as the JAX package keeps ``graph`` on each host's own chips.  An
-all-reduce along ``data`` first combines the process's own ranks in rank
-order, then the processes' results through the host: CPU tensors gathered
-over the process group and combined in process order, so that every
-process holds the same bits.  Collectives along ``graph`` and the ring
-kernels never leave the process.
+A pod (``parallel.multihost.make_pod_group``) is one ``(data, graph)``
+layout over several processes joined by a ``torch.distributed`` process
+group, as JAX's ``make_pod_mesh`` lays its mesh over hosts: global rank
+``p * per_process + i`` is process p's i-th rank, the ranks numbered
+row-major over ``(data, graph)``, so a ``data`` row or a ``graph`` column
+may span processes; each process builds the group of its own ranks
+(``ranks``, their local indices 0 .. n-1), and ``shape`` is the whole
+pod's.  A collective whose sub-group spans processes gathers the
+sub-group's entries over a process group of exactly those processes
+(:meth:`gather`: an all-gather, then the same fold in global rank order in
+every process), so every process holds the bits the in-process group of
+the same shape would; each keeps its own ranks' results.  Over ``nccl`` the
+gathers run on the process's first card (rank 0's device and stream), over
+``gloo`` through CPU tensors; the backend is the process group's (NCCL
+takes one card per process: two processes on one card keep ``gloo``).  A
+sharded node's backward sums the other processes' cotangents the same way
+(:meth:`cotangents`), inside the autograd engine; every such node of a
+step takes a token from the one made before it (:meth:`chain`), so the
+engine reaches them in one order in every process.  The ring kernels (K6,
+K7) stay inside a process: on a ``graph`` row that spans processes they
+raise (:meth:`check_ring`).
 
 The ring kernels need state that outlives a call: each rank's comm slots and
 flags (allocated once per ring kind and kept, never reset: each
@@ -71,6 +82,24 @@ def _axis(axis: str) -> str:
     return axis
 
 
+def _wire(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the process group carries it: its bytes (``gloo`` takes no
+    bfloat16 or int16), viewed back by the receiver."""
+    return x.contiguous().view(torch.uint8)
+
+
+def _timeout(process_group):
+    """The process group's time limit, for the sub-groups made from it
+    (None, the backend's default, where the backend does not say)."""
+    try:
+        import torch.distributed as dist
+
+        kind = "cuda" if dist.get_backend(process_group) == "nccl" else "cpu"
+        return process_group._get_backend(torch.device(kind)).options._timeout
+    except (AttributeError, RuntimeError):
+        return None
+
+
 class _Aborted(RuntimeError):
     """A rank stopped because another rank failed."""
 
@@ -81,6 +110,12 @@ class RankGroup:
 
     ``devices``: one device per rank (default ``cuda:(r % device_count)``);
     ``device="cpu"``: every rank on the CPU.
+
+    In a pod (see the module's docstring) the shape is the pod's,
+    ``ranks`` this process's global ranks (ascending; ``devices`` one per
+    each), ``per_process`` the ranks each process numbers (its local
+    devices, the idle ones included: rank ``q`` belongs to process ``q //
+    per_process``) and ``process_group`` the processes' group.
     """
 
     def __init__(
@@ -90,12 +125,21 @@ class RankGroup:
         devices: Optional[Sequence[Union[str, torch.device]]] = None,
         device: Optional[Union[str, torch.device]] = None,
         process_group=None,
+        ranks: Optional[Sequence[int]] = None,
+        per_process: Optional[int] = None,
     ):
         data, graph = (1, n) if graph is None else (n, graph)
         if data < 1 or graph < 1:
             raise ValueError(f"a rank group needs at least one rank on each axis, got {data} x {graph}")
         self.shape = {"data": data, "graph": graph}
-        n = data * graph
+        self.ranks: List[int] = list(range(data * graph) if ranks is None else ranks)
+        self.per_process = per_process or data * graph
+        if not self.ranks or any(not 0 <= q < data * graph for q in self.ranks) or self.ranks != sorted(set(self.ranks)):
+            raise ValueError(f"ranks {self.ranks} are not ascending ranks of a {data} x {graph} group")
+        if len({q // self.per_process for q in self.ranks}) != 1:
+            raise ValueError(f"ranks {self.ranks} lie in more than one process of {self.per_process} ranks")
+        self._index = {q: i for i, q in enumerate(self.ranks)}
+        n = len(self.ranks)
         if device is not None and devices is not None:
             raise ValueError("pass devices or device, not both")
         if devices is None:
@@ -120,14 +164,17 @@ class RankGroup:
         self.is_cuda = self.devices[0].type == "cuda"
         self.streams = [torch.cuda.Stream(d) for d in self.devices] if self.is_cuda else [None] * n
         self.epoch = 0
-        # the pod's processes (1 and 0 outside a pod)
+        # the pod's processes (1 and 0 outside a pod): this one holds ranks
+        # process * per_process ..; the process groups of the sub-groups
+        # that span processes, by their processes
         self.process_group = process_group
-        self.processes, self.process = 1, 0
+        self.process = self.ranks[0] // self.per_process
+        self.processes = -(-data * graph // self.per_process)
+        self._pgs: Dict[Tuple[int, ...], object] = {}
+        self._nccl = False
         if process_group is not None:
-            import torch.distributed as dist
-
-            self.processes = dist.get_world_size(process_group)
-            self.process = dist.get_rank(process_group)
+            self._join(process_group)
+        self._token = None
         self._local = threading.local()
         self._cv = threading.Condition()
         self._turn, self._failed = 0, False
@@ -146,28 +193,74 @@ class RankGroup:
         return self.streams[rank]
 
     def coords(self, rank: int) -> Tuple[int, int]:
-        """``(data, graph)`` coordinates of ``rank``."""
-        return divmod(rank, self.shape["graph"])
+        """``(data, graph)`` coordinates of (local) ``rank``."""
+        return divmod(self.ranks[rank], self.shape["graph"])
 
     def rank_at(self, data: int, graph: int) -> int:
-        return data * self.shape["graph"] + graph
+        """The local index of the rank at ``(data, graph)`` (this process's)."""
+        q = data * self.shape["graph"] + graph
+        if q not in self._index:
+            raise ValueError(f"rank ({data}, {graph}) lies in process {q // self.per_process}, not {self.process}")
+        return self._index[q]
 
     @property
     def data_size(self) -> int:
         """The ``data`` axis over every process of the pod."""
-        return self.processes * self.shape["data"]
+        return self.shape["data"]
+
+    @property
+    def data_rows(self) -> List[int]:
+        """The ``data`` rows this process holds ranks of, ascending."""
+        return sorted({self.coords(r)[0] for r in range(self.n)})
+
+    @property
+    def idle(self) -> List[int]:
+        """This process's global ranks past the pod's ``data x graph``
+        (JAX's devices past ``devices[:data * graph]``): they sit out."""
+        first = self.process * self.per_process
+        return [q for q in range(first, first + self.per_process) if q >= self.shape["data"] * self.shape["graph"]]
 
     def axis_index(self, rank: int, axis: str = "graph") -> int:
         """The rank's coordinate on ``axis`` (JAX's ``axis_index``)."""
         return self.coords(rank)[AXES.index(_axis(axis))]
 
     def subgroups(self, axis: str = "graph") -> List[List[int]]:
-        """The ranks that collectives along ``axis`` combine: one list per
-        value of the other coordinate, each in order along ``axis``."""
+        """The ranks that collectives along ``axis`` combine: one list of this
+        process's ranks per value of the other coordinate, each in order
+        along ``axis`` (in a pod a list may be part of a sub-group that
+        spans processes: :meth:`crosses`)."""
+        keyed: Dict[int, List[int]] = {}
+        for r in range(self.n):
+            d, g = self.coords(r)
+            keyed.setdefault(g if _axis(axis) == "data" else d, []).append(r)
+        return [keyed[k] for k in sorted(keyed)]
+
+    def members(self, rank: int, axis: str = "graph") -> List[int]:
+        """The global ranks of (local) ``rank``'s sub-group along ``axis``, in
+        order."""
+        return self._members(self.ranks[rank], axis)
+
+    def _members(self, q: int, axis: str) -> List[int]:
         D, G = self.shape["data"], self.shape["graph"]
-        if _axis(axis) == "graph":
-            return [[self.rank_at(d, g) for g in range(G)] for d in range(D)]
-        return [[self.rank_at(d, g) for d in range(D)] for g in range(G)]
+        d, g = divmod(q, G)
+        return [d * G + k for k in range(G)] if _axis(axis) == "graph" else [k * G + g for k in range(D)]
+
+    def _processes(self, members: Sequence[int]) -> Tuple[int, ...]:
+        return tuple(sorted({q // self.per_process for q in members}))
+
+    def crosses(self, rank: int, axis: str = "graph") -> bool:
+        """Whether (local) ``rank``'s sub-group along ``axis`` spans processes."""
+        return len(self._processes(self.members(rank, axis))) > 1
+
+    def check_ring(self, what: str) -> None:
+        """Raise where a ``graph`` row of this process spans processes: the
+        ring kernels (K6, K7) write into their neighbours' slots, which
+        another process's memory would need CUDA IPC handles for (ROADMAP
+        entry 7.4c)."""
+        if any(self.crosses(ranks[0], "graph") for ranks in self.subgroups("graph")):
+            raise NotImplementedError(
+                f"{what} on a graph row that spans processes is not ported (ROADMAP entry 7.4c: K6 and K7 "
+                "across processes); lay the pod out with graph_per_host at most a process's ranks")
 
     def left(self, rank: int) -> int:
         """The ring neighbour before ``rank`` along ``graph``, its ``data``
@@ -239,7 +332,7 @@ class RankGroup:
                 self.streams[r].wait_stream(torch.cuda.current_stream(d))
         results: List[object] = [None] * self.n
         errors: List[BaseException] = []
-        self._turn, self._failed = 0, False
+        self._turn, self._failed, self._token = 0, False, None
 
         def body(r):
             self._local.rank = r
@@ -293,7 +386,9 @@ class RankGroup:
     # -- collectives ----------------------------------------------------------
     def exchange(self, value, combine: Callable[[list], list]):
         """This rank's entry of ``combine([value_0, ..., value_{n-1}])``,
-        which returns one result per rank (a ring kernel's wrapper)."""
+        which returns one result per rank (a ring kernel's wrapper).  In a
+        pod the combine sees this process's ranks; it reaches the other
+        processes' through :meth:`gather`."""
         return self._rendezvous(value, combine)
 
     def all_reduce_plain(self, x: torch.Tensor, op: str, axis: str = "graph") -> torch.Tensor:
@@ -305,71 +400,154 @@ class RankGroup:
 
     def reduce_plain(self, xs: Sequence[torch.Tensor], op: str, axis: str = "graph") -> list:
         """:meth:`all_reduce_plain` on the list of every rank's tensor (each
-        ready on its rank's stream); one result per rank, on its device.
-        Along ``data`` in a pod, the processes' results are combined next
-        (:meth:`fold_processes`; no gradient flows through that step)."""
-        groups = self.subgroups(axis)
-        folded = [self._fold([xs[r] for r in ranks], op, ranks) for ranks in groups]
-        if axis == "data" and self.processes > 1:
-            total = self.fold_processes(torch.stack([self._to_host(f[0], ranks[0])
-                                                     for f, ranks in zip(folded, groups)]), op)
-            folded = [[self._to_rank(total[i], r) for r in ranks] for i, ranks in enumerate(groups)]
+        ready on its rank's stream); one result per rank, on its device.  A
+        sub-group that spans processes gathers the other processes' members
+        first (:meth:`gather`) and folds on rank 0's device and stream (no
+        gradient flows through the gather)."""
         outs: List[object] = [None] * self.n
-        for ranks, results in zip(groups, folded):
+        for ranks in self.subgroups(axis):
+            parts = [xs[r] for r in ranks]
+            if self.crosses(ranks[0], axis):
+                with torch.no_grad(), self.lead(ranks):
+                    parts = self.gather(parts, ranks[0], axis)
+                results = self._fold(parts, op, ranks, lead=0)
+            else:
+                results = self._fold(parts, op, ranks)
             for r, out in zip(ranks, results):
                 outs[r] = out
         return outs
 
-    def fold_processes(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """Sum, max or min of a CPU tensor over the pod's processes: each
-        process's ``x`` gathered over the process group and folded in
-        process order, the same bits in every process (``x`` itself
-        outside a pod)."""
-        if self.processes == 1:
-            return x
+    def lead(self, ranks: Sequence[int]):
+        """Rank 0's device and stream as the current ones, the stream after
+        every stream of ``ranks``: where a sub-group's cross-process gather
+        runs."""
+        if not self.is_cuda:
+            return contextlib.nullcontext()
+        for r in ranks:
+            self.streams[0].wait_stream(self.streams[r])
+        return self.context(0)
+
+    def gather(self, parts: Sequence[torch.Tensor], rank: int, axis: str = "graph") -> List[torch.Tensor]:
+        """Every member's tensor of (local) ``rank``'s sub-group along
+        ``axis``, in global rank order: ``parts`` are this process's members'
+        (in order; one shape and dtype, ready on the current stream), the
+        other processes' come over the process group of the sub-group's
+        processes (an all-gather of each process's members, padded to the
+        most any holds; over ``nccl`` on rank 0's card, over ``gloo`` through
+        CPU tensors) onto rank 0's device, on the current stream.
+        ``parts`` itself where the sub-group lies in this process."""
+        members = self.members(rank, axis)
+        procs = self._processes(members)
+        if len(procs) == 1:
+            return list(parts)
+        held = {p: sum(q // self.per_process == p for q in members) for p in procs}
+        x = torch.stack([t.to(self.devices[0]) for t in parts])
+        k = max(held.values())
+        if k > len(parts):
+            x = torch.cat([x, x.new_zeros((k - len(parts),) + tuple(x.shape[1:]))])
+        out: List[torch.Tensor] = []
+        for p, got in zip(procs, self._all_gather(x, procs)):
+            out += list(parts) if p == self.process else list(got[: held[p]].unbind(0))
+        return out
+
+    def _all_gather(self, x: torch.Tensor, procs: Tuple[int, ...]) -> List[torch.Tensor]:
+        """Each of ``procs``' ``x`` (this process's is ``x``), in process
+        order, on rank 0's device: over ``nccl`` on the card, over ``gloo``
+        through CPU tensors."""
         import torch.distributed as dist
 
-        parts = [torch.empty_like(x) for _ in range(self.processes)]
-        dist.all_gather(parts, x.contiguous(), group=self.process_group)
-        fold = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}[op]
-        acc = parts[0]
-        for part in parts[1:]:
-            acc = fold(acc, part)
-        return acc
+        wire = _wire(x)
+        if not self._nccl:
+            wire = wire.cpu()
+        bufs = [torch.empty_like(wire) for _ in procs]
+        dist.all_gather(bufs, wire.contiguous(), group=self._pgs[procs])
+        return [b.to(self.devices[0]).view(x.dtype) for b in bufs]
 
-    def _to_host(self, x: torch.Tensor, rank: int) -> torch.Tensor:
-        """``x`` (ready on ``rank``'s stream) on the CPU."""
-        if not self.is_cuda:
-            return x.detach()
-        with torch.cuda.device(self.devices[rank]), torch.cuda.stream(self.streams[rank]):
-            return x.detach().cpu()
-
-    def _to_rank(self, x: torch.Tensor, rank: int) -> torch.Tensor:
-        if not self.is_cuda:
+    def sum_processes(self, x: torch.Tensor, rank: int, axis: str = "graph") -> torch.Tensor:
+        """``x``, this process's part of a sum over (local) ``rank``'s
+        sub-group along ``axis``, added to the other processes' parts of
+        it, in process order, on ``x``'s device (``x`` where the sub-group
+        lies in this process)."""
+        procs = self._processes(self.members(rank, axis))
+        if len(procs) == 1:
             return x
-        with torch.cuda.device(self.devices[rank]), torch.cuda.stream(self.streams[rank]):
-            return x.to(self.devices[rank])
+        acc = None
+        for got in self._all_gather(x.to(self.devices[0]), procs):
+            acc = got if acc is None else acc + got
+        return acc.to(x.device)
 
-    def _fold(self, xs: Sequence[torch.Tensor], op: str, ranks: Sequence[int]) -> list:
+    def cotangents(self, parts: Sequence[torch.Tensor], rank: int) -> List[torch.Tensor]:
+        """A sharded node's backward: every member's aggregate cotangent of
+        (local) ``rank``'s ``graph`` row, in global rank order
+        (:meth:`gather` on the current stream)."""
+        return self.gather(parts, rank, "graph")
+
+    def token(self) -> torch.Tensor:
+        """The token a sharded node whose row spans processes takes: the
+        previous such node's (:meth:`chain`) in this call of :meth:`run`, or
+        a fresh one.  Each node returns a new token, so the autograd engine
+        runs every such node's backward (and its cross-process gather) after
+        the next one's: one order in every process."""
+        return torch.zeros(()) if self._token is None else self._token
+
+    def chain(self, token: torch.Tensor) -> None:
+        self._token = token
+
+    def gather_processes(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """Every process's ``x`` (one shape and dtype in each; on rank 0's
+        device, ready on the current stream), in process order, on rank 0's
+        device; ``[x]`` outside a pod."""
+        if self.processes == 1:
+            return [x]
+        return self._all_gather(x, tuple(range(self.processes)))
+
+    def _join(self, process_group) -> None:
+        """This process's place in the pod's process group, and a process
+        group (its backend and time limit) for every set of processes that
+        a sub-group spans, made in one order in every process."""
+        import torch.distributed as dist
+
+        self.processes = dist.get_world_size(process_group)
+        if dist.get_rank(process_group) != self.process:
+            raise ValueError(f"process {dist.get_rank(process_group)} given ranks {self.ranks} of process "
+                             f"{self.process}")
+        D, G = self.shape["data"], self.shape["graph"]
+        if D * G > self.processes * self.per_process:
+            raise ValueError(f"a {D} x {G} pod needs more than {self.processes} processes of {self.per_process} ranks")
+        backend = dist.get_backend(process_group)
+        self._nccl = backend == "nccl"
+        spans = {self._processes(self._members(q, axis)) for axis in AXES for q in range(D * G)}
+        self._pgs[tuple(range(self.processes))] = process_group
+        for procs in sorted(p for p in spans if len(p) > 1):
+            if len(procs) < self.processes:
+                self._pgs[procs] = dist.new_group([dist.get_global_rank(process_group, p) for p in procs],
+                                                  timeout=_timeout(process_group), backend=backend)
+
+    def _fold(self, xs: Sequence[torch.Tensor], op: str, ranks: Sequence[int], lead: Optional[int] = None) -> list:
+        """``xs`` folded in order with ``op`` on rank ``lead``'s device and
+        stream (``ranks[0]``'s by default), after every stream of ``ranks``;
+        the result for each of ``ranks`` on its device and stream."""
         fold = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}[op]
         if not self.is_cuda:
             acc = xs[0]
             for x in xs[1:]:
                 acc = fold(acc, x)
             return [acc] * len(ranks)
-        s0, d0 = self.streams[ranks[0]], self.devices[ranks[0]]
+        lead = ranks[0] if lead is None else lead
+        s0, d0 = self.streams[lead], self.devices[lead]
         with torch.cuda.device(d0), torch.cuda.stream(s0):
-            for r in ranks[1:]:
-                s0.wait_stream(self.streams[r])
-            acc = xs[0]
+            for r in ranks:
+                if r != lead:
+                    s0.wait_stream(self.streams[r])
+            acc = xs[0].to(d0)
             for x in xs[1:]:
                 acc = fold(acc, x.to(d0))
         outs = []
-        for i, r in enumerate(ranks):
+        for r in ranks:
             d, s = self.devices[r], self.streams[r]
             with torch.cuda.device(d), torch.cuda.stream(s):
-                s.wait_stream(s0)
-                if i:
+                if r != lead:
+                    s.wait_stream(s0)
                     acc.record_stream(s)
                 outs.append(acc if d == d0 else acc.to(d))
         return outs

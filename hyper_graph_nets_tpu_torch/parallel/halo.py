@@ -153,8 +153,11 @@ def make_halo_forward(model: SystemModel, group, ring: bool = False, overlap: bo
     combine along ``graph``: on a 2-D group each data row computes the same
     output.  Returns rank 0's output, or with ``all_ranks`` every rank's.
     Synchronizes every rank at the end and raises if a ring kernel timed
-    out.
+    out.  ``ring`` on a ``graph`` row that spans processes raises (ROADMAP
+    entry 7.4c).
     """
+    if ring:
+        group.check_ring("the halo forward's ring (K6)")
     cfg = dataclasses.replace(
         model.gnn_config, axis_name=group, halo_ring=ring, halo_overlap=overlap
     )

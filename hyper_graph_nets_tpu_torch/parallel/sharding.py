@@ -85,17 +85,23 @@ sums built on its slice (``EdgeSums.per_frame``, over the set's node rows:
 ``N``, or ``N + K`` after RMP); the balancer's ``balance`` set beside it
 is padded to a multiple of ``graph`` as on flag.
 
-In a pod (``parallel.multihost``: one group in each of several processes,
-``data`` across them) each process hands the step its own ``[B_local,
-...]`` frames, rows ``B_local * group.process ..`` of the global batch of
-``B_local * group.processes``: the step slices the global noise draws
-(drawn whole in every process from a generator seeded alike) at those rows,
-sums the normalizers' partials and the loss
-mask's count over the pod's whole ``data`` axis (``RankGroup.
-all_reduce_plain``), and sums each parameter's gradient over the processes
-in process order before Adam (``RankGroup.fold_processes``), after the sum
-over the process's own devices, so every process and every card holds the
-same parameters bit for bit; the loss is the global loss.
+In a pod (``parallel.multihost``: the group's ranks over several
+processes, a ``data`` row or a ``graph`` row possibly spanning them) each
+process hands the step the frames of its ``data`` rows (``group.data_rows``,
+``B_row`` frames a row) of the global batch of ``B_row x data``: the step
+slices the global noise draws (drawn whole in every process from a
+generator seeded alike) at those rows; every sum whose ranks span processes
+gathers the other processes' entries and folds in global rank order
+(``RankGroup.gather``): the normalizers' partials and the loss mask's count
+over ``data``, the aggregates over ``graph``, and in the backward the
+aggregate cotangents of a ``graph`` row (each process's sharded node over
+its own shards of the row, K2 on them).  A process that holds no row's
+first graph rank differentiates one of its ranks' losses with a zero
+cotangent, so its nodes run and join their rows' sums.  Each parameter's
+gradient is then summed over every device of every process in global order
+(:meth:`SpmdTrainStep._sum_over_processes`), so every process and every
+card holds the same parameters bit for bit, those of the in-process group
+of the same shape over the same devices; the loss is the global loss.
 :func:`make_sharded_forward` returns the process's rows.
 """
 from __future__ import annotations
@@ -364,6 +370,8 @@ def shard_topology(
     mask = layout.relay(mask, 0.0)
     dev = group.device(0)
     ids = lambda t: None if t is None else layout.relay_ids(t).to(dev)
+    if use_overlap:
+        group.check_ring("shard_topology(overlap_bands=...) (K7)")
     plan = None
     if plans:
         plan = rank_plans(group, layout, snd, rcv, mask, N, overlap_bands if use_overlap else None)
@@ -502,22 +510,23 @@ def check_supported(model, expansion) -> None:
 
 
 def shard_frames(frames: Dict[str, torch.Tensor], group) -> List[Dict[str, torch.Tensor]]:
-    """Each rank's frames: data rank d's slice ``[d * B/data, (d+1) *
-    B/data)`` of a ``[B, ...]`` batch, on the rank's device (the JAX
+    """Each rank's frames: the i-th of the group's data rows (all of them;
+    in a pod this process's, ``group.data_rows``) takes slice ``[i * B/rows,
+    (i+1) * B/rows)`` of a ``[B, ...]`` batch, on the rank's device (the JAX
     package's ``P('data')``); ranks with one data coordinate and one device
-    share the copy.  ``B`` must divide by the ``data`` axis."""
-    D = group.shape["data"]
+    share the copy.  ``B`` must divide by the rows."""
+    rows = group.data_rows
     B = next(iter(frames.values())).shape[0]
-    if B % D:
-        raise ValueError(f"a batch of {B} frames does not split over {D} data ranks")
-    b = B // D
+    if B % len(rows):
+        raise ValueError(f"a batch of {B} frames does not split over {len(rows)} data ranks")
+    b = B // len(rows)
     kept = {}
     out = []
     for r in range(group.n):
-        d, dev = group.axis_index(r, "data"), group.device(r)
-        if (d, dev) not in kept:
-            kept[(d, dev)] = {k: v[d * b : (d + 1) * b].to(dev) for k, v in frames.items()}
-        out.append(kept[(d, dev)])
+        i, dev = rows.index(group.axis_index(r, "data")), group.device(r)
+        if (i, dev) not in kept:
+            kept[(i, dev)] = {k: v[i * b : (i + 1) * b].to(dev) for k, v in frames.items()}
+        out.append(kept[(i, dev)])
     return out
 
 
@@ -619,9 +628,11 @@ class _Sharded:
             shape = (global_size,) + tuple(shape[1:])
             hyper_normal = torch.randn(shape, generator=generator, device=x.device, dtype=torch.float32)
         hyper_normal = hyper_normal[offset : offset + x.shape[0]]
-        b = x.shape[0] // self.group.shape["data"]
-        return [hyper_normal[d * b : (d + 1) * b].to(fr[self.model.field].device)
-                for d, fr in ((self.group.axis_index(r, "data"), rank_frames[r]) for r in range(self.group.n))]
+        rows = self.group.data_rows
+        b = x.shape[0] // len(rows)
+        return [hyper_normal[i * b : (i + 1) * b].to(fr[self.model.field].device)
+                for i, fr in ((rows.index(self.group.axis_index(r, "data")), rank_frames[r])
+                              for r in range(self.group.n))]
 
 
 class SpmdTrainStep(_Sharded):
@@ -710,8 +721,9 @@ class SpmdTrainStep(_Sharded):
         norms = tstate.model.normalizers
         states = {d: ModelState(params=p, normalizers=norms if d == self.home else {
             k: v.to(d) for k, v in norms.items()}) for d, p in per_device.items()}
-        b = frames[model.field].shape[0]
-        global_size, offset = b * group.processes, b * group.process
+        rows = group.data_rows
+        b = frames[model.field].shape[0] // len(rows)  # B_row; shard_frames checks that it divides
+        global_size, offset = b * group.shape["data"], b * rows[0]
         frames = self._noisy_frames(frames, normal, generator, global_size, offset)
         rank_frames = shard_frames(frames, group)
         sstatic = self.laid_out(static)
@@ -729,28 +741,71 @@ class SpmdTrainStep(_Sharded):
             return ((target - out).square() * mask).sum() / count[0], norms
 
         results = group.run(rank_fn)
-        firsts = [results[group.rank_at(d, 0)][0] for d in range(group.shape["data"])]
-        torch.autograd.backward(firsts)
-        loss = firsts[0].detach()
-        for x in firsts[1:]:
-            loss = loss + x.detach().to(loss.device)
-        self._sum_over_devices(params, per_device)
+        # each row's first graph rank's loss; a row whose first graph rank
+        # is another process's: one of this process's ranks' losses with a
+        # zero cotangent, so that its nodes run and join the row's sums
+        roots, cotangents, losses = [], [], {}
+        for d, r in row_firsts(group).items():
+            x = results[r][0]
+            first = group.axis_index(r, "graph") == 0
+            roots.append(x)
+            cotangents.append(torch.ones_like(x) if first else torch.zeros_like(x))
+            if first:
+                losses[d] = x.detach()
+        torch.autograd.backward(roots, cotangents)
         if group.processes > 1:
-            loss = self._sum_over_processes(params, loss)
+            return self._sum_over_processes(params, per_device, losses), results[0][1]
+        self._sum_over_devices(params, per_device)
+        loss = None
+        for x in losses.values():
+            loss = x if loss is None else loss + x.to(loss.device)
         return loss, results[0][1]
 
-    def _sum_over_processes(self, params, loss):
-        """Each gradient (and the loss) summed over the pod's processes in
-        process order, through the host, and put back in place."""
+    def _sum_over_processes(self, params, per_device, losses) -> torch.Tensor:
+        """The pod's gradient sum: every device's gradients of every process
+        (each process's in ``per_device``'s order, padded to
+        ``group.per_process`` devices) gathered over the process group
+        (:meth:`RankGroup.gather_processes`) and folded in global order into
+        the state's parameters' gradients, as :meth:`_sum_over_devices`
+        folds one process's; a device without a parameter's gradient adds
+        nothing.  The loss: each row's, from the process holding its first
+        graph rank, summed in row order.  The same bits in every process."""
         group = self.group
-        grads = [p.grad for p in params.parameters() if p.grad is not None]
-        flat = torch.cat([loss.reshape(1).cpu()] + [g.reshape(-1).cpu() for g in grads])
-        flat = group.fold_processes(flat, "sum")
-        at = 1
-        for g in grads:
-            g.copy_(flat[at : at + g.numel()].view_as(g))
-            at += g.numel()
-        return flat[0].to(loss.device)
+        D = group.shape["data"]
+        plist = list(params.parameters())
+        home = self.home
+        rows = []
+        for i, m in enumerate(per_device.values()):
+            grads = [q.grad for q in m.parameters()]
+            head = torch.zeros(D + len(plist), dtype=torch.float32)
+            if i == 0:
+                for d, x in losses.items():
+                    head[d] = x.float().cpu()
+            head[D:] = torch.tensor([g is not None for g in grads], dtype=torch.float32)
+            rows.append(torch.cat([head.to(home)] + [
+                torch.zeros(q.numel(), device=home) if g is None else g.detach().reshape(-1).float().to(home)
+                for q, g in zip(plist, grads)]))
+        x = torch.stack(rows)
+        if len(rows) < group.per_process:
+            x = torch.cat([x, x.new_zeros(group.per_process - len(rows), x.shape[1])])
+        parts = [part for got in group.gather_processes(x) for part in got.unbind(0)]
+        heads = torch.stack([part[: D + len(plist)] for part in parts]).cpu()
+        owner = lambda d: d * group.shape["graph"] // group.per_process
+        loss = None
+        for d in range(D):
+            row_loss = heads[group.per_process * owner(d)][d]
+            loss = row_loss if loss is None else loss + row_loss
+        at = D + len(plist)
+        for j, p in enumerate(plist):
+            acc = None
+            for i, part in enumerate(parts):
+                if heads[i][D + j] > 0:
+                    seg = part[at : at + p.numel()]
+                    acc = seg.clone() if acc is None else acc + seg
+            at += p.numel()
+            if acc is not None:
+                p.grad = acc.view_as(p).to(device=p.device, dtype=p.dtype)
+        return loss.to(home)
 
     def __call__(self, tstate, frames, normal=None, generator=None, static=None, hyper_normal=None):
         loss, normalizers = self.loss_and_grads(tstate, frames, normal, generator, static, hyper_normal)
@@ -769,6 +824,16 @@ def _refresh(kept: torch.nn.Module, params: torch.nn.Module) -> None:
     with torch.no_grad():
         for a, b in zip(kept.parameters(), params.parameters()):
             a.copy_(b)
+
+
+def row_firsts(group) -> Dict[int, int]:
+    """Each of the group's data rows (in a pod, this process's) and the
+    first of its ranks that this process holds, in row order: every rank of
+    a row computes the row's output."""
+    firsts: Dict[int, int] = {}
+    for r in range(group.n):
+        firsts.setdefault(group.axis_index(r, "data"), r)
+    return dict(sorted(firsts.items()))
 
 
 def make_spmd_train_step(trainer, topo: Topology, group, expansion=None) -> SpmdTrainStep:
@@ -809,6 +874,6 @@ def make_sharded_forward(model, topo: Topology, group, expansion=None):
         outs = group.run(rank_fn)
         group.check()
         home = next(mstate.params.parameters()).device
-        return torch.cat([outs[group.rank_at(d, 0)].to(home) for d in range(group.shape["data"])])
+        return torch.cat([outs[r].to(home) for r in row_firsts(group).values()])
 
     return fwd

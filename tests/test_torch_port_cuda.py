@@ -88,6 +88,13 @@ plain version with K2's tolerances above, on drhs from the hybrid's forward
 on the card; its routed max/min mass equals the count of K1's e2 within the
 tolerance of each extremum; a hybrid training step against the CPU with the
 train step's limits.
+
+The pod over ``nccl`` (two or more cards; skips below): two processes of
+one card each, a ``1 x 2`` pod whose ``graph`` row spans them, fused and
+sorted, bit for bit with the in-process ``RankGroup(1, 2)`` over the same
+two cards (the same kernels on the same shards, every fold in global rank
+order); the planted control without the other process's cotangents misses
+the gradients by more than 1e-2 relative L2.
 """
 import numpy as np
 import pytest
@@ -2216,3 +2223,71 @@ def test_sharded_arch_step_on_card_matches_single_device(arch):
     for n, want in ref.items():
         err = float((got[n] - want).norm() / want.norm().clamp(min=1e-30))
         assert err <= 1e-3, (n, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agg_vjp", ["fused", "sorted"])
+def test_pod_over_nccl_with_a_card_per_process_is_bit_for_bit(agg_vjp, tmp_path):
+    """Two processes over ``nccl``, one card each, a ``1 x 2`` pod whose
+    ``graph`` row spans them (tests/torch_port_pod_graph_worker.py: the
+    aggregates, the cotangents in the backward and the gradients gathered
+    on the cards), a 2-block float32 flag, B = 4, 10x10 mesh: each
+    process's loss, gradients, parameters after Adam, normalizers and
+    forward rows bit for bit with the in-process ``RankGroup(1, 2)`` over
+    ``cuda:0`` and ``cuda:1``; the planted control (each process's nodes
+    without the other's cotangents) misses the gradients by more than 1e-2
+    relative L2.  Skips below two cards (NCCL takes one card a process)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+    import torch_port_pod_graph_worker as worker
+
+    _need_card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: NCCL takes one card a process")
+    config = flag_config(None, agg_vjp=agg_vjp)
+    config["params"]["model"].update(noise=0.003, gamma=0.9, learning_rate=1e-4)
+    traj = add_targets(flag_trajectory(num_steps=6, nx=10, ny=10), "world_pos", True)
+    frames = {k: np.array(v[:4]) for k, v in traj.items() if k != "cells"}
+    state = get_model(config).init_state(torch.Generator().manual_seed(0))
+    case = dict(config=config, trajectory=traj, frames=frames, control=agg_vjp == "fused",
+                normal=torch.randn(frames["world_pos"].shape, generator=torch.Generator().manual_seed(1)),
+                params={n: p.detach().clone() for n, p in state.params.named_parameters()},
+                normalizers=state.normalizers)
+    src = str(tmp_path / "job.pt")
+    torch.save(dict(backend="nccl", graph=2, devices=[["cuda:0"], ["cuda:1"]], cases={"flag": case}), src)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    outs = [str(tmp_path / f"out{r}.pt") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, os.path.join(here, "torch_port_pod_graph_worker.py"), str(r), "2",
+                               str(port), src, outs[r]], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        ref = worker.run_case(dict(case, control=False), lambda: RankGroup(1, 2, devices=["cuda:0", "cuda:1"]))
+        logs = [p.communicate(timeout=180)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"worker {r}:\n{log[-3000:]}"
+    for r, out in enumerate(outs):
+        got = torch.load(out, weights_only=False)["flag"]
+        assert got["layout"]["shape"] == {"data": 1, "graph": 2} and got["layout"]["ranks"] == [r]
+        assert torch.equal(got["loss"], ref["loss"]) and torch.equal(got["forward"], ref["forward"]), r
+        for key in ("grads", "params"):
+            for n, want in ref[key].items():
+                assert torch.equal(got[key][n], want), (r, key, n)
+        for k, fields in ref["normalizers"].items():
+            for f, want in fields.items():
+                assert torch.equal(got["normalizers"][k][f], want), (r, k, f)
+        if case["control"]:
+            worst = max(float((got["control_grads"][n] - g).norm() / g.norm().clamp(min=1e-30))
+                        for n, g in ref["grads"].items())
+            assert worst > 1e-2, (r, worst)

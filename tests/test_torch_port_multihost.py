@@ -1,6 +1,7 @@
 """The port's pods (``parallel.multihost``) on the CPU: two ``gloo``
-processes, each a ``1 x 2`` rank group, run the sharded forward and one
-train step of a ``2 x 2`` pod, held against the JAX package's
+processes, each holding one row (a ``1 x 2`` share: its two local ranks
+name the CPU twice) of a ``2 x 2`` pod, run the sharded forward and one
+train step of the pod, held against the JAX package's
 ``make_spmd_train_step`` on a ``2 x 2`` mesh of virtual CPU devices and
 against the port's in-process ``RankGroup(2, 2)`` forward and step; the
 same pod with each process over two logical devices (``cpu:0``, ``cpu:1``:
@@ -191,10 +192,10 @@ def test_two_process_pod_step_matches_jax_and_the_in_process_step(tmp_path):
         forward, loss, params, norms, drawn = _in_process_step(j)
     finally:
         results = _join_pod(procs, outs)
-    # each process: a 1 x 2 group whose data axis continues over the pod
+    # each process: one row of the 2 x 2 pod
     for r, res in enumerate(results):
         shape, data_size, processes, process = res["layout"]
-        assert shape == {"data": 1, "graph": 2} and data_size == 2 and (processes, process) == (2, r)
+        assert shape == {"data": 2, "graph": 2} and data_size == 2 and (processes, process) == (2, r)
         assert res["rows"] == B // 2
         assert res["processes"] == (2, r)
     # trajectories dealt round-robin, disjoint, every one dealt
@@ -290,7 +291,7 @@ def test_host_local_batch_of_one_process_is_the_whole_batch():
     assert batch["x"].shape == (4, 3, 2) and batch["x"].device == group.device(0)
     assert (group.processes, group.process) == (1, 0)  # the step's rows: 0 .. 4 of 4
     x = torch.arange(6.0)
-    assert group.fold_processes(x) is x
+    assert group.gather_processes(x)[0] is x
 
 
 def test_trajectory_round_robin_of_one_process_gets_everything():

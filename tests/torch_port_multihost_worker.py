@@ -3,7 +3,8 @@
 this file).
 
 The process joins a ``gloo`` process group over TCP, builds its ``1 x 2``
-share of the ``2 x 2`` pod (``parallel.multihost.make_pod_group``), takes
+share of the ``2 x 2`` pod (``parallel.multihost.make_pod_group`` over two
+local ranks that name the CPU twice, so that each process holds a row), takes
 its half of the global batch (``host_local_batch_to_global``), runs the
 sharded forward on it, one sharded train step with the global noise draw
 handed in and one from the same state drawing it from a generator seeded
@@ -51,7 +52,7 @@ def main(rank: int, world: int, port: int, src: str, dst: str, spread: bool = Fa
         if spread:
             group = multihost.make_pod_group(devices=[torch.device("cpu", 0), torch.device("cpu", 1)])
         else:
-            group = multihost.make_pod_group(graph_per_host=2, device="cpu")
+            group = multihost.make_pod_group(graph_per_host=2, devices=["cpu", "cpu"])
         frames = trainer.frames(case["frames"])
         b = next(iter(frames.values())).shape[0] // world
         batch = multihost.host_local_batch_to_global(
