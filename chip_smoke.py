@@ -231,12 +231,16 @@ Phases (any failure exits non-zero; nothing is caught and dropped):
    K4f + 15 K4b a process on the row's shards joined across them), bit for
    bit with the in-process 1 x 2 step, a planted control (the other
    process's cotangents dropped) past SPMD_TOL, host ms in turns with the
-   in-process step; K1 raw and K2 at both layouts' shards and K4f/K4b on
-   the joined row against their plain versions; the pod over NCCL
-   (``phase_pod_cards``, only with two or more cards: with one it prints
-   ``{"phase": "pod_cards", "ran": false, "cards": 1}``): a process on
-   cards of its own, 1 x 4 (2 processes x 2 cards) and 2 x 2 (4 x 1), bit
-   for bit with the in-process group over the same cards; the sharded step
+   in-process step; 20 K6 calls across the two processes on the one card
+   (CUDA IPC, time-sliced), each bit for bit with the plain fold; K1 raw and
+   K2 at both layouts' shards and K4f/K4b on the joined row against their
+   plain versions; the pod over NCCL (``phase_pod_cards``, only with two or
+   more cards: with one it prints ``{"phase": "pod_cards", "ran": false,
+   "cards": 1}``): a process on cards of its own, 1 x 4 (2 processes x 2
+   cards) and 2 x 2 (4 x 1), the fused and overlap-banded steps and the
+   halo forward with ring (K6) and overlap (K7) across the processes, bit
+   for bit with the in-process group over the same cards, K6/K7 timed per
+   rank in turns with it; the sharded step
    over several cards (``phase_spmd_cards``,
    only with two or more: with one it prints
    ``{"phase": "spmd_cards", "ran": false, "cards": 1}`` and runs nothing):
@@ -279,7 +283,9 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
+import weakref
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -6022,6 +6028,12 @@ POD_GRAD_TOL = 1e-5
 # process, graph_per_host), their shapes, and the cards they need
 POD_CARDS_LAYOUTS = (((2, 2, 4), (1, 4)), ((4, 1, 2), (2, 2)))
 POD_CARDS_SMALL = ((2, 1, 2), (1, 2))  # on two or three cards
+POD_RING_REPS = 20  # K6 and K7 calls timed per rank in the 1 x 4 pod, each beside an in-process call (in turns)
+POD_RING_PROBE_REPS = 20  # K6 calls across the two processes on one card (phase_pod)
+POD_CARDS_TIMEOUT_S = 480  # phase_pod_cards' workers, each layout's five runs
+POD_HALO_TIMED = 3  # halo forwards timed on the host clock per path and pod
+POD_HOST_GROUP = None  # a pod worker's gloo group: its barriers wait on the host, never in a kernel on a card
+POD_GROUPS = weakref.WeakSet()  # a pod worker's groups, whose error words watch_error_words reads
 
 
 def pod_case(seed):
@@ -6052,16 +6064,29 @@ def pod_case(seed):
                 normalizers=state.normalizers)
 
 
-def _pod_state(trainer, case):
-    """A train state of ``case``'s parameters and normalizers."""
+def _pod_model_state(model, case):
+    """A model state (on the CPU) of ``case``'s parameters and normalizers."""
     import torch
 
-    model = trainer.model
     state = model.init_state(torch.Generator().manual_seed(0))
     with torch.no_grad():
         for n, p in state.params.named_parameters():
             p.copy_(case["params"][n])
-    return trainer.init_train_state(state=state.replace(normalizers=case["normalizers"]))
+    return state.replace(normalizers=case["normalizers"])
+
+
+def _pod_state(trainer, case):
+    """A train state of ``case``'s parameters and normalizers."""
+    return trainer.init_train_state(state=_pod_model_state(trainer.model, case))
+
+
+def host_barrier():
+    """A barrier of the pod's processes on the host (a worker's gloo
+    group): an NCCL barrier would spin in a kernel on the process's card
+    while another process's turn runs there."""
+    import torch.distributed as dist
+
+    dist.barrier(group=POD_HOST_GROUP)
 
 
 def _pod_model(case, agg_vjp, device):
@@ -6078,10 +6103,11 @@ def _pod_model(case, agg_vjp, device):
     return model, Trainer(model, config, device=device), model.topology_from_trajectory(case["traj"], device=device)
 
 
-def in_process_pod_step(case, shape, devices, agg_vjp, timed=False):
+def in_process_pod_step(case, shape, devices, agg_vjp, timed=False, bands=None):
     """One step of the in-process ``RankGroup(*shape)`` over ``devices`` (a
-    rank each) on the case's global batch: loss, gradients and parameters
-    after Adam (CPU tensors); with ``timed``, a second step's host ms."""
+    rank each) on the case's global batch (``bands``: on the overlap-banded
+    layout, K7 forward): loss, gradients and parameters after Adam (CPU
+    tensors); with ``timed``, a second step's host ms."""
     import torch
 
     from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
@@ -6089,7 +6115,7 @@ def in_process_pod_step(case, shape, devices, agg_vjp, timed=False):
 
     group = RankGroup(*shape, devices=devices)
     model, trainer, topo = _pod_model(case, agg_vjp, group.device(0))
-    step = make_spmd_train_step(trainer, shard_topology(topo, group), group)
+    step = make_spmd_train_step(trainer, shard_topology(topo, group, overlap_bands=bands), group)
     frames = trainer.frames(case["frames"])
     tstate, loss = step(_pod_state(trainer, case), frames, normal=case["normal"])
     group.check()
@@ -6106,28 +6132,34 @@ def in_process_pod_step(case, shape, devices, agg_vjp, timed=False):
 
 
 def pod_run(rank, case, run):
-    """One run of a pod worker: ``make_pod_group(graph_per_host=run["graph"],
-    devices=run["devices"][rank])`` (its shape checked), the frames of the
-    process's data rows, one counted train step (every count set to 0 just
-    before, read just after), its loss, gradients and parameters; with
-    ``control``, the step's loss and gradients with the other processes'
-    aggregate cotangents dropped (``RankGroup.cotangents`` returning this
-    process's own); with ``timed``, that many pod steps timed on the host
-    clock, each followed (``turns``) by a step of the in-process group of
-    the same shape in process 0 (the others wait at a barrier)."""
+    """One run of a pod worker on ``make_pod_group(graph_per_host=run["graph"],
+    devices=run["devices"][rank])`` (:func:`pod_group`).  ``run["kind"]``
+    ``halo``: :func:`pod_halo`; ``ring_times``: :func:`pod_ring_times`;
+    ``ring_probe``: :func:`pod_ring_probe`; ``step`` (the default): the
+    frames of the process's data rows, one counted train step (every count
+    set to 0 just before, read just after; ``bands``: on the overlap-banded
+    layout), its loss, gradients and parameters; with ``control``, the
+    step's loss and gradients with the other processes' aggregate
+    cotangents dropped (``RankGroup.cotangents`` returning this process's
+    own); with ``timed``, that many pod steps timed on the host clock, each
+    followed (``turns``) by a step of the in-process group of the same
+    shape in process 0 (the others wait at a barrier)."""
     import torch
-    import torch.distributed as dist
 
     from hyper_graph_nets_tpu_torch.parallel import multihost
     from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
     from hyper_graph_nets_tpu_torch.parallel.sharding import make_spmd_train_step, shard_topology
 
-    group = multihost.make_pod_group(graph_per_host=run["graph"],
-                                     devices=[torch.device(d) for d in run["devices"][rank]])
-    if (group.shape["data"], group.shape["graph"]) != tuple(run["shape"]):
-        raise AssertionError(f"pod run {run['name']}: group {group.shape}, want {run['shape']}")
+    kind = run.get("kind", "step")
+    group = pod_group(rank, run)
+    if kind == "halo":
+        return pod_halo(case, group, run["path"], timed=run.get("timed", 0), barrier=host_barrier)
+    if kind == "ring_times":
+        return pod_ring_times(rank, group, run)
+    if kind == "ring_probe":
+        return pod_ring_probe(group, run)
     model, trainer, topo = _pod_model(case, run["agg_vjp"], group.device(0))
-    step = make_spmd_train_step(trainer, shard_topology(topo, group), group)
+    step = make_spmd_train_step(trainer, shard_topology(topo, group, overlap_bands=run.get("bands")), group)
     frames, rows = trainer.frames(case["frames"]), group.data_rows
     b = POD_FRAMES // group.shape["data"]
     batch = multihost.host_local_batch_to_global(
@@ -6155,7 +6187,7 @@ def pod_run(rank, case, run):
             ref = (ref_group, make_spmd_train_step(trainer, shard_topology(topo, ref_group), ref_group))
         for _ in range(run["timed"]):
             tstate = _pod_state(trainer, case)
-            dist.barrier()
+            host_barrier()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             step(tstate, batch, normal=case["normal"])
@@ -6168,8 +6200,208 @@ def pod_run(rank, case, run):
                 ref[1](rstate, frames, normal=case["normal"])
                 ref[0].check()
                 in_process_ms.append(1e3 * (time.perf_counter() - t0))
-            dist.barrier()
+            host_barrier()
     out.update(ms=pod_ms, in_process_ms=in_process_ms)
+    return out
+
+
+def pod_group(rank, run):
+    """Process ``rank``'s share of the pod of ``run``
+    (``make_pod_group(graph_per_host=run["graph"], devices=run["devices"][rank])``),
+    its shape checked."""
+    import torch
+
+    from hyper_graph_nets_tpu_torch.parallel import multihost
+
+    group = multihost.make_pod_group(graph_per_host=run["graph"],
+                                     devices=[torch.device(d) for d in run["devices"][rank]])
+    if (group.shape["data"], group.shape["graph"]) != tuple(run["shape"]):
+        raise AssertionError(f"pod run {run['name']}: group {group.shape}, want {run['shape']}")
+    POD_GROUPS.add(group)
+    return group
+
+
+def watch_error_words():
+    """A worker's daemon thread: logs the first ring spin error of each pod
+    group (its page-locked error word) as soon as a kernel writes it, before
+    anything else in the process reports the trap that follows (NCCL's
+    watchdog ends the process on it)."""
+    from hyper_graph_nets_tpu_torch.parallel.group import WAIT_KINDS
+
+    seen = set()
+    while True:
+        for group in list(POD_GROUPS):
+            err = group._err
+            if id(group) not in seen and err is not None and int(err[0]) != 0:
+                seen.add(id(group))
+                kind, rank, step, sub = (int(v) for v in err)
+                log(f"ring spin error: rank {rank} waited past its time limit for {WAIT_KINDS.get(kind, kind)} "
+                    f"(step {step}, sub-ring or band {sub}); group {group.shape}, ranks {group.ranks}, epoch "
+                    f"{group.epoch}")
+        time.sleep(0.02)
+
+
+HALO_POD_PATHS = {"ring": ("xla", True, False, "K6"), "overlap": ("fused", False, True, "K7")}
+
+
+def pod_halo(case, group, path, timed=0, barrier=None):
+    """The halo forward of the case's frame 0 on ``group`` (a pod's share
+    or an in-process group): ``path`` ``ring`` (``agg_vjp: xla``, K6) or
+    ``overlap`` (fused on HALO_BANDS bands, K7), counted (every count set to
+    0 just before, read just after): ``{"rows": {global rank: its output
+    rows on the CPU}, "counts": ..., "ms": host ms of ``timed`` more
+    forwards, each from a ``barrier``}``."""
+    import torch
+
+    from hyper_graph_nets_tpu_torch.parallel.halo import make_halo_forward, split_graph
+    from hyper_graph_nets_tpu_torch.parallel.sharding import shard_topology
+
+    agg_vjp, ring, overlap, _ = HALO_POD_PATHS[path]
+    dev = group.device(0)
+    model, _, topo = _pod_model(case, agg_vjp, dev)
+    state = _pod_model_state(model, case).to(dev)
+    frame = {k: torch.as_tensor(v[0], device=dev) for k, v in case["traj"].items() if k != "cells"}
+    with torch.no_grad():
+        graph, _, _ = model.make_graph(state, shard_topology(topo, group, overlap_bands=HALO_BANDS if overlap
+                                                             else None), frame, False)
+    rank_graphs = split_graph(graph, group)
+    fwd = make_halo_forward(model, group, ring=ring, overlap=overlap)
+    torch.cuda.synchronize()
+    reset_counts()
+    outs = fwd(state, rank_graphs, all_ranks=True)
+    counts = read_counts()
+    ms = []
+    for _ in range(timed):
+        if barrier is not None:
+            barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd(state, rank_graphs)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return dict(rows={q: o.cpu() for q, o in zip(group.ranks, outs)}, counts=counts, ms=ms)
+
+
+def rank_event_ms(group, fn):
+    """Each of the group's ranks' device ms for ``fn``, which enqueues one
+    ring call on the ranks' streams: CUDA events on each rank's stream
+    around it (the spins on a neighbour included)."""
+    import torch
+
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(group.n)]
+    for r, (start, _) in enumerate(ev):
+        start.record(group.stream(r))
+    fn()
+    for r, (_, end) in enumerate(ev):
+        end.record(group.stream(r))
+    group.check()
+    return [start.elapsed_time(end) for start, end in ev]
+
+
+def _shard_on(x, dev):
+    """One rank's K7 shard arguments (``overlap_shards``) on ``dev``."""
+    return {k: (v.to(dev) if hasattr(v, "to") else {n: w.to(dev) for n, w in v.items()}) for k, v in x.items()}
+
+
+def pod_ring_times(rank, group, run):
+    """K6 at the halo forward's payload ([4N, L] float32, the pna segments)
+    and K7 at its shard (bf16, HALO_BANDS bands) on the pod's ranks, each
+    rank's inputs made from ``run["seed"]`` by its global rank, against the
+    in-process group of the pod's shape over the same cards (in process 0):
+    one call of each counted and kept (the rows of every rank, CPU), K6
+    held bit for bit against its plain version on the card, then
+    POD_RING_REPS calls of each timed per rank by CUDA events (from a host
+    barrier), each pod call followed by the in-process group's."""
+    import torch
+
+    from hyper_graph_nets_tpu_torch.ops.fused_overlap import fused_edge_block_overlap
+    from hyper_graph_nets_tpu_torch.ops.ring import ring_all_reduce_segments, ring_all_reduce_segments_reference
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+
+    D, G = group.shape["data"], group.shape["graph"]
+    N, L = 1600, L_MAIN
+    gen = torch.Generator().manual_seed(run["seed"])
+    xs = [torch.randn(4 * N, L, generator=gen) for _ in range(D * G)]
+    shards, N = overlap_shards(torch.bfloat16, gen, n=G)
+    pna = [(0, N, "sum"), (N, 2 * N, "sum"), (2 * N, 3 * N, "max"), (3 * N, 4 * N, "min")]
+
+    def inputs(g):
+        return ([xs[q].to(g.device(r)) for r, q in enumerate(g.ranks)],
+                [_shard_on(shards[g.axis_index(r, "graph")], g.device(r)) for r in range(g.n)])
+
+    def calls(g, x6, x7):
+        return (lambda: ring_all_reduce_segments(x6, pna, g),
+                lambda: fused_edge_block_overlap(x7, N, g, HALO_BANDS))
+
+    k6, k7 = calls(group, *inputs(group))
+    ref = None
+    if rank == 0:
+        ref_group = RankGroup(D, G, devices=[torch.device(d) for ds in run["devices"] for d in ds])
+        ref = (ref_group, *calls(ref_group, *inputs(ref_group)))
+    torch.cuda.synchronize()
+    reset_counts()
+    got6, got7 = k6(), k7()
+    group.check()
+    counts = read_counts()
+    for r, q in enumerate(group.ranks):
+        members = group.members(r)
+        plain = ring_all_reduce_segments_reference([xs[m].to(group.device(r)) for m in members], pna)
+        if not torch.equal(got6[r], plain[members.index(q)]):
+            raise AssertionError(f"pod K6, rank {q}: differs from its plain version")
+    out = dict(counts=counts, k7={q: tuple(t.cpu() for t in o) for q, o in zip(group.ranks, got7)},
+               ms={"K6": [], "K7": []}, in_process_ms={"K6": [], "K7": []})
+    if ref is not None:
+        ref_group, r6, r7 = ref
+        r6()
+        out["k7_in_process"] = {q: tuple(t.cpu() for t in o) for q, o in zip(ref_group.ranks, r7())}
+        ref_group.check()
+    for rep in range(POD_RING_REPS + 1):  # the first of each: warm-up
+        for name, fn in (("K6", k6), ("K7", k7)):
+            host_barrier()
+            torch.cuda.synchronize()
+            ms = rank_event_ms(group, fn)
+            if rep:
+                out["ms"][name].append(ms)
+            host_barrier()
+            if ref is not None:
+                ms = rank_event_ms(ref[0], ref[1 if name == "K6" else 2])
+                if rep:
+                    out["in_process_ms"][name].append(ms)
+    return out
+
+
+def pod_ring_probe(group, run):
+    """``run["reps"]`` K6 calls on [64, 128] float32 partials (seeded
+    alike in every process) on the pod's ranks, each from a host barrier,
+    counted, held bit for bit against the plain fold on the card and timed
+    per rank by CUDA events (spins on the other process included) and on
+    the host clock to the end of ``group.check()``; the plain fold's device
+    ms on the same inputs."""
+    import torch
+
+    from hyper_graph_nets_tpu_torch.ops.ring import ring_all_reduce_segments, ring_all_reduce_segments_reference
+
+    gen = torch.Generator().manual_seed(run["seed"])
+    segments = [(0, 64, "sum")]
+    total = group.shape["data"] * group.shape["graph"]
+    out = dict(counts=dict.fromkeys(read_counts(), 0), ms=[], host_ms=[])
+    for _ in range(run["reps"]):
+        xs = [torch.randn(64, 128, generator=gen) for _ in range(total)]
+        mine = [xs[q].to(group.device(r)) for r, q in enumerate(group.ranks)]
+        torch.cuda.synchronize()
+        host_barrier()
+        reset_counts()
+        t0 = time.perf_counter()
+        got = []
+        out["ms"].append(rank_event_ms(group, lambda: got.extend(ring_all_reduce_segments(mine, segments, group))))
+        out["host_ms"].append(1e3 * (time.perf_counter() - t0))
+        out["counts"] = {k: out["counts"][k] + v for k, v in read_counts().items()}
+        for r, q in enumerate(group.ranks):
+            members = group.members(r)
+            plain = ring_all_reduce_segments_reference([xs[m].to(group.device(r)) for m in members], segments)
+            if not torch.equal(got[r], plain[members.index(q)]):
+                raise AssertionError(f"pod K6 across processes on one card, rank {q}: differs from its plain version")
+    row = [xs[m].to(group.device(0)) for m in group.members(0)]
+    out["plain_ms"] = cuda_time_ms(lambda: ring_all_reduce_segments_reference(row, segments), iters=20)
     return out
 
 
@@ -6177,7 +6409,11 @@ def pod_worker(rank, world, port, src, dst):
     """One process of a pod (``--pod-worker``): the job's process group
     (``gloo``, or ``nccl`` with this process's first card as its current
     one) over TCP on 127.0.0.1, then each of the job's runs
-    (:func:`pod_run`); saves their results."""
+    (:func:`pod_run`), each one's seconds logged; saves their results.
+    Short of the job's time limit every thread's traceback is written to
+    the worker's log, so that a worker killed at the limit shows where it
+    stood."""
+    import faulthandler
     from datetime import timedelta
 
     import torch
@@ -6186,23 +6422,36 @@ def pod_worker(rank, world, port, src, dst):
     sys.path.insert(0, HERE)
     from hyper_graph_nets_tpu_torch.runtime import configure_numerics
 
+    global POD_HOST_GROUP
     configure_numerics()
     job = torch.load(src, weights_only=False)
+    limit = job.get("timeout", POD_TIMEOUT_S)
+    faulthandler.dump_traceback_later(max(10, limit - 20))
+    threading.Thread(target=watch_error_words, daemon=True).start()
     if job["backend"] == "nccl":
         torch.cuda.set_device(torch.device(job["runs"][0]["devices"][rank][0]))
     dist.init_process_group(job["backend"], init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank,
                             timeout=timedelta(seconds=POD_TIMEOUT_S))
+    if job["backend"] == "nccl":
+        POD_HOST_GROUP = dist.new_group(backend="gloo", timeout=timedelta(seconds=POD_TIMEOUT_S))
     try:
-        out = {run["name"]: pod_run(rank, job["case"], run) for run in job["runs"]}
+        out = {}
+        for run in job["runs"]:
+            t0 = time.perf_counter()
+            out[run["name"]] = pod_run(rank, job["case"], run)
+            out[run["name"]]["seconds"] = time.perf_counter() - t0
+            log(f"pod worker {rank}: {run['name']} in {out[run['name']]['seconds']:.1f} s")
         torch.save(out, dst)
     finally:
         dist.destroy_process_group()
+        faulthandler.cancel_dump_traceback_later()
 
 
-def start_pod(job, processes):
+def start_pod(job, processes, timeout=POD_TIMEOUT_S):
     """``processes`` workers of ``job`` (``python chip_smoke.py
-    --pod-worker``), run to their end within POD_TIMEOUT_S each (killed
-    past it): their results and the workers' wall seconds."""
+    --pod-worker``), run to their end within ``timeout`` seconds (killed
+    past it; each worker's log, in a file of its own, is shown on a
+    failure): their results and the workers' wall seconds."""
     import socket
     import tempfile
 
@@ -6210,29 +6459,41 @@ def start_pod(job, processes):
 
     with tempfile.TemporaryDirectory() as tmp:
         src = os.path.join(tmp, "job.pt")
-        torch.save(job, src)
+        torch.save(dict(job, timeout=timeout), src)
         with socket.socket() as s:
             s.bind(("127.0.0.1", 0))
             port = s.getsockname()[1]
         outs = [os.path.join(tmp, f"out{r}.pt") for r in range(processes)]
+        logs = [os.path.join(tmp, f"log{r}.txt") for r in range(processes)]
         t0 = time.perf_counter()
-        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--pod-worker", str(r),
-                                   str(processes), str(port), src, outs[r]],
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                 for r in range(processes)]
-        logs = []
+        procs = []
+        for r in range(processes):
+            with open(logs[r], "w") as f:
+                procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--pod-worker", str(r),
+                                               str(processes), str(port), src, outs[r]],
+                                              stdout=f, stderr=subprocess.STDOUT, text=True))
+        late = False
         try:
             for p in procs:
-                logs.append(p.communicate(timeout=POD_TIMEOUT_S)[0])
+                p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            late = True
         finally:
             for p in procs:
                 if p.poll() is None:
                     p.kill()
                     p.wait()
         wall_s = time.perf_counter() - t0
-        for r, (p, text) in enumerate(zip(procs, logs)):
-            if p.returncode != 0:
-                raise AssertionError(f"pod worker {r} exited {p.returncode}:\n{text[-4000:]}")
+        text = []
+        for r in range(processes):
+            with open(logs[r]) as f:
+                text.append(f.read())
+        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+        if late or failed:
+            raise AssertionError(
+                f"pod workers {'past their ' + str(timeout) + ' s limit' if late else 'failed'} (exit codes "
+                f"{[p.returncode for p in procs]}):\n" + "\n".join(f"-- worker {r}:\n{t[-6000:]}" for r, t in
+                                                                     enumerate(text)))
         return [torch.load(o, weights_only=False) for o in outs], wall_s
 
 
@@ -6276,6 +6537,11 @@ def phase_pod(card, peaks, seed):
       process's cotangents dropped) must miss ``SPMD_TOL``; the fused pod
       step's host ms in each process beside the in-process step's, in
       turns.
+    - 1 x 2 again: POD_RING_PROBE_REPS K6 calls on [64, 128] float32 across
+      the two processes on the one card (``pod_ring_probe``: each rank's
+      neighbour in the other process reached over CUDA IPC, the two
+      processes' kernels time-sliced), each bit for bit with the plain fold,
+      timed per rank by CUDA events and on the host clock.
 
     K1 raw and K2 at each layout's shard, K4f and K4b on the joined row,
     against their plain versions."""
@@ -6297,11 +6563,13 @@ def phase_pod(card, peaks, seed):
                  timed=1),
             dict(name="1x2 fused", graph=POD_GRAPH, devices=[one] * POD_PROCESSES, shape=(1, 2), agg_vjp="fused",
                  control=True, timed=POD_TIMED, turns=True),
-            dict(name="1x2 sorted", graph=POD_GRAPH, devices=[one] * POD_PROCESSES, shape=(1, 2), agg_vjp="sorted")]
+            dict(name="1x2 sorted", graph=POD_GRAPH, devices=[one] * POD_PROCESSES, shape=(1, 2), agg_vjp="sorted"),
+            dict(name="1x2 ring", kind="ring_probe", graph=POD_GRAPH, devices=[one] * POD_PROCESSES, shape=(1, 2),
+                 reps=POD_RING_PROBE_REPS, seed=seed + 53)]
     results, wall_s = start_pod(dict(backend="gloo", case=case, runs=runs), POD_PROCESSES)
 
     wants = {"2x2": dict(K1=blocks * POD_GRAPH, K2=blocks * POD_GRAPH), "1x2 fused": dict(K1=blocks, K2=blocks),
-             "1x2 sorted": dict(K4f=blocks, K4b=blocks)}
+             "1x2 sorted": dict(K4f=blocks, K4b=blocks), "1x2 ring": dict(K6=POD_RING_PROBE_REPS)}
     launches = dict.fromkeys(read_counts(), 0)
     by_run = {}
     for name, counts in wants.items():
@@ -6314,7 +6582,7 @@ def phase_pod(card, peaks, seed):
             for k in launches:
                 launches[k] += res[name]["counts"][k]
                 by_run[name][k] += res[name]["counts"][k]
-        if not pod_same(results, name):
+        if name != "1x2 ring" and not pod_same(results, name):
             raise AssertionError(f"pod {name}: the processes' loss, gradients or parameters differ")
 
     # 2 x 2: against the in-process step within the limits
@@ -6379,6 +6647,23 @@ def phase_pod(card, peaks, seed):
     _, _, stopo = _pod_model(case, "sorted", "cuda")
     stopo = shard_topology(stopo, RankGroup(1, POD_GRAPH, devices=["cuda:0"] * POD_GRAPH))
     rows.update({f"{k} row": v for k, v in sorted_joined_rows(peaks, gen, stopo, POD_FRAMES).items()})
+
+    # K6 across the two processes on the one card (CUDA IPC, the kernels time-sliced)
+    import statistics
+
+    probe = [res["1x2 ring"] for res in results]
+    per_call = [max(ms) for res in probe for ms in res["ms"]]
+    rows["K6 across processes"] = dict(
+        ms=statistics.median(per_call), plain_ms=probe[0]["plain_ms"], max_abs_err=0.0,
+        **{k: ring_bounds_ms(POD_GRAPH, 64 * 128 * 4, peaks)[k] for k in ("bound_ms", "bound_by")},
+        shape=f"float32 [64, 128], 1 x 2 across {POD_PROCESSES} processes on one card")
+    timings["1x2 ring"] = dict(ms_by_process=[res["ms"] for res in probe],
+                               host_ms_by_process=[res["host_ms"] for res in probe])
+    log(f"pod 1 x 2, K6 across {POD_PROCESSES} processes on one card (CUDA IPC, time-sliced): "
+        f"{POD_RING_PROBE_REPS} calls a process on [64, 128] float32, each bit for bit with the plain fold; device "
+        f"ms per call (slower rank) median {rows['K6 across processes']['ms']:.3f}, max {max(per_call):.3f}; host ms "
+        f"(process 0) median {statistics.median(probe[0]['host_ms']):.3f}; plain {probe[0]['plain_ms']:.4f} ms "
+        f"[{card}]")
     return launches, timings, rows
 
 
@@ -6390,12 +6675,24 @@ def phase_pod_cards(card, peaks, seed):
     ``graph_per_host`` 4 (a 1 x 4 pod, the row across both) and 4 x 1 with
     2 (2 x 2: each row across two processes, each ``data`` column across
     two); on two or three, 2 x 1 with 2 (1 x 2).  flag_full_scale with RMP
-    off (bf16, 15 blocks, latent 128, fused) at a global B = POD_FRAMES:
-    each process's launches (15 K1 raw + 15 K2 a rank), its loss, every
-    gradient and its parameters after Adam bit for bit with the in-process
-    group of the same shape over the same cards (a rank a card), the
-    processes bit for bit, and the pod step's host ms in each process."""
+    off (bf16, 15 blocks, latent 128) at a global B = POD_FRAMES, in each
+    layout: the fused step (15 K1 raw + 15 K2 a rank) and the
+    overlap-banded step (HALO_BANDS bands: 15 K7 + 15 K2 a rank), each
+    process's loss, every gradient and its parameters after Adam bit for bit
+    with the in-process group of the same shape over the same cards (a rank
+    a card), the processes bit for bit, the steps' host ms; the halo
+    forward of frame 0 with ``ring`` (15 K6 a rank, the ring across the
+    processes over CUDA IPC) and with ``overlap`` (15 K7 a rank), every
+    rank's rows bit for bit with the in-process group's, host ms (the
+    in-process group's taken before the workers start).  On the
+    first layout (1 x 4) also K6 and K7 at the halo forward's shapes timed
+    per rank by CUDA events, POD_RING_REPS calls each in turns with the
+    in-process group over the same four cards (``pod_ring_times``), K7's
+    rows bit for bit with the in-process group's.  Each process's K6 and K7
+    launches go into the phase's counts."""
     import torch
+
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
 
     cards = torch.cuda.device_count()
     launches = dict.fromkeys(read_counts(), 0)
@@ -6406,33 +6703,91 @@ def phase_pod_cards(card, peaks, seed):
     case = pod_case(seed)
     layouts = POD_CARDS_LAYOUTS if cards >= 4 else (POD_CARDS_SMALL,)
     timings = {"ran": True, "cards": cards}
-    for (processes, per, graph), shape in layouts:
+    for li, ((processes, per, graph), shape) in enumerate(layouts):
         name = f"{shape[0]}x{shape[1]} ({processes} processes x {per} cards)"
         devices = [[f"cuda:{p * per + i}" for i in range(per)] for p in range(processes)]
-        ref = in_process_pod_step(case, shape, [d for ds in devices for d in ds], "fused")
+        flat = [d for ds in devices for d in ds]
+        refs = {"step": in_process_pod_step(case, shape, flat, "fused", timed=True),
+                "overlap step": in_process_pod_step(case, shape, flat, "fused", timed=True, bands=HALO_BANDS)}
+        for path in HALO_POD_PATHS:
+            refs[f"halo {path}"] = pod_halo(case, RankGroup(*shape, devices=flat), path, timed=POD_HALO_TIMED)
         torch.cuda.empty_cache()
-        run = dict(name=name, graph=graph, devices=devices, shape=shape, agg_vjp="fused", timed=2)
-        results, wall_s = start_pod(dict(backend="nccl", case=case, runs=[run]), processes)
-        want = dict.fromkeys(read_counts(), 0)
-        want.update(K1=15 * per, K2=15 * per)
-        for r, res in enumerate(results):
-            got = res[name]
-            if got["counts"] != want:
-                raise AssertionError(f"pod over nccl {name}, process {r}: launches {got['counts']}, want {want}")
-            bad = pod_equal(got, ref)
-            if bad:
-                raise AssertionError(f"pod over nccl {name}, process {r}: differs from the in-process group over the "
-                                     f"same cards in {len(bad)} of loss, gradients and parameters: {bad[:5]}")
-            for k in launches:
-                launches[k] += got["counts"][k]
-        timings[name] = dict(launches_per_process=want, loss=float(results[0][name]["loss"]),
-                             step_host_ms=[res[name]["ms"] for res in results], workers_wall_s=wall_s)
-        log(f"pod over nccl {name}: {shape[0]} x {shape[1]} on {', '.join(sum(devices, []))}, global B={POD_FRAMES}; "
-            f"15 K1 raw + 15 K2 a rank in each process; loss, gradients and parameters bit for bit with the "
-            f"in-process group over the same cards and across the processes; step host ms "
-            f"{'; '.join(', '.join(f'{t:.1f}' for t in res[name]['ms']) for res in results)} (by process); "
-            f"workers {wall_s:.1f} s [{card}]")
+        base = dict(graph=graph, devices=devices, shape=shape)
+        runs = [dict(base, name="ring times", kind="ring_times", seed=seed + 47)] if li == 0 and cards >= 4 else []
+        runs += [dict(base, name=f"halo {path}", kind="halo", path=path, timed=POD_HALO_TIMED)
+                 for path in HALO_POD_PATHS]
+        runs += [dict(base, name="step", agg_vjp="fused", timed=2),
+                 dict(base, name="overlap step", agg_vjp="fused", bands=HALO_BANDS, timed=2)]
+        results, wall_s = start_pod(dict(backend="nccl", case=case, runs=runs), processes, POD_CARDS_TIMEOUT_S)
+        blocks = 15
+        wants = {"step": dict(K1=blocks * per, K2=blocks * per), "overlap step": dict(K7=blocks * per, K2=blocks * per),
+                 **{f"halo {path}": {HALO_POD_PATHS[path][3]: blocks * per} for path in HALO_POD_PATHS}}
+        row = dict(workers_wall_s=wall_s, launches_per_process={})
+        for run_name, counts in wants.items():
+            want = dict.fromkeys(read_counts(), 0)
+            want.update(counts)
+            row["launches_per_process"][run_name] = counts
+            for r, res in enumerate(results):
+                got = res[run_name]
+                if got["counts"] != want:
+                    raise AssertionError(f"pod over nccl {name} {run_name}, process {r}: launches {got['counts']}, "
+                                         f"want {want}")
+                if run_name.startswith("halo"):
+                    bad = [q for q, rows in got["rows"].items() if not torch.equal(rows, refs[run_name]["rows"][q])]
+                    if bad:
+                        raise AssertionError(f"pod over nccl {name} {run_name}, process {r}: ranks {bad} differ from "
+                                             "the in-process group's rows")
+                else:
+                    bad = pod_equal(got, refs[run_name])
+                    if bad:
+                        raise AssertionError(f"pod over nccl {name} {run_name}, process {r}: differs from the "
+                                             f"in-process group over the same cards in {len(bad)} of loss, gradients "
+                                             f"and parameters: {bad[:5]}")
+                for k in launches:
+                    launches[k] += got["counts"][k]
+            ref_ms = refs[run_name]["ms"]
+            row[run_name] = dict(host_ms=[res[run_name]["ms"] for res in results],
+                                 in_process_host_ms=ref_ms if isinstance(ref_ms, list) else [ref_ms])
+            if not run_name.startswith("halo"):
+                row[run_name]["loss"] = float(results[0][run_name]["loss"])
+        line = "; ".join(f"{k} {', '.join(f'{t:.1f}' for t in row[k]['host_ms'][0])} (in-process "
+                         f"{', '.join(f'{t:.1f}' for t in row[k]['in_process_host_ms'])})" for k in wants)
+        if any(run["kind"] == "ring_times" for run in runs if "kind" in run):
+            ring = pod_ring_summary(results, name)
+            row["ring times"] = ring
+            line += "; " + ring["text"]
+        timings[name] = row
+        log(f"pod over nccl {name}: {shape[0]} x {shape[1]} on {', '.join(flat)}, global B={POD_FRAMES}; per rank "
+            f"15 K1 raw + 15 K2 (step), 15 K7 + 15 K2 (overlap step), 15 K6 (halo ring), 15 K7 (halo overlap) in "
+            f"each process; loss, gradients, parameters and halo rows bit for bit with the in-process group over the "
+            f"same cards; host ms (process 0): {line}; workers {wall_s:.1f} s [{card}]")
     return launches, timings
+
+
+def pod_ring_summary(results, name):
+    """The ``ring times`` run of a pod's processes: K7's rows bit for bit
+    with the in-process group's (process 0 ran it), and each kernel's
+    per-rank device ms, median over the timed calls, the pod's beside the
+    in-process group's."""
+    import statistics
+
+    import torch
+
+    ref = results[0]["ring times"]["k7_in_process"]
+    for r, res in enumerate(results):
+        for q, (e2, agg) in res["ring times"]["k7"].items():
+            if not (torch.equal(e2, ref[q][0]) and torch.equal(agg, ref[q][1])):
+                raise AssertionError(f"pod over nccl {name}, K7 across processes, rank {q} (process {r}): differs from "
+                                     "the in-process group's")
+    med = lambda runs: [statistics.median(col) for col in zip(*runs)]
+    out = {"pod_ms_by_process": {k: [med(res["ring times"]["ms"][k]) for res in results] for k in ("K6", "K7")},
+           "in_process_ms": {k: med(results[0]["ring times"]["in_process_ms"][k]) for k in ("K6", "K7")},
+           "reps": POD_RING_REPS}
+    fmt = lambda xs: "/".join(f"{x * 1e3:.0f}" for x in xs)
+    out["text"] = "; ".join(
+        f"{k} us per rank across processes {' | '.join(fmt(p) for p in out['pod_ms_by_process'][k])} vs in-process "
+        f"{fmt(out['in_process_ms'][k])} (medians of {POD_RING_REPS}, in turns)" for k in ("K6", "K7"))
+    return out
 
 
 # -- the sharded step over several cards ----------------------------------------------
@@ -6961,6 +7316,9 @@ def main(argv=None) -> int:
         dict(entry("pna_sorted_bwd on the graph row's shards joined across two processes, pod step (K4b)",
                    "segment_pna.cu", "segment_pna.py:183", pod_k("1x2 sorted", "K4b"), pod_rows["K4b joined row"]),
              shape=pod_rows["K4b joined row"]["shape"]),
+        dict(entry("ring_all_reduce_segments across two processes on one card, CUDA IPC (K6)", "ring.cu", "ring.py:60",
+                   pod_k("1x2 ring", "K6"), pod_rows["K6 across processes"]),
+             shape=pod_rows["K6 across processes"]["shape"]),
     ]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

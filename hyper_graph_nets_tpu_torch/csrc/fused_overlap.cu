@@ -73,10 +73,10 @@ struct OvArgs {
   float* slot_mine;    // [2][N * 4L]
   float* slot_right;
   unsigned* counters;  // [B][nb] groups finished per frame and band
-  int n, rank;         // ranks on my sub-ring; my rank in the group (for the error word)
+  int n, rank;         // ranks on my sub-ring; my global rank (for the error word)
   u64 epoch;           // frame b's pass rings with epoch + b
   int* err;
-  bool sys;  // the ranks span several cards
+  bool sys;  // the ranks span several cards or processes
 };
 
 // The finalize of a chunk of whole [N, 4L] rows in shared memory, by the
@@ -180,8 +180,10 @@ __global__ void __launch_bounds__(NTEAM * THREADS, 1) fused_overlap_kernel(const
 }  // namespace
 
 // One rank's shard, buffers and neighbours (ops/fused_overlap.py builds one
-// per rank, in rank order).  groups / group_edges are K7's work list (the
-// valid prefix's groups, then the tail items), row_ptr the valid prefix's.
+// per rank of this process, in rank order; a neighbour in another process
+// by the pointers its IPC handle opened on this rank's card, ring.cu).
+// groups / group_edges are K7's work list (the valid prefix's groups, then
+// the tail items), row_ptr the valid prefix's.
 struct OvRank {
   const void* e;
   const void* sp;
@@ -210,6 +212,7 @@ struct OvRank {
   float* slot_right;
   unsigned* counters;
   int device;
+  int rank;  // global rank, for the error word
   void* stream;
 };
 
@@ -217,9 +220,7 @@ namespace {
 
 template <typename T, int L>
 int launch_group(int n, int ring_n, int B, const OvRank* ranks, int N, int nb, int rb, unsigned long long epoch,
-                 int* err) {
-  bool sys = FORCE_SYS;  // the ranks span several cards
-  for (int r = 0; r < n; ++r) sys |= ranks[r].device != ranks[0].device;
+                 int* err, bool sys) {
   int rc = 0;
   for (int r = 0; r < n && rc == 0; ++r) {
     const OvRank& k = ranks[r];
@@ -233,7 +234,7 @@ int launch_group(int n, int ring_n, int B, const OvRank* ranks, int N, int nb, i
                     k.receivers, k.mask, k.row_ptr, k.groups, k.e2, k.agg, nullptr, nullptr, nullptr,
                     nullptr, B, k.E, N, k.G, 1, k.group_edges};
     const OvArgs ov{nb, rb, static_cast<u64*>(k.flags_mine), static_cast<u64*>(k.flags_left),
-                    static_cast<u64*>(k.flags_right), k.slot_mine, k.slot_right, k.counters, ring_n, r, epoch,
+                    static_cast<u64*>(k.flags_right), k.slot_mine, k.slot_right, k.counters, ring_n, k.rank, epoch,
                     err, sys};
     fused_overlap_kernel<T, L>
         <<<k.grid, NTEAM * THREADS, FwdLayout<T, L, NTEAM>::total, static_cast<cudaStream_t>(k.stream)>>>(a, ov);
@@ -244,10 +245,10 @@ int launch_group(int n, int ring_n, int B, const OvRank* ranks, int N, int nb, i
 
 template <typename T>
 int dispatch_width(int L, int n, int ring_n, int B, const OvRank* ranks, int N, int nb, int rb,
-                   unsigned long long epoch, int* err) {
+                   unsigned long long epoch, int* err, bool sys) {
   switch (L) {
-    case 32: return launch_group<T, 32>(n, ring_n, B, ranks, N, nb, rb, epoch, err);
-    case 128: return launch_group<T, 128>(n, ring_n, B, ranks, N, nb, rb, epoch, err);
+    case 32: return launch_group<T, 32>(n, ring_n, B, ranks, N, nb, rb, epoch, err, sys);
+    case 128: return launch_group<T, 128>(n, ring_n, B, ranks, N, nb, rb, epoch, err, sys);
     default: return -1;
   }
 }
@@ -256,22 +257,25 @@ int dispatch_width(int L, int n, int ring_n, int B, const OvRank* ranks, int N, 
 
 extern "C" {
 
-// Launch every rank's K7 (B frames, [B][E][L]), rank 0 first, each on its
-// device and stream; n ranks in all, on sub-rings of ring_n (each entry
-// names its sub-ring neighbours); dtype 0 = float32, 1 = bfloat16.  A
-// rank's grid = nb band CTAs + its compute CTAs; its counters hold B * nb
-// zeros; frame b rings with epoch + b.  Returns 0, a cudaError_t code, or
-// -1 for arguments the kernel does not take.  A failed launch stops the
-// loop: the ranks launched before it then fail through the error word.
+// Launch this process's ranks' K7 (B frames, [B][E][L]), the first entry
+// first, each on its device and stream; n entries, each on a sub-ring of
+// ring_n ranks (which may span processes; each entry names its sub-ring
+// neighbours); dtype 0 = float32, 1 = bfloat16; sys: flags at system scope
+// (the ranks span several cards or processes).  A rank's grid = nb band
+// CTAs + its compute CTAs; its counters hold B * nb zeros; frame b rings
+// with epoch + b.  Returns 0, a cudaError_t code, or -1 for arguments the
+// kernel does not take.  A failed launch stops the loop: the ranks
+// launched before it then fail through the error word.
 int hgn_fused_overlap_group(int dtype, int L, int n, int ring_n, int B, const OvRank* ranks, int N, int nb,
-                            int rb, unsigned long long epoch, int* err) {
-  if (nb < 1 || rb < 1 || (long long)nb * rb < N || n < 1 || ring_n < 1 || n % ring_n || B < 1) return -1;
+                            int rb, unsigned long long epoch, int* err, int sys) {
+  if (nb < 1 || rb < 1 || (long long)nb * rb < N || n < 1 || ring_n < 1 || B < 1) return -1;
   int prev = 0;
   cudaError_t e = cudaGetDevice(&prev);
   if (e != cudaSuccess) return (int)e;
   int rc = -1;
-  if (dtype == 0) rc = dispatch_width<float>(L, n, ring_n, B, ranks, N, nb, rb, epoch, err);
-  if (dtype == 1) rc = dispatch_width<bf16>(L, n, ring_n, B, ranks, N, nb, rb, epoch, err);
+  const bool scope = FORCE_SYS || sys != 0;
+  if (dtype == 0) rc = dispatch_width<float>(L, n, ring_n, B, ranks, N, nb, rb, epoch, err, scope);
+  if (dtype == 1) rc = dispatch_width<bf16>(L, n, ring_n, B, ranks, N, nb, rb, epoch, err, scope);
   cudaSetDevice(prev);
   return rc;
 }

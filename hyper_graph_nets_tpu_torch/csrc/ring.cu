@@ -11,10 +11,16 @@
 // plain version (ops/ring.py) bit for bit.
 //
 // Along one axis of a 2-D group (the JAX package's mesh_axes): the call
-// launches every rank of the group, and each rank's entry names its
-// neighbours on its sub-ring (the ranks that share the other coordinate,
-// ring_n of them); the sub-rings run side by side, each with its own flag
-// rows, and each is the 1-D protocol over its ranks.
+// launches every rank of the group that this process holds, and each rank's
+// entry names its neighbours on its sub-ring (the ranks that share the other
+// coordinate, ring_n of them); the sub-rings run side by side, each with its
+// own flag rows, and each is the 1-D protocol over its ranks.  In a pod a
+// sub-ring may span processes of one node (the TPU kernel's remote copy to
+// a device of another host): each process launches its own ranks, and a
+// neighbour in another process is reached through its ring state opened
+// from a CUDA IPC handle (hgn_ipc_open).  The ring state is allocated here
+// (hgn_ring_alloc), never by PyTorch's caching allocator, whose sub-blocks
+// cannot be exported on their own.
 //
 // What bounds it.  At the halo forward's payload ([4N, L] = [6,400, 128],
 // P = 3.28 MB per rank) the work is data movement: the function reads n
@@ -42,6 +48,7 @@
 //   multiple of 4 (it pads an odd payload).
 
 #include <cuda_runtime.h>
+#include <string.h>
 
 #include "ring_common.cuh"
 
@@ -70,10 +77,10 @@ struct RingArgs {
   float* slot_mine;  // [2][P]
   float* slot_right;
   size_t P;  // floats per slot: R * C rounded up to 4
-  int n, rank;  // ranks on my sub-ring; my rank in the group (for the error word)
+  int n, rank;  // ranks on my sub-ring; my global rank (for the error word)
   u64 epoch;
   int* err;
-  bool sys;  // the ranks span several cards
+  bool sys;  // the ranks span several cards or processes
 };
 
 template <int VEC>
@@ -107,12 +114,25 @@ int prepare(int dev) {
   return 0;
 }
 
+// Runs f with `dev` as the current device, then restores the caller's.
+template <class F>
+int on_device(int dev, F f) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  if ((err = cudaSetDevice(dev)) != cudaSuccess) return (int)err;
+  err = f();
+  cudaSetDevice(prev);
+  return (int)err;
+}
+
 }  // namespace
 
 extern "C" {
 
-// One rank's buffers and neighbours (ops/ring.py builds one per rank, in
-// rank order).
+// One rank's buffers and neighbours (ops/ring.py builds one per rank of
+// this process, in rank order; a neighbour in another process by the
+// pointers its IPC handle opened on this rank's card).
 struct RingRank {
   const float* x;
   float* out;
@@ -122,20 +142,22 @@ struct RingRank {
   float* slot_mine;
   float* slot_right;
   int device;
+  int rank;  // global rank, for the error word
   void* stream;
 };
 
-// Launch every rank's K6, rank 0 first, each on its device and stream; n
-// ranks in all, on sub-rings of ring_n (n a multiple of ring_n; each entry
-// names its sub-ring neighbours).
+// Launch this process's ranks' K6, the first entry first, each on its device
+// and stream; n entries, each on a sub-ring of ring_n ranks (which may span
+// processes; each entry names its sub-ring neighbours).
 // seg: nseg (lo, hi, op) triples on the host, op 0 sum, 1 max, 2 min;
-// P: floats per payload, a multiple of 4 (R * C rounded up).  Returns 0, a
+// P: floats per payload, a multiple of 4 (R * C rounded up); sys: flags at
+// system scope (the ranks span several cards or processes).  Returns 0, a
 // cudaError_t code, or -1 for arguments the kernel does not take.  A failed
 // launch stops the loop: the ranks launched before it then fail through the
 // error word.
 int hgn_ring_all_reduce_group(int n, int ring_n, const RingRank* ranks, int R, int C, unsigned long long P,
-                              int nseg, const int* seg, unsigned long long epoch, int* err, int grid) {
-  if (nseg < 0 || nseg > MAX_SEGMENTS || grid < 1 || n < 1 || ring_n < 1 || n % ring_n || P % 4 ||
+                              int nseg, const int* seg, unsigned long long epoch, int* err, int grid, int sys) {
+  if (nseg < 0 || nseg > MAX_SEGMENTS || grid < 1 || n < 1 || ring_n < 1 || P % 4 ||
       P < (unsigned long long)R * C)
     return -1;
   RingArgs a{};
@@ -151,8 +173,7 @@ int hgn_ring_all_reduce_group(int n, int ring_n, const RingRank* ranks, int R, i
   a.n = ring_n;
   a.epoch = epoch;
   a.err = err;
-  a.sys = FORCE_SYS;
-  for (int r = 0; r < n; ++r) a.sys |= ranks[r].device != ranks[0].device;
+  a.sys = FORCE_SYS || sys != 0;
   int prev = 0;
   cudaError_t e = cudaGetDevice(&prev);
   if (e != cudaSuccess) return (int)e;
@@ -175,7 +196,7 @@ int hgn_ring_all_reduce_group(int n, int ring_n, const RingRank* ranks, int R, i
     a.flags_right = static_cast<u64*>(k.flags_right);
     a.slot_mine = k.slot_mine;
     a.slot_right = k.slot_right;
-    a.rank = r;
+    a.rank = k.rank;
     cudaStream_t s = static_cast<cudaStream_t>(k.stream);
     if (C % 4 == 0)
       ring_kernel<4><<<grid, THREADS, SMEM, s>>>(a);
@@ -207,6 +228,43 @@ int hgn_enable_peer_access(int dev, int peer) {
 // The device address of page-locked host memory (the ring's error word).
 int hgn_host_device_pointer(void* host, void** device) {
   return (int)cudaHostGetDevicePointer(device, host, 0);
+}
+
+// -- ring state: one allocation a rank and ring kind, shared across processes
+
+// `bytes` of zeroed device memory on `dev`: a rank's flag rows, slots and
+// band counters, in an allocation of its own so that its IPC handle covers
+// exactly it.
+int hgn_ring_alloc(int dev, unsigned long long bytes, void** ptr) {
+  return on_device(dev, [&] {
+    cudaError_t err = cudaMalloc(ptr, bytes);
+    if (err == cudaSuccess) err = cudaMemset(*ptr, 0, bytes);
+    if (err == cudaSuccess) err = cudaDeviceSynchronize();
+    return err;
+  });
+}
+
+int hgn_ring_free(int dev, void* ptr) {
+  return on_device(dev, [&] { return cudaFree(ptr); });
+}
+
+// The IPC handle (CUDA_IPC_HANDLE_SIZE = 64 bytes into `handle`) of an
+// allocation of hgn_ring_alloc.
+int hgn_ipc_export(int dev, void* ptr, void* handle) {
+  return on_device(dev, [&] { return cudaIpcGetMemHandle(static_cast<cudaIpcMemHandle_t*>(handle), ptr); });
+}
+
+// Map another process's allocation, by its handle, for the kernels of
+// `dev` (peer access to its card turned on as needed).  A process cannot
+// open its own handles: a neighbour in the same process keeps its pointer.
+int hgn_ipc_open(int dev, const void* handle, void** ptr) {
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  return on_device(dev, [&] { return cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess); });
+}
+
+int hgn_ipc_close(int dev, void* ptr) {
+  return on_device(dev, [&] { return cudaIpcCloseMemHandle(ptr); });
 }
 
 const char* hgn_cuda_error_string(int code) {

@@ -1,15 +1,18 @@
 // The ring protocol shared by K6 (ring.cu) and K7 (fused_overlap.cu), for
 // Hopper (sm_90a).
 //
-// A rank group lives in one process; each rank has its own stream (and, on a
-// node with several cards, its own card).  Every rank owns, per sub-ring:
-// two comm slots (a region of its [2][P] float32 slot buffer) and a row of
-// FLAG_WORDS flags in device memory: READY (the messages delivered into my
-// slots this call), CREDIT (the messages my right neighbour has consumed)
-// and two barrier words.  A rank writes into its right neighbour's slots
-// with plain stores and publishes them with a release store on the
-// neighbour's flag: st.release.sys when the group spans several cards
-// (right across NVLink), st.release.gpu when every rank is on one card.
+// Each rank has its own stream (and, on a node with several cards, its own
+// card); the ranks of a sub-ring lie in one process, or in several
+// processes of one node (a pod), each process launching its own.  Every rank
+// owns, per sub-ring: two comm slots (a region of its [2][P] float32 slot
+// buffer) and a row of FLAG_WORDS flags in device memory: READY (the
+// messages delivered into my slots this call), CREDIT (the messages my
+// right neighbour has consumed) and two barrier words.  A neighbour in
+// another process reaches them through a CUDA IPC mapping.  A rank writes
+// into its right neighbour's slots with plain stores and publishes them
+// with a release store on the neighbour's flag: st.release.sys when the
+// ranks span several cards (right across NVLink) or processes,
+// st.release.gpu when every rank is on one card in one process.
 //
 // Hop schedule, the TPU kernel's (ops/pallas/ring.py:60-132): out = x_r; at
 // hop s = 0 .. n-2 rank r sends what it holds (x_r at hop 0, then what it
@@ -135,12 +138,13 @@ struct Ring {
   size_t P;           // floats per slot
   int n, rank, sub;
   u64 epoch;
-  int* err;  // host-mapped [4]: what timed out, rank, step, sub-ring
-  bool sys;  // flags at system scope (ranks on several cards), else card scope
+  int* err;  // host-mapped [4]: what timed out, global rank, step, sub-ring
+  bool sys;  // flags at system scope (ranks on several cards or processes), else card scope
 };
 
-// A flag's scope: the card (every rank of the group on one card) or the
-// system (ranks on several cards, across NVLink).  On one card a
+// A flag's scope: the card (every rank of the group on one card, in one
+// process) or the system (ranks on several cards, across NVLink, or in
+// several processes).  On one card a
 // system-scope release costs several times a card-scope one, and the ring
 // makes one per chunk.  HGN_RING_SYS_SCOPE (a tuning build of
 // tools/torch_port/ring_sweep.py, never the main path's) keeps the system

@@ -24,11 +24,14 @@ padded tail as e2-only items) is built on the host with the plan
 
 On CUDA tensors :func:`fused_edge_block_overlap` checks and allocates
 everything first, then launches K7 (``csrc/fused_overlap.cu``) on every
-rank by one C call, each rank's kernel on its card and stream
-(``fused_edge_block_overlap.launches``, one per rank).  On CPU tensors it
-runs the plain version: K1's plain version in raw mode per rank, K6's plain
-version over the columns ``[0, 2L)`` sum, ``[2L, 3L)`` max, ``[3L, 4L)``
-min, then the finalize.
+rank of the process by one C call, each rank's kernel on its card and
+stream (``fused_edge_block_overlap.launches``, one per rank); on a
+``graph`` row that spans processes of one node each process launches its
+own ranks, which reach their neighbours in another process through CUDA
+IPC, as K6's do (``ops/ring.py``).  On CPU tensors it runs the plain
+version: K1's plain version in raw mode per rank, K6's plain version over
+the columns ``[0, 2L)`` sum, ``[2L, 3L)`` max, ``[3L, 4L)`` min (across
+processes over the gathered partials), then the finalize.
 """
 from __future__ import annotations
 
@@ -59,12 +62,12 @@ class OvRank(ctypes.Structure):
         + [("E", _ci), ("G", _ci), ("grid", _ci)]
         + [(name, _vp) for name in ("flags_mine", "flags_left", "flags_right", "slot_mine", "slot_right",
                                     "counters")]
-        + [("device", _ci), ("stream", _vp)]
+        + [("device", _ci), ("rank", _ci), ("stream", _vp)]
     )
 
 
 _SIGNATURES = {
-    "hgn_fused_overlap_group": [_ci, _ci, _ci, _ci, _ci, _vp, _ci, _ci, _ci, ctypes.c_ulonglong, _vp],
+    "hgn_fused_overlap_group": [_ci, _ci, _ci, _ci, _ci, _vp, _ci, _ci, _ci, ctypes.c_ulonglong, _vp, _ci],
     "hgn_cuda_error_string": [_ci],
 }
 
@@ -204,9 +207,8 @@ def fused_edge_block_overlap(shards: Sequence[dict], num_nodes: int, group, band
     """K7 over every rank's shard (the list of the ranks' keyword arguments,
     see :func:`fused_edge_block_overlap_reference`; ``plan`` also, on the
     card), each ready on its rank's stream: ``[(e2, agg), ...]``, each on
-    its rank's stream; the ranks ring along ``graph`` (``lib``: a probe
-    build of K7).  On a ``graph`` row that spans processes it raises
-    (ROADMAP entry 7.4c)."""
+    its rank's stream; the ranks ring along ``graph``, also on a row that
+    spans processes of one node (``lib``: a probe build of K7)."""
     group.check_ring("the overlapped block (K7)")
     if len(shards) != group.n:
         raise ValueError(f"{len(shards)} shards for a group of {group.n}")
@@ -216,7 +218,7 @@ def fused_edge_block_overlap(shards: Sequence[dict], num_nodes: int, group, band
     L = shards[0]["e"].shape[-1]
     batched = shards[0]["e"].dim() == 3
     B = shards[0]["e"].shape[0] if batched else 1
-    grid = min(group.ctas_per_rank(r) for r in range(group.n))
+    grid = group.ring_grid()
     nb = ring_ctas(bands, grid)
     rb = band_rows(num_nodes, nb)
     state = group.ring_state("k7", num_nodes * 4 * L, counters=B * nb)
@@ -250,7 +252,7 @@ def fused_edge_block_overlap(shards: Sequence[dict], num_nodes: int, group, band
         outs.append((e2, agg))
     rc = lib.hgn_fused_overlap_group(
         fb._DTYPES[shards[0]["e"].dtype], L, group.n, group.shape["graph"], B, ranks, num_nodes, nb, rb,
-        group.next_epoch(B), err,
+        group.next_epoch(B), err, int(group.ring_sys),
     )
     ring.raise_on(rc, lib, "fused_edge_block_overlap")
     fused_edge_block_overlap.launches += group.n

@@ -14,12 +14,16 @@ the last place of a float32 sum, and the kernel equals its plain version
 bit for bit.
 
 On CUDA tensors :func:`ring_all_reduce_segments` checks and allocates
-everything first, then launches K6 (``csrc/ring.cu``) on every rank by one
-C call, each rank's kernel on its card and stream (counted on
-``ring_all_reduce_segments.launches``, one per rank); each ``x_r`` must be
-ready on rank r's stream, and each result is, on the same stream.  On CPU
+everything first, then launches K6 (``csrc/ring.cu``) on every rank of the
+process by one C call, each rank's kernel on its card and stream (counted
+on ``ring_all_reduce_segments.launches``, one per rank); each ``x_r`` must
+be ready on rank r's stream, and each result is, on the same stream.  In a
+pod whose ``graph`` row spans processes each process launches its own
+ranks, and the ranks reach a neighbour in another process through the
+ring state it exported (``RankGroup.ring_state``: CUDA IPC).  On CPU
 tensors it runs the plain version, :func:`ring_all_reduce_segments_reference`,
-the same hops in Python.
+the same hops in Python (on a row across processes, over the row's
+partials gathered from every process).
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import torch
 SOURCE = "ring.cu"
 OPS = {"sum": 0, "max": 1, "min": 2}
 MAX_SEGMENTS = 8
+IPC_HANDLE_BYTES = 64  # CUDA_IPC_HANDLE_SIZE
 _COMBINE = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}
 
 _vp, _ci, _cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
@@ -41,13 +46,18 @@ class RingRank(ctypes.Structure):
     """One rank's entry of ``hgn_ring_all_reduce_group`` (``csrc/ring.cu``)."""
 
     _fields_ = [("x", _vp), ("out", _vp), ("flags_mine", _vp), ("flags_left", _vp), ("flags_right", _vp),
-                ("slot_mine", _vp), ("slot_right", _vp), ("device", _ci), ("stream", _vp)]
+                ("slot_mine", _vp), ("slot_right", _vp), ("device", _ci), ("rank", _ci), ("stream", _vp)]
 
 
 _SIGNATURES = {
-    "hgn_ring_all_reduce_group": [_ci, _ci, _vp, _ci, _ci, _cu, _ci, _vp, _cu, _vp, _ci],
+    "hgn_ring_all_reduce_group": [_ci, _ci, _vp, _ci, _ci, _cu, _ci, _vp, _cu, _vp, _ci, _ci],
     "hgn_enable_peer_access": [_ci, _ci],
     "hgn_host_device_pointer": [_vp, ctypes.POINTER(ctypes.c_void_p)],
+    "hgn_ring_alloc": [_ci, _cu, ctypes.POINTER(ctypes.c_void_p)],
+    "hgn_ring_free": [_ci, _vp],
+    "hgn_ipc_export": [_ci, _vp, _vp],
+    "hgn_ipc_open": [_ci, _vp, ctypes.POINTER(ctypes.c_void_p)],
+    "hgn_ipc_close": [_ci, _vp],
     "hgn_cuda_error_string": [_ci],
 }
 _libs: Dict[tuple, ctypes.CDLL] = {}
@@ -105,6 +115,41 @@ def enable_peer_access(dev: torch.device, peer: torch.device) -> None:
     raise_on(rc, lib, "enable peer access")
 
 
+def alloc_state(dev: int, nbytes: int) -> int:
+    """``nbytes`` of zeroed memory on card ``dev``, an allocation of its own
+    (a rank's ring state, ``RankGroup.ring_state``): its address."""
+    lib, out = _lib(), ctypes.c_void_p()
+    raise_on(lib.hgn_ring_alloc(dev, nbytes, ctypes.byref(out)), lib, "ring state allocation")
+    return out.value
+
+
+def free_state(dev: int, ptr: int) -> None:
+    lib = _lib()
+    raise_on(lib.hgn_ring_free(dev, ptr), lib, "ring state free")
+
+
+def export_handle(dev: int, ptr: int) -> bytes:
+    """The CUDA IPC handle of an allocation of :func:`alloc_state`."""
+    lib, buf = _lib(), ctypes.create_string_buffer(IPC_HANDLE_BYTES)
+    raise_on(lib.hgn_ipc_export(dev, ptr, buf), lib, "IPC handle export")
+    return buf.raw
+
+
+def open_handle(dev: int, handle: bytes) -> int:
+    """Another process's allocation, opened from its IPC handle for the
+    kernels of card ``dev``: its address in this process.  Raises if it
+    cannot be opened (the ring never falls back to the plain all-reduce)."""
+    lib, out = _lib(), ctypes.c_void_p()
+    buf = ctypes.create_string_buffer(handle, len(handle))
+    raise_on(lib.hgn_ipc_open(dev, buf, ctypes.byref(out)), lib, f"IPC handle open on cuda:{dev}")
+    return out.value
+
+
+def close_handle(dev: int, ptr: int) -> None:
+    lib = _lib()
+    raise_on(lib.hgn_ipc_close(dev, ptr), lib, "IPC handle close")
+
+
 def device_error_word(group) -> int:
     """The device address of the group's page-locked error word."""
     lib = _lib()
@@ -115,21 +160,17 @@ def device_error_word(group) -> int:
 
 
 def rank_state(group, state) -> List[dict]:
-    """Per rank, in rank order, what a group launch takes besides its
-    payload: its own flag row, slots and band counters, its left
-    neighbour's flag row, its right neighbour's flag row and slots (the
-    neighbours along ``graph``), its device ordinal and stream handle (-1
-    and 0 on the CPU)."""
+    """Per rank of this process, in rank order, what a group launch takes
+    besides its payload: its own flag rows, slots and band counters, its
+    left neighbour's flag rows, its right neighbour's flag rows and slots
+    (the neighbours along ``graph``; one in another process as this rank's
+    card opened it: ``RingState.rows``), its device ordinal, global rank and
+    stream handle (-1 and 0 on the CPU)."""
     rows = []
     for r in range(group.n):
-        slots, flags, counters = state[r]
-        left, right = state[group.left(r)], state[group.right(r)]
         dev, stream = group.device(r), group.stream(r)
-        rows.append(dict(
-            flags_mine=flags.data_ptr(), flags_left=left[1].data_ptr(), flags_right=right[1].data_ptr(),
-            slot_mine=slots.data_ptr(), slot_right=right[0].data_ptr(), counters=counters.data_ptr(),
-            device=-1 if dev.index is None else dev.index, stream=0 if stream is None else stream.cuda_stream,
-        ))
+        rows.append(dict(state.rows[r], device=-1 if dev.index is None else dev.index, rank=group.ranks[r],
+                         stream=0 if stream is None else stream.cuda_stream))
     return rows
 
 
@@ -150,8 +191,9 @@ _TABLES = weakref.WeakKeyDictionary()  # group -> {struct: (ring state, array)}
 def rank_table(group, state, cls):
     """The group launch's array of ``cls`` with every rank's own and
     neighbour state filled in (:func:`rank_state`), built once per group,
-    ring state and struct and kept (the host's launch path sets only the
-    per-call fields)."""
+    ring state (the opened neighbours with it: a grown state is a new one)
+    and struct and kept (the host's launch path sets only the per-call
+    fields)."""
     tables = _TABLES.setdefault(group, {})
     kept = tables.get(cls)
     if kept is None or kept[0] is not state:
@@ -175,17 +217,23 @@ def ring_all_reduce_segments_reference(
     """Plain K6: for each rank r, ``out = x_r`` and at hop s = 1 .. n-1 each
     segment folds ``x_{r-s}`` into ``out`` with its op (``r-s``: the s-th
     rank before r on its sub-ring along ``graph`` of ``group``; without a
-    group, one ring over ``xs``)."""
-    if group is not None:
-        group.check_ring("the ring all-reduce (K6)")
+    group, one ring over ``xs``).  ``xs`` are this process's ranks'; on a
+    sub-ring that spans processes the other processes' partials come by
+    ``group.gather``, so each rank folds what the in-process group's would."""
     rings = [list(range(len(xs)))] if group is None else group.subgroups("graph")
     outs: List[torch.Tensor] = [None] * len(xs)
     for ranks in rings:
-        n = len(ranks)
-        for i, r in enumerate(ranks):
+        parts, place = [xs[r] for r in ranks], list(range(len(ranks)))
+        if group is not None and group.crosses(ranks[0], "graph"):
+            with torch.no_grad(), group.lead(ranks):
+                parts = group.gather(parts, ranks[0], "graph")
+            members = group.members(ranks[0], "graph")
+            place = [members.index(group.ranks[r]) for r in ranks]
+        n = len(parts)
+        for i, r in zip(place, ranks):
             out = xs[r].clone()
             for s in range(1, n):
-                x = xs[ranks[(i - s) % n]].to(out.device)
+                x = parts[(i - s) % n].to(out.device)
                 for lo, hi, op in segments:
                     out[lo:hi] = _COMBINE[op](out[lo:hi], x[lo:hi])
             outs[r] = out
@@ -196,10 +244,11 @@ def ring_all_reduce_segments(
     xs: Sequence[torch.Tensor], segments: Sequence[Tuple[int, int, str]], group, lib=None
 ) -> List[torch.Tensor]:
     """All-reduce the ranks' float32 ``[R, C]`` partials ``xs`` (one per
-    rank of the group, on its device) with per-row-segment ops along
-    ``graph``; returns one result per rank.  CPU tensors run the plain
-    version; CUDA tensors launch K6 (``lib``: a probe build of it).  On a
-    ``graph`` row that spans processes it raises (ROADMAP entry 7.4c)."""
+    rank of the group in this process, on its device) with per-row-segment
+    ops along ``graph``; returns one result per rank.  CPU tensors run the
+    plain version; CUDA tensors launch K6 (``lib``: a probe build of it),
+    also on a ``graph`` row that spans processes of one node (every process
+    calls it at the same point with the same shapes)."""
     group.check_ring("the ring all-reduce (K6)")
     if len(xs) != group.n:
         raise ValueError(f"{len(xs)} partials for a group of {group.n}")
@@ -208,7 +257,9 @@ def ring_all_reduce_segments(
     for r, x in enumerate(xs):
         if x.dtype != torch.float32 or x.shape != (R, C):
             raise ValueError(f"rank {r}: the payload must be float32 [{R}, {C}], got {x.dtype} {tuple(x.shape)}")
-        if x.device != group.device(r) or not x.is_contiguous():
+        # (a logical CPU device's tensors read "cpu": the index is the group's alone)
+        on = x.device == group.device(r) or x.device.type == group.device(r).type == "cpu"
+        if not on or not x.is_contiguous():
             raise ValueError(f"rank {r}: the payload must be contiguous on {group.device(r)}")
     if xs[0].device.type == "cpu":
         return ring_all_reduce_segments_reference(xs, segments, group)
@@ -219,7 +270,7 @@ def ring_all_reduce_segments(
     seg = (ctypes.c_int * (3 * max(len(segments), 1)))(
         *[v for lo, hi, op in segments for v in (lo, hi, OPS[op])]
     )
-    grid = max(1, min(P // 4, min(group.ctas_per_rank(r) for r in range(group.n))))
+    grid = max(1, min(P // 4, group.ring_grid()))
     ranks, outs, alive = rank_table(group, state, RingRank), [], []
     for r, x in enumerate(xs):  # every copy and output first: nothing between the launches
         with torch.cuda.device(group.device(r)), torch.cuda.stream(group.stream(r)):
@@ -232,7 +283,8 @@ def ring_all_reduce_segments(
         ranks[r].x, ranks[r].out = x.data_ptr(), out.data_ptr()
         outs.append(out[: R * C].view(R, C) if out.dim() == 1 else out)
     rc = lib.hgn_ring_all_reduce_group(
-        group.n, group.shape["graph"], ranks, R, C, P, len(segments), seg, group.next_epoch(), err, grid
+        group.n, group.shape["graph"], ranks, R, C, P, len(segments), seg, group.next_epoch(), err, grid,
+        int(group.ring_sys),
     )
     raise_on(rc, lib, "ring_all_reduce_segments")
     ring_all_reduce_segments.launches += group.n

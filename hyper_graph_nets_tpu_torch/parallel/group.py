@@ -47,20 +47,29 @@ sharded node's backward sums the other processes' cotangents the same way
 (:meth:`cotangents`), inside the autograd engine; every such node of a
 step takes a token from the one made before it (:meth:`chain`), so the
 engine reaches them in one order in every process.  The ring kernels (K6,
-K7) stay inside a process: on a ``graph`` row that spans processes they
-raise (:meth:`check_ring`).
+K7) ring along a ``graph`` row that spans processes too: each process
+launches its own ranks' kernels, and a neighbour in another process is
+reached through its ring state, which that process exports by a CUDA IPC
+handle (:meth:`ring_state`); so its processes must run on one node
+(:meth:`check_ring`).  Their plain versions gather the row's partials.
 
-The ring kernels need state that outlives a call: each rank's comm slots and
-flags (allocated once per ring kind and kept, never reset: each
-call passes the next epoch) and a page-locked error word their bounded
-spins write before they trap; :meth:`check` synchronizes every rank and
-raises on it.
+The ring kernels need state that outlives a call: each rank's comm slots,
+flags and band counters (:class:`RingState`: allocated once per ring kind
+and kept, never reset: each call passes the next epoch) and a page-locked
+error word their bounded spins write before they trap; :meth:`check`
+synchronizes every rank and raises on it.  In a pod whose rows span
+processes every process makes the same ring calls in the same order, so
+each sets up, grows and agrees on its ring state and grid (:meth:`ring_grid`)
+at the same call; a process that skips a ring call leaves its neighbours
+spinning until the bounded spin's error.
 """
 from __future__ import annotations
 
 import contextlib
+import socket
 import sys
 import threading
+import weakref
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -72,6 +81,9 @@ from hyper_graph_nets_tpu_torch.runtime import resolve_device
 # most the card's SMs) or K7 band
 RING_FLAG_ROWS = 256
 MAX_BANDS = 64
+# a rank's ring state, one allocation: the flag rows, then the slots, then
+# the band counters
+FLAG_BYTES = RING_FLAG_ROWS * 8 * 8
 WAIT_KINDS = {1: "barrier", 2: "credit", 3: "ready", 4: "band completion"}
 AXES = ("data", "graph")
 
@@ -102,6 +114,44 @@ def _timeout(process_group):
 
 class _Aborted(RuntimeError):
     """A rank stopped because another rank failed."""
+
+
+class RingState:
+    """One ring kind's state for this process's ranks
+    (:meth:`RankGroup.ring_state`): ``rows[r]``, local rank r's addresses,
+    its own (``flags_mine``, ``slot_mine``, ``counters``: one allocation of
+    ``FLAG_BYTES`` of flag rows, ``2 * floats`` float32 slots and
+    ``counters`` int32) and its ring neighbours' along ``graph``
+    (``flags_left``, ``flags_right``, ``slot_right``): a neighbour in this
+    process by its own addresses, one in another process by its allocation
+    opened from its IPC handle on rank r's device.  :meth:`close` closes the
+    opened handles, then frees the allocations (also when the state is
+    collected)."""
+
+    def __init__(self, floats: int, counters: int, rows: List[Dict[str, int]], opened: list, blocks: list):
+        self.floats, self.counters, self.rows = floats, counters, rows
+        self._opened, self._blocks = opened, blocks
+        self._finalizer = weakref.finalize(self, RingState._release, opened, blocks)
+        self._finalizer.atexit = False  # the process's memory goes with it
+
+    @staticmethod
+    def _release(opened: list, blocks: list, imports_only: bool = False) -> None:
+        from hyper_graph_nets_tpu_torch.ops import ring
+
+        while opened:
+            ring.close_handle(*opened.pop())
+        while blocks and not imports_only:
+            block = blocks.pop()
+            if isinstance(block, tuple):  # a card's allocation (a CPU one is a tensor)
+                ring.free_state(*block)
+
+    def close_imports(self) -> None:
+        """Close the neighbours' opened handles (before a collective
+        regrowth: the allocations stay until :meth:`close`)."""
+        RingState._release(self._opened, self._blocks, imports_only=True)
+
+    def close(self) -> None:
+        self._finalizer()
 
 
 class RankGroup:
@@ -172,6 +222,12 @@ class RankGroup:
         self.processes = -(-data * graph // self.per_process)
         self._pgs: Dict[Tuple[int, ...], object] = {}
         self._nccl = False
+        # whether a graph row of the pod spans processes (the same answer in
+        # every process), each process's host name (in such a pod) and the
+        # ring kernels' grid once agreed (ring_grid)
+        self.rows_cross = any(len(self._processes(self._members(q, "graph"))) > 1 for q in range(data * graph))
+        self._hosts: Optional[List[str]] = None
+        self._grid: Optional[int] = None
         if process_group is not None:
             self._join(process_group)
         self._token = None
@@ -180,7 +236,7 @@ class RankGroup:
         self._turn, self._failed = 0, False
         self._box: List[object] = [None] * n
         self._result: List[object] = [None] * n
-        self._ring: Dict[str, list] = {}
+        self._ring: Dict[str, RingState] = {}
         self._err = None
         if self.is_cuda and len(set(self.devices)) > 1:
             self._enable_peer_access()
@@ -253,14 +309,22 @@ class RankGroup:
         return len(self._processes(self.members(rank, axis))) > 1
 
     def check_ring(self, what: str) -> None:
-        """Raise where a ``graph`` row of this process spans processes: the
-        ring kernels (K6, K7) write into their neighbours' slots, which
-        another process's memory would need CUDA IPC handles for (ROADMAP
-        entry 7.4c)."""
-        if any(self.crosses(ranks[0], "graph") for ranks in self.subgroups("graph")):
-            raise NotImplementedError(
-                f"{what} on a graph row that spans processes is not ported (ROADMAP entry 7.4c: K6 and K7 "
-                "across processes); lay the pod out with graph_per_host at most a process's ranks")
+        """Raise where a ``graph`` row of this process, on the card, spans
+        processes that run on different nodes: the ring kernels (K6, K7)
+        write into their neighbours' memory, which another process opens
+        from its CUDA IPC handle, and such a handle opens on its own node
+        only (ROADMAP entry 7.4d).  Rows in one process, or in processes of
+        one node, and every row on the CPU (the plain versions) ring."""
+        if not self.is_cuda or self._hosts is None:
+            return
+        for ranks in self.subgroups("graph"):
+            hosts = {self._hosts[p] for p in self._processes(self.members(ranks[0], "graph"))}
+            if len(hosts) > 1:
+                raise NotImplementedError(
+                    f"{what} on a graph row whose processes run on different nodes ({', '.join(sorted(hosts))}) "
+                    "is not ported (ROADMAP entry 7.4d): the ring kernels reach a neighbour in another process "
+                    "through a CUDA IPC handle, which opens on its own node only; lay the pod out with each graph "
+                    "row on one node (graph_per_host at most a node's ranks)")
 
     def left(self, rank: int) -> int:
         """The ring neighbour before ``rank`` along ``graph``, its ``data``
@@ -272,14 +336,42 @@ class RankGroup:
         d, g = self.coords(rank)
         return self.rank_at(d, (g + 1) % self.shape["graph"])
 
+    def ring_neighbours(self, rank: int) -> Tuple[int, int]:
+        """The global ranks before and after (local) ``rank`` on its ring
+        along ``graph`` (in this process or another)."""
+        d, g = self.coords(rank)
+        G = self.shape["graph"]
+        return d * G + (g - 1) % G, d * G + (g + 1) % G
+
     def ranks_on_device(self, rank: int) -> int:
         return sum(d == self.devices[rank] for d in self.devices)
 
     def ctas_per_rank(self, rank: int) -> int:
         """CTAs one rank's ring kernel may use so that every rank's fit on
-        its card at once: SMs / (ranks on that card)."""
+        its card at once: SMs / (this process's ranks on that card)."""
         sms = torch.cuda.get_device_properties(self.devices[rank]).multi_processor_count
         return max(1, sms // self.ranks_on_device(rank))
+
+    def ring_grid(self) -> int:
+        """CTAs of every rank's ring kernel: the least :meth:`ctas_per_rank`
+        of this process's ranks and, in a pod whose rows span processes, of
+        every process's (agreed once, at the first ring call, by every
+        process), kept.  Each CTA carries one sub-ring's float range, so
+        every rank of a ring needs the same grid."""
+        if self._grid is None:
+            grid = min(self.ctas_per_rank(r) for r in range(self.n))
+            if self.rows_cross:
+                with self.context(0):  # read on the stream the gather is ready on
+                    x = torch.tensor([grid], dtype=torch.int64, device=self.devices[0])
+                    grid = min(int(t) for t in self.gather_processes(x))
+            self._grid = grid
+        return self._grid
+
+    @property
+    def ring_sys(self) -> bool:
+        """Whether the ring kernels publish at system scope: their ranks
+        span several cards or processes."""
+        return len(set(self.devices)) > 1 or self.rows_cross
 
     def layout(self) -> str:
         return ", ".join(f"rank {r}: {d}" for r, d in enumerate(self.devices))
@@ -522,6 +614,13 @@ class RankGroup:
             if len(procs) < self.processes:
                 self._pgs[procs] = dist.new_group([dist.get_global_rank(process_group, p) for p in procs],
                                                   timeout=_timeout(process_group), backend=backend)
+        if self.rows_cross:  # the ring kernels' IPC handles open on their own node only (check_ring)
+            name = torch.zeros(256, dtype=torch.uint8)
+            raw = socket.gethostname().encode()[:256]
+            name[: len(raw)] = torch.tensor(list(raw), dtype=torch.uint8)
+            with self.context(0):  # read on the stream the gather is ready on
+                got = [t.cpu() for t in self.gather_processes(name.to(self.devices[0]))]
+            self._hosts = [bytes(t.tolist()).rstrip(b"\0").decode() for t in got]
 
     def _fold(self, xs: Sequence[torch.Tensor], op: str, ranks: Sequence[int], lead: Optional[int] = None) -> list:
         """``xs`` folded in order with ``op`` on rank ``lead``'s device and
@@ -559,27 +658,92 @@ class RankGroup:
         self.epoch += count
         return self.epoch - count + 1
 
-    def ring_state(self, kind: str, floats: int, counters: int = MAX_BANDS) -> list:
-        """Per rank ``(slots [2 * floats] float32, flags [RING_FLAG_ROWS, 8]
-        int64, counters [>= counters] int32)`` of ring kind ``kind`` (each
-        kind its own), allocated once and kept; slots and counters grow
+    def ring_state(self, kind: str, floats: int, counters: int = MAX_BANDS) -> RingState:
+        """The :class:`RingState` of ring kind ``kind`` (each kind its own):
+        per rank zeroed flag rows, ``2 * floats`` float32 slots and at least
+        ``counters`` int32 counters, allocated once and kept; they grow
         (after a synchronization of every rank, before any launch) when a
         call outgrows them.  Counters are zero between calls (each K7 band
-        ring resets its own)."""
+        ring resets its own).  On the card each rank's state is one
+        allocation of the ring library's (``ops.ring.alloc_state``: PyTorch's
+        caching allocator hands out sub-blocks, which cannot be exported on
+        their own).
+
+        In a pod whose rows span processes every process sets up (and
+        grows) the state at the same call: it allocates, then exchanges
+        its ranks' IPC handles and its epoch over the pod's process group,
+        raises if the epochs differ (the processes did not make the same
+        ring calls), and opens each neighbour's handle in another process
+        on the device of the rank beside it; the old state's allocations go
+        only after the exchange, when every process's kernels are done."""
         state = self._ring.get(kind)
-        if state is not None and state[0][0].numel() >= 2 * floats and state[0][2].numel() >= counters:
+        if state is not None and state.floats >= floats and state.counters >= counters:
             return state
         self.synchronize()
-        if state is None:
-            flags = [torch.zeros(RING_FLAG_ROWS, 8, dtype=torch.int64, device=d) for d in self.devices]
+        if state is not None:
+            floats, counters = max(floats, state.floats), max(counters, state.counters)
+        counters = max(counters, MAX_BANDS)
+        nbytes = FLAG_BYTES + 8 * floats + 4 * counters
+        if self.is_cuda:
+            from hyper_graph_nets_tpu_torch.ops import ring
+
+            blocks = [(d.index, ring.alloc_state(d.index, nbytes)) for d in self.devices]
+            bases = [ptr for _, ptr in blocks]
         else:
-            flags = [s[1] for s in state]
-        size = max(counters, MAX_BANDS, 0 if state is None else state[0][2].numel())
-        slots = [torch.zeros(2 * floats, dtype=torch.float32, device=d) for d in self.devices]
-        counts = [torch.zeros(size, dtype=torch.int32, device=d) for d in self.devices]
-        self.synchronize()
-        self._ring[kind] = list(zip(slots, flags, counts))
+            blocks = [torch.zeros(nbytes, dtype=torch.uint8, device=d) for d in self.devices]
+            bases = [t.data_ptr() for t in blocks]
+        opened: list = []
+        remote = {}
+        if state is not None:
+            state.close_imports()
+        if self.is_cuda and self.rows_cross:
+            remote = self._exchange_ring_handles(blocks, opened)
+        own = {q: bases[r] for r, q in enumerate(self.ranks)}
+        rows = []
+        for r in range(self.n):
+            # a neighbour in another process: its allocation opened on this rank's device (none on the
+            # CPU, where no kernel runs)
+            left, right = (own[q] if q in own else remote.get((q, self.devices[r].index), 0)
+                           for q in self.ring_neighbours(r))
+            rows.append(dict(flags_mine=bases[r], slot_mine=bases[r] + FLAG_BYTES,
+                             counters=bases[r] + FLAG_BYTES + 8 * floats, flags_left=left, flags_right=right,
+                             slot_right=right + FLAG_BYTES))
+        if state is not None:
+            state.close()
+        self._ring[kind] = RingState(floats, counters, rows, opened, blocks)
         return self._ring[kind]
+
+    def _exchange_ring_handles(self, blocks: list, opened: list) -> Dict[Tuple[int, int], int]:
+        """Every process's ranks' IPC handles and epoch, over the pod's
+        process group; raises if an epoch differs from this process's.
+        Opens each ring neighbour in another process on the device of the
+        rank beside it (once per neighbour and device, appended to
+        ``opened``): ``{(global rank, device index): address}``."""
+        from hyper_graph_nets_tpu_torch.ops import ring
+
+        words = ring.IPC_HANDLE_BYTES // 8
+        mine = torch.zeros(1 + self.per_process * words, dtype=torch.int64)
+        mine[0] = self.epoch
+        for r, (dev, ptr) in enumerate(blocks):
+            at = 1 + (self.ranks[r] - self.process * self.per_process) * words
+            mine[at : at + words] = torch.frombuffer(bytearray(ring.export_handle(dev, ptr)), dtype=torch.int64)
+        with self.context(0):
+            got = [t.cpu() for t in self.gather_processes(mine.to(self.devices[0]))]
+        epochs = [int(t[0]) for t in got]
+        if len(set(epochs)) > 1:
+            raise RuntimeError(f"ring state: the processes' ring epochs differ ({epochs}, by process): they did "
+                               "not make the same ring calls")
+        remote: Dict[Tuple[int, int], int] = {}
+        for r in range(self.n):
+            dev = self.devices[r].index
+            for q in self.ring_neighbours(r):
+                if q in self._index or (q, dev) in remote:
+                    continue
+                p, i = divmod(q, self.per_process)
+                handle = got[p][1 + i * words : 1 + (i + 1) * words].numpy().tobytes()
+                remote[(q, dev)] = ring.open_handle(dev, handle)
+                opened.append((dev, remote[(q, dev)]))
+        return remote
 
     def error_word(self):
         """The host-mapped int32 [4] the ring kernels' spins write before

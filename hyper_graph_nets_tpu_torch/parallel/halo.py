@@ -153,11 +153,13 @@ def make_halo_forward(model: SystemModel, group, ring: bool = False, overlap: bo
     combine along ``graph``: on a 2-D group each data row computes the same
     output.  Returns rank 0's output, or with ``all_ranks`` every rank's.
     Synchronizes every rank at the end and raises if a ring kernel timed
-    out.  ``ring`` on a ``graph`` row that spans processes raises (ROADMAP
-    entry 7.4c).
+    out.  In a pod whose ``graph`` row spans processes of one node the ring
+    kernels (K6, K7) ring across them (every process calls ``fn`` at the
+    same point); across nodes ``ring`` and ``overlap`` raise
+    (``RankGroup.check_ring``).
     """
-    if ring:
-        group.check_ring("the halo forward's ring (K6)")
+    if ring or overlap:
+        group.check_ring("the halo forward's ring (K6)" if ring else "the halo forward's overlap (K7)")
     cfg = dataclasses.replace(
         model.gnn_config, axis_name=group, halo_ring=ring, halo_overlap=overlap
     )

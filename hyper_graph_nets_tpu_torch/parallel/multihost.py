@@ -14,9 +14,12 @@ process runs the same program, as every host of a TPU pod slice does:
    ``graph`` at most a process's ranks each ``graph`` row stays in one
    process and only the ``data`` sums (the normalizers' statistics, the
    loss, the gradients) cross; with more, a ``graph`` row spans processes,
-   and the edge shards' sums cross too (K1 raw and K2 per shard, the plain
-   all-reduce over the processes; the ring kernels K6 and K7 raise there:
-   ROADMAP entry 7.4c);
+   and the edge shards' sums cross too: K1 raw and K2 per shard with the
+   plain all-reduce over the processes, or the ring kernels K6 (the halo
+   forward's ``ring``) and K7 (``shard_topology(overlap_bands=...)``), each
+   process launching its own ranks' kernels, which write into their
+   neighbours in the other processes through CUDA IPC (the row's processes
+   on one node; across nodes they raise: ROADMAP entry 7.4d);
 3. each process loads its trajectories (:func:`host_trajectory_indices`)
    and hands the frames of its ``data`` rows to the step
    (:func:`host_local_batch_to_global`): processes that share a row pass

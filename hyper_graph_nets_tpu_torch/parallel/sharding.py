@@ -135,7 +135,6 @@ from hyper_graph_nets_tpu_torch.training.trainer import TrainState, add_noise
 # default_chunk() when the TPU's scoped-VMEM limit is not raised, so both
 # packages put the same edges on each rank
 DEFAULT_CHUNK = 256
-NOT_PORTED = "is not ported to the sharded step yet (ROADMAP queue 1, item 7)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -500,7 +499,8 @@ def check_supported(model, expansion) -> None:
     passing (``hyper``, ``multiscale``, ``hetero``, ``multi``; ``repeated``
     has no expansion) and the graph balancer run on every model."""
     if not isinstance(model, (FlagModel, CylinderModel, PlateModel)):
-        raise NotImplementedError(f"the sharded step on {type(model).__name__} {NOT_PORTED}")
+        raise ValueError(f"the sharded step runs flag, cylinder and plate models; {type(model).__name__} is "
+                         "not one of them")
     if expansion is None and (model.use_rmp or model.use_balancer):
         raise ValueError("the model is configured with an expansion: pass "
                          "expansion=training.expansion.build_expansion(model, config)")

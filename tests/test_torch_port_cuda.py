@@ -2291,3 +2291,158 @@ def test_pod_over_nccl_with_a_card_per_process_is_bit_for_bit(agg_vjp, tmp_path)
             worst = max(float((got["control_grads"][n] - g).norm() / g.norm().clamp(min=1e-30))
                         for n, g in ref["grads"].items())
             assert worst > 1e-2, (r, worst)
+
+
+def _start_pod_workers(tmp_path, job, processes):
+    """``processes`` pod workers (tests/torch_port_pod_graph_worker.py) of
+    ``job``, and their output files."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    src = str(tmp_path / "job.pt")
+    torch.save(job, src)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    outs = [str(tmp_path / f"out{r}.pt") for r in range(processes)]
+    procs = [subprocess.Popen([sys.executable, os.path.join(here, "torch_port_pod_graph_worker.py"), str(r),
+                               str(processes), str(port), src, outs[r]], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(processes)]
+    return procs, outs
+
+
+@pytest.mark.cuda
+def test_k6_and_k7_across_two_nccl_processes_are_bit_for_bit(tmp_path):
+    """Two processes over ``nccl``, one card each, a ``1 x 2`` pod whose
+    ``graph`` row spans them (tests/torch_port_pod_graph_worker.py's
+    ``ring_case``, float32 flag of 2 blocks, latent 32, 10x10): K6 on
+    seeded partials, the ring aggregate, the halo forward with ``ring`` (K6)
+    and with ``overlap`` (K7, 4 bands) and the overlap-banded train step
+    (K7 + K2), each process launching its own rank's K6 and K7 over its
+    neighbour's ring state opened by CUDA IPC: every global rank's results
+    bit for bit with the in-process ``RankGroup(1, 2)`` over ``cuda:0`` and
+    ``cuda:1``, the processes' launches summing to the in-process group's.
+    Skips below two cards (NCCL takes one card a process)."""
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+    import torch_port_pod_graph_worker as worker
+
+    _need_card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: NCCL takes one card a process")
+    traj = add_targets(flag_trajectory(num_steps=6, nx=10, ny=10), "world_pos", True)
+    configs = {}
+    for agg in ("xla", "fused"):
+        configs[agg] = flag_config(None, agg_vjp=agg)
+        configs[agg]["params"]["model"].update(noise=0.003, gamma=0.9, learning_rate=1e-4)
+    state = get_model(configs["fused"]).init_state(torch.Generator().manual_seed(0))
+    frames = {k: np.array(v[:4]) for k, v in traj.items() if k != "cells"}
+    case = dict(configs=configs, trajectory=traj, frames=frames,
+                normal=torch.randn(frames["world_pos"].shape, generator=torch.Generator().manual_seed(1)),
+                params={n: p.detach().clone() for n, p in state.params.named_parameters()},
+                normalizers=state.normalizers)
+    procs, outs = _start_pod_workers(tmp_path, dict(backend="nccl", graph=2, devices=[["cuda:0"], ["cuda:1"]],
+                                                    ring=case), 2)
+    try:
+        ref = worker.ring_case(case, lambda: RankGroup(1, 2, devices=["cuda:0", "cuda:1"]))
+        logs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"worker {r}:\n{log[-3000:]}"
+    assert ref["launches"]["K6"] > 0 and ref["launches"]["K7"] > 0, ref["launches"]
+    total = dict(K6=0, K7=0)
+    for r, out in enumerate(outs):
+        got = torch.load(out, weights_only=False)["ring"]
+        assert got["layout"]["ranks"] == [r] and got["layout"]["processes"] == 2
+        for entry in ("k6", "aggregate", "halo_ring", "halo_overlap"):
+            assert torch.equal(got[entry][r], ref[entry][r]), (entry, r)
+        assert torch.equal(got["step"]["loss"], ref["step"]["loss"]), r
+        for n, want in ref["step"]["grads"].items():
+            assert torch.equal(got["step"]["grads"][n], want), (r, n)
+        total = {k: total[k] + got["launches"][k] for k in total}
+    assert total == ref["launches"]
+
+
+_DESYNC = r"""
+import os, sys, time
+from datetime import timedelta
+sys.path.insert(0, {root!r})
+import torch
+import torch.distributed as dist
+from hyper_graph_nets_tpu_torch.ops.ring import ring_all_reduce_segments
+from hyper_graph_nets_tpu_torch.parallel import multihost
+
+rank, mode = {rank}, {mode!r}
+torch.cuda.set_device(rank)
+dist.init_process_group("nccl", init_method="tcp://127.0.0.1:{port}", world_size=2, rank=rank,
+                        timeout=timedelta(seconds={pg_timeout}))
+group = multihost.make_pod_group(graph_per_host=2, devices=[torch.device("cuda", rank)])
+x, seg = [torch.ones(64, 128, device=f"cuda:{{rank}}")], [(0, 64, "sum")]
+t0 = time.perf_counter()
+try:
+    if mode == "epoch" and rank == 1:
+        group.next_epoch()  # as if this process had made a ring call alone
+    ring_all_reduce_segments(x, seg, group)  # sets up the ring state: both processes
+    group.check()
+    t0 = time.perf_counter()
+    if mode == "skip" and rank == 1:
+        time.sleep(5)  # skips the call its neighbour makes; its next call comes past the spin limit
+    ring_all_reduce_segments(x, seg, group)
+    group.check()
+except RuntimeError as exc:
+    print(f"raised after {{time.perf_counter() - t0:.2f}} s: {{exc}}", flush=True)
+    os._exit(3)  # the trap ended this process's card context: no teardown
+print("no error", flush=True)
+os._exit(0)
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["skip", "epoch"])
+def test_a_desynchronized_ring_across_processes_raises_and_does_not_hang(mode):
+    """Two processes over ``nccl`` (a card each, a ``1 x 2`` pod).  ``skip``:
+    after the first ring call process 1 skips the next one (and makes it 5
+    s later); process 0's K6 waits on it, traps past the spin limit
+    (``SPIN_NS``, 2 s) and ``group.check()`` raises the ring's spin error
+    within the spin limit plus the process group's time limit; process 1's
+    late call finds no neighbour and raises too.  ``epoch``: process 1 has
+    counted one more ring call before the first: both raise where the ring
+    state is set up (the epochs differ).  Neither hangs: each ends within
+    its time limit."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    _need_card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: NCCL takes one card a process")
+    pg_timeout = 30
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen([sys.executable, "-c", _DESYNC.format(root=root, rank=r, mode=mode, port=port,
+                                                                     pg_timeout=pg_timeout)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 3, f"process {r}:\n{log[-3000:]}"
+    if mode == "epoch":
+        assert all("epochs differ" in log for log in logs), logs
+    else:
+        assert "waited past its time limit" in logs[0], logs[0]
+        elapsed = float(logs[0].split("raised after ")[1].split(" s")[0])
+        assert elapsed < 2 + pg_timeout, elapsed

@@ -493,45 +493,51 @@ def test_k7_work_list_covers_each_edge_once_and_counts_each_band(case):
 def test_group_launch_arguments_are_in_rank_order_with_each_neighbour():
     """The per-rank entries that K6's and K7's single C call takes
     (``ring.rank_state``, ``ring.struct_array``, ``ring.rank_table``): entry
-    r holds rank r's own flags, slots and counters, its left neighbour's
-    flags and its right neighbour's flags and slots; the group keeps the
-    table until its ring state grows; the ctypes layouts are the C structs'
-    (pointers 8 bytes, ints 4, each pointer 8-aligned)."""
+    r holds rank r's own flags, slots and counters (one allocation: flag
+    rows, then slots, then counters), its left neighbour's flags and its
+    right neighbour's flags and slots, and its global rank; the group keeps
+    the table until its ring state grows; the ctypes layouts are the C
+    structs' (pointers 8 bytes, ints 4, each pointer 8-aligned)."""
     from hyper_graph_nets_tpu_torch.ops import fused_overlap as fo
     from hyper_graph_nets_tpu_torch.ops import ring
+    from hyper_graph_nets_tpu_torch.parallel.group import FLAG_BYTES
 
     n = 4
     group = RankGroup(n, device="cpu")
     state = group.ring_state("k6", 64)
     rows = ring.rank_state(group, state)
-    assert len(rows) == n
+    assert len(rows) == n and (state.floats, state.counters) == (64, 64)
     for r, row in enumerate(rows):
-        (slots, flags, counters), left, right = state[r], state[(r - 1) % n], state[(r + 1) % n]
-        assert (row["flags_mine"], row["slot_mine"], row["counters"]) == (
-            flags.data_ptr(), slots.data_ptr(), counters.data_ptr())
-        assert row["flags_left"] == left[1].data_ptr()
-        assert (row["flags_right"], row["slot_right"]) == (right[1].data_ptr(), right[0].data_ptr())
-        assert (row["device"], row["stream"]) == (-1, 0)
+        left, right = rows[(r - 1) % n], rows[(r + 1) % n]
+        assert row["slot_mine"] == row["flags_mine"] + FLAG_BYTES
+        assert row["counters"] == row["slot_mine"] + 2 * 64 * 4
+        assert row["flags_left"] == left["flags_mine"]
+        assert (row["flags_right"], row["slot_right"]) == (right["flags_mine"], right["slot_mine"])
+        assert (row["device"], row["rank"], row["stream"]) == (-1, r, 0)
+    assert len({row["flags_mine"] for row in rows}) == n
     arr = ring.struct_array(ring.RingRank, [dict(row, x=1000 + r, out=2000 + r) for r, row in enumerate(rows)])
-    assert ctypes.sizeof(ring.RingRank) == 7 * 8 + 8 + 8
+    assert ctypes.sizeof(ring.RingRank) == 7 * 8 + 4 + 4 + 8
     for r in range(n):
         assert (arr[r].x, arr[r].out) == (1000 + r, 2000 + r)
-        for name in ("flags_mine", "flags_left", "flags_right", "slot_mine", "slot_right", "device"):
+        for name in ("flags_mine", "flags_left", "flags_right", "slot_mine", "slot_right", "device", "rank"):
             assert getattr(arr[r], name) == rows[r][name]
     # the group keeps its table until its ring state changes
     table = ring.rank_table(group, state, ring.RingRank)
     assert ring.rank_table(group, state, ring.RingRank) is table
     for r in range(n):
-        for name in ("flags_mine", "flags_left", "flags_right", "slot_mine", "slot_right", "device", "stream"):
+        for name in ("flags_mine", "flags_left", "flags_right", "slot_mine", "slot_right", "device", "rank",
+                     "stream"):
             assert (getattr(table[r], name) or 0) == rows[r][name]  # a null c_void_p reads None
+    assert group.ring_state("k6", 32) is state  # a smaller call fits
     grown = group.ring_state("k6", 128)
     assert grown is not state and ring.rank_table(group, grown, ring.RingRank) is not table
+    assert (grown.floats, grown.counters) == (128, 64)
     zeros = {name: 0 for name, _ in fo.OvRank._fields_}
     arr7 = ring.struct_array(fo.OvRank, [dict(zeros, **row, E=10 + r) for r, row in enumerate(rows)])
-    assert ctypes.sizeof(fo.OvRank) == 19 * 8 + 3 * 4 + 4 + 6 * 8 + 8 + 8
+    assert ctypes.sizeof(fo.OvRank) == 19 * 8 + 3 * 4 + 4 + 6 * 8 + 4 + 4 + 8
     for r in range(n):
         assert arr7[r].E == 10 + r
-        for name in ("flags_mine", "flags_left", "flags_right", "slot_mine", "slot_right", "counters"):
+        for name in ("flags_mine", "flags_left", "flags_right", "slot_mine", "slot_right", "counters", "rank"):
             assert getattr(arr7[r], name) == rows[r][name]
 
 

@@ -21,8 +21,14 @@
 - A planted control: each process's sharded nodes drop the other
   process's aggregate cotangents (``RankGroup.cotangents`` returning the
   process's own).
-- K7's layout, the halo forward's ring, the ring aggregate and K6 on the
-  row across processes raise, naming ROADMAP entry 7.4c.
+- The ring kernels along rows across processes (their plain versions, the
+  other processes' partials gathered), in three pods of (processes, local
+  ranks, graph) = (2, 1, 2) (1 x 2), (2, 2, 4) (1 x 4) and (4, 1, 2)
+  (2 x 2, four more worker processes): K6, the ring aggregate, K7's
+  layout, the halo forward with ``ring`` (``agg_vjp: xla``, K6) and with
+  ``overlap`` (fused, 4 bands, K7) on frame 0, and one overlap-banded
+  train step.  A card group whose row spans two nodes raises naming
+  ROADMAP entry 7.4d.
 
 Tolerances: against the in-process group of the same shape
 (``RankGroup(1, 2)`` on the CPU, ``RankGroup(1, 4)`` over four logical
@@ -30,9 +36,18 @@ devices) the loss, every gradient, the parameters after Adam, the
 normalizer states and the forward rows equal bit for bit in each process
 (the same plain kernels on the same shards, every fold in global rank
 order, the gradients summed over the devices of every process in global
-order); against JAX's sharded step on ``make_mesh(1, 2)`` (its ``gather``
-path, as tests/test_torch_port_multihost.py's) the loss within rtol 1e-5
-and the parameters after one Adam step within atol 1e-6.  The control must
+order); the ring entries, the halo forwards and the overlap-banded
+step's loss and gradients equal the in-process group's of the same shape
+bit for bit for every global rank (each rank folds the row's partials in
+its ring order, as in one process); against JAX's sharded step on
+``make_mesh(1, 2)`` (its ``gather`` path, as
+tests/test_torch_port_multihost.py's) the loss within rtol 1e-5 and the
+parameters after one Adam step within atol 1e-6; the halo forwards against
+JAX's halo forward on ``make_mesh(1, graph)`` (Pallas in interpret mode,
+the emulator's state reset first, a mismatch retried once after a reset as
+tests/test_torch_port_halo.py does) within rtol 1e-4 and atol 2e-5 in
+float32 (tests/test_torch_port_halo.py's, from JAX's test_overlap.py:308).
+The control must
 move the worst gradient past ``CONTROL_MIN`` relative L2 (it reads about
 0.59), far past float32 rounding.  Each worker runs under a
 ``communicate`` limit of ``WORKER_TIMEOUT_S`` and a process-group limit of
@@ -49,10 +64,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from hyper_graph_nets_tpu.data.preprocessing import add_targets as jax_add_targets
 from hyper_graph_nets_tpu.data.synthetic import flag_trajectory as jax_flag_trajectory
 from hyper_graph_nets_tpu.models.get_model import get_model as jax_get_model
+from hyper_graph_nets_tpu.parallel import halo as jax_halo
 from hyper_graph_nets_tpu.parallel import multihost as jax_multihost
 from hyper_graph_nets_tpu.parallel import sharding as jax_sharding
 from hyper_graph_nets_tpu.training.trainer import Trainer as JaxTrainer
@@ -75,6 +92,11 @@ WORKER_TIMEOUT_S = 150
 CONTROL_MIN = 1e-2
 LAYOUTS = [(2, 1, 2), (1, 4, 3), (2, 2, 4), (2, 3, 2), (2, 2, 2), (4, 1, 2)]
 ROW_CASES = ("flag_fused", "flag_sorted", "rmp", "cylinder")
+# the pods whose rows ring across processes: (processes, local ranks, graph)
+# -> the pod's name in the fixture and its shape
+RING_PODS = {(2, 1, 2): ("row", (1, 2)), (2, 2, 4): ("wide", (1, 4)), (4, 1, 2): ("grid", (2, 2))}
+RING_IDS = [f"P{p}-n{n}-g{g}" for p, n, g in RING_PODS]
+HALO_TOL = dict(rtol=1e-4, atol=2e-5)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -198,7 +220,7 @@ def _cases():
         config = _flag_config(agg_vjp)
         cases[f"flag_{agg_vjp}"] = dict(config=config, trajectory=j["traj"], frames=j["frames"], normal=j["normal"],
                                         **_port_state(config, j["traj"], flag_state))
-    cases["flag_fused"].update(control=True, raises=True)
+    cases["flag_fused"].update(control=True)
 
     gen = torch.Generator().manual_seed(3)
     traj = add_targets(synthetic.flag_trajectory(num_steps=B + 2, nx=NX, ny=NX), "world_pos", history=True)
@@ -217,22 +239,64 @@ def _cases():
     return cases
 
 
+@functools.lru_cache(maxsize=None)
+def _ring_case():
+    """The ring entries' case: JAX's flag state (as ``_cases``' flag) under
+    ``agg_vjp: xla`` (the halo forward's ring) and ``fused`` (K7), the
+    trajectory, the frames and the noise draw."""
+    flag = _cases()["flag_fused"]
+    return dict(configs={agg: _flag_config(agg) for agg in ("xla", "fused")}, trajectory=flag["trajectory"],
+                frames=flag["frames"], normal=flag["normal"], params=flag["params"],
+                normalizers=flag["normalizers"])
+
+
+def _reset_interpret():
+    pltpu.reset_tpu_interpret_mode_state()
+    jax.clear_caches()
+
+
+def _jax_halo(path, graph):
+    """JAX's halo forward of frame 0 on ``make_mesh(1, graph)``
+    (tests/test_torch_port_halo.py's), its Pallas kernels in interpret
+    mode from a reset emulator."""
+    agg, ring, overlap = worker.HALO_PATHS[path]
+    j = _jax_start()
+    jmodel = jax_get_model(_flag_config(agg))
+    mesh = jax_sharding.make_mesh(1, graph)
+    jst = jax_sharding.shard_topology(jmodel.topology_from_trajectory(j["traj"]), mesh,
+                                      overlap_bands=worker.BANDS if overlap else None)
+    jframe = {k: jnp.asarray(v[0]) for k, v in j["traj"].items() if k != "cells"}
+    jgraph, _, _ = jmodel.make_graph(j["tstate"].model, jst, jframe, False, batched=False)
+    _reset_interpret()
+    return np.asarray(jax_halo.make_halo_forward(jmodel, mesh, ring=ring, overlap=overlap)(
+        j["tstate"].model.params, jgraph))
+
+
+def _ring_reference(processes, n_local, graph):
+    """The ring entries on the in-process group of the pod's shape, a
+    logical device a rank (the pod's devices are each process's own: the
+    step sums every device's gradients in global order)."""
+    shape = RING_PODS[(processes, n_local, graph)][1]
+    devices = [torch.device("cpu", i) for i in range(shape[0] * shape[1])]
+    return worker.ring_case(_ring_case(), lambda: RankGroup(*shape, devices=devices))
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
 
 
-def _start(tmp, name, job):
+def _start(tmp, name, job, processes=PROCESSES):
     src = os.path.join(tmp, f"{name}.pt")
     torch.save(job, src)
     port = _free_port()
-    outs = [os.path.join(tmp, f"{name}{r}.pt") for r in range(PROCESSES)]
+    outs = [os.path.join(tmp, f"{name}{r}.pt") for r in range(processes)]
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["OMP_NUM_THREADS"] = "1"
-    procs = [subprocess.Popen([sys.executable, WORKER, str(r), str(PROCESSES), str(port), src, outs[r]],
+    procs = [subprocess.Popen([sys.executable, WORKER, str(r), str(processes), str(port), src, outs[r]],
                               cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(PROCESSES)]
+             for r in range(processes)]
     return procs, outs
 
 
@@ -253,23 +317,30 @@ def _join(procs, outs):
 
 @pytest.fixture(scope="module")
 def pods(tmp_path_factory):
-    """Both pods' results (``row``: the ``1 x 2`` cases, ``wide``: the
-    ``1 x 4`` one), the in-process references and JAX's ``1 x 2`` step,
-    the references computed while the workers run."""
+    """The pods' results (``row``: the ``1 x 2`` cases, ``wide``: the
+    ``1 x 4`` one, each with the ring entries; ``grid``: the ring entries
+    of the ``2 x 2`` pod of four processes), the in-process references,
+    JAX's ``1 x 2`` step and JAX's halo forwards, the references computed
+    while the workers run."""
     tmp = str(tmp_path_factory.mktemp("pod_graph"))
-    cases = _cases()
+    cases, ring = _cases(), _ring_case()
     wide_devices = [["cpu:0", "cpu:1"]] * PROCESSES
-    started = [_start(tmp, "row", dict(graph=2, devices=[["cpu"]] * PROCESSES, cases=cases)),
-               _start(tmp, "wide", dict(graph=4, devices=wide_devices, cases={"flag_fused": cases["flag_fused"]}))]
+    started = [_start(tmp, "row", dict(graph=2, devices=[["cpu"]] * PROCESSES, cases=cases, ring=ring)),
+               _start(tmp, "wide", dict(graph=4, devices=wide_devices, cases={"flag_fused": cases["flag_fused"]},
+                                        ring=ring)),
+               _start(tmp, "grid", dict(graph=2, devices=[["cpu"]] * 4, ring=ring), processes=4)]
     try:
-        refs = {name: worker.run_case(dict(case, control=False, raises=False),
-                                      lambda: RankGroup(1, 2, device="cpu")) for name, case in cases.items()}
-        wide_ref = worker.run_case(dict(cases["flag_fused"], control=False, raises=False),
+        refs = {name: worker.run_case(dict(case, control=False), lambda: RankGroup(1, 2, device="cpu"))
+                for name, case in cases.items()}
+        wide_ref = worker.run_case(dict(cases["flag_fused"], control=False),
                                    lambda: RankGroup(1, 4, devices=[torch.device("cpu", i) for i in range(4)]))
+        ring_refs = {layout: _ring_reference(*layout) for layout in RING_PODS}
         jax_ref = _jax_row_step()
+        jax_halo = {(path, g): _jax_halo(path, g) for path in worker.HALO_PATHS for g in (2, 4)}
     finally:
-        row, wide = (_join(*s) for s in started)
-    return dict(row=row, wide=wide, refs=refs, wide_ref=wide_ref, jax=jax_ref)
+        row, wide, grid = (_join(*s) for s in started)
+    return dict(row=row, wide=wide, grid=grid, refs=refs, wide_ref=wide_ref, ring_refs=ring_refs, jax=jax_ref,
+                jax_halo=jax_halo)
 
 
 def _assert_bit_for_bit(got, want, what):
@@ -331,18 +402,83 @@ def test_dropping_the_other_process_cotangents_misses_the_gradients(pods):
         assert worst > CONTROL_MIN, worst
 
 
-def test_ring_kernels_on_a_row_across_processes_raise(pods):
-    """K7's layout (``shard_topology(overlap_bands=4)``), the halo forward's
-    ring, the ring aggregate and K6 on the row across processes raise
-    ``NotImplementedError`` naming ROADMAP entry 7.4c; in one process the
-    same group shape takes K7's layout as before."""
-    for res in pods["row"]:
-        errors = res["flag_fused"]["ring_errors"]
-        assert set(errors) == {"overlap_layout", "halo_ring", "ring_aggregate", "ring_all_reduce"}
-        for name, msg in errors.items():
-            assert msg is not None and "7.4c" in msg, (name, msg)
-    case = _cases()["flag_fused"]
-    model = get_model(case["config"])
-    topo = model.topology_from_trajectory(case["trajectory"], device="cpu")
-    stopo = shard_topology(topo, RankGroup(1, 2, device="cpu"), overlap_bands=4)
-    assert stopo.plan.plans[0].overlap_bands == 4
+def test_ring_kernels_on_a_row_across_processes_raise(pods, monkeypatch):
+    """The ring kernels' four entries on the ``1 x 2`` row across processes
+    (K7's layout, the halo forward's ring, the ring aggregate and K6) run
+    and give the in-process ``RankGroup(1, 2)``'s bits for each global
+    rank; on the card a row whose processes run on two nodes raises
+    ``NotImplementedError`` naming ROADMAP entry 7.4d (the host names of
+    such a pod planted), one on one node does not."""
+    want = pods["ring_refs"][(2, 1, 2)]
+    for p, res in enumerate(pods["row"]):
+        got = res["ring"]
+        assert got["layout"]["ranks"] == [p]
+        for name in ("senders", "receivers", "mask"):
+            assert torch.equal(got["layout"][name], want["layout"][name]), name
+        assert all(torch.equal(a, b) for a, b in zip(got["layout"]["work"][p], want["layout"]["work"][p]))
+        for entry in ("halo_ring", "aggregate", "k6"):
+            assert torch.equal(got[entry][p], want[entry][p]), (entry, p)
+    monkeypatch.setattr(multihost, "process_count", lambda: 2)
+    group = multihost.make_pod_group(graph_per_host=2, devices=[torch.device("cpu")])
+    assert group.rows_cross and group.ranks == [0]
+    group.is_cuda, group._hosts = True, ["node-a", "node-b"]
+    with pytest.raises(NotImplementedError, match="7.4d"):
+        group.check_ring("the ring all-reduce (K6)")
+    group._hosts = ["node-a", "node-a"]
+    group.check_ring("the ring all-reduce (K6)")
+
+
+def _ring_results(pods, layout):
+    """Each process's ring results of the pod of ``layout``, and the
+    in-process reference."""
+    return pods[RING_PODS[layout][0]], pods["ring_refs"][layout]
+
+
+@pytest.mark.parametrize("layout", list(RING_PODS), ids=RING_IDS)
+def test_k6_plain_across_processes_is_bit_for_bit(pods, layout):
+    """K6's plain version on seeded partials (sum, max, min and a one-row
+    sum segment) and the pna ring aggregate: every global rank's result
+    equals the in-process group's bit for bit."""
+    results, want = _ring_results(pods, layout)
+    seen = set()
+    for res in results:
+        got = res["ring"]
+        assert (got["layout"]["shape"]["data"], got["layout"]["shape"]["graph"]) == RING_PODS[layout][1]
+        for q in got["layout"]["ranks"]:
+            seen.add(q)
+            assert torch.equal(got["k6"][q], want["k6"][q]), q
+            assert torch.equal(got["aggregate"][q], want["aggregate"][q]), q
+    assert seen == set(want["k6"])
+
+
+@pytest.mark.parametrize("path", list(worker.HALO_PATHS))
+@pytest.mark.parametrize("layout", list(RING_PODS), ids=RING_IDS)
+def test_halo_forward_across_processes_matches_jax_and_the_in_process_group(pods, layout, path):
+    """The halo forward with ``ring`` (K6) or ``overlap`` (K7 on the
+    4-band layout) across processes: every rank's rows bit for bit with the
+    in-process group's, and within HALO_TOL of JAX's halo forward on
+    ``make_mesh(1, graph)``."""
+    results, want = _ring_results(pods, layout)
+    for res in results:
+        for q, rows in res["ring"][path].items():
+            assert torch.equal(rows, want[path][q]), q
+    graph = layout[2]
+    got = want[path][0].numpy()
+    assert got.shape == (NX * NX, 3) and np.isfinite(got).all()
+    try:
+        np.testing.assert_allclose(got, pods["jax_halo"][(path, graph)], **HALO_TOL)
+    except AssertionError:  # the emulator's remote copies can race under load: once more from a reset
+        np.testing.assert_allclose(got, _jax_halo(path, graph), **HALO_TOL)
+
+
+@pytest.mark.parametrize("layout", list(RING_PODS), ids=RING_IDS)
+def test_overlap_banded_step_across_processes_is_bit_for_bit(pods, layout):
+    """One train step on the overlap-banded layout (K7 forward, K2 per
+    shard, the cotangents gathered across processes): the loss and every
+    gradient equal the in-process group's bit for bit in each process."""
+    results, want = _ring_results(pods, layout)
+    for p, res in enumerate(results):
+        got = res["ring"]["step"]
+        assert torch.equal(got["loss"], want["step"]["loss"]), p
+        for n, w in want["step"]["grads"].items():
+            assert torch.equal(got["grads"][n], w), (p, n)

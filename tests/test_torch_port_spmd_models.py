@@ -473,6 +473,16 @@ def test_split_graph_cuts_a_batched_world_set_per_data_rank():
         assert part.edge_sets["mesh_edges"].num_edges == len(stopo.senders) // 2
 
 
+def test_sharded_step_on_an_unknown_model_raises():
+    """``check_supported`` takes flag, cylinder and plate (every family of
+    both packages); any other model is an unknown-model error."""
+    from hyper_graph_nets_tpu_torch.parallel.sharding import check_supported
+
+    check_supported(get_model(cut_config("cylinder")), None)
+    with pytest.raises(ValueError, match="Other is not one of them"):
+        check_supported(type("Other", (), {})(), None)
+
+
 def test_sharded_cylinder_step_with_rmp_matches_single_device():
     """Cylinder with RMP ``hyper`` (spectral K = 4, hyper noise), which no
     shipped config sets and ``check_supported`` takes, on 2 x 2: the mesh
