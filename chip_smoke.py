@@ -521,6 +521,35 @@ def bwd_bound_ms(dtype_name, B, E, N, L, peaks, stream) -> tuple:
     return _bound(bytes_moved, flops, dtype_name, peaks)
 
 
+# float32 K1 and K2 against the float64 product of the same chain (the plain
+# versions on float64 inputs, ops.fused_block): on each product output (K1's
+# e2; K2's de, dh, dz2, dz3) the kernel's largest error at most F64_RATIO
+# times the plain float32 version's on the same inputs.  The aggregate's
+# sums are not the chain: the kernel sums a long segment in edge order, the
+# plain version in PyTorch's order (2.0x the plain version's error on HGN
+# plate's up set, PERF.md).
+F64_RATIO = 4.0
+
+
+def hold_to_f64(tag, named):
+    """``named``: ``{output: (kernel, plain, float64)}``.  Returns ``{output:
+    (kernel error, plain error)}`` (largest absolute errors against float64)
+    and raises where the kernel's passes F64_RATIO times the plain's."""
+    out = {}
+    for name, (got, plain, exact) in named.items():
+        g = float((got.double() - exact.double()).abs().max())
+        p = float((plain.double() - exact.double()).abs().max())
+        out[name] = (g, p)
+        if not g <= F64_RATIO * p:
+            raise AssertionError(f"{tag} {name}: error against float64 {g:.3g}, more than {F64_RATIO} x the plain "
+                                 f"version's {p:.3g}")
+    return out
+
+
+def f64_text(errs):
+    return ", ".join(f"{k} {g:.3g} (plain {p:.3g})" for k, (g, p) in errs.items())
+
+
 def check_close(name, got, want, rtol, atol):
     import torch
 
@@ -4180,6 +4209,8 @@ def planned_kernels(card, peaks, plan, snd, rcv, rows, B, dtype_name, seed, tag,
     valid = np.ones(E, bool) if mask is None else np.asarray(mask) > 0
     no_recv = torch.as_tensor(np.bincount(rcv[valid], minlength=rows) == 0, device="cuda")
     no_send = torch.as_tensor(np.bincount(snd[valid], minlength=rows) == 0, device="cuda")
+    f32 = dtype_name == "float32"
+    wide = lambda: dict(x, **{k: x[k].double() for k in ("e", "sp", "rp")})
     run = lambda: fused_edge_block(**x, plan=plan)
     e2, agg = run()
     torch.cuda.synchronize()
@@ -4189,12 +4220,20 @@ def planned_kernels(card, peaks, plan, snd, rcv, rows, B, dtype_name, seed, tag,
     if not bool((agg[:, no_recv] == 0).all()):
         raise AssertionError(f"K1 ({tag}): a row without valid edges has a non-zero aggregate")
     out = {}
+    f64 = {}
+    if f32:
+        e2_64, agg_64 = fused_edge_block_reference(**wide())
+        f64 = hold_to_f64(f"K1 {tag}", {"e2": (e2, re2, e2_64)})
+        del e2_64, agg_64
     ms = kernel_device_ms(run, iters=20, names="fused_block_fwd_kernel")
     plain_ms = cuda_time_ms(lambda: fused_edge_block_reference(**x), iters=10)
     bound, bound_by = k1_bound_ms(dtype_name, B, E, rows, L, peaks)
     out["K1"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+    if f32:
+        out["K1"].update(f64_errors=f64)
     log(f"K1 {dtype_name} B={B} E={E} rows={rows} ({tag}): kernel {ms * 1e3:.1f} us, bound "
-        f"{bound * 1e3:.2f} us ({bound_by}), plain {plain_ms:.3f} ms, max abs err {err:.3g} [{card}]")
+        f"{bound * 1e3:.2f} us ({bound_by}), plain {plain_ms:.3f} ms, max abs err {err:.3g}"
+        + (f"; against float64: {f64_text(f64)}" if f32 else "") + f" [{card}]")
 
     topo = (x["senders"], x["receivers"], x["mask"], rows)
     fwd = fused_edge_block_fwd(x["e"], x["sp"], x["rp"], x["weights"], *topo, plan=plan, save_streams=True)
@@ -4209,6 +4248,16 @@ def planned_kernels(card, peaks, plan, snd, rcv, rows, B, dtype_name, seed, tag,
     err = compare_bwd(f"K2 {tag}", dtype_name, got[:4] + got[6:], want[:4] + want[6:])
     if not (bool((got[6][:, no_send] == 0).all()) and bool((got[7][:, no_recv] == 0).all())):
         raise AssertionError(f"K2 ({tag}): a row without valid edges has a non-zero dsp/drp")
+    if not (torch.equal(got[4], fwd[2]) and torch.equal(got[5], fwd[3])):
+        raise AssertionError(f"K2 ({tag}): the recomputed a1/a2 differ from K1's")
+    f64 = {}
+    if f32:
+        w64 = wide()
+        want64 = fused_edge_block_bwd_reference(w64["e"], w64["sp"], w64["rp"], x["weights"], de2.double(), drhs,
+                                                *topo, forward=(fwd[0], fwd[2], fwd[3]))
+        f64 = hold_to_f64(f"K2 {tag}", {n: (got[i], want[i], want64[i]) for i, n in enumerate(("de", "dh", "dz2",
+                                                                                            "dz3"))})
+        del w64, want64
     ms = kernel_device_ms(k2, iters=10, names=BWD_KERNELS)
     plain_ms = cuda_time_ms(
         lambda: fused_edge_block_bwd_reference(x["e"], x["sp"], x["rp"], x["weights"], de2, drhs, *topo),
@@ -4216,8 +4265,11 @@ def planned_kernels(card, peaks, plan, snd, rcv, rows, B, dtype_name, seed, tag,
     )
     bound, bound_by = bwd_bound_ms(dtype_name, B, E, rows, L, peaks, stream=False)
     out["K2"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+    if f32:
+        out["K2"].update(f64_errors=f64)
     log(f"K2 {dtype_name} B={B} E={E} rows={rows} ({tag}): kernels {ms * 1e3:.1f} us, bound "
-        f"{bound * 1e3:.2f} us ({bound_by}), plain {plain_ms:.3f} ms, max abs err {err:.3g} [{card}]")
+        f"{bound * 1e3:.2f} us ({bound_by}), plain {plain_ms:.3f} ms, max abs err {err:.3g}"
+        + (f"; against float64: {f64_text(f64)}" if f32 else "") + f" [{card}]")
     return out
 
 
@@ -7147,7 +7199,8 @@ def main(argv=None) -> int:
                  "B=32": k1[("bfloat16", TASK_N_STEP_CHUNK)], "raw shard": k1[("bfloat16 raw shard", 1)],
                  "raw contiguous shard": k1[("bfloat16 raw contiguous shard", 1)]}
     shapes = lambda runs: {tag: {"ms": r["ms"], "bound_ms": r["bound_ms"]} for tag, r in runs.items()}
-    row = lambda r: {f: r[f] for f in ("ms", "bound_ms", "plain_ms", "max_abs_err")}
+    row = lambda r: {f: r[f] for f in ("ms", "bound_ms", "plain_ms", "max_abs_err", "f64_errors")
+                     if f in r}
     path_rows = lambda k: {
         f"B=21 rows={1600 + RMP_CLUSTERS} (RMP)": row(rmp_kernels[k]),
         **{f"float32 B={MODEL_FRAMES} N={MODEL_SIZES[n][0]} E={MODEL_SIZES[n][1]} ({n})": row(mk[k])

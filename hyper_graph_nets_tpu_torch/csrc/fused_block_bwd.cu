@@ -47,8 +47,8 @@
 //   over a valid prefix (the cluster-tier sets) ends in receiver-less
 //   groups of masked edges, from row_ptr[N] on: they get their edge
 //   streams and no drp row, and read no drhs row.
-// - Two teams of 8 warps per CTA, one CTA per SM, sharing the staged
-//   weights (104 KB in bf16 at L = 128), each on its own work item with its
+// - bf16: two teams of 8 warps per CTA, one CTA per SM, sharing the staged
+//   weights (104 KB at L = 128), each on its own work item with its
 //   own buffers, synchronizing by named barriers (team_sync): a tile is a
 //   chain of barrier-separated phases, and one team of 8 warps an SM left
 //   the SM idle through each phase's latency (with one team and 64-row
@@ -69,15 +69,21 @@
 //   indices are read into registers during this one.  So the row pass
 //   reads only shared memory (a row whose receiver lies past the staged
 //   ones reads drhs from device memory).
-// - The products: mma.sync m16n8k16 (bf16 in, float32 accumulate) over the
-//   half tile, warp (wm, wn) owning 16 rows and L/4 columns, fragments by
-//   ldmatrix; float32: ordered fmaf, thread (warp, lane) owning 4 rows and
-//   L/32 columns.  Each element sums over k in the same order, with the same
-//   epilogue rounding (layer1_value, bias_sum, rnd), as K1's tile code, so
-//   K2's recomputed a1, a2, z3 and e2 are K1's bit for bit whichever warp
-//   computes them: K2 routes by exact compares with e2.  The backward
-//   products likewise sum each element over k in order, so de, dh, dz2,
-//   dz3 do not depend on the warp layout either.
+// - float32: one team of 8 warps per CTA with two whole layers staged
+//   (BwdWeights<float>: 2 x 64 KB at L = 128, the next product's layer
+//   copied by cp.async under the current one, an mbarrier each), its half
+//   tile's buffers (84 KB) and the drhs rows of 4 receivers: 225 KB.
+// - The products: bf16 mma.sync m16n8k16 (bf16 in, float32 accumulate) over
+//   the half tile, warp (wm, wn) owning 16 rows and L/4 columns, fragments
+//   by ldmatrix; float32 on the CUDA cores from the staged layer,
+//   tile_matmul_f32 (fused_block_common.cuh: 4 x 4 outputs a thread, one
+//   ordered fmaf chain an element, operands by float4).  Each element sums
+//   over k in the same order, with the same epilogue rounding
+//   (layer1_value, bias_sum, rnd), as K1's tile code, so K2's recomputed
+//   a1, a2, z3 and e2 are K1's bit for bit whichever warp computes them: K2
+//   routes by exact compares with e2.  The backward products likewise sum
+//   each element over k in order, so de, dh, dz2, dz3 do not depend on the
+//   warp layout either.
 // - dpar is folded into the passes that hold the values: the row pass keeps
 //   per-lane partials of dz3, do*xhat and do; the dz2 and dh epilogues sum
 //   their warp's rows and reduce-scatter over the lanes, leaving one column
@@ -102,7 +108,6 @@ namespace {
 
 using namespace hgn;
 
-constexpr int NTEAM = 2;           // teams of THREADS threads per CTA, each on its own work item
 constexpr int HT = 32;             // rows of a half tile
 constexpr int SMEM_MAX = 232448;   // dynamic shared memory a CTA may use on sm_90
 static_assert(THREADS == 8 * HT, "eight threads per row in a half tile's loads");
@@ -165,50 +170,112 @@ __device__ __forceinline__ bool ties(float a, float m, float tol) {
 #define HGN_BWD_PHASE_NAMES "load,fwd,wait,row,bwd,drp,store,de,end"
 constexpr int NPHASE = 9;
 __device__ unsigned long long hgn_bwd_phase_cycles[NPHASE + 1];
-struct PhaseClock {
-  unsigned long long acc[NPHASE];
-  unsigned long long tiles;
-  long long last;
-  __device__ __forceinline__ void start() {
-    for (int p = 0; p < NPHASE; ++p) acc[p] = 0;
-    tiles = 0;
-    last = clock64();
-  }
-  __device__ __forceinline__ void mark(int p) {
-    const long long now = clock64();
-    acc[p] += now - last;
-    last = now;
-  }
-  __device__ __forceinline__ void tile() { ++tiles; }
-  __device__ __forceinline__ void flush() {
-    if (team_tid() != 0) return;
-    for (int p = 0; p < NPHASE; ++p) atomicAdd(&hgn_bwd_phase_cycles[p], acc[p]);
-    atomicAdd(&hgn_bwd_phase_cycles[NPHASE], tiles);
-  }
-};
+using BwdClock = PhaseClock<NPHASE, true>;
+#define HGN_BWD_PHASE_OUT hgn_bwd_phase_cycles
 #define PROBE_SPLIT() team_sync()
 #else
-struct PhaseClock {
-  __device__ __forceinline__ void start() {}
-  __device__ __forceinline__ void mark(int) {}
-  __device__ __forceinline__ void tile() {}
-  __device__ __forceinline__ void flush() {}
-};
+using BwdClock = PhaseClock<9, false>;
+#define HGN_BWD_PHASE_OUT nullptr
 #define PROBE_SPLIT() ((void)0)
 #endif
 
-// Shared memory: the staged weights (bf16) and parameters, shared by the
+template <int L>
+__device__ __forceinline__ void stage_weights_async(bf16* Ws, const BwdArgs& a) {
+  constexpr int CH = L * int(sizeof(bf16)) / 16;  // vectors per weight row
+  for (int i = threadIdx.x; i < 3 * L * CH; i += blockDim.x) {
+    const int m = i / (L * CH), rem = i - m * L * CH;
+    const int r = rem / CH, c = rem - r * CH;
+    const bf16* w = static_cast<const bf16*>(m == 0 ? a.we : (m == 1 ? a.w2 : a.w3));
+    cp_async16(Ws + (m * L + r) * (L + 8) + c * 8, w + (size_t)r * L + c * 8);
+  }
+}
+
+// The weights a CTA's products read, in shared memory.  bf16: all three,
+// staged once (rows padded by 8), shared by the teams.
+template <typename T, int L>
+struct BwdWeights {
+  static constexpr size_t bytes = align16(size_t(3) * L * (L + 8) * sizeof(bf16));
+  bf16* Ws;
+  __device__ explicit BwdWeights(unsigned char* smem) : Ws(reinterpret_cast<bf16*>(smem)) {}
+  __device__ void prologue(const BwdArgs& a, bool) { stage_weights_async<L>(Ws, a); }
+  template <bool TRANS, bool SUM, class Epi>
+  __device__ __forceinline__ void product(const T* A, int layer, int, int rows, Epi epi, float* cs);
+};
+
+// A landed layer as tile_matmul_f32's one slab
+template <int L>
+struct WholeLayer {
+  static constexpr int KS = L;
+  const float* W;
+  __device__ const float* slab(int) const { return W; }
+  __device__ void done() const {}
+};
+
+// float32 (one team a CTA): two whole layers in shared memory (64 KB each at
+// L = 128, wswz-swizzled rows: the forward and the transposed products read
+// one copy); a product names its layer and the next product's, and when
+// the next one's is in neither buffer it is copied into the other buffer
+// (whose last product ended at the team barrier before this one) while this
+// product runs.  K2's order We, W2, W3, W3^T, W2^T, We^T keeps W2 in one
+// buffer and loads W3 and We into the other once a half tile each; K3's
+// W3, W3^T, W2^T, We^T loads three a half tile.  Each buffer's mbarrier
+// completes a phase per load (every thread's cp.async arrival).
+template <int L>
+struct BwdWeights<float, L> {
+  static constexpr size_t bar_bytes = 64;
+  static constexpr size_t layer_floats = size_t(L) * L;
+  static constexpr size_t bytes = bar_bytes + 2 * layer_floats * sizeof(float);
+  unsigned long long* bars;
+  float* bufs;
+  const float *we, *w2, *w3;
+  int held0, held1;      // the layer in each buffer (registers: no indexed arrays)
+  unsigned load0, load1;  // loads into each buffer so far
+
+  __device__ explicit BwdWeights(unsigned char* smem)
+      : bars(reinterpret_cast<unsigned long long*>(smem)), bufs(reinterpret_cast<float*>(smem + bar_bytes)) {}
+
+  __device__ __forceinline__ void issue(int layer, int b) {
+    stage_weight_cols<L, L>(bufs + b * layer_floats, layer == 0 ? we : (layer == 1 ? w2 : w3), 0);
+    cp_async_arrive(bars + b);
+    cp_async_commit();
+    if (b == 0) {
+      held0 = layer;
+      ++load0;
+    } else {
+      held1 = layer;
+      ++load1;
+    }
+  }
+  // the first product's layer (K2: We; K3: W3) and W2 in flight
+  __device__ void prologue(const BwdArgs& a, bool stream) {
+    we = static_cast<const float*>(a.we);
+    w2 = static_cast<const float*>(a.w2);
+    w3 = static_cast<const float*>(a.w3);
+    load0 = load1 = 0;
+    if (threadIdx.x == 0) {
+      mbar_init(bars, THREADS);
+      mbar_init(bars + 1, THREADS);
+    }
+    __syncthreads();
+    issue(stream ? 2 : 0, 0);
+    issue(1, 1);
+  }
+  template <bool TRANS, bool SUM, class Epi>
+  __device__ __forceinline__ void product(const float* A, int layer, int next, int rows, Epi epi, float* cs);
+};
+
+// Shared memory: the weights (BwdWeights) and parameters, shared by the
 // teams, then each team's buffers.
 template <typename T, int L>
 struct BwdLayout {
   static constexpr bool kBf16 = sizeof(T) == 2;
+  static constexpr int NTEAM = nteam<T>;
   static constexpr int LDT = L + Num<T>::PAD;  // compute-type tile row stride
   static constexpr int LDF = L + 4;            // float32 tile row stride
   // z3 (and, bf16, de2 beside it) live in the rows of the do tile: row
   // stride in compute-type elements
   static constexpr int LDZ = LDF * int(sizeof(float) / sizeof(T));
-  static constexpr int LDW = L + 8;
-  static constexpr size_t w_bytes = kBf16 ? align16(size_t(3) * L * LDW * sizeof(bf16)) : 0;
+  static constexpr size_t w_bytes = BwdWeights<T, L>::bytes;
   static constexpr size_t prm_bytes = align16(size_t(5) * L * sizeof(float));
   static constexpr size_t tile_bytes = align16(size_t(HT) * LDT * sizeof(T));
   static constexpr size_t ftile_bytes = align16(size_t(HT) * LDF * sizeof(float));
@@ -226,7 +293,7 @@ struct BwdLayout {
   // the dpar partials of every team and warp, combined at the end over the
   // teams' buffers
   static constexpr int SLOTS = NTEAM * WARPS;
-  static_assert(RS >= 1 && total <= size_t(SMEM_MAX), "two teams must fit");
+  static_assert(RS >= 1 && total <= size_t(SMEM_MAX), "the teams must fit");
   static_assert(size_t(5) * SLOTS * L * sizeof(float) <= NTEAM * team_bytes,
                 "the dpar partials must fit in the teams' buffers");
 };
@@ -234,7 +301,6 @@ struct BwdLayout {
 // One team's view of the CTA's shared arrays.
 template <typename T>
 struct BwdSmem {
-  bf16* Ws;      // staged weights (bf16 only), shared by the teams
   float* prm;    // b1 b2 b3 (rounded), lns, lnb, shared by the teams
   T* eT;         // e, then dz3
   T* xT;         // SP rows (K2) or a1 (K3), a1, then dh
@@ -255,7 +321,6 @@ template <typename T, int L>
 __device__ __forceinline__ BwdSmem<T> bwd_carve(unsigned char* smem, int team) {
   using Lay = BwdLayout<T, L>;
   BwdSmem<T> s;
-  s.Ws = reinterpret_cast<bf16*>(smem);
   s.prm = reinterpret_cast<float*>(smem + Lay::w_bytes);
   unsigned char* g = smem + Lay::w_bytes + Lay::prm_bytes + team * Lay::team_bytes;
   s.eT = reinterpret_cast<T*>(g);
@@ -388,14 +453,17 @@ __device__ __forceinline__ void stage_half(const BwdArgs& a, const Half& h, cons
 // Per-thread column partials of a product's output over the half tiles a
 // thread has seen, and the column each belongs to.  bf16 (the mma layout):
 // after the reduce-scatter over a warp's rows, one column a lane, held by
-// the lanes of one g-class (owners); float32: thread (warp, lane) holds
-// columns lane + 32 m.
+// the lanes of one g-class (owners).  float32 (tile_matmul_f32's transposed
+// layout): N = L / 32 columns a lane, which reduce() sums over the lane's
+// four row groups, lane rg = 0 the owner.
 template <typename T, int L>
 struct ColSums {
   static constexpr bool kBf16 = sizeof(T) == 2;
-  static constexpr int NV = L / 16;                 // bf16: values per lane before the scatter
+  static constexpr int NV = L / 16;  // bf16: values per lane before the scatter
   static constexpr int STEPS = NV >= 8 ? 3 : (NV >= 4 ? 2 : (NV >= 2 ? 1 : 0));
-  static constexpr int N = kBf16 ? 1 : L / 32;
+  static constexpr int WR = HT / 16;  // float32: warps along the rows
+  static constexpr int WC = L / (WARPS / WR);
+  static constexpr int N = kBf16 ? 1 : WC / 8;
   static __device__ __forceinline__ int col(int m) {
     const int lane = threadIdx.x & 31, warp = team_tid() >> 5;
     if constexpr (kBf16) {
@@ -403,12 +471,19 @@ struct ColSums {
       const int i = g >> (3 - STEPS);
       return (warp >> 1) * (L / 4) + 8 * (i >> 1) + 2 * t + (i & 1);
     } else {
-      return lane + 32 * m;
+      return prod_col<N, true>((warp / WR) * WC, lane >> 2, m);
     }
   }
   static __device__ __forceinline__ bool owner() {
     if constexpr (kBf16) return (((threadIdx.x & 31) >> 2) & ((1 << (3 - STEPS)) - 1)) == 0;
-    return true;
+    return (threadIdx.x & 3) == 0;
+  }
+  static __device__ __forceinline__ float reduce(float v) {
+    if constexpr (!kBf16) {
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+    }
+    return v;
   }
 };
 
@@ -509,75 +584,28 @@ __device__ __forceinline__ void half_matmul_bf16(const bf16* A, const bf16* W, i
   }
 }
 
-// float32 variant: thread (warp, lane) of the team owns rows 4*warp .. +4
-// and columns lane + 32*m; k runs in order with fmaf, as tile_matmul_f32
-// (K1).  W is the [out][in] weight in device memory, read through the
-// read-only cache.  epi(r, c, acc) for each element; with SUM it returns the
-// value stored, summed over the rows below `rows` into cs[m].
-template <int L, bool TRANS, bool SUM, class Epi>
-__device__ __forceinline__ void half_matmul_f32(const float* A, const float* W, int rows, Epi epi,
-                                                float* cs) {
-  constexpr int LD = L + Num<float>::PAD;
-  constexpr int TN = L / 32;
-  const int tx = threadIdx.x & 31, ty = team_tid() >> 5;
-  float acc[4][TN];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  for (int k = 0; k < L; k += 4) {
-    float4 a[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(A + (ty * 4 + i) * LD + k);
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = tx + 32 * j;
-      float4 w;
-      if constexpr (TRANS) {
-        w = make_float4(__ldg(W + (size_t)k * L + c), __ldg(W + (size_t)(k + 1) * L + c),
-                        __ldg(W + (size_t)(k + 2) * L + c), __ldg(W + (size_t)(k + 3) * L + c));
-      } else {
-        w = __ldg(reinterpret_cast<const float4*>(W + (size_t)c * L + k));
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float s = acc[i][j];
-        s = fmaf(a[i].x, w.x, s);
-        s = fmaf(a[i].y, w.y, s);
-        s = fmaf(a[i].z, w.z, s);
-        s = fmaf(a[i].w, w.w, s);
-        acc[i][j] = s;
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      if constexpr (SUM) {
-        const float val = epi(r, tx + 32 * j, acc[i][j]);
-        if (r < rows) cs[j] += val;
-      } else {
-        epi(r, tx + 32 * j, acc[i][j]);
-      }
-    }
-  }
+template <typename T, int L>
+template <bool TRANS, bool SUM, class Epi>
+__device__ __forceinline__ void BwdWeights<T, L>::product(const T* A, int layer, int, int rows, Epi epi,
+                                                          float* cs) {
+  half_matmul_bf16<L, TRANS, SUM>(reinterpret_cast<const bf16*>(A), Ws + layer * L * (L + 8), rows, epi, cs);
 }
 
+// this product's layer, landed; the next product's in flight if neither
+// buffer holds it
 template <int L>
-__device__ __forceinline__ void stage_weights_async(bf16* Ws, const BwdArgs& a) {
-  constexpr int CH = L * int(sizeof(bf16)) / 16;  // vectors per weight row
-  for (int i = threadIdx.x; i < 3 * L * CH; i += blockDim.x) {
-    const int m = i / (L * CH), rem = i - m * L * CH;
-    const int r = rem / CH, c = rem - r * CH;
-    const bf16* w = static_cast<const bf16*>(m == 0 ? a.we : (m == 1 ? a.w2 : a.w3));
-    cp_async16(Ws + (m * L + r) * (L + 8) + c * 8, w + (size_t)r * L + c * 8);
-  }
+template <bool TRANS, bool SUM, class Epi>
+__device__ __forceinline__ void BwdWeights<float, L>::product(const float* A, int layer, int next, int rows,
+                                                              Epi epi, float* cs) {
+  const int b = held0 == layer ? 0 : 1;
+  mbar_wait(bars + b, ((b == 0 ? load0 : load1) - 1) & 1);
+  if (held0 != next && held1 != next) issue(next, 1 - b);
+  WholeLayer<L> whole{bufs + b * layer_floats};
+  tile_matmul_f32<L, HT, TRANS, SUM>(A, whole, rows, epi, cs);
 }
 
 template <typename T, int L, bool STREAM>
-__global__ void __launch_bounds__(NTEAM * THREADS, 1) fused_block_bwd_kernel(const BwdArgs args) {
+__global__ void __launch_bounds__(nteam<T> * THREADS, 1) fused_block_bwd_kernel(const BwdArgs args) {
   using Nm = Num<T>;
   using Lay = BwdLayout<T, L>;
   using CS = ColSums<T, L>;
@@ -595,10 +623,11 @@ __global__ void __launch_bounds__(NTEAM * THREADS, 1) fused_block_bwd_kernel(con
   const T* const d2T = s.d2T;
   const float* const prm = s.prm;
   const int E = args.E, N = args.N;
-  const int work = args.G * args.B, stride = NTEAM * gridDim.x;
+  const int work = args.G * args.B, stride = Lay::NTEAM * gridDim.x;
 
   // prologue: the weights, the parameters and each team's first half tile
-  if constexpr (Lay::kBf16) stage_weights_async<L>(s.Ws, args);
+  BwdWeights<T, L> wts(smem);
+  wts.prologue(args, STREAM);
   Half cur = first_half<STREAM>(args, blockIdx.x + team * gridDim.x, work, stride);
   for (int c = threadIdx.x; c < L; c += blockDim.x) {
     s.prm[c] = STREAM ? 0.f : rnd<T>(args.b1[c]);
@@ -611,17 +640,10 @@ __global__ void __launch_bounds__(NTEAM * THREADS, 1) fused_block_bwd_kernel(con
   cp_async_wait_all();
   __syncthreads();
 
-  // A @ W^T (forward products) or A @ W (backward products) of layer `layer`
-  auto matmul = [&](auto trans, auto sum, const T* A, int layer, int rows, float* cs, auto epi) {
-    constexpr bool TR = decltype(trans)::value, SUM = decltype(sum)::value;
-    if constexpr (Lay::kBf16) {
-      half_matmul_bf16<L, TR, SUM>(reinterpret_cast<const bf16*>(A), s.Ws + layer * L * (L + 8),
-                                   rows, epi, cs);
-    } else {
-      const void* w = layer == 0 ? args.we : (layer == 1 ? args.w2 : args.w3);
-      half_matmul_f32<L, TR, SUM>(reinterpret_cast<const float*>(A), static_cast<const float*>(w),
-                                  rows, epi, cs);
-    }
+  // A @ W^T (forward products) or A @ W (backward products) of layer
+  // `layer`; `next`: the layer of the product after it (float32 streams it in)
+  auto matmul = [&](auto trans, auto sum, const T* A, int layer, int next, int rows, float* cs, auto epi) {
+    wts.template product<decltype(trans)::value, decltype(sum)::value>(A, layer, next, rows, epi, cs);
   };
   using Fwd = std::integral_constant<bool, false>;
   using Bwd = std::integral_constant<bool, true>;
@@ -651,7 +673,7 @@ __global__ void __launch_bounds__(NTEAM * THREADS, 1) fused_block_bwd_kernel(con
 
   const int warp = team_tid() >> 5, lane = threadIdx.x & 31;
   const int seg_end = args.row_ptr[N];  // the segments' end: E but for a masked tail
-  PhaseClock clk;
+  BwdClock clk;
   clk.start();
   for (int hp = 0; cur.w >= 0; ++hp) {
     if (hp > 0) {  // the prologue staged the first half tile
@@ -667,37 +689,35 @@ __global__ void __launch_bounds__(NTEAM * THREADS, 1) fused_block_bwd_kernel(con
 
     if constexpr (!STREAM) {  // K1's layers 1 and 2: a1 -> xT, a2 -> rT
       if constexpr (Lay::kBf16) {
-        matmul(Fwd{}, NoSum{}, eT, 0, rows, nullptr, [&](int r, int c, float acc0, float acc1) {
+        matmul(Fwd{}, NoSum{}, eT, 0, 1, rows, nullptr, [&](int r, int c, float acc0, float acc1) {
           Vec<T, 2>* xp = reinterpret_cast<Vec<T, 2>*>(xT + r * LDT + c);
           const Vec<T, 2> x = *xp;
           const Vec<T, 2> rr = *reinterpret_cast<const Vec<T, 2>*>(rT + r * LDT + c);
           *xp = Vec<T, 2>{{a1_value(acc0, c, x.v[0], rr.v[0]), a1_value(acc1, c + 1, x.v[1], rr.v[1])}};
         });
       } else {
-        matmul(Fwd{}, NoSum{}, eT, 0, rows, nullptr, [&](int r, int c, float acc) {
+        matmul(Fwd{}, NoSum{}, eT, 0, 1, rows, nullptr, [&](int r, int c, float acc) {
           xT[r * LDT + c] = a1_value(acc, c, xT[r * LDT + c], rT[r * LDT + c]);
         });
       }
       team_sync();
       if constexpr (Lay::kBf16) {
-        matmul(Fwd{}, NoSum{}, xT, 1, rows, nullptr, [&](int r, int c, float acc0, float acc1) {
-          *reinterpret_cast<Vec<T, 2>*>(rT + r * LDT + c) =
-              Vec<T, 2>{{a2_value(acc0, c), a2_value(acc1, c + 1)}};
+        matmul(Fwd{}, NoSum{}, xT, 1, 2, rows, nullptr, [&](int r, int c, float acc0, float acc1) {
+          *reinterpret_cast<Vec<T, 2>*>(rT + r * LDT + c) = Vec<T, 2>{{a2_value(acc0, c), a2_value(acc1, c + 1)}};
         });
       } else {
-        matmul(Fwd{}, NoSum{}, xT, 1, rows, nullptr,
+        matmul(Fwd{}, NoSum{}, xT, 1, 2, rows, nullptr,
                [&](int r, int c, float acc) { rT[r * LDT + c] = a2_value(acc, c); });
       }
       team_sync();
     }
     // K1's layer 3: z3 -> zT (in doT's rows)
     if constexpr (Lay::kBf16) {
-      matmul(Fwd{}, NoSum{}, rT, 2, rows, nullptr, [&](int r, int c, float acc0, float acc1) {
-        *reinterpret_cast<Vec<T, 2>*>(zT + r * LDZ + c) =
-            Vec<T, 2>{{z3_value(acc0, c), z3_value(acc1, c + 1)}};
+      matmul(Fwd{}, NoSum{}, rT, 2, 2, rows, nullptr, [&](int r, int c, float acc0, float acc1) {
+        *reinterpret_cast<Vec<T, 2>*>(zT + r * LDZ + c) = Vec<T, 2>{{z3_value(acc0, c), z3_value(acc1, c + 1)}};
       });
     } else {
-      matmul(Fwd{}, NoSum{}, rT, 2, rows, nullptr,
+      matmul(Fwd{}, NoSum{}, rT, 2, 2, rows, nullptr,
              [&](int r, int c, float acc) { zT[r * LDZ + c] = z3_value(acc, c); });
     }
     PROBE_SPLIT();
@@ -795,7 +815,7 @@ __global__ void __launch_bounds__(NTEAM * THREADS, 1) fused_block_bwd_kernel(con
     // dz2 = [a2 > 0] * rnd(dz3 @ W3) -> rT (over a2); dh = [a1 > 0] *
     // rnd(dz2 @ W2) -> xT (over a1); their column partials
     if constexpr (Lay::kBf16) {
-      matmul(Bwd{}, Sum{}, eT, 2, rows, cs_dz2, [&](int r, int c, float acc0, float acc1) {
+      matmul(Bwd{}, Sum{}, eT, 2, 1, rows, cs_dz2, [&](int r, int c, float acc0, float acc1) {
         Vec<T, 2>* p = reinterpret_cast<Vec<T, 2>*>(rT + r * LDT + c);
         const Vec<T, 2> gate = *p;
         const float2 out = make_float2(gated(acc0, gate.v[0]), gated(acc1, gate.v[1]));
@@ -803,7 +823,7 @@ __global__ void __launch_bounds__(NTEAM * THREADS, 1) fused_block_bwd_kernel(con
         return out;
       });
       team_sync();
-      matmul(Bwd{}, Sum{}, rT, 1, rows, cs_dh, [&](int r, int c, float acc0, float acc1) {
+      matmul(Bwd{}, Sum{}, rT, 1, 0, rows, cs_dh, [&](int r, int c, float acc0, float acc1) {
         Vec<T, 2>* p = reinterpret_cast<Vec<T, 2>*>(xT + r * LDT + c);
         const Vec<T, 2> gate = *p;
         const float2 out = make_float2(gated(acc0, gate.v[0]), gated(acc1, gate.v[1]));
@@ -811,13 +831,13 @@ __global__ void __launch_bounds__(NTEAM * THREADS, 1) fused_block_bwd_kernel(con
         return out;
       });
     } else {
-      matmul(Bwd{}, Sum{}, eT, 2, rows, cs_dz2, [&](int r, int c, float acc) {
+      matmul(Bwd{}, Sum{}, eT, 2, 1, rows, cs_dz2, [&](int r, int c, float acc) {
         const float out = gated(acc, rT[r * LDT + c]);
         rT[r * LDT + c] = Nm::from_f(out);
         return out;
       });
       team_sync();
-      matmul(Bwd{}, Sum{}, rT, 1, rows, cs_dh, [&](int r, int c, float acc) {
+      matmul(Bwd{}, Sum{}, rT, 1, 0, rows, cs_dh, [&](int r, int c, float acc) {
         const float out = gated(acc, xT[r * LDT + c]);
         xT[r * LDT + c] = Nm::from_f(out);
         return out;
@@ -871,11 +891,12 @@ __global__ void __launch_bounds__(NTEAM * THREADS, 1) fused_block_bwd_kernel(con
     store_tile<T, L, LDT>(static_cast<T*>(args.dz3) + eo, eT, cur.ts, rows);
     PROBE_SPLIT();
     clk.mark(6);
-    // de = rnd(do + dh @ We), from the fragments to device memory
+    // de = rnd(do + dh @ We), from the products to device memory; the next
+    // half tile's first product is K2's We or K3's W3
     {
       T* deb = static_cast<T*>(args.de) + eo + (size_t)cur.ts * L;
       if constexpr (Lay::kBf16) {
-        matmul(Bwd{}, NoSum{}, xT, 0, rows, nullptr, [&](int r, int c, float acc0, float acc1) {
+        matmul(Bwd{}, NoSum{}, xT, 0, STREAM ? 2 : 0, rows, nullptr, [&](int r, int c, float acc0, float acc1) {
           if (r < rows) {
             const float2 d = *reinterpret_cast<const float2*>(doT + r * LDF + c);
             *reinterpret_cast<Vec<T, 2>*>(deb + (size_t)r * L + c) =
@@ -883,7 +904,7 @@ __global__ void __launch_bounds__(NTEAM * THREADS, 1) fused_block_bwd_kernel(con
           }
         });
       } else {
-        matmul(Bwd{}, NoSum{}, xT, 0, rows, nullptr, [&](int r, int c, float acc) {
+        matmul(Bwd{}, NoSum{}, xT, 0, STREAM ? 2 : 0, rows, nullptr, [&](int r, int c, float acc) {
           if (r < rows) deb[(size_t)r * L + c] = Nm::from_f(doT[r * LDF + c] + acc);
         });
       }
@@ -894,14 +915,20 @@ __global__ void __launch_bounds__(NTEAM * THREADS, 1) fused_block_bwd_kernel(con
   }
 
   // this CTA's column sums: every team's and warp's partials, in order
+  cp_async_wait_all();  // float32: a layer issued for a product that did not come
   __syncthreads();
   clk.mark(8);
-  clk.flush();
+  clk.flush(HGN_BWD_PHASE_OUT);
   float* part = reinterpret_cast<float*>(smem + Lay::w_bytes + Lay::prm_bytes);  // [5][SLOTS][L]
   for (int i = threadIdx.x; i < 5 * Lay::SLOTS * L; i += blockDim.x) part[i] = 0.f;
   __syncthreads();
   const int slot = team * WARPS + warp;
   auto put = [&](int k, int c, float v) { part[(k * Lay::SLOTS + slot) * L + c] = v; };
+#pragma unroll
+  for (int m = 0; m < CS::N; ++m) {
+    cs_dh[m] = CS::reduce(cs_dh[m]);
+    cs_dz2[m] = CS::reduce(cs_dz2[m]);
+  }
   if (CS::owner()) {
 #pragma unroll
     for (int m = 0; m < CS::N; ++m) {
@@ -980,7 +1007,7 @@ int grid_cap() {
     if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
       return -(int)err;
     if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, fused_block_bwd_kernel<T, L, STREAM>, NTEAM * THREADS, Lay::total)) != cudaSuccess)
+             &per_sm, fused_block_bwd_kernel<T, L, STREAM>, Lay::NTEAM * THREADS, Lay::total)) != cudaSuccess)
       return -(int)err;
     cap[dev] = sms * (per_sm > 0 ? per_sm : 1);
   }
@@ -994,6 +1021,7 @@ int launch(const BwdArgs& a, cudaStream_t stream) {
   const long long work = (long long)a.G * a.B;
   if (work > 0x7fffffff || a.group_edges == nullptr) return -1;
   // one CTA per SM, fewer when the work is small: each item on its own team
+  constexpr int NTEAM = BwdLayout<T, L>::NTEAM;
   const int grid = (int)(work < (long long)NTEAM * cap ? (work + NTEAM - 1) / NTEAM : cap);
   if (grid > 0) {
     fused_block_bwd_kernel<T, L, STREAM>

@@ -5,11 +5,11 @@
 // saved extremum exactly (the TPU kernel's tie_tol = 0).  That compare holds
 // only if K2 recomputes, and K3 reconstructs, e2 bit for bit as K1 computed
 // it.  So the whole forward chain lives here, once: the tile products (same
-// fragment order; K2's and K3's half-tile products keep each element's
-// chain), the rounding points of each epilogue, and the LayerNorm
-// statistics (same per-lane order, same warp_sum butterfly, explicit
-// __fmaf_rn / __fmul_rn so that no compiler contraction can differ between
-// the kernels).
+// k order; K2's and K3's half-tile products keep each element's chain:
+// mma.sync m16n8k16 in bf16, an ordered fmaf chain in float32), the
+// rounding points of each epilogue, and the LayerNorm statistics (same
+// per-lane order, same warp_sum butterfly, explicit __fmaf_rn / __fmul_rn
+// so that no compiler contraction can differ between the kernels).
 
 #pragma once
 
@@ -62,9 +62,14 @@ struct alignas(sizeof(T) * N) Vec {
 };
 
 // A CTA runs one or more teams of THREADS threads, each on its own tile (K1,
-// K2, K3 and K7's compute CTAs run two).  The tile code indexes threads and warps
-// within its team and synchronizes only its team.
+// K2, K3 and K7's compute CTAs run two in bf16, one in float32: float32
+// weights fill the shared memory a second team's tiles would need).  The
+// tile code indexes threads and warps within its team and synchronizes only
+// its team.
 __device__ __forceinline__ int team_tid() { return threadIdx.x & (THREADS - 1); }
+
+template <typename T>
+constexpr int nteam = sizeof(T) == 2 ? 2 : 1;
 
 // Barrier of the calling thread's team (named barrier 1 + team).
 __device__ __forceinline__ void team_sync() {
@@ -205,43 +210,218 @@ __device__ __forceinline__ void tile_matmul_bf16(const bf16* A, const bf16* W, E
   }
 }
 
-// float32 variant: thread (ty, tx) of a 16 x 16 layout owns rows
-// 4*ty .. +4 and columns tx + 16*j; k runs in order.  W is the [out][in]
-// weight in device memory, read through the read-only cache.
-template <int L, class Epi>
-__device__ __forceinline__ void tile_matmul_f32(const float* A, const float* W, Epi epi) {
+// ---- float32 products on the CUDA cores, weights in shared memory ---------
+//
+// Every float32 product of K1, K2 and K3 sums each element in one fmaf chain
+// over k in order 0 .. L-1 (the order of the TPU kernel's and the plain
+// version's float32 dot product), so K2's and K3's recompute of a1, a2 and
+// z3 is K1's bit for bit whichever thread holds the element.  A thread owns
+// 4 rows x TN columns: lane (rg = lane & 3, cg = lane >> 2) of warp (wr, wc)
+// holds rows 16*wr + 4*i + rg and, for a forward product (out = A @ W^T),
+// columns wc*WC + cg + 8*j; for a transposed one (out = A @ W), columns
+// wc*WC + 32*(j / 4) + 4*cg + j % 4 (TN of 4 or more; else wc*WC + TN*cg +
+// j).  Each 4-k step loads a float4 of A per row and of W per column
+// (forward: W's row c; transposed: four neighbouring columns of W's rows k
+// .. k + 3), from shared memory without bank conflicts (A rows padded by 4;
+// W swizzled by wswz): 4 + TN loads for 16 TN fmaf, eight steps unrolled.
+// On an H100 the products ran at about half the FMA pipes' rate with two
+// warps a scheduler; neither loading the next step's operands under this
+// one's fmaf nor four warps with 8 x 8 tiles (the other four idle) was
+// faster (PERF.md).
+
+// A staged float32 weight keeps its [out][in] rows unpadded, the 16-byte
+// chunks of row r permuted within each 32 columns: column c sits at
+// c ^ wswz(r).  The 8 column groups' chunks of a forward product (rows c,
+// c & 7 = cg) and the 8 neighbouring chunks of a row of a transposed one
+// then fall on 32 different banks.
+__device__ __forceinline__ int wswz(int r) { return ((r & 3) << 3) | (r & 4); }
+
+// The columns of a lane of warp column wc0: tile_matmul_f32's layout
+template <int TN, bool TRANS>
+__device__ __forceinline__ int prod_col(int wc0, int cg, int j) {
+  if constexpr (!TRANS) return wc0 + cg + 8 * j;
+  if constexpr (TN >= 4) return wc0 + 32 * (j / 4) + 4 * cg + j % 4;
+  return wc0 + TN * cg + j;
+}
+
+// out = A @ W^T (TRANS false) or A @ W (TRANS true) for ROWS x L of a
+// float32 tile A (row stride L + 4) in the layout above.  W: wts.slab(h)
+// returns slab h of the product (its columns h*KS .. +KS for a forward
+// product, rows KS floats apart; the whole layer, rows L floats apart, for
+// a transposed one: KS = L), waiting for it; wts.done() after the last.
+// epi(r, c, acc) for each element, rows i then columns j; with SUM it
+// returns the value stored, summed over the rows below `rows` into cs[j].
+template <int L, int ROWS, bool TRANS, bool SUM, class Weights, class Epi>
+__device__ __forceinline__ void tile_matmul_f32(const float* A, Weights& wts, int rows, Epi epi, float* cs) {
   constexpr int LD = L + Num<float>::PAD;
-  constexpr int TN = L / 16;
-  const int tx = team_tid() & 15, ty = team_tid() >> 4;
+  constexpr int WR = ROWS / 16, WC = L / (WARPS / WR), TN = WC / 8;
+  constexpr int KS = Weights::KS, NH = L / KS;
+  static_assert(WR * (WARPS / WR) == WARPS && TN >= 1 && KS % 4 == 0, "the warps' tiles");
+  static_assert(!TRANS || KS == L, "a transposed product reads the whole layer");
+  static_assert(!TRANS || TN < 4 || TN % 4 == 0, "transposed columns come four at a time");
+  const int warp = team_tid() >> 5, lane = threadIdx.x & 31;
+  const int wr = warp % WR, wc0 = (warp / WR) * WC;
+  const int rg = lane & 3, cg = lane >> 2;
+  const int r0 = 16 * wr + rg;
   float acc[4][TN];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  for (int k = 0; k < L; k += 4) {
-    float4 a[4];
+#pragma unroll 1
+  for (int h = 0; h < NH; ++h) {
+    const float* const W = wts.slab(h);
+#pragma unroll 8
+    for (int kk = 0; kk < KS; kk += 4) {
+      const int k = h * KS + kk;
+      float4 a[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(A + (ty * 4 + i) * LD + k);
+      for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(A + (r0 + 4 * i) * LD + k);
+      if constexpr (TRANS) {
+        float w[4][TN];
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = tx + 16 * j;
-      const float4 w = __ldg(reinterpret_cast<const float4*>(W + (size_t)c * L + k));
+        for (int q = 0; q < 4; ++q) {
+          const float* row = W + (k + q) * L;
+          const int sw = wswz(k + q);
+          if constexpr (TN >= 4) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float s = acc[i][j];
-        s = fmaf(a[i].x, w.x, s);
-        s = fmaf(a[i].y, w.y, s);
-        s = fmaf(a[i].z, w.z, s);
-        s = fmaf(a[i].w, w.w, s);
-        acc[i][j] = s;
+            for (int j = 0; j < TN; j += 4) {
+              const float4 v = *reinterpret_cast<const float4*>(row + (prod_col<TN, true>(wc0, cg, j) ^ sw));
+              w[q][j] = v.x;
+              w[q][j + 1] = v.y;
+              w[q][j + 2] = v.z;
+              w[q][j + 3] = v.w;
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < TN; ++j) w[q][j] = row[prod_col<TN, true>(wc0, cg, j) ^ sw];
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            float s = acc[i][j];
+            s = fmaf(a[i].x, w[0][j], s);
+            s = fmaf(a[i].y, w[1][j], s);
+            s = fmaf(a[i].z, w[2][j], s);
+            s = fmaf(a[i].w, w[3][j], s);
+            acc[i][j] = s;
+          }
+      } else {
+        float4 w[TN];
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const int c = prod_col<TN, false>(wc0, cg, j);
+          w[j] = *reinterpret_cast<const float4*>(W + c * KS + (kk ^ wswz(c)));
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            float s = acc[i][j];
+            s = fmaf(a[i].x, w[j].x, s);
+            s = fmaf(a[i].y, w[j].y, s);
+            s = fmaf(a[i].z, w[j].z, s);
+            s = fmaf(a[i].w, w[j].w, s);
+            acc[i][j] = s;
+          }
       }
     }
   }
+  wts.done();
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + 4 * i;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) epi(ty * 4 + i, tx + 16 * j, acc[i][j]);
+    for (int j = 0; j < TN; ++j) {
+      const int c = prod_col<TN, TRANS>(wc0, cg, j);
+      if constexpr (SUM) {
+        const float v = epi(r, c, acc[i][j]);
+        if (r < rows) cs[j] += v;
+      } else {
+        epi(r, c, acc[i][j]);
+      }
+    }
+  }
 }
+
+// ---- mbarriers for the float32 weights' cp.async copies -------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// Arrive on bar once this thread's cp.async copies issued so far have
+// landed (the barrier's count includes this arrival).
+__device__ __forceinline__ void cp_async_arrive(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Until the phase of parity `parity` of bar has completed
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// Copy rows of a float32 [out][in] weight (row stride L in device memory)
+// into shared memory as the products read it: columns c0 .. c0 + KS of
+// every row, row stride KS, swizzled by wswz; every thread of the team.
+template <int L, int KS>
+__device__ __forceinline__ void stage_weight_cols(float* dst, const float* w, int c0) {
+  constexpr int CH = KS / 4;  // 16-byte chunks a row
+  for (int i = team_tid(); i < L * CH; i += THREADS) {
+    const int r = i / CH, c = (i - r * CH) * 4;
+    cp_async16(dst + r * KS + (c ^ wswz(r)), w + (size_t)r * L + c0 + c);
+  }
+}
+
+// Phase probe of a kernel built with its probe define (never the main
+// path's build; ON false: no code): thread 0 of each team reads clock64 at
+// the team barriers that end a tile's phases, adds each phase's cycles and
+// its tile count, and at the end adds them into `out` (NP + 1 device
+// counters) that the kernel's C reader returns and clears.
+template <int NP, bool ON>
+struct PhaseClock {
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void tile() {}
+  __device__ __forceinline__ void flush(unsigned long long*) {}
+};
+
+template <int NP>
+struct PhaseClock<NP, true> {
+  unsigned long long acc[NP];
+  unsigned long long tiles;
+  long long last;
+  __device__ __forceinline__ void start() {
+    for (int p = 0; p < NP; ++p) acc[p] = 0;
+    tiles = 0;
+    last = clock64();
+  }
+  __device__ __forceinline__ void mark(int p) {
+    const long long now = clock64();
+    acc[p] += now - last;
+    last = now;
+  }
+  __device__ __forceinline__ void tile() { ++tiles; }
+  __device__ __forceinline__ void flush(unsigned long long* out) {
+    if (team_tid() != 0) return;
+    for (int p = 0; p < NP; ++p) atomicAdd(&out[p], acc[p]);
+    atomicAdd(&out[NP], tiles);
+  }
+};
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

@@ -37,7 +37,7 @@
 //   only.  Because one team owns a group's segments, the
 //   aggregate needs no atomics and no second pass, and the result does not
 //   depend on scheduling.
-// - Two teams of 8 warps per CTA, one CTA per SM.  What sets K1's pace is
+// - bf16: two teams of 8 warps per CTA, one CTA per SM.  What sets K1's pace is
 //   the chain of one tile's phases, each ended by a barrier (gather, three
 //   products with their epilogues, LayerNorm, pna): with one team of 8
 //   warps an SM sat idle through each phase's tail and each load's latency
@@ -60,8 +60,19 @@
 //   own team.
 // - bf16: the products run on tensor cores with mma.sync m16n8k16 (bf16 in,
 //   float32 accumulate) from the staged weights ([out][in], rows padded by
-//   8), fragments by ldmatrix.  float32: float32 FMA in the same tile loop,
-//   weights read through the read-only cache.
+//   8), fragments by ldmatrix.  float32: on the CUDA cores, each element
+//   one fmaf chain over k in order (the plain version's and the TPU
+//   kernel's float32 order, kept bit for bit: tensor cores at float32
+//   accuracy, 3xTF32, moved e2 by a few units in the last place from the
+//   plain version's, and a long segment's float32 sum past the aggregate's
+//   tolerance; PERF.md), 4 x 8 outputs a thread, operands by float4 from
+//   shared memory (tile_matmul_f32, fused_block_common.cuh); one team a
+//   CTA, its weights streamed through a ring of six 16 KB column slabs
+//   (FwdWeights<float>, fused_block_fwd.cuh: 96 KB beside the team's 3 x
+//   33 KB tiles, where the three layers' 192 KB would not fit), each slab
+//   issued by cp.async when the product before frees its slot and waited
+//   for by an mbarrier.  What bounds it: the 3 x 2 x B x E x L^2 operations
+//   at the float32 FMA rate (257 us at cylinder's B = 16 on an H100).
 // - The pna gives each receiver a half warp (16 receivers of a team at a
 //   time) and loads four edges' rows before summing them in edge order.
 // - The chain h -> a1 -> a2 -> z3 -> LayerNorm -> e2 is the shared code of
@@ -72,6 +83,9 @@
 //   the team's shared memory (two slots, alternating by tile parity).
 // Later work: wgmma (with K2/K3, whose recompute must stay bit for bit),
 // TMA, a long segment's tiles spread over teams.
+//
+// Phase probe: -DHGN_FWD_PHASES builds a library of its own whose teams add
+// each phase's cycles (fused_block_fwd.cuh) for hgn_fused_block_fwd_phases.
 
 #include "fused_block_fwd.cuh"
 
@@ -79,16 +93,16 @@ namespace {
 
 using namespace hgn;
 
-constexpr int NTEAM = 2;  // teams of THREADS threads per CTA, each on its own tile
-
 template <typename T, int L>
-__global__ void __launch_bounds__(NTEAM * THREADS, 1) fused_block_fwd_kernel(const FwdArgs args) {
+__global__ void __launch_bounds__(nteam<T> * THREADS, 1) fused_block_fwd_kernel(const FwdArgs args) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int NTEAM = nteam<T>;
   fwd_teams<T, L, NTEAM>(args, smem, blockIdx.x + (int)(threadIdx.x / THREADS) * gridDim.x, NTEAM * gridDim.x);
 }
 
 template <typename T, int L>
 int launch(const FwdArgs& a, cudaStream_t stream) {
+  constexpr int NTEAM = nteam<T>;  // teams of THREADS threads per CTA, each on its own tile
   const int grid_cap = fwd_grid_cap<T, L, NTEAM>(fused_block_fwd_kernel<T, L>);
   if (grid_cap < 0) return -grid_cap;
   const long long work = (long long)a.G * a.B;
@@ -132,6 +146,34 @@ int hgn_fused_block_fwd(int dtype, int L, const void* e, const void* sp, const v
   if (dtype == 0) return dispatch_width<float>(L, a, s);
   if (dtype == 1) return dispatch_width<bf16>(L, a, s);
   return -1;
+}
+
+// Phase probe: with HGN_FWD_PHASES, writes the cycles of each phase summed
+// over every team's tiles since the last call, then the tile count, into
+// out[0 .. n), clears them and returns the number of phases; without it, -1.
+int hgn_fused_block_fwd_phases(unsigned long long* out, int n) {
+#ifdef HGN_FWD_PHASES
+  if (n < FWD_NPHASE + 1) return -1;
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(out, hgn_fwd_phase_cycles, sizeof(unsigned long long) * (FWD_NPHASE + 1));
+  const unsigned long long zero[FWD_NPHASE + 1] = {};
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(hgn_fwd_phase_cycles, zero, sizeof(zero));
+  return err == cudaSuccess ? FWD_NPHASE : -(int)err;
+#else
+  (void)out;
+  (void)n;
+  return -1;
+#endif
+}
+
+// The probe's phase names, comma-separated (empty without the probe).
+const char* hgn_fused_block_fwd_phase_names() {
+#ifdef HGN_FWD_PHASES
+  return HGN_FWD_PHASE_NAMES;
+#else
+  return "";
+#endif
 }
 
 const char* hgn_cuda_error_string(int code) {

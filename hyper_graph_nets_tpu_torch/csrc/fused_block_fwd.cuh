@@ -1,6 +1,7 @@
 // The fused edge-block forward of one tile of edges, and the loop of a CTA's
 // teams over work items, shared by K1 (fused_block_fwd.cu) and K7's compute
-// CTAs (fused_overlap.cu): two teams of a CTA on two tiles at once.
+// CTAs (fused_overlap.cu): in bf16 two teams of a CTA on two tiles at once,
+// in float32 one team with its weights streamed through shared memory.
 //
 // A work item is (batch element, group): a group is a run of whole receiver
 // segments holding at most TILE edges (a receiver with more edges forms its
@@ -76,16 +77,101 @@ __device__ __forceinline__ Vec<T, N> load_vec(const T* p) {
   }
 }
 
+// The three weights into shared memory by every thread of the CTA (bf16).
+template <int L>
+__device__ __forceinline__ void stage_weights_async(bf16* Ws, const FwdArgs& a) {
+  constexpr int CH = L * int(sizeof(bf16)) / 16;  // vectors per weight row
+  for (int i = threadIdx.x; i < 3 * L * CH; i += blockDim.x) {
+    const int m = i / (L * CH), rem = i - m * L * CH;
+    const int r = rem / CH, c = rem - r * CH;
+    const bf16* w = static_cast<const bf16*>(m == 0 ? a.we : (m == 1 ? a.w2 : a.w3));
+    cp_async16(Ws + (m * L + r) * (L + 8) + c * 8, w + (size_t)r * L + c * 8);
+  }
+}
+
+// The weights a CTA's products read, in shared memory.  bf16: all three,
+// staged once (rows padded by 8), shared by the teams.
+template <typename T, int L>
+struct FwdWeights {
+  static constexpr size_t bytes = align16(size_t(3) * L * (L + 8) * sizeof(bf16));
+  bf16* Ws;
+  __device__ explicit FwdWeights(unsigned char* smem) : Ws(reinterpret_cast<bf16*>(smem)) {}
+  __device__ void prologue(const FwdArgs& a) { stage_weights_async<L>(Ws, a); }
+  template <class Epi>
+  __device__ __forceinline__ void product(const T* A, int layer, Epi epi) {
+    tile_matmul_bf16<L>(reinterpret_cast<const bf16*>(A), Ws + layer * L * (L + 8), epi);
+  }
+};
+
+// float32 (one team a CTA): three float32 layers (192 KB at L = 128) do not
+// fit beside a team's tiles, so the weights stream through a ring of S =
+// NH + 2 slots, each KS = 32 input columns of one layer (wswz-swizzled rows
+// of 32 floats; 96 KB at L = 128), NH = L / 32 slots a product, in the
+// products' order (We, W2, W3, We, ...).  The prologue issues the first S; when
+// product p begins (after the team barrier that ended product p - 1) its
+// predecessor's NH slots are free and take the next NH slabs: p's own last
+// NH - (S - NH) slabs (landing under its first ones) and p + 1's first.
+// Each slot's mbarrier completes a phase per fill (every thread's cp.async
+// arrival); a product waits for each of its slabs.  A tile without rows
+// runs no product, and the ring stays in step: the order is per product.
+template <int L>
+struct FwdWeights<float, L> {
+  static constexpr int KS = 32;
+  static constexpr int NH = L / KS;
+  static constexpr int S = NH + 2;
+  static constexpr size_t slot_floats = size_t(L) * KS;
+  static constexpr size_t bar_bytes = 64;
+  static constexpr size_t bytes = bar_bytes + S * slot_floats * sizeof(float);
+  unsigned long long* bars;
+  float* slots;
+  const float *we, *w2, *w3;
+  int p;  // products begun
+
+  __device__ explicit FwdWeights(unsigned char* smem)
+      : bars(reinterpret_cast<unsigned long long*>(smem)),
+        slots(reinterpret_cast<float*>(smem + bar_bytes)),
+        p(0) {}
+
+  __device__ __forceinline__ void issue(int h) {  // slab h of the sequence
+    const int layer = (h / NH) % 3;
+    stage_weight_cols<L, KS>(slots + (h % S) * slot_floats, layer == 0 ? we : (layer == 1 ? w2 : w3),
+                             (h % NH) * KS);
+    cp_async_arrive(bars + h % S);
+    cp_async_commit();
+  }
+  __device__ void prologue(const FwdArgs& a) {
+    we = static_cast<const float*>(a.we);
+    w2 = static_cast<const float*>(a.w2);
+    w3 = static_cast<const float*>(a.w3);
+    static_assert(S * sizeof(unsigned long long) <= bar_bytes, "the slots' mbarriers");
+    if (threadIdx.x == 0)
+      for (int i = 0; i < S; ++i) mbar_init(bars + i, THREADS);
+    __syncthreads();
+    for (int h = 0; h < S; ++h) issue(h);
+  }
+  // the slab of columns h * KS .. of this product, landed
+  __device__ __forceinline__ const float* slab(int hh) {
+    const int h = NH * p + hh;
+    mbar_wait(bars + h % S, (h / S) & 1);
+    return slots + (h % S) * slot_floats;
+  }
+  __device__ __forceinline__ void done() { ++p; }
+  template <class Epi>
+  __device__ __forceinline__ void product(const float* A, int, Epi epi) {
+    if (p > 0)
+      for (int h = NH * (p - 1) + S; h < NH * p + S; ++h) issue(h);
+    tile_matmul_f32<L, TILE, false, false>(A, *this, TILE, epi, nullptr);
+  }
+};
+
 // A CTA runs NTEAM teams of THREADS threads, each on its own tiles, with its
-// own tile buffers and segment carry: K1 and K7 two (one team's loads and
-// barrier waits overlap the other's products).  The weights and parameters
-// are staged once per CTA and shared.
+// own tile buffers and segment carry: K1 and K7 two in bf16 (one team's
+// loads and barrier waits overlap the other's products), one in float32.
+// The weights and parameters are staged once per CTA and shared.
 template <typename T, int L, int NTEAM = 1>
 struct FwdLayout {
-  static constexpr bool kBf16 = sizeof(T) == 2;
   static constexpr int LDT = L + Num<T>::PAD;  // tile row stride (elements)
-  static constexpr int LDW = L + 8;            // staged weight row stride (bf16)
-  static constexpr size_t w_bytes = kBf16 ? align16(size_t(3) * L * LDW * sizeof(bf16)) : 0;
+  static constexpr size_t w_bytes = FwdWeights<T, L>::bytes;
   static constexpr size_t tile_bytes = align16(size_t(TILE) * LDT * sizeof(T));
   static constexpr size_t prm_bytes = align16(size_t(5) * L * sizeof(float));
   static constexpr size_t carry_bytes = align16(size_t(2) * (3 * L + 1) * sizeof(float));
@@ -97,7 +183,6 @@ struct FwdLayout {
 // One team's view of the CTA's shared arrays.
 template <typename T>
 struct FwdSmem {
-  bf16* Ws;      // staged weights (bf16 only), shared by the teams
   float* prm;    // b1 b2 b3 (rounded), lns, lnb, shared by the teams
   T* eT;         // e, then e2
   T* xT;         // SP rows, then a1, then z3
@@ -112,7 +197,6 @@ template <typename T, int L, int NTEAM>
 __device__ __forceinline__ FwdSmem<T> fwd_carve(unsigned char* smem, int team) {
   using Lay = FwdLayout<T, L, NTEAM>;
   FwdSmem<T> s;
-  s.Ws = reinterpret_cast<bf16*>(smem);
   s.prm = reinterpret_cast<float*>(smem + Lay::w_bytes);
   unsigned char* g = smem + Lay::w_bytes + Lay::prm_bytes + team * Lay::team_bytes;
   s.eT = reinterpret_cast<T*>(g);
@@ -124,6 +208,20 @@ __device__ __forceinline__ FwdSmem<T> fwd_carve(unsigned char* smem, int team) {
   s.carry = reinterpret_cast<float*>(g + 3 * Lay::tile_bytes + Lay::idx_bytes);
   return s;
 }
+
+// Phase probe of K1 (HGN_FWD_PHASES, never set by the main path's build):
+// the tile's wait for its rows at the tile boundary, each product with its
+// epilogue, the streams' stores, the LayerNorm, the pna.
+#ifdef HGN_FWD_PHASES
+#define HGN_FWD_PHASE_NAMES "wait,l1,l2,streams,l3,ln,pna"
+constexpr int FWD_NPHASE = 7;
+__device__ unsigned long long hgn_fwd_phase_cycles[FWD_NPHASE + 1];
+using FwdClock = PhaseClock<FWD_NPHASE, true>;
+#define HGN_FWD_PHASE_OUT hgn_fwd_phase_cycles
+#else
+using FwdClock = PhaseClock<7, false>;
+#define HGN_FWD_PHASE_OUT nullptr
+#endif
 
 // The rounded biases and the LayerNorm parameters into shared memory (all
 // threads of the CTA).
@@ -139,17 +237,19 @@ __device__ __forceinline__ void fwd_params(const FwdArgs& args, float* prm) {
 }
 
 // One tile of work item (b, n0 .. n1): edges ts .. te, the item's t-th
-// tile, whose rows (and mask) are staged in s.  Every thread of the team
-// calls it; it ends in the team's barrier.  hook(0) runs first, hook(1)
-// once rT is free (after the third product) and hook(2) once xT is free
-// (after the LayerNorm): K1 loads its next tile's indices at 0 and starts
-// the copies of its RP rows at 1 and of its SP rows at 2, so that they land
-// while this tile finishes.
+// tile, whose rows (and mask) are staged in s; wts holds the weights.  Every
+// thread of the team calls it; it ends in the team's barrier.  hook(0) runs
+// first, hook(1) once rT is free (after the third product) and hook(2) once
+// xT is free (after the LayerNorm): K1 loads its next tile's indices at 0
+// and starts the copies of its RP rows at 1 and of its SP rows at 2, so
+// that they land while this tile finishes.  clk: K1's phase probe.
 template <typename T, int L, class Hook>
-__device__ __forceinline__ void fwd_tile(const FwdArgs& args, const FwdSmem<T>& s, int b, int n0,
-                                         int n1, int t, int ts, int te, Hook hook) {
+__device__ __forceinline__ void fwd_tile(const FwdArgs& args, const FwdSmem<T>& s, FwdWeights<T, L>& wts,
+                                         FwdClock& clk, int b, int n0, int n1, int t, int ts, int te,
+                                         Hook hook) {
   using Nm = Num<T>;
   using Lay = FwdLayout<T, L>;
+  constexpr bool kBf16 = sizeof(T) == 2;
   constexpr int LDT = Lay::LDT;
   constexpr int CPL = L / 32;  // columns per lane in the row phases
   T* const eT = s.eT;
@@ -157,16 +257,6 @@ __device__ __forceinline__ void fwd_tile(const FwdArgs& args, const FwdSmem<T>& 
   T* const rT = s.rT;
   const float* const prm = s.prm;
   float* const carry = s.carry;
-
-  auto matmul = [&](const T* A, int layer, auto epi) {
-    if constexpr (Lay::kBf16) {
-      tile_matmul_bf16<L>(reinterpret_cast<const bf16*>(A), s.Ws + layer * L * (L + 8), epi);
-    } else {
-      const void* w = layer == 0 ? args.we : (layer == 1 ? args.w2 : args.w3);
-      tile_matmul_f32<L>(reinterpret_cast<const float*>(A), static_cast<const float*>(w),
-                                epi);
-    }
-  };
 
   const bool streams = args.a1 != nullptr;
   const bool raw = args.raw != 0;
@@ -201,45 +291,47 @@ __device__ __forceinline__ void fwd_tile(const FwdArgs& args, const FwdSmem<T>& 
   hook(0);
   if (rows > 0) {
     // layer 1 (factored): h = ((e@We + SP[snd]) + RP[rcv]) + b1; a1 -> xT
-    if constexpr (Lay::kBf16) {
-      matmul(eT, 0, [&](int r, int c, float acc0, float acc1) {
+    if constexpr (kBf16) {
+      wts.product(eT, 0, [&](int r, int c, float acc0, float acc1) {
         Vec<T, 2>* xp = reinterpret_cast<Vec<T, 2>*>(xT + r * LDT + c);
         const Vec<T, 2> x = *xp;
         const Vec<T, 2> rr = *reinterpret_cast<const Vec<T, 2>*>(rT + r * LDT + c);
         *xp = Vec<T, 2>{{a1_value(acc0, c, x.v[0], rr.v[0]), a1_value(acc1, c + 1, x.v[1], rr.v[1])}};
       });
     } else {
-      matmul(eT, 0, [&](int r, int c, float acc) {
+      wts.product(eT, 0, [&](int r, int c, float acc) {
         xT[r * LDT + c] = a1_value(acc, c, xT[r * LDT + c], rT[r * LDT + c]);
       });
     }
     team_sync();
+    clk.mark(1);
     // layer 2: a2 = relu(a1@W2 + b2) -> rT
-    if constexpr (Lay::kBf16) {
-      matmul(xT, 1, [&](int r, int c, float acc0, float acc1) {
-        *reinterpret_cast<Vec<T, 2>*>(rT + r * LDT + c) =
-            Vec<T, 2>{{a2_value(acc0, c), a2_value(acc1, c + 1)}};
+    if constexpr (kBf16) {
+      wts.product(xT, 1, [&](int r, int c, float acc0, float acc1) {
+        *reinterpret_cast<Vec<T, 2>*>(rT + r * LDT + c) = Vec<T, 2>{{a2_value(acc0, c), a2_value(acc1, c + 1)}};
       });
     } else {
-      matmul(xT, 1, [&](int r, int c, float acc) { rT[r * LDT + c] = a2_value(acc, c); });
+      wts.product(xT, 1, [&](int r, int c, float acc) { rT[r * LDT + c] = a2_value(acc, c); });
     }
     team_sync();
+    clk.mark(2);
     if (streams) {  // a1 leaves before layer 3 overwrites it
       const size_t o = (size_t)b * E * L;
       store_tile<T, L, LDT>(static_cast<T*>(args.a1) + o, xT, ts, rows);
       store_tile<T, L, LDT>(static_cast<T*>(args.a2) + o, rT, ts, rows);
       team_sync();
     }
+    clk.mark(3);
     // layer 3: z3 = a2@W3 + b3 -> xT
-    if constexpr (Lay::kBf16) {
-      matmul(rT, 2, [&](int r, int c, float acc0, float acc1) {
-        *reinterpret_cast<Vec<T, 2>*>(xT + r * LDT + c) =
-            Vec<T, 2>{{z3_value(acc0, c), z3_value(acc1, c + 1)}};
+    if constexpr (kBf16) {
+      wts.product(rT, 2, [&](int r, int c, float acc0, float acc1) {
+        *reinterpret_cast<Vec<T, 2>*>(xT + r * LDT + c) = Vec<T, 2>{{z3_value(acc0, c), z3_value(acc1, c + 1)}};
       });
     } else {
-      matmul(rT, 2, [&](int r, int c, float acc) { xT[r * LDT + c] = z3_value(acc, c); });
+      wts.product(rT, 2, [&](int r, int c, float acc) { xT[r * LDT + c] = z3_value(acc, c); });
     }
     team_sync();
+    clk.mark(4);
     hook(1);
 
     // LayerNorm with float32 statistics, residual in the compute type; one
@@ -279,6 +371,7 @@ __device__ __forceinline__ void fwd_tile(const FwdArgs& args, const FwdSmem<T>& 
       }
     }
     team_sync();
+    clk.mark(5);
     hook(2);
   } else {
     hook(1);
@@ -392,6 +485,7 @@ __device__ __forceinline__ void fwd_tile(const FwdArgs& args, const FwdSmem<T>& 
     }
   }
   team_sync();
+  clk.mark(6);
 }
 
 static_assert(THREADS == 4 * TILE, "a quarter row of a tile per thread");
@@ -477,18 +571,6 @@ __device__ __forceinline__ void load_rows_async(const FwdArgs& a, const RowLoad&
   cp_async_commit();
 }
 
-// The three weights into shared memory by every thread of the CTA.
-template <int L>
-__device__ __forceinline__ void stage_weights_async(bf16* Ws, const FwdArgs& a) {
-  constexpr int CH = L * int(sizeof(bf16)) / 16;  // vectors per weight row
-  for (int i = threadIdx.x; i < 3 * L * CH; i += blockDim.x) {
-    const int m = i / (L * CH), rem = i - m * L * CH;
-    const int r = rem / CH, c = rem - r * CH;
-    const bf16* w = static_cast<const bf16*>(m == 0 ? a.we : (m == 1 ? a.w2 : a.w3));
-    cp_async16(Ws + (m * L + r) * (L + 8) + c * 8, w + (size_t)r * L + c * 8);
-  }
-}
-
 // The teams' loop of a CTA (K1's kernel, and K7's compute CTAs): NTEAM teams,
 // each starting at work item `first` (the caller gives each team its own)
 // and striding by `stride` items.  The prologue issues the
@@ -509,10 +591,11 @@ __device__ __forceinline__ void fwd_teams(const FwdArgs& args, unsigned char* sm
                                           ItemDone item_done = {}) {
   const int team = threadIdx.x / THREADS;
   const FwdSmem<T> s = fwd_carve<T, L, NTEAM>(smem, team);
+  FwdWeights<T, L> wts(smem);
   const int work = args.G * args.B;
 
   // prologue: the weights and each team's first tile in flight together
-  if constexpr (FwdLayout<T, L>::kBf16) stage_weights_async<L>(s.Ws, args);
+  wts.prologue(args);
   fwd_params<T, L>(args, s.prm);
   Item cur = load_item(args, first, work);
   int t = 0;
@@ -524,12 +607,15 @@ __device__ __forceinline__ void fwd_teams(const FwdArgs& args, unsigned char* sm
   cp_async_wait_all();
   __syncthreads();  // weights, parameters and every team's first tile have landed
 
+  FwdClock clk;
+  clk.start();
   while (cur.w >= 0) {
     Item after;
     int at;
     next_tile(args, nxt, nt, work, stride, after, at);  // its edge range, a tile early
     const int ts = cur.e0 + t * TILE, te = min(ts + TILE, cur.e1);
-    fwd_tile<T, L>(args, s, cur.b, cur.n0, cur.n1, t, ts, te, [&](int stage) {
+    clk.tile();
+    fwd_tile<T, L>(args, s, wts, clk, cur.b, cur.n0, cur.n1, t, ts, te, [&](int stage) {
       if (stage == 0) {
         rl = load_indices(args, nxt, nt);
       } else {
@@ -542,11 +628,13 @@ __device__ __forceinline__ void fwd_teams(const FwdArgs& args, unsigned char* sm
     load_rows_async<T, L>(args, rl, s, 0);  // fwd_tile ended in the team's barrier
     cp_async_wait_all();
     team_sync();
+    clk.mark(0);
     cur = nxt;
     t = nt;
     nxt = after;
     nt = at;
   }
+  clk.flush(HGN_FWD_PHASE_OUT);
 }
 
 // Set the kernel's dynamic shared memory (NTEAM teams of THREADS threads)
@@ -554,7 +642,7 @@ __device__ __forceinline__ void fwd_teams(const FwdArgs& args, unsigned char* sm
 // (negated error code on failure).  The attribute is per device, so the
 // state is kept per device ordinal (and per instantiation).
 template <typename T, int L, int NTEAM = 1, class Kernel>
-int fwd_grid_cap(Kernel kernel) {
+static int fwd_grid_cap(Kernel kernel) {  // static: each library keeps its own state
   static int cap[MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);

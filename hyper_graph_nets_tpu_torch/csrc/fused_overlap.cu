@@ -28,8 +28,8 @@
 // - The node rows are split into nb bands of rb rows (the wrapper splits
 //   each of the plan's bands into sub-bands, so that about half a rank's
 //   CTAs ring).  CTAs 0 .. nb-1 are the band rings; the others compute.
-// - Compute CTAs run K1's two teams of 8 warps sharing the staged weights
-//   (fwd_teams), persistent over the work list the wrapper builds: the
+// - Compute CTAs run K1's teams (two of 8 warps sharing the staged weights
+//   in bf16, one with the streamed weights in float32: fwd_teams), persistent over the work list the wrapper builds: the
 //   groups of the shard's valid prefix (whole receiver segments, in receiver
 //   order), then the padded tail (the trailing edges with mask 0) as e2-only
 //   items of at most TILE edges with no receivers.  So the tail's padding
@@ -59,7 +59,6 @@ namespace {
 using namespace hgn;
 using namespace hgn_ring;
 
-constexpr int NTEAM = 2;      // compute CTAs: K1's teams
 #ifndef HGN_RING_CHUNK  // a tuning build's (tools/torch_port/ring_sweep.py)
 #define HGN_RING_CHUNK 16384
 #endif
@@ -122,7 +121,7 @@ __device__ void band_ring_row(const FwdArgs& args, const OvArgs& ov, unsigned ch
   };
   // chunks of whole rows: at most CHUNK floats, and NSTAGE stages and one
   // accumulator within the compute CTAs' shared memory
-  constexpr size_t SMEM = FwdLayout<T, L, NTEAM>::total;
+  constexpr size_t SMEM = FwdLayout<T, L, nteam<T>>::total;
   constexpr int ROW = 4 * L;
   constexpr int FIT = (int)((SMEM - BAR_BYTES) / sizeof(float) / (NSTAGE + 1)) / ROW * ROW;
   static_assert(FIT >= ROW, "a ring chunk of one row must fit beside the stages");
@@ -155,9 +154,10 @@ __device__ void band_ring(const FwdArgs& args, const OvArgs& ov, unsigned char* 
 }
 
 template <typename T, int L>
-__global__ void __launch_bounds__(NTEAM * THREADS, 1) fused_overlap_kernel(const FwdArgs args,
-                                                                           const OvArgs ov) {
+__global__ void __launch_bounds__(nteam<T> * THREADS, 1) fused_overlap_kernel(const FwdArgs args,
+                                                                              const OvArgs ov) {
   extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int NTEAM = nteam<T>;
   if ((int)blockIdx.x < ov.nb) {
     band_ring<T, L>(args, ov, smem);
     return;
@@ -226,6 +226,7 @@ int launch_group(int n, int ring_n, int B, const OvRank* ranks, int N, int nb, i
     const OvRank& k = ranks[r];
     cudaError_t e = cudaSetDevice(k.device);
     if (e != cudaSuccess) return (int)e;
+    constexpr int NTEAM = nteam<T>;
     const int cap = fwd_grid_cap<T, L, NTEAM>(fused_overlap_kernel<T, L>);
     if (cap < 0) return -cap;
     if (k.grid <= nb || k.grid > cap) return -1;

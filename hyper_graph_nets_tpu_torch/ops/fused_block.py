@@ -182,6 +182,23 @@ def plan_segments(
 
 
 # -- plain versions ----------------------------------------------------------
+#
+# float64 inputs run the same chain in float64 throughout, statistics and
+# sums too: the float64 product of the chain that the float32 kernels' and
+# plain versions' errors are measured against.
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the chain's accumulation type: float64 for float64, else
+    float32."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
+def _chain_weights(weights, dtype):
+    """The weights as a float64 chain reads them (float64), else as given."""
+    if dtype != torch.float64:
+        return weights
+    return {k: v.double() for k, v in weights.items()}
 
 
 def _edge_mlp_reference(e, sp, rp, weights, senders, receivers):
@@ -190,7 +207,7 @@ def _edge_mlp_reference(e, sp, rp, weights, senders, receivers):
     first-layer sum runs left to right, each add rounded; bias adds run in
     ``e.dtype``."""
     cdt = e.dtype
-    cd = None if cdt == torch.float32 else cdt
+    cd = None if cdt in (torch.float32, torch.float64) else cdt
     h = dense(e, weights["we"], cd) + sp[..., senders.long(), :]
     h = h + rp[..., receivers.long(), :]
     a1 = torch.relu(h + weights["b1"].to(cdt))
@@ -200,21 +217,21 @@ def _edge_mlp_reference(e, sp, rp, weights, senders, receivers):
 
 def _z3_from_a2(a2, weights):
     cdt = a2.dtype
-    cd = None if cdt == torch.float32 else cdt
+    cd = None if cdt in (torch.float32, torch.float64) else cdt
     return dense(a2, weights["w3"], cd) + weights["b3"].to(cdt)
 
 
 def _ln_stats(z3):
     """float32 LayerNorm mean and inverse sigma, ``[..., E, 1]``."""
-    z = z3.float()
+    z = _wide(z3)
     mu = z.mean(dim=-1, keepdim=True)
     xc = z - mu
     return mu, torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + LN_EPS)
 
 
 def _xhat_e2(e, z3, mu, isg, weights):
-    xhat = (z3.float() - mu) * isg
-    o = xhat * weights["lns"].float() + weights["lnb"].float()
+    xhat = (_wide(z3) - mu) * isg
+    o = xhat * _wide(weights["lns"]) + _wide(weights["lnb"])
     return xhat, e + o.to(e.dtype)
 
 
@@ -237,17 +254,19 @@ def fused_edge_block_reference(
     a receiver has no valid edge), the JAX kernel's ``finalize=False``.
 
     LayerNorm statistics are float32; the aggregate sums the rounded ``e2``
-    in float32.  Autograd through this function splits a max/min cotangent
-    among tied edges (``scatter_reduce``); :class:`FusedEdgeBlock` gives each
-    tied edge all of it, as the JAX package does.
+    in float32 (float64 inputs: everything in float64).  Autograd through
+    this function splits a max/min cotangent among tied edges
+    (``scatter_reduce``); :class:`FusedEdgeBlock` gives each tied edge all
+    of it, as the JAX package does.
     """
+    weights = _chain_weights(weights, e.dtype)
     a1, a2, z3 = _edge_mlp_reference(e, sp, rp, weights, senders, receivers)
     mu, isg = _ln_stats(z3)
     _, e2 = _xhat_e2(e, z3, mu, isg, weights)
     if raw:
-        agg = segment_ops.pna_partials(e2.float(), receivers, num_nodes, mask)
+        agg = segment_ops.pna_partials(_wide(e2), receivers, num_nodes, mask)
     else:
-        agg = segment_ops.aggregate(e2.float(), receivers, num_nodes, "pna", mask)
+        agg = segment_ops.aggregate(_wide(e2), receivers, num_nodes, "pna", mask)
     if save_streams:
         return e2, agg, a1, a2, mu[..., 0], isg[..., 0]
     return e2, agg
@@ -273,33 +292,33 @@ def _backward_reference(
     equal bit for bit when the forward ran this same code); ``tie_tol``
     widens the compare (:func:`ties`)."""
     cdt = e.dtype
-    cd = None if cdt == torch.float32 else cdt
+    cd = None if cdt in (torch.float32, torch.float64) else cdt
     L = e.shape[-1]
     xhat, e2_re = _xhat_e2(e, z3, mu, isg, weights)
-    e2v = (e2_re if e2 is None else e2).float()
+    e2v = _wide(e2_re if e2 is None else e2)
     # the kernel reads drhs in the compute type; each edge its receiver's row
-    got = drhs.to(cdt).float()[..., receivers.long(), :]
+    got = _wide(drhs.to(cdt))[..., receivers.long(), :]
     g1, mx, gmx, mn, gmn = got.split(L, dim=-1)
     route = g1 + torch.where(ties(e2v, mx, tie_tol), gmx, 0.0)  # every tied edge: all of it
     route = route + torch.where(ties(e2v, mn, tie_tol), gmn, 0.0)
     valid = None if mask is None else (mask > 0)[:, None]
     if valid is not None:
         route = torch.where(valid, route, 0.0)
-    do = de2.float() + route
-    dxhat = do * weights["lns"].float()
+    do = _wide(de2) + route
+    dxhat = do * _wide(weights["lns"])
     m1 = dxhat.mean(dim=-1, keepdim=True)
     m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
     dz3 = ((dxhat - m1 - xhat * m2) * isg).to(cdt)
     # backward products: dense(x, w.T) = x @ w for an [out, in] weight
     dz2 = torch.where(a2 > 0, dense(dz3, weights["w3"].T, cd), 0.0)
     dh = torch.where(a1 > 0, dense(dz2, weights["w2"].T, cd), 0.0)
-    de = (do + dh.float() @ weights["we"].to(cdt).float()).to(cdt)
-    dh32 = dh.float() if valid is None else torch.where(valid, dh.float(), 0.0)
+    de = (do + _wide(dh) @ _wide(weights["we"].to(cdt))).to(cdt)
+    dh32 = _wide(dh) if valid is None else torch.where(valid, _wide(dh), 0.0)
     node_shape = e.shape[:-2] + (num_nodes, L)
     nd = len(node_shape) - 2
     dsp = dh32.new_zeros(node_shape).index_add_(nd, senders.long(), dh32)
     drp = dh32.new_zeros(node_shape).index_add_(nd, receivers.long(), dh32)
-    cols = lambda x: x.float().reshape(-1, L).sum(dim=0)
+    cols = lambda x: _wide(x).reshape(-1, L).sum(dim=0)
     dpar = torch.stack([cols(dh), cols(dz2), cols(dz3), cols(do * xhat), cols(do)])
     return de, dh, dz2, dz3, dsp, drp, dpar
 
@@ -322,11 +341,16 @@ def fused_edge_block_bwd_reference(
     product summed in another order may move an ``h`` within one rounding
     of 0 to the other side, or break a tie.
 
-    ``tie_tol`` widens the tie compare (:func:`ties`; the hybrid's)."""
+    ``tie_tol`` widens the tie compare (:func:`ties`; the hybrid's).
+    float64 inputs (``e``, ``sp``, ``rp``, ``de2``; ``drhs`` and ``forward``
+    are widened) run the chain in float64."""
+    weights = _chain_weights(weights, e.dtype)
     if forward is None:
         a1, a2, z3 = _edge_mlp_reference(e, sp, rp, weights, senders, receivers)
         e2 = None
     else:
+        if e.dtype == torch.float64:
+            forward = tuple(t.double() for t in forward)
         e2, a1, a2 = forward
         z3 = _z3_from_a2(a2, weights)
     mu, isg = _ln_stats(z3)
@@ -346,6 +370,7 @@ def fused_edge_block_bwd_stream_reference(
     ``(de, dh, dz2, dz3, dsp, drp, dpar)``; ``e2``, when given, is the
     forward's output for the tie compare (see
     :func:`fused_edge_block_bwd_reference`)."""
+    weights = _chain_weights(weights, e.dtype)
     return _backward_reference(
         e, a1, a2, _z3_from_a2(a2, weights), mu[..., None], isg[..., None], weights, de2, drhs,
         senders, receivers, mask, num_nodes, e2,
@@ -367,8 +392,9 @@ _libs: Dict[tuple, ctypes.CDLL] = {}
 
 def _lib(source: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     """The built library of ``source`` with its C signatures, loaded at
-    first launch.  ``defines`` name a probe build (``HGN_BWD_PHASES``), a
-    library of its own that the main path never loads."""
+    first launch.  ``defines`` name a probe build (``HGN_FWD_PHASES`` for
+    K1, ``HGN_BWD_PHASES`` for K2/K3), a library of its own that the main
+    path never loads."""
     key = (source, tuple(defines))
     if key not in _libs:
         from hyper_graph_nets_tpu_torch.ops import build
@@ -445,11 +471,13 @@ def _resolve_plan(plan, senders, receivers, num_nodes, device) -> SegmentPlan:
     return plan
 
 
-def _k1_launch(e, sp, rp, weights, senders, receivers, mask, num_nodes, plan, save_streams, raw):
+def _k1_launch(e, sp, rp, weights, senders, receivers, mask, num_nodes, plan, save_streams, raw, lib=None):
+    """One launch of K1 on the current stream.  ``lib``: another build of
+    the source (the phase probe), else the main path's."""
     plan = _resolve_plan(plan, senders, receivers, num_nodes, e.device)
     B, E, L = _validate(e, {"sp": sp, "rp": rp}, senders, receivers, mask, num_nodes, plan)
     w, p = _kernel_weights(weights, e.dtype, L, e.device)
-    lib = _lib(FWD_SOURCE)
+    lib = lib or _lib(FWD_SOURCE)
     e2 = torch.empty_like(e)
     agg = torch.empty((B, num_nodes, 4 * L), dtype=torch.float32, device=e.device)
     streams = ()

@@ -11,6 +11,15 @@ several kernel tiles, or exactly tied edges), a small flag MeshGraphNets
 predictor and a 2-block training step are held against the same state on
 the CPU.
 
+float32 K1 and K2 (one team a CTA, weights streamed through shared memory,
+ordered fmaf chains) are also held at configs/cylinder.yaml's and
+plate.yaml's meshes (B = 16), on a partial last tile, a 120-edge segment,
+receivers without edges and a masked tail, against the float64 chain (the
+plain versions on float64 inputs: each kernel's largest error at most 4x
+the plain float32 version's), with planted float32 ties whose cotangent
+reaches every tied edge, and K7's float32 e2 against K1 raw's on
+cylinder's shards, bit for bit.
+
 Tolerances: float32 rtol = atol = 1e-5 (summation order).  bf16: e2 within
 rtol = 2**-7, atol = 2**-5 and the aggregate within rtol = atol = 2**-5
 (both sides round at the same points; an element differs only where a sum
@@ -364,14 +373,97 @@ def test_k2_k3_kernels_match_plain(dtype, L, case):
     _assert_bwd_close(k3, ref3, dtype)
 
 
+def _f32_k1_k2_checks(t, w, topo, plan, seed=3):
+    """K1 and K2 in float32 against their plain versions and against the
+    float64 chain (the plain versions on float64 inputs: on each product
+    output, e2 and de, dh, dz2, dz3, the kernel's largest error at most
+    chip_smoke.F64_RATIO times the plain float32 version's); K2's a1/a2
+    equal to K1's streams."""
+    from chip_smoke import hold_to_f64
+
+    e, sp, rp = t["e"], t["sp"], t["rp"]
+    e2, agg = fused_edge_block(e, sp, rp, w, *topo, plan=plan)
+    re2, ragg = fused_edge_block_reference(e, sp, rp, w, *topo)
+    (er, ea), (gr, ga) = TOLS[torch.float32]["e2"], TOLS[torch.float32]["agg"]
+    torch.testing.assert_close(e2, re2, rtol=er, atol=ea)
+    torch.testing.assert_close(agg, ragg, rtol=gr, atol=ga)
+    wide = {k: v.double() for k, v in t.items()}
+    e2d, _ = fused_edge_block_reference(wide["e"], wide["sp"], wide["rp"], w, *topo)
+    hold_to_f64("K1", {"e2": (e2, re2, e2d)})
+    fwd = fused_edge_block_fwd(e, sp, rp, w, *topo, plan=plan, save_streams=True)
+    gen = torch.Generator().manual_seed(seed)
+    de2 = torch.randn(e.shape, generator=gen).cuda()
+    dagg = torch.randn(agg.shape, generator=gen).cuda()
+    drhs = agg_cotangent_rhs(fwd[1], dagg, topo[1], topo[2], topo[3])
+    got = fused_edge_block_bwd(e, sp, rp, w, de2, drhs, *topo, plan=plan)
+    assert torch.equal(got[4], fwd[2]) and torch.equal(got[5], fwd[3])
+    want = fused_edge_block_bwd_reference(e, sp, rp, w, de2, drhs, *topo, forward=(fwd[0], fwd[2], fwd[3]))
+    _assert_bwd_close(got[:4] + got[6:], want[:4] + want[6:], torch.float32)
+    want64 = fused_edge_block_bwd_reference(wide["e"], wide["sp"], wide["rp"], w, de2.double(), drhs, *topo,
+                                            forward=(fwd[0], fwd[2], fwd[3]))
+    hold_to_f64("K2", {n: (got[k], want[k], want64[k]) for k, n in enumerate(("de", "dh", "dz2", "dz3"))})
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cylinder", "plate"])
+def test_float32_k1_k2_at_model_shapes_match_plain_and_float64(name):
+    """configs/cylinder.yaml's and plate.yaml's meshes (1,888 nodes and
+    10,966 edges; 1,312 and 5,040, 16 stamp nodes without edges), B = 16,
+    each topology's own plan."""
+    _need_card()
+    import chip_smoke as cs
+
+    model = get_model(cs.model_config(name))
+    topo = model.topology_from_trajectory(cs.model_trajectory(name, 0, 4), device="cuda")
+    snd, rcv, N = topo.senders.cpu().numpy(), topo.receivers.cpu().numpy(), topo.num_nodes
+    arrays, weights = _k1_arrays(np.random.default_rng(5), 16, len(snd), N, 128)
+    t = {k: torch.tensor(v).cuda() for k, v in arrays.items()}
+    w = {k: torch.tensor(v.T.copy() if v.ndim == 2 else v).cuda() for k, v in weights.items()}
+    _f32_k1_k2_checks(t, w, (topo.senders, topo.receivers, None, N), topo.plan)
+
+
+# Receiver edge counts (then B): a partial last tile (145 edges: two tiles
+# and 17 rows), a 120-edge segment (two tiles of one receiver), receivers
+# with no edges among short ones; ``masked_tail``: masked_edge_case (an
+# isolated receiver and 7 masked edges at the end).
+F32_TILE_CASES = {
+    "partial_last_tile": ([5] * 29, 3),
+    "segment_120": ([3, 120, 2, 0, 4, 1], 2),
+    "empty_receivers": ([0, 3, 0, 0, 7, 0] * 10, 2),
+    "masked_tail": (None, 3),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(F32_TILE_CASES))
+def test_float32_k1_k2_tiles_match_plain_and_float64(case):
+    _need_card()
+    counts, B = F32_TILE_CASES[case]
+    rng = np.random.default_rng(17)
+    if counts is None:
+        arrays, weights, snd, rcv, mask, N, _ = masked_edge_case(seed=4, B=B, L=128)
+    else:
+        N = len(counts)
+        rcv = np.repeat(np.arange(N), counts).astype(np.int32)
+        snd = rng.integers(0, N, size=len(rcv)).astype(np.int32)
+        mask = (rng.random(len(rcv)) > 0.1).astype(np.float32)
+        arrays, weights = _k1_arrays(rng, B, len(rcv), N, 128)
+    t = {k: torch.tensor(v).cuda() for k, v in arrays.items()}
+    w = {k: torch.tensor(v.T.copy() if v.ndim == 2 else v).cuda() for k, v in weights.items()}
+    topo = (torch.tensor(snd).cuda(), torch.tensor(rcv).cuda(), torch.tensor(mask).cuda(), N)
+    _f32_k1_k2_checks(t, w, topo, plan_segments(rcv, N, senders=snd).to("cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bfloat16", "float32"])
 @pytest.mark.parametrize("case", ["masked", "long_segments", "ties", "odd_items", "straddle"])
-def test_routed_mass_equals_the_tie_count(case):
+def test_routed_mass_equals_the_tie_count(case, dtype):
     """With only g_max = g_min = 1, the column sums of the routed cotangent
     count the edges equal to their receiver's extremum in K1's output; every
-    receiver with valid edges routes at least once per part and column."""
+    receiver with valid edges routes at least once per part and column (the
+    ``ties`` case plants exact ties: every tied edge gets the cotangent)."""
     _need_card()
-    t, w, topo, plan, fwd, de2, drhs = _bwd_inputs(case, torch.bfloat16, 128, route_only=True)
+    t, w, topo, plan, fwd, de2, drhs = _bwd_inputs(case, dtype, 128, route_only=True)
     e2, agg, a1, a2, mu, isg = fwd
     L = e2.shape[-1]
     r = topo[1].long()
@@ -999,14 +1091,15 @@ def test_k7_with_a_delayed_rank_and_many_calls():
             assert torch.equal(out[r][0], first[r][0]) and torch.equal(out[r][1], first[r][1]), f"call {call} rank {r}"
 
 
-def _overlap_shards(n, dtype, L=128, nx=20, chunk=64, seed=0):
-    """One frame's edge shards of an nx x nx grid, dealt round-robin by
-    chunk over n ranks, with K1 inputs; (shards, N)."""
+def _overlap_shards(n, dtype, L=128, nx=20, chunk=64, seed=0, edges=None):
+    """One frame's edge shards of an nx x nx grid (or of ``edges``, a
+    receiver-sorted ``(senders, receivers, N)``), dealt round-robin by chunk
+    over n ranks, with K1 inputs; (shards, N)."""
     from hyper_graph_nets_tpu_torch.ops.fused_overlap import chunk_roundrobin_permutation
     from hyper_graph_nets_tpu_torch.parallel.sharding import pad_to_multiple
     from torch_port_cases import grid_edges
 
-    snd, rcv, N = grid_edges(nx, nx)
+    snd, rcv, N = grid_edges(nx, nx) if edges is None else edges
     E = len(snd)
     snd = pad_to_multiple(snd, chunk * n, 0)
     rcv = pad_to_multiple(rcv, chunk * n, N - 1)
@@ -1069,6 +1162,27 @@ def test_k7_matches_k1_raw_and_the_all_reduce(n, dtype):
     tol = 1e-6 if dtype == torch.float32 else TOLS[dtype]["agg"][0]
     for r in range(n):
         torch.testing.assert_close(got[r][1].to(want.device), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_k7_float32_e2_equals_k1_on_cylinder_shards():
+    """K7 in float32 on configs/cylinder.yaml's mesh dealt over 4 ranks in
+    256-edge chunks (the 1 x 4 overlap layout's shards): each rank's e2
+    equal to K1 raw's on its shard bit for bit (one fwd_tile chain), the
+    aggregate as K1 raw + the plain all-reduce."""
+    _need_card()
+    import chip_smoke as cs
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+
+    topo = get_model(cs.model_config("cylinder")).topology_from_trajectory(
+        cs.model_trajectory("cylinder", 0, 4), device="cpu")
+    edges = (topo.senders.numpy(), topo.receivers.numpy(), topo.num_nodes)
+    group = RankGroup(4)
+    shards, N = _overlap_shards(4, torch.float32, chunk=256, edges=edges)
+    shards = [_on(x, group.device(r)) for r, x in enumerate(shards)]
+    for x in shards:
+        x["plan"] = plan_segments(x["receivers"], N, senders=x["senders"]).to(x["e"].device)
+    _check_k7(shards, N, group, torch.float32)
 
 
 @pytest.mark.cuda

@@ -7,7 +7,7 @@ to compare two commits, unpack both and run them in turns in one call
 (parent, change, change, parent):
 
     python tools/torch_port/kernel_times.py change [--halo] [--e2 DIR] [--grads DIR] [--phases]
-        [--ring-phases] [--halo-out DIR]
+        [--ring-phases] [--halo-out DIR] [--f32]
     (cd parent_checkout && python ../tools/torch_port/kernel_times.py parent [--e2 DIR] [--grads DIR])
 
 Shapes: the 40x40 flag at B=21 (one_step, training) and B=1 (rollout);
@@ -49,6 +49,17 @@ bf16, ordered fmaf in float32); dsp and drp within rtol 1e-5 and dpar
 within relative L2 1e-4 per row (float32 sums in another order; whether
 they are equal is printed).  Exit 1 if any check fails.
 
+With ``--f32`` float32 K1 and K2 at the float32 families' shapes: cylinder
+and plate at B=16 (one_step, training) and B=1 (rollout), HGN plate's mesh,
+up and down sets at B=16 (their valid-prefix plans), and the 2 x 2 sharded
+step's shard of cylinder and plate at B=8 (K1 raw, K2 at the global degree)
+and cylinder's 1 x 4 overlap shard (K2); K3 at cylinder B=16.  Each is
+checked against its plain version (and float64, where the checkout's
+chip_smoke has ``hold_to_f64``) and timed (traced device time) beside its
+bounds and the plain version's time.  With ``--phases`` also K1's and K2's
+float32 phase shares at cylinder B=16 (``-DHGN_FWD_PHASES``,
+``-DHGN_BWD_PHASES``; K1's only where the checkout's source has the probe).
+
 With ``--phases`` K2 and K3 also run from the phase-probe build of the
 backward source (``-DHGN_BWD_PHASES``, a library of its own): each phase's
 share of a tile's cycles, summed over every team of every CTA, and the
@@ -64,6 +75,7 @@ import sys
 
 L = 128
 BWD_PHASES = ("HGN_BWD_PHASES",)  # the define of the backward kernels' phase probe
+FWD_PHASES = ("HGN_FWD_PHASES",)  # K1's
 
 
 def k1_runs(cs, fb, torch, snd, rcv, N):
@@ -195,12 +207,13 @@ def hold_grads(torch, tag, outs, grads_dir):
     return ok
 
 
-def bwd_phases(fb, torch, run, name, tag, cs):
-    """K2's or K3's phase shares from the probe build."""
-    lib = fb._lib(fb.BWD_SOURCE, BWD_PHASES)
-    read = lib.hgn_fused_block_bwd_phases
+def probe_phases(lib, prefix, run, name, tag, cs, kernels):
+    """Phase shares of one kernel from its probe build ``lib`` (``prefix``:
+    the C reader's, ``hgn_fused_block_fwd`` or ``hgn_fused_block_bwd``);
+    ``run(lib)`` launches it once."""
+    read = getattr(lib, f"{prefix}_phases")
     read.argtypes, read.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
-    names_fn = lib.hgn_fused_block_bwd_phase_names
+    names_fn = getattr(lib, f"{prefix}_phase_names")
     names_fn.argtypes, names_fn.restype = [], ctypes.c_char_p
     names = names_fn().decode().split(",")
     buf = (ctypes.c_ulonglong * (len(names) + 1))()
@@ -214,11 +227,145 @@ def bwd_phases(fb, torch, run, name, tag, cs):
         raise RuntimeError(f"phase probe returned {n}")
     cycles, tiles = list(buf)[:n], buf[n]
     total = sum(cycles)
-    ms = cs.kernel_device_ms(lambda: run(lib), iters=10, names=cs.BWD_KERNELS[:1])
+    ms = cs.kernel_device_ms(lambda: run(lib), iters=10, names=kernels)
     shares = ", ".join(f"{k} {100.0 * c / total:.1f}%" for k, c in zip(names, cycles))
     print(f"[{tag}] {name} phases (probe build, {iters} calls, {tiles // iters} tiles a call): {shares}; "
           f"{total / max(tiles, 1):.0f} cycles per tile and team; probe build main kernel "
           f"{ms * 1e3:.1f} us traced", flush=True)
+
+
+def bwd_phases(fb, torch, run, name, tag, cs):
+    """K2's or K3's phase shares from the probe build."""
+    probe_phases(fb._lib(fb.BWD_SOURCE, BWD_PHASES), "hgn_fused_block_bwd", run, name, tag, cs,
+                 cs.BWD_KERNELS[:1])
+
+
+def f32_shapes(cs, torch):
+    """The float32 shapes: ``(tag, senders, receivers, mask, plan, rows, B,
+    mode)``, mode "full" (K1 and K2), "raw" (K1 raw and K2: a sharded step's
+    shard) or "k2" (K2 only)."""
+    from hyper_graph_nets_tpu_torch.models.get_model import get_model
+    from hyper_graph_nets_tpu_torch.parallel.group import RankGroup
+    from hyper_graph_nets_tpu_torch.parallel.sharding import shard_topology
+    from hyper_graph_nets_tpu_torch.training.expansion import build_expansion
+
+    host = lambda t: t.cpu().numpy()
+    shapes, topos = [], {}
+    for name in ("cylinder", "plate"):
+        model = get_model(cs.model_config(name))
+        topo = model.topology_from_trajectory(cs.model_trajectory(name, 0, 4), device="cuda")
+        topos[name] = topo
+        for B in (cs.MODEL_FRAMES, 1):
+            shapes.append((f"{name} B={B}", host(topo.senders), host(topo.receivers), None, topo.plan,
+                           topo.num_nodes, B, "full"))
+    config = cs.hgn_config(fused_tiers=True)
+    model = get_model(config)
+    traj = cs.model_trajectory("plate", 0, 4)
+    topo = model.topology_from_trajectory(traj, device="cuda")
+    (static,) = build_expansion(model, config).prepare(model, {k: v[0] for k, v in traj.items()}, topo)
+    rows = topo.num_nodes + cs.HGN_CLUSTERS
+    shapes.append((f"HGN plate mesh B={cs.MODEL_FRAMES}", host(topo.senders), host(topo.receivers), None,
+                   static.mesh_plan, rows, cs.MODEL_FRAMES, "full"))
+    for name, plan in cs._tier_plans(static).items():
+        prefix = cs.HGN_TIER_PLANS[name][: -len("_plan")]
+        if prefix == "inter":  # bound by its bytes, not by the products
+            continue
+        snd, rcv, mask = (host(getattr(static, f"{prefix}_{f}")) for f in ("senders", "receivers", "mask"))
+        shapes.append((f"HGN plate {prefix} B={cs.MODEL_FRAMES}", snd, rcv, mask, plan, rows, cs.MODEL_FRAMES,
+                       "full"))
+    for name in ("cylinder", "plate"):
+        stopo = shard_topology(topos[name], RankGroup(2, 2, devices=["cuda:0"] * 4))
+        per = stopo.layout.per
+        cut = lambda t: host(t[:per])
+        shapes.append((f"{name} 2x2 shard B=8", cut(stopo.senders), cut(stopo.receivers), cut(stopo.mask),
+                       stopo.plan.plans[0], topos[name].num_nodes, 8, "raw"))
+    stopo = shard_topology(topos["cylinder"], RankGroup(1, 4, devices=["cuda:0"] * 4), overlap_bands=cs.HALO_BANDS)
+    per = stopo.layout.per
+    shapes.append(("cylinder 1x4 overlap shard B=8", host(stopo.senders[:per]), host(stopo.receivers[:per]),
+                   host(stopo.mask[:per]), stopo.plan.plans[0], topos["cylinder"].num_nodes, 8, "k2"))
+    return shapes
+
+
+def f32_case(cs, fb, torch, tag, shape, peaks, seed, phases):
+    """Check and time float32 K1 (raw on a shard), K2 and, at cylinder
+    B=16, K3 on one shape; False if a check failed."""
+    name, snd, rcv, mask, plan, rows, B, mode = shape
+    f32 = torch.float32
+    x = cs.k1_inputs(f32, B, snd, rcv, rows, L, torch.Generator().manual_seed(seed), "cuda", mask=mask)
+    topo = (x["senders"], x["receivers"], x["mask"], rows)
+    e, sp, rp, w = x["e"], x["sp"], x["rp"], x["weights"]
+    E, raw = len(snd), mode == "raw"
+    has_f64 = hasattr(cs, "hold_to_f64")
+    wide = lambda t: t.double()
+    ok = True
+    fwd = fb.fused_edge_block_fwd(e, sp, rp, w, *topo, plan=plan, save_streams=True)
+    gen = torch.Generator().manual_seed(seed + 1)
+    de2 = torch.randn(B, E, L, generator=gen).cuda()
+    dagg = torch.randn(B, rows, 4 * L, generator=gen).cuda()
+    drhs = fb.agg_cotangent_rhs(fwd[1], dagg, x["receivers"], x["mask"], rows, plan.degree)
+    bounds = lambda kind, *a: (cs.k1_bound_ms if kind == "K1" else cs.bwd_bound_ms)(*a)
+
+    def note(kname, run, kernels, plain, iters, ks):
+        ms = cs.kernel_device_ms(run, iters=iters, names=kernels)
+        plain_ms = cs.cuda_time_ms(plain, iters=3)
+        args = (B, E, rows, L, peaks) + (() if kname.startswith("K1") else (kname == "K3",))
+        bound = bounds(kname[:2], "float32", *args)[0]
+        print(f"[{tag}] f32 {kname} {name} (E={E}, rows={rows}): {ms * 1e3:.1f} us traced, bound "
+              f"{bound * 1e3:.2f} us, plain {plain_ms:.3f} ms{ks}", flush=True)
+
+    try:
+        if mode != "k2":
+            k1 = lambda: fb.fused_edge_block_fwd(e, sp, rp, w, *topo, plan=plan, raw=raw)
+            e2, agg = k1()
+            re2, ragg = fb.fused_edge_block_reference(e, sp, rp, w, *topo, raw=raw)
+            err = max(cs.check_close(f"K1 {name} e2", e2, re2, *cs.TOL["float32"]["e2"]),
+                      cs.check_close(f"K1 {name} agg", agg, ragg, *cs.TOL["float32"]["agg"]))
+            ks = f"; max abs err {err:.3g}"
+            if has_f64:
+                e2d, aggd = fb.fused_edge_block_reference(wide(e), wide(sp), wide(rp), w, *topo, raw=raw)
+                ks += "; against float64 " + cs.f64_text(cs.hold_to_f64(f"K1 {name}", {"e2": (e2, re2, e2d)}))
+                g, p = ((t.double() - aggd).abs().max().item() for t in (agg, ragg))
+                ks += f", agg {g:.3g} (plain {p:.3g})"
+                del e2d, aggd
+            note("K1 raw" if raw else "K1", k1, "fused_block_fwd_kernel",
+                 lambda: fb.fused_edge_block_reference(e, sp, rp, w, *topo, raw=raw), 20, ks)
+        k2 = lambda: fb.fused_edge_block_bwd(e, sp, rp, w, de2, drhs, *topo, plan=plan)
+        got = k2()
+        want = fb.fused_edge_block_bwd_reference(e, sp, rp, w, de2, drhs, *topo, forward=(fwd[0], fwd[2], fwd[3]))
+        order = lambda o: (o[0], o[1], o[2], o[3], o[6], o[7], o[8])
+        err = cs.compare_bwd(f"K2 {name}", "float32", order(got), order(want))
+        if not (torch.equal(got[4], fwd[2]) and torch.equal(got[5], fwd[3])):
+            raise AssertionError(f"K2 {name}: the recomputed a1/a2 differ from K1's")
+        ks = f"; max abs err {err:.3g}, a1/a2 equal K1's"
+        if has_f64:
+            want64 = fb.fused_edge_block_bwd_reference(wide(e), wide(sp), wide(rp), w, wide(de2), drhs, *topo,
+                                                       forward=(fwd[0], fwd[2], fwd[3]))
+            ks += "; against float64 " + cs.f64_text(cs.hold_to_f64(f"K2 {name}", {
+                n: (got[i], want[i], want64[i]) for i, n in enumerate(("de", "dh", "dz2", "dz3"))}))
+            del want64
+        note("K2", k2, cs.BWD_KERNELS,
+             lambda: fb.fused_edge_block_bwd_reference(e, sp, rp, w, de2, drhs, *topo), 10, ks)
+        if name == f"cylinder B={cs.MODEL_FRAMES}":
+            a1, a2, mu, isg = fwd[2:]
+            k3 = lambda: fb.fused_edge_block_bwd_stream(e, a1, a2, mu, isg, w, de2, drhs, *topo, plan=plan)
+            want3 = fb.fused_edge_block_bwd_stream_reference(e, a1, a2, mu, isg, w, de2, drhs, *topo, e2=fwd[0])
+            err = cs.compare_bwd(f"K3 {name}", "float32", k3(), want3)
+            note("K3", k3, cs.BWD_KERNELS, lambda: fb.fused_edge_block_bwd_stream_reference(
+                e, a1, a2, mu, isg, w, de2, drhs, *topo), 10, f"; max abs err {err:.3g}")
+            if phases:
+                with torch.cuda.device(e.device):
+                    bwd_phases(fb, torch, lambda lib: fb._bwd_launch(
+                        0, e, sp, rp, None, w, de2, drhs, *topo, plan, lib=lib), f"K2 float32 {name}", tag, cs)
+                lib = fb._lib(fb.FWD_SOURCE, FWD_PHASES)
+                if hasattr(lib, "hgn_fused_block_fwd_phases"):
+                    with torch.cuda.device(e.device):
+                        probe_phases(lib, "hgn_fused_block_fwd", lambda lib: fb._k1_launch(
+                            e, sp, rp, w, *topo, plan, False, False, lib=lib), f"K1 float32 {name}", tag, cs,
+                            "fused_block_fwd_kernel")
+    except AssertionError as err:
+        print(f"[{tag}] f32 {name}: FAILED: {err}", flush=True)
+        ok = False
+    return ok
 
 
 HALO_K6 = ((2, 6400, 128), (3, 6400, 128), (4, 6400, 128), (3, 1004, 37))
@@ -315,6 +462,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", action="store_true")
     ap.add_argument("--ring-phases", action="store_true")
     ap.add_argument("--halo-out", metavar="DIR")
+    ap.add_argument("--f32", action="store_true")
     args = ap.parse_args(argv)
 
     sys.path.insert(0, os.getcwd())
@@ -367,6 +515,11 @@ def main(argv=None) -> int:
     if args.phases:
         for name, run in bwd.items():
             bwd_phases(fb, torch, run, name, args.tag, cs)
+    if args.f32:
+        peaks = cs.peaks_for(torch.cuda.get_device_name(0))
+        for k, shape in enumerate(f32_shapes(cs, torch)):
+            ok &= f32_case(cs, fb, torch, args.tag, shape, peaks, 40 + k, args.phases)
+            torch.cuda.empty_cache()
     if args.halo_out:
         ok &= hold_halo(torch, args.tag, halo_outputs(cs, torch), os.path.abspath(args.halo_out))
     if args.halo:
